@@ -1,0 +1,113 @@
+"""Render configuration.
+
+Port of `opencl_path_tracer_tpu/config.py`: the same fields and
+defaults (reference globals main.cpp:19-43), JSON round-trippable. The
+port honours the megakernel model, both modes, the camera, bounce
+depth, spp, seed, tonemap, QMC jitter and the 'auto' / 'minarg' /
+'bruteforce' accels; every other field raises NotImplementedError when
+it is set away from its default.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Any
+
+REF_WIDTH = 192 * 8  # 1536
+REF_HEIGHT = 108 * 8  # 864
+REF_MAX_ITERATIONS = 50
+ACCELS = ("auto", "minarg", "bruteforce")
+
+
+@dataclasses.dataclass
+class CameraConfig:
+    """Camera pose (main.cpp:30-43)."""
+
+    fov: float = 75.0
+    yaw: float = -13.800002 - 50
+    pitch: float = 5.599997 + 10
+    shift: tuple[float, float, float] = (265.055481, 162.305969, 360.414001)
+
+
+@dataclasses.dataclass
+class RenderConfig:
+    width: int = REF_WIDTH
+    height: int = REF_HEIGHT
+    iterations: int = 4
+    max_iterations: int = REF_MAX_ITERATIONS
+    spp: int = 16
+    mode: str = "fast"
+    seed: int = 1
+    camera: CameraConfig = dataclasses.field(default_factory=CameraConfig)
+    tonemap: str = "reinhard"
+    accel: str = "auto"
+    qmc: bool = False
+    # Fields of the JAX package's config that this port does not honour
+    # yet; validate() refuses them away from these defaults.
+    accel_force: bool = False
+    smooth: bool = False
+    textured: bool = False
+    model: str = "megakernel"
+    env_light: bool = False
+    env_sky: tuple[float, float, float] = (0.0, 0.75, 2.0)
+    env_deep: tuple[float, float, float] = (1.0, 1.0, 1.0)
+    env_map: str | None = None
+    env_scale: float = 1.0
+    env_nee: bool = True
+    env_sample_res: tuple[int, int] = (64, 32)
+    dof_aperture: float = 0.0
+    dof_focus: float = 0.0
+    rr_start: int | None = None
+    rr_pmin: float = 0.05
+    nee: bool = False
+    nee_select: str = "power"
+    nee_anyhit: bool = True
+    devices: int = 1
+
+    UNPORTED = ("accel_force", "smooth", "textured", "model", "env_light",
+                "env_sky", "env_deep", "env_map", "env_scale", "env_nee",
+                "env_sample_res", "dof_aperture", "dof_focus", "rr_start",
+                "rr_pmin", "nee", "nee_select", "nee_anyhit", "devices")
+
+    def validate(self) -> "RenderConfig":
+        defaults = RenderConfig()
+        for name in self.UNPORTED:
+            if getattr(self, name) != getattr(defaults, name):
+                raise NotImplementedError(
+                    f"{name}={getattr(self, name)!r} is not ported yet "
+                    "(ROADMAP.md queue 1); the port renders the megakernel "
+                    "model without it")
+        if self.width <= 0 or self.height <= 0:
+            raise ValueError("width/height must be positive")
+        if not (1 <= self.iterations <= self.max_iterations):
+            raise ValueError(
+                f"iterations must be in [1, {self.max_iterations}]")
+        if self.mode not in ("parity", "fast"):
+            raise ValueError(f"unknown mode {self.mode!r}")
+        if self.tonemap not in ("reinhard", "filmic", "none"):
+            raise ValueError(f"unknown tonemap {self.tonemap!r}")
+        if self.accel not in ACCELS:
+            raise NotImplementedError(
+                f"accel {self.accel!r} is not ported yet (ROADMAP.md queue "
+                f"2); the port has {ACCELS}")
+        if self.qmc and self.mode != "fast":
+            raise ValueError("qmc needs mode='fast' (parity mode's "
+                             "per-pixel Lehmer draws are the reference spec)")
+        return self
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_json(cls, text: str) -> "RenderConfig":
+        raw: dict[str, Any] = json.loads(text)
+        cam = raw.pop("camera", None)
+        for key in ("env_sky", "env_deep", "env_sample_res"):
+            if key in raw:
+                raw[key] = tuple(raw[key])
+        cfg = cls(**raw)
+        if cam is not None:
+            cam["shift"] = tuple(cam.get("shift", CameraConfig().shift))
+            cfg.camera = CameraConfig(**cam)
+        return cfg.validate()

@@ -1,0 +1,84 @@
+"""Scenes and progressive state carried across from the JAX package.
+
+No counterpart module in `opencl_path_tracer_tpu`. These functions take
+plain numpy arrays, so a JAX `Scene` or `TraceState` (or a checkpoint of
+one) converts with `np.asarray` on each field and no import of JAX here.
+Triangle constants are rebuilt from the vertices; they come out bit-equal
+to the JAX package's.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from opencl_path_tracer_tpu_torch.core.geometry import TrianglesSoA
+from opencl_path_tracer_tpu_torch.core.materials import MaterialsSoA
+from opencl_path_tracer_tpu_torch.core.spheres import SpheresSoA
+from opencl_path_tracer_tpu_torch.models.megakernel import TraceState
+from opencl_path_tracer_tpu_torch.scene.builder import Scene
+
+
+def scene_from_numpy(r1, r2, r3, mati, mats: dict, *, object_ranges=None,
+                     spheres: dict | None = None, device="cpu") -> Scene:
+    """The port's Scene from a JAX Scene's arrays.
+
+    r1, r2, r3: (T, 3) vertices; mati: (T,) material ids.
+    mats: kd, ks, emission, f0 as (M, 3) or V3 tuples of (M,) arrays; n,
+    shininess, type as (M,) arrays. spheres: optional dict with c ((S, 3)
+    or a V3 tuple), rad (S,), mati (S,)."""
+    tris = TrianglesSoA.build(r1, r2, r3, mati).to(device)
+
+    def col3(v):
+        a = (np.stack([np.asarray(c, np.float32) for c in v], -1)
+             if isinstance(v, (tuple, list)) else np.asarray(v, np.float32))
+        return tuple(torch.as_tensor(np.ascontiguousarray(a[:, k]),
+                                     device=device) for k in range(3))
+
+    def col(v, dtype):
+        return torch.as_tensor(np.asarray(v, dtype), device=device)
+
+    materials = MaterialsSoA(
+        kd=col3(mats["kd"]), ks=col3(mats["ks"]),
+        emission=col3(mats["emission"]), f0=col3(mats["f0"]),
+        n=col(mats["n"], np.float32),
+        shininess=col(mats["shininess"], np.float32),
+        type=col(mats["type"], np.int32),
+    )
+    sph = None
+    if spheres is not None:
+        c = spheres["c"]
+        if isinstance(c, (tuple, list)):
+            c = np.stack([np.asarray(x, np.float32) for x in c], -1)
+        sph = SpheresSoA.build(c, spheres["rad"], spheres["mati"],
+                               device=device)
+    if object_ranges is None:
+        object_ranges = np.asarray([(0, tris.count)], np.int64)
+    return Scene(tris=tris, mats=materials,
+                 object_ranges=np.asarray(object_ranges, np.int64),
+                 spheres=sph)
+
+
+def state_from_numpy(colors, rng_state, sample: int,
+                     device="cpu") -> TraceState:
+    """TraceState from (N, 3) or V3 colors, (N,) uint32 Lehmer states and
+    the sample counter."""
+    if isinstance(colors, (tuple, list)):
+        colors = np.stack([np.asarray(c, np.float32) for c in colors], -1)
+    colors = np.asarray(colors, np.float32)
+    return TraceState(
+        colors=tuple(torch.as_tensor(np.ascontiguousarray(colors[:, k]),
+                                     device=device) for k in range(3)),
+        rng_state=torch.as_tensor(np.asarray(rng_state).astype(np.int64),
+                                  device=device),
+        sample=int(sample),
+    )
+
+
+def state_to_numpy(state: TraceState) -> dict:
+    """{'colors': (N, 3) float32, 'rng_state': (N,) uint32, 'sample': int}."""
+    return {
+        "colors": torch.stack(state.colors, -1).cpu().numpy(),
+        "rng_state": state.rng_state.cpu().numpy().astype(np.uint32),
+        "sample": int(state.sample),
+    }

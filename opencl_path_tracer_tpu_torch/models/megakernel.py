@@ -1,0 +1,230 @@
+"""Megakernel-style progressive path tracer (reference-parity model).
+
+Port of `opencl_path_tracer_tpu/models/megakernel.py`: the trace_ray
+megakernel (prog.cl:292-381) with gen_ray (prog.cl:384-389) over the
+whole pixel batch. Every lane runs the bounce loop in lockstep with
+
+  * an `alive` mask instead of break (a miss kills the lane,
+    prog.cl:367-376),
+  * a select over the four material branches (prog.cl:329-366),
+  * conditional Lehmer steps, so that each lane's stream advances by
+    exactly the reference's number of draws (2 for diffuse and emitter,
+    1 for refractive, 0 for specular and miss).
+
+The intersector is injected (`intersect_fn`); a Python loop runs the
+samples and bounces. The dormant sky light (`EnvLight`), environment
+maps, NEE, depth of field and the textured intersector are not ported
+yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from opencl_path_tracer_tpu_torch.core.camera import Camera
+from opencl_path_tracer_tpu_torch.core.materials import MaterialsSoA
+from opencl_path_tracer_tpu_torch.core.types import (
+    Hits, Rays, V3, vadd, vdot, vmul, vneg, vnormalize, vscale, vwhere,
+)
+from opencl_path_tracer_tpu_torch.ops import bsdf, raygen, rng
+from opencl_path_tracer_tpu_torch.utils.device import resolve_device
+
+IntersectFn = Callable[[Rays], Hits]
+
+
+@dataclasses.dataclass
+class TraceState:
+    """Progressive state: the running average (colors, prog.cl:379), the
+    per-pixel Lehmer states (int64 values < 2^31, main.cpp:522-527) and
+    the sample counter (a host int)."""
+
+    colors: V3
+    rng_state: torch.Tensor
+    sample: int
+
+
+def init_state(num_pixels: int, seed: int = 1, device="cpu") -> TraceState:
+    z = torch.zeros(num_pixels, dtype=torch.float32, device=device)
+    return TraceState(
+        colors=(z, z.clone(), z.clone()),
+        rng_state=rng.seed_pixel_streams(num_pixels, seed, device=device),
+        sample=0,
+    )
+
+
+def fetch_material(mats: MaterialsSoA, intersect_fn: IntersectFn,
+                   rays: Rays):
+    """Intersect + per-lane material fetch."""
+    hit = intersect_fn(rays)
+    return hit, mats.take(hit.mati)
+
+
+def _draws_parity(state, need1, need2):
+    """Advance each lane's Lehmer stream by 0, 1 or 2 steps."""
+    s1, u1 = rng.lehmer_step(state)
+    state1 = torch.where(need1, s1, state)
+    s2, u2 = rng.lehmer_step(state1)
+    return torch.where(need2, s2, state1), u1, u2
+
+
+def shade(cam: Camera, mat: MaterialsSoA, hit: Hits, ray_p: V3, ray_d: V3,
+          inside, r1, r2, has_hit) -> dict:
+    """One bounce of the reference dispatch (prog.cl:326-366), every
+    branch computed and selected."""
+    mtype = mat.type
+    # Flip the normal toward the incoming ray (prog.cl:326-328).
+    n_vec = vwhere(vdot(ray_d, hit.n) > 0.0, vneg(hit.n), hit.n)
+    is_diff = has_hit & (mtype == 0)
+    is_spec = has_hit & (mtype == 1)
+    is_refr = has_hit & (mtype == 2)
+    is_emit = has_hit & (mtype == 3)
+
+    diff_p, diff_d = bsdf.diffuse_ray(hit.p, n_vec, r1, r2)
+    spec_p, spec_d = bsdf.specular_ray(hit.p, n_vec, ray_d)
+    refr_p, refr_d, new_inside, refr_fac = bsdf.refractive_ray(
+        hit.p, n_vec, ray_d, mat.n, mat.f0, inside, r1)
+
+    # Lambert + Blinn with the camera view direction (prog.cl:79-81, :335).
+    intens_d = torch.clamp_min(vdot(diff_d, n_vec), 0.0)
+    eye_dir = vnormalize(tuple(cam.eye[k] - hit.p[k] for k in range(3)))
+    halfway = vnormalize(vadd(eye_dir, diff_d))
+    intens_s = torch.pow(torch.clamp_min(vdot(n_vec, halfway), 0.0),
+                         mat.shininess)
+    fres = bsdf.fresnel(mat.f0, n_vec, ray_d)
+    emit_cos = torch.clamp_min(vdot(vneg(ray_d), n_vec), 0.0)
+
+    use_diff = is_diff | is_emit
+    new_p = vwhere(use_diff, diff_p, vwhere(is_refr, refr_p, spec_p))
+    new_d = vwhere(use_diff, diff_d, vwhere(is_refr, refr_d, spec_d))
+    return dict(
+        mat=mat, n_vec=n_vec, is_diff=is_diff, is_spec=is_spec,
+        is_refr=is_refr, is_emit=is_emit, intens_d=intens_d,
+        intens_s=intens_s, fres=fres, refr_fac=refr_fac,
+        new_inside=new_inside, emit_cos=emit_cos,
+        new_p=vwhere(has_hit, new_p, ray_p),
+        new_d=vwhere(has_hit, new_d, ray_d),
+    )
+
+
+def apply_factors(s: dict, f_l: V3, f_b: V3, f_s: V3, f_r: V3, inside,
+                  color: V3):
+    """Factor updates and the emitter contribution (prog.cl:329-366)."""
+    mat = s["mat"]
+    f_l = vwhere(s["is_diff"], vmul(f_l, vscale(mat.kd, s["intens_d"])), f_l)
+    f_b = vwhere(s["is_diff"], vmul(f_b, vscale(mat.ks, s["intens_s"])), f_b)
+    f_s = vwhere(s["is_spec"], vmul(f_s, s["fres"]), f_s)
+    f_r = vwhere(s["is_refr"], vmul(f_r, s["refr_fac"]), f_r)
+    inside = torch.where(s["is_refr"], s["new_inside"], inside)
+    contrib = vscale(
+        vmul(mat.emission, vmul(vadd(f_l, f_b), vmul(f_s, f_r))),
+        s["emit_cos"])
+    color = vwhere(s["is_emit"], vadd(color, contrib), color)
+    return f_l, f_b, f_s, f_r, inside, color
+
+
+def trace_sample(cam: Camera, mats: MaterialsSoA, state: TraceState, *,
+                 intersect_fn: IntersectFn, iterations: int,
+                 mode: str = "parity", key: tuple[int, int] | None = None,
+                 qmc: bool = False, with_stats: bool = False):
+    """Render one progressive sample for every pixel (lane j is pixel j)
+    and fold it into the running average (prog.cl:379). `iterations` is
+    the bounce depth.
+
+    Fast mode draws from the murmur3 hash keyed by fold_in(key, 0) (the
+    frame's first pixel id), or the R2 sequence with qmc=True.
+    with_stats=True also returns the number of rays traced (live lanes at
+    each bounce) as a 0-dim tensor."""
+    rng_state = state.rng_state
+    n = rng_state.shape[0]
+    dev = rng_state.device
+    ids = raygen.pixel_ids_like(n, device=dev)
+    s_idx = state.sample
+    if mode == "parity":
+        ones = torch.ones(n, dtype=torch.bool, device=dev)
+        rng_state, r1, r2 = _draws_parity(rng_state, ones, ones)
+    elif mode == "fast":
+        if key is None:
+            raise ValueError("fast mode needs a key (rng.key(seed))")
+        tile_key = rng.fold_in(key, 0)
+        if qmc:
+            r1, r2 = rng.r2_jitter(key, ids, s_idx)
+        else:
+            u = rng.fast_uniforms(tile_key, s_idx, 0, n, 2, device=dev)
+            r1, r2 = u[0], u[1]
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    rays = raygen.camera_rays(cam, ids, r1, r2)
+
+    ray_p, ray_d = rays.p, rays.d
+    f_l = f_b = f_s = f_r = tuple(
+        torch.ones(n, dtype=torch.float32, device=dev) for _ in range(3))
+    color = tuple(torch.zeros(n, dtype=torch.float32, device=dev)
+                  for _ in range(3))
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    inside = torch.zeros(n, dtype=torch.bool, device=dev)
+    rays_traced = torch.zeros((), dtype=torch.float32, device=dev)
+
+    for b in range(iterations):
+        if with_stats:
+            rays_traced = rays_traced + alive.sum()
+        hit, mat = fetch_material(mats, intersect_fn, Rays(p=ray_p, d=ray_d))
+        has_hit = hit.valid & alive
+        # Draws: diffuse/emitter take 2, refractive 1 (prog.cl:330,349,361).
+        mtype = mat.type
+        is_d_or_e = has_hit & ((mtype == 0) | (mtype == 3))
+        if mode == "parity":
+            need1 = is_d_or_e | (has_hit & (mtype == 2))
+            rng_state, r1, r2 = _draws_parity(rng_state, need1, is_d_or_e)
+        else:
+            u = rng.fast_uniforms(tile_key, s_idx, b + 1, n, 2, device=dev)
+            r1, r2 = u[0], u[1]
+        s = shade(cam, mat, hit, ray_p, ray_d, inside, r1, r2, has_hit)
+        if iterations == 1:
+            # Preview mode (prog.cl:323-325): flat kd + emission.
+            color = vwhere(has_hit, vadd(mat.kd, mat.emission), color)
+        f_l, f_b, f_s, f_r, inside, color = apply_factors(
+            s, f_l, f_b, f_s, f_r, inside, color)
+        alive = has_hit
+        ray_p, ray_d = s["new_p"], s["new_d"]
+
+    # Progressive average (prog.cl:379), in float32 like the reference.
+    s_f = np.float32(state.sample)
+    inv = float(np.float32(1.0) / (s_f + np.float32(1.0)))
+    colors = tuple((state.colors[k] * float(s_f) + color[k]) * inv
+                   for k in range(3))
+    new_state = TraceState(colors=colors, rng_state=rng_state,
+                           sample=state.sample + 1)
+    if with_stats:
+        return new_state, rays_traced
+    return new_state
+
+
+def render(cam: Camera, mats: MaterialsSoA, *, intersect_fn: IntersectFn,
+           num_pixels: int, iterations: int, spp: int, mode: str = "parity",
+           seed: int = 1, key: tuple[int, int] | None = None,
+           state: TraceState | None = None, qmc: bool = False,
+           device=None) -> TraceState:
+    """Accumulate `spp` progressive samples (the onIdle loop,
+    main.cpp:1171-1241). Runs on `device` (CUDA unless "cpu" is asked
+    for); cam and mats must already live there."""
+    dev = resolve_device(device)
+    if cam.eye.device.type != dev.type or mats.n.device.type != dev.type:
+        raise ValueError(f"cam and mats must be on {dev}")
+    if state is None:
+        state = init_state(num_pixels, seed, device=dev)
+    if mode == "fast" and key is None:
+        key = rng.key(seed)
+    for _ in range(spp):
+        state = trace_sample(cam, mats, state, intersect_fn=intersect_fn,
+                             iterations=iterations, mode=mode, key=key,
+                             qmc=qmc)
+    return state
+
+
+def colors_array(state: TraceState) -> torch.Tensor:
+    """(N, 3) color tensor."""
+    return torch.stack(state.colors, dim=-1)

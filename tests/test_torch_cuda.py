@@ -1,0 +1,71 @@
+"""Tests that need an NVIDIA GPU (the CUDA kernels have no CPU mode).
+They carry the `cuda` marker and skip elsewhere; `python3 chip_smoke.py`
+runs the same checks at full size on the card.
+
+Run on a GPU machine with: python -m pytest tests/test_torch_cuda.py -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from opencl_path_tracer_tpu_torch.ops.kernels import _build
+from opencl_path_tracer_tpu_torch.ops.kernels import intersect_kernel as k1
+from opencl_path_tracer_tpu_torch.ops.kernels import plucker_kernel as k2
+from opencl_path_tracer_tpu_torch.ops.kernels import sphere_kernel as k3
+from opencl_path_tracer_tpu_torch.scene import library
+
+# pytest workers share the machine: one intra-op thread each.
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _rays8(n, seed, device):
+    rs = np.random.default_rng(seed)
+    p = np.stack([rs.uniform(-100, 1100, n), rs.uniform(0, 1000, n),
+                  rs.uniform(-1000, 1000, n)]).astype(np.float32)
+    d = rs.normal(size=(3, n)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    r = torch.zeros((8, n))
+    r[0:3], r[3:6] = torch.from_numpy(p), torch.from_numpy(d)
+    return r.to(device)
+
+
+@pytest.mark.cuda
+def test_kernels_equal_plain_versions(cuda):
+    scene = library.cornell_box(with_spheres=True, analytic_spheres=False,
+                                device=cuda)
+    sa = library.cornell_box(with_spheres=True, analytic_spheres=True,
+                             device=cuda)
+    rays8 = _rays8(100_003, 0, cuda)          # a ragged tail
+    pack = k1.build_tri_pack(scene.tris)
+    before = _build.launches["minarg"]
+    t, g = k1.minarg(rays8, pack)
+    assert _build.launches["minarg"] == before + 1
+    tp, gp = k1.minarg_plain(rays8, pack)
+    assert torch.equal(t, tp) and torch.equal(g, gp)
+    for a, b in zip(k2.refine1(t, g, pack), k2.refine1_plain(t, g, pack)):
+        assert torch.equal(a, b)
+    table = k3.build_sphere_table(sa.spheres)
+    for a, b in zip(k3.spheres(rays8, table), k3.spheres_plain(rays8, table)):
+        assert torch.equal(a, b)
+    # The CPU plain versions agree with the card bit for bit.
+    tc, gc = k1.minarg(rays8[:, :5000].cpu(), pack.cpu())
+    assert torch.equal(tc, t[:5000].cpu()) and torch.equal(gc, g[:5000].cpu())
+
+
+@pytest.mark.cuda
+def test_no_fallback_when_the_loader_fails(cuda, monkeypatch):
+    def broken(name):
+        raise RuntimeError("kernel loader disabled by the test")
+
+    monkeypatch.setattr(_build, "library", broken)
+    scene = library.cornell_box(with_spheres=False, device=cuda)
+    with pytest.raises(RuntimeError, match="disabled"):
+        k1.minarg(_rays8(64, 1, cuda), k1.build_tri_pack(scene.tris))

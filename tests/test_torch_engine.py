@@ -1,0 +1,130 @@
+"""The port's entry points on the CPU: RenderEngine, the `ptx-torch`
+CLI, the config's refusals, the accel choice, and the rule that nothing
+runs on the CPU unless asked: without a GPU, an entry point called
+without device="cpu" raises."""
+
+import dataclasses
+import tomllib
+
+import numpy as np
+import pytest
+import torch
+
+from opencl_path_tracer_tpu_torch import cli
+from opencl_path_tracer_tpu_torch.config import CameraConfig, RenderConfig
+from opencl_path_tracer_tpu_torch.io.image import write_png
+from opencl_path_tracer_tpu_torch.models import megakernel
+from opencl_path_tracer_tpu_torch.runtime import engine
+from opencl_path_tracer_tpu_torch.scene import library
+
+# pytest workers share the machine: one intra-op thread each.
+torch.set_num_threads(1)
+
+CORNELL_CAM = CameraConfig(fov=60.0, yaw=0.0, pitch=0.0,
+                           shift=(0.0, 0.0, 0.0))
+
+
+def _cfg(**kw):
+    base = dict(width=16, height=12, iterations=3, spp=2, camera=CORNELL_CAM)
+    base.update(kw)
+    return RenderConfig(**base)
+
+
+@pytest.mark.parametrize("scene_kw", [dict(with_spheres=True),
+                                      dict(with_spheres=True,
+                                           analytic_spheres=True)])
+@pytest.mark.parametrize("mode", ["fast", "parity"])
+def test_engine_renders_on_cpu(scene_kw, mode, tmp_path):
+    eng = engine.RenderEngine(library.cornell_box(**scene_kw),
+                              _cfg(mode=mode), device="cpu")
+    eng.render(2)
+    img = eng.image()
+    assert img.shape == (12, 16, 3) and np.isfinite(img).all()
+    assert 0.0 < img.mean() <= 1.0
+    assert eng.state.sample == 2
+    assert 0 < eng.rays_traced <= 2 * 3 * 16 * 12
+    eng.save_png(str(tmp_path / "e.png"))
+    assert (tmp_path / "e.png").stat().st_size > 0
+
+
+def test_engine_qmc_fast_mode():
+    eng = engine.RenderEngine(library.cornell_box(), _cfg(qmc=True),
+                              device="cpu")
+    eng.render(1)
+    assert np.isfinite(eng.image()).all()
+
+
+@pytest.mark.parametrize("scene", ["cornell", "cornell-analytic"])
+def test_cli_render_writes_png(scene, tmp_path, capsys):
+    out = tmp_path / "r.png"
+    rc = cli.main(["render", "--scene", scene, "--size", "16x16", "--spp",
+                   "2", "--device", "cpu", "--out", str(out)])
+    assert rc == 0
+    assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    assert "on cpu" in capsys.readouterr().err
+
+
+def test_entry_points_refuse_cpu_without_asking(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scene = library.cornell_box(with_spheres=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.RenderEngine(scene, _cfg())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        megakernel.render(library.cornell_camera(4, 4), scene.mats,
+                          intersect_fn=engine.make_intersect_fn(scene),
+                          num_pixels=16, iterations=1, spp=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["render", "--size", "8x8", "--spp", "1", "--out",
+                  str(tmp_path / "x.png")])
+    engine.RenderEngine(scene, _cfg(), device="cpu").render(1)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("model", "wavefront"), ("nee", True), ("env_light", True),
+    ("dof_aperture", 5.0), ("devices", 2), ("smooth", True),
+    ("rr_start", 2), ("textured", True)])
+def test_config_refuses_unported_fields(field, value):
+    with pytest.raises(NotImplementedError, match=field):
+        dataclasses.replace(_cfg(), **{field: value}).validate()
+
+
+def test_config_validation_and_json_roundtrip():
+    with pytest.raises(NotImplementedError, match="queue 2"):
+        _cfg(accel="pairwin").validate()
+    with pytest.raises(ValueError):
+        _cfg(mode="parity", qmc=True).validate()
+    with pytest.raises(ValueError):
+        _cfg(iterations=0).validate()
+    cfg = _cfg(mode="parity", seed=5)
+    back = RenderConfig.from_json(cfg.to_json())
+    assert back == cfg
+
+
+def test_accel_resolution():
+    assert engine.resolve_accel("auto", 804, on_cuda=True) == "minarg"
+    assert engine.resolve_accel("auto", 8192, on_cuda=False) == "minarg"
+    with pytest.raises(NotImplementedError, match="queue 2"):
+        engine.resolve_accel("auto", 8193, on_cuda=True)
+    with pytest.raises(ValueError, match="bruteforce"):
+        engine.resolve_accel("bruteforce", 10, on_cuda=True)
+    assert engine.resolve_accel("bruteforce", 10, on_cuda=False) == \
+        "bruteforce"
+    with pytest.raises(NotImplementedError):
+        engine.resolve_accel("tilecull", 10, on_cuda=True)
+
+
+def test_console_script_and_package_data_declared():
+    with open("pyproject.toml", "rb") as fh:
+        proj = tomllib.load(fh)
+    assert (proj["project"]["scripts"]["ptx-torch"]
+            == "opencl_path_tracer_tpu_torch.cli:main")
+    data = proj["tool"]["setuptools"]["package-data"][
+        "opencl_path_tracer_tpu_torch"]
+    assert "csrc/*.cu" in data and "csrc/*.cuh" in data
+
+
+def test_write_png_accepts_engine_image(tmp_path):
+    eng = engine.RenderEngine(library.cornell_box(with_spheres=False),
+                              _cfg(iterations=1), device="cpu")
+    eng.render(1)
+    write_png(str(tmp_path / "i.png"), eng.image())

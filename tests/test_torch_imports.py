@@ -1,0 +1,54 @@
+"""The port stands alone: no module of `opencl_path_tracer_tpu_torch` and
+not `chip_smoke.py` imports JAX or the JAX package, and its kernels are
+built the one way the port allows (nvcc for sm_90a, no fast math)."""
+
+import ast
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "opencl_path_tracer_tpu_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", getattr(node.func, "attr", ""))
+              in ("__import__", "import_module") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+def _forbidden(name):
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib") or top == "opencl_path_tracer_tpu"
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [n for n in _imported(tree) if _forbidden(n)]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_port_has_its_modules_and_kernel_sources():
+    assert len(FILES) > 20
+    for f in ("minarg.cu", "refine1.cu", "spheres.cu"):
+        assert (PORT / "csrc" / f).exists()
+
+
+def test_build_flags():
+    from opencl_path_tracer_tpu_torch.ops.kernels import _build
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "--fmad=false" in flags and "fast_math" not in flags
+    for name, (src, _sym, _args) in _build.KERNELS.items():
+        text = (PORT / "csrc" / src).read_text()
+        assert "replaces the tpu kernel" in text.lower(), src
+        assert "bounds it" in text.lower(), src

@@ -124,7 +124,15 @@ def check_kernels(torch, scenes, cam):
     s1, r1 = rng.lehmer_step(rng.seed_pixel_streams(W * H, 1, device=dev))
     _, r2 = rng.lehmer_step(s1)
     cam_rays = raygen.camera_rays(cam, raygen.pixel_ids(W, H, dev), r1, r2)
-    inputs = {}
+    inputs, errs = {}, {"minarg": 0.0, "refine1": 0.0, "spheres": 0.0}
+
+    def compare(name, outs, plain, where):
+        torch.cuda.synchronize()
+        for a, b in zip(outs, plain):
+            errs[name] = max(errs[name], float((a - b).abs().max()))
+        need(all(torch.equal(a, b) for a, b in zip(outs, plain)),
+             f"{name} differs from its plain version on {where}")
+
     for sname, scene in scenes.items():
         pack = k1.build_tri_pack(scene.tris)
         table = (None if scene.spheres is None
@@ -133,33 +141,24 @@ def check_kernels(torch, scenes, cam):
         for rname, rays in (
                 ("camera", cam_rays),
                 ("bounce", bounce_rays(torch, scene, cam, cam_rays, isect))):
+            where = f"{sname} {rname} rays"
             rays8 = k1.pack_rays(rays.p, rays.d).contiguous()
             t, g = k1.minarg(rays8, pack)
-            tp, gp = k1.minarg_plain(rays8, pack)
-            torch.cuda.synchronize()
-            need(torch.equal(t, tp) and torch.equal(g, gp),
-                 f"minarg != plain on {sname} {rname} rays: "
-                 f"{int((t != tp).sum())} t, {int((g != gp).sum())} index")
-            outs = k2.refine1(t, g, pack)
-            plain = k2.refine1_plain(t, g, pack)
-            torch.cuda.synchronize()
-            need(all(torch.equal(a, b) for a, b in zip(outs, plain)),
-                 f"refine1 != plain on {sname} {rname} rays")
+            compare("minarg", (t, g), k1.minarg_plain(rays8, pack), where)
+            compare("refine1", k2.refine1(t, g, pack),
+                    k2.refine1_plain(t, g, pack), where)
             line = (f"{sname:16s} {rname:6s} rays {rays.count}: minarg "
-                    f"{int((t < k1.BIG).sum())} hits equal, refine1 equal")
+                    f"({int((t < k1.BIG).sum())} hits) and refine1 equal")
             if table is not None:
                 so = k3.spheres(rays8, table)
-                sp = k3.spheres_plain(rays8, table)
-                torch.cuda.synchronize()
-                need(all(torch.equal(a, b) for a, b in zip(so, sp)),
-                     f"spheres != plain on {sname} {rname} rays")
-                line += f", spheres {int((so[0] > 0).sum())} hits equal"
+                compare("spheres", so, k3.spheres_plain(rays8, table), where)
+                line += f", spheres ({int((so[0] > 0).sum())} hits) equal"
                 inputs.setdefault("spheres", (rays8, table))
-            print(line)
+            print(line + " to their plain versions (torch.equal: exact)")
             if rname == "camera":
                 inputs.setdefault("minarg", (rays8, pack))
                 inputs.setdefault("refine1", (t, g, pack))
-    return inputs
+    return inputs, errs
 
 
 def check_goldens(torch, np):
@@ -273,7 +272,7 @@ def minarg_ops(torch, rays8, pack):
     return 12 * r * pack.shape[0] + 12 * reached
 
 
-def measure(torch, inputs, launches):
+def measure(torch, inputs, errs, launches):
     from opencl_path_tracer_tpu_torch.ops.kernels import (
         intersect_kernel as k1, plucker_kernel as k2, sphere_kernel as k3)
     rows = []
@@ -303,7 +302,7 @@ def measure(torch, inputs, launches):
         src, repl = KERNEL_META[name]
         out.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
-            "launches": launches[name], "max_abs_err": 0.0, "ms": ms,
+            "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None,
@@ -328,11 +327,11 @@ def main() -> int:
             with_spheres=True, analytic_spheres=True, device="cuda"),
     }
     cam = library.cornell_camera(W, H, device="cuda")
-    inputs = check_kernels(torch, scenes, cam)
+    inputs, errs = check_kernels(torch, scenes, cam)
     check_goldens(torch, np)
     check_no_fallback(torch, scenes["cornell"])
     launches = main_path(torch, np, scenes)
-    kernels = measure(torch, inputs, launches)
+    kernels = measure(torch, inputs, errs, launches)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

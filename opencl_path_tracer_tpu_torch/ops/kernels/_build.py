@@ -93,19 +93,21 @@ def build() -> dict[str, pathlib.Path]:
             procs[name] = (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
-        reports, failed = {}, []
+        failed = []
         for name, (tmp, proc) in procs.items():
             out, _ = proc.communicate()
-            reports[name] = out
             if proc.returncode != 0:
                 failed.append(f"{name}:\n{out}")
             else:
+                libs[name].with_suffix(".log").write_text(out)
                 os.replace(tmp, libs[name])
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
-        build_info["ptxas"] = reports
     build_info["seconds"] = time.perf_counter() - t0
     build_info["built"] = todo
+    build_info["ptxas"] = {
+        name: path.with_suffix(".log").read_text()
+        for name, path in libs.items() if path.with_suffix(".log").exists()}
     return libs
 
 

@@ -92,9 +92,9 @@ def minarg(rays8: torch.Tensor, tri_pack: torch.Tensor):
     _build.check(tri_pack, "tri_pack", (None, TRI_COLS))
     if rays8.device != tri_pack.device:
         raise ValueError("rays8 and tri_pack must be on one device")
-    if tri_pack.shape[0] >= 1 << 24:
-        raise ValueError("the float32 winner index is exact up to 2^24 "
-                         "triangles")
+    if not 0 < tri_pack.shape[0] < 1 << 24:
+        raise ValueError("minarg needs 1 to 2^24 - 1 triangles (the winner "
+                         "index travels as an exact float32)")
     if rays8.device.type == "cpu":
         return minarg_plain(rays8, tri_pack)
     r = rays8.shape[1]

@@ -43,6 +43,8 @@ def refine1(t1: torch.Tensor, g1: torch.Tensor, tri_pack: torch.Tensor):
     _build.check(tri_pack, "tri_pack", (None, TRI_COLS))
     if not (t1.device == g1.device == tri_pack.device):
         raise ValueError("t1, g1 and tri_pack must be on one device")
+    if tri_pack.shape[0] == 0:
+        raise ValueError("refine1 needs at least one triangle")
     if t1.device.type == "cpu":
         return refine1_plain(t1, g1, tri_pack)
     r = t1.shape[0]

@@ -106,4 +106,6 @@ def test_minarg_wrapper_checks_and_cpu_counts_no_launch():
     with pytest.raises(ValueError):
         k1.minarg(rays8, pack[:, :16])
     with pytest.raises(ValueError):
+        k1.minarg(rays8, pack[:0])                    # no triangles
+    with pytest.raises(ValueError):
         k1.minarg(torch.zeros((10, 8)).t(), pack)   # not contiguous

@@ -11,7 +11,6 @@ import numpy as np
 import pytest
 import torch
 
-from opencl_path_tracer_tpu.core.types import Rays as JRays
 from opencl_path_tracer_tpu.io import image as jimage
 from opencl_path_tracer_tpu.ops import bsdf as jbsdf
 from opencl_path_tracer_tpu.ops import raygen as jraygen

@@ -3,11 +3,13 @@ sphere kernel run in interpret mode. t and mati are bit-equal, ties
 (two identical spheres) keep the lower index, and misses carry t = -1
 and zeros.
 
-The normal's x component is held to 2e-6 (about 25 float32 ulps at
-|n| = 1): XLA's fused code for the interpret-mode kernel rounds p + t d
-- c for x through a path that no elementwise form reproduces (y and z
-match fma(d, t, p) - c exactly); the port rounds all three components
-the same way."""
+The normal's x component is held to atol 2e-6 (an error in t of one
+ulp moves it by about 2e-7): XLA's CPU backend recomputes the whole
+intersection inside each output's fused loop and contracts
+multiply-adds differently in the loop of the x component, so that
+loop's t can differ by an ulp from the t it outputs. No single
+elementwise form reproduces it; y and z match fma(d, t, p) - c exactly,
+and the port rounds all three components that way."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -5,15 +5,24 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from `opencl_path_tracer_tpu_torch/csrc/`,
-holds each against its plain PyTorch version at 1080p ray counts, renders
-the three goldens of `tests/golden/` through the kernels, and drives the
-main path (`RenderEngine.render` of the Cornell box and the analytic
-Cornell box at 1920x1080, 5 bounces, 8 spp) with the launch counts reset
-just before and read just after. The last two lines are a JSON object
-per kernel (time, plain time, bound, launches) and the verdict. Any
-failed phase raises, and the script exits non-zero without the verdict.
-It writes nothing but the kernel build under the package's `_build/`.
+It builds the port's seven CUDA kernels from
+`opencl_path_tracer_tpu_torch/csrc/`, holds each against its plain
+PyTorch version at 1080p ray and lane counts, renders the three goldens
+of `tests/golden/` through the kernels, and drives the main paths at
+1920x1080 and 5 bounces, each with the launch counts reset just before
+and read just after:
+
+  * the megakernel model (`RenderEngine.render`) on the Cornell box and
+    the analytic Cornell box, 8 spp;
+  * the wavefront model (`RenderEngine` with model='wavefront') on the
+    analytic Cornell box, 8 spp;
+  * the fused fast pipeline (`models.pipeline.render_fast`) on the
+    Cornell box, 64 steps.
+
+The last two lines are a JSON object per kernel (time, plain time,
+bound, launches) and the verdict. Any failed phase raises, and the
+script exits non-zero without the verdict. It writes nothing but the
+kernel build under the package's `_build/`.
 """
 
 from __future__ import annotations
@@ -26,9 +35,10 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-W, H, BOUNCES, SPP = 1920, 1080, 5, 8
+W, H, BOUNCES, SPP, FUSED_STEPS = 1920, 1080, 5, 8, 64
 # H100 SXM data sheet, dense, at the full 700 W power limit.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 GOLDENS = (  # file, cornell_box kwargs, bounces (tests/test_megakernel.py)
     ("cornell_16x16_i2_s4", dict(with_spheres=False), 2),
@@ -43,6 +53,23 @@ KERNEL_META = {
                 "opencl_path_tracer_tpu/ops/pallas/plucker_kernel.py:695"),
     "spheres": ("opencl_path_tracer_tpu_torch/csrc/spheres.cu",
                 "opencl_path_tracer_tpu/ops/pallas/sphere_kernel.py:47"),
+    "dense": ("opencl_path_tracer_tpu_torch/csrc/dense.cu",
+              "opencl_path_tracer_tpu/ops/pallas/intersect_kernel.py:51"),
+    "plucker_cand": ("opencl_path_tracer_tpu_torch/csrc/plucker_cand.cu",
+                     "opencl_path_tracer_tpu/ops/pallas/plucker_kernel.py:212"),
+    "plucker_refine": ("opencl_path_tracer_tpu_torch/csrc/plucker_refine.cu",
+                       "opencl_path_tracer_tpu/ops/pallas/plucker_kernel.py"
+                       ":292"),
+    "fused_step": ("opencl_path_tracer_tpu_torch/csrc/fused_step.cu",
+                   "opencl_path_tracer_tpu/models/fused_step.py:147"),
+}
+# Every kernel of each main path must launch in that path's run.
+PATH_KERNELS = {
+    "megakernel cornell": ("minarg", "refine1"),
+    "megakernel cornell-analytic": ("minarg", "refine1", "spheres"),
+    "wavefront cornell-analytic": ("minarg", "refine1", "spheres"),
+    "fused cornell": ("plucker_cand", "plucker_refine", "dense",
+                      "fused_step"),
 }
 
 
@@ -113,7 +140,7 @@ def bounce_rays(torch, scene, cam, rays, isect):
 
 
 def check_kernels(torch, scenes, cam):
-    """Each kernel against its plain version on the camera rays and the
+    """Each ray kernel against its plain version on the camera rays and the
     first-bounce rays of both scenes, with torch.equal."""
     from opencl_path_tracer_tpu_torch.ops import raygen, rng
     from opencl_path_tracer_tpu_torch.ops.kernels import (
@@ -124,7 +151,8 @@ def check_kernels(torch, scenes, cam):
     s1, r1 = rng.lehmer_step(rng.seed_pixel_streams(W * H, 1, device=dev))
     _, r2 = rng.lehmer_step(s1)
     cam_rays = raygen.camera_rays(cam, raygen.pixel_ids(W, H, dev), r1, r2)
-    inputs, errs = {}, {"minarg": 0.0, "refine1": 0.0, "spheres": 0.0}
+    inputs = {}
+    errs = {name: 0.0 for name in KERNEL_META}
 
     def compare(name, outs, plain, where):
         torch.cuda.synchronize()
@@ -137,6 +165,7 @@ def check_kernels(torch, scenes, cam):
         pack = k1.build_tri_pack(scene.tris)
         table = (None if scene.spheres is None
                  else k3.build_sphere_table(scene.spheres))
+        trig, tric, _ = k2.build_plucker_packs(scene.tris)
         isect = make_intersect_fn(scene, "auto")
         for rname, rays in (
                 ("camera", cam_rays),
@@ -147,18 +176,79 @@ def check_kernels(torch, scenes, cam):
             compare("minarg", (t, g), k1.minarg_plain(rays8, pack), where)
             compare("refine1", k2.refine1(t, g, pack),
                     k2.refine1_plain(t, g, pack), where)
+            dense = k1.dense_rows(rays8, pack)
+            compare("dense", dense, k1.dense_plain(rays8, pack), where)
+            cand = k2.candidates(rays8, trig, tric)
+            compare("plucker_cand", cand,
+                    k2.candidates_plain(rays8, trig, tric), where)
+            rows = k2.refine(rays8, cand, pack)
+            compare("plucker_refine", rows,
+                    k2.refine_plain(rays8, cand, pack), where)
+            ok = rows[5] == 0
+            dt = torch.where(dense[0] < k1.BIG, dense[0],
+                             torch.full_like(dense[0], -1.0))
+            need(torch.equal(rows[0][ok], dt[ok]),
+                 f"refined Plucker hits differ from K4 on {where}")
             line = (f"{sname:16s} {rname:6s} rays {rays.count}: minarg "
-                    f"({int((t < k1.BIG).sum())} hits) and refine1 equal")
+                    f"({int((t < k1.BIG).sum())} hits), refine1, dense, "
+                    f"plucker_cand, plucker_refine ({int((~ok).sum())} "
+                    f"pending; t equal to dense elsewhere)")
             if table is not None:
                 so = k3.spheres(rays8, table)
                 compare("spheres", so, k3.spheres_plain(rays8, table), where)
-                line += f", spheres ({int((so[0] > 0).sum())} hits) equal"
+                line += f", spheres ({int((so[0] > 0).sum())} hits)"
                 inputs.setdefault("spheres", (rays8, table))
-            print(line + " to their plain versions (torch.equal: exact)")
+            print(line + " equal to their plain versions (torch.equal)")
             if rname == "camera":
                 inputs.setdefault("minarg", (rays8, pack))
                 inputs.setdefault("refine1", (t, g, pack))
     return inputs, errs
+
+
+def check_fused(torch, scene, cam, errs):
+    """K5 against its plain version on a 1080p packed state after two
+    steps of the fused pipeline (real hit rows). Returns the inputs at
+    which K4, K13a, K13b and K5 are timed: the pipeline's own shapes."""
+    from opencl_path_tracer_tpu_torch.models import fused_step as fs
+    from opencl_path_tracer_tpu_torch.models import pipeline
+    from opencl_path_tracer_tpu_torch.ops import rng
+    from opencl_path_tracer_tpu_torch.ops.kernels import (
+        intersect_kernel as k1, plucker_kernel as k2)
+    key = rng.key(1)
+    (F, I, ctr), step, _ = pipeline.make_fast_pipeline(
+        scene, cam, width=W, height=H, iterations=BOUNCES, key=key)
+    for _ in range(2):
+        F, I, ctr = step(F, I, ctr)
+    hrows = step.hit_rows(F, ctr)
+    table = fs.fused_table(cam, scene.mats, W, H)
+    Fk, Ik = fs.fused_step(F, I, ctr, hrows, table, key, BOUNCES)
+    Fp, Ip = fs.step_plain(F, I, ctr, hrows, table, key, BOUNCES)
+    torch.cuda.synchronize()
+    need(torch.equal(Ik, Ip), "fused_step integer rows differ from plain")
+    nan = torch.isnan(Fk) & torch.isnan(Fp)
+    need(torch.equal(torch.isnan(Fk), torch.isnan(Fp)),
+         "fused_step NaNs differ from plain")
+    a, b = torch.where(nan, 0.0, Fk), torch.where(nan, 0.0, Fp)
+    err = (a - b).abs()
+    errs["fused_step"] = float(err.max())
+    atol = torch.full((fs.F_ROWS, 1), 1e-6, device=F.device)
+    atol[fs._RAYP:fs._RAYP + 3] = 1e-3
+    atol[fs._CUR:fs._CUR + 3] = 1e-3
+    need(bool(((a == b) | (err <= atol + 1e-6 * b.abs())).all()),
+         "fused_step float rows differ from plain beyond rtol 1e-6")
+    bit = float((a.view(torch.int32) == b.view(torch.int32)).float().mean())
+    print(f"fused_step on {F.shape[1]} lanes: integer rows equal, float rows "
+          f"{bit:.7f} bit-equal, max abs err {errs['fused_step']:.3g} "
+          f"(rtol 1e-6; atol 1e-6, 1e-3 for ray_p and cur_color)")
+    rays8 = F[fs._RAYP:fs._RAYP + 8]
+    sl = rays8[:, :F.shape[1] // step.n_slices]
+    trig, tric, tpad = k2.build_plucker_packs(scene.tris)
+    pack = k1.build_tri_pack(scene.tris)
+    cand = k2.candidates(rays8, trig, tric)
+    torch.cuda.synchronize()
+    return {"dense": (sl, pack), "plucker_cand": (rays8, trig, tric),
+            "plucker_refine": (rays8, cand, pack),
+            "fused_step": (F, I, ctr, hrows, table, key)}
 
 
 def check_goldens(torch, np):
@@ -182,7 +272,7 @@ def check_goldens(torch, np):
 
 
 def check_no_fallback(torch, scene):
-    """With the kernel loader broken, a CUDA call must raise."""
+    """With the kernel loader broken, a CUDA call must raise (K1 and K4)."""
     from opencl_path_tracer_tpu_torch.ops.kernels import _build
     from opencl_path_tracer_tpu_torch.ops.kernels import intersect_kernel
     pack = intersect_kernel.build_tri_pack(scene.tris)
@@ -194,46 +284,85 @@ def check_no_fallback(torch, scene):
 
     _build.library = broken
     try:
-        intersect_kernel.minarg(rays8, pack)
-    except RuntimeError:
-        print("no fallback: with the loader broken, a CUDA call raises")
-        return
+        for fn in (intersect_kernel.minarg, intersect_kernel.dense):
+            try:
+                fn(rays8, pack)
+            except RuntimeError:
+                continue
+            raise SmokeError(f"{fn.__name__} ran on CUDA with its kernel "
+                             "loader broken")
     finally:
         _build.library = real
-    raise SmokeError("minarg ran on CUDA with its kernel loader broken")
+    print("no fallback: with the loader broken, minarg and dense raise")
 
 
-def main_path(torch, np, scenes):
-    from opencl_path_tracer_tpu_torch.config import CameraConfig, RenderConfig
+def run_path(torch, name, fn):
+    """Drive one main path with the launch counts reset just before and
+    read just after; every kernel of the path must have launched."""
     from opencl_path_tracer_tpu_torch.ops.kernels import _build
-    from opencl_path_tracer_tpu_torch.runtime.engine import RenderEngine
-    cfg = RenderConfig(width=W, height=H, iterations=BOUNCES, spp=SPP,
-                       camera=CameraConfig(fov=60.0, yaw=0.0, pitch=0.0,
-                                           shift=(0.0, 0.0, 0.0)))
-    engines = {name: RenderEngine(scene, cfg, device="cuda")
-               for name, scene in scenes.items()}
     torch.cuda.synchronize()
     _build.reset_launches()
-    per_scene = {}
-    for name, eng in engines.items():
-        before = dict(_build.launches)
-        t0 = time.perf_counter()
-        eng.render(SPP)
-        dt = time.perf_counter() - t0
-        counts = {k: _build.launches[k] - before[k] for k in before}
-        per_scene[name] = counts
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(_build.launches)
+    missing = [k for k in PATH_KERNELS[name] if counts[k] == 0]
+    need(not missing, f"main path {name} did not launch {missing}")
+    return result, dt, {k: v for k, v in counts.items() if v}
+
+
+def main_path(torch, np, scenes, cam):
+    from opencl_path_tracer_tpu_torch.config import CameraConfig, RenderConfig
+    from opencl_path_tracer_tpu_torch.models import pipeline
+    from opencl_path_tracer_tpu_torch.ops import rng
+    from opencl_path_tracer_tpu_torch.runtime.engine import RenderEngine
+    total = {name: 0 for name in KERNEL_META}
+
+    def cfg(**kw):
+        return RenderConfig(width=W, height=H, iterations=BOUNCES, spp=SPP,
+                            camera=CameraConfig(fov=60.0, yaw=0.0, pitch=0.0,
+                                                shift=(0.0, 0.0, 0.0)), **kw)
+
+    def report(name, dt, rays, spp, counts):
+        for k, v in counts.items():
+            total[k] += v
+        print(f"main path {name}: {W}x{H}, {BOUNCES} bounces, {spp:.2f} spp "
+              f"in {dt:.3f} s: {rays / dt / 1e6:.1f} Mrays/s, "
+              f"{spp / dt:.2f} samples/s; launches {counts}")
+
+    engines = [(f"megakernel {n}", RenderEngine(s, cfg(), device="cuda"))
+               for n, s in scenes.items()]
+    engines.append(("wavefront cornell-analytic", RenderEngine(
+        scenes["cornell-analytic"], cfg(model="wavefront"), device="cuda")))
+    for name, eng in engines:
+        _, dt, counts = run_path(torch, name, lambda: eng.render(SPP))
         img = eng.image()
         need(img.shape == (H, W, 3) and np.isfinite(img).all()
              and img.mean() > 0.0, f"{name}: bad image")
-        print(f"main path {name}: {W}x{H}, {BOUNCES} bounces, {SPP} spp in "
-              f"{dt:.3f} s: {eng.rays_traced / dt / 1e6:.1f} Mrays/s, "
-              f"{SPP / dt:.2f} samples/s; launches {counts}")
-    total = dict(_build.launches)
-    need(per_scene["cornell"]["minarg"] > 0
-         and per_scene["cornell"]["refine1"] > 0,
-         "cornell did not launch minarg and refine1")
-    need(all(v > 0 for v in per_scene["cornell-analytic"].values()),
-         "cornell-analytic did not launch every kernel")
+        report(name, dt, eng.rays_traced, SPP, counts)
+
+    # render_fast times the steps after its two warm-up steps; the run's
+    # samples/s scales the final spp by that share of the steps.
+    (st, secs), _, counts = run_path(
+        torch, "fused cornell", lambda: pipeline.render_fast(
+            scenes["cornell"], cam, width=W, height=H, iterations=BOUNCES,
+            steps=FUSED_STEPS, key=rng.key(1), device="cuda"))
+    spp = float(st.samples.sum()) / (W * H)
+    cols = torch.stack(st.colors)
+    # A lane stalls while PENDING until the rotating exact slice reaches
+    # it (up to n_slices steps), so a few lanes may not have finished a
+    # sample yet; most must have.
+    done = float((st.samples > 0).float().mean())
+    need(bool(torch.isfinite(cols).all()) and float(cols.mean()) > 0.0
+         and spp >= 1.0 and done > 0.999,
+         f"fused cornell: bad state (finite colors "
+         f"{bool(torch.isfinite(cols).all())}, mean {float(cols.mean())}, "
+         f"{spp} spp, {done} of the lanes with a sample)")
+    print(f"fused cornell: min samples {int(st.samples.min())}, "
+          f"{int((st.samples == 0).sum())} lanes without a finished sample")
+    report("fused cornell", secs, st.lanes * FUSED_STEPS,
+           spp * FUSED_STEPS / (FUSED_STEPS + 2), counts)
     return total
 
 
@@ -273,31 +402,68 @@ def minarg_ops(torch, rays8, pack):
 
 
 def measure(torch, inputs, errs, launches):
+    from opencl_path_tracer_tpu_torch.models import fused_step as fs
     from opencl_path_tracer_tpu_torch.ops.kernels import (
         intersect_kernel as k1, plucker_kernel as k2, sphere_kernel as k3)
-    rows = []
+    rows = []   # name, kernel, plain, fp32 ops, bf16 ops, bytes
     rays8, pack = inputs["minarg"]
     r, t = rays8.shape[1], pack.shape[0]
-    ops = minarg_ops(torch, rays8, pack)
     rows.append(("minarg", lambda: k1.minarg(rays8, pack),
                  lambda: k1.minarg_plain(rays8, pack),
-                 ops, 24 * r + 64 * t + 8 * r))
+                 minarg_ops(torch, rays8, pack), 0,
+                 24 * r + 64 * t + 8 * r))
     t1, g1, pack2 = inputs["refine1"]
     rows.append(("refine1", lambda: k2.refine1(t1, g1, pack2),
                  lambda: k2.refine1_plain(t1, g1, pack2),
-                 0, 8 * r + 96 * t + 20 * r))
+                 0, 0, 8 * r + 96 * t + 20 * r))
     rays8s, table = inputs["spheres"]
     rs, s = rays8s.shape[1], table.shape[0]
     hits = int((k3.spheres_plain(rays8s, table)[0] > 0).sum())
     rows.append(("spheres", lambda: k3.spheres(rays8s, table),
                  lambda: k3.spheres_plain(rays8s, table),
-                 10 * rs + 19 * rs * s + 12 * hits,
+                 10 * rs + 19 * rs * s + 12 * hits, 0,
                  24 * rs + 32 * s + 20 * rs))
+    # K4 on the pipeline's exact slice: K1's operations plus the
+    # attribute fetch; 24 bytes of rays in and 24 out per ray.
+    sl, dpack = inputs["dense"]
+    rl = sl.shape[1]
+    rows.append(("dense", lambda: k1.dense_rows(sl, dpack),
+                 lambda: k1.dense_plain(sl, dpack),
+                 minarg_ops(torch, sl, dpack), 0,
+                 24 * rl + 64 * dpack.shape[0] + 24 * rl))
+    # K13a: the E products (3 x 18 multiply-adds per pair) at the bf16
+    # tensor-core rate; the float32 tail (the plane t: 12, the six
+    # loosened sign tests and the t > 0 test: 7) at the float32 rate.
+    rays8c, trig, tric = inputs["plucker_cand"]
+    rc, tp = rays8c.shape[1], tric.shape[0]
+    rows.append(("plucker_cand", lambda: k2.candidates(rays8c, trig, tric),
+                 lambda: k2.candidates_plain(rays8c, trig, tric),
+                 19 * rc * tp, 2 * 54 * rc * tp,
+                 24 * rc + trig.numel() * 2 + tric.numel() * 4 + 16 * rc))
+    # K13b: the ray, the candidates and six rows out per ray; the table
+    # its two gathered rows come from is an input read once (it stays in
+    # L2: counting 2 x 68 bytes per ray put the bound above the measured
+    # time).
+    rays8r, cand, rpack = inputs["plucker_refine"]
+    rr = rays8r.shape[1]
+    rows.append(("plucker_refine", lambda: k2.refine(rays8r, cand, rpack),
+                 lambda: k2.refine_plain(rays8r, cand, rpack),
+                 2 * 48 * rr, 0, (24 + 16 + 24) * rr + rpack.numel() * 4))
+    # K5: F and I read and written, H's rows read; about 300 float32
+    # operations per lane (far below the byte time).
+    F, I, ctr, hrows, ftab, key = inputs["fused_step"]
+    nl = F.shape[1]
+    rows.append(("fused_step",
+                 lambda: fs.fused_step(F, I, ctr, hrows, ftab, key, BOUNCES),
+                 lambda: fs.step_plain(F, I, ctr, hrows, ftab, key, BOUNCES),
+                 300 * nl, 0,
+                 (F.shape[0] * 4 + I.shape[0] * 4) * 2 * nl
+                 + hrows.shape[0] * 4 * nl))
     out = []
-    for name, kern, plain, ops, nbytes in rows:
+    for name, kern, plain, ops, bf16_ops, nbytes in rows:
         ms = time_ms(torch, kern, 20)
         plain_ms = time_ms(torch, plain, 2)
-        t_ops = ops / PEAK_FP32_FLOPS * 1e3
+        t_ops = max(ops / PEAK_FP32_FLOPS, bf16_ops / PEAK_BF16_FLOPS) * 1e3
         t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
         src, repl = KERNEL_META[name]
         out.append({
@@ -328,9 +494,10 @@ def main() -> int:
     }
     cam = library.cornell_camera(W, H, device="cuda")
     inputs, errs = check_kernels(torch, scenes, cam)
+    inputs.update(check_fused(torch, scenes["cornell"], cam, errs))
     check_goldens(torch, np)
     check_no_fallback(torch, scenes["cornell"])
-    launches = main_path(torch, np, scenes)
+    launches = main_path(torch, np, scenes, cam)
     kernels = measure(torch, inputs, errs, launches)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

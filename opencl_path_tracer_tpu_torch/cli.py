@@ -6,6 +6,7 @@ progressive render to PNG. It runs on the GPU unless `--device cpu` is
 given.
 
     ptx-torch render --scene cornell --size 1920x1080 --iters 5 --spp 8
+    ptx-torch render --scene cornell-analytic --model wavefront --rr 3
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ def cmd_render(args) -> int:
     cfg = RenderConfig(width=w, height=h, iterations=args.iters,
                        spp=args.spp, mode=args.mode, seed=args.seed,
                        tonemap=args.tonemap, accel=args.accel, qmc=args.qmc,
-                       camera=cam)
+                       model=args.model, rr_start=args.rr, camera=cam)
     scene = _build_scene(args.scene, device)
     eng = RenderEngine(scene, cfg, device=device)
     t0 = time.perf_counter()
@@ -63,6 +64,14 @@ def main(argv=None) -> int:
     p.add_argument("--size", default="512x512")
     p.add_argument("--iters", type=int, default=5, help="bounce depth")
     p.add_argument("--spp", type=int, default=64)
+    p.add_argument("--model", default="megakernel",
+                   choices=("megakernel", "wavefront"),
+                   help="wavefront = path regeneration (the throughput "
+                        "model; every pixel still gets exactly --spp "
+                        "samples)")
+    p.add_argument("--rr", type=int, default=None, metavar="START",
+                   help="Russian roulette after START bounces (needs "
+                        "--model wavefront)")
     p.add_argument("--mode", default="fast", choices=("fast", "parity"))
     p.add_argument("--accel", default="auto")
     p.add_argument("--seed", type=int, default=1)

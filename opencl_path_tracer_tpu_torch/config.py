@@ -2,10 +2,11 @@
 
 Port of `opencl_path_tracer_tpu/config.py`: the same fields and
 defaults (reference globals main.cpp:19-43), JSON round-trippable. The
-port honours the megakernel model, both modes, the camera, bounce
-depth, spp, seed, tonemap, QMC jitter and the 'auto' / 'minarg' /
-'bruteforce' accels; every other field raises NotImplementedError when
-it is set away from its default.
+port honours the megakernel and wavefront models, both modes, the
+camera, bounce depth, spp, seed, tonemap, QMC jitter, Russian roulette
+(wavefront) and the 'auto' / 'minarg' / 'pallas' / 'bruteforce' accels;
+every other field raises NotImplementedError when it is set away from
+its default.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import Any
 REF_WIDTH = 192 * 8  # 1536
 REF_HEIGHT = 108 * 8  # 864
 REF_MAX_ITERATIONS = 50
-ACCELS = ("auto", "minarg", "bruteforce")
+ACCELS = ("auto", "minarg", "pallas", "bruteforce")
 
 
 @dataclasses.dataclass
@@ -43,12 +44,19 @@ class RenderConfig:
     tonemap: str = "reinhard"
     accel: str = "auto"
     qmc: bool = False
+    # 'megakernel' (one full sample per step) or 'wavefront' (path
+    # regeneration, the throughput model; bit-identical to the megakernel
+    # at equal per-pixel spp in parity mode).
+    model: str = "megakernel"
+    # Russian roulette after rr_start bounces, survival floored at rr_pmin
+    # (wavefront only; None = off).
+    rr_start: int | None = None
+    rr_pmin: float = 0.05
     # Fields of the JAX package's config that this port does not honour
     # yet; validate() refuses them away from these defaults.
     accel_force: bool = False
     smooth: bool = False
     textured: bool = False
-    model: str = "megakernel"
     env_light: bool = False
     env_sky: tuple[float, float, float] = (0.0, 0.75, 2.0)
     env_deep: tuple[float, float, float] = (1.0, 1.0, 1.0)
@@ -58,17 +66,15 @@ class RenderConfig:
     env_sample_res: tuple[int, int] = (64, 32)
     dof_aperture: float = 0.0
     dof_focus: float = 0.0
-    rr_start: int | None = None
-    rr_pmin: float = 0.05
     nee: bool = False
     nee_select: str = "power"
     nee_anyhit: bool = True
     devices: int = 1
 
-    UNPORTED = ("accel_force", "smooth", "textured", "model", "env_light",
+    UNPORTED = ("accel_force", "smooth", "textured", "env_light",
                 "env_sky", "env_deep", "env_map", "env_scale", "env_nee",
-                "env_sample_res", "dof_aperture", "dof_focus", "rr_start",
-                "rr_pmin", "nee", "nee_select", "nee_anyhit", "devices")
+                "env_sample_res", "dof_aperture", "dof_focus", "nee",
+                "nee_select", "nee_anyhit", "devices")
 
     def validate(self) -> "RenderConfig":
         defaults = RenderConfig()
@@ -76,8 +82,7 @@ class RenderConfig:
             if getattr(self, name) != getattr(defaults, name):
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r} is not ported yet "
-                    "(ROADMAP.md queue 1); the port renders the megakernel "
-                    "model without it")
+                    "(ROADMAP.md queue 1); the port renders without it")
         if self.width <= 0 or self.height <= 0:
             raise ValueError("width/height must be positive")
         if not (1 <= self.iterations <= self.max_iterations):
@@ -91,9 +96,21 @@ class RenderConfig:
             raise NotImplementedError(
                 f"accel {self.accel!r} is not ported yet (ROADMAP.md queue "
                 f"2); the port has {ACCELS}")
+        if self.model not in ("megakernel", "wavefront"):
+            raise ValueError(f"unknown model {self.model!r}")
         if self.qmc and self.mode != "fast":
             raise ValueError("qmc needs mode='fast' (parity mode's "
                              "per-pixel Lehmer draws are the reference spec)")
+        if self.rr_start is not None:
+            if self.model != "wavefront":
+                raise ValueError(
+                    "rr_start needs model='wavefront' (the megakernel runs "
+                    "its fixed bounce loop in lockstep; roulette there adds "
+                    "variance and saves nothing)")
+            if self.rr_start < 1:
+                raise ValueError("rr_start must be >= 1")
+            if not 0.0 < self.rr_pmin <= 1.0:
+                raise ValueError("rr_pmin must be in (0, 1]")
         return self
 
     def to_json(self) -> str:

@@ -1,13 +1,16 @@
 """Scenes and progressive state carried across from the JAX package.
 
 No counterpart module in `opencl_path_tracer_tpu`. These functions take
-plain numpy arrays, so a JAX `Scene` or `TraceState` (or a checkpoint of
-one) converts with `np.asarray` on each field and no import of JAX here.
+plain numpy arrays, so a JAX `Scene`, `TraceState`, `WavefrontState` or
+the fused pipeline's packed `(F, I, step)` (or a checkpoint of one)
+converts with `np.asarray` on each field and no import of JAX here.
 Triangle constants are rebuilt from the vertices; they come out bit-equal
 to the JAX package's.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -16,6 +19,7 @@ from opencl_path_tracer_tpu_torch.core.geometry import TrianglesSoA
 from opencl_path_tracer_tpu_torch.core.materials import MaterialsSoA
 from opencl_path_tracer_tpu_torch.core.spheres import SpheresSoA
 from opencl_path_tracer_tpu_torch.models.megakernel import TraceState
+from opencl_path_tracer_tpu_torch.models.wavefront import WavefrontState
 from opencl_path_tracer_tpu_torch.scene.builder import Scene
 
 
@@ -82,3 +86,64 @@ def state_to_numpy(state: TraceState) -> dict:
         "rng_state": state.rng_state.cpu().numpy().astype(np.uint32),
         "sample": int(state.sample),
     }
+
+
+_WF_DTYPES = {"samples": torch.int32, "pixel": torch.int32,
+              "rng_state": torch.int64, "inside": torch.bool,
+              "bounce": torch.int32, "had_diffuse": torch.bool,
+              "prev_pdf": torch.float32, "lum_m2": torch.float32}
+
+
+def wavefront_state_from_numpy(fields, device="cpu") -> WavefrontState:
+    """WavefrontState from a mapping of its field names to arrays, e.g.
+    `{f: np.asarray(getattr(jax_state, f)) ...}` of a JAX WavefrontState
+    (V3 fields as 3-tuples of (N,) arrays or (N, 3) arrays; rng_state
+    uint32; step a scalar)."""
+    out = {}
+    for f in dataclasses.fields(WavefrontState):
+        v = fields[f.name]
+        if f.name == "step":
+            out[f.name] = int(np.asarray(v))
+        elif f.name in _WF_DTYPES:
+            a = np.array(v)
+            if f.name == "rng_state":
+                a = a.astype(np.int64)
+            out[f.name] = torch.as_tensor(a, device=device).to(
+                _WF_DTYPES[f.name])
+        else:
+            a = (np.stack([np.asarray(c, np.float32) for c in v], -1)
+                 if isinstance(v, (tuple, list)) else np.asarray(v, np.float32))
+            out[f.name] = tuple(torch.as_tensor(np.ascontiguousarray(a[:, k]),
+                                                device=device)
+                                for k in range(3))
+    return WavefrontState(**out)
+
+
+def wavefront_state_to_numpy(state: WavefrontState) -> dict:
+    """Field name -> numpy: V3 fields as 3-tuples of (N,) float32,
+    rng_state as uint32, step as an int (the JAX state's layout)."""
+    out = {}
+    for f in dataclasses.fields(WavefrontState):
+        v = getattr(state, f.name)
+        if f.name == "step":
+            out[f.name] = int(v)
+        elif isinstance(v, tuple):
+            out[f.name] = tuple(c.cpu().numpy() for c in v)
+        elif f.name == "rng_state":
+            out[f.name] = v.cpu().numpy().astype(np.uint32)
+        else:
+            out[f.name] = v.cpu().numpy()
+    return out
+
+
+def packed_from_numpy(F, I, step, device="cpu"):
+    """The fused pipeline's packed state (F (32, N) float32, I (8, N)
+    int32, step int) from numpy or JAX arrays."""
+    return (torch.as_tensor(np.array(F, np.float32), device=device),
+            torch.as_tensor(np.array(I, np.int32), device=device),
+            int(np.asarray(step)))
+
+
+def packed_to_numpy(F, I, step):
+    """(F, I, step) as numpy float32, numpy int32 and an int."""
+    return F.cpu().numpy(), I.cpu().numpy(), int(step)

@@ -33,12 +33,19 @@ NVCC_FLAGS = [
     "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 # Kernel name -> (source file, C symbol, argtypes).
 KERNELS = {
     "minarg": ("minarg.cu", "ptx_minarg", [P, P, P, P, I, I, P]),
     "refine1": ("refine1.cu", "ptx_refine1", [P, P, P, P, P, P, P, P, I, I, P]),
     "spheres": ("spheres.cu", "ptx_spheres", [P, P, P, P, P, P, P, I, I, P]),
+    "dense": ("dense.cu", "ptx_dense", [P, I, P, P, I, I, P]),
+    "plucker_cand": ("plucker_cand.cu", "ptx_plucker_cand",
+                     [P, I, P, P, P, I, I, I, P]),
+    "plucker_refine": ("plucker_refine.cu", "ptx_plucker_refine",
+                       [P, I, P, P, P, I, I, P]),
+    "fused_step": ("fused_step.cu", "ptx_fused_step",
+                   [P, P, P, P, I, P, P, I, U, U, U, I, P]),
 }
 
 # Launches per kernel since the last reset_launches(); each wrapper adds
@@ -140,6 +147,23 @@ def check(x: torch.Tensor, what: str, shape, dtype=torch.float32) -> None:
                          f"expected {shape}")
     if not x.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} is on {x.device}: CPU or CUDA only")
+
+
+def check_rows(x: torch.Tensor, what: str, rows: int) -> None:
+    """Raise unless x is a (rows, R) float32 tensor whose rows are each
+    contiguous; the row stride is free, so a column slice of a wider
+    pack passes and is read in place."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{what} must be a tensor")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{what} must be torch.float32, got {x.dtype}")
+    if x.dim() != 2 or x.shape[0] != rows:
+        raise ValueError(f"{what} has shape {tuple(x.shape)}, expected "
+                         f"({rows}, R)")
+    if x.shape[1] > 1 and x.stride(1) != 1:
+        raise ValueError(f"{what} must have contiguous rows")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what} is on {x.device}: CPU or CUDA only")
 

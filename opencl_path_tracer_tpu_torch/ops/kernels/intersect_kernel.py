@@ -1,8 +1,11 @@
-"""K1: nearest triangle hit, min + argmin (CUDA kernel and plain version).
+"""K1: nearest triangle hit, min + argmin, and K4: the dense nearest hit
+with the winner's index and attributes (CUDA kernels and plain versions).
 
 Port of `opencl_path_tracer_tpu/ops/pallas/intersect_kernel.py`:
-`_minarg_kernel` (launched by `_run_minarg`), with the ray and triangle
-packs it reads (`pack_rays`, `build_tri_pack`).
+`_minarg_kernel` (launched by `_run_minarg`), `_kernel` (launched by
+`_run`) with `pallas_first_intersect`, `make_pallas_intersect` and
+`assemble_hits`, and the ray and triangle packs they read (`pack_rays`,
+`build_tri_pack`).
 
 For each ray, over all triangles: t = (c0 - dot(P, n)) / dot(D, n),
 accepted when t > 0 and dot(P, m_k) + t dot(D, m_k) >= d_k for the three
@@ -23,6 +26,7 @@ import torch
 
 from opencl_path_tracer_tpu_torch.core import fp
 from opencl_path_tracer_tpu_torch.core.geometry import TrianglesSoA
+from opencl_path_tracer_tpu_torch.core.types import Hits, Rays
 from opencl_path_tracer_tpu_torch.ops.kernels import _build
 
 BIG = 3.0e38
@@ -102,3 +106,78 @@ def minarg(rays8: torch.Tensor, tri_pack: torch.Tensor):
     g = torch.empty(r, dtype=torch.float32, device=rays8.device)
     _build.launch("minarg", rays8, tri_pack, t, g, r, tri_pack.shape[0])
     return t, g
+
+
+def dense_plain(rays8: torch.Tensor, tri_pack: torch.Tensor):
+    """Plain PyTorch version of K4: (t, index, nx, ny, nz, mati), six (R,)
+    float32 tensors. t is BIG on a miss, and a miss keeps index 0 with
+    row 0's attributes (the TPU kernel's latch); attributes are `+ 0.0`,
+    as the TPU's one-hot sum turns -0.0 into +0.0."""
+    t, g = minarg_plain(rays8, tri_pack)
+    rows = tri_pack[g.long()]
+    return (t, g, rows[:, 0] + 0.0, rows[:, 1] + 0.0, rows[:, 2] + 0.0,
+            rows[:, 16] + 0.0)
+
+
+def dense_rows(rays8: torch.Tensor, tri_pack: torch.Tensor) -> torch.Tensor:
+    """K4 as one (6, R) tensor [t, index, nx, ny, nz, mati]. rays8 is an
+    (8, R) ray pack whose rows need only be contiguous each (a column
+    slice of a wider pack is read in place). CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
+    _build.check_rows(rays8, "rays8", 8)
+    _build.check(tri_pack, "tri_pack", (None, TRI_COLS))
+    if rays8.device != tri_pack.device:
+        raise ValueError("rays8 and tri_pack must be on one device")
+    if not 0 < tri_pack.shape[0] < 1 << 24:
+        raise ValueError("dense needs 1 to 2^24 - 1 triangles (the winner "
+                         "index travels as an exact float32)")
+    if rays8.device.type == "cpu":
+        return torch.stack(dense_plain(rays8, tri_pack))
+    r = rays8.shape[1]
+    out = torch.empty((6, r), dtype=torch.float32, device=rays8.device)
+    _build.launch("dense", rays8, rays8.stride(0), tri_pack, out, r,
+                  tri_pack.shape[0])
+    return out
+
+
+def dense(rays8: torch.Tensor, tri_pack: torch.Tensor):
+    """K4: (t, i, nx, ny, nz, m), six (R,) float32 tensors per ray."""
+    return tuple(dense_rows(rays8, tri_pack))
+
+
+def assemble_hits(rays: Rays, r: int, t_, nx, ny, nz, m) -> Hits:
+    """Hits from (R,) kernel rows with t = -1 on a miss: the normal rows
+    pass through (miss-lane normals are whatever the kernel latched),
+    mati is 0 on a miss."""
+    best_t = t_[:r]
+    any_hit = best_t > 0.0
+    z = torch.zeros_like(best_t)
+    safe_t = torch.where(any_hit, best_t, z)
+    return Hits(
+        t=best_t,
+        p=tuple(torch.where(any_hit, rays.p[k] + rays.d[k] * safe_t, z)
+                for k in range(3)),
+        n=(nx[:r], ny[:r], nz[:r]),
+        mati=torch.where(any_hit, m[:r], z).to(torch.int32),
+    )
+
+
+def first_intersect(rays: Rays, tris: TrianglesSoA, *,
+                    tri_pack: torch.Tensor | None = None) -> Hits:
+    """Closest hit of each ray through K4 (`pallas_first_intersect`)."""
+    if tri_pack is None:
+        tri_pack = build_tri_pack(tris)
+    t, _, nx, ny, nz, m = dense(pack_rays(rays.p, rays.d), tri_pack)
+    t = torch.where(t < BIG, t, torch.full_like(t, -1.0))
+    return assemble_hits(rays, rays.count, t, nx, ny, nz, m)
+
+
+def make_pallas_intersect(tris: TrianglesSoA):
+    """The 'pallas' accel: K4 over a pack built once; intersect(rays) ->
+    Hits."""
+    tri_pack = build_tri_pack(tris)
+
+    def intersect(rays: Rays) -> Hits:
+        return first_intersect(rays, tris, tri_pack=tri_pack)
+
+    return intersect

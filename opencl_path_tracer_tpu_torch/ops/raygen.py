@@ -1,13 +1,14 @@
 """Camera ray generation (gen_ray, prog.cl:384-389 + 82-92).
 
-Port of `camera_rays` and the pixel ids of
-`opencl_path_tracer_tpu/ops/raygen.py`: one lane per pixel id, two
-jitter draws per lane, the pinhole projection as elementwise tensor
-arithmetic over 1-D component tensors.
+Port of `camera_rays`, the pixel ids, `tile_major_ids` and
+`inverse_permutation` of `opencl_path_tracer_tpu/ops/raygen.py`: one
+lane per pixel id, two jitter draws per lane, the pinhole projection as
+elementwise tensor arithmetic over 1-D component tensors.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from opencl_path_tracer_tpu_torch.core import fp
@@ -39,3 +40,24 @@ def pixel_ids(width: int, height: int, device="cpu") -> torch.Tensor:
 
 def pixel_ids_like(num_pixels: int, device="cpu") -> torch.Tensor:
     return torch.arange(num_pixels, dtype=torch.int32, device=device)
+
+
+def tile_major_ids(width: int, height: int, tile_w: int = 16,
+                   tile_h: int = 16, device="cpu") -> torch.Tensor:
+    """Linear pixel ids in tile-major order: (tile_w x tile_h) screen
+    tiles in row-major tile order, row-major inside each tile."""
+    if width % tile_w or height % tile_h:
+        raise ValueError(f"{width}x{height} not divisible by "
+                         f"{tile_w}x{tile_h} tiles")
+    ids = np.arange(width * height, dtype=np.int32).reshape(
+        height // tile_h, tile_h, width // tile_w, tile_w)
+    return torch.as_tensor(ids.transpose(0, 2, 1, 3).reshape(-1).copy(),
+                           device=device)
+
+
+def inverse_permutation(perm: torch.Tensor) -> torch.Tensor:
+    """inv with inv[perm[j]] = j, int32."""
+    inv = torch.empty_like(perm, dtype=torch.int32)
+    inv[perm.long()] = torch.arange(perm.shape[0], dtype=torch.int32,
+                                    device=perm.device)
+    return inv

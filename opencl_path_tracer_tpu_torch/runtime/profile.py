@@ -1,13 +1,20 @@
-"""Where a sample's time goes on the card.
+"""Where a sample's (or a step's) time goes on the card.
 
 No counterpart module in `opencl_path_tracer_tpu` (its profiling helper,
-`utils/profiling.py`, wraps `jax.profiler`). Renders a few samples of a
-Cornell scene through `RenderEngine` under `torch.profiler` and prints
-one JSON line: wall time per sample, device busy time per sample and the
-busy share, device launches per sample, and the kernels that take the
-most device time. Needs a GPU:
+`utils/profiling.py`, wraps `jax.profiler`). Runs one of the port's three
+render paths on a Cornell scene under `torch.profiler` and prints one
+JSON line: wall time, device busy time and the busy share, device
+launches and the kernels that take the most device time, per sample and
+per step. Needs a GPU:
 
     python -m opencl_path_tracer_tpu_torch.runtime.profile --scene cornell
+    python -m opencl_path_tracer_tpu_torch.runtime.profile --model wavefront \\
+        --scene cornell-analytic
+    python -m opencl_path_tracer_tpu_torch.runtime.profile --model fused
+
+--model megakernel and wavefront render --spp samples through
+`RenderEngine`; fused runs --steps steps of `models.pipeline`'s fast
+pipeline (triangles only: --scene cornell).
 """
 
 from __future__ import annotations
@@ -20,37 +27,80 @@ import time
 import torch
 
 
-def main(argv=None) -> int:
+def _workload(args, dev):
+    """(run(), samples, steps): run() does the profiled unit of work,
+    returning the samples per pixel and the steps it took."""
     from opencl_path_tracer_tpu_torch.cli import _build_scene
     from opencl_path_tracer_tpu_torch.config import CameraConfig, RenderConfig
+    from opencl_path_tracer_tpu_torch.ops import rng
     from opencl_path_tracer_tpu_torch.runtime.engine import RenderEngine
+
+    w, h = (int(x) for x in args.size.split("x"))
+    cam = CameraConfig(fov=60.0, yaw=0.0, pitch=0.0, shift=(0.0, 0.0, 0.0))
+    scene = _build_scene(args.scene, dev)
+    if args.model in ("megakernel", "wavefront"):
+        cfg = RenderConfig(width=w, height=h, iterations=args.iters,
+                           mode=args.mode, model=args.model, camera=cam)
+        eng = RenderEngine(scene, cfg, device=dev)
+        eng.render(1)  # warm-up: kernel build, allocator, first launches
+
+        def run():
+            steps0 = eng.steps_run
+            eng.render(args.spp)
+            return args.spp, (eng.steps_run - steps0
+                              if args.model == "wavefront" else None)
+        return run
+
+    from opencl_path_tracer_tpu_torch.models import pipeline
+    from opencl_path_tracer_tpu_torch.scene import library
+    camera = library.cornell_camera(w, h, device=dev)
+    state, step, _ = pipeline.make_fast_pipeline(
+        scene, camera, width=w, height=h, iterations=args.iters,
+        key=rng.key(1))
+    box = [state]
+    for _ in range(2):  # warm-up
+        box[0] = step(*box[0])
+
+    def run():
+        F, I, ctr = box[0]
+        s0 = int(I[0].sum())
+        for _ in range(args.steps):
+            F, I, ctr = step(F, I, ctr)
+        box[0] = (F, I, ctr)
+        return (int(I[0].sum()) - s0) / (w * h), args.steps
+    return run
+
+
+def main(argv=None) -> int:
     from opencl_path_tracer_tpu_torch.utils.device import resolve_device
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", default="megakernel",
+                    choices=("megakernel", "wavefront", "fused"))
     ap.add_argument("--scene", default="cornell")
     ap.add_argument("--size", default="1920x1080")
     ap.add_argument("--iters", type=int, default=5)
-    ap.add_argument("--spp", type=int, default=2)
+    ap.add_argument("--spp", type=int, default=2,
+                    help="samples per profiled run (megakernel, wavefront)")
+    ap.add_argument("--steps", type=int, default=16,
+                    help="steps per profiled run (fused)")
     ap.add_argument("--mode", default="fast")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
-    w, h = (int(x) for x in args.size.split("x"))
-    cfg = RenderConfig(width=w, height=h, iterations=args.iters,
-                       mode=args.mode,
-                       camera=CameraConfig(fov=60.0, yaw=0.0, pitch=0.0,
-                                           shift=(0.0, 0.0, 0.0)))
-    eng = RenderEngine(_build_scene(args.scene, dev), cfg, device=dev)
-    eng.render(1)  # warm-up: kernel build, allocator, first launches
+    run = _workload(args, dev)
     # The profiler slows the host; the busy share divides the profiled
     # device time by the wall time of an unprofiled run of equal length.
+    torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    eng.render(args.spp)
+    run()
+    torch.cuda.synchronize(dev)
     wall_plain = time.perf_counter() - t0
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        eng.render(args.spp)
+        samples, steps = run()
+        torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
     busy_us, launches = 0.0, 0
     by_name: dict[str, float] = collections.Counter()
@@ -60,18 +110,28 @@ def main(argv=None) -> int:
             busy_us += us
             launches += 1
             by_name[e.name] += us
-    top = [{"name": n[:80], "ms_per_sample": us / 1e3 / args.spp}
+
+    def per(x, n):
+        return x / n if n else None
+
+    top = [{"name": n[:80], "ms_per_sample": per(us / 1e3, samples),
+            "ms_per_step": per(us / 1e3, steps)}
            for n, us in by_name.most_common(8)]
     print(json.dumps({
-        "scene": args.scene, "size": args.size, "bounces": args.iters,
-        "mode": args.mode, "spp": args.spp,
+        "model": args.model, "scene": args.scene, "size": args.size,
+        "bounces": args.iters, "mode": args.mode,
+        "samples_per_pixel": samples, "steps": steps,
         "device": torch.cuda.get_device_name(dev),
-        "wall_ms_per_sample": wall_plain * 1e3 / args.spp,
-        "profiled_wall_ms_per_sample": wall * 1e3 / args.spp,
-        "device_busy_ms_per_sample": (busy_us / 1e3 / args.spp
+        "wall_ms_per_sample": per(wall_plain * 1e3, samples),
+        "wall_ms_per_step": per(wall_plain * 1e3, steps),
+        "profiled_wall_ms_per_sample": per(wall * 1e3, samples),
+        "device_busy_ms_per_sample": (per(busy_us / 1e3, samples)
                                       if launches else None),
+        "device_busy_ms_per_step": (per(busy_us / 1e3, steps)
+                                    if launches else None),
         "busy_share": (busy_us / 1e6 / wall_plain if launches else None),
-        "device_launches_per_sample": launches / args.spp,
+        "device_launches_per_sample": per(launches, samples),
+        "device_launches_per_step": per(launches, steps),
         "top_kernels": top,
     }))
     return 0

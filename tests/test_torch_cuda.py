@@ -61,6 +61,44 @@ def test_kernels_equal_plain_versions(cuda):
 
 
 @pytest.mark.cuda
+def test_second_slice_kernels_equal_plain_versions(cuda):
+    """One launch each of K4, K13a, K13b and K5 against its plain version
+    on the card (chip_smoke.py runs them at 1080p)."""
+    from opencl_path_tracer_tpu_torch.models import fused_step as fs
+    from opencl_path_tracer_tpu_torch.models import pipeline
+    from opencl_path_tracer_tpu_torch.ops import rng
+    scene = library.cornell_box(with_spheres=True, device=cuda)
+    cam = library.cornell_camera(128, 64, device=cuda)
+    (F, I, ctr), step, _ = pipeline.make_fast_pipeline(
+        scene, cam, width=128, height=64, iterations=3, key=rng.key(2))
+    F, I, ctr = step(F, I, ctr)
+    rays8 = F[3:11]
+    pack = k1.build_tri_pack(scene.tris)
+    trig, tric, _ = k2.build_plucker_packs(scene.tris)
+    counts = dict(_build.launches)
+    sl = rays8[:, 1024:3072]                  # a column slice, read in place
+    assert torch.equal(k1.dense_rows(sl, pack),
+                       torch.stack(k1.dense_plain(sl, pack)))
+    cand = k2.candidates(rays8, trig, tric)
+    assert torch.equal(cand, k2.candidates_plain(rays8, trig, tric))
+    rows = k2.refine(rays8, cand, pack)
+    assert torch.equal(rows, k2.refine_plain(rays8, cand, pack))
+    hr = step.hit_rows(F, ctr)
+    Fk, Ik = fs.fused_step(F, I, ctr, hr, step_table(scene, cam), rng.key(2), 3)
+    Fp, Ip = fs.step_plain(F, I, ctr, hr, step_table(scene, cam), rng.key(2),
+                           3)
+    assert torch.equal(Ik, Ip)
+    torch.testing.assert_close(Fk, Fp, rtol=1e-6, atol=1e-3, equal_nan=True)
+    for name in ("dense", "plucker_cand", "plucker_refine", "fused_step"):
+        assert _build.launches[name] > counts[name]
+
+
+def step_table(scene, cam):
+    from opencl_path_tracer_tpu_torch.models import fused_step as fs
+    return fs.fused_table(cam, scene.mats, 128, 64)
+
+
+@pytest.mark.cuda
 def test_no_fallback_when_the_loader_fails(cuda, monkeypatch):
     def broken(name):
         raise RuntimeError("kernel loader disabled by the test")
@@ -69,3 +107,5 @@ def test_no_fallback_when_the_loader_fails(cuda, monkeypatch):
     scene = library.cornell_box(with_spheres=False, device=cuda)
     with pytest.raises(RuntimeError, match="disabled"):
         k1.minarg(_rays8(64, 1, cuda), k1.build_tri_pack(scene.tris))
+    with pytest.raises(RuntimeError, match="disabled"):
+        k1.dense(_rays8(64, 1, cuda), k1.build_tri_pack(scene.tris))

@@ -80,9 +80,9 @@ def test_entry_points_refuse_cpu_without_asking(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("model", "wavefront"), ("nee", True), ("env_light", True),
+    ("env_map", "sunsky"), ("nee", True), ("env_light", True),
     ("dof_aperture", 5.0), ("devices", 2), ("smooth", True),
-    ("rr_start", 2), ("textured", True)])
+    ("nee_anyhit", False), ("textured", True)])
 def test_config_refuses_unported_fields(field, value):
     with pytest.raises(NotImplementedError, match=field):
         dataclasses.replace(_cfg(), **{field: value}).validate()
@@ -100,6 +100,48 @@ def test_config_validation_and_json_roundtrip():
     assert back == cfg
 
 
+def test_config_wavefront_and_roulette_checks():
+    _cfg(model="wavefront", rr_start=2, rr_pmin=0.1).validate()
+    with pytest.raises(ValueError, match="unknown model"):
+        _cfg(model="fused").validate()
+    with pytest.raises(ValueError, match="needs model='wavefront'"):
+        _cfg(rr_start=2).validate()
+    with pytest.raises(ValueError, match="rr_start"):
+        _cfg(model="wavefront", rr_start=0).validate()
+    with pytest.raises(ValueError, match="rr_pmin"):
+        _cfg(model="wavefront", rr_start=1, rr_pmin=0.0).validate()
+    cfg = _cfg(model="wavefront", rr_start=3, accel="pallas")
+    assert RenderConfig.from_json(cfg.to_json()) == cfg
+
+
+@pytest.mark.parametrize("mode", ["fast", "parity"])
+def test_engine_wavefront_model_on_cpu(mode):
+    """Every pixel gets exactly spp samples; rays are lanes x steps;
+    a second render call continues to the new target."""
+    eng = engine.RenderEngine(library.cornell_box(with_spheres=True,
+                                                  analytic_spheres=True),
+                              _cfg(model="wavefront", mode=mode),
+                              device="cpu")
+    eng.render(2)
+    assert int(eng.state.samples.min()) == int(eng.state.samples.max()) == 2
+    assert eng.rays_traced == eng.steps_run * 16 * 12
+    assert 2 <= eng.steps_run <= 2 * 3 + 16
+    eng.render(1)
+    assert int(eng.state.samples.min()) == int(eng.state.samples.max()) == 3
+    img = eng.image()
+    assert img.shape == (12, 16, 3) and np.isfinite(img).all()
+    assert 0.0 < img.mean() <= 1.0
+
+
+def test_cli_render_wavefront_with_roulette(tmp_path, capsys):
+    out = tmp_path / "w.png"
+    rc = cli.main(["render", "--scene", "cornell", "--size", "16x16", "--spp",
+                   "2", "--model", "wavefront", "--rr", "2", "--accel",
+                   "pallas", "--device", "cpu", "--out", str(out)])
+    assert rc == 0 and out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    assert "on cpu" in capsys.readouterr().err
+
+
 def test_accel_resolution():
     assert engine.resolve_accel("auto", 804, on_cuda=True) == "minarg"
     assert engine.resolve_accel("auto", 8192, on_cuda=False) == "minarg"
@@ -109,6 +151,7 @@ def test_accel_resolution():
         engine.resolve_accel("bruteforce", 10, on_cuda=True)
     assert engine.resolve_accel("bruteforce", 10, on_cuda=False) == \
         "bruteforce"
+    assert engine.resolve_accel("pallas", 10, on_cuda=True) == "pallas"
     with pytest.raises(NotImplementedError):
         engine.resolve_accel("tilecull", 10, on_cuda=True)
 

@@ -36,6 +36,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 W, H, BOUNCES, SPP, FUSED_STEPS = 1920, 1080, 5, 8, 64
+SLICE = 76_800   # lanes of the fused pipeline's exact slice at 1080p
 # H100 SXM data sheet, dense, at the full 700 W power limit.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
@@ -176,7 +177,7 @@ def check_kernels(torch, scenes, cam):
             compare("minarg", (t, g), k1.minarg_plain(rays8, pack), where)
             compare("refine1", k2.refine1(t, g, pack),
                     k2.refine1_plain(t, g, pack), where)
-            dense = k1.dense_rows(rays8, pack)
+            dense = k1.dense(rays8, pack)
             compare("dense", dense, k1.dense_plain(rays8, pack), where)
             cand = k2.candidates(rays8, trig, tric)
             compare("plucker_cand", cand,
@@ -184,6 +185,13 @@ def check_kernels(torch, scenes, cam):
             rows = k2.refine(rays8, cand, pack)
             compare("plucker_refine", rows,
                     k2.refine_plain(rays8, cand, pack), where)
+            # K4's hit-row form, written into a column slice of K13b's
+            # rows as the fused pipeline's exact slice does.
+            hk, hp = rows.clone(), rows.clone()
+            sl = slice(SLICE, 2 * SLICE)
+            k1.dense(rays8[:, sl], pack, out=hk[:, sl])
+            k1.dense_plain(rays8[:, sl], pack, out=hp[:, sl])
+            compare("dense", (hk,), (hp,), where + " (hit rows, in place)")
             ok = rows[5] == 0
             dt = torch.where(dense[0] < k1.BIG, dense[0],
                              torch.full_like(dense[0], -1.0))
@@ -241,12 +249,17 @@ def check_fused(torch, scene, cam, errs):
           f"{bit:.7f} bit-equal, max abs err {errs['fused_step']:.3g} "
           f"(rtol 1e-6; atol 1e-6, 1e-3 for ray_p and cur_color)")
     rays8 = F[fs._RAYP:fs._RAYP + 8]
-    sl = rays8[:, :F.shape[1] // step.n_slices]
-    trig, tric, tpad = k2.build_plucker_packs(scene.tris)
+    need(F.shape[1] // step.n_slices == SLICE,
+         f"the exact slice has {F.shape[1] // step.n_slices} lanes, not "
+         f"{SLICE}")
+    sl = slice(0, SLICE)
+    trig, tric, _ = k2.build_plucker_packs(scene.tris)
     pack = k1.build_tri_pack(scene.tris)
     cand = k2.candidates(rays8, trig, tric)
+    h = hrows.clone()
     torch.cuda.synchronize()
-    return {"dense": (sl, pack), "plucker_cand": (rays8, trig, tric),
+    return {"dense": (rays8[:, sl], pack, h[:, sl]),
+            "plucker_cand": (rays8, trig, tric, scene.tris.count),
             "plucker_refine": (rays8, cand, pack),
             "fused_step": (F, I, ctr, hrows, table, key)}
 
@@ -342,9 +355,9 @@ def main_path(torch, np, scenes, cam):
              and img.mean() > 0.0, f"{name}: bad image")
         report(name, dt, eng.rays_traced, SPP, counts)
 
-    # render_fast times the steps after its two warm-up steps; the run's
-    # samples/s scales the final spp by that share of the steps.
-    (st, secs), _, counts = run_path(
+    # render_fast times the steps after its two warm-up steps and counts
+    # the samples finished in them.
+    (st, secs, timed), _, counts = run_path(
         torch, "fused cornell", lambda: pipeline.render_fast(
             scenes["cornell"], cam, width=W, height=H, iterations=BOUNCES,
             steps=FUSED_STEPS, key=rng.key(1), device="cuda"))
@@ -359,10 +372,12 @@ def main_path(torch, np, scenes, cam):
          f"fused cornell: bad state (finite colors "
          f"{bool(torch.isfinite(cols).all())}, mean {float(cols.mean())}, "
          f"{spp} spp, {done} of the lanes with a sample)")
-    print(f"fused cornell: min samples {int(st.samples.min())}, "
+    print(f"fused cornell: {spp:.4f} spp after all {FUSED_STEPS + 2} steps, "
+          f"{timed / (W * H):.4f} of them in the {FUSED_STEPS} timed steps; "
+          f"min samples {int(st.samples.min())}, "
           f"{int((st.samples == 0).sum())} lanes without a finished sample")
-    report("fused cornell", secs, st.lanes * FUSED_STEPS,
-           spp * FUSED_STEPS / (FUSED_STEPS + 2), counts)
+    report("fused cornell", secs, st.lanes * FUSED_STEPS, timed / (W * H),
+           counts)
     return total
 
 
@@ -425,21 +440,24 @@ def measure(torch, inputs, errs, launches):
                  24 * rs + 32 * s + 20 * rs))
     # K4 on the pipeline's exact slice: K1's operations plus the
     # attribute fetch; 24 bytes of rays in and 24 out per ray.
-    sl, dpack = inputs["dense"]
+    sl, dpack, hout = inputs["dense"]
     rl = sl.shape[1]
-    rows.append(("dense", lambda: k1.dense_rows(sl, dpack),
-                 lambda: k1.dense_plain(sl, dpack),
+    rows.append(("dense", lambda: k1.dense(sl, dpack, out=hout),
+                 lambda: k1.dense_plain(sl, dpack, out=hout),
                  minarg_ops(torch, sl, dpack), 0,
                  24 * rl + 64 * dpack.shape[0] + 24 * rl))
     # K13a: the E products (3 x 18 multiply-adds per pair) at the bf16
     # tensor-core rate; the float32 tail (the plane t: 12, the six
     # loosened sign tests and the t > 0 test: 7) at the float32 rate.
-    rays8c, trig, tric = inputs["plucker_cand"]
-    rc, tp = rays8c.shape[1], tric.shape[0]
+    # Pairs and pack bytes count the scene's triangles, not the zero rows
+    # that pad the packs to whole chunks (they never accept).
+    rays8c, trig, tric, tp = inputs["plucker_cand"]
+    rc = rays8c.shape[1]
     rows.append(("plucker_cand", lambda: k2.candidates(rays8c, trig, tric),
                  lambda: k2.candidates_plain(rays8c, trig, tric),
                  19 * rc * tp, 2 * 54 * rc * tp,
-                 24 * rc + trig.numel() * 2 + tric.numel() * 4 + 16 * rc))
+                 24 * rc + tp * (3 * trig.shape[1] * 2 + tric.shape[1] * 4)
+                 + 16 * rc))
     # K13b: the ray, the candidates and six rows out per ray; the table
     # its two gathered rows come from is an input read once (it stays in
     # L2: counting 2 x 68 bytes per ray put the bound above the measured

@@ -59,8 +59,9 @@ struct Nearest {
   int g;
 };
 
-// Every thread of the block calls this (it synchronises); `live` masks
-// the ray of a thread past the end. `tile` holds kTile * 4 float4s.
+// Every thread of a kBlock-thread block calls this (it synchronises);
+// `live` masks the ray of a thread past the end. `tile` holds kTile * 4
+// float4s.
 __device__ __forceinline__ Nearest nearest_triangle(
     float4* tile, const float4* __restrict__ tri, int n_tris, bool live,
     float px, float py, float pz, float dx, float dy, float dz) {
@@ -68,7 +69,7 @@ __device__ __forceinline__ Nearest nearest_triangle(
   for (int base = 0; base < n_tris; base += kTile) {
     const int n = min(kTile, n_tris - base);
     __syncthreads();
-    for (int k = threadIdx.x; k < 4 * n; k += blockDim.x) {
+    for (int k = threadIdx.x; k < 4 * n; k += kBlock) {
       // A pack row is 6 float4s; the first four hold the constants.
       tile[k] = tri[(size_t)(base + (k >> 2)) * (kTriCols / 4) + (k & 3)];
     }

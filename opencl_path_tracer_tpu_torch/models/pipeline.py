@@ -27,7 +27,7 @@ from opencl_path_tracer_tpu_torch.models import fused_step as fs
 from opencl_path_tracer_tpu_torch.models import wavefront
 from opencl_path_tracer_tpu_torch.ops import raygen
 from opencl_path_tracer_tpu_torch.ops.kernels.intersect_kernel import (
-    BIG, build_tri_pack, dense_rows,
+    build_tri_pack, dense,
 )
 from opencl_path_tracer_tpu_torch.ops.kernels.plucker_kernel import (
     make_plucker_intersect,
@@ -47,7 +47,8 @@ def make_fast_pipeline(scene, cam, *, width: int, height: int,
     tr; the pad lanes render extra samples of pixel 0. The exact slice is
     a whole number of tr-lane blocks: n_slices becomes the largest divisor
     of the block count not above the request (1080p at tr = 1024: 2,025
-    blocks, 25 slices of 82,944 lanes)."""
+    blocks, 27 slices of 76,800 lanes; the JAX comment at pipeline.py:91
+    says 25, but 27 divides 2,025)."""
     if getattr(scene, "spheres", None) is not None:
         raise ValueError(
             "the fused pipeline intersects triangles only; analytic-sphere "
@@ -82,10 +83,8 @@ def make_fast_pipeline(scene, cam, *, width: int, height: int,
         rays8 = F[fs._RAYP:fs._RAYP + 8]
         h = plucker.rows(rays8)
         s = (ctr % n_slices) * sl_len
-        d = dense_rows(rays8[:, s:s + sl_len], tri_pack)
-        h[0, s:s + sl_len] = torch.where(d[0] < BIG, d[0], -1.0)
-        h[1:5, s:s + sl_len] = d[2:6]
-        h[5, s:s + sl_len] = 0.0
+        # K4 writes the slice's exact rows (pending cleared) into h.
+        dense(rays8[:, s:s + sl_len], tri_pack, out=h[:, s:s + sl_len])
         return h
 
     def step(F, I, ctr: int):
@@ -105,8 +104,11 @@ def render_fast(scene, cam, *, width: int, height: int, iterations: int,
                 steps: int, key, lanes: int = 1, device=None):
     """Two warm-up steps, then `steps` timed steps ending in a
     synchronise, on `device` (CUDA unless "cpu" is asked for; scene and
-    cam must live there). Returns (WavefrontState, seconds); the state has
-    taken steps + 2 steps."""
+    cam must live there). Returns (WavefrontState, seconds, samples): the
+    state has taken steps + 2 steps, and `samples` is the number of
+    samples the lanes finished in the timed steps (read before and after
+    them, outside the timing). The JAX `render_fast` returns the first
+    two only."""
     dev = resolve_device(device)
     if cam.eye.device.type != dev.type or scene.tris.device.type != dev.type:
         raise ValueError(f"scene and cam must be on {dev}")
@@ -115,11 +117,11 @@ def render_fast(scene, cam, *, width: int, height: int, iterations: int,
         key=key, lanes=lanes)
     for _ in range(2):
         F, I, ctr = step(F, I, ctr)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    warm = int(I[fs._SAMP].sum())          # synchronises
     t0 = time.perf_counter()
     for _ in range(steps):
         F, I, ctr = step(F, I, ctr)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    return unpack(F, I, ctr), time.perf_counter() - t0
+    secs = time.perf_counter() - t0
+    return unpack(F, I, ctr), secs, int(I[fs._SAMP].sum()) - warm

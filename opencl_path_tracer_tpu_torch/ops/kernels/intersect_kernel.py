@@ -108,41 +108,55 @@ def minarg(rays8: torch.Tensor, tri_pack: torch.Tensor):
     return t, g
 
 
-def dense_plain(rays8: torch.Tensor, tri_pack: torch.Tensor):
+def dense_plain(rays8: torch.Tensor, tri_pack: torch.Tensor,
+                out: torch.Tensor | None = None):
     """Plain PyTorch version of K4: (t, index, nx, ny, nz, mati), six (R,)
     float32 tensors. t is BIG on a miss, and a miss keeps index 0 with
     row 0's attributes (the TPU kernel's latch); attributes are `+ 0.0`,
-    as the TPU's one-hot sum turns -0.0 into +0.0."""
+    as the TPU's one-hot sum turns -0.0 into +0.0. Given `out`, writes
+    the hit rows [t (-1 on a miss), nx, ny, nz, mati, 0] there instead
+    and returns it."""
     t, g = minarg_plain(rays8, tri_pack)
     rows = tri_pack[g.long()]
-    return (t, g, rows[:, 0] + 0.0, rows[:, 1] + 0.0, rows[:, 2] + 0.0,
-            rows[:, 16] + 0.0)
+    attrs = (rows[:, 0] + 0.0, rows[:, 1] + 0.0, rows[:, 2] + 0.0,
+             rows[:, 16] + 0.0)
+    if out is None:
+        return (t, g) + attrs
+    out[0] = torch.where(t < BIG, t, torch.full_like(t, -1.0))
+    out[1:5] = torch.stack(attrs)
+    out[5] = 0.0
+    return out
 
 
-def dense_rows(rays8: torch.Tensor, tri_pack: torch.Tensor) -> torch.Tensor:
-    """K4 as one (6, R) tensor [t, index, nx, ny, nz, mati]. rays8 is an
-    (8, R) ray pack whose rows need only be contiguous each (a column
-    slice of a wider pack is read in place). CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+def dense(rays8: torch.Tensor, tri_pack: torch.Tensor,
+          out: torch.Tensor | None = None):
+    """K4 for each ray of the (8, R) pack against the (T, 24) triangle
+    pack: (t, index, nx, ny, nz, mati), six (R,) float32 tensors. Given
+    `out`, a (6, R) float32 tensor, it writes the fused pipeline's hit rows
+    [t (-1 on a miss), nx, ny, nz, mati, 0] there instead and returns it.
+    The rows of rays8 and of out need only be contiguous each, so column
+    slices of wider tensors are read and written in place. CPU tensors
+    take the plain version; CUDA tensors launch the kernel or raise."""
     _build.check_rows(rays8, "rays8", 8)
     _build.check(tri_pack, "tri_pack", (None, TRI_COLS))
-    if rays8.device != tri_pack.device:
-        raise ValueError("rays8 and tri_pack must be on one device")
+    r = rays8.shape[1]
+    if out is not None:
+        _build.check_rows(out, "out", 6)
+        if out.shape[1] != r:
+            raise ValueError(f"out has {out.shape[1]} columns, rays8 {r}")
+    if not all(x.device == rays8.device for x in (tri_pack, out)
+               if x is not None):
+        raise ValueError("rays8, tri_pack and out must be on one device")
     if not 0 < tri_pack.shape[0] < 1 << 24:
         raise ValueError("dense needs 1 to 2^24 - 1 triangles (the winner "
                          "index travels as an exact float32)")
     if rays8.device.type == "cpu":
-        return torch.stack(dense_plain(rays8, tri_pack))
-    r = rays8.shape[1]
-    out = torch.empty((6, r), dtype=torch.float32, device=rays8.device)
-    _build.launch("dense", rays8, rays8.stride(0), tri_pack, out, r,
-                  tri_pack.shape[0])
-    return out
-
-
-def dense(rays8: torch.Tensor, tri_pack: torch.Tensor):
-    """K4: (t, i, nx, ny, nz, m), six (R,) float32 tensors per ray."""
-    return tuple(dense_rows(rays8, tri_pack))
+        return dense_plain(rays8, tri_pack, out)
+    rows = out if out is not None else torch.empty(
+        (6, r), dtype=torch.float32, device=rays8.device)
+    _build.launch("dense", rays8, rays8.stride(0), tri_pack, rows,
+                  rows.stride(0), int(out is not None), r, tri_pack.shape[0])
+    return out if out is not None else tuple(rows)
 
 
 def assemble_hits(rays: Rays, r: int, t_, nx, ny, nz, m) -> Hits:

@@ -1,0 +1,112 @@
+"""K1 (minarg) built from two source trees and timed in one process.
+
+No counterpart in `opencl_path_tracer_tpu`. Compares the K1 kernel of
+this checkout with the K1 kernel of another checkout's `csrc/` (its C
+interface must be the same), on the 1080p camera rays of the Cornell box
+with its 804 triangles, the inputs `chip_smoke.py` times K1 on. Both
+builds use `_build`'s nvcc flags, run as base, this, this, base (each the
+mean of --reps launches timed with CUDA events), must give equal outputs,
+and one JSON line reports the four times. Needs a GPU:
+
+    python -m opencl_path_tracer_tpu_torch.runtime.minarg_ab --base DIR
+
+where DIR is, for example, the `opencl_path_tracer_tpu_torch/csrc` of a
+`git archive` of the parent commit unpacked in a gitignored directory.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import pathlib
+import re
+import subprocess
+
+import torch
+
+
+def _compile(csrc: pathlib.Path, out: pathlib.Path):
+    from opencl_path_tracer_tpu_torch.ops.kernels import _build
+    return subprocess.Popen(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o",
+         str(out), str(csrc / "minarg.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def main(argv=None) -> int:
+    from opencl_path_tracer_tpu_torch.ops import raygen, rng
+    from opencl_path_tracer_tpu_torch.ops.kernels import _build
+    from opencl_path_tracer_tpu_torch.ops.kernels import intersect_kernel as k1
+    from opencl_path_tracer_tpu_torch.scene import library
+    from opencl_path_tracer_tpu_torch.utils.device import resolve_device
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--base", required=True, type=pathlib.Path,
+                    help="the csrc/ directory of the checkout to compare")
+    ap.add_argument("--reps", type=int, default=50)
+    args = ap.parse_args(argv)
+    dev = resolve_device("cuda")
+    out_dir = _build.BUILD_DIR / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    srcs = {"base": args.base.resolve(), "this": _build.CSRC}
+    procs = {k: _compile(d, out_dir / f"libminarg_{k}.so")
+             for k, d in srcs.items()}
+    fns, regs = {}, {}
+    for k, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {k}:\n{log}")
+        fn = ctypes.CDLL(str(out_dir / f"libminarg_{k}.so")).ptx_minarg
+        fn.argtypes = _build.KERNELS["minarg"][2]
+        fn.restype = ctypes.c_int
+        fns[k] = fn
+        regs[k] = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+
+    w, h = 1920, 1080
+    scene = library.cornell_box(with_spheres=True, device=dev)
+    cam = library.cornell_camera(w, h, device=dev)
+    s1, r1 = rng.lehmer_step(rng.seed_pixel_streams(w * h, 1, device=dev))
+    _, r2 = rng.lehmer_step(s1)
+    rays = raygen.camera_rays(cam, raygen.pixel_ids(w, h, dev), r1, r2)
+    rays8 = k1.pack_rays(rays.p, rays.d).contiguous()
+    pack = k1.build_tri_pack(scene.tris)
+    n = rays8.shape[1]
+    outs = {k: (torch.empty(n, device=dev), torch.empty(n, device=dev))
+            for k in fns}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch(k):
+        t, g = outs[k]
+        err = fns[k](rays8.data_ptr(), pack.data_ptr(), t.data_ptr(),
+                     g.data_ptr(), n, pack.shape[0], stream)
+        if err:
+            raise RuntimeError(f"minarg ({k}) failed: cudaError_t {err}")
+
+    def time_ms(k):
+        launch(k)
+        torch.cuda.synchronize(dev)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(args.reps):
+            launch(k)
+        e1.record()
+        torch.cuda.synchronize(dev)
+        return e0.elapsed_time(e1) / args.reps
+
+    order = ("base", "this", "this", "base")
+    times = [time_ms(k) for k in order]
+    equal = all(torch.equal(a, b) for a, b in zip(outs["base"], outs["this"]))
+    print(json.dumps({
+        "kernel": "minarg", "rays": n, "triangles": pack.shape[0],
+        "reps": args.reps, "device": torch.cuda.get_device_name(dev),
+        "order": list(order), "ms": times, "registers": regs,
+        "base_ms": (times[0] + times[3]) / 2,
+        "this_ms": (times[1] + times[2]) / 2, "outputs_equal": equal,
+    }))
+    return 0 if equal else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -77,8 +77,13 @@ def test_second_slice_kernels_equal_plain_versions(cuda):
     trig, tric, _ = k2.build_plucker_packs(scene.tris)
     counts = dict(_build.launches)
     sl = rays8[:, 1024:3072]                  # a column slice, read in place
-    assert torch.equal(k1.dense_rows(sl, pack),
+    assert torch.equal(torch.stack(k1.dense(sl, pack)),
                        torch.stack(k1.dense_plain(sl, pack)))
+    h, hp = (torch.full((6, rays8.shape[1]), 7.0, device=cuda)
+             for _ in range(2))
+    k1.dense(sl, pack, out=h[:, 1024:3072])   # written in place
+    k1.dense_plain(sl, pack, out=hp[:, 1024:3072])
+    assert torch.equal(h, hp)
     cand = k2.candidates(rays8, trig, tric)
     assert torch.equal(cand, k2.candidates_plain(rays8, trig, tric))
     rows = k2.refine(rays8, cand, pack)

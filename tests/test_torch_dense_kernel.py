@@ -115,7 +115,29 @@ def test_pallas_first_intersect_and_column_slice():
     view = wide[:, 20:20 + p8.shape[1]]
     assert not view.is_contiguous()
     pack = k.build_tri_pack(ptris)
-    assert torch.equal(k.dense_rows(view, pack), k.dense_rows(p8, pack))
+    assert torch.equal(torch.stack(k.dense(view, pack)),
+                       torch.stack(k.dense(p8, pack)))
+
+
+def test_dense_hit_rows_written_into_a_column_slice():
+    """With `out`, K4 writes the fused pipeline's hit rows [t (-1 on a
+    miss), nx, ny, nz, mati, 0] into a column slice and leaves the other
+    columns alone (JAX pipeline.py:99-128 merges them the same way)."""
+    jtris, ptris, p, d = _case("t700")
+    j8, p8 = rays8_both(p, d, 128)
+    r = p.shape[0]
+    jpack = jk.build_tri_pack(jtris, 1024)
+    jout = [np.asarray(o)[:r] for o in jk._run(
+        j8, jpack, 128, min(1024, jpack.shape[0]), True, 256)]
+    h = torch.full((6, r + 40), 7.0)
+    got = k.dense(p8, k.build_tri_pack(ptris), out=h[:, 20:20 + r])
+    assert got.data_ptr() == h[:, 20:].data_ptr()
+    want = np.stack([np.where(jout[0] < k.BIG, jout[0], -1.0), *jout[2:6],
+                     np.zeros(r, np.float32)]).astype(np.float32)
+    np.testing.assert_array_equal(h[:, 20:20 + r].numpy().view(np.int32),
+                                  want.view(np.int32))
+    assert (h[:, :20] == 7.0).all() and (h[:, 20 + r:] == 7.0).all()
+    assert (h[0, 20:20 + r] == -1.0).any() and (h[0, 20:20 + r] > 0).any()
 
 
 def _jrays(p, d):
@@ -154,3 +176,7 @@ def test_dense_wrapper_checks_and_cpu_counts_no_launch():
         k.dense(torch.zeros((10, 8)).t(), pack)        # rows not contiguous
     with pytest.raises(ValueError):
         k.dense(torch.zeros((8, 10)), pack[:0])
+    with pytest.raises(ValueError):
+        k.dense(torch.zeros((8, 10)), pack, out=torch.zeros((6, 9)))
+    with pytest.raises(ValueError):
+        k.dense(torch.zeros((8, 10)), pack, out=torch.zeros((5, 10)))

@@ -76,23 +76,27 @@ def test_pipeline_steps_match_jax():
         assert_packs_close(F2, I2, jF, jI, f"step {s}: ")
     st = unpack(F2, I2, ctr2)
     assert st.step == 7 and int(st.samples.sum()) > 0
-    # Pending is the rare escape hatch: under 2 % of lane-steps here
-    # (the eps band is fixed in world units, so coarse pixels graze more).
+    # Pending is the rare escape hatch: under 2 % of lane-steps here.
     assert pending < 6 * W * H // 50
 
 
 def test_render_fast_bookkeeping_and_refusals():
     scene = library.cornell_box(with_spheres=False)
     cam = library.cornell_camera(16, 16)
-    st, secs = pipeline.render_fast(scene, cam, width=16, height=16,
-                                    iterations=2, steps=4, key=rng.key(3),
-                                    device="cpu")
+    st, secs, timed = pipeline.render_fast(
+        scene, cam, width=16, height=16, iterations=2, steps=4,
+        key=rng.key(3), device="cpu")
     (F, I, ctr), step, unpack = pipeline.make_fast_pipeline(
         scene, cam, width=16, height=16, iterations=2, key=rng.key(3))
-    for _ in range(6):                         # 2 warm-up + 4 timed steps
+    for k in range(6):                         # 2 warm-up + 4 timed steps
+        if k == 2:
+            warm = int(unpack(F, I, ctr).samples.sum())
         F, I, ctr = step(F, I, ctr)
     ref = unpack(F, I, ctr)
     assert st.step == ref.step == 7 and secs > 0
+    # The samples finished in the timed steps, counted, not scaled.
+    assert timed == int(ref.samples.sum()) - warm
+    assert 0 < timed <= 4 * st.lanes
     assert torch.equal(st.samples, ref.samples)
     assert all(torch.equal(a, b) for a, b in zip(st.colors, ref.colors))
     # A path of 2 bounces finishes a sample in 1 or 2 steps.

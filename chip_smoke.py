@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the port's seven CUDA kernels from
+It builds the port's ten CUDA kernels from
 `opencl_path_tracer_tpu_torch/csrc/`, holds each against its plain
 PyTorch version at 1080p ray and lane counts, renders the three goldens
 of `tests/golden/` through the kernels, and drives the main paths at
@@ -17,7 +17,12 @@ and read just after:
   * the wavefront model (`RenderEngine` with model='wavefront') on the
     analytic Cornell box, 8 spp;
   * the fused fast pipeline (`models.pipeline.render_fast`) on the
-    Cornell box, 64 steps.
+    Cornell box, 64 steps;
+  * next-event estimation (nee=True, shadow rays through the any-hit
+    kernel): the megakernel on the Cornell box, the wavefront model on
+    the sphere-lamp box, and the wavefront model with the 'distance'
+    select on the many-light scene (64 lamps, 66 spheres), 8 spp each;
+  * the megakernel with accel='tilecull' on the Cornell box, 8 spp.
 
 The last two lines are a JSON object per kernel (time, plain time,
 bound, launches) and the verdict. Any failed phase raises, and the
@@ -63,6 +68,12 @@ KERNEL_META = {
                        ":292"),
     "fused_step": ("opencl_path_tracer_tpu_torch/csrc/fused_step.cu",
                    "opencl_path_tracer_tpu/models/fused_step.py:147"),
+    "anyhit": ("opencl_path_tracer_tpu_torch/csrc/anyhit.cu",
+               "opencl_path_tracer_tpu/ops/pallas/tilecull_kernel.py:449"),
+    "tilecull": ("opencl_path_tracer_tpu_torch/csrc/tilecull.cu",
+                 "opencl_path_tracer_tpu/ops/pallas/tilecull_kernel.py:179"),
+    "sphere_table": ("opencl_path_tracer_tpu_torch/csrc/sphere_table.cu",
+                     "opencl_path_tracer_tpu/ops/pallas/sphere_kernel.py:142"),
 }
 # Every kernel of each main path must launch in that path's run.
 PATH_KERNELS = {
@@ -71,6 +82,12 @@ PATH_KERNELS = {
     "wavefront cornell-analytic": ("minarg", "refine1", "spheres"),
     "fused cornell": ("plucker_cand", "plucker_refine", "dense",
                       "fused_step"),
+    "megakernel cornell nee": ("minarg", "refine1", "anyhit"),
+    "wavefront cornell-sphere-lamp nee": ("minarg", "refine1", "spheres",
+                                          "anyhit"),
+    "wavefront many-lights nee-distance": ("minarg", "refine1",
+                                           "sphere_table", "anyhit"),
+    "megakernel cornell tilecull": ("tilecull", "refine1"),
 }
 
 
@@ -210,7 +227,7 @@ def check_kernels(torch, scenes, cam):
             if rname == "camera":
                 inputs.setdefault("minarg", (rays8, pack))
                 inputs.setdefault("refine1", (t, g, pack))
-    return inputs, errs
+    return inputs, errs, cam_rays
 
 
 def check_fused(torch, scene, cam, errs):
@@ -264,6 +281,98 @@ def check_fused(torch, scene, cam, errs):
             "fused_step": (F, I, ctr, hrows, table, key)}
 
 
+def nee_shadow_rays(torch, scene, cam, rays, isect):
+    """The shadow rays (and their rmax = dist (1 - 1e-3)) that NEE traces
+    at the first hits of `rays`, one per lane, captured from
+    `ops.nee.direct_light` itself."""
+    from opencl_path_tracer_tpu_torch.core.types import vdot, vneg, vwhere
+    from opencl_path_tracer_tpu_torch.models import megakernel
+    from opencl_path_tracer_tpu_torch.ops import nee, rng
+    n = rays.count
+    hit, mat = megakernel.fetch_material(scene.mats, isect, rays)
+    n_vec = vwhere(vdot(rays.d, hit.n) > 0.0, vneg(hit.n), hit.n)
+    table = nee.build_emitter_table(scene.tris, scene.mats, scene.spheres)
+    u = rng.fast_uniforms(rng.key(7), 0, 10_000, n, 3, device=rays.device)
+    ones = tuple(torch.ones(n, device=rays.device) for _ in range(3))
+    got = {}
+
+    def capture(shadow, rmax):
+        got["rays"], got["rmax"] = shadow, rmax
+        return torch.zeros_like(rmax, dtype=torch.bool)
+
+    nee.direct_light(table, intersect_fn=None, cam_eye=cam.eye, hit_p=hit.p,
+                     n_vec=n_vec, mat=mat, f_l=ones, f_b=ones, f_s=ones,
+                     f_r=ones, is_diff=hit.valid & (mat.type == 0), u1=u[0],
+                     u2=u[1], u3=u[2], occluded_fn=capture)
+    return got["rays"], got["rmax"].contiguous()
+
+
+def check_slice3(torch, scenes, cam, cam_rays, errs):
+    """K7 on the first-bounce NEE shadow rays of 1080p cornell (against its
+    plain version, and equal to (K4 t valid and t < rmax)); K6 on the
+    camera and first-bounce rays of cornell (against its plain version,
+    and its t equal to K1's); K3b on the camera rays of the many-light
+    scene. Returns the inputs at which they are timed."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import (
+        intersect_kernel as k1, sphere_kernel as k3, tilecull_kernel as tk)
+    from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
+    scene = scenes["cornell"]
+    eye = tuple(float(v) for v in cam.eye.cpu())
+    isect = make_intersect_fn(scene, "auto")
+    pack, groups, _, _ = tk.grouped_pack(scene.tris, 128)
+    shadow, rmax = nee_shadow_rays(torch, scene, cam, cam_rays, isect)
+    s8 = k1.pack_rays(shadow.p, shadow.d).contiguous()
+    occ = tk.anyhit(s8, rmax, pack, groups)
+    plain = tk.anyhit_plain(s8, rmax, pack, groups)
+    torch.cuda.synchronize()
+    errs["anyhit"] = float((occ != plain).any())
+    need(torch.equal(occ, plain), "anyhit differs from its plain version on "
+         "the cornell first-bounce shadow rays")
+    t4 = k1.dense(s8, k1.build_tri_pack(scene.tris))[0]
+    need(torch.equal(occ, (t4 < k1.BIG) & (t4 < rmax)),
+         "anyhit differs from (K4 t valid and t < rmax)")
+    print(f"anyhit on {s8.shape[1]} cornell first-bounce NEE shadow rays: "
+          f"{int(occ.sum())} occluded; equal to its plain version and to "
+          f"(K4 t valid and t < rmax) (torch.equal)")
+    inputs = {"anyhit": (s8, rmax, pack, groups)}
+    cpack, cgroups, _, _ = tk.grouped_pack(scene.tris, 128, origin=eye)
+    minarg_pack = k1.build_tri_pack(scene.tris)
+    for rname, rays in (("camera", cam_rays),
+                        ("bounce", bounce_rays(torch, scene, cam, cam_rays,
+                                               isect))):
+        r8 = k1.pack_rays(rays.p, rays.d).contiguous()
+        t, g = tk.tilecull(r8, cpack, cgroups)
+        tp, gp = tk.tilecull_plain(r8, cpack, cgroups)
+        torch.cuda.synchronize()
+        errs["tilecull"] = max(errs["tilecull"], float((t - tp).abs().max()),
+                               float((g - gp).abs().max()))
+        need(torch.equal(t, tp) and torch.equal(g, gp),
+             f"tilecull differs from its plain version on cornell {rname} "
+             "rays")
+        need(torch.equal(t, k1.minarg(r8, minarg_pack)[0]),
+             f"tilecull t differs from minarg t on cornell {rname} rays")
+        print(f"tilecull on {r8.shape[1]} cornell {rname} rays: "
+              f"{int((t < k1.BIG).sum())} hits; equal to its plain version, "
+              "t equal to minarg's (torch.equal)")
+        inputs.setdefault("tilecull", (r8, cpack, cgroups))
+    many = scenes["many-lights"]
+    table = k3.build_sphere_table(many.spheres)
+    r8 = k1.pack_rays(cam_rays.p, cam_rays.d).contiguous()
+    so = k3.sphere_table(r8, table)
+    sp = k3.sphere_table_plain(r8, table)
+    torch.cuda.synchronize()
+    errs["sphere_table"] = max(float((a - b).abs().max())
+                               for a, b in zip(so, sp))
+    need(all(torch.equal(a, b) for a, b in zip(so, sp)),
+         "sphere_table differs from its plain version on many-lights camera "
+         "rays")
+    print(f"sphere_table on {r8.shape[1]} many-lights camera rays "
+          f"({table.shape[0]} spheres): {int((so[0] > 0).sum())} hits; equal "
+          "to its plain version (torch.equal)")
+    inputs["sphere_table"] = (r8, table)
+    return inputs
+
+
 def check_goldens(torch, np):
     from opencl_path_tracer_tpu_torch.models import megakernel
     from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
@@ -284,12 +393,24 @@ def check_goldens(torch, np):
         need(ok, f"golden {fname} does not match through the kernels")
 
 
-def check_no_fallback(torch, scene):
-    """With the kernel loader broken, a CUDA call must raise (K1 and K4)."""
+def check_no_fallback(torch, scenes):
+    """With the kernel loader broken, a CUDA call must raise (K1, K4, K7,
+    K6 and K3b)."""
     from opencl_path_tracer_tpu_torch.ops.kernels import _build
-    from opencl_path_tracer_tpu_torch.ops.kernels import intersect_kernel
-    pack = intersect_kernel.build_tri_pack(scene.tris)
+    from opencl_path_tracer_tpu_torch.ops.kernels import (
+        intersect_kernel as k1, sphere_kernel as k3, tilecull_kernel as tk)
+    pack = k1.build_tri_pack(scenes["cornell"].tris)
+    gpack, groups, _, _ = tk.grouped_pack(scenes["cornell"].tris, 128)
+    table = k3.build_sphere_table(scenes["many-lights"].spheres)
     rays8 = torch.zeros((8, 64), device="cuda")
+    calls = {
+        "minarg": lambda: k1.minarg(rays8, pack),
+        "dense": lambda: k1.dense(rays8, pack),
+        "anyhit": lambda: tk.anyhit(rays8, torch.ones(64, device="cuda"),
+                                    gpack, groups),
+        "tilecull": lambda: tk.tilecull(rays8, gpack, groups),
+        "sphere_table": lambda: k3.sphere_table(rays8, table),
+    }
     real = _build.library
 
     def broken(name):
@@ -297,16 +418,16 @@ def check_no_fallback(torch, scene):
 
     _build.library = broken
     try:
-        for fn in (intersect_kernel.minarg, intersect_kernel.dense):
+        for name, fn in calls.items():
             try:
-                fn(rays8, pack)
+                fn()
             except RuntimeError:
                 continue
-            raise SmokeError(f"{fn.__name__} ran on CUDA with its kernel "
-                             "loader broken")
+            raise SmokeError(f"{name} ran on CUDA with its kernel loader "
+                             "broken")
     finally:
         _build.library = real
-    print("no fallback: with the loader broken, minarg and dense raise")
+    print(f"no fallback: with the loader broken, {', '.join(calls)} raise")
 
 
 def run_path(torch, name, fn):
@@ -344,10 +465,21 @@ def main_path(torch, np, scenes, cam):
               f"in {dt:.3f} s: {rays / dt / 1e6:.1f} Mrays/s, "
               f"{spp / dt:.2f} samples/s; launches {counts}")
 
-    engines = [(f"megakernel {n}", RenderEngine(s, cfg(), device="cuda"))
-               for n, s in scenes.items()]
+    engines = [(f"megakernel {n}", RenderEngine(scenes[n], cfg(),
+                                                device="cuda"))
+               for n in ("cornell", "cornell-analytic")]
     engines.append(("wavefront cornell-analytic", RenderEngine(
         scenes["cornell-analytic"], cfg(model="wavefront"), device="cuda")))
+    engines.append(("megakernel cornell nee", RenderEngine(
+        scenes["cornell"], cfg(nee=True), device="cuda")))
+    engines.append(("wavefront cornell-sphere-lamp nee", RenderEngine(
+        scenes["cornell-sphere-lamp"], cfg(model="wavefront", nee=True),
+        device="cuda")))
+    engines.append(("wavefront many-lights nee-distance", RenderEngine(
+        scenes["many-lights"], cfg(model="wavefront", nee=True,
+                                   nee_select="distance"), device="cuda")))
+    engines.append(("megakernel cornell tilecull", RenderEngine(
+        scenes["cornell"], cfg(accel="tilecull"), device="cuda")))
     for name, eng in engines:
         _, dt, counts = run_path(torch, name, lambda: eng.render(SPP))
         img = eng.image()
@@ -394,32 +526,62 @@ def time_ms(torch, fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
+def edges_reached(pack, p, d, mask=None):
+    """Edge tests K1's exact test reaches for the rays (p, d: rows of an
+    (8, R) pack) against the rows of `pack`: t > 0, then each edge that
+    passed; only for the rays in mask (None: all)."""
+    c = pack[:, :16, None]
+
+    def dot(b, v):
+        return c[:, b] * v[0] + c[:, b + 1] * v[1] + c[:, b + 2] * v[2]
+
+    t = (c[:, 3] - dot(0, p)) / dot(0, d)
+    ok = t > 0.0 if mask is None else (t > 0.0) & mask
+    reached = 0
+    for b in (4, 8, 12):
+        reached += int(ok.sum())
+        ok = ok & (dot(b, p) + t * dot(b, d) >= c[:, b + 3])
+    return reached
+
+
 def minarg_ops(torch, rays8, pack):
     """Float32 operations K1 needs on these inputs: 12 per pair for the
     plane test (two 3-term dots, a subtraction and a divide), 12 more for
-    each edge test that is reached (t > 0, then each edge that passed)."""
-    c = pack[:, :16, None]
-    reached = 0
+    each edge test that is reached."""
     r = rays8.shape[1]
+    reached = sum(edges_reached(pack, rays8[0:3, s:s + 16384],
+                                rays8[3:6, s:s + 16384])
+                  for s in range(0, r, 16384))
+    return 12 * r * pack.shape[0] + 12 * reached
+
+
+def grouped_ops(torch, rays8, pack, groups, rmax=None):
+    """Float32 operations K6 (rmax None) or K7 need on these inputs: about
+    25 per (ray, group) slab test, then K1's 12 per pair plus 12 per edge
+    test reached, over the pairs whose group the ray's slab test passes
+    (for K7 also tn <= rmax). Returns (operations, pairs)."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import tilecull_kernel as tk
+    r = rays8.shape[1]
+    pairs = reached = 0
     for s in range(0, r, 16384):
         x = rays8[:, s:s + 16384]
-
-        def dot(b, v):
-            return c[:, b] * v[0] + c[:, b + 1] * v[1] + c[:, b + 2] * v[2]
-
-        p, d = (x[0:1], x[1:2], x[2:3]), (x[3:4], x[4:5], x[5:6])
-        t = (c[:, 3] - dot(0, p)) / dot(0, d)
-        ok = t > 0.0
-        for b in (4, 8, 12):
-            reached += int(ok.sum())
-            ok = ok & (dot(b, p) + t * dot(b, d) >= c[:, b + 3])
-    return 12 * r * pack.shape[0] + 12 * reached
+        inv = [tk._safe_inv(c) for c in x[3:6]]
+        for row in groups.cpu().tolist():
+            tn, tf = tk._slab(x[0:3], inv, row[0:3], row[3:6])
+            m = (tf >= tn) & (tf >= 0.0)
+            if rmax is not None:
+                m &= tn <= rmax[s:s + 16384]
+            base, end = int(row[6]), int(row[7])
+            pairs += int(m.sum()) * (end - base)
+            reached += edges_reached(pack[base:end], x[0:3], x[3:6], m)
+    return 25 * r * groups.shape[0] + 12 * pairs + 12 * reached, pairs
 
 
 def measure(torch, inputs, errs, launches):
     from opencl_path_tracer_tpu_torch.models import fused_step as fs
     from opencl_path_tracer_tpu_torch.ops.kernels import (
-        intersect_kernel as k1, plucker_kernel as k2, sphere_kernel as k3)
+        intersect_kernel as k1, plucker_kernel as k2, sphere_kernel as k3,
+        tilecull_kernel as tk)
     rows = []   # name, kernel, plain, fp32 ops, bf16 ops, bytes
     rays8, pack = inputs["minarg"]
     r, t = rays8.shape[1], pack.shape[0]
@@ -477,6 +639,34 @@ def measure(torch, inputs, errs, launches):
                  300 * nl, 0,
                  (F.shape[0] * 4 + I.shape[0] * 4) * 2 * nl
                  + hrows.shape[0] * 4 * nl))
+    # K7 on the NEE shadow rays, K6 on the camera rays: the grouped pairs
+    # each ray's slab (and segment) test lets through; rays (and rmax) in
+    # once, the pack once, flags (one byte) or (t, g) out.
+    s8, rmax, gpack, groups = inputs["anyhit"]
+    ra = s8.shape[1]
+    ops7, pairs7 = grouped_ops(torch, s8, gpack, groups, rmax)
+    rows.append(("anyhit", lambda: tk.anyhit(s8, rmax, gpack, groups),
+                 lambda: tk.anyhit_plain(s8, rmax, gpack, groups), ops7, 0,
+                 (24 + 4 + 1) * ra + 64 * gpack.shape[0]
+                 + groups.numel() * 4))
+    c8, cpack, cgroups = inputs["tilecull"]
+    rc6 = c8.shape[1]
+    ops6, pairs6 = grouped_ops(torch, c8, cpack, cgroups)
+    rows.append(("tilecull", lambda: tk.tilecull(c8, cpack, cgroups),
+                 lambda: tk.tilecull_plain(c8, cpack, cgroups), ops6, 0,
+                 (24 + 8) * rc6 + 64 * cpack.shape[0] + cgroups.numel() * 4))
+    print(f"grouped pairs: anyhit {pairs7 / ra:.1f} per shadow ray, tilecull "
+          f"{pairs6 / rc6:.1f} per camera ray (of {gpack.shape[0]} "
+          "triangles)")
+    # K3b as K3: about 19 operations per (ray, sphere) pair, 10 per ray and
+    # 12 per hit for the normal.
+    rb, tab = inputs["sphere_table"]
+    rsb, sb = rb.shape[1], tab.shape[0]
+    hits_b = int((k3.sphere_table_plain(rb, tab)[0] > 0).sum())
+    rows.append(("sphere_table", lambda: k3.sphere_table(rb, tab),
+                 lambda: k3.sphere_table_plain(rb, tab),
+                 10 * rsb + 19 * rsb * sb + 12 * hits_b, 0,
+                 24 * rsb + 32 * sb + 20 * rsb))
     out = []
     for name, kern, plain, ops, bf16_ops, nbytes in rows:
         ms = time_ms(torch, kern, 20)
@@ -509,12 +699,18 @@ def main() -> int:
         "cornell": library.cornell_box(with_spheres=True, device="cuda"),
         "cornell-analytic": library.cornell_box(
             with_spheres=True, analytic_spheres=True, device="cuda"),
+        "cornell-sphere-lamp": library.cornell_box(
+            with_spheres=True, analytic_spheres=True, sphere_lamp=True,
+            device="cuda"),
+        "many-lights": library.many_light_scene(64, device="cuda"),
     }
     cam = library.cornell_camera(W, H, device="cuda")
-    inputs, errs = check_kernels(torch, scenes, cam)
+    inputs, errs, cam_rays = check_kernels(
+        torch, {k: scenes[k] for k in ("cornell", "cornell-analytic")}, cam)
     inputs.update(check_fused(torch, scenes["cornell"], cam, errs))
+    inputs.update(check_slice3(torch, scenes, cam, cam_rays, errs))
     check_goldens(torch, np)
-    check_no_fallback(torch, scenes["cornell"])
+    check_no_fallback(torch, scenes)
     launches = main_path(torch, np, scenes, cam)
     kernels = measure(torch, inputs, errs, launches)
     print(json.dumps({"kernels": kernels}))

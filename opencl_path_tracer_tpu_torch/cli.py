@@ -7,6 +7,8 @@ given.
 
     ptx-torch render --scene cornell --size 1920x1080 --iters 5 --spp 8
     ptx-torch render --scene cornell-analytic --model wavefront --rr 3
+    ptx-torch render --scene cornell --nee
+    ptx-torch render --scene many-lights --nee --nee-select distance
 """
 
 from __future__ import annotations
@@ -14,6 +16,10 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+
+
+SCENES = ("cornell", "cornell-analytic", "cornell-sphere-lamp",
+          "many-lights", "many-lights-N")
 
 
 def _build_scene(name: str, device):
@@ -24,8 +30,18 @@ def _build_scene(name: str, device):
         # 12 box triangles + 2 exact quadrics.
         return library.cornell_box(with_spheres=True, analytic_spheres=True,
                                    device=device)
-    raise SystemExit(f"unknown scene {name!r} (the port has cornell and "
-                     "cornell-analytic)")
+    if name == "cornell-sphere-lamp":
+        # An emissive analytic sphere as the lamp (NEE's cone sampler).
+        return library.cornell_box(with_spheres=True, analytic_spheres=True,
+                                   sphere_lamp=True, device=device)
+    if name == "many-lights" or name.startswith("many-lights-"):
+        # The walls, two receivers and N small lamps (64 by default): the
+        # scene of --nee --nee-select distance.
+        count = (64 if name == "many-lights"
+                 else int(name[len("many-lights-"):]))
+        return library.many_light_scene(count, device=device)
+    raise SystemExit(f"unknown scene {name!r} (the port has "
+                     f"{', '.join(SCENES)})")
 
 
 def cmd_render(args) -> int:
@@ -42,7 +58,9 @@ def cmd_render(args) -> int:
     cfg = RenderConfig(width=w, height=h, iterations=args.iters,
                        spp=args.spp, mode=args.mode, seed=args.seed,
                        tonemap=args.tonemap, accel=args.accel, qmc=args.qmc,
-                       model=args.model, rr_start=args.rr, camera=cam)
+                       model=args.model, rr_start=args.rr, nee=args.nee,
+                       nee_select=args.nee_select,
+                       nee_anyhit=not args.no_nee_anyhit, camera=cam)
     scene = _build_scene(args.scene, device)
     eng = RenderEngine(scene, cfg, device=device)
     t0 = time.perf_counter()
@@ -78,6 +96,20 @@ def main(argv=None) -> int:
     p.add_argument("--tonemap", default="reinhard")
     p.add_argument("--qmc", action="store_true",
                    help="R2 low-discrepancy pixel jitter (fast mode)")
+    p.add_argument("--nee", action="store_true",
+                   help="next-event estimation: one shadow ray per diffuse "
+                        "vertex, MIS-weighted against the bounce pickup "
+                        "(the same converged image, less noise)")
+    p.add_argument("--nee-select", default="power",
+                   choices=("power", "distance"),
+                   help="emitter selection for --nee: 'power' (global, "
+                        "power-proportional) or 'distance' (per-lane "
+                        "distance weights; sphere emitters only, e.g. "
+                        "--scene many-lights)")
+    p.add_argument("--no-nee-anyhit", action="store_true",
+                   help="trace NEE shadow rays through the nearest-hit "
+                        "intersector instead of the any-hit kernel (the "
+                        "same bits)")
     p.add_argument("--fov", type=float, default=None)
     p.add_argument("--yaw", type=float, default=None)
     p.add_argument("--pitch", type=float, default=None)

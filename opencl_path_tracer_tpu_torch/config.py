@@ -4,9 +4,10 @@ Port of `opencl_path_tracer_tpu/config.py`: the same fields and
 defaults (reference globals main.cpp:19-43), JSON round-trippable. The
 port honours the megakernel and wavefront models, both modes, the
 camera, bounce depth, spp, seed, tonemap, QMC jitter, Russian roulette
-(wavefront) and the 'auto' / 'minarg' / 'pallas' / 'bruteforce' accels;
-every other field raises NotImplementedError when it is set away from
-its default.
+(wavefront), next-event estimation (nee, nee_select, nee_anyhit) and the
+'auto' / 'minarg' / 'pallas' / 'tilecull' / 'bruteforce' accels; every
+other field raises NotImplementedError when it is set away from its
+default.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Any
 REF_WIDTH = 192 * 8  # 1536
 REF_HEIGHT = 108 * 8  # 864
 REF_MAX_ITERATIONS = 50
-ACCELS = ("auto", "minarg", "pallas", "bruteforce")
+ACCELS = ("auto", "minarg", "pallas", "tilecull", "bruteforce")
 
 
 @dataclasses.dataclass
@@ -52,6 +53,14 @@ class RenderConfig:
     # (wavefront only; None = off).
     rr_start: int | None = None
     rr_pmin: float = 0.05
+    # Next-event estimation with MIS (ops/nee.py): one shadow ray per
+    # diffuse vertex. nee_select: 'power' (global power-proportional) or
+    # 'distance' (per-lane distance weights; sphere emitters only).
+    # nee_anyhit: shadow rays through the any-hit kernel K7 instead of the
+    # nearest-hit intersector (the same bits).
+    nee: bool = False
+    nee_select: str = "power"
+    nee_anyhit: bool = True
     # Fields of the JAX package's config that this port does not honour
     # yet; validate() refuses them away from these defaults.
     accel_force: bool = False
@@ -66,15 +75,11 @@ class RenderConfig:
     env_sample_res: tuple[int, int] = (64, 32)
     dof_aperture: float = 0.0
     dof_focus: float = 0.0
-    nee: bool = False
-    nee_select: str = "power"
-    nee_anyhit: bool = True
     devices: int = 1
 
     UNPORTED = ("accel_force", "smooth", "textured", "env_light",
                 "env_sky", "env_deep", "env_map", "env_scale", "env_nee",
-                "env_sample_res", "dof_aperture", "dof_focus", "nee",
-                "nee_select", "nee_anyhit", "devices")
+                "env_sample_res", "dof_aperture", "dof_focus", "devices")
 
     def validate(self) -> "RenderConfig":
         defaults = RenderConfig()
@@ -98,6 +103,9 @@ class RenderConfig:
                 f"2); the port has {ACCELS}")
         if self.model not in ("megakernel", "wavefront"):
             raise ValueError(f"unknown model {self.model!r}")
+        if self.nee_select not in ("power", "distance"):
+            raise ValueError(f"unknown nee_select {self.nee_select!r} "
+                             "('power' or 'distance')")
         if self.qmc and self.mode != "fast":
             raise ValueError("qmc needs mode='fast' (parity mode's "
                              "per-pixel Lehmer draws are the reference spec)")

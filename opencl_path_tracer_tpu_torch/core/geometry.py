@@ -139,6 +139,15 @@ class TrianglesSoA:
             d2=_dot_rows(r2, m2), d3=_dot_rows(r3, m3),
         )
 
+    def take(self, idx) -> "TrianglesSoA":
+        """The triangles at rows idx, in that order (constants move with
+        their rows unchanged)."""
+        idx = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
+        return TrianglesSoA(**{
+            f.name: getattr(self, f.name)[idx]
+            for f in dataclasses.fields(self)
+        })
+
     def to(self, device) -> "TrianglesSoA":
         return TrianglesSoA(**{
             f.name: getattr(self, f.name).to(device)

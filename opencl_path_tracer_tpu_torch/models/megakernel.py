@@ -12,9 +12,12 @@ whole pixel batch. Every lane runs the bounce loop in lockstep with
     1 for refractive, 0 for specular and miss).
 
 The intersector is injected (`intersect_fn`); a Python loop runs the
-samples and bounces. The dormant sky light (`EnvLight`), environment
-maps, NEE, depth of field and the textured intersector are not ported
-yet.
+samples and bounces. Next-event estimation (`nee`, an
+`ops.nee.EmitterTable`) gathers direct light at every diffuse vertex
+through one shadow ray (`occluded_fn`, the any-hit test, or the
+intersector) and MIS-weights the next bounce's emitter pickup. The
+dormant sky light (`EnvLight`), environment maps, depth of field and the
+textured intersector are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,9 +34,11 @@ from opencl_path_tracer_tpu_torch.core.types import (
     Hits, Rays, V3, vadd, vdot, vmul, vneg, vnormalize, vscale, vwhere,
 )
 from opencl_path_tracer_tpu_torch.ops import bsdf, raygen, rng
+from opencl_path_tracer_tpu_torch.ops import nee as nee_ops
 from opencl_path_tracer_tpu_torch.utils.device import resolve_device
 
 IntersectFn = Callable[[Rays], Hits]
+_INV_PI = float(np.float32(1.0 / np.pi))
 
 
 @dataclasses.dataclass
@@ -111,8 +116,11 @@ def shade(cam: Camera, mat: MaterialsSoA, hit: Hits, ray_p: V3, ray_d: V3,
 
 
 def apply_factors(s: dict, f_l: V3, f_b: V3, f_s: V3, f_r: V3, inside,
-                  color: V3):
-    """Factor updates and the emitter contribution (prog.cl:329-366)."""
+                  color: V3, emit_scale=None):
+    """Factor updates and the emitter contribution (prog.cl:329-366).
+    emit_scale: an optional per-lane pickup weight (NEE's MIS weight,
+    `ops.nee.pickup_mis_weight`); None keeps the reference's full
+    pickup."""
     mat = s["mat"]
     f_l = vwhere(s["is_diff"], vmul(f_l, vscale(mat.kd, s["intens_d"])), f_l)
     f_b = vwhere(s["is_diff"], vmul(f_b, vscale(mat.ks, s["intens_s"])), f_b)
@@ -122,6 +130,8 @@ def apply_factors(s: dict, f_l: V3, f_b: V3, f_s: V3, f_r: V3, inside,
     contrib = vscale(
         vmul(mat.emission, vmul(vadd(f_l, f_b), vmul(f_s, f_r))),
         s["emit_cos"])
+    if emit_scale is not None:
+        contrib = vscale(contrib, emit_scale)
     color = vwhere(s["is_emit"], vadd(color, contrib), color)
     return f_l, f_b, f_s, f_r, inside, color
 
@@ -129,20 +139,29 @@ def apply_factors(s: dict, f_l: V3, f_b: V3, f_s: V3, f_r: V3, inside,
 def trace_sample(cam: Camera, mats: MaterialsSoA, state: TraceState, *,
                  intersect_fn: IntersectFn, iterations: int,
                  mode: str = "parity", key: tuple[int, int] | None = None,
-                 qmc: bool = False, with_stats: bool = False):
+                 qmc: bool = False, with_stats: bool = False, nee=None,
+                 occluded_fn=None):
     """Render one progressive sample for every pixel (lane j is pixel j)
     and fold it into the running average (prog.cl:379). `iterations` is
     the bounce depth.
 
     Fast mode draws from the murmur3 hash keyed by fold_in(key, 0) (the
     frame's first pixel id), or the R2 sequence with qmc=True.
+    nee: an `ops.nee.EmitterTable`; its draws come from the hash keyed by
+    fold_in(key, 0) (key(1791) when key is None, as in parity mode), salt
+    10,000 + bounce, so parity mode's Lehmer streams stay the reference's.
+    occluded_fn: the any-hit shadow-ray test (`make_scene_occluded`);
+    None sends the shadow rays through intersect_fn.
     with_stats=True also returns the number of rays traced (live lanes at
-    each bounce) as a 0-dim tensor."""
+    each bounce, twice where NEE traces a shadow batch) as a 0-dim
+    tensor."""
     rng_state = state.rng_state
     n = rng_state.shape[0]
     dev = rng_state.device
     ids = raygen.pixel_ids_like(n, device=dev)
     s_idx = state.sample
+    if nee is not None:
+        nee_key = rng.fold_in(key if key is not None else rng.key(1791), 0)
     if mode == "parity":
         ones = torch.ones(n, dtype=torch.bool, device=dev)
         rng_state, r1, r2 = _draws_parity(rng_state, ones, ones)
@@ -166,6 +185,7 @@ def trace_sample(cam: Camera, mats: MaterialsSoA, state: TraceState, *,
                   for _ in range(3))
     alive = torch.ones(n, dtype=torch.bool, device=dev)
     inside = torch.zeros(n, dtype=torch.bool, device=dev)
+    prev_pdf = torch.zeros(n, dtype=torch.float32, device=dev)
     rays_traced = torch.zeros((), dtype=torch.float32, device=dev)
 
     for b in range(iterations):
@@ -186,8 +206,27 @@ def trace_sample(cam: Camera, mats: MaterialsSoA, state: TraceState, *,
         if iterations == 1:
             # Preview mode (prog.cl:323-325): flat kd + emission.
             color = vwhere(has_hit, vadd(mat.kd, mat.emission), color)
+        emit_scale = None
+        if nee is not None:
+            # Gather where the path survives to the next intersect, so
+            # truncation matches the base estimator; the next bounce's
+            # pickup takes the MIS complement through prev_pdf.
+            u = rng.fast_uniforms(nee_key, s_idx, 10_000 + b, n, 3,
+                                  device=dev)
+            color = vadd(color, nee_ops.direct_light(
+                nee, intersect_fn=intersect_fn, cam_eye=cam.eye,
+                hit_p=hit.p, n_vec=s["n_vec"], mat=mat, f_l=f_l, f_b=f_b,
+                f_s=f_s, f_r=f_r, is_diff=s["is_diff"] & (b < iterations - 1),
+                u1=u[0], u2=u[1], u3=u[2], occluded_fn=occluded_fn))
+            if with_stats:
+                rays_traced = rays_traced + alive.sum()  # the shadow batch
+            emit_scale = nee_ops.pickup_mis_weight(
+                nee, prev_pdf, s["emit_cos"], hit.t, mat.emission,
+                mati=hit.mati, hit_p=hit.p, ray_p=ray_p)
+            prev_pdf = torch.where(s["is_diff"], s["intens_d"] * _INV_PI,
+                                   torch.zeros_like(prev_pdf))
         f_l, f_b, f_s, f_r, inside, color = apply_factors(
-            s, f_l, f_b, f_s, f_r, inside, color)
+            s, f_l, f_b, f_s, f_r, inside, color, emit_scale)
         alive = has_hit
         ray_p, ray_d = s["new_p"], s["new_d"]
 
@@ -206,8 +245,8 @@ def trace_sample(cam: Camera, mats: MaterialsSoA, state: TraceState, *,
 def render(cam: Camera, mats: MaterialsSoA, *, intersect_fn: IntersectFn,
            num_pixels: int, iterations: int, spp: int, mode: str = "parity",
            seed: int = 1, key: tuple[int, int] | None = None,
-           state: TraceState | None = None, qmc: bool = False,
-           device=None) -> TraceState:
+           state: TraceState | None = None, qmc: bool = False, nee=None,
+           occluded_fn=None, device=None) -> TraceState:
     """Accumulate `spp` progressive samples (the onIdle loop,
     main.cpp:1171-1241). Runs on `device` (CUDA unless "cpu" is asked
     for); cam and mats must already live there."""
@@ -221,7 +260,7 @@ def render(cam: Camera, mats: MaterialsSoA, *, intersect_fn: IntersectFn,
     for _ in range(spp):
         state = trace_sample(cam, mats, state, intersect_fn=intersect_fn,
                              iterations=iterations, mode=mode, key=key,
-                             qmc=qmc)
+                             qmc=qmc, nee=nee, occluded_fn=occluded_fn)
     return state
 
 

@@ -17,12 +17,14 @@ Shading is the megakernel's (`shade`, `apply_factors`,
 step counter is a host int, like `TraceState.sample`: the fast draws are
 keyed by it, and keeping it on the host costs no device read.
 
-Not ported yet: EnvLight and environment maps (`env`), next-event
-estimation (`nee`, `occluded_fn`), depth of field (`dof`) and adaptive
-sampling (`variance_tol`), which raise NotImplementedError (ROADMAP.md
-queue 1 items 7-8); `converged_mask`, `render_adaptive`,
-`sort_open_first`, `state_split` and `state_concat` come with the
-engine's `render_adaptive` (queue 1 item 7).
+Next-event estimation (`nee`, `occluded_fn`) is the megakernel's gather
+and MIS pickup, with the draws keyed by the step counter and the
+previous bounce's direction pdf carried per lane in `prev_pdf`. Not
+ported yet: EnvLight and environment maps (`env`), depth of field
+(`dof`) and adaptive sampling (`variance_tol`), which raise
+NotImplementedError (ROADMAP.md queue 1 items 7-8); `converged_mask`,
+`render_adaptive`, `sort_open_first`, `state_split` and `state_concat`
+come with the engine's `render_adaptive` (queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -37,8 +39,9 @@ from opencl_path_tracer_tpu_torch.core.types import (
     Rays, V3, vadd, vscale, vwhere,
 )
 from opencl_path_tracer_tpu_torch.models.megakernel import (
-    _draws_parity, apply_factors, fetch_material, shade,
+    _INV_PI, _draws_parity, apply_factors, fetch_material, shade,
 )
+from opencl_path_tracer_tpu_torch.ops import nee as nee_ops
 from opencl_path_tracer_tpu_torch.ops import raygen, rng
 from opencl_path_tracer_tpu_torch.utils.device import resolve_device
 
@@ -197,9 +200,11 @@ def wavefront_step(cam: Camera, mats: MaterialsSoA, st: WavefrontState, *,
     scene_bounds = (lo, inv_extent)). rr = (start_bounce, p_min):
     Russian roulette after start_bounce bounces, survival probability
     clip(max channel of (f_l + f_b) f_s f_r, p_min, 1), survivors scale
-    f_s by 1/p; its draws ride an independent counter-hash stream."""
-    _refuse(env=env, nee=nee, dof=dof, variance_tol=variance_tol,
-            occluded_fn=occluded_fn)
+    f_s by 1/p; its draws ride an independent counter-hash stream.
+    nee: an `ops.nee.EmitterTable` (draws keyed by key, or key(1791),
+    salt 2); occluded_fn: the any-hit shadow-ray test, None for the
+    intersector."""
+    _refuse(env=env, dof=dof, variance_tol=variance_tol)
     n = st.lanes
     dev = st.samples.device
     if sort_every and scene_bounds is not None and st.step % sort_every == 0:
@@ -233,8 +238,25 @@ def wavefront_step(cam: Camera, mats: MaterialsSoA, st: WavefrontState, *,
     cur_color = st.cur_color
     if iterations == 1:  # preview (prog.cl:323-325)
         cur_color = vwhere(has_hit, vadd(mat.kd, mat.emission), cur_color)
+    emit_scale, prev_pdf = None, st.prev_pdf
+    if nee is not None:
+        u = rng.fast_uniforms(key if key is not None else rng.key(1791),
+                              st.step, 2, n, 3, lane_offset=lane_offset,
+                              device=dev)
+        # Gather where the path survives to the next intersect.
+        cur_color = vadd(cur_color, nee_ops.direct_light(
+            nee, intersect_fn=intersect_fn, cam_eye=cam.eye, hit_p=hit.p,
+            n_vec=s["n_vec"], mat=mat, f_l=st.f_l, f_b=st.f_b, f_s=st.f_s,
+            f_r=st.f_r, is_diff=s["is_diff"] & (st.bounce + 1 < iterations),
+            u1=u[0], u2=u[1], u3=u[2], occluded_fn=occluded_fn))
+        emit_scale = nee_ops.pickup_mis_weight(
+            nee, st.prev_pdf, s["emit_cos"], hit.t, mat.emission,
+            mati=hit.mati, hit_p=hit.p, ray_p=st.ray_p)
+        prev_pdf = torch.where(
+            active, torch.where(s["is_diff"], s["intens_d"] * _INV_PI,
+                                torch.zeros_like(st.prev_pdf)), st.prev_pdf)
     f_l, f_b, f_s, f_r, inside, cur_color = apply_factors(
-        s, st.f_l, st.f_b, st.f_s, st.f_r, st.inside, cur_color)
+        s, st.f_l, st.f_b, st.f_s, st.f_r, st.inside, cur_color, emit_scale)
 
     bounce = torch.where(active, st.bounce + 1, st.bounce)
     terminated = active & (~valid | (bounce >= iterations))
@@ -292,7 +314,8 @@ def wavefront_step(cam: Camera, mats: MaterialsSoA, st: WavefrontState, *,
         inside=torch.where(terminated, False, inside),
         bounce=torch.where(terminated, 0, bounce),
         had_diffuse=st.had_diffuse,
-        prev_pdf=st.prev_pdf,
+        prev_pdf=(torch.where(terminated, 0.0, prev_pdf) if nee is not None
+                  else prev_pdf),
         lum_m2=st.lum_m2,
         step=st.step + 1,
     )
@@ -304,7 +327,7 @@ def render_wavefront(cam: Camera, mats: MaterialsSoA, *, intersect_fn,
                      max_extra_steps: int = 1_000_000,
                      exact_spp: bool = False,
                      ids: torch.Tensor | None = None, env=None, nee=None,
-                     rr=None, qmc: bool = False, dof=None,
+                     rr=None, qmc: bool = False, dof=None, occluded_fn=None,
                      device=None) -> WavefrontState:
     """Run steps until every pixel has >= min_spp samples, with a host
     check of min(samples) every max(2 * iterations, 8) steps. Runs on
@@ -325,7 +348,8 @@ def render_wavefront(cam: Camera, mats: MaterialsSoA, *, intersect_fn,
             state = wavefront_step(
                 cam, mats, state, intersect_fn=intersect_fn,
                 iterations=iterations, mode=mode, key=key, max_samples=cap,
-                env=env, nee=nee, rr=rr, qmc=qmc, dof=dof)
+                env=env, nee=nee, rr=rr, qmc=qmc, dof=dof,
+                occluded_fn=occluded_fn)
         if int(state.samples.min()) >= min_spp:
             break
     return state

@@ -46,6 +46,10 @@ KERNELS = {
                        [P, I, P, P, P, I, I, P]),
     "fused_step": ("fused_step.cu", "ptx_fused_step",
                    [P, P, P, P, I, P, P, I, U, U, U, I, P]),
+    "anyhit": ("anyhit.cu", "ptx_anyhit", [P, I, P, P, P, P, I, I, P]),
+    "tilecull": ("tilecull.cu", "ptx_tilecull", [P, I, P, P, P, P, I, I, P]),
+    "sphere_table": ("sphere_table.cu", "ptx_sphere_table",
+                     [P, P, P, P, P, P, P, I, I, P]),
 }
 
 # Launches per kernel since the last reset_launches(); each wrapper adds

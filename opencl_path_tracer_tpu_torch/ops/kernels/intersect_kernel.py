@@ -55,32 +55,34 @@ def _dot3(v, a):
     return fp.fma(v[2], a[2], fp.fma(v[0], a[0], v[1] * a[1]))
 
 
+def exact_test(rows: torch.Tensor, rays: torch.Tensor):
+    """K1's exact test of the rays of an (8, R) pack against the rows of a
+    (T, 24) pack: (t, valid), two (T, R) tensors."""
+    c = rows[:, :16, None]                         # (T, 16, 1)
+    p = (rays[0:1], rays[1:2], rays[2:3])
+    d = (rays[3:4], rays[4:5], rays[5:6])
+
+    def dots(base):
+        v = (c[:, base], c[:, base + 1], c[:, base + 2])
+        return _dot3(v, p), _dot3(v, d)
+
+    pn, vn = dots(0)
+    t = (c[:, 3] - pn) / vn
+    valid = t > 0.0
+    for base in (4, 8, 12):
+        pm, vm = dots(base)
+        valid &= fp.fma(t, vm, pm) >= c[:, base + 3]
+    return t, valid
+
+
 def minarg_plain(rays8: torch.Tensor, tri_pack: torch.Tensor,
                  ray_chunk: int = 8192):
     """Plain PyTorch version of K1: (t, g), two (R,) float32 tensors."""
     r = rays8.shape[1]
     t_out = torch.empty(r, dtype=torch.float32, device=rays8.device)
     g_out = torch.empty(r, dtype=torch.float32, device=rays8.device)
-    c = tri_pack[:, :, None]                       # (T, 24, 1)
-
-    def col(k):
-        return c[:, k]                             # (T, 1)
-
     for s in range(0, r, ray_chunk):
-        rays = rays8[:, s:s + ray_chunk]
-        p = (rays[0:1], rays[1:2], rays[2:3])
-        d = (rays[3:4], rays[4:5], rays[5:6])
-
-        def dots(base):
-            v = (col(base), col(base + 1), col(base + 2))
-            return _dot3(v, p), _dot3(v, d)
-
-        pn, vn = dots(0)
-        t = (col(3) - pn) / vn                     # (T, Rc)
-        valid = t > 0.0
-        for base in (4, 8, 12):
-            pm, vm = dots(base)
-            valid &= fp.fma(t, vm, pm) >= col(base + 3)
+        t, valid = exact_test(tri_pack, rays8[:, s:s + ray_chunk])
         tm = torch.where(valid, t, torch.full_like(t, BIG))
         m, a = torch.min(tm, dim=0)                # first index on ties
         t_out[s:s + ray_chunk] = m

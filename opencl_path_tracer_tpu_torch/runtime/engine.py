@@ -13,8 +13,12 @@ triangles, a cut carried over from the JAX package's choice, not a
 measurement on the GPU; larger scenes need the pair intersectors, which
 are not ported yet. 'bruteforce' is the plain PyTorch reference and is
 refused on CUDA, so no plain version carries the main path on the card.
-'pallas' is K4, the dense exact intersector with attributes. Analytic
-spheres go through K3 and are min-merged after the triangles.
+'pallas' is K4, the dense exact intersector with attributes; 'tilecull'
+is K6 with groups ordered front to back from the camera eye, then K2.
+Analytic spheres go through K3 (K3b above 64) and are min-merged after
+the triangles. With `nee`, the engine builds the emitter table and, with
+`nee_anyhit`, the any-hit shadow-ray test (K7, or-ed with the spheres),
+and hands both to the model.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from opencl_path_tracer_tpu_torch.io.image import write_png
 from opencl_path_tracer_tpu_torch.models import megakernel, wavefront
 from opencl_path_tracer_tpu_torch.ops import intersect, rng
 from opencl_path_tracer_tpu_torch.ops import tonemap as tonemap_ops
+from opencl_path_tracer_tpu_torch.ops.nee import build_emitter_table
 from opencl_path_tracer_tpu_torch.ops.kernels.intersect_kernel import (
     make_pallas_intersect,
 )
@@ -38,6 +43,9 @@ from opencl_path_tracer_tpu_torch.ops.kernels.plucker_kernel import (
 )
 from opencl_path_tracer_tpu_torch.ops.kernels.sphere_kernel import (
     make_sphere_intersect,
+)
+from opencl_path_tracer_tpu_torch.ops.kernels.tilecull_kernel import (
+    make_scene_occluded, make_tilecull_intersect,
 )
 from opencl_path_tracer_tpu_torch.scene.builder import Scene
 from opencl_path_tracer_tpu_torch.utils.device import resolve_device
@@ -58,20 +66,25 @@ def resolve_accel(accel: str, num_triangles: int, on_cuda: bool) -> str:
         raise ValueError(
             "accel 'bruteforce' is the plain PyTorch reference and does not "
             "run on CUDA; use 'minarg' (or 'auto')")
-    if accel not in ("minarg", "pallas", "bruteforce"):
+    if accel not in ("minarg", "pallas", "tilecull", "bruteforce"):
         raise NotImplementedError(
             f"accel {accel!r} is not ported yet (ROADMAP.md queue 2)")
     return accel
 
 
-def make_intersect_fn(scene: Scene, accel: str = "auto"):
+def make_intersect_fn(scene: Scene, accel: str = "auto", origin=None):
     """intersect(rays) -> Hits over the scene's triangles, min-merged with
-    its analytic spheres (the triangle stream wins exact-t ties)."""
+    its analytic spheres (the triangle stream wins exact-t ties). origin
+    (the camera eye) orders the 'tilecull' groups front to back."""
     on_cuda = scene.tris.device.type == "cuda"
     accel = resolve_accel(accel, scene.num_triangles, on_cuda)
-    if accel in ("minarg", "pallas"):
-        tri_fn = (make_minarg_intersect(scene.tris) if accel == "minarg"
-                  else make_pallas_intersect(scene.tris))
+    if accel in ("minarg", "pallas", "tilecull"):
+        if accel == "minarg":
+            tri_fn = make_minarg_intersect(scene.tris)
+        elif accel == "pallas":
+            tri_fn = make_pallas_intersect(scene.tris)
+        else:
+            tri_fn = make_tilecull_intersect(scene.tris, origin=origin)
         sphere_fn = (None if scene.spheres is None
                      else make_sphere_intersect(scene.spheres))
     else:
@@ -98,7 +111,18 @@ class RenderEngine:
                                   yaw=cam.yaw, pitch=cam.pitch,
                                   shift=cam.shift, device=self.device)
         self.intersect_fn = intersect_fn or make_intersect_fn(
-            self.scene, config.accel)
+            self.scene, config.accel,
+            origin=tuple(float(v) for v in self.camera.eye.cpu()))
+        # NEE: the emitter table, and the any-hit shadow-ray test unless
+        # nee_anyhit is off or the scene is above K7's range (None: the
+        # shadow rays then go through intersect_fn, as in the JAX engine).
+        self.nee = (build_emitter_table(self.scene.tris, self.scene.mats,
+                                        self.scene.spheres,
+                                        select=config.nee_select)
+                    if config.nee else None)
+        self.occluded = (make_scene_occluded(self.scene)
+                         if self.nee is not None and config.nee_anyhit
+                         else None)
         self.num_pixels = config.width * config.height
         self.key = rng.key(config.seed)
         self.rr = ((config.rr_start, config.rr_pmin)
@@ -110,8 +134,9 @@ class RenderEngine:
         else:
             self.state = megakernel.init_state(self.num_pixels, config.seed,
                                                device=self.device)
-        # Rays traced since construction: live lanes at each bounce
-        # (megakernel, on the device) or lanes x steps (wavefront, host).
+        # Rays traced since construction: live lanes at each bounce, twice
+        # with NEE's shadow batch (megakernel, on the device), or lanes x
+        # steps (wavefront, host), as the JAX engine counts them.
         self._rays = torch.zeros((), dtype=torch.float32, device=self.device)
         self._wf_rays = 0
         self._sample_host = 0  # samples per pixel the wavefront targets
@@ -131,7 +156,8 @@ class RenderEngine:
                     self.camera, self.scene.mats, self.state,
                     intersect_fn=self.intersect_fn,
                     iterations=self.cfg.iterations, mode=self.cfg.mode,
-                    key=self.key, qmc=self.cfg.qmc, with_stats=True)
+                    key=self.key, qmc=self.cfg.qmc, with_stats=True,
+                    nee=self.nee, occluded_fn=self.occluded)
                 self._rays += rays
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -156,7 +182,8 @@ class RenderEngine:
                     self.camera, self.scene.mats, self.state,
                     intersect_fn=self.intersect_fn, iterations=iters,
                     mode=self.cfg.mode, key=self.key, max_samples=target,
-                    rr=self.rr, qmc=self.cfg.qmc)
+                    rr=self.rr, qmc=self.cfg.qmc, nee=self.nee,
+                    occluded_fn=self.occluded)
             done += k
             self.steps_run += k
             self._wf_rays += k * self.num_pixels

@@ -11,10 +11,15 @@ per step. Needs a GPU:
     python -m opencl_path_tracer_tpu_torch.runtime.profile --model wavefront \\
         --scene cornell-analytic
     python -m opencl_path_tracer_tpu_torch.runtime.profile --model fused
+    python -m opencl_path_tracer_tpu_torch.runtime.profile --nee
+    python -m opencl_path_tracer_tpu_torch.runtime.profile --model wavefront \
+        --scene many-lights --nee --nee-select distance
+    python -m opencl_path_tracer_tpu_torch.runtime.profile --accel tilecull
 
 --model megakernel and wavefront render --spp samples through
-`RenderEngine`; fused runs --steps steps of `models.pipeline`'s fast
-pipeline (triangles only: --scene cornell).
+`RenderEngine` (with --nee, --nee-select and --accel as `ptx-torch
+render` takes them); fused runs --steps steps of `models.pipeline`'s
+fast pipeline (triangles only: --scene cornell).
 """
 
 from __future__ import annotations
@@ -40,7 +45,9 @@ def _workload(args, dev):
     scene = _build_scene(args.scene, dev)
     if args.model in ("megakernel", "wavefront"):
         cfg = RenderConfig(width=w, height=h, iterations=args.iters,
-                           mode=args.mode, model=args.model, camera=cam)
+                           mode=args.mode, model=args.model, camera=cam,
+                           accel=args.accel, nee=args.nee,
+                           nee_select=args.nee_select)
         eng = RenderEngine(scene, cfg, device=dev)
         eng.render(1)  # warm-up: kernel build, allocator, first launches
 
@@ -85,6 +92,11 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=16,
                     help="steps per profiled run (fused)")
     ap.add_argument("--mode", default="fast")
+    ap.add_argument("--accel", default="auto")
+    ap.add_argument("--nee", action="store_true",
+                    help="next-event estimation (shadow rays through K7)")
+    ap.add_argument("--nee-select", default="power",
+                    choices=("power", "distance"))
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     run = _workload(args, dev)
@@ -119,7 +131,8 @@ def main(argv=None) -> int:
            for n, us in by_name.most_common(8)]
     print(json.dumps({
         "model": args.model, "scene": args.scene, "size": args.size,
-        "bounces": args.iters, "mode": args.mode,
+        "bounces": args.iters, "mode": args.mode, "accel": args.accel,
+        "nee": args.nee, "nee_select": args.nee_select,
         "samples_per_pixel": samples, "steps": steps,
         "device": torch.cuda.get_device_name(dev),
         "wall_ms_per_sample": per(wall_plain * 1e3, samples),

@@ -104,6 +104,36 @@ def step_table(scene, cam):
 
 
 @pytest.mark.cuda
+def test_third_slice_kernels_equal_plain_versions(cuda):
+    """One launch each of K7, K6 and K3b against its plain version on the
+    card (chip_smoke.py runs them at 1080p): K7's flags equal (K4 t valid
+    and t < rmax), K6's t equals K1's."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import tilecull_kernel as tk
+    scene = library.cornell_box(with_spheres=True, device=cuda)
+    rays8 = _rays8(50_001, 3, cuda)
+    pack, groups, _, _ = tk.grouped_pack(scene.tris, 128,
+                                     origin=(500.0, 500.0, -1299.0))
+    counts = dict(_build.launches)
+    t, g = tk.tilecull(rays8, pack, groups)
+    tp, gp = tk.tilecull_plain(rays8, pack, groups)
+    assert torch.equal(t, tp) and torch.equal(g, gp)
+    t1, _ = k1.minarg(rays8, k1.build_tri_pack(scene.tris))
+    assert torch.equal(t, t1)
+    rmax = torch.rand(rays8.shape[1], device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(0)) * 900.0
+    occ = tk.anyhit(rays8, rmax, pack, groups)
+    assert torch.equal(occ, tk.anyhit_plain(rays8, rmax, pack, groups))
+    assert torch.equal(occ, (t1 < k1.BIG) & (t1 < rmax))
+    many = library.many_light_scene(64, device=cuda)
+    table = k3.build_sphere_table(many.spheres)
+    for a, b in zip(k3.sphere_table(rays8, table),
+                    k3.sphere_table_plain(rays8, table)):
+        assert torch.equal(a, b)
+    for name in ("tilecull", "anyhit", "sphere_table"):
+        assert _build.launches[name] == counts[name] + 1
+
+
+@pytest.mark.cuda
 def test_no_fallback_when_the_loader_fails(cuda, monkeypatch):
     def broken(name):
         raise RuntimeError("kernel loader disabled by the test")
@@ -114,3 +144,14 @@ def test_no_fallback_when_the_loader_fails(cuda, monkeypatch):
         k1.minarg(_rays8(64, 1, cuda), k1.build_tri_pack(scene.tris))
     with pytest.raises(RuntimeError, match="disabled"):
         k1.dense(_rays8(64, 1, cuda), k1.build_tri_pack(scene.tris))
+    from opencl_path_tracer_tpu_torch.ops.kernels import tilecull_kernel as tk
+    pack, groups, _, _ = tk.grouped_pack(scene.tris, 128)
+    with pytest.raises(RuntimeError, match="disabled"):
+        tk.tilecull(_rays8(64, 1, cuda), pack, groups)
+    with pytest.raises(RuntimeError, match="disabled"):
+        tk.anyhit(_rays8(64, 1, cuda), torch.ones(64, device=cuda), pack,
+                  groups)
+    many = library.many_light_scene(64, device=cuda)
+    with pytest.raises(RuntimeError, match="disabled"):
+        k3.sphere_table(_rays8(64, 1, cuda),
+                        k3.build_sphere_table(many.spheres))

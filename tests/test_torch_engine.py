@@ -80,9 +80,9 @@ def test_entry_points_refuse_cpu_without_asking(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("env_map", "sunsky"), ("nee", True), ("env_light", True),
+    ("env_map", "sunsky"), ("env_nee", False), ("env_light", True),
     ("dof_aperture", 5.0), ("devices", 2), ("smooth", True),
-    ("nee_anyhit", False), ("textured", True)])
+    ("accel_force", True), ("textured", True)])
 def test_config_refuses_unported_fields(field, value):
     with pytest.raises(NotImplementedError, match=field):
         dataclasses.replace(_cfg(), **{field: value}).validate()
@@ -152,8 +152,9 @@ def test_accel_resolution():
     assert engine.resolve_accel("bruteforce", 10, on_cuda=False) == \
         "bruteforce"
     assert engine.resolve_accel("pallas", 10, on_cuda=True) == "pallas"
+    assert engine.resolve_accel("tilecull", 10, on_cuda=True) == "tilecull"
     with pytest.raises(NotImplementedError):
-        engine.resolve_accel("tilecull", 10, on_cuda=True)
+        engine.resolve_accel("march", 10, on_cuda=True)
 
 
 def test_console_script_and_package_data_declared():
@@ -171,3 +172,73 @@ def test_write_png_accepts_engine_image(tmp_path):
                               _cfg(iterations=1), device="cpu")
     eng.render(1)
     write_png(str(tmp_path / "i.png"), eng.image())
+
+
+@pytest.mark.parametrize("model", ["megakernel", "wavefront"])
+@pytest.mark.parametrize("scene,kw", [
+    ("cornell", dict(nee=True)),
+    ("cornell", dict(nee=True, nee_anyhit=False)),
+    ("cornell-sphere-lamp", dict(nee=True)),
+    ("many-lights-8", dict(nee=True, nee_select="distance")),
+    ("cornell", dict(accel="tilecull")),
+])
+def test_engine_nee_and_tilecull_on_cpu(model, scene, kw):
+    """NEE (both selects, both shadow-ray routes) and accel='tilecull'
+    through the engine in both models; the any-hit route is built unless
+    nee_anyhit is off, and the megakernel counts the shadow batch."""
+    eng = engine.RenderEngine(cli._build_scene(scene, "cpu"),
+                              _cfg(model=model, **kw), device="cpu")
+    assert (eng.nee is not None) == kw.get("nee", False)
+    assert (eng.occluded is not None) == (kw.get("nee", False)
+                                          and kw.get("nee_anyhit", True))
+    eng.render(2)
+    img = eng.image()
+    assert img.shape == (12, 16, 3) and np.isfinite(img).all()
+    assert 0.0 < img.mean() <= 1.0
+    if model == "wavefront":   # lanes x steps, as the JAX engine counts
+        assert eng.rays_traced == eng.steps_run * 16 * 12
+    else:                      # live lanes, twice with the shadow batch
+        per_bounce = 2 if kw.get("nee") else 1
+        assert 0 < eng.rays_traced <= per_bounce * 2 * 3 * 16 * 12
+
+
+def test_engine_nee_anyhit_route_bit_identical():
+    """nee_anyhit=True (K7) and False (the nearest-hit intersector) give
+    the same image bits, and nee changes the image."""
+    imgs = []
+    for kw in (dict(nee=True), dict(nee=True, nee_anyhit=False), {}):
+        eng = engine.RenderEngine(library.cornell_box(), _cfg(**kw),
+                                  device="cpu")
+        eng.render(1)
+        imgs.append(eng.image(apply_tonemap=False))
+    assert np.array_equal(imgs[0], imgs[1])
+    assert not np.array_equal(imgs[0], imgs[2])
+
+
+def test_config_nee_checks():
+    _cfg(nee=True, nee_select="distance", nee_anyhit=False).validate()
+    with pytest.raises(ValueError, match="nee_select"):
+        _cfg(nee=True, nee_select="nearest").validate()
+    cfg = _cfg(nee=True, nee_select="distance", accel="tilecull")
+    assert RenderConfig.from_json(cfg.to_json()) == cfg
+    with pytest.raises(ValueError, match="distance"):
+        engine.RenderEngine(library.cornell_box(),
+                            _cfg(nee=True, nee_select="distance"),
+                            device="cpu")
+
+
+@pytest.mark.parametrize("args", [
+    ["--scene", "cornell", "--nee"],
+    ["--scene", "many-lights-8", "--nee", "--nee-select", "distance"],
+    ["--scene", "cornell-sphere-lamp", "--nee", "--no-nee-anyhit",
+     "--model", "wavefront"],
+    ["--scene", "cornell", "--accel", "tilecull"],
+])
+def test_cli_render_nee_and_tilecull(args, tmp_path, capsys):
+    out = tmp_path / "n.png"
+    rc = cli.main(["render", "--size", "16x12", "--spp", "1", "--iters", "3",
+                   "--device", "cpu", "--out", str(out), *args])
+    assert rc == 0 and out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    assert "on cpu" in capsys.readouterr().err
+    with pytest.raises(SystemExit, match="many-lights"):
+        cli._build_scene("no-such-scene", "cpu")

@@ -104,9 +104,11 @@ def test_plain_sphere_intersect_near_xla_form():
 
 
 def test_sphere_count_limit():
+    """K3 takes at most 64 spheres; make_sphere_intersect sends more to
+    K3b (tests/test_torch_sphere_table.py)."""
     ps = plib.cornell_box(with_spheres=True, analytic_spheres=True)
     table = k3.build_sphere_table(ps.spheres)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="K3b"):
         k3.spheres(torch.zeros((8, 4)), table.repeat(33, 1))
     rays8 = k1.pack_rays((torch.zeros(3),) * 3, (torch.ones(3),) * 3)
     assert k3.spheres(rays8, table)[0].shape == (3,)

@@ -161,10 +161,86 @@ def test_unported_options_raise():
     scene = library.cornell_box(with_spheres=False)
     cam = library.cornell_camera(4, 4)
     st = wavefront.init_wavefront(cam, 16, mode="fast", key=rng.key(1))
-    for kw in (dict(nee=object()), dict(env=object()), dict(dof=(1.0, 2.0)),
+    for kw in (dict(env=object()), dict(dof=(1.0, 2.0)),
                dict(variance_tol=0.1)):
         with pytest.raises(NotImplementedError, match="queue 1"):
             wavefront.wavefront_step(cam, scene.mats, st,
                                      intersect_fn=make_intersect_fn(scene),
                                      iterations=2, mode="fast",
                                      key=rng.key(1), **kw)
+
+
+def _nee_setup(sphere_lamp):
+    """JAX (interpret-mode minarg, and interpret-mode K3b merged in: the
+    port's K3 rounds as K3b does on rays that start at a sphere's surface,
+    where interpret-mode K3 rounds through separate XLA fusions; ROADMAP.md
+    queue 3) and the port (plain K1 + K2, plain K3) on one scene, with both
+    emitter tables."""
+    from opencl_path_tracer_tpu.ops import intersect as jisect
+    from opencl_path_tracer_tpu.ops import nee as jnee
+    from opencl_path_tracer_tpu.ops.pallas.sphere_kernel import (
+        make_sphere_table_intersect as jsph,
+    )
+    from opencl_path_tracer_tpu_torch.ops import nee
+    kw = (dict(with_spheres=True, analytic_spheres=True, sphere_lamp=True)
+          if sphere_lamp else dict(with_spheres=True))
+    js, ps = jlib.cornell_box(**kw), library.cornell_box(**kw)
+    jis = jminarg(js.tris, tr=256, interpret=True)
+    if sphere_lamp:
+        jtri, jsp = jis, jsph(js.spheres, interpret=True)
+
+        def jis(rays):
+            return jisect.merge_hits(jtri(rays), jsp(rays))
+
+    return (js, jis, jnee.build_emitter_table(js.tris, js.mats, js.spheres),
+            ps, make_intersect_fn(ps, "bruteforce"),
+            nee.build_emitter_table(ps.tris, ps.mats, ps.spheres))
+
+
+@pytest.mark.parametrize("sphere_lamp", [False, True])
+def test_nee_steps_match_jax(sphere_lamp):
+    """Six NEE steps, each from JAX's state, field by field (integers
+    exact, floats rtol 2e-5, prev_pdf included)."""
+    js, jis, jtab, ps, pis, ptab = _nee_setup(sphere_lamp)
+    jcam, pcam = jlib.cornell_camera(W, H), library.cornell_camera(W, H)
+    n = W * H
+    jst = jwf.init_wavefront(jcam, n, mode="fast", key=jax.random.key(4))
+    for s in range(6):
+        pst = wavefront.wavefront_step(
+            pcam, ps.mats, _to_port(jst), intersect_fn=pis, iterations=4,
+            mode="fast", key=rng.key(4), nee=ptab)
+        jst = jwf.wavefront_step(jcam, js.mats, jst, intersect_fn=jis,
+                                 iterations=4, mode="fast",
+                                 key=jax.random.key(4), nee=jtab)
+        _assert_state(pst, jst, f"step {s}")
+        np.testing.assert_allclose(pst.prev_pdf.numpy(),
+                                   np.asarray(jst.prev_pdf), rtol=RTOL,
+                                   atol=ATOL, err_msg=f"step {s}: prev_pdf")
+    assert int(jnp.sum(jst.samples)) > 0
+    assert float(np.asarray(jst.prev_pdf).max()) > 0.0
+
+
+def test_nee_anyhit_route_bit_identical():
+    """In the port's wavefront, shadow rays through K7 (or-ed with the
+    spheres) give the same bits as through the nearest-hit intersector."""
+    from opencl_path_tracer_tpu_torch.ops.kernels.tilecull_kernel import (
+        make_scene_occluded,
+    )
+    _, _, _, ps, pis, ptab = _nee_setup(True)
+    cam = library.cornell_camera(W, H)
+
+    def run(occluded_fn):
+        st = wavefront.init_wavefront(cam, W * H, mode="fast",
+                                      key=rng.key(6))
+        for _ in range(6):
+            st = wavefront.wavefront_step(
+                cam, ps.mats, st, intersect_fn=pis, iterations=4,
+                mode="fast", key=rng.key(6), nee=ptab,
+                occluded_fn=occluded_fn)
+        return st
+
+    a, b = run(None), run(make_scene_occluded(ps))
+    for k in range(3):
+        assert torch.equal(a.colors[k], b.colors[k])
+        assert torch.equal(a.cur_color[k], b.cur_color[k])
+    assert float(a.colors[0].max()) > 0.0

@@ -319,7 +319,7 @@ def check_slice3(torch, scenes, cam, cam_rays, errs):
     scene = scenes["cornell"]
     eye = tuple(float(v) for v in cam.eye.cpu())
     isect = make_intersect_fn(scene, "auto")
-    pack, groups, _, _ = tk.grouped_pack(scene.tris, 128)
+    pack, groups, _ = tk.grouped_pack(scene.tris, 128)
     shadow, rmax = nee_shadow_rays(torch, scene, cam, cam_rays, isect)
     s8 = k1.pack_rays(shadow.p, shadow.d).contiguous()
     occ = tk.anyhit(s8, rmax, pack, groups)
@@ -335,7 +335,7 @@ def check_slice3(torch, scenes, cam, cam_rays, errs):
           f"{int(occ.sum())} occluded; equal to its plain version and to "
           f"(K4 t valid and t < rmax) (torch.equal)")
     inputs = {"anyhit": (s8, rmax, pack, groups)}
-    cpack, cgroups, _, _ = tk.grouped_pack(scene.tris, 128, origin=eye)
+    cpack, cgroups, _ = tk.grouped_pack(scene.tris, 128, origin=eye)
     minarg_pack = k1.build_tri_pack(scene.tris)
     for rname, rays in (("camera", cam_rays),
                         ("bounce", bounce_rays(torch, scene, cam, cam_rays,
@@ -355,6 +355,8 @@ def check_slice3(torch, scenes, cam, cam_rays, errs):
               f"{int((t < k1.BIG).sum())} hits; equal to its plain version, "
               "t equal to minarg's (torch.equal)")
         inputs.setdefault("tilecull", (r8, cpack, cgroups))
+        if rname == "bounce":
+            inputs["bounce rays"] = (r8, cpack, cgroups, minarg_pack)
     many = scenes["many-lights"]
     table = k3.build_sphere_table(many.spheres)
     r8 = k1.pack_rays(cam_rays.p, cam_rays.d).contiguous()
@@ -400,7 +402,7 @@ def check_no_fallback(torch, scenes):
     from opencl_path_tracer_tpu_torch.ops.kernels import (
         intersect_kernel as k1, sphere_kernel as k3, tilecull_kernel as tk)
     pack = k1.build_tri_pack(scenes["cornell"].tris)
-    gpack, groups, _, _ = tk.grouped_pack(scenes["cornell"].tris, 128)
+    gpack, groups, _ = tk.grouped_pack(scenes["cornell"].tris, 128)
     table = k3.build_sphere_table(scenes["many-lights"].spheres)
     rays8 = torch.zeros((8, 64), device="cuda")
     calls = {
@@ -667,6 +669,14 @@ def measure(torch, inputs, errs, launches):
                  lambda: k3.sphere_table_plain(rb, tab),
                  10 * rsb + 19 * rsb * sb + 12 * hits_b, 0,
                  24 * rsb + 32 * sb + 20 * rsb))
+    # K6 against K1 on incoherent rays: the first-bounce rays of cornell.
+    b8, bpack, bgroups, mpack = inputs["bounce rays"]
+    ms6 = time_ms(torch, lambda: tk.tilecull(b8, bpack, bgroups), 20)
+    ms1 = time_ms(torch, lambda: k1.minarg(b8, mpack), 20)
+    pairs_b = grouped_ops(torch, b8, bpack, bgroups)[1]
+    print(f"cornell first-bounce rays: tilecull {ms6:.4f} ms, minarg "
+          f"{ms1:.4f} ms; tilecull's grouped pairs "
+          f"{pairs_b / b8.shape[1]:.1f} per ray")
     out = []
     for name, kern, plain, ops, bf16_ops, nbytes in rows:
         ms = time_ms(torch, kern, 20)

@@ -246,7 +246,7 @@ def render(cam: Camera, mats: MaterialsSoA, *, intersect_fn: IntersectFn,
            num_pixels: int, iterations: int, spp: int, mode: str = "parity",
            seed: int = 1, key: tuple[int, int] | None = None,
            state: TraceState | None = None, qmc: bool = False, nee=None,
-           occluded_fn=None, device=None) -> TraceState:
+           device=None) -> TraceState:
     """Accumulate `spp` progressive samples (the onIdle loop,
     main.cpp:1171-1241). Runs on `device` (CUDA unless "cpu" is asked
     for); cam and mats must already live there."""
@@ -260,7 +260,7 @@ def render(cam: Camera, mats: MaterialsSoA, *, intersect_fn: IntersectFn,
     for _ in range(spp):
         state = trace_sample(cam, mats, state, intersect_fn=intersect_fn,
                              iterations=iterations, mode=mode, key=key,
-                             qmc=qmc, nee=nee, occluded_fn=occluded_fn)
+                             qmc=qmc, nee=nee)
     return state
 
 

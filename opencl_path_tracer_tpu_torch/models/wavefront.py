@@ -327,7 +327,7 @@ def render_wavefront(cam: Camera, mats: MaterialsSoA, *, intersect_fn,
                      max_extra_steps: int = 1_000_000,
                      exact_spp: bool = False,
                      ids: torch.Tensor | None = None, env=None, nee=None,
-                     rr=None, qmc: bool = False, dof=None, occluded_fn=None,
+                     rr=None, qmc: bool = False, dof=None,
                      device=None) -> WavefrontState:
     """Run steps until every pixel has >= min_spp samples, with a host
     check of min(samples) every max(2 * iterations, 8) steps. Runs on
@@ -348,8 +348,7 @@ def render_wavefront(cam: Camera, mats: MaterialsSoA, *, intersect_fn,
             state = wavefront_step(
                 cam, mats, state, intersect_fn=intersect_fn,
                 iterations=iterations, mode=mode, key=key, max_samples=cap,
-                env=env, nee=nee, rr=rr, qmc=qmc, dof=dof,
-                occluded_fn=occluded_fn)
+                env=env, nee=nee, rr=rr, qmc=qmc, dof=dof)
         if int(state.samples.min()) >= min_spp:
             break
     return state

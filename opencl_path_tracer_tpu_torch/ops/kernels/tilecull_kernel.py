@@ -5,9 +5,10 @@ Port of `opencl_path_tracer_tpu/ops/pallas/tilecull_kernel.py`:
 `build_groups`, `_safe_inv`, `_slab`, `_tilecull_kernel` (launched by
 `_run_tilecull`) with `make_tilecull_intersect`, and `_anyhit_kernel`
 (launched by `_run_anyhit`) with `make_anyhit_occluded` and
-`make_scene_occluded`. Only `presort='none'` is ported; the presort
-modes and the accel predictor (`estimate_tile_need_fraction`,
-`auto_small_accel`) are still to port (ROADMAP.md queue 1).
+`make_scene_occluded`. The rays keep their order (JAX's default
+`presort='none'`); the presort modes and the accel predictor
+(`estimate_tile_need_fraction`, `auto_small_accel`) are still to port
+(ROADMAP.md queue 1).
 
 The triangles are put in 10-bit Morton order of their centroids and cut
 into groups of `gs` rows, each with an axis-aligned box inflated by
@@ -235,32 +236,27 @@ def anyhit(rays8: torch.Tensor, rmax: torch.Tensor, tri_pack: torch.Tensor,
 
 
 def grouped_pack(tris: TrianglesSoA, gs: int = 128, origin=None):
-    """(pack, groups, perm, boxes): the Morton-ordered (T, 24) pack and its
-    (G, 8) group table on the triangles' device, for K6 and K7."""
+    """(pack, groups, perm): the Morton-ordered (T, 24) pack, its (G, 8)
+    group table on the triangles' device, for K6 and K7, and the
+    permutation."""
     tris2, perm, boxes, spans = build_groups(tris, gs, origin=origin)
     if len(boxes) > MAX_GROUPS:
         raise ValueError(
             f"{tris.count} tris -> {len(boxes)} groups exceeds MAX_GROUPS="
             f"{MAX_GROUPS} at gs={gs}; scenes this large need the pair "
             "intersector (ROADMAP.md queue 2)")
-    return (build_tri_pack(tris2), group_table(boxes, spans, tris.device),
-            perm, boxes)
+    return build_tri_pack(tris2), group_table(boxes, spans, tris.device), perm
 
 
 def make_tilecull_intersect(tris: TrianglesSoA, *, gs: int = 128,
-                            with_ids: bool = False, presort: str = "none",
-                            origin=None):
+                            with_ids: bool = False, origin=None):
     """The 'tilecull' accel: K6, then K2's attribute fetch on the Morton-
     ordered pack. intersect(rays) -> Hits, or (Hits, ids) with ids the
     winner's original triangle index (-1 on a miss) when with_ids=True.
     origin (the camera eye) orders the groups front to back. On exact-t
     ties the winner is the first in Morton order, where K1's is the first
     in scene order; t is the same."""
-    if presort != "none":
-        raise NotImplementedError(
-            f"presort={presort!r} is not ported yet (ROADMAP.md queue 1); "
-            "the port has presort='none'")
-    pack, groups, perm, boxes = grouped_pack(tris, gs, origin)
+    pack, groups, perm = grouped_pack(tris, gs, origin)
     perm_t = torch.as_tensor(perm, device=tris.device)
 
     def intersect(rays: Rays):
@@ -272,7 +268,6 @@ def make_tilecull_intersect(tris: TrianglesSoA, *, gs: int = 128,
                           torch.full_like(perm_t[:1], -1))
         return hits, ids.to(torch.int32)
 
-    intersect.boxes = tuple(boxes)
     return intersect
 
 
@@ -280,13 +275,12 @@ def make_anyhit_occluded(tris: TrianglesSoA, *, gs: int = 128):
     """occluded(rays, rmax) -> (R,) bool through K7: True iff some
     triangle's exact hit lies in (0, rmax). With rmax = dist (1 - 1e-3)
     it answers NEE's visibility exactly as the nearest hit does."""
-    pack, groups, _perm, boxes = grouped_pack(tris, gs)
+    pack, groups, _ = grouped_pack(tris, gs)
 
     def occluded(rays: Rays, rmax: torch.Tensor) -> torch.Tensor:
         return anyhit(pack_rays(rays.p, rays.d), rmax.to(torch.float32)
                       .contiguous(), pack, groups)
 
-    occluded.boxes = tuple(boxes)
     return occluded
 
 

@@ -111,7 +111,7 @@ def test_third_slice_kernels_equal_plain_versions(cuda):
     from opencl_path_tracer_tpu_torch.ops.kernels import tilecull_kernel as tk
     scene = library.cornell_box(with_spheres=True, device=cuda)
     rays8 = _rays8(50_001, 3, cuda)
-    pack, groups, _, _ = tk.grouped_pack(scene.tris, 128,
+    pack, groups, _ = tk.grouped_pack(scene.tris, 128,
                                      origin=(500.0, 500.0, -1299.0))
     counts = dict(_build.launches)
     t, g = tk.tilecull(rays8, pack, groups)
@@ -145,7 +145,7 @@ def test_no_fallback_when_the_loader_fails(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="disabled"):
         k1.dense(_rays8(64, 1, cuda), k1.build_tri_pack(scene.tris))
     from opencl_path_tracer_tpu_torch.ops.kernels import tilecull_kernel as tk
-    pack, groups, _, _ = tk.grouped_pack(scene.tris, 128)
+    pack, groups, _ = tk.grouped_pack(scene.tris, 128)
     with pytest.raises(RuntimeError, match="disabled"):
         tk.tilecull(_rays8(64, 1, cuda), pack, groups)
     with pytest.raises(RuntimeError, match="disabled"):

@@ -18,6 +18,7 @@ from opencl_path_tracer_tpu.scene import library as jlib
 from opencl_path_tracer_tpu.utils import oracle
 from opencl_path_tracer_tpu_torch import interop
 from opencl_path_tracer_tpu_torch.models import megakernel
+from opencl_path_tracer_tpu_torch.ops import rng
 from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
 from opencl_path_tracer_tpu_torch.scene import library
 
@@ -160,14 +161,15 @@ def _nee_render(mode, select="power", w=16, h=16, iterations=4, spp=2,
                      mode=mode, seed=3,
                      nee=jnee.build_emitter_table(js.tris, js.mats,
                                                   js.spheres, select=select))
-    pst = megakernel.render(
-        library.cornell_camera(w, h), ps.mats,
-        intersect_fn=make_intersect_fn(ps), num_pixels=w * h,
-        iterations=iterations, spp=spp, mode=mode, seed=3,
-        nee=nee.build_emitter_table(ps.tris, ps.mats, ps.spheres,
-                                    select=select),
-        occluded_fn=make_scene_occluded(ps) if occluded else None,
-        device="cpu")
+    pst = megakernel.init_state(w * h, 3)
+    ptab = nee.build_emitter_table(ps.tris, ps.mats, ps.spheres,
+                                   select=select)
+    for _ in range(spp):
+        pst = megakernel.trace_sample(
+            library.cornell_camera(w, h), ps.mats, pst,
+            intersect_fn=make_intersect_fn(ps), iterations=iterations,
+            mode=mode, key=rng.key(3) if mode == "fast" else None, nee=ptab,
+            occluded_fn=make_scene_occluded(ps) if occluded else None)
     return np.asarray(jmk.colors_array(jst)), megakernel.colors_array(pst)
 
 

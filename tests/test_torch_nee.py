@@ -18,7 +18,6 @@ import numpy as np
 import pytest
 import torch
 
-from opencl_path_tracer_tpu.core.types import Rays as JRays
 from opencl_path_tracer_tpu.ops import intersect as jisect
 from opencl_path_tracer_tpu.ops import nee as jnee
 from opencl_path_tracer_tpu.ops.pallas.plucker_kernel import (

@@ -169,8 +169,6 @@ def test_limits_and_refusals():
     _, pt = _scene(600)
     with pytest.raises(ValueError, match="MAX_GROUPS"):
         tk.make_tilecull_intersect(pt, gs=8)
-    with pytest.raises(NotImplementedError, match="presort"):
-        tk.make_tilecull_intersect(pt, presort="morton")
     big = plib.cornell_box(with_spheres=True, sphere_res=(80, 60))
     assert big.tris.count > 128 * tk.MAX_GROUPS
     assert tk.make_scene_occluded(big) is None

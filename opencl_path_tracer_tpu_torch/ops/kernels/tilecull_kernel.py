@@ -40,6 +40,9 @@ from opencl_path_tracer_tpu_torch.ops.kernels.intersect_kernel import (
     BIG, TRI_COLS, assemble_hits, build_tri_pack, exact_test, pack_rays,
 )
 from opencl_path_tracer_tpu_torch.ops.kernels.plucker_kernel import refine1
+from opencl_path_tracer_tpu_torch.ops.kernels.sphere_kernel import (
+    make_sphere_intersect,
+)
 
 MAX_GROUPS = 64
 GROUP_COLS = 8   # [lo_x lo_y lo_z hi_x hi_y hi_z base end]
@@ -291,26 +294,14 @@ def make_scene_occluded(scene, *, gs: int = 128):
     (R,) bool, or None for a scene above gs * MAX_GROUPS triangles: the
     JAX package's own choice, and the caller then sends the shadow rays
     through the nearest-hit intersector. It is not a fallback from a
-    kernel that fails."""
-    from opencl_path_tracer_tpu_torch.ops.kernels.sphere_kernel import (
-        make_sphere_intersect,
-    )
+    kernel that fails. (The port's scenes always have triangles, so JAX's
+    sphere-only branch has no counterpart.)"""
     if scene.tris.count > gs * MAX_GROUPS:
         return None
-    spheres = scene.spheres
-    sph = None if spheres is None else make_sphere_intersect(spheres)
-    if scene.tris.count == 0:
-        if sph is None:
-            return None
-
-        def occluded_spheres(rays: Rays, rmax) -> torch.Tensor:
-            h = sph(rays)
-            return h.valid & (h.t < rmax)
-
-        return occluded_spheres
     tri_occ = make_anyhit_occluded(scene.tris, gs=gs)
-    if sph is None:
+    if scene.spheres is None:
         return tri_occ
+    sph = make_sphere_intersect(scene.spheres)
 
     def occluded(rays: Rays, rmax) -> torch.Tensor:
         h = sph(rays)

@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the port's ten CUDA kernels from
+It builds the port's eleven CUDA kernels from
 `opencl_path_tracer_tpu_torch/csrc/`, holds each against its plain
 PyTorch version at 1080p ray and lane counts, renders the three goldens
 of `tests/golden/` through the kernels, and drives the main paths at
@@ -22,7 +22,13 @@ and read just after:
     kernel): the megakernel on the Cornell box, the wavefront model on
     the sphere-lamp box, and the wavefront model with the 'distance'
     select on the many-light scene (64 lamps, 66 spheres), 8 spp each;
-  * the megakernel with accel='tilecull' on the Cornell box, 8 spp.
+  * the megakernel with accel='tilecull' on the Cornell box, 8 spp;
+  * smooth shading (smooth=True, K1 then the smooth refine K8): the
+    megakernel on the reference's own scene (`reference_scene` with the
+    seven models of tests/assets/models, 1,838 triangles, its own
+    camera) and on the Cornell box with smooth spheres, and the
+    wavefront model with NEE on the reference scene with its two sphere
+    models as analytic spheres, 8 spp each.
 
 The last two lines are a JSON object per kernel (time, plain time,
 bound, launches) and the verdict. Any failed phase raises, and the
@@ -74,6 +80,9 @@ KERNEL_META = {
                  "opencl_path_tracer_tpu/ops/pallas/tilecull_kernel.py:179"),
     "sphere_table": ("opencl_path_tracer_tpu_torch/csrc/sphere_table.cu",
                      "opencl_path_tracer_tpu/ops/pallas/sphere_kernel.py:142"),
+    "smooth_refine": ("opencl_path_tracer_tpu_torch/csrc/smooth_refine.cu",
+                      "opencl_path_tracer_tpu/ops/pallas/shading_kernel.py"
+                      ":89"),
 }
 # Every kernel of each main path must launch in that path's run.
 PATH_KERNELS = {
@@ -88,7 +97,13 @@ PATH_KERNELS = {
     "wavefront many-lights nee-distance": ("minarg", "refine1",
                                            "sphere_table", "anyhit"),
     "megakernel cornell tilecull": ("tilecull", "refine1"),
+    "megakernel reference smooth": ("minarg", "smooth_refine"),
+    "wavefront reference-analytic smooth nee": ("minarg", "smooth_refine",
+                                                "spheres", "anyhit"),
+    "megakernel cornell smooth": ("minarg", "smooth_refine"),
 }
+MODELS_DIR = os.path.join(HERE, "tests", "assets", "models")
+REFERENCE_TRIS = 1838   # ground plane + the seven models (docs/BENCHMARKS.md)
 
 
 class SmokeError(RuntimeError):
@@ -157,18 +172,23 @@ def bounce_rays(torch, scene, cam, rays, isect):
     return Rays(p=s["new_p"], d=s["new_d"])
 
 
+def camera_rays(cam):
+    """The 1080p camera rays of sample 0 in parity mode: gen_ray's two
+    draws per pixel (prog.cl:384-389)."""
+    from opencl_path_tracer_tpu_torch.ops import raygen, rng
+    dev = cam.eye.device
+    s1, r1 = rng.lehmer_step(rng.seed_pixel_streams(W * H, 1, device=dev))
+    _, r2 = rng.lehmer_step(s1)
+    return raygen.camera_rays(cam, raygen.pixel_ids(W, H, dev), r1, r2)
+
+
 def check_kernels(torch, scenes, cam):
     """Each ray kernel against its plain version on the camera rays and the
     first-bounce rays of both scenes, with torch.equal."""
-    from opencl_path_tracer_tpu_torch.ops import raygen, rng
     from opencl_path_tracer_tpu_torch.ops.kernels import (
         intersect_kernel as k1, plucker_kernel as k2, sphere_kernel as k3)
     from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
-    dev = cam.eye.device
-    # gen_ray's two parity draws per pixel (prog.cl:384-389).
-    s1, r1 = rng.lehmer_step(rng.seed_pixel_streams(W * H, 1, device=dev))
-    _, r2 = rng.lehmer_step(s1)
-    cam_rays = raygen.camera_rays(cam, raygen.pixel_ids(W, H, dev), r1, r2)
+    cam_rays = camera_rays(cam)
     inputs = {}
     errs = {name: 0.0 for name in KERNEL_META}
 
@@ -375,6 +395,120 @@ def check_slice3(torch, scenes, cam, cam_rays, errs):
     return inputs
 
 
+def strip_hits(torch, scene, pack, s8, rmax, occ, t4, g4):
+    """Where K7's flag differs from (K4 t valid and t < rmax): each such ray
+    must be K7-unoccluded with its K4 hit on a zero-area triangle (float64
+    area 0), and K4 over the pack with those rows zeroed (never hit) must
+    find nothing below rmax. Such a triangle's face normal is the residue
+    of a fused cross product, as in the JAX package, which makes its
+    exact test accept a thin infinite strip outside its group's box, and
+    the group culling of K6 and K7 (as on the TPU) never looks there.
+    Returns the number of such rays."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import intersect_kernel as k1
+    diff = torch.nonzero(occ != ((t4 < k1.BIG) & (t4 < rmax))).flatten()
+    if diff.numel() == 0:
+        return 0
+    r1, r2, r3 = (getattr(scene.tris, f).double().cpu()
+                  for f in ("r1", "r2", "r3"))
+    zero = torch.linalg.cross(r2 - r1, r3 - r1).norm(dim=1) == 0.0
+    need(not bool(occ[diff].any())
+         and bool(zero[g4[diff].long().cpu()].all()),
+         "anyhit differs from (K4 t valid and t < rmax) on reference NEE "
+         "shadow rays whose K4 hit is not on a zero-area triangle")
+    solid = pack.clone()
+    solid[zero.to(pack.device)] = 0.0
+    t4s = k1.dense(s8[:, diff].contiguous(), solid)[0]
+    torch.cuda.synchronize()
+    need(not bool(((t4s < k1.BIG) & (t4s < rmax[diff])).any()),
+         "anyhit misses a hit of nonzero area below rmax on reference NEE "
+         "shadow rays")
+    return int(diff.numel())
+
+
+def check_smooth(torch, scenes, errs):
+    """K8 against its plain version on the camera and first-bounce rays of
+    the smooth reference scene (its own camera) and of the smooth-sphere
+    Cornell box at 1080p. On the reference scene, whose ground plane
+    spans +-10,000 next to unit-scale models, also K6's t against K1's
+    and K7's flags on its NEE shadow rays against (K4 t valid and
+    t < rmax), but on the rays `strip_hits` explains. Returns the inputs
+    at which K8 is timed and the reference's rays for K1, K6 and K7."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import (
+        intersect_kernel as k1, shading_kernel as k8, tilecull_kernel as tk)
+    from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
+    from opencl_path_tracer_tpu_torch.scene import library
+    need(scenes["reference"].num_triangles == REFERENCE_TRIS,
+         f"the reference scene has {scenes['reference'].num_triangles} "
+         f"triangles, not {REFERENCE_TRIS}: a model of {MODELS_DIR} is "
+         "missing")
+    inputs = {}
+    for sname, cam in (
+            ("reference", library.reference_camera(W, H, device="cuda")),
+            ("cornell-smooth", library.cornell_camera(W, H, device="cuda"))):
+        scene = scenes[sname]
+        isect = make_intersect_fn(scene, "auto", smooth=True)
+        pack = k1.build_tri_pack(scene.tris)
+        spack = k8.build_shading_pack(scene.attribs)
+        cam_rays = camera_rays(cam)
+        for rname, rays in (
+                ("camera", cam_rays),
+                ("bounce", bounce_rays(torch, scene, cam, cam_rays, isect))):
+            r8 = k1.pack_rays(rays.p, rays.d).contiguous()
+            t, g = k1.minarg(r8, pack)
+            outs = k8.smooth_refine(r8, t, g, pack, spack)
+            plain = k8.smooth_refine_plain(r8, t, g, pack, spack)
+            torch.cuda.synchronize()
+            errs["smooth_refine"] = max(
+                [errs["smooth_refine"]]
+                + [float((a - b).abs().max()) for a, b in zip(outs, plain)])
+            need(all(torch.equal(a, b) for a, b in zip(outs, plain)),
+                 f"smooth_refine differs from its plain version on {sname} "
+                 f"{rname} rays")
+            hit = outs[0] > 0
+            smooth = hit & (outs[1] != pack[g.long(), 0])
+            print(f"smooth_refine on {r8.shape[1]} {sname} {rname} rays: "
+                  f"{int(hit.sum())} hits, {int(smooth.sum())} with an "
+                  "interpolated normal; equal to its plain version "
+                  "(torch.equal)")
+            inputs.setdefault("smooth_refine", (r8, t, g, pack, spack))
+            if sname == "reference":
+                inputs[f"reference {rname}"] = r8
+        if sname != "reference":
+            continue
+        eye = tuple(float(v) for v in cam.eye.cpu())
+        cpack, cgroups, _ = tk.grouped_pack(scene.tris, 128, origin=eye)
+        for rname in ("camera", "bounce"):
+            r8 = inputs[f"reference {rname}"]
+            t6, _ = tk.tilecull(r8, cpack, cgroups)
+            torch.cuda.synchronize()
+            need(torch.equal(t6, k1.minarg(r8, pack)[0]),
+                 f"tilecull t differs from minarg t on reference {rname} "
+                 "rays")
+        shadow, rmax = nee_shadow_rays(torch, scene, cam, cam_rays, isect)
+        s8 = k1.pack_rays(shadow.p, shadow.d).contiguous()
+        gpack, groups, _ = tk.grouped_pack(scene.tris, 128)
+        occ = tk.anyhit(s8, rmax, gpack, groups)
+        t4, g4 = k1.dense(s8, pack)[:2]
+        torch.cuda.synchronize()
+        strip = strip_hits(torch, scene, pack, s8, rmax, occ, t4, g4)
+        ext = (cgroups[:, 3:6] - cgroups[:, 0:3]).amax(dim=1)
+        wide = ext > 1000.0
+        need(not bool(wide.all()), "every tilecull group box on reference is "
+             "as wide as the ground plane")
+        print(f"reference: tilecull t equal to minarg t on camera and bounce "
+              f"rays; anyhit on {s8.shape[1]} NEE shadow rays "
+              f"({int(occ.sum())} occluded) equal to (K4 t valid and t < "
+              f"rmax) but on {strip} rays whose K4 hit is on a zero-area "
+              f"triangle's strip, outside its group's box, and that no "
+              f"other triangle occludes; {int(wide.sum())} of "
+              f"{cgroups.shape[0]} group boxes wider than 1,000 (the "
+              f"ground plane spans 20,000; the widest other box "
+              f"{float(ext[~wide].max()):.1f})")
+        inputs["reference kernels"] = (cpack, cgroups, s8, rmax, gpack,
+                                       groups, pack)
+    return inputs
+
+
 def check_goldens(torch, np):
     from opencl_path_tracer_tpu_torch.models import megakernel
     from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
@@ -397,11 +531,15 @@ def check_goldens(torch, np):
 
 def check_no_fallback(torch, scenes):
     """With the kernel loader broken, a CUDA call must raise (K1, K4, K7,
-    K6 and K3b)."""
+    K6, K3b and K8)."""
     from opencl_path_tracer_tpu_torch.ops.kernels import _build
     from opencl_path_tracer_tpu_torch.ops.kernels import (
-        intersect_kernel as k1, sphere_kernel as k3, tilecull_kernel as tk)
+        intersect_kernel as k1, shading_kernel as k8, sphere_kernel as k3,
+        tilecull_kernel as tk)
     pack = k1.build_tri_pack(scenes["cornell"].tris)
+    smooth = scenes["cornell-smooth"]
+    spack = (k1.build_tri_pack(smooth.tris),
+             k8.build_shading_pack(smooth.attribs))
     gpack, groups, _ = tk.grouped_pack(scenes["cornell"].tris, 128)
     table = k3.build_sphere_table(scenes["many-lights"].spheres)
     rays8 = torch.zeros((8, 64), device="cuda")
@@ -412,6 +550,9 @@ def check_no_fallback(torch, scenes):
                                     gpack, groups),
         "tilecull": lambda: tk.tilecull(rays8, gpack, groups),
         "sphere_table": lambda: k3.sphere_table(rays8, table),
+        "smooth_refine": lambda: k8.smooth_refine(
+            rays8, torch.full((64,), k1.BIG, device="cuda"),
+            torch.zeros(64, device="cuda"), *spack),
     }
     real = _build.library
 
@@ -455,10 +596,14 @@ def main_path(torch, np, scenes, cam):
     from opencl_path_tracer_tpu_torch.runtime.engine import RenderEngine
     total = {name: 0 for name in KERNEL_META}
 
-    def cfg(**kw):
+    def cfg(camera=None, **kw):
+        """The Cornell camera preset unless `camera` is given (the
+        reference scenes take the config's default, the reference's own
+        camera)."""
         return RenderConfig(width=W, height=H, iterations=BOUNCES, spp=SPP,
-                            camera=CameraConfig(fov=60.0, yaw=0.0, pitch=0.0,
-                                                shift=(0.0, 0.0, 0.0)), **kw)
+                            camera=camera or CameraConfig(
+                                fov=60.0, yaw=0.0, pitch=0.0,
+                                shift=(0.0, 0.0, 0.0)), **kw)
 
     def report(name, dt, rays, spp, counts):
         for k, v in counts.items():
@@ -482,6 +627,15 @@ def main_path(torch, np, scenes, cam):
                                    nee_select="distance"), device="cuda")))
     engines.append(("megakernel cornell tilecull", RenderEngine(
         scenes["cornell"], cfg(accel="tilecull"), device="cuda")))
+    engines.append(("megakernel reference smooth", RenderEngine(
+        scenes["reference"], cfg(camera=CameraConfig(), smooth=True),
+        device="cuda")))
+    engines.append(("wavefront reference-analytic smooth nee", RenderEngine(
+        scenes["reference-analytic"],
+        cfg(camera=CameraConfig(), model="wavefront", smooth=True, nee=True),
+        device="cuda")))
+    engines.append(("megakernel cornell smooth", RenderEngine(
+        scenes["cornell-smooth"], cfg(smooth=True), device="cuda")))
     for name, eng in engines:
         _, dt, counts = run_path(torch, name, lambda: eng.render(SPP))
         img = eng.image()
@@ -582,8 +736,8 @@ def grouped_ops(torch, rays8, pack, groups, rmax=None):
 def measure(torch, inputs, errs, launches):
     from opencl_path_tracer_tpu_torch.models import fused_step as fs
     from opencl_path_tracer_tpu_torch.ops.kernels import (
-        intersect_kernel as k1, plucker_kernel as k2, sphere_kernel as k3,
-        tilecull_kernel as tk)
+        intersect_kernel as k1, plucker_kernel as k2, shading_kernel as k8,
+        sphere_kernel as k3, tilecull_kernel as tk)
     rows = []   # name, kernel, plain, fp32 ops, bf16 ops, bytes
     rays8, pack = inputs["minarg"]
     r, t = rays8.shape[1], pack.shape[0]
@@ -669,6 +823,30 @@ def measure(torch, inputs, errs, launches):
                  lambda: k3.sphere_table_plain(rb, tab),
                  10 * rsb + 19 * rsb * sb + 12 * hits_b, 0,
                  24 * rsb + 32 * sb + 20 * rsb))
+    # K8: the rays (six rows), t1 and g1 in, five rows out per ray; its
+    # two tables, read once (they stay in L2); about 45 float32
+    # operations per ray.
+    r8k, t8, g8, pk8, spk8 = inputs["smooth_refine"]
+    rk8, tk8 = r8k.shape[1], pk8.shape[0]
+    rows.append(("smooth_refine",
+                 lambda: k8.smooth_refine(r8k, t8, g8, pk8, spk8),
+                 lambda: k8.smooth_refine_plain(r8k, t8, g8, pk8, spk8),
+                 45 * rk8, 0, (24 + 8 + 20) * rk8 + (96 + 68) * tk8))
+    # K1, K6 and K7 on the reference scene's rays, beside the cornell
+    # times of the rows below.
+    cpack, cgroups, rs8, rrmax, rgpack, rgroups, rpack = inputs[
+        "reference kernels"]
+    rc8 = inputs["reference camera"]
+    ref_ms = {
+        "minarg": time_ms(torch, lambda: k1.minarg(rc8, rpack), 20),
+        "tilecull": time_ms(torch, lambda: tk.tilecull(rc8, cpack, cgroups),
+                            20),
+        "anyhit": time_ms(torch, lambda: tk.anyhit(rs8, rrmax, rgpack,
+                                                   rgroups), 20),
+    }
+    print(f"reference ({rpack.shape[0]} triangles) camera rays: minarg "
+          f"{ref_ms['minarg']:.4f} ms, tilecull {ref_ms['tilecull']:.4f} ms; "
+          f"NEE shadow rays: anyhit {ref_ms['anyhit']:.4f} ms")
     # K6 against K1 on incoherent rays: the first-bounce rays of cornell.
     b8, bpack, bgroups, mpack = inputs["bounce rays"]
     ms6 = time_ms(torch, lambda: tk.tilecull(b8, bpack, bgroups), 20)
@@ -713,12 +891,19 @@ def main() -> int:
             with_spheres=True, analytic_spheres=True, sphere_lamp=True,
             device="cuda"),
         "many-lights": library.many_light_scene(64, device="cuda"),
+        "reference": library.reference_scene(MODELS_DIR, smooth=True,
+                                             device="cuda"),
+        "reference-analytic": library.reference_scene(
+            MODELS_DIR, smooth=True, analytic=True, device="cuda"),
+        "cornell-smooth": library.cornell_box(
+            with_spheres=True, smooth_spheres=True, device="cuda"),
     }
     cam = library.cornell_camera(W, H, device="cuda")
     inputs, errs, cam_rays = check_kernels(
         torch, {k: scenes[k] for k in ("cornell", "cornell-analytic")}, cam)
     inputs.update(check_fused(torch, scenes["cornell"], cam, errs))
     inputs.update(check_slice3(torch, scenes, cam, cam_rays, errs))
+    inputs.update(check_smooth(torch, scenes, errs))
     check_goldens(torch, np)
     check_no_fallback(torch, scenes)
     launches = main_path(torch, np, scenes, cam)

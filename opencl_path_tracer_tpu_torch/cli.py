@@ -1,14 +1,17 @@
 """`ptx-torch` command-line interface.
 
 Port of the `render` command of `opencl_path_tracer_tpu/cli.py`
-(`_build_scene` for the Cornell scenes and `cmd_render`): an offline
-progressive render to PNG. It runs on the GPU unless `--device cpu` is
-given.
+(`_build_scene` without the stress scenes, `_camera_preset` and
+`cmd_render`): an offline progressive render to PNG. It runs on the GPU
+unless `--device cpu` is given.
 
     ptx-torch render --scene cornell --size 1920x1080 --iters 5 --spp 8
     ptx-torch render --scene cornell-analytic --model wavefront --rr 3
     ptx-torch render --scene cornell --nee
     ptx-torch render --scene many-lights --nee --nee-select distance
+    ptx-torch render --scene reference --models-dir tests/assets/models \
+        --smooth
+    ptx-torch render --scene model.obj --smooth
 """
 
 from __future__ import annotations
@@ -19,13 +22,16 @@ import time
 
 
 SCENES = ("cornell", "cornell-analytic", "cornell-sphere-lamp",
-          "many-lights", "many-lights-N")
+          "many-lights", "many-lights-N", "reference", "reference-analytic",
+          "*.obj")
 
 
-def _build_scene(name: str, device):
+def _build_scene(name: str, device, models_dir: str | None = None,
+                 smooth: bool = False):
     from opencl_path_tracer_tpu_torch.scene import library
     if name == "cornell":
-        return library.cornell_box(with_spheres=True, device=device)
+        return library.cornell_box(with_spheres=True,
+                                   smooth_spheres=smooth, device=device)
     if name == "cornell-analytic":
         # 12 box triangles + 2 exact quadrics.
         return library.cornell_box(with_spheres=True, analytic_spheres=True,
@@ -40,28 +46,57 @@ def _build_scene(name: str, device):
         count = (64 if name == "many-lights"
                  else int(name[len("many-lights-"):]))
         return library.many_light_scene(count, device=device)
+    if name == "reference":
+        return library.reference_scene(models_dir, smooth=smooth,
+                                       device=device)
+    if name == "reference-analytic":
+        # The lamp and gold-ball sphere models as exact quadrics, the
+        # other models as meshes.
+        return library.reference_scene(models_dir, smooth=smooth,
+                                       analytic=True, device=device)
+    if name.endswith(".obj"):
+        from opencl_path_tracer_tpu_torch.scene.builder import SceneBuilder
+        b = SceneBuilder()
+        b.add_obj(name, pos=(0, 0, 0), scale=(1, 1, 1),
+                  smooth_normals=smooth)
+        return b.build(device=device)
     raise SystemExit(f"unknown scene {name!r} (the port has "
                      f"{', '.join(SCENES)})")
 
 
+def _camera_preset(scene_name: str, args):
+    """The Cornell preset (fov 60, no yaw, pitch or shift) for the Cornell
+    and many-light scenes, the reference's live camera (the config's
+    default) for the reference scenes and OBJ files; --fov, --yaw and
+    --pitch override."""
+    from opencl_path_tracer_tpu_torch.config import CameraConfig
+    if (scene_name.startswith("cornell")
+            or scene_name.startswith("many-lights")):
+        cam = CameraConfig(fov=60.0, yaw=0.0, pitch=0.0,
+                           shift=(0.0, 0.0, 0.0))
+    else:
+        cam = CameraConfig()
+    for field in ("fov", "yaw", "pitch"):
+        if getattr(args, field, None) is not None:
+            setattr(cam, field, getattr(args, field))
+    return cam
+
+
 def cmd_render(args) -> int:
-    from opencl_path_tracer_tpu_torch.config import CameraConfig, RenderConfig
+    from opencl_path_tracer_tpu_torch.config import RenderConfig
     from opencl_path_tracer_tpu_torch.runtime.engine import RenderEngine
     from opencl_path_tracer_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
     w, h = (int(x) for x in args.size.split("x"))
-    cam = CameraConfig(fov=60.0, yaw=0.0, pitch=0.0, shift=(0.0, 0.0, 0.0))
-    for field in ("fov", "yaw", "pitch"):
-        if getattr(args, field) is not None:
-            setattr(cam, field, getattr(args, field))
     cfg = RenderConfig(width=w, height=h, iterations=args.iters,
                        spp=args.spp, mode=args.mode, seed=args.seed,
                        tonemap=args.tonemap, accel=args.accel, qmc=args.qmc,
                        model=args.model, rr_start=args.rr, nee=args.nee,
                        nee_select=args.nee_select,
-                       nee_anyhit=not args.no_nee_anyhit, camera=cam)
-    scene = _build_scene(args.scene, device)
+                       nee_anyhit=not args.no_nee_anyhit, smooth=args.smooth,
+                       camera=_camera_preset(args.scene, args))
+    scene = _build_scene(args.scene, device, args.models_dir, args.smooth)
     eng = RenderEngine(scene, cfg, device=device)
     t0 = time.perf_counter()
     eng.render(cfg.spp)
@@ -78,7 +113,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="ptx-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("render", help="offline render to PNG")
-    p.add_argument("--scene", default="cornell")
+    p.add_argument("--scene", default="cornell",
+                   help=f"one of {', '.join(SCENES)}")
+    p.add_argument("--models-dir", default=None,
+                   help="directory of the reference scene's OBJ models "
+                        "(tests/assets/models); a missing model is "
+                        "replaced by a tessellated sphere")
+    p.add_argument("--smooth", action="store_true",
+                   help="smooth shading: build the scene with vertex "
+                        "normals and interpolate them at the hits")
     p.add_argument("--size", default="512x512")
     p.add_argument("--iters", type=int, default=5, help="bounce depth")
     p.add_argument("--spp", type=int, default=64)
@@ -109,7 +152,8 @@ def main(argv=None) -> int:
     p.add_argument("--no-nee-anyhit", action="store_true",
                    help="trace NEE shadow rays through the nearest-hit "
                         "intersector instead of the any-hit kernel (the "
-                        "same bits)")
+                        "same bits but for rays that graze a zero-area "
+                        "triangle)")
     p.add_argument("--fov", type=float, default=None)
     p.add_argument("--yaw", type=float, default=None)
     p.add_argument("--pitch", type=float, default=None)

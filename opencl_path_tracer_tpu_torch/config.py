@@ -4,8 +4,9 @@ Port of `opencl_path_tracer_tpu/config.py`: the same fields and
 defaults (reference globals main.cpp:19-43), JSON round-trippable. The
 port honours the megakernel and wavefront models, both modes, the
 camera, bounce depth, spp, seed, tonemap, QMC jitter, Russian roulette
-(wavefront), next-event estimation (nee, nee_select, nee_anyhit) and the
-'auto' / 'minarg' / 'pallas' / 'tilecull' / 'bruteforce' accels; every
+(wavefront), next-event estimation (nee, nee_select, nee_anyhit), smooth
+shading and the 'auto' / 'minarg' / 'pallas' / 'tilecull' /
+'bruteforce' accels; every
 other field raises NotImplementedError when it is set away from its
 default.
 """
@@ -57,14 +58,17 @@ class RenderConfig:
     # diffuse vertex. nee_select: 'power' (global power-proportional) or
     # 'distance' (per-lane distance weights; sphere emitters only).
     # nee_anyhit: shadow rays through the any-hit kernel K7 instead of the
-    # nearest-hit intersector (the same bits).
+    # nearest-hit intersector (the same bits, but for rays that graze a
+    # zero-area triangle: ROADMAP.md queue 3).
     nee: bool = False
     nee_select: str = "power"
     nee_anyhit: bool = True
+    # Smooth shading: interpolated vertex normals at triangle hits (the
+    # scene must carry them: Scene.attribs).
+    smooth: bool = False
     # Fields of the JAX package's config that this port does not honour
     # yet; validate() refuses them away from these defaults.
     accel_force: bool = False
-    smooth: bool = False
     textured: bool = False
     env_light: bool = False
     env_sky: tuple[float, float, float] = (0.0, 0.75, 2.0)
@@ -77,7 +81,7 @@ class RenderConfig:
     dof_focus: float = 0.0
     devices: int = 1
 
-    UNPORTED = ("accel_force", "smooth", "textured", "env_light",
+    UNPORTED = ("accel_force", "textured", "env_light",
                 "env_sky", "env_deep", "env_map", "env_scale", "env_nee",
                 "env_sample_res", "dof_aperture", "dof_focus", "devices")
 

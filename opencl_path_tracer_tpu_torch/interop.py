@@ -20,17 +20,44 @@ from opencl_path_tracer_tpu_torch.core.materials import MaterialsSoA
 from opencl_path_tracer_tpu_torch.core.spheres import SpheresSoA
 from opencl_path_tracer_tpu_torch.models.megakernel import TraceState
 from opencl_path_tracer_tpu_torch.models.wavefront import WavefrontState
+from opencl_path_tracer_tpu_torch.ops.shading import VertexAttribs
 from opencl_path_tracer_tpu_torch.scene.builder import Scene
 
 
+def vertex_attribs_from_numpy(fields, device="cpu") -> VertexAttribs:
+    """VertexAttribs from a JAX VertexAttribs' `packed` ((T, 17) rows
+    [gu gv u0 v0 n1 n2 n3]) and `uv1`, `uv2`, `uv3` (2-tuples of (T,)
+    arrays), given as a mapping of those names, e.g. `{f: getattr(
+    jax_attribs, f) for f in ("packed", "uv1", "uv2", "uv3")}`. The
+    other fields are columns of `packed`, so the copy is bit-equal."""
+    packed = torch.as_tensor(np.array(fields["packed"], np.float32),
+                             device=device)
+
+    def col(k):
+        return packed[:, k].contiguous()
+
+    def v3(base):
+        return (col(base), col(base + 1), col(base + 2))
+
+    def uv(name):
+        return tuple(torch.as_tensor(np.array(c, np.float32), device=device)
+                     for c in fields[name])
+
+    return VertexAttribs(n1=v3(8), n2=v3(11), n3=v3(14), gu=v3(0),
+                         gv=v3(3), u0=col(6), v0=col(7), uv1=uv("uv1"),
+                         uv2=uv("uv2"), uv3=uv("uv3"), packed=packed)
+
+
 def scene_from_numpy(r1, r2, r3, mati, mats: dict, *, object_ranges=None,
-                     spheres: dict | None = None, device="cpu") -> Scene:
+                     spheres: dict | None = None,
+                     attribs: dict | None = None, device="cpu") -> Scene:
     """The port's Scene from a JAX Scene's arrays.
 
     r1, r2, r3: (T, 3) vertices; mati: (T,) material ids.
     mats: kd, ks, emission, f0 as (M, 3) or V3 tuples of (M,) arrays; n,
     shininess, type as (M,) arrays. spheres: optional dict with c ((S, 3)
-    or a V3 tuple), rad (S,), mati (S,)."""
+    or a V3 tuple), rad (S,), mati (S,). attribs: optional mapping of a
+    VertexAttribs' fields (`vertex_attribs_from_numpy`)."""
     tris = TrianglesSoA.build(r1, r2, r3, mati).to(device)
 
     def col3(v):
@@ -60,7 +87,9 @@ def scene_from_numpy(r1, r2, r3, mati, mats: dict, *, object_ranges=None,
         object_ranges = np.asarray([(0, tris.count)], np.int64)
     return Scene(tris=tris, mats=materials,
                  object_ranges=np.asarray(object_ranges, np.int64),
-                 spheres=sph)
+                 spheres=sph,
+                 attribs=(None if attribs is None
+                          else vertex_attribs_from_numpy(attribs, device)))
 
 
 def state_from_numpy(colors, rng_state, sample: int,

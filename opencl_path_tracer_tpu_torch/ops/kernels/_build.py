@@ -50,6 +50,8 @@ KERNELS = {
     "tilecull": ("tilecull.cu", "ptx_tilecull", [P, I, P, P, P, P, I, I, P]),
     "sphere_table": ("sphere_table.cu", "ptx_sphere_table",
                      [P, P, P, P, P, P, P, I, I, P]),
+    "smooth_refine": ("smooth_refine.cu", "ptx_smooth_refine",
+                      [P, P, P, P, P, P, P, P, P, P, I, I, P]),
 }
 
 # Launches per kernel since the last reset_launches(); each wrapper adds

@@ -202,18 +202,11 @@ def build_emitter_table(tris, mats, spheres=None,
 
 
 def _fetch_rows(packed: torch.Tensor, idx: torch.Tensor, ncols: int):
-    """Per-lane row fetch: a chain of wheres for 64 rows or fewer, one row
-    gather above that (the JAX package's materials size rule)."""
-    e = int(packed.shape[0])
-    if e <= 64:
-        eq = [idx == j for j in range(e)]
-        cols = []
-        for c in range(ncols):
-            out = packed[0, c].expand(idx.shape)
-            for j in range(1, e):
-                out = torch.where(eq[j], packed[j, c], out)
-            cols.append(out)
-        return cols
+    """Per-lane row fetch: one row gather at every table size. The JAX
+    package uses a chain of wheres for 64 rows or fewer, a choice made
+    on TPU gather timings; for indices in [0, rows - 1], which is all
+    NEE produces, the gather returns the same bits, signed zeros
+    included."""
     row = packed[idx.long()]
     return [row[:, c] for c in range(ncols)]
 
@@ -344,7 +337,8 @@ def direct_light(table: EmitterTable, *, intersect_fn, cam_eye, hit_p: V3,
     contract, occluded(rays, rmax) -> bool), visible = ~occluded(rays,
     dist (1 - 1e-3)); otherwise the shadow ray goes through
     intersect_fn and visible = miss or t >= dist (1 - 1e-3). Both give
-    the same bits."""
+    the same bits, but where a ray grazes a zero-area triangle, which the
+    any-hit kernel's group culling never reaches (ROADMAP.md queue 3)."""
     n = u1.shape[0]
     origin = vadd(hit_p, vscale(n_vec, bsdf.EPS))
     y, m_y, emission, p_area = sample_emitters(table, u1, u2, u3,

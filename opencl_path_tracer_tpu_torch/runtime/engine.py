@@ -16,7 +16,12 @@ refused on CUDA, so no plain version carries the main path on the card.
 'pallas' is K4, the dense exact intersector with attributes; 'tilecull'
 is K6 with groups ordered front to back from the camera eye, then K2.
 Analytic spheres go through K3 (K3b above 64) and are min-merged after
-the triangles. With `nee`, the engine builds the emitter table and, with
+the triangles. With `smooth`, the triangle winner's normal is the
+interpolated vertex normal (`_make_smooth_tri_fn`): 'auto' is 'minarg'
+(K1 then K8) up to 4,096 triangles, the JAX package's cap, which comes
+from its kernel holding the whole one-hot table in the TPU's VMEM; the
+port carries it over as the starting choice and has not measured it on
+the GPU. With `nee`, the engine builds the emitter table and, with
 `nee_anyhit`, the any-hit shadow-ray test (K7, or-ed with the spheres),
 and hands both to the model.
 """
@@ -41,20 +46,35 @@ from opencl_path_tracer_tpu_torch.ops.kernels.intersect_kernel import (
 from opencl_path_tracer_tpu_torch.ops.kernels.plucker_kernel import (
     make_minarg_intersect,
 )
+from opencl_path_tracer_tpu_torch.ops.kernels.shading_kernel import (
+    make_smooth_minarg_intersect,
+)
 from opencl_path_tracer_tpu_torch.ops.kernels.sphere_kernel import (
     make_sphere_intersect,
 )
 from opencl_path_tracer_tpu_torch.ops.kernels.tilecull_kernel import (
     make_scene_occluded, make_tilecull_intersect,
 )
+from opencl_path_tracer_tpu_torch.ops.shading import smooth_hit_normals
 from opencl_path_tracer_tpu_torch.scene.builder import Scene
 from opencl_path_tracer_tpu_torch.utils.device import resolve_device
 
 AUTO_MINARG_MAX_TRIS = 8192
+SMOOTH_MINARG_MAX_TRIS = 4096   # a TPU VMEM limit (see the docstring)
+PAIRWIN_TODO = ("the pair intersector's smooth route (ROADMAP.md queue 1 "
+                "item 5, K9-K11 of queue 2) is not ported yet")
 
 
-def resolve_accel(accel: str, num_triangles: int, on_cuda: bool) -> str:
+def resolve_accel(accel: str, num_triangles: int, on_cuda: bool,
+                  smooth: bool = False) -> str:
     """The triangle intersector `accel` names for this scene and device."""
+    if smooth and accel == "pairwin":
+        raise NotImplementedError(f"accel 'pairwin': {PAIRWIN_TODO}")
+    if smooth and accel == "auto" and num_triangles > SMOOTH_MINARG_MAX_TRIS:
+        raise NotImplementedError(
+            f"accel 'auto' with smooth shading for {num_triangles} "
+            f"triangles (over {SMOOTH_MINARG_MAX_TRIS}) needs "
+            f"{PAIRWIN_TODO}")
     if accel == "auto":
         if num_triangles > AUTO_MINARG_MAX_TRIS:
             raise NotImplementedError(
@@ -72,27 +92,76 @@ def resolve_accel(accel: str, num_triangles: int, on_cuda: bool) -> str:
     return accel
 
 
-def make_intersect_fn(scene: Scene, accel: str = "auto", origin=None):
+def _has_vertex_normals(scene: Scene) -> bool:
+    """True when some corner normal is nonzero (a scene with texture
+    coordinates only has attributes too, all of whose normals are 0)."""
+    return (scene.attribs is not None
+            and bool(scene.attribs.packed[:, 8:17].any()))
+
+
+def _make_smooth_tri_fn(scene: Scene, accel: str):
+    """The smooth-shading triangle intersector for a resolved accel.
+    'minarg' is K1 then K8 (`make_smooth_minarg_intersect`); 'tilecull'
+    (K6 with ids; the groups in Morton order, as the JAX package builds
+    them for smooth shading) and 'bruteforce' (the plain reference, CPU
+    only) report the winner's index, and `smooth_hit_normals`
+    interpolates."""
+    attribs = scene.attribs
+    if accel == "minarg":
+        if scene.num_triangles > SMOOTH_MINARG_MAX_TRIS:
+            raise ValueError(
+                f"accel='minarg' with smooth shading tops out at "
+                f"{SMOOTH_MINARG_MAX_TRIS} triangles (the JAX package's "
+                f"cap); the scene has {scene.num_triangles}")
+        return make_smooth_minarg_intersect(scene.tris, attribs)
+    if accel == "tilecull":
+        ids_fn = make_tilecull_intersect(scene.tris, with_ids=True)
+    elif accel == "bruteforce":
+        ids_fn = functools.partial(intersect.first_intersect_ids,
+                                   tris=scene.tris)
+    else:
+        raise ValueError(
+            f"smooth shading needs an intersector that reports the "
+            f"winner's index: 'minarg', 'tilecull', 'bruteforce' or "
+            f"'auto', not {accel!r}")
+
+    def smooth_fn(rays):
+        hits, ids = ids_fn(rays)
+        return smooth_hit_normals(hits, ids, attribs)
+
+    return smooth_fn
+
+
+def make_intersect_fn(scene: Scene, accel: str = "auto", origin=None,
+                      smooth: bool = False):
     """intersect(rays) -> Hits over the scene's triangles, min-merged with
     its analytic spheres (the triangle stream wins exact-t ties). origin
-    (the camera eye) orders the 'tilecull' groups front to back."""
+    (the camera eye) orders the 'tilecull' groups front to back.
+    smooth=True interpolates the vertex normals of scene.attribs at the
+    triangle hits (analytic spheres have exact normals already)."""
     on_cuda = scene.tris.device.type == "cuda"
-    accel = resolve_accel(accel, scene.num_triangles, on_cuda)
-    if accel in ("minarg", "pallas", "tilecull"):
-        if accel == "minarg":
-            tri_fn = make_minarg_intersect(scene.tris)
-        elif accel == "pallas":
-            tri_fn = make_pallas_intersect(scene.tris)
-        else:
-            tri_fn = make_tilecull_intersect(scene.tris, origin=origin)
-        sphere_fn = (None if scene.spheres is None
-                     else make_sphere_intersect(scene.spheres))
+    if smooth and not _has_vertex_normals(scene):
+        raise ValueError(
+            "smooth=True but the scene has no vertex normals; build it "
+            "with add_obj(smooth_normals=True), add_sphere(smooth=True) "
+            "or add_triangle(vn=...)")
+    accel = resolve_accel(accel, scene.num_triangles, on_cuda, smooth)
+    if smooth:
+        tri_fn = _make_smooth_tri_fn(scene, accel)
+    elif accel == "minarg":
+        tri_fn = make_minarg_intersect(scene.tris)
+    elif accel == "pallas":
+        tri_fn = make_pallas_intersect(scene.tris)
+    elif accel == "tilecull":
+        tri_fn = make_tilecull_intersect(scene.tris, origin=origin)
     else:
         tri_fn = functools.partial(intersect.first_intersect, tris=scene.tris)
-        sphere_fn = (None if scene.spheres is None else functools.partial(
-            intersect.sphere_intersect, spheres=scene.spheres))
-    if sphere_fn is None:
+    if scene.spheres is None:
         return tri_fn
+    sphere_fn = (functools.partial(intersect.sphere_intersect,
+                                   spheres=scene.spheres)
+                 if accel == "bruteforce"
+                 else make_sphere_intersect(scene.spheres))
 
     def with_spheres(rays):
         return intersect.merge_hits(tri_fn(rays), sphere_fn(rays))
@@ -112,7 +181,8 @@ class RenderEngine:
                                   shift=cam.shift, device=self.device)
         self.intersect_fn = intersect_fn or make_intersect_fn(
             self.scene, config.accel,
-            origin=tuple(float(v) for v in self.camera.eye.cpu()))
+            origin=tuple(float(v) for v in self.camera.eye.cpu()),
+            smooth=config.smooth)
         # NEE: the emitter table, and the any-hit shadow-ray test unless
         # nee_anyhit is off or the scene is above K7's range (None: the
         # shadow rays then go through intersect_fn, as in the JAX engine).

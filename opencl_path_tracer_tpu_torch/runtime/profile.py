@@ -2,7 +2,8 @@
 
 No counterpart module in `opencl_path_tracer_tpu` (its profiling helper,
 `utils/profiling.py`, wraps `jax.profiler`). Runs one of the port's three
-render paths on a Cornell scene under `torch.profiler` and prints one
+render paths on one of `ptx-torch render`'s scenes, with its camera
+preset, under `torch.profiler` and prints one
 JSON line: wall time, device busy time and the busy share, device
 launches and the kernels that take the most device time, per sample and
 per step. Needs a GPU:
@@ -15,11 +16,13 @@ per step. Needs a GPU:
     python -m opencl_path_tracer_tpu_torch.runtime.profile --model wavefront \
         --scene many-lights --nee --nee-select distance
     python -m opencl_path_tracer_tpu_torch.runtime.profile --accel tilecull
+    python -m opencl_path_tracer_tpu_torch.runtime.profile --scene reference \\
+        --models-dir tests/assets/models --smooth
 
 --model megakernel and wavefront render --spp samples through
-`RenderEngine` (with --nee, --nee-select and --accel as `ptx-torch
-render` takes them); fused runs --steps steps of `models.pipeline`'s
-fast pipeline (triangles only: --scene cornell).
+`RenderEngine` (with --nee, --nee-select, --accel, --smooth and
+--models-dir as `ptx-torch render` takes them); fused runs --steps steps
+of `models.pipeline`'s fast pipeline (triangles only: --scene cornell).
 """
 
 from __future__ import annotations
@@ -35,19 +38,19 @@ import torch
 def _workload(args, dev):
     """(run(), samples, steps): run() does the profiled unit of work,
     returning the samples per pixel and the steps it took."""
-    from opencl_path_tracer_tpu_torch.cli import _build_scene
-    from opencl_path_tracer_tpu_torch.config import CameraConfig, RenderConfig
+    from opencl_path_tracer_tpu_torch.cli import _build_scene, _camera_preset
+    from opencl_path_tracer_tpu_torch.config import RenderConfig
     from opencl_path_tracer_tpu_torch.ops import rng
     from opencl_path_tracer_tpu_torch.runtime.engine import RenderEngine
 
     w, h = (int(x) for x in args.size.split("x"))
-    cam = CameraConfig(fov=60.0, yaw=0.0, pitch=0.0, shift=(0.0, 0.0, 0.0))
-    scene = _build_scene(args.scene, dev)
+    scene = _build_scene(args.scene, dev, args.models_dir, args.smooth)
     if args.model in ("megakernel", "wavefront"):
         cfg = RenderConfig(width=w, height=h, iterations=args.iters,
-                           mode=args.mode, model=args.model, camera=cam,
+                           mode=args.mode, model=args.model,
+                           camera=_camera_preset(args.scene, args),
                            accel=args.accel, nee=args.nee,
-                           nee_select=args.nee_select)
+                           nee_select=args.nee_select, smooth=args.smooth)
         eng = RenderEngine(scene, cfg, device=dev)
         eng.render(1)  # warm-up: kernel build, allocator, first launches
 
@@ -97,6 +100,10 @@ def main(argv=None) -> int:
                     help="next-event estimation (shadow rays through K7)")
     ap.add_argument("--nee-select", default="power",
                     choices=("power", "distance"))
+    ap.add_argument("--smooth", action="store_true",
+                    help="smooth shading (interpolated vertex normals)")
+    ap.add_argument("--models-dir", default=None,
+                    help="the reference scene's OBJ models")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     run = _workload(args, dev)
@@ -133,6 +140,7 @@ def main(argv=None) -> int:
         "model": args.model, "scene": args.scene, "size": args.size,
         "bounces": args.iters, "mode": args.mode, "accel": args.accel,
         "nee": args.nee, "nee_select": args.nee_select,
+        "smooth": args.smooth,
         "samples_per_pixel": samples, "steps": steps,
         "device": torch.cuda.get_device_name(dev),
         "wall_ms_per_sample": per(wall_plain * 1e3, samples),

@@ -155,3 +155,36 @@ def test_no_fallback_when_the_loader_fails(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="disabled"):
         k3.sphere_table(_rays8(64, 1, cuda),
                         k3.build_sphere_table(many.spheres))
+
+
+@pytest.mark.cuda
+def test_fourth_slice_kernel_equals_plain_version(cuda, monkeypatch):
+    """One launch of K8 against its plain version on the card, on the
+    smooth reference scene (chip_smoke.py runs it at 1080p), and the CPU
+    plain version agrees with the card bit for bit; with the loader
+    broken, K8 raises."""
+    import pathlib
+    from opencl_path_tracer_tpu_torch.ops.kernels import shading_kernel as k8
+    models = pathlib.Path(__file__).resolve().parent / "assets" / "models"
+    scene = library.reference_scene(str(models), smooth=True, device=cuda)
+    rays8 = _rays8(60_001, 4, cuda)
+    rays8[0:3] -= torch.tensor([[600.0], [0.0], [300.0]], device=cuda)
+    pack = k1.build_tri_pack(scene.tris)
+    spack = k8.build_shading_pack(scene.attribs)
+    t, g = k1.minarg(rays8, pack)
+    before = _build.launches["smooth_refine"]
+    out = k8.smooth_refine(rays8, t, g, pack, spack)
+    assert _build.launches["smooth_refine"] == before + 1
+    plain = k8.smooth_refine_plain(rays8, t, g, pack, spack)
+    assert all(torch.equal(a, b) for a, b in zip(out, plain))
+    assert bool((out[0] > 0).any()) and bool((out[0] < 0).any())
+    cpu = k8.smooth_refine(rays8[:, :5000].cpu(), t[:5000].cpu(),
+                           g[:5000].cpu(), pack.cpu(), spack.cpu())
+    assert all(torch.equal(a, b[:5000].cpu()) for a, b in zip(cpu, out))
+
+    def broken(name):
+        raise RuntimeError("kernel loader disabled by the test")
+
+    monkeypatch.setattr(_build, "library", broken)
+    with pytest.raises(RuntimeError, match="disabled"):
+        k8.smooth_refine(rays8, t, g, pack, spack)

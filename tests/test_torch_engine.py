@@ -15,7 +15,7 @@ from opencl_path_tracer_tpu_torch.config import CameraConfig, RenderConfig
 from opencl_path_tracer_tpu_torch.io.image import write_png
 from opencl_path_tracer_tpu_torch.models import megakernel
 from opencl_path_tracer_tpu_torch.runtime import engine
-from opencl_path_tracer_tpu_torch.scene import library
+from opencl_path_tracer_tpu_torch.scene import builder, library
 
 # pytest workers share the machine: one intra-op thread each.
 torch.set_num_threads(1)
@@ -81,7 +81,7 @@ def test_entry_points_refuse_cpu_without_asking(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("field,value", [
     ("env_map", "sunsky"), ("env_nee", False), ("env_light", True),
-    ("dof_aperture", 5.0), ("devices", 2), ("smooth", True),
+    ("dof_aperture", 5.0), ("devices", 2), ("env_sample_res", (32, 16)),
     ("accel_force", True), ("textured", True)])
 def test_config_refuses_unported_fields(field, value):
     with pytest.raises(NotImplementedError, match=field):
@@ -242,3 +242,52 @@ def test_cli_render_nee_and_tilecull(args, tmp_path, capsys):
     assert "on cpu" in capsys.readouterr().err
     with pytest.raises(SystemExit, match="many-lights"):
         cli._build_scene("no-such-scene", "cpu")
+
+
+def test_smooth_accel_choice_and_refusals():
+    """accel='auto' with smooth shading is 'minarg' up to the JAX
+    package's 4,096-triangle cap; the pair route, 'pallas' (no winner
+    index) and a scene without vertex normals are refused."""
+    assert engine.resolve_accel("auto", 4096, True, smooth=True) == "minarg"
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        engine.resolve_accel("auto", 4097, True, smooth=True)
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        engine.resolve_accel("pairwin", 10, True, smooth=True)
+    smooth = library.cornell_box(with_spheres=True, smooth_spheres=True)
+    with pytest.raises(ValueError, match="winner's index"):
+        engine.make_intersect_fn(smooth, "pallas", smooth=True)
+    with pytest.raises(ValueError, match="no vertex normals"):
+        engine.make_intersect_fn(library.cornell_box(), smooth=True)
+    b = builder.SceneBuilder()
+    b.add_material_row(library.reference_archetypes()[2])
+    b.add_triangle((0, 0, 0), (1, 0, 0), (0, 1, 0), 0,
+                   uv=((0, 0), (1, 0), (0, 1)))
+    uv_only = b.build()
+    assert uv_only.attribs is not None
+    with pytest.raises(ValueError, match="no vertex normals"):
+        engine.make_intersect_fn(uv_only, smooth=True)
+    big = library.cornell_box(with_spheres=True, smooth_spheres=True,
+                              sphere_res=(40, 60))
+    assert big.num_triangles > engine.SMOOTH_MINARG_MAX_TRIS
+    with pytest.raises(ValueError, match="4096"):
+        engine.make_intersect_fn(big, "minarg", smooth=True)
+    cfg = _cfg(smooth=True, accel="tilecull")
+    assert RenderConfig.from_json(cfg.to_json()) == cfg
+
+
+@pytest.mark.parametrize("model", ["megakernel", "wavefront"])
+@pytest.mark.parametrize("accel", ["auto", "tilecull", "bruteforce"])
+def test_engine_smooth_on_cpu(model, accel):
+    """Smooth shading through the engine in both models and on each route
+    that reports the winner's index; the smooth normals change the
+    image."""
+    scene = library.cornell_box(with_spheres=True, smooth_spheres=True)
+    imgs = []
+    for smooth in (True, False):
+        eng = engine.RenderEngine(scene, _cfg(model=model, accel=accel,
+                                              smooth=smooth), device="cpu")
+        eng.render(2)
+        imgs.append(eng.image(apply_tonemap=False))
+    assert imgs[0].shape == (12, 16, 3) and np.isfinite(imgs[0]).all()
+    assert imgs[0].mean() > 0.0
+    assert not np.array_equal(imgs[0], imgs[1])

@@ -227,3 +227,32 @@ def test_pickup_mis_weight_matches_jax(name):
     assert emit.sum() > 0
     w = got.numpy()[emit]
     assert ((w > 0) & (w < 1)).all()
+
+
+def _where_chain_rows(packed, idx, ncols):
+    """The row fetch the port had before: a chain of wheres over the rows
+    (the JAX package's choice for tables of 64 rows or fewer)."""
+    cols = []
+    for c in range(ncols):
+        out = packed[0, c].expand(idx.shape)
+        for j in range(1, packed.shape[0]):
+            out = torch.where(idx == j, packed[j, c], out)
+        cols.append(out)
+    return cols
+
+
+@pytest.mark.parametrize("rows", [1, 2, 64, 65])
+def test_fetch_rows_gather_equals_where_chain(rows):
+    """NEE's one row gather returns the where-chain's bits on every index
+    NEE produces ([0, rows - 1]), signed zeros and infinities included."""
+    rs = np.random.default_rng(rows)
+    packed = rs.normal(size=(rows, 16)).astype(np.float32)
+    packed[:, 3] = -0.0
+    packed[rows // 2, 5] = 0.0
+    packed[-1, 7] = -np.inf
+    packed = torch.from_numpy(packed)
+    idx = torch.from_numpy(rs.integers(0, rows, 777).astype(np.int32))
+    idx[:rows] = torch.arange(rows, dtype=torch.int32)
+    got = nee._fetch_rows(packed, idx, 16)
+    for a, b in zip(got, _where_chain_rows(packed, idx, 16)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))

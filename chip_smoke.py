@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the port's eleven CUDA kernels from
+It builds the port's fourteen CUDA kernels from
 `opencl_path_tracer_tpu_torch/csrc/`, holds each against its plain
 PyTorch version at 1080p ray and lane counts, renders the three goldens
 of `tests/golden/` through the kernels, and drives the main paths at
@@ -28,7 +28,16 @@ and read just after:
     seven models of tests/assets/models, 1,838 triangles, its own
     camera) and on the Cornell box with smooth spheres, and the
     wavefront model with NEE on the reference scene with its two sphere
-    models as analytic spheres, 8 spp each.
+    models as analytic spheres, 8 spp each;
+  * the 100k-triangle stress scene (`stress_scene`, 99,380 triangles)
+    through accel 'auto' = 'pairwin' (K4 seed, K9 candidates, K10 pair
+    visits, K4 tail, K11 attribute fetch): the megakernel and the
+    wavefront model, the megakernel with smooth shading (K1 + K2 seed,
+    K1 tail, ids), and the megakernel on `stress-analytic` (20
+    triangles and 138 analytic spheres: K1 + K2 and K3b), 2 spp each.
+    K9, K10 and K11 are held against their plain versions at the stress
+    scene's 1080p shapes, and the pair intersector's t against K4's on
+    its camera and first-bounce rays.
 
 The last two lines are a JSON object per kernel (time, plain time,
 bound, launches) and the verdict. Any failed phase raises, and the
@@ -47,6 +56,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 W, H, BOUNCES, SPP, FUSED_STEPS = 1920, 1080, 5, 8, 64
+STRESS_SPP = 2   # spp of the stress paths (cut from 8 for the smoke's time)
+STRESS_TRIS = 99_380   # the JAX builders' count (library.py:325-406)
 SLICE = 76_800   # lanes of the fused pipeline's exact slice at 1080p
 # H100 SXM data sheet, dense, at the full 700 W power limit.
 PEAK_FP32_FLOPS = 67e12
@@ -83,6 +94,13 @@ KERNEL_META = {
     "smooth_refine": ("opencl_path_tracer_tpu_torch/csrc/smooth_refine.cu",
                       "opencl_path_tracer_tpu/ops/pallas/shading_kernel.py"
                       ":89"),
+    "pair_cand": ("opencl_path_tracer_tpu_torch/csrc/pair_cand.cu",
+                  "opencl_path_tracer_tpu/ops/pallas/sorted_intersect.py"
+                  ":419"),
+    "pair_visit": ("opencl_path_tracer_tpu_torch/csrc/pair_visit.cu",
+                   "opencl_path_tracer_tpu/ops/pallas/pair_mxu.py:141"),
+    "attr_fetch": ("opencl_path_tracer_tpu_torch/csrc/attr_fetch.cu",
+                   "opencl_path_tracer_tpu/ops/pallas/pair_mxu.py:373"),
 }
 # Every kernel of each main path must launch in that path's run.
 PATH_KERNELS = {
@@ -101,7 +119,13 @@ PATH_KERNELS = {
     "wavefront reference-analytic smooth nee": ("minarg", "smooth_refine",
                                                 "spheres", "anyhit"),
     "megakernel cornell smooth": ("minarg", "smooth_refine"),
+    "megakernel stress": ("dense", "pair_cand", "pair_visit", "attr_fetch"),
+    "wavefront stress": ("dense", "pair_cand", "pair_visit", "attr_fetch"),
+    "megakernel stress smooth": ("minarg", "refine1", "pair_cand",
+                                 "pair_visit", "attr_fetch"),
+    "megakernel stress-analytic": ("minarg", "refine1", "sphere_table"),
 }
+PAIR_KERNELS = ("pair_cand", "pair_visit", "attr_fetch")
 MODELS_DIR = os.path.join(HERE, "tests", "assets", "models")
 REFERENCE_TRIS = 1838   # ground plane + the seven models (docs/BENCHMARKS.md)
 
@@ -509,6 +533,119 @@ def check_smooth(torch, scenes, errs):
     return inputs
 
 
+def pair_stats_line(name, stats):
+    """One line of the pair intersector's schedule over a run's calls:
+    rays resolved after round 1, rays escalated per tier (the unresolved
+    rays each escalation took), the dense tail's iterations and rays, and
+    the pending rays."""
+    rays = sum(s["rays"] for s in stats)
+    r1 = sum(s["round1_resolved"] for s in stats)
+    tiers = {}
+    for s in stats:
+        for u, w, n in s["escalations"]:
+            key = f"u{u} w{w}"
+            tiers[key] = tiers.get(key, 0) + n
+    tail = sum(s["tail_rays"] for s in stats)
+    iters = sum(s["tail_iterations"] for s in stats)
+    pend = sum(s["pending"] for s in stats)
+    print(f"{name}: {len(stats)} pair-intersector calls, {rays} rays; "
+          f"round 1 resolved {r1 / rays:.4f}; escalated {tiers}; tail "
+          f"{iters} iterations over {tail} rays; pending {pend / rays:.5f}")
+
+
+def check_pairs(torch, scenes, cam, errs):
+    """K9 (l = 2 on the 1080p camera rays, l = 6 and 48 on the first
+    65,536), K10 on round 1's pairs and K11 on the final winners of the
+    stress scene, each against its plain version (torch.equal); the pair
+    intersector's t against K4's over the whole scene on the camera and
+    first-bounce rays. Returns the inputs at which K9-K11 are timed."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import (
+        intersect_kernel as k1, pair_mxu as pm, sorted_intersect as si)
+    from opencl_path_tracer_tpu_torch.ops.kernels.march_kernel import (
+        build_march_scene)
+    scene = scenes["stress"]
+    need(scene.num_triangles == STRESS_TRIS,
+         f"the stress scene has {scene.num_triangles} triangles, not "
+         f"{STRESS_TRIS}")
+    cs, trp = si.PAIR_TPU_WINNER["cluster_size"], si.PAIR_TPU_WINNER["trp"]
+    big, rest = si.split_by_size(scene.tris)
+    ms, rt, c = build_march_scene(rest, cs)
+    boxes = torch.cat([ms.boxes_lo, ms.boxes_hi,
+                       torch.zeros((c, 2), device="cuda"),
+                       pm.build_dops(rt, cs, c)], 1)
+    boxes_r = torch.zeros((-(-c // 128) * 128, 16), device="cuda")
+    boxes_r[:c] = boxes
+    cam_rays = camera_rays(cam)
+    r8 = k1.pack_rays(cam_rays.p, cam_rays.d).contiguous()
+
+    def compare(name, outs, plain, where):
+        torch.cuda.synchronize()
+        for a, b in zip(outs, plain):
+            errs[name] = max(errs[name], float(
+                (a.double() - b.double()).abs().max()))
+        need(all(torch.equal(a, b) for a, b in zip(outs, plain)),
+             f"{name} differs from its plain version on {where}")
+
+    ids = si.run_candidates(r8, boxes_r, 2, c)
+    compare("pair_cand", ids, si.candidates_plain(r8, boxes_r, 2, c),
+            "stress camera rays (l = 2)")
+    sub = r8[:, :65536].contiguous()
+    for l in (6, 48):
+        compare("pair_cand", si.run_candidates(sub, boxes_r, l, c),
+                si.candidates_plain(sub, boxes_r, l, c),
+                f"stress camera rays (l = {l})")
+    keys_s, r8p, _ = pm.sort_pairs([r8[k] for k in range(6)], ids[0], c, trp)
+    tg = pm.pair_visits(keys_s, r8p, ms.trig, ms.tric, cs, trp, c)
+    compare("pair_visit", tg,
+            pm.pair_visits_plain(keys_s, r8p, ms.trig, ms.tric, cs, trp, c),
+            "round 1's pairs of the stress camera rays")
+    nv = int((pm.build_visits(keys_s, trp, c)[1] >= 0).sum())
+    print(f"stress: {scene.num_triangles} triangles, {big.count} split out, "
+          f"{c} clusters of {cs}; pair_cand on {r8.shape[1]} camera rays, "
+          f"pair_visit on {keys_s.shape[0]} pairs ({nv} visits, "
+          f"{int((tg[0] < k1.BIG).sum())} hits, {int((tg[1] % 2).sum())} "
+          "pending) equal to their plain versions (torch.equal)")
+    # The intersector as the engine builds it; K11's input captured from
+    # its final fetch.
+    isect = si.make_pair_intersect(scene.tris)
+    real_fetch, got = pm.fetch_attrs, {}
+
+    def capture(g, tric):
+        got["g"], got["tric"] = g, tric
+        return real_fetch(g, tric)
+
+    pack = k1.build_tri_pack(scene.tris)
+    pm.fetch_attrs = capture
+    si.STATS = []
+    try:
+        for rname, rays in (("camera", cam_rays),
+                            ("bounce", bounce_rays(torch, scene, cam, cam_rays,
+                                                   isect))):
+            h = isect(rays)
+            t4 = k1.dense(k1.pack_rays(rays.p, rays.d).contiguous(), pack)[0]
+            torch.cuda.synchronize()
+            need(torch.equal(h.t, torch.where(t4 < k1.BIG, t4,
+                                              torch.full_like(t4, -1.0))),
+                 f"the pair intersector's t differs from K4's on stress "
+                 f"{rname} rays")
+            if rname == "camera":
+                g, tric = got["g"], got["tric"]
+        stats = si.STATS
+    finally:
+        pm.fetch_attrs = real_fetch
+        si.STATS = None
+    compare("attr_fetch", pm.fetch_attrs(g, tric),
+            pm.fetch_attrs_plain(g, tric), "the stress camera rays' winners")
+    print(f"stress: pair intersector t equal to K4's on camera and bounce "
+          f"rays; attr_fetch on {g.shape[0]} winners "
+          f"({int((g >= 0).sum())} from the pairs rounds) equal to its plain "
+          "version (torch.equal)")
+    pair_stats_line("stress camera, bounce rays", stats)
+    return {"pair_cand": (r8, boxes_r, c), "pair_visit": (keys_s, r8p, ms,
+                                                           cs, trp, c, nv),
+            "attr_fetch": (g, tric)}
+
+
 def check_goldens(torch, np):
     from opencl_path_tracer_tpu_torch.models import megakernel
     from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
@@ -531,11 +668,11 @@ def check_goldens(torch, np):
 
 def check_no_fallback(torch, scenes):
     """With the kernel loader broken, a CUDA call must raise (K1, K4, K7,
-    K6, K3b and K8)."""
+    K6, K3b, K8, K9, K10 and K11)."""
     from opencl_path_tracer_tpu_torch.ops.kernels import _build
     from opencl_path_tracer_tpu_torch.ops.kernels import (
-        intersect_kernel as k1, shading_kernel as k8, sphere_kernel as k3,
-        tilecull_kernel as tk)
+        intersect_kernel as k1, pair_mxu as pm, shading_kernel as k8,
+        sorted_intersect as si, sphere_kernel as k3, tilecull_kernel as tk)
     pack = k1.build_tri_pack(scenes["cornell"].tris)
     smooth = scenes["cornell-smooth"]
     spack = (k1.build_tri_pack(smooth.tris),
@@ -553,6 +690,16 @@ def check_no_fallback(torch, scenes):
         "smooth_refine": lambda: k8.smooth_refine(
             rays8, torch.full((64,), k1.BIG, device="cuda"),
             torch.zeros(64, device="cuda"), *spack),
+        "pair_cand": lambda: si.run_candidates(
+            rays8, torch.zeros((128, 16), device="cuda"), 2, 1),
+        "pair_visit": lambda: pm.pair_visits(
+            torch.zeros(1024, dtype=torch.int32, device="cuda"),
+            torch.zeros((8, 1024), device="cuda"),
+            torch.zeros((768, 32), dtype=torch.bfloat16, device="cuda"),
+            torch.zeros((256, 24), device="cuda"), 256, 1024, 1),
+        "attr_fetch": lambda: pm.fetch_attrs(
+            torch.zeros(64, device="cuda"),
+            torch.zeros((256, 24), device="cuda")),
     }
     real = _build.library
 
@@ -593,14 +740,15 @@ def main_path(torch, np, scenes, cam):
     from opencl_path_tracer_tpu_torch.config import CameraConfig, RenderConfig
     from opencl_path_tracer_tpu_torch.models import pipeline
     from opencl_path_tracer_tpu_torch.ops import rng
+    from opencl_path_tracer_tpu_torch.ops.kernels import sorted_intersect as si
     from opencl_path_tracer_tpu_torch.runtime.engine import RenderEngine
     total = {name: 0 for name in KERNEL_META}
 
-    def cfg(camera=None, **kw):
+    def cfg(camera=None, spp=SPP, **kw):
         """The Cornell camera preset unless `camera` is given (the
         reference scenes take the config's default, the reference's own
         camera)."""
-        return RenderConfig(width=W, height=H, iterations=BOUNCES, spp=SPP,
+        return RenderConfig(width=W, height=H, iterations=BOUNCES, spp=spp,
                             camera=camera or CameraConfig(
                                 fov=60.0, yaw=0.0, pitch=0.0,
                                 shift=(0.0, 0.0, 0.0)), **kw)
@@ -636,12 +784,32 @@ def main_path(torch, np, scenes, cam):
         device="cuda")))
     engines.append(("megakernel cornell smooth", RenderEngine(
         scenes["cornell-smooth"], cfg(smooth=True), device="cuda")))
+    # The stress scene through 'auto' (99,380 triangles: 'pairwin'); the
+    # Cornell preset, and the reference's camera for stress-analytic, as
+    # `ptx-torch render` (and JAX's `ptx render`) choose them.
+    stress = [("megakernel stress", "stress", cfg(spp=STRESS_SPP)),
+              ("wavefront stress", "stress",
+               cfg(spp=STRESS_SPP, model="wavefront")),
+              ("megakernel stress smooth", "stress-smooth",
+               cfg(spp=STRESS_SPP, smooth=True)),
+              ("megakernel stress-analytic", "stress-analytic",
+               cfg(spp=STRESS_SPP, camera=CameraConfig()))]
+    for name, sname, c in stress:
+        engines.append((name, RenderEngine(scenes[sname], c, device="cuda")))
     for name, eng in engines:
-        _, dt, counts = run_path(torch, name, lambda: eng.render(SPP))
+        spp = eng.cfg.spp
+        si.STATS = [] if "stress" in name else None
+        try:
+            _, dt, counts = run_path(torch, name, lambda: eng.render(spp))
+            stats = si.STATS
+        finally:
+            si.STATS = None
         img = eng.image()
         need(img.shape == (H, W, 3) and np.isfinite(img).all()
              and img.mean() > 0.0, f"{name}: bad image")
-        report(name, dt, eng.rays_traced, SPP, counts)
+        report(name, dt, eng.rays_traced, spp, counts)
+        if stats:
+            pair_stats_line(name, stats)
 
     # render_fast times the steps after its two warm-up steps and counts
     # the samples finished in them.
@@ -731,6 +899,55 @@ def grouped_ops(torch, rays8, pack, groups, rmax=None):
             pairs += int(m.sum()) * (end - base)
             reached += edges_reached(pack[base:end], x[0:3], x[3:6], m)
     return 25 * r * groups.shape[0] + 12 * pairs + 12 * reached, pairs
+
+
+def pair_rows(torch, inputs):
+    """The timing rows of K9, K10 and K11 at the stress scene's shapes:
+    K9 at round 1 (l = 2) on the 1080p camera rays, K10 on round 1's
+    pairs, K11 on the final winners of the camera rays.
+
+    Operations and bytes: K9, per (ray, cluster) slab test on 7 axes
+    (3 and the 4 DOP axes) 8 float32 operations each (2 subtractions, 2
+    multiplies, min, max and the running max and min) and per ray 7
+    reciprocals and 16 for the DOP projections; rays in (24 bytes), the
+    table once, ids and entries out (4 (2 l + 1) bytes). K10, per
+    (pair, triangle) test of every visit (trp pairs x cs triangles): the
+    3 x 18 bf16 multiply-adds of E at the bf16 rate, and 26 float32
+    operations (the two dots of t, the divide, 3 eps terms, 6 sign tests,
+    the t test and the top-2 compare); per (pair, visit) 2 x 48 for the
+    candidates' exact tests; keys and rays in (28 bytes per pair), the
+    packs once, (t, g) out (8). K11: g in, four rows out (20 bytes per
+    ray) and tric once; library_ms is one PyTorch `index_select` of the
+    four columns (`tric[g][:, (0, 1, 2, 16)]`, without the g < 0 zeros
+    and the +0.0). No single PyTorch call computes K9 (slab tests and a
+    rank selection) or K10: their library_ms is null."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import (
+        pair_mxu as pm, sorted_intersect as si)
+    r8, boxes_r, c = inputs["pair_cand"]
+    r, cp = r8.shape[1], boxes_r.shape[0]
+    rows = [("pair_cand", lambda: si.run_candidates(r8, boxes_r, 2, c),
+             lambda: si.candidates_plain(r8, boxes_r, 2, c),
+             8 * 7 * r * c + 23 * r, 0,
+             24 * r + boxes_r.numel() * 4 + 4 * 5 * r)]
+    keys_s, r8p, ms, cs, trp, c, nv = inputs["pair_visit"]
+    ppad = keys_s.shape[0]
+    tests = nv * trp * cs
+    rows.append(("pair_visit",
+                 lambda: pm.pair_visits(keys_s, r8p, ms.trig, ms.tric, cs,
+                                        trp, c),
+                 lambda: pm.pair_visits_plain(keys_s, r8p, ms.trig, ms.tric,
+                                              cs, trp, c),
+                 26 * tests + 96 * nv * trp, 2 * 54 * tests,
+                 28 * ppad + ms.trig.numel() * 2 + ms.tric.numel() * 4
+                 + 8 * ppad))
+    g, tric = inputs["attr_fetch"]
+    gi = g.long().clamp(min=0)
+    cols = tric[:, [0, 1, 2, 16]].contiguous()
+    rows.append(("attr_fetch", lambda: pm.fetch_attrs(g, tric),
+                 lambda: pm.fetch_attrs_plain(g, tric), 0, 0,
+                 20 * g.shape[0] + tric.numel() * 4,
+                 lambda: cols.index_select(0, gi)))
+    return rows
 
 
 def measure(torch, inputs, errs, launches):
@@ -855,10 +1072,12 @@ def measure(torch, inputs, errs, launches):
     print(f"cornell first-bounce rays: tilecull {ms6:.4f} ms, minarg "
           f"{ms1:.4f} ms; tilecull's grouped pairs "
           f"{pairs_b / b8.shape[1]:.1f} per ray")
+    rows += pair_rows(torch, inputs)
     out = []
-    for name, kern, plain, ops, bf16_ops, nbytes in rows:
+    for name, kern, plain, ops, bf16_ops, nbytes, *lib in rows:
         ms = time_ms(torch, kern, 20)
         plain_ms = time_ms(torch, plain, 2)
+        library_ms = time_ms(torch, lib[0], 20) if lib else None
         t_ops = max(ops / PEAK_FP32_FLOPS, bf16_ops / PEAK_BF16_FLOPS) * 1e3
         t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
         src, repl = KERNEL_META[name]
@@ -867,11 +1086,14 @@ def measure(torch, inputs, errs, launches):
             "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None,
+            "library_ms": library_ms,
         })
-        print(f"{name}: {ms:.4f} ms (plain {plain_ms:.2f} ms), bound "
-              f"{max(t_ops, t_bytes):.4f} ms by "
-              f"{out[-1]['bound_by']}, {launches[name]} main-path launches")
+        print(f"{name}: {ms:.4f} ms (plain {plain_ms:.2f} ms"
+              + (f", library {library_ms:.4f} ms" if lib else "")
+              + f"), bound {max(t_ops, t_bytes):.4f} ms by "
+              f"{out[-1]['bound_by']} ({ops:.4g} float32 and {bf16_ops:.4g} "
+              f"bf16 operations, {nbytes:.4g} bytes), {launches[name]} "
+              "main-path launches")
     return out
 
 
@@ -897,6 +1119,10 @@ def main() -> int:
             MODELS_DIR, smooth=True, analytic=True, device="cuda"),
         "cornell-smooth": library.cornell_box(
             with_spheres=True, smooth_spheres=True, device="cuda"),
+        "stress": library.stress_scene(device="cuda"),
+        "stress-smooth": library.stress_scene(smooth=True, device="cuda"),
+        "stress-analytic": library.stress_scene(analytic=True,
+                                                device="cuda"),
     }
     cam = library.cornell_camera(W, H, device="cuda")
     inputs, errs, cam_rays = check_kernels(
@@ -904,6 +1130,7 @@ def main() -> int:
     inputs.update(check_fused(torch, scenes["cornell"], cam, errs))
     inputs.update(check_slice3(torch, scenes, cam, cam_rays, errs))
     inputs.update(check_smooth(torch, scenes, errs))
+    inputs.update(check_pairs(torch, scenes, cam, errs))
     check_goldens(torch, np)
     check_no_fallback(torch, scenes)
     launches = main_path(torch, np, scenes, cam)

@@ -1,9 +1,9 @@
 """`ptx-torch` command-line interface.
 
 Port of the `render` command of `opencl_path_tracer_tpu/cli.py`
-(`_build_scene` without the stress scenes, `_camera_preset` and
-`cmd_render`): an offline progressive render to PNG. It runs on the GPU
-unless `--device cpu` is given.
+(`_build_scene`, `_camera_preset` and `cmd_render`): an offline
+progressive render to PNG. It runs on the GPU unless `--device cpu` is
+given.
 
     ptx-torch render --scene cornell --size 1920x1080 --iters 5 --spp 8
     ptx-torch render --scene cornell-analytic --model wavefront --rr 3
@@ -12,6 +12,9 @@ unless `--device cpu` is given.
     ptx-torch render --scene reference --models-dir tests/assets/models \
         --smooth
     ptx-torch render --scene model.obj --smooth
+    ptx-torch render --scene stress          # 99,380 triangles: 'pairwin'
+    ptx-torch render --scene stress --smooth
+    ptx-torch render --scene stress-analytic
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import time
 
 SCENES = ("cornell", "cornell-analytic", "cornell-sphere-lamp",
           "many-lights", "many-lights-N", "reference", "reference-analytic",
-          "*.obj")
+          "stress", "stress-analytic", "*.obj")
 
 
 def _build_scene(name: str, device, models_dir: str | None = None,
@@ -54,6 +57,15 @@ def _build_scene(name: str, device, models_dir: str | None = None,
         # other models as meshes.
         return library.reference_scene(models_dir, smooth=smooth,
                                        analytic=True, device=device)
+    if name == "stress":
+        # BASELINE config 4: 99,380 triangles ('auto' -> 'pairwin').
+        return library.stress_scene(100_000, smooth=smooth, device=device)
+    if name == "stress-analytic":
+        # The same scene with its 138 spheres as exact quadrics.
+        if smooth:
+            raise SystemExit("--smooth is pointless here: quadric normals "
+                             "are exact already")
+        return library.stress_scene(100_000, analytic=True, device=device)
     if name.endswith(".obj"):
         from opencl_path_tracer_tpu_torch.scene.builder import SceneBuilder
         b = SceneBuilder()
@@ -65,12 +77,13 @@ def _build_scene(name: str, device, models_dir: str | None = None,
 
 
 def _camera_preset(scene_name: str, args):
-    """The Cornell preset (fov 60, no yaw, pitch or shift) for the Cornell
-    and many-light scenes, the reference's live camera (the config's
-    default) for the reference scenes and OBJ files; --fov, --yaw and
-    --pitch override."""
+    """The Cornell preset (fov 60, no yaw, pitch or shift) for the Cornell,
+    many-light and stress scenes, the reference's live camera (the
+    config's default) for the others (the JAX package's CLI gives
+    'stress-analytic' the default camera too); --fov, --yaw and --pitch
+    override."""
     from opencl_path_tracer_tpu_torch.config import CameraConfig
-    if (scene_name.startswith("cornell")
+    if (scene_name.startswith("cornell") or scene_name == "stress"
             or scene_name.startswith("many-lights")):
         cam = CameraConfig(fov=60.0, yaw=0.0, pitch=0.0,
                            shift=(0.0, 0.0, 0.0))
@@ -134,7 +147,10 @@ def main(argv=None) -> int:
                    help="Russian roulette after START bounces (needs "
                         "--model wavefront)")
     p.add_argument("--mode", default="fast", choices=("fast", "parity"))
-    p.add_argument("--accel", default="auto")
+    p.add_argument("--accel", default="auto",
+                   help="auto (minarg up to 8,192 triangles, pairwin above), "
+                        "minarg, pallas, tilecull, pairwin (the pair "
+                        "intersector for large scenes) or bruteforce (CPU)")
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--tonemap", default="reinhard")
     p.add_argument("--qmc", action="store_true",

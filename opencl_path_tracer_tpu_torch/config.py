@@ -5,7 +5,7 @@ defaults (reference globals main.cpp:19-43), JSON round-trippable. The
 port honours the megakernel and wavefront models, both modes, the
 camera, bounce depth, spp, seed, tonemap, QMC jitter, Russian roulette
 (wavefront), next-event estimation (nee, nee_select, nee_anyhit), smooth
-shading and the 'auto' / 'minarg' / 'pallas' / 'tilecull' /
+shading and the 'auto' / 'minarg' / 'pallas' / 'tilecull' / 'pairwin' /
 'bruteforce' accels; every
 other field raises NotImplementedError when it is set away from its
 default.
@@ -20,7 +20,7 @@ from typing import Any
 REF_WIDTH = 192 * 8  # 1536
 REF_HEIGHT = 108 * 8  # 864
 REF_MAX_ITERATIONS = 50
-ACCELS = ("auto", "minarg", "pallas", "tilecull", "bruteforce")
+ACCELS = ("auto", "minarg", "pallas", "tilecull", "pairwin", "bruteforce")
 
 
 @dataclasses.dataclass

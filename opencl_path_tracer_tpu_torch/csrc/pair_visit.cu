@@ -1,0 +1,216 @@
+// K10: the pairs round of the pair intersector (thin form).
+//
+// Replaces the TPU kernel opencl_path_tracer_tpu/ops/pallas/
+// pair_mxu.py::_pair_visit_core (built by _mk_pair_visit_kernel,
+// launched by _run_pair_visits).
+//
+// What it computes. The pairs (ray, cluster key) come sorted by key, in
+// tiles of trp; every pair of a tile is tested against every cluster
+// whose run of keys touches the tile (the TPU's visit list: run starts
+// and tile starts), and the dummy key c is never visited. Per visit,
+// over the cluster's cs triangles: the conservative bf16 Plucker edge
+// tests E_k (the 18 exact products of the packed bf16 weights and the
+// ray's bf16 features summed in two float32 accumulators, even and odd
+// terms, then added: XLA's CPU dot order, as K13a) against the per-lane
+// eps fma(epsA_k, m, epsB_k), m = max |P x D| with each component
+// fma(a, b, -(c d)); the exact t = (c0 - dot(P, n)) / dot(D, n) with
+// t > 0; the two least (t, index) candidates; K1's exact test on each
+// (nearest.cuh; the TPU fetches the rows through a one-hot matmul over
+// the exact bf16 3-split, here the float32 row of tric + 0.0f). The first
+// candidate that passes is the visit's hit; when both fail and a second
+// existed the pair is pending. Visits merge by (t, g) lexicographic
+// minimum over hits, g = cluster * cs + index, pend by maximum, so
+// their order does not matter. Output per pair: t (BIG on a miss) and
+// g * 2 + pend as float32 (g = 0 without a hit).
+//
+// What bounds it on the H100: operations. Per (pair, triangle) test 3 x
+// 18 multiply-adds for E (the TPU ran them on its matrix unit; the bound
+// charges them at the bf16 tensor-core rate) and about 25 float32
+// operations more. This first kernel runs everything on the float32
+// cores: a block of 128 pairs lies in one tile; it lists the tile's
+// clusters from the sorted keys in shared memory, then for each cluster
+// stages its weights (as float32) and constants 64 triangles at a time
+// and each thread tests its pair; the candidates' exact rows come from
+// global memory (L2). The E sum is written out here rather than shared
+// with plucker_cand.cu through a header, so K13a's code stays as
+// measured. Tensor cores (mma/wgmma on the bf16 products) are the later
+// redesign.
+
+#include <stdint.h>
+
+#include "nearest.cuh"
+
+namespace {
+
+using namespace ptx;
+
+constexpr int kPairBlock = 128;   // pairs per block (trp % 128 == 0)
+constexpr int kVisitTile = 64;    // triangles per shared-memory tile
+constexpr int kW = 18;            // used trig columns (of 32)
+constexpr int kMaxTrp = 1024;
+constexpr int kTricCols = 24;
+
+__device__ __forceinline__ uint32_t rne_bf16(uint32_t u) {
+  return (u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u;
+}
+
+__device__ __forceinline__ float fetch0(const float* row, int k) {
+  return __fadd_rn(row[k], 0.0f);
+}
+
+__global__ void __launch_bounds__(kPairBlock)
+pair_visit_kernel(const int* __restrict__ keys,
+                  const float* __restrict__ rays8,
+                  const uint16_t* __restrict__ trig,
+                  const float* __restrict__ tric, float* __restrict__ t_out,
+                  float* __restrict__ gp_out, int n_pairs, int trp, int cs,
+                  int c) {
+  __shared__ float tw[kVisitTile][3][kW];
+  __shared__ float tk[kVisitTile][10];   // n, c0, epsA(3), epsB(3)
+  __shared__ int clist[kMaxTrp];
+  __shared__ int ncl;
+  const int i = blockIdx.x * kPairBlock + threadIdx.x;   // i < n_pairs
+  const int tile0 = (blockIdx.x * kPairBlock / trp) * trp;
+  if (threadIdx.x == 0) ncl = 0;
+  __syncthreads();
+  // The clusters of this tile: the keys at the run starts inside it.
+  for (int q = tile0 + threadIdx.x; q < tile0 + trp; q += kPairBlock) {
+    const int k = keys[q];
+    if (k < c && (q == tile0 || keys[q - 1] != k))
+      clist[atomicAdd(&ncl, 1)] = k;
+  }
+  const size_t n = static_cast<size_t>(n_pairs);
+  const float px = rays8[i], py = rays8[n + i], pz = rays8[2 * n + i];
+  const float dx = rays8[3 * n + i], dy = rays8[4 * n + i],
+              dz = rays8[5 * n + i];
+  float f[kW];
+  {
+    const float phi[6] = {__fsub_rn(__fmul_rn(py, dz), __fmul_rn(pz, dy)),
+                          __fsub_rn(__fmul_rn(pz, dx), __fmul_rn(px, dz)),
+                          __fsub_rn(__fmul_rn(px, dy), __fmul_rn(py, dx)),
+                          dx, dy, dz};
+#pragma unroll
+    for (int q = 0; q < 6; ++q) {
+      const float hi = __uint_as_float(rne_bf16(__float_as_uint(phi[q])));
+      const float lo = __uint_as_float(
+          rne_bf16(__float_as_uint(__fsub_rn(phi[q], hi))));
+      f[q] = hi;
+      f[6 + q] = lo;
+      f[12 + q] = hi;
+    }
+  }
+  const float ml = fmaxf(
+      fmaxf(fabsf(__fmaf_rn(py, dz, -__fmul_rn(pz, dy))),
+            fabsf(__fmaf_rn(pz, dx, -__fmul_rn(px, dz)))),
+      fabsf(__fmaf_rn(px, dy, -__fmul_rn(py, dx))));
+  float bt = kBig;
+  int bg = 0;
+  float pend = 0.0f;
+  __syncthreads();
+  const int nc = ncl;
+  for (int v = 0; v < nc; ++v) {
+    const int cid = clist[v];
+    const int cbase = cid * cs;
+    float m1 = kBig, m2 = kBig;
+    int a1 = 0, a2 = 0;
+    for (int base = 0; base < cs; base += kVisitTile) {
+      __syncthreads();
+      for (int k = threadIdx.x; k < kVisitTile * 3 * kW; k += kPairBlock) {
+        const int j = k / (3 * kW), e = (k / kW) % 3, q = k % kW;
+        const size_t row = 3 * static_cast<size_t>(cbase) + e * cs + base + j;
+        tw[j][e][q] = __uint_as_float(static_cast<uint32_t>(trig[row * 32 + q])
+                                      << 16);
+      }
+      for (int k = threadIdx.x; k < kVisitTile * 10; k += kPairBlock) {
+        const int j = k / 10, q = k % 10;
+        tk[j][q] = tric[static_cast<size_t>(cbase + base + j) * kTricCols +
+                        (q < 4 ? q : 13 + q)];
+      }
+      __syncthreads();
+      for (int j = 0; j < kVisitTile; ++j) {
+        const float4 nc4 = make_float4(tk[j][0], tk[j][1], tk[j][2], tk[j][3]);
+        const float vn = dot3(nc4, dx, dy, dz);
+        const bool pos = vn > 0.f;
+        bool valid = true;
+#pragma unroll
+        for (int e = 0; e < 3 && valid; ++e) {
+          const float* w = tw[j][e];
+          float ae = w[0] * f[0];
+          float ao = w[1] * f[1];
+#pragma unroll
+          for (int q = 2; q < kW; q += 2) {
+            ae = __fmaf_rn(w[q], f[q], ae);
+            ao = __fmaf_rn(w[q + 1], f[q + 1], ao);
+          }
+          const float ek = ae + ao;
+          const float ep = __fmaf_rn(tk[j][4 + e], ml, tk[j][7 + e]);
+          valid = pos ? ek >= -ep : ek <= ep;
+        }
+        float tm = kBig;
+        if (valid) {
+          const float t = (nc4.w - dot3(nc4, px, py, pz)) / vn;
+          if (t > 0.f) tm = t;
+        }
+        const int lj = base + j;
+        if (tm < m1) {
+          m2 = m1;
+          a2 = a1;
+          m1 = tm;
+          a1 = lj;
+        } else if (tm < m2) {
+          m2 = tm;
+          a2 = lj;
+        }
+      }
+    }
+    bool v1 = false, v2 = false;
+    float t_;
+    if (m1 < kBig) {
+      const float* r = tric + static_cast<size_t>(cbase + a1) * kTricCols;
+      float4 cc[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        cc[e] = make_float4(fetch0(r, 4 * e), fetch0(r, 4 * e + 1),
+                            fetch0(r, 4 * e + 2), fetch0(r, 4 * e + 3));
+      v1 = exact_hit(cc, px, py, pz, dx, dy, dz, t_);
+    }
+    if (m2 < kBig) {
+      const float* r = tric + static_cast<size_t>(cbase + a2) * kTricCols;
+      float4 cc[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        cc[e] = make_float4(fetch0(r, 4 * e), fetch0(r, 4 * e + 1),
+                            fetch0(r, 4 * e + 2), fetch0(r, 4 * e + 3));
+      v2 = exact_hit(cc, px, py, pz, dx, dy, dz, t_);
+    }
+    const bool use2 = !v1 && v2;
+    if (!v1 && !v2 && m2 < kBig) pend = 1.0f;
+    if (v1 || use2) {
+      const float ct = use2 ? m2 : m1;
+      const int cg = cbase + (use2 ? a2 : a1);
+      if (ct < bt || (ct == bt && cg < bg)) {
+        bt = ct;
+        bg = cg;
+      }
+    }
+  }
+  t_out[i] = bt;
+  gp_out[i] = __fadd_rn(__fmul_rn(static_cast<float>(bg), 2.0f), pend);
+}
+
+}  // namespace
+
+extern "C" int ptx_pair_visit(const int* keys, const float* rays8p,
+                              const void* trig, const float* tric, float* t,
+                              float* gp, int n_pairs, int trp, int cs, int c,
+                              void* stream) {
+  if (n_pairs <= 0) return 0;
+  if (trp <= 0 || trp > kMaxTrp || trp % kPairBlock || n_pairs % trp ||
+      cs <= 0 || cs % kVisitTile || c <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  pair_visit_kernel<<<n_pairs / kPairBlock, kPairBlock, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      keys, rays8p, static_cast<const uint16_t*>(trig), tric, t, gp, n_pairs,
+      trp, cs, c);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -52,6 +52,12 @@ KERNELS = {
                      [P, P, P, P, P, P, P, I, I, P]),
     "smooth_refine": ("smooth_refine.cu", "ptx_smooth_refine",
                       [P, P, P, P, P, P, P, P, P, P, I, I, P]),
+    "pair_cand": ("pair_cand.cu", "ptx_pair_cand",
+                  [P, P, P, P, I, I, I, I, I, P]),
+    "pair_visit": ("pair_visit.cu", "ptx_pair_visit",
+                   [P, P, P, P, P, P, I, I, I, I, P]),
+    "attr_fetch": ("attr_fetch.cu", "ptx_attr_fetch",
+                   [P, P, P, P, P, P, I, I, P]),
 }
 
 # Launches per kernel since the last reset_launches(); each wrapper adds

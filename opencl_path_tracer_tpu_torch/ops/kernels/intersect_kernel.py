@@ -39,15 +39,28 @@ def pack_rays(p, d) -> torch.Tensor:
     return torch.stack([p[0], p[1], p[2], d[0], d[1], d[2], z, z])
 
 
-def build_tri_pack(tris: TrianglesSoA) -> torch.Tensor:
-    """(T, 24) float32 rows [n c0 m1 d1 m2 d2 m3 d3 mati 0*7]."""
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def build_tri_pack(tris: TrianglesSoA, tt: int | None = None) -> torch.Tensor:
+    """(T, 24) float32 rows [n c0 m1 d1 m2 d2 m3 d3 mati 0*7]. Given `tt`,
+    zero rows (never hit: n = 0) pad it as the JAX package's
+    `build_tri_pack(tris, tt)` does: to a multiple of 8 up to tt
+    triangles, else to a multiple of tt."""
     t = tris.count
+    pad = 0
+    if tt is not None:
+        pad = (_round_up(t, 8) if t <= tt else _round_up(t, tt)) - t
     return torch.cat([
-        tris.n, tris.c0[:, None], tris.m1, tris.d1[:, None],
-        tris.m2, tris.d2[:, None], tris.m3, tris.d3[:, None],
-        tris.mati.to(torch.float32)[:, None],
-        torch.zeros((t, 7), dtype=torch.float32, device=tris.device),
-    ], dim=1).contiguous()
+        torch.cat([
+            tris.n, tris.c0[:, None], tris.m1, tris.d1[:, None],
+            tris.m2, tris.d2[:, None], tris.m3, tris.d3[:, None],
+            tris.mati.to(torch.float32)[:, None],
+            torch.zeros((t, 7), dtype=torch.float32, device=tris.device),
+        ], dim=1),
+        torch.zeros((pad, TRI_COLS), dtype=torch.float32, device=tris.device),
+    ]).contiguous()
 
 
 def _dot3(v, a):
@@ -76,17 +89,36 @@ def exact_test(rows: torch.Tensor, rays: torch.Tensor):
 
 
 def minarg_plain(rays8: torch.Tensor, tri_pack: torch.Tensor,
-                 ray_chunk: int = 8192):
-    """Plain PyTorch version of K1: (t, g), two (R,) float32 tensors."""
+                 ray_chunk: int = 8192, cells: int = 1 << 22):
+    """Plain PyTorch version of K1: (t, g), two (R,) float32 tensors.
+    Rays and triangles go in chunks of at most `cells` (ray, triangle)
+    tests; a later triangle chunk wins only with a strictly smaller t, so
+    ties keep the lowest index. A ray with D = 0 (the zero rays that pad
+    a batch) meets every plane at t = inf or NaN, whose edge tests fail:
+    it is a miss, (BIG, 0), without being tested."""
     r = rays8.shape[1]
-    t_out = torch.empty(r, dtype=torch.float32, device=rays8.device)
-    g_out = torch.empty(r, dtype=torch.float32, device=rays8.device)
-    for s in range(0, r, ray_chunk):
-        t, valid = exact_test(tri_pack, rays8[:, s:s + ray_chunk])
-        tm = torch.where(valid, t, torch.full_like(t, BIG))
-        m, a = torch.min(tm, dim=0)                # first index on ties
-        t_out[s:s + ray_chunk] = m
-        g_out[s:s + ray_chunk] = a.to(torch.float32)
+    n_tris = tri_pack.shape[0]
+    t_out = torch.full((r,), BIG, dtype=torch.float32, device=rays8.device)
+    g_out = torch.zeros(r, dtype=torch.float32, device=rays8.device)
+    live = torch.nonzero((rays8[3:6] != 0.0).any(0)).flatten()
+    for s in range(0, live.numel(), ray_chunk):
+        cols = live[s:s + ray_chunk]
+        rays = rays8[:, cols]
+        step = max(1, cells // rays.shape[1])
+        best = best_g = None
+        for b in range(0, n_tris, step):
+            t, valid = exact_test(tri_pack[b:b + step], rays)
+            tm = torch.where(valid, t, torch.full_like(t, BIG))
+            m, a = torch.min(tm, dim=0)            # first index on ties
+            a = a + b
+            if best is None:
+                best, best_g = m, a
+            else:
+                bet = m < best
+                best = torch.where(bet, m, best)
+                best_g = torch.where(bet, a, best_g)
+        t_out[cols] = best
+        g_out[cols] = best_g.to(torch.float32)
     return t_out, g_out
 
 

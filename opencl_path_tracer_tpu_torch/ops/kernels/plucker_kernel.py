@@ -27,7 +27,8 @@ from opencl_path_tracer_tpu_torch.core.geometry import TrianglesSoA
 from opencl_path_tracer_tpu_torch.core.types import Hits, Rays
 from opencl_path_tracer_tpu_torch.ops.kernels import _build
 from opencl_path_tracer_tpu_torch.ops.kernels.intersect_kernel import (
-    BIG, TRI_COLS, _dot3, assemble_hits, build_tri_pack, minarg, pack_rays,
+    BIG, TRI_COLS, _dot3, _round_up, assemble_hits, build_tri_pack, minarg,
+    pack_rays,
 )
 
 
@@ -100,10 +101,6 @@ def make_minarg_intersect(tris: TrianglesSoA, *, with_ids: bool = False):
 
 EPS_SCALE = 2.0 ** -15
 CAND_TILE = 64   # triangles per shared-memory tile of csrc/plucker_cand.cu
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
 
 
 def _rne_bf16_bits(u):

@@ -9,21 +9,26 @@ the progressive state on its device, in the megakernel model
 intersector.
 
 Accel choice: 'auto' resolves to 'minarg' (K1 + K2) up to 8,192
-triangles, a cut carried over from the JAX package's choice, not a
-measurement on the GPU; larger scenes need the pair intersectors, which
-are not ported yet. 'bruteforce' is the plain PyTorch reference and is
-refused on CUDA, so no plain version carries the main path on the card.
-'pallas' is K4, the dense exact intersector with attributes; 'tilecull'
-is K6 with groups ordered front to back from the camera eye, then K2.
-Analytic spheres go through K3 (K3b above 64) and are min-merged after
-the triangles. With `smooth`, the triangle winner's normal is the
-interpolated vertex normal (`_make_smooth_tri_fn`): 'auto' is 'minarg'
-(K1 then K8) up to 4,096 triangles, the JAX package's cap, which comes
-from its kernel holding the whole one-hot table in the TPU's VMEM; the
-port carries it over as the starting choice and has not measured it on
-the GPU. With `nee`, the engine builds the emitter table and, with
-`nee_anyhit`, the any-hit shadow-ray test (K7, or-ed with the spheres),
-and hands both to the model.
+triangles and to 'pairwin' above, the JAX package's cut (engine.py:
+380-393), carried over as its choice, not a measurement on the GPU.
+'pairwin' is the pair-expansion intersector in the TPU's production
+configuration (`PAIR_TPU_WINNER`: K4 seeds from the scene-spanning
+triangles, K9 and K10 test rays against their nearest Morton clusters,
+K4 certifies the rest, K11 fetches the winners' attributes).
+'bruteforce' is the plain PyTorch reference and is refused on CUDA, so
+no plain version carries the main path on the card. 'pallas' is K4, the
+dense exact intersector with attributes; 'tilecull' is K6 with groups
+ordered front to back from the camera eye, then K2. Analytic spheres go
+through K3 (K3b above 64) and are min-merged after the triangles. With
+`smooth`, the triangle winner's normal is the interpolated vertex normal
+(`_make_smooth_tri_fn`): 'auto' is 'minarg' (K1 then K8) up to 4,096
+triangles and 'pairwin' with ids (K1 + K2 seed, K1 tail) and
+`smooth_hit_normals` above, as the JAX package routes it
+(engine.py:334-356); the 4,096 cap comes from its kernel holding the
+whole one-hot table in the TPU's VMEM, and the port carries it over as
+the starting choice without a GPU measurement. With `nee`, the engine
+builds the emitter table and, with `nee_anyhit`, the any-hit shadow-ray
+test (K7, or-ed with the spheres), and hands both to the model.
 """
 
 from __future__ import annotations
@@ -49,6 +54,9 @@ from opencl_path_tracer_tpu_torch.ops.kernels.plucker_kernel import (
 from opencl_path_tracer_tpu_torch.ops.kernels.shading_kernel import (
     make_smooth_minarg_intersect,
 )
+from opencl_path_tracer_tpu_torch.ops.kernels.sorted_intersect import (
+    make_pair_intersect,
+)
 from opencl_path_tracer_tpu_torch.ops.kernels.sphere_kernel import (
     make_sphere_intersect,
 )
@@ -61,32 +69,20 @@ from opencl_path_tracer_tpu_torch.utils.device import resolve_device
 
 AUTO_MINARG_MAX_TRIS = 8192
 SMOOTH_MINARG_MAX_TRIS = 4096   # a TPU VMEM limit (see the docstring)
-PAIRWIN_TODO = ("the pair intersector's smooth route (ROADMAP.md queue 1 "
-                "item 5, K9-K11 of queue 2) is not ported yet")
 
 
 def resolve_accel(accel: str, num_triangles: int, on_cuda: bool,
                   smooth: bool = False) -> str:
     """The triangle intersector `accel` names for this scene and device."""
-    if smooth and accel == "pairwin":
-        raise NotImplementedError(f"accel 'pairwin': {PAIRWIN_TODO}")
-    if smooth and accel == "auto" and num_triangles > SMOOTH_MINARG_MAX_TRIS:
-        raise NotImplementedError(
-            f"accel 'auto' with smooth shading for {num_triangles} "
-            f"triangles (over {SMOOTH_MINARG_MAX_TRIS}) needs "
-            f"{PAIRWIN_TODO}")
     if accel == "auto":
-        if num_triangles > AUTO_MINARG_MAX_TRIS:
-            raise NotImplementedError(
-                f"accel 'auto' for {num_triangles} triangles (over "
-                f"{AUTO_MINARG_MAX_TRIS}) needs the pair intersector, "
-                "K9-K12 of ROADMAP.md queue 2, which is not ported yet")
-        return "minarg"
+        cap = SMOOTH_MINARG_MAX_TRIS if smooth else AUTO_MINARG_MAX_TRIS
+        return "minarg" if num_triangles <= cap else "pairwin"
     if accel == "bruteforce" and on_cuda:
         raise ValueError(
             "accel 'bruteforce' is the plain PyTorch reference and does not "
             "run on CUDA; use 'minarg' (or 'auto')")
-    if accel not in ("minarg", "pallas", "tilecull", "bruteforce"):
+    if accel not in ("minarg", "pallas", "tilecull", "pairwin",
+                     "bruteforce"):
         raise NotImplementedError(
             f"accel {accel!r} is not ported yet (ROADMAP.md queue 2)")
     return accel
@@ -103,9 +99,9 @@ def _make_smooth_tri_fn(scene: Scene, accel: str):
     """The smooth-shading triangle intersector for a resolved accel.
     'minarg' is K1 then K8 (`make_smooth_minarg_intersect`); 'tilecull'
     (K6 with ids; the groups in Morton order, as the JAX package builds
-    them for smooth shading) and 'bruteforce' (the plain reference, CPU
-    only) report the winner's index, and `smooth_hit_normals`
-    interpolates."""
+    them for smooth shading), 'pairwin' (with ids) and 'bruteforce' (the
+    plain reference, CPU only) report the winner's index, and
+    `smooth_hit_normals` interpolates."""
     attribs = scene.attribs
     if accel == "minarg":
         if scene.num_triangles > SMOOTH_MINARG_MAX_TRIS:
@@ -116,14 +112,16 @@ def _make_smooth_tri_fn(scene: Scene, accel: str):
         return make_smooth_minarg_intersect(scene.tris, attribs)
     if accel == "tilecull":
         ids_fn = make_tilecull_intersect(scene.tris, with_ids=True)
+    elif accel == "pairwin":
+        ids_fn = make_pair_intersect(scene.tris, with_ids=True)
     elif accel == "bruteforce":
         ids_fn = functools.partial(intersect.first_intersect_ids,
                                    tris=scene.tris)
     else:
         raise ValueError(
             f"smooth shading needs an intersector that reports the "
-            f"winner's index: 'minarg', 'tilecull', 'bruteforce' or "
-            f"'auto', not {accel!r}")
+            f"winner's index: 'minarg', 'tilecull', 'pairwin', "
+            f"'bruteforce' or 'auto', not {accel!r}")
 
     def smooth_fn(rays):
         hits, ids = ids_fn(rays)
@@ -154,6 +152,8 @@ def make_intersect_fn(scene: Scene, accel: str = "auto", origin=None,
         tri_fn = make_pallas_intersect(scene.tris)
     elif accel == "tilecull":
         tri_fn = make_tilecull_intersect(scene.tris, origin=origin)
+    elif accel == "pairwin":
+        tri_fn = make_pair_intersect(scene.tris)
     else:
         tri_fn = functools.partial(intersect.first_intersect, tris=scene.tris)
     if scene.spheres is None:

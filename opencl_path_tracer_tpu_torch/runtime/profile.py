@@ -18,11 +18,16 @@ per step. Needs a GPU:
     python -m opencl_path_tracer_tpu_torch.runtime.profile --accel tilecull
     python -m opencl_path_tracer_tpu_torch.runtime.profile --scene reference \\
         --models-dir tests/assets/models --smooth
+    python -m opencl_path_tracer_tpu_torch.runtime.profile --scene stress
+    python -m opencl_path_tracer_tpu_torch.runtime.profile --scene stress \\
+        --model wavefront
 
 --model megakernel and wavefront render --spp samples through
 `RenderEngine` (with --nee, --nee-select, --accel, --smooth and
---models-dir as `ptx-torch render` takes them); fused runs --steps steps
-of `models.pipeline`'s fast pipeline (triangles only: --scene cornell).
+--models-dir as `ptx-torch render` takes them; `--scene stress`, 99,380
+triangles, runs the pair intersector through 'auto'); fused runs --steps
+steps of `models.pipeline`'s fast pipeline (triangles only: --scene
+cornell).
 """
 
 from __future__ import annotations

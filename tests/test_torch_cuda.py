@@ -188,3 +188,67 @@ def test_fourth_slice_kernel_equals_plain_version(cuda, monkeypatch):
     monkeypatch.setattr(_build, "library", broken)
     with pytest.raises(RuntimeError, match="disabled"):
         k8.smooth_refine(rays8, t, g, pack, spack)
+
+
+@pytest.mark.cuda
+def test_fifth_slice_kernels_equal_plain_versions(cuda, monkeypatch):
+    """K9, K10 and K11 against their plain versions on the card, on
+    stress_scene(6000) (chip_smoke.py runs them on the 99,380-triangle
+    scene at 1080p); the pair intersector's hits equal K4's; the CPU plain
+    versions agree with the card; with the loader broken, each raises."""
+    from opencl_path_tracer_tpu_torch.core.types import Rays
+    from opencl_path_tracer_tpu_torch.ops.kernels import pair_mxu as pm
+    from opencl_path_tracer_tpu_torch.ops.kernels import sorted_intersect as si
+    from opencl_path_tracer_tpu_torch.ops.kernels.march_kernel import (
+        build_march_scene,
+    )
+    scene = library.stress_scene(6000, device=cuda)
+    _, rest = si.split_by_size(scene.tris)
+    ms, rt, c = build_march_scene(rest, 256)
+    boxes = torch.cat([ms.boxes_lo, ms.boxes_hi,
+                       torch.zeros((c, 2), device=cuda),
+                       pm.build_dops(rt, 256, c)], 1)
+    boxes_r = torch.zeros((128, 16), device=cuda)
+    boxes_r[:c] = boxes
+    rays8 = _rays8(20_003, 5, cuda)
+    before = dict(_build.launches)
+    for l in (2, 6, 48):
+        out = si.run_candidates(rays8, boxes_r, l, c)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(out, si.candidates_plain(rays8, boxes_r, l, c)))
+    ids = si.run_candidates(rays8, boxes_r, 2, c)[0]
+    keys_s, r8p, _ = pm.sort_pairs([rays8[k] for k in range(6)], ids, c,
+                                   1024)
+    t, gp = pm.pair_visits(keys_s, r8p, ms.trig, ms.tric, 256, 1024, c)
+    tp, gpp = pm.pair_visits_plain(keys_s, r8p, ms.trig, ms.tric, 256, 1024,
+                                   c)
+    assert torch.equal(t, tp) and torch.equal(gp, gpp)
+    g = torch.where(t < k1.BIG, gp // 2, torch.full_like(t, -1.0))
+    for a, b in zip(pm.fetch_attrs(g, ms.tric),
+                    pm.fetch_attrs_plain(g, ms.tric)):
+        assert torch.equal(a, b)
+    assert {k: _build.launches[k] - before[k]
+            for k in ("pair_cand", "pair_visit", "attr_fetch")} == {
+                "pair_cand": 4, "pair_visit": 1, "attr_fetch": 1}
+    assert int((t < k1.BIG).sum()) > 0
+    head = rays8[:, :3000].contiguous()
+    cpu = si.run_candidates(head.cpu(), boxes_r.cpu(), 6, c)
+    gpu = si.run_candidates(head, boxes_r, 6, c)
+    assert all(torch.equal(a, b.cpu()) for a, b in zip(cpu, gpu))
+    isect = si.make_pair_intersect(scene.tris)
+    rays = Rays(p=tuple(rays8[k].contiguous() for k in range(3)),
+                d=tuple(rays8[k].contiguous() for k in range(3, 6)))
+    h = isect(rays)
+    td = k1.dense(rays8, k1.build_tri_pack(scene.tris))[0]
+    assert torch.equal(h.t, torch.where(td < k1.BIG, td, -1.0))
+
+    def broken(name):
+        raise RuntimeError("kernel loader disabled by the test")
+
+    monkeypatch.setattr(_build, "library", broken)
+    with pytest.raises(RuntimeError, match="disabled"):
+        si.run_candidates(rays8, boxes_r, 2, c)
+    with pytest.raises(RuntimeError, match="disabled"):
+        pm.pair_visits(keys_s, r8p, ms.trig, ms.tric, 256, 1024, c)
+    with pytest.raises(RuntimeError, match="disabled"):
+        pm.fetch_attrs(g, ms.tric)

@@ -90,7 +90,8 @@ def test_config_refuses_unported_fields(field, value):
 
 def test_config_validation_and_json_roundtrip():
     with pytest.raises(NotImplementedError, match="queue 2"):
-        _cfg(accel="pairwin").validate()
+        _cfg(accel="march").validate()
+    assert _cfg(accel="pairwin").validate().accel == "pairwin"
     with pytest.raises(ValueError):
         _cfg(mode="parity", qmc=True).validate()
     with pytest.raises(ValueError):
@@ -145,8 +146,9 @@ def test_cli_render_wavefront_with_roulette(tmp_path, capsys):
 def test_accel_resolution():
     assert engine.resolve_accel("auto", 804, on_cuda=True) == "minarg"
     assert engine.resolve_accel("auto", 8192, on_cuda=False) == "minarg"
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        engine.resolve_accel("auto", 8193, on_cuda=True)
+    assert engine.resolve_accel("auto", 8193, on_cuda=True) == "pairwin"
+    assert engine.resolve_accel("auto", 99_380, on_cuda=False) == "pairwin"
+    assert engine.resolve_accel("pairwin", 10, on_cuda=True) == "pairwin"
     with pytest.raises(ValueError, match="bruteforce"):
         engine.resolve_accel("bruteforce", 10, on_cuda=True)
     assert engine.resolve_accel("bruteforce", 10, on_cuda=False) == \
@@ -246,13 +248,13 @@ def test_cli_render_nee_and_tilecull(args, tmp_path, capsys):
 
 def test_smooth_accel_choice_and_refusals():
     """accel='auto' with smooth shading is 'minarg' up to the JAX
-    package's 4,096-triangle cap; the pair route, 'pallas' (no winner
-    index) and a scene without vertex normals are refused."""
+    package's 4,096-triangle cap and the pair route ('pairwin' with ids)
+    above; 'pallas' (no winner index) and a scene without vertex normals
+    are refused."""
     assert engine.resolve_accel("auto", 4096, True, smooth=True) == "minarg"
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        engine.resolve_accel("auto", 4097, True, smooth=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        engine.resolve_accel("pairwin", 10, True, smooth=True)
+    assert engine.resolve_accel("auto", 4097, True, smooth=True) == "pairwin"
+    assert engine.resolve_accel("pairwin", 10, True, smooth=True) == \
+        "pairwin"
     smooth = library.cornell_box(with_spheres=True, smooth_spheres=True)
     with pytest.raises(ValueError, match="winner's index"):
         engine.make_intersect_fn(smooth, "pallas", smooth=True)

@@ -40,7 +40,8 @@ def test_no_jax_imports(path):
 def test_port_has_its_modules_and_kernel_sources():
     assert len(FILES) > 20
     for f in ("minarg.cu", "refine1.cu", "spheres.cu", "anyhit.cu",
-              "tilecull.cu", "sphere_table.cu", "smooth_refine.cu"):
+              "tilecull.cu", "sphere_table.cu", "smooth_refine.cu",
+              "pair_cand.cu", "pair_visit.cu", "attr_fetch.cu"):
         assert (PORT / "csrc" / f).exists()
 
 

@@ -798,18 +798,27 @@ def main_path(torch, np, scenes, cam):
         engines.append((name, RenderEngine(scenes[sname], c, device="cuda")))
     for name, eng in engines:
         spp = eng.cfg.spp
-        si.STATS = [] if "stress" in name else None
-        try:
-            _, dt, counts = run_path(torch, name, lambda: eng.render(spp))
-            stats = si.STATS
-        finally:
-            si.STATS = None
+        _, dt, counts = run_path(torch, name, lambda: eng.render(spp))
         img = eng.image()
         need(img.shape == (H, W, 3) and np.isfinite(img).all()
              and img.mean() > 0.0, f"{name}: bad image")
         report(name, dt, eng.rays_traced, spp, counts)
-        if stats:
+        if counts.get("pair_cand"):
+            # The schedule, from as many samples again with the counters
+            # on, outside the timed run: they read counts back per call.
+            si.STATS = []
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.render(spp)
+                torch.cuda.synchronize()
+                dt_stats = time.perf_counter() - t0
+                stats = si.STATS
+            finally:
+                si.STATS = None
             pair_stats_line(name, stats)
+            print(f"{name}: {spp} spp with the schedule counters on in "
+                  f"{dt_stats:.3f} s ({dt:.3f} s timed, counters off)")
 
     # render_fast times the steps after its two warm-up steps and counts
     # the samples finished in them.
@@ -917,10 +926,12 @@ def pair_rows(torch, inputs):
     the t test and the top-2 compare); per (pair, visit) 2 x 48 for the
     candidates' exact tests; keys and rays in (28 bytes per pair), the
     packs once, (t, g) out (8). K11: g in, four rows out (20 bytes per
-    ray) and tric once; library_ms is one PyTorch `index_select` of the
-    four columns (`tric[g][:, (0, 1, 2, 16)]`, without the g < 0 zeros
-    and the +0.0). No single PyTorch call computes K9 (slab tests and a
-    rank selection) or K10: their library_ms is null."""
+    ray), and columns 0, 1, 2 and 16 of each distinct winning row (16
+    bytes; its other columns are never read); library_ms is one PyTorch
+    `index_select` of the four columns (`tric[g][:, (0, 1, 2, 16)]`,
+    without the g < 0 zeros and the +0.0). No single PyTorch call
+    computes K9 (slab tests and a rank selection) or K10: their
+    library_ms is null."""
     from opencl_path_tracer_tpu_torch.ops.kernels import (
         pair_mxu as pm, sorted_intersect as si)
     r8, boxes_r, c = inputs["pair_cand"]
@@ -943,9 +954,10 @@ def pair_rows(torch, inputs):
     g, tric = inputs["attr_fetch"]
     gi = g.long().clamp(min=0)
     cols = tric[:, [0, 1, 2, 16]].contiguous()
+    rows_read = int(torch.unique(g[g >= 0]).numel())
     rows.append(("attr_fetch", lambda: pm.fetch_attrs(g, tric),
                  lambda: pm.fetch_attrs_plain(g, tric), 0, 0,
-                 20 * g.shape[0] + tric.numel() * 4,
+                 20 * g.shape[0] + 16 * rows_read,
                  lambda: cols.index_select(0, gi)))
     return rows
 

@@ -31,6 +31,8 @@ from opencl_path_tracer_tpu_torch.ops.kernels import _build
 
 BIG = 3.0e38
 TRI_COLS = 24
+_PLAIN_RAYS = 8192        # rays per chunk of minarg_plain
+_PLAIN_CELLS = 1 << 22    # (ray, triangle) tests per chunk of minarg_plain
 
 
 def pack_rays(p, d) -> torch.Tensor:
@@ -88,23 +90,22 @@ def exact_test(rows: torch.Tensor, rays: torch.Tensor):
     return t, valid
 
 
-def minarg_plain(rays8: torch.Tensor, tri_pack: torch.Tensor,
-                 ray_chunk: int = 8192, cells: int = 1 << 22):
+def minarg_plain(rays8: torch.Tensor, tri_pack: torch.Tensor):
     """Plain PyTorch version of K1: (t, g), two (R,) float32 tensors.
-    Rays and triangles go in chunks of at most `cells` (ray, triangle)
-    tests; a later triangle chunk wins only with a strictly smaller t, so
-    ties keep the lowest index. A ray with D = 0 (the zero rays that pad
-    a batch) meets every plane at t = inf or NaN, whose edge tests fail:
-    it is a miss, (BIG, 0), without being tested."""
+    Rays and triangles go in chunks of at most _PLAIN_CELLS (ray,
+    triangle) tests; a later triangle chunk wins only with a strictly
+    smaller t, so ties keep the lowest index. A ray with D = 0 (the zero
+    rays that pad a batch) meets every plane at t = inf or NaN, whose
+    edge tests fail: it is a miss, (BIG, 0), without being tested."""
     r = rays8.shape[1]
     n_tris = tri_pack.shape[0]
     t_out = torch.full((r,), BIG, dtype=torch.float32, device=rays8.device)
     g_out = torch.zeros(r, dtype=torch.float32, device=rays8.device)
     live = torch.nonzero((rays8[3:6] != 0.0).any(0)).flatten()
-    for s in range(0, live.numel(), ray_chunk):
-        cols = live[s:s + ray_chunk]
+    for s in range(0, live.numel(), _PLAIN_RAYS):
+        cols = live[s:s + _PLAIN_RAYS]
         rays = rays8[:, cols]
-        step = max(1, cells // rays.shape[1])
+        step = max(1, _PLAIN_CELLS // rays.shape[1])
         best = best_g = None
         for b in range(0, n_tris, step):
             t, valid = exact_test(tri_pack[b:b + step], rays)

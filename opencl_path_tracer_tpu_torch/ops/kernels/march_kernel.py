@@ -15,10 +15,6 @@ cut into clusters of `cs`; every pack is in that cluster-major order:
   per-lane eps terms in columns 17-22: edge k is accepted by the pair
   kernel when E_k >= -(col(17 + k) m + col(20 + k)), m the lane's
   max |P x D|;
-* tab3: (64, T') bf16, rows 0-16, 17-33 and 34-50 the hi, mid and lo
-  bf16 parts of the 17 constants (hi + mid + lo is the float32 value
-  exactly: the TPU fetches rows with a one-hot matmul over them; the
-  port's kernels load tric's float32 row instead, the same bits);
 * boxes_lo, boxes_hi: (C, 3) float32 cluster boxes, inflated by
   1e-4 diag + 1e-3 so a hit on a hull triangle is never lost to the slab
   test's rounding.
@@ -47,11 +43,8 @@ class MarchScene:
 
     trig: torch.Tensor      # (3 T', 32) bfloat16
     tric: torch.Tensor      # (T', 24) float32
-    tab3: torch.Tensor      # (64, T') bfloat16
     boxes_lo: torch.Tensor  # (C, 3) float32
     boxes_hi: torch.Tensor  # (C, 3) float32
-    scene_lo: torch.Tensor  # (3,) float32 scene box corner (Morton keys)
-    scene_inv: torch.Tensor  # (3,) float32 1 / extent
 
 
 def build_march_scene(tris: TrianglesSoA, cs: int = 512,
@@ -97,16 +90,6 @@ def build_march_scene(tris: TrianglesSoA, cs: int = 512,
                                    1e-30)
         tric[:, 20 + k] = np.where(live, EPS_SCALE * np.abs(wd).sum(1) * 1.01,
                                    1e-30)
-    t17 = tab[:, :17].T
-    hi_ = _bf16_np(t17)
-    mid_ = _bf16_np(t17 - hi_)
-    lo_ = _bf16_np(t17 - hi_ - mid_)
-    if not (hi_.astype(np.float64) + mid_.astype(np.float64)
-            + lo_.astype(np.float64) == t17.astype(np.float64)).all():
-        raise RuntimeError("bf16 3-way split failed to reconstruct the "
-                           "float32 table exactly")
-    tab3 = np.zeros((64, tpad), np.float32)
-    tab3[0:17], tab3[17:34], tab3[34:51] = hi_, mid_, lo_
 
     # Cluster boxes over the reordered triangles (padding rows empty).
     tlo, thi = lo[order], hi[order]
@@ -126,10 +109,25 @@ def build_march_scene(tris: TrianglesSoA, cs: int = 512,
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
-    scene = MarchScene(
-        trig=trig, tric=f32(tric), tab3=_bf16_tensor_np(tab3, dev),
-        boxes_lo=f32(blo), boxes_hi=f32(bhi), scene_lo=f32(scene_lo),
-        scene_inv=f32(1.0 / extent))
+    scene = MarchScene(trig=trig, tric=f32(tric), boxes_lo=f32(blo),
+                       boxes_hi=f32(bhi))
     if with_order:
         return scene, rt, c, order
     return scene, rt, c
+
+
+def split_bf16x3(tric: torch.Tensor) -> torch.Tensor:
+    """The TPU's tab3 (march_kernel.py:177-191): (64, T') bfloat16, rows
+    0-16, 17-33 and 34-50 the hi, mid and lo bf16 parts of tric's 17
+    constants, whose sum is the float32 value exactly."""
+    t17 = tric[:, :17].cpu().numpy().T
+    hi_ = _bf16_np(t17)
+    mid_ = _bf16_np(t17 - hi_)
+    lo_ = _bf16_np(t17 - hi_ - mid_)
+    if not (hi_.astype(np.float64) + mid_.astype(np.float64)
+            + lo_.astype(np.float64) == t17.astype(np.float64)).all():
+        raise RuntimeError("bf16 3-way split failed to reconstruct the "
+                           "float32 table exactly")
+    tab3 = np.zeros((64, t17.shape[1]), np.float32)
+    tab3[0:17], tab3[17:34], tab3[34:51] = hi_, mid_, lo_
+    return _bf16_tensor_np(tab3, tric.device)

@@ -55,6 +55,7 @@ from opencl_path_tracer_tpu_torch.ops.kernels.plucker_kernel import (
 
 DOP_SIGNS = ((1.0, 1.0, 1.0), (1.0, -1.0, 1.0),
              (1.0, 1.0, -1.0), (1.0, -1.0, -1.0))
+_PLAIN_VISITS = 8    # visits per batch of pair_visits_plain
 
 
 def build_dops(rt, cs: int, c: int) -> torch.Tensor:
@@ -193,11 +194,11 @@ def _visit(rays, feat, trig, tric, cid, cs: int):
 
 def pair_visits_plain(keys_s: torch.Tensor, rays8p: torch.Tensor,
                       trig: torch.Tensor, tric: torch.Tensor, cs: int,
-                      trp: int, c: int, batch: int = 8):
+                      trp: int, c: int):
     """Plain PyTorch version of K10 (thin): (t, g * 2 + pend), (Ppad,)
     float32 each, for the cluster-sorted pairs (keys_s (Ppad,) int32, rays
-    (8, Ppad)). Visits run in batches of `batch`; their hits merge per
-    tile by (t, g) minimum, pend by maximum."""
+    (8, Ppad)). Visits run in batches of _PLAIN_VISITS; their hits merge
+    per tile by (t, g) minimum, pend by maximum."""
     dev = rays8p.device
     ppad = rays8p.shape[1]
     nb = ppad // trp
@@ -210,13 +211,13 @@ def pair_visits_plain(keys_s: torch.Tensor, rays8p: torch.Tensor,
     t_v = torch.full((nv, trp), BIG, device=dev)
     g_v = torch.zeros((nv, trp), device=dev)
     p_v = torch.zeros((nv, trp), device=dev)
-    for s in range(0, nv, batch):
-        b, cid = vb[s:s + batch], vc[s:s + batch]
-        found, ct, cg, pend = _visit(rays_t[:, b], feat[:, b], trig, tric,
-                                     cid, cs)
-        t_v[s:s + batch] = torch.where(found, ct, torch.full_like(ct, BIG))
-        g_v[s:s + batch] = torch.where(found, cg, torch.full_like(cg, -1.0))
-        p_v[s:s + batch] = pend.to(torch.float32)
+    for s in range(0, nv, _PLAIN_VISITS):
+        e = s + _PLAIN_VISITS
+        found, ct, cg, pend = _visit(rays_t[:, vb[s:e]], feat[:, vb[s:e]],
+                                     trig, tric, vc[s:e], cs)
+        t_v[s:e] = torch.where(found, ct, torch.full_like(ct, BIG))
+        g_v[s:e] = torch.where(found, cg, torch.full_like(cg, -1.0))
+        p_v[s:e] = pend.to(torch.float32)
     idx = vb[:, None].expand(-1, trp)
     t = torch.full((nb, trp), BIG, device=dev).scatter_reduce_(
         0, idx, t_v, "amin")

@@ -48,6 +48,7 @@ from opencl_path_tracer_tpu_torch.ops.kernels.plucker_kernel import (
 )
 
 MAX_RANKS = 48   # the deepest K9 selection csrc/pair_cand.cu keeps (l <= 48)
+_PLAIN_RAYS = 8192   # rays per chunk of candidates_plain
 
 # Set to a list to make every pair-intersector call append a dict of its
 # schedule's counts (rays, round 1's resolved rays, each escalation's
@@ -114,7 +115,7 @@ def _slab_axis(tmin, tmax, bl, bh, p, d):
 
 
 def candidates_plain(rays8t: torch.Tensor, boxes_r: torch.Tensor, l: int,
-                     c: int, ray_chunk: int = 8192):
+                     c: int):
     """Plain PyTorch version of K9: (ids (l, R) int32, ent (l, R) float32,
     nxt (R,) float32). Each ray's slab test against every cluster box
     (AABB, and with a (Cp, 16) table the 4 DOP axes), entry = max(tmin,
@@ -128,8 +129,8 @@ def candidates_plain(rays8t: torch.Tensor, boxes_r: torch.Tensor, l: int,
     ids = torch.empty((l, r), dtype=torch.int32, device=dev)
     ent = torch.empty((l + 1, r), dtype=torch.float32, device=dev)
     box = [boxes_r[:, k:k + 1] for k in range(boxw)]
-    for s in range(0, r, ray_chunk):
-        x = rays8t[:, s:s + ray_chunk]
+    for s in range(0, r, _PLAIN_RAYS):
+        x = rays8t[:, s:s + _PLAIN_RAYS]
         tmin = torch.full((cp, x.shape[1]), -BIG, device=dev)
         tmax = torch.full((cp, x.shape[1]), BIG, device=dev)
         for ax in range(3):
@@ -146,9 +147,9 @@ def candidates_plain(rays8t: torch.Tensor, boxes_r: torch.Tensor, l: int,
                             torch.full_like(tmin, BIG))
         m, idx = torch.sort(entry, dim=0, stable=True)
         m = m[:l + 1].clamp(max=BIG)
-        ids[:, s:s + ray_chunk] = torch.where(
+        ids[:, s:s + _PLAIN_RAYS] = torch.where(
             m[:l] < BIG, idx[:l], torch.full_like(idx[:l], c)).to(torch.int32)
-        ent[:, s:s + ray_chunk] = m
+        ent[:, s:s + _PLAIN_RAYS] = m
     return ids, ent[:l], ent[l]
 
 

@@ -23,7 +23,7 @@ from opencl_path_tracer_tpu_torch.ops.kernels import intersect_kernel as k1
 from opencl_path_tracer_tpu_torch.ops.kernels import pair_mxu
 from opencl_path_tracer_tpu_torch.ops.kernels import sorted_intersect as si
 from opencl_path_tracer_tpu_torch.ops.kernels.march_kernel import (
-    build_march_scene,
+    build_march_scene, split_bf16x3,
 )
 from opencl_path_tracer_tpu_torch.scene import library
 
@@ -109,10 +109,11 @@ def test_march_scene_packs_bit_equal(n, cs):
     for f in ("r1", "r3", "n", "m1", "d3", "mati"):
         np.testing.assert_array_equal(getattr(prt, f).numpy(),
                                       np.asarray(getattr(jrt, f)))
-    for f in ("trig", "tric", "tab3", "boxes_lo", "boxes_hi", "scene_lo",
-              "scene_inv"):
+    for f in ("trig", "tric", "boxes_lo", "boxes_hi"):
         np.testing.assert_array_equal(_bits(getattr(pm, f)),
                                       _bits(getattr(jm, f)), err_msg=f)
+    np.testing.assert_array_equal(_bits(split_bf16x3(pm.tric)),
+                                  _bits(jm.tab3))
     np.testing.assert_array_equal(pair_mxu.build_dops(prt, cs, pc).numpy(),
                                   np.asarray(jdops(jrt, cs, jc)))
     # tric's first 17 columns are the padded triangle pack.

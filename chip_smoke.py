@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the port's fourteen CUDA kernels from
+It builds the port's seventeen CUDA kernels from
 `opencl_path_tracer_tpu_torch/csrc/`, holds each against its plain
 PyTorch version at 1080p ray and lane counts, renders the three goldens
 of `tests/golden/` through the kernels, and drives the main paths at
@@ -37,10 +37,19 @@ and read just after:
     triangles and 138 analytic spheres: K1 + K2 and K3b), 2 spp each.
     K9, K10 and K11 are held against their plain versions at the stress
     scene's 1080p shapes, and the pair intersector's t against K4's on
-    its camera and first-bounce rays.
+    its camera and first-bounce rays;
+  * the cluster-pack accels: 'pair' on the stress scene (the pair
+    intersector at its own defaults: K4 seed, K9 on the 8-column boxes
+    of 195 Morton clusters of 512, the VPU pairs round K12, K4 tail), 2
+    spp; 'cluster' (K17 over 777 clusters of 128) on the stress scene, 1
+    spp; 'group' (K16) on the reference scene (15 clusters) and on the
+    Cornell box (7 clusters), 8 spp each. K12, K17 and K16 are held
+    against their plain versions at 1080p, and each accel's hits against
+    K4's on its camera and first-bounce rays.
 
 The last two lines are a JSON object per kernel (time, plain time,
-bound, launches) and the verdict. Any failed phase raises, and the
+bound, launches) and the verdict; the line before them, the smoke's total
+time. Any failed phase raises, and the
 script exits non-zero without the verdict. It writes nothing but the
 kernel build under the package's `_build/`.
 """
@@ -57,6 +66,13 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 W, H, BOUNCES, SPP, FUSED_STEPS = 1920, 1080, 5, 8, 64
 STRESS_SPP = 2   # spp of the stress paths (cut from 8 for the smoke's time)
+CLUSTER_SPP = 1  # spp of 'megakernel stress cluster' (cut from 8 likewise)
+# K12's plain check runs on every round-1 pair of the stress camera rays
+# when they need at most this many (pair, triangle) tests (about 15 s of
+# the plain version on the H100), else on the first K12_PREFIX sorted
+# pairs.
+K12_PLAIN_CELLS = 6e9
+K12_PREFIX = 2_097_152
 STRESS_TRIS = 99_380   # the JAX builders' count (library.py:325-406)
 SLICE = 76_800   # lanes of the fused pipeline's exact slice at 1080p
 # H100 SXM data sheet, dense, at the full 700 W power limit.
@@ -101,6 +117,12 @@ KERNEL_META = {
                    "opencl_path_tracer_tpu/ops/pallas/pair_mxu.py:141"),
     "attr_fetch": ("opencl_path_tracer_tpu_torch/csrc/attr_fetch.cu",
                    "opencl_path_tracer_tpu/ops/pallas/pair_mxu.py:373"),
+    "pair_vpu": ("opencl_path_tracer_tpu_torch/csrc/pair_vpu.cu",
+                 "opencl_path_tracer_tpu/ops/pallas/sorted_intersect.py:312"),
+    "cluster": ("opencl_path_tracer_tpu_torch/csrc/cluster.cu",
+                "opencl_path_tracer_tpu/ops/pallas/cluster_kernel.py:245"),
+    "group": ("opencl_path_tracer_tpu_torch/csrc/group.cu",
+              "opencl_path_tracer_tpu/ops/pallas/sorted_intersect.py:121"),
 }
 # Every kernel of each main path must launch in that path's run.
 PATH_KERNELS = {
@@ -124,6 +146,10 @@ PATH_KERNELS = {
     "megakernel stress smooth": ("minarg", "refine1", "pair_cand",
                                  "pair_visit", "attr_fetch"),
     "megakernel stress-analytic": ("minarg", "refine1", "sphere_table"),
+    "megakernel stress pair": ("dense", "pair_cand", "pair_vpu"),
+    "megakernel stress cluster": ("cluster",),
+    "megakernel reference group": ("group",),
+    "megakernel cornell group": ("group",),
 }
 PAIR_KERNELS = ("pair_cand", "pair_visit", "attr_fetch")
 MODELS_DIR = os.path.join(HERE, "tests", "assets", "models")
@@ -607,7 +633,7 @@ def check_pairs(torch, scenes, cam, errs):
           "pending) equal to their plain versions (torch.equal)")
     # The intersector as the engine builds it; K11's input captured from
     # its final fetch.
-    isect = si.make_pair_intersect(scene.tris)
+    isect = si.make_pair_intersect(scene.tris, **si.PAIR_TPU_WINNER)
     real_fetch, got = pm.fetch_attrs, {}
 
     def capture(g, tric):
@@ -646,6 +672,159 @@ def check_pairs(torch, scenes, cam, errs):
             "attr_fetch": (g, tric)}
 
 
+def exact_vs_k4(torch, name, h, t4, where):
+    """An accel's hits against K4's t over the whole scene: hit or miss
+    equal; t within the JAX tests' rtol 2e-5 and atol 1e-3
+    (tests/test_sorted_intersect.py::_check). Returns the count of lanes
+    whose t differs at all."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import intersect_kernel as k1
+    torch.cuda.synchronize()
+    hit = t4 < k1.BIG
+    need(torch.equal(h.t > 0, hit),
+         f"{name}: hit or miss differs from K4's on {where}")
+    diff = hit & (h.t != t4)
+    n = int(diff.sum())
+    if n:
+        err = (h.t - t4).abs()[diff]
+        need(bool((err <= 1e-3 + 2e-5 * t4.abs()[diff]).all()),
+             f"{name}: t differs from K4's beyond rtol 2e-5 on {where}")
+    return n
+
+
+def check_slice6(torch, scenes, cam, cam_rays, errs):
+    """K12 on the round-1 pairs of the 1080p stress camera rays at the
+    'pair' defaults (with K9 on the 8-column table at l = 8 and 48), K17
+    on the stress camera rays and the cornell first-bounce rays (early
+    exit off and on), K16 on the reference camera and first-bounce rays,
+    each against its plain version (torch.equal); the 'pair', 'cluster'
+    and 'group' accels' hits against K4's. Returns the inputs at which
+    K12, K17 and K16 are timed, with their plain versions' times (ms) from
+    these checks."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import (
+        cluster_kernel as ck, intersect_kernel as k1, pair_mxu as pm,
+        sorted_intersect as si)
+    from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
+    from opencl_path_tracer_tpu_torch.scene import library
+
+    def compare(name, outs, plain, where):
+        torch.cuda.synchronize()
+        for a, b in zip(outs, plain):
+            errs[name] = max(errs[name], float(
+                (a.double() - b.double()).abs().max()))
+        need(all(torch.equal(a, b) for a, b in zip(outs, plain)),
+             f"{name} differs from its plain version on {where}")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    inputs = {}
+    # K12 and K9 at the 'pair' defaults.
+    stress = scenes["stress"]
+    _, rest = si.split_by_size(stress.tris)
+    cs = si._auto_cluster_size(rest.count, 512)
+    cscene, c, k = ck.build_clusters(rest, cs)
+    rows = torch.cat([cscene.rows(), torch.zeros((k, 24), device="cuda")])
+    boxes_r = torch.zeros((-(-c // 128) * 128, 8), device="cuda")
+    boxes_r[:c] = cscene.boxes
+    r8 = k1.pack_rays(cam_rays.p, cam_rays.d).contiguous()
+    ids = si.run_candidates(r8, boxes_r, 8, c)
+    compare("pair_cand", ids, si.candidates_plain(r8, boxes_r, 8, c),
+            "stress camera rays (8-column table, l = 8)")
+    sub = r8[:, :65536].contiguous()
+    compare("pair_cand", si.run_candidates(sub, boxes_r, 48, c),
+            si.candidates_plain(sub, boxes_r, 48, c),
+            "stress camera rays (8-column table, l = 48)")
+    keys_s, r8p, _ = pm.sort_pairs([r8[j] for j in range(6)], ids[0], c,
+                                   1024)
+    n_real = int((keys_s < c).sum())
+    n = (keys_s.shape[0] if n_real * k <= K12_PLAIN_CELLS
+         else min(K12_PREFIX, keys_s.shape[0]))
+    keys_n, r8p_n = keys_s[:n].contiguous(), r8p[:, :n].contiguous()
+    out = si.run_pairs(keys_n, r8p_n, rows, k)
+    plain, plain_ms = timed(lambda: si.pairs_plain(keys_n, r8p_n, rows, k))
+    compare("pair_vpu", out, plain, "round 1's pairs of the stress camera "
+            "rays")
+    print(f"stress 'pair': {c} clusters of {k}; pair_cand (8-column table, "
+          f"l = 8 on {r8.shape[1]} camera rays, 48 on 65,536) and pair_vpu "
+          f"on {n} of round 1's {keys_s.shape[0]} sorted pairs ({n_real} "
+          f"not dummy, {int((out[0] < k1.BIG).sum())} hits) equal to their "
+          "plain versions (torch.equal)")
+    inputs["pair_vpu"] = (keys_n, r8p_n, rows, k, plain_ms)
+    pack = k1.build_tri_pack(stress.tris)
+    isect = make_intersect_fn(stress, "pair")
+    for rname, rays in (("camera", cam_rays),
+                        ("bounce", bounce_rays(torch, stress, cam, cam_rays,
+                                               isect))):
+        t4 = k1.dense(k1.pack_rays(rays.p, rays.d).contiguous(), pack)[0]
+        nd = exact_vs_k4(torch, "pair", isect(rays), t4, f"stress {rname}")
+        print(f"stress 'pair' on {rname} rays: hit or miss equal to K4's, "
+              f"{nd} lanes with another t (rtol 2e-5)")
+    # K17.
+    c17s, c17, k17 = ck.build_clusters(stress.tris, 128)
+    rows17 = c17s.rows()
+    cornell = scenes["cornell"]
+    c7s, _, k7 = ck.build_clusters(cornell.tris, 128)
+    for sname, csc, kk, rays in (
+            ("stress camera", c17s, k17, cam_rays),
+            ("cornell first-bounce", c7s, k7,
+             bounce_rays(torch, cornell, cam, cam_rays,
+                         make_intersect_fn(cornell, "auto")))):
+        rr8 = ck.pack_rays_rows(rays.p, rays.d, -(-rays.count // 256) * 256)
+        ids17, cnt, ent = ck._tile_cluster_lists(rr8, csc.boxes, 256)
+        crows = csc.rows()
+        for ee in (False, True):
+            o = ck.run_cluster(rr8, cnt, ids17, ent, crows, kk, 256, ee)
+            plain, ms = timed(lambda: ck.cluster_plain(
+                rr8, cnt, ids17, ent, crows, kk, 256, ee))
+            compare("cluster", o, plain, f"{sname} rays (early_exit {ee})")
+            if sname == "stress camera" and not ee:
+                inputs["cluster"] = (rr8, cnt, ids17, ent, crows, kk, ms)
+        print(f"cluster on {rays.count} {sname} rays ({csc.boxes.shape[0]} "
+              f"clusters of {kk}; {float(cnt.float().mean()):.1f} listed per "
+              f"tile of 256): {int((o[0] < k1.BIG).sum())} hits; equal to "
+              "its plain version with early_exit off and on (torch.equal)")
+    isect = make_intersect_fn(stress, "cluster")
+    for rname, rays in (("camera", cam_rays),
+                        ("bounce", bounce_rays(torch, stress, cam, cam_rays,
+                                               isect))):
+        t4 = k1.dense(k1.pack_rays(rays.p, rays.d).contiguous(), pack)[0]
+        nd = exact_vs_k4(torch, "cluster", isect(rays), t4,
+                         f"stress {rname}")
+        print(f"stress 'cluster' on {rname} rays: hit or miss equal to K4's, "
+              f"{nd} lanes with another t (rtol 2e-5)")
+    # K16.
+    ref = scenes["reference"]
+    rcam = library.reference_camera(W, H, device="cuda")
+    gscene, c16, k16 = ck.build_clusters(ref.tris, 128, split_large=True)
+    grows = gscene.rows()
+    rpack = k1.build_tri_pack(ref.tris)
+    isect = make_intersect_fn(ref, "group")
+    rcam_rays = camera_rays(rcam)
+    for rname, rays in (("camera", rcam_rays),
+                        ("bounce", bounce_rays(torch, ref, rcam, rcam_rays,
+                                               isect))):
+        _, union, g8 = si.group_inputs(rays, gscene.boxes, 2048)
+        o = si.run_group(union, g8, grows, k16, 2048)
+        plain, ms = timed(lambda: si.group_plain(union, g8, grows, k16, 2048))
+        compare("group", o, plain, f"reference {rname} rays")
+        if rname == "camera":
+            inputs["group"] = (union, g8, grows, k16, ms)
+        t4 = k1.dense(k1.pack_rays(rays.p, rays.d).contiguous(), rpack)[0]
+        nd = exact_vs_k4(torch, "group", isect(rays), t4,
+                         f"reference {rname}")
+        bits = sum(int(((union >> b) & 1).sum()) for b in range(c16))
+        print(f"group on {rays.count} reference {rname} rays ({c16} "
+              f"clusters; {bits / union.shape[0]:.2f} in a block's union): "
+              f"{int((o[0] < k1.BIG).sum())} hits, equal to its plain "
+              f"version (torch.equal); 'group' hit or miss equal to K4's, "
+              f"{nd} lanes with another t (rtol 2e-5)")
+    return inputs
+
+
 def check_goldens(torch, np):
     from opencl_path_tracer_tpu_torch.models import megakernel
     from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
@@ -668,11 +847,12 @@ def check_goldens(torch, np):
 
 def check_no_fallback(torch, scenes):
     """With the kernel loader broken, a CUDA call must raise (K1, K4, K7,
-    K6, K3b, K8, K9, K10 and K11)."""
+    K6, K3b, K8, K9, K10, K11, K12, K17 and K16)."""
     from opencl_path_tracer_tpu_torch.ops.kernels import _build
     from opencl_path_tracer_tpu_torch.ops.kernels import (
-        intersect_kernel as k1, pair_mxu as pm, shading_kernel as k8,
-        sorted_intersect as si, sphere_kernel as k3, tilecull_kernel as tk)
+        cluster_kernel as ck, intersect_kernel as k1, pair_mxu as pm,
+        shading_kernel as k8, sorted_intersect as si, sphere_kernel as k3,
+        tilecull_kernel as tk)
     pack = k1.build_tri_pack(scenes["cornell"].tris)
     smooth = scenes["cornell-smooth"]
     spack = (k1.build_tri_pack(smooth.tris),
@@ -700,6 +880,19 @@ def check_no_fallback(torch, scenes):
         "attr_fetch": lambda: pm.fetch_attrs(
             torch.zeros(64, device="cuda"),
             torch.zeros((256, 24), device="cuda")),
+        "pair_vpu": lambda: si.run_pairs(
+            torch.zeros(64, dtype=torch.int32, device="cuda"), rays8,
+            torch.zeros((256, 24), device="cuda"), 128),
+        "cluster": lambda: ck.run_cluster(
+            torch.zeros((256, 8), device="cuda"),
+            torch.zeros((1, 1), dtype=torch.int32, device="cuda"),
+            torch.zeros((1, 1), dtype=torch.int32, device="cuda"),
+            torch.zeros((1, 1), device="cuda"),
+            torch.zeros((128, 24), device="cuda"), 128, 256),
+        "group": lambda: si.run_group(
+            torch.zeros(1, dtype=torch.int32, device="cuda"),
+            torch.zeros((2048, 8), device="cuda"),
+            torch.zeros((128, 24), device="cuda"), 128, 2048),
     }
     real = _build.library
 
@@ -796,6 +989,18 @@ def main_path(torch, np, scenes, cam):
                cfg(spp=STRESS_SPP, camera=CameraConfig()))]
     for name, sname, c in stress:
         engines.append((name, RenderEngine(scenes[sname], c, device="cuda")))
+    # The cluster-pack accels: 'pair' (K12) and 'cluster' (K17) on the
+    # stress scene, 'group' (K16) on the reference scene from its own
+    # camera and on the Cornell box.
+    packs = [("megakernel stress pair", "stress",
+              cfg(spp=STRESS_SPP, accel="pair")),
+             ("megakernel stress cluster", "stress",
+              cfg(spp=CLUSTER_SPP, accel="cluster")),
+             ("megakernel reference group", "reference",
+              cfg(camera=CameraConfig(), accel="group")),
+             ("megakernel cornell group", "cornell", cfg(accel="group"))]
+    for name, sname, c in packs:
+        engines.append((name, RenderEngine(scenes[sname], c, device="cuda")))
     for name, eng in engines:
         spp = eng.cfg.spp
         _, dt, counts = run_path(torch, name, lambda: eng.render(spp))
@@ -860,20 +1065,25 @@ def time_ms(torch, fn, reps):
 
 
 def edges_reached(pack, p, d, mask=None):
-    """Edge tests K1's exact test reaches for the rays (p, d: rows of an
-    (8, R) pack) against the rows of `pack`: t > 0, then each edge that
-    passed; only for the rays in mask (None: all)."""
-    c = pack[:, :16, None]
+    """Edge tests K1's exact test reaches for the rays (p, d: (3, R) rows
+    of an (8, R) pack) against the rows of `pack` (T, 24): t > 0, then
+    each edge that passed; only for the rays in mask (None: all). Leading
+    batch dimensions, (..., 3, R) and (..., T, 24), broadcast."""
+    c = pack[..., :16, None]
+
+    def col(j):
+        return c[..., j, :]
 
     def dot(b, v):
-        return c[:, b] * v[0] + c[:, b + 1] * v[1] + c[:, b + 2] * v[2]
+        return (col(b) * v[..., 0:1, :] + col(b + 1) * v[..., 1:2, :]
+                + col(b + 2) * v[..., 2:3, :])
 
-    t = (c[:, 3] - dot(0, p)) / dot(0, d)
+    t = (col(3) - dot(0, p)) / dot(0, d)
     ok = t > 0.0 if mask is None else (t > 0.0) & mask
     reached = 0
     for b in (4, 8, 12):
         reached += int(ok.sum())
-        ok = ok & (dot(b, p) + t * dot(b, d) >= c[:, b + 3])
+        ok = ok & (dot(b, p) + t * dot(b, d) >= col(b + 3))
     return reached
 
 
@@ -960,6 +1170,92 @@ def pair_rows(torch, inputs):
                  20 * g.shape[0] + 16 * rows_read,
                  lambda: cols.index_select(0, gi)))
     return rows
+
+
+def cluster_ops(torch, rows, k, batches):
+    """Float32 operations of the cluster-block tests in `batches`, pairs of
+    (cluster ids (N,), rays (N, 8, R)): K1's 12 per (ray, triangle) test
+    plus 12 per edge test reached. Returns (operations, tests)."""
+    blocks = rows.view(-1, k, rows.shape[1])
+    tests = reached = 0
+    for ci, rays in batches:
+        tests += ci.numel() * k * rays.shape[2]
+        reached += edges_reached(blocks[ci], rays[:, 0:3], rays[:, 3:6])
+    return 12 * tests + 12 * reached, tests
+
+
+def slice6_rows(torch, inputs):
+    """The timing rows of K12, K17 and K16: K12 on round 1's pairs of the
+    stress camera rays at the 'pair' defaults, K17 (early exit off) on the
+    stress camera rays with clusters of 128, K16 on the reference camera
+    rays. Operations as K1's over the (pair or ray, triangle) tests each
+    runs (K12: each pair against its cluster, dummies none; K17: each
+    tile's rays against every listed cluster; K16: each ray against every
+    cluster of its block's union). Bytes: the rays once (24 per ray or
+    pair, and K12's key), the cluster rows once (the 17 columns read,
+    68 bytes a row), K17's lists as far as they are read, K16's unions,
+    the outputs once (20 bytes per pair or ray, K17 24). The plain times
+    are the checks' single calls. No single PyTorch call computes any of
+    the three (a nearest ray-triangle hit per pair, tile or block), so
+    library_ms is null."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import (
+        cluster_kernel as ck, sorted_intersect as si)
+    chunk = 1 << 24
+    rows_out = []
+    keys, r8p, rows, k, plain_ms = inputs["pair_vpu"]
+    c = rows.shape[0] // k - 1
+    runs, counts = torch.unique_consecutive(keys, return_counts=True)
+    batches, start = [], 0
+    for ci, n in zip(runs.tolist(), counts.tolist()):
+        if ci < c:
+            for s0 in range(start, start + n, chunk // k):
+                s1 = min(s0 + chunk // k, start + n)
+                batches.append((torch.tensor([ci], device=keys.device),
+                                r8p[None, :, s0:s1]))
+        start += n
+    ops, tests = cluster_ops(torch, rows, k, batches)
+    p = keys.shape[0]
+    rows_out.append(("pair_vpu", lambda: si.run_pairs(keys, r8p, rows, k),
+                     plain_ms, ops, 0,
+                     28 * p + 68 * rows.shape[0] + 20 * p))
+    print(f"pair_vpu: {tests} (pair, triangle) tests over {p} pairs")
+    rr8, cnt, ids, ent, crows, kk, plain_ms = inputs["cluster"]
+    g = cnt.shape[0]
+    tiles = rr8.view(g, -1, 8)
+    per = max(1, chunk // (kk * tiles.shape[1]))
+    batches = []
+    for slot in range(int(cnt.max())):
+        live = torch.nonzero(cnt[:, 0] > slot).flatten()
+        for s0 in range(0, live.numel(), per):
+            tl = live[s0:s0 + per]
+            batches.append((ids[tl, slot].long(),
+                            tiles[tl].transpose(1, 2)))
+    ops, tests = cluster_ops(torch, crows, kk, batches)
+    listed = int(cnt.sum())
+    rows_out.append(("cluster", lambda: ck.run_cluster(
+        rr8, cnt, ids, ent, crows, kk, 256, False), plain_ms, ops, 0,
+        24 * rr8.shape[0] + 4 * g + 8 * listed + 68 * crows.shape[0]
+        + 24 * rr8.shape[0]))
+    print(f"cluster: {tests} (ray, triangle) tests, {listed} listed "
+          f"clusters over {g} tiles")
+    union, g8, grows, k16, plain_ms = inputs["group"]
+    block = g8.shape[0] // union.shape[0]
+    ray_union = union.long().repeat_interleave(block)
+    batches = []
+    for ci in range(grows.shape[0] // k16):
+        sel = torch.nonzero((ray_union >> ci) & 1).flatten()
+        for s0 in range(0, sel.numel(), chunk // k16):
+            batches.append((torch.tensor([ci], device=g8.device),
+                            g8[sel[s0:s0 + chunk // k16]].t()[None]))
+    ops, tests = cluster_ops(torch, grows, k16, batches)
+    rg = g8.shape[0]
+    rows_out.append(("group", lambda: si.run_group(union, g8, grows, k16,
+                                                   block),
+                     plain_ms, ops, 0,
+                     24 * rg + 4 * union.shape[0] + 68 * grows.shape[0]
+                     + 20 * rg))
+    print(f"group: {tests} (ray, triangle) tests over {rg} rays")
+    return rows_out
 
 
 def measure(torch, inputs, errs, launches):
@@ -1085,10 +1381,12 @@ def measure(torch, inputs, errs, launches):
           f"{ms1:.4f} ms; tilecull's grouped pairs "
           f"{pairs_b / b8.shape[1]:.1f} per ray")
     rows += pair_rows(torch, inputs)
+    rows += slice6_rows(torch, inputs)
     out = []
     for name, kern, plain, ops, bf16_ops, nbytes, *lib in rows:
         ms = time_ms(torch, kern, 20)
-        plain_ms = time_ms(torch, plain, 2)
+        plain_ms = (plain if isinstance(plain, float)
+                    else time_ms(torch, plain, 2))
         library_ms = time_ms(torch, lib[0], 20) if lib else None
         t_ops = max(ops / PEAK_FP32_FLOPS, bf16_ops / PEAK_BF16_FLOPS) * 1e3
         t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
@@ -1110,6 +1408,7 @@ def measure(torch, inputs, errs, launches):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import numpy as np
     import torch
     need(torch.cuda.is_available(), "torch.cuda.is_available() is false")
@@ -1143,10 +1442,13 @@ def main() -> int:
     inputs.update(check_slice3(torch, scenes, cam, cam_rays, errs))
     inputs.update(check_smooth(torch, scenes, errs))
     inputs.update(check_pairs(torch, scenes, cam, errs))
+    inputs.update(check_slice6(torch, scenes, cam, cam_rays, errs))
     check_goldens(torch, np)
     check_no_fallback(torch, scenes)
     launches = main_path(torch, np, scenes, cam)
     kernels = measure(torch, inputs, errs, launches)
+    print(f"smoke: {time.perf_counter() - t_start:.1f} s in all, the kernel "
+          "build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

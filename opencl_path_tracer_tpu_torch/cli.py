@@ -150,7 +150,9 @@ def main(argv=None) -> int:
     p.add_argument("--accel", default="auto",
                    help="auto (minarg up to 8,192 triangles, pairwin above), "
                         "minarg, pallas, tilecull, pairwin (the pair "
-                        "intersector for large scenes) or bruteforce (CPU)")
+                        "intersector for large scenes), pair (the same at "
+                        "its own defaults), cluster, group (at most 30 "
+                        "clusters of 128) or bruteforce (CPU)")
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--tonemap", default="reinhard")
     p.add_argument("--qmc", action="store_true",

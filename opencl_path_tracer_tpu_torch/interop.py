@@ -1,9 +1,10 @@
 """Scenes and progressive state carried across from the JAX package.
 
 No counterpart module in `opencl_path_tracer_tpu`. These functions take
-plain numpy arrays, so a JAX `Scene`, `TraceState`, `WavefrontState` or
-the fused pipeline's packed `(F, I, step)` (or a checkpoint of one)
-converts with `np.asarray` on each field and no import of JAX here.
+plain numpy arrays, so a JAX `Scene`, `TraceState`, `WavefrontState`,
+`ClusterScene` or the fused pipeline's packed `(F, I, step)` (or a
+checkpoint of one) converts with `np.asarray` on each field and no
+import of JAX here.
 Triangle constants are rebuilt from the vertices; they come out bit-equal
 to the JAX package's.
 """
@@ -20,6 +21,9 @@ from opencl_path_tracer_tpu_torch.core.materials import MaterialsSoA
 from opencl_path_tracer_tpu_torch.core.spheres import SpheresSoA
 from opencl_path_tracer_tpu_torch.models.megakernel import TraceState
 from opencl_path_tracer_tpu_torch.models.wavefront import WavefrontState
+from opencl_path_tracer_tpu_torch.ops.kernels.cluster_kernel import (
+    ClusterScene,
+)
 from opencl_path_tracer_tpu_torch.ops.shading import VertexAttribs
 from opencl_path_tracer_tpu_torch.scene.builder import Scene
 
@@ -176,3 +180,19 @@ def packed_from_numpy(F, I, step, device="cpu"):
 def packed_to_numpy(F, I, step):
     """(F, I, step) as numpy float32, numpy int32 and an int."""
     return F.cpu().numpy(), I.cpu().numpy(), int(step)
+
+
+def cluster_scene_from_numpy(boxes, tri_pack, device="cpu") -> ClusterScene:
+    """The port's ClusterScene from a JAX ClusterScene's boxes ((C, 8)
+    float32) and tri_pack ((C, 24, K) float32), copied bit for bit, so the
+    port's K12, K16 and K17 can run on the JAX package's own packs."""
+    def f32(a):
+        return torch.as_tensor(np.array(a, np.float32), device=device)
+
+    return ClusterScene(boxes=f32(boxes), tri_pack=f32(tri_pack))
+
+
+def cluster_scene_to_numpy(scene: ClusterScene) -> dict:
+    """{'boxes': (C, 8) float32, 'tri_pack': (C, 24, K) float32}."""
+    return {"boxes": scene.boxes.cpu().numpy(),
+            "tri_pack": scene.tri_pack.cpu().numpy()}

@@ -58,6 +58,10 @@ KERNELS = {
                    [P, P, P, P, P, P, I, I, I, I, P]),
     "attr_fetch": ("attr_fetch.cu", "ptx_attr_fetch",
                    [P, P, P, P, P, P, I, I, P]),
+    "pair_vpu": ("pair_vpu.cu", "ptx_pair_vpu", [P, P, P, P, I, I, I, P]),
+    "cluster": ("cluster.cu", "ptx_cluster",
+                [P, P, P, P, P, P, I, I, I, I, I, P]),
+    "group": ("group.cu", "ptx_group", [P, P, P, P, I, I, I, I, P]),
 }
 
 # Launches per kernel since the last reset_launches(); each wrapper adds

@@ -72,21 +72,25 @@ def _dot3(v, a):
 
 def exact_test(rows: torch.Tensor, rays: torch.Tensor):
     """K1's exact test of the rays of an (8, R) pack against the rows of a
-    (T, 24) pack: (t, valid), two (T, R) tensors."""
-    c = rows[:, :16, None]                         # (T, 16, 1)
-    p = (rays[0:1], rays[1:2], rays[2:3])
-    d = (rays[3:4], rays[4:5], rays[5:6])
+    (T, 24) pack: (t, valid), two (T, R) tensors. Leading batch
+    dimensions, (..., 8, R) and (..., T, 24), broadcast."""
+    c = rows[..., :16, None]                       # (..., T, 16, 1)
+    p = (rays[..., 0:1, :], rays[..., 1:2, :], rays[..., 2:3, :])
+    d = (rays[..., 3:4, :], rays[..., 4:5, :], rays[..., 5:6, :])
+
+    def col(j):
+        return c[..., j, :]                        # (..., T, 1)
 
     def dots(base):
-        v = (c[:, base], c[:, base + 1], c[:, base + 2])
+        v = (col(base), col(base + 1), col(base + 2))
         return _dot3(v, p), _dot3(v, d)
 
     pn, vn = dots(0)
-    t = (c[:, 3] - pn) / vn
+    t = (col(3) - pn) / vn
     valid = t > 0.0
     for base in (4, 8, 12):
         pm, vm = dots(base)
-        valid &= fp.fma(t, vm, pm) >= c[:, base + 3]
+        valid &= fp.fma(t, vm, pm) >= col(base + 3)
     return t, valid
 
 

@@ -1,31 +1,54 @@
-"""K9: the per-ray cluster candidates, and the pair-expansion intersector
-for large scenes (`accel='pairwin'`) that runs K9, K10 and K11.
+"""The sort-grouped intersectors: K16 (`accel='group'`), K12 and the
+pair-expansion intersector for large scenes (`accel='pair'` and
+`'pairwin'`), and K9, the per-ray cluster candidates.
 
-Port of `opencl_path_tracer_tpu/ops/pallas/sorted_intersect.py`: `BIG`
-and `_hits_from_raw` (:98-118); `_cand_kernel` (launched by
+Port of `opencl_path_tracer_tpu/ops/pallas/sorted_intersect.py`:
+`_perray_slab`, `_hits_from_raw`, `_group_kernel` (launched by
+`_run_group`) and `make_group_intersect` (:63-256); `_pair_kernel`
+(launched by `_run_pairs`, :312-416); `_cand_kernel` (launched by
 `_run_candidates`, :419-523); `_auto_cluster_size`, `split_by_size`,
-`_merge_best` and `PAIR_TPU_WINNER` (:526-662); and
-`make_pair_intersect` (:665-1653) in the production configuration,
-`PAIR_TPU_WINNER`: the MXU pairs round (K10), DOP boxes, the thin
-(t, triangle id) payload, the sort schedule, with or without ids. The
-other configurations (the VPU pairs round K12 with mxu=False, move
-'gather' or 'chain', infeat, approx) raise NotImplementedError
-(ROADMAP.md queue 2).
+`_pairs_round`, `_merge_best` and `PAIR_TPU_WINNER` (:526-662); and
+`make_pair_intersect` (:665-1653) with `move='gather'` or `'sort'`, in
+two payloads: the VPU pairs round (mxu=False, the function's defaults
+and the 'pair' accel: K12 on `cluster_kernel.build_clusters`' packs,
+the full (t, nx, ny, nz, mati) best) and the TPU's production
+configuration `PAIR_TPU_WINNER` (the 'pairwin' accel: the MXU pairs
+round K10 on the march packs, DOP boxes, the thin (t, triangle id)
+payload, K11 at the end; with or without ids). `move='chain'`,
+`infeat`, `approx` and mxu=True with thin=False (the `pairmx` payload)
+raise NotImplementedError (ROADMAP.md queue 1).
+
+K16 (`run_group`, `make_group_intersect`, scenes of at most 30
+clusters of `build_clusters(split_large=True)`): each ray's bitmask of
+the clusters whose box its slab test passes; the rays sorted by mask
+(stably); every block of `block` sorted rays tests every cluster of the
+union of its masks, in ascending cluster order.
+
+K12 (`run_pairs`): per (ray, cluster) pair, sorted by cluster key, the
+nearest hit among that cluster's K triangles with its normal and
+material (`cluster_kernel.cluster_nearest`); the dummy key C is no work
+and leaves (BIG, 0, 0, 0, 0). The TPU's tile of `trp` pairs only pads
+the list: a pair's result does not depend on it.
 
 The schedule is the JAX package's, lane for lane: the scene-spanning
 triangles seed every ray's best t (K4, or K1 + K2 with ids); round 1
-tests every ray against its l1 nearest passing clusters (K9, then K10)
-and certifies a ray when its best t is at most the entry distance of
-its first untested candidate and no pair of it ended pending; the
-escalations take the first u unresolved rays in slot order (the
-JAX package's (flag, slot) sort) and test each one's next w ranks; a
-dense tail (K4, or K1 with ids) certifies the rest `tail` rays at a
-time; K11 fetches the winners' attributes once at the end. Capacities,
-windows and selection depths are identical, so `resolved`, `done` and
-`pend` follow the TPU's. The TPU moved data by sorting because its
-gathers are slow; the port gathers and scatters (`argsort`,
-`index_select`, indexed assignment) where the JAX package sorts data
-along, and sorts only where a sort decides which work is done.
+tests every ray against its l1 nearest passing clusters (K9, then K12
+or K10) and certifies a ray when its best t is at most the entry
+distance of its first untested candidate and no pair of it ended
+pending (K10 only); the escalations take the first u unresolved rays in
+slot order and test each one's next w ranks; a dense tail (K4, or K1
+with ids) certifies the rest `tail` rays at a time; with the thin
+payload K11 fetches the winners' attributes once at the end.
+`move='sort'` takes the first u rays in (resolved, slot) order, a 2-key
+sort; `move='gather'` sorts (resolved, slot) with one key, whose order
+within a flag the JAX package leaves unspecified: its CPU `lax.sort` is
+stable (ROADMAP.md queue 3), which gives the same slot order, so one
+body serves both. Capacities, windows and selection depths are
+identical, so `resolved`, `done` and `pend` follow the JAX package's.
+The TPU moved data by sorting because its gathers are slow; the port
+gathers and scatters (`argsort`, `index_select`, indexed assignment)
+where the JAX package sorts data along, and sorts only where a sort
+decides which work is done.
 """
 
 from __future__ import annotations
@@ -36,8 +59,13 @@ import torch
 from opencl_path_tracer_tpu_torch.core.geometry import TrianglesSoA
 from opencl_path_tracer_tpu_torch.core.types import Hits, Rays
 from opencl_path_tracer_tpu_torch.ops.kernels import _build
+from opencl_path_tracer_tpu_torch.ops.kernels.cluster_kernel import (
+    _PLAIN_CELLS, _xmax, _xmin, build_clusters, cluster_nearest,
+    pack_rays_rows, winner_attrs,
+)
 from opencl_path_tracer_tpu_torch.ops.kernels.intersect_kernel import (
-    BIG, _round_up, build_tri_pack, make_pallas_intersect, minarg, pack_rays,
+    BIG, TRI_COLS, _round_up, build_tri_pack, make_pallas_intersect, minarg,
+    pack_rays,
 )
 from opencl_path_tracer_tpu_torch.ops.kernels.march_kernel import (
     build_march_scene,
@@ -56,15 +84,12 @@ _PLAIN_RAYS = 8192   # rays per chunk of candidates_plain
 # iterations, pending rays); None (the default) records nothing.
 STATS = None
 
-# The TPU's production configuration for large scenes (the JAX package's
-# round-3 on-device sweeps; its numbers are the TPU's, not the port's).
-# `make_pair_intersect`'s defaults are these values.
+# The TPU's production configuration for large scenes, the 'pairwin'
+# accel (the JAX package's round-3 on-device sweeps; its numbers are the
+# TPU's, not the port's).
 PAIR_TPU_WINNER = dict(mxu=True, dop=True, cluster_size=256, trp=1024,
                        l1=2, l2=6, thin=True, move="sort")
-# The schedule's other constants, the JAX package's defaults: the deepest
-# rank tested (l3), the candidate kernel's ray tile (trb, which sets the
-# padding unit), and the capacity fractions of the escalations.
-L3, TRB, U2_FRAC, U3_FRAC = 48, 512, 2, 32
+MAX_GROUP_CLUSTERS = 30   # K16's bitmask (a uint32 in the JAX package)
 
 
 def _hits_from_raw(rays: Rays, best_t, n3, m, r: int) -> Hits:
@@ -83,22 +108,6 @@ def _hits_from_raw(rays: Rays, best_t, n3, m, r: int) -> Hits:
     )
 
 
-def _xmax(a, b):
-    """XLA's maximum: NaN wins; +0.0 is above -0.0."""
-    r = torch.where(a > b, a, torch.where(b > a, b, torch.where(
-        torch.signbit(a), b, a)))
-    return torch.where(torch.isnan(a) | torch.isnan(b),
-                       torch.full_like(r, float("nan")), r)
-
-
-def _xmin(a, b):
-    """XLA's minimum: NaN wins; -0.0 is below +0.0."""
-    r = torch.where(a < b, a, torch.where(b < a, b, torch.where(
-        torch.signbit(a), a, b)))
-    return torch.where(torch.isnan(a) | torch.isnan(b),
-                       torch.full_like(r, float("nan")), r)
-
-
 def _slab_axis(tmin, tmax, bl, bh, p, d):
     """One slab of the cluster test (d == 0: containment), as K9."""
     d0 = d == 0.0
@@ -112,6 +121,127 @@ def _slab_axis(tmin, tmax, bl, bh, p, d):
     lo = torch.where(d0, torch.where(inside, -big, big), lo)
     hi = torch.where(d0, torch.where(inside, big, -big), hi)
     return _xmax(tmin, lo), _xmin(tmax, hi)
+
+
+def _perray_slab(comps, boxes: torch.Tensor) -> torch.Tensor:
+    """(R, C) bool: each ray's slab test against every (C, 8) cluster box
+    [lo3 hi3 _ _] (K9's test, d == 0 testing containment)."""
+    r, c = comps[0].shape[0], boxes.shape[0]
+    dev = comps[0].device
+    tmin = torch.full((r, c), -BIG, device=dev)
+    tmax = torch.full((r, c), BIG, device=dev)
+    for ax in range(3):
+        tmin, tmax = _slab_axis(tmin, tmax, boxes[None, :, ax],
+                                boxes[None, :, ax + 3], comps[ax][:, None],
+                                comps[3 + ax][:, None])
+    return (tmax >= tmin) & (tmax >= 0.0)
+
+
+def _cluster_count(rows: torch.Tensor, k: int, what: str) -> int:
+    _build.check(rows, what, (None, TRI_COLS))
+    c = rows.shape[0] // k if k > 0 else 0
+    if c == 0 or rows.shape[0] != c * k:
+        raise ValueError(f"{what} ({rows.shape[0]} rows) must be whole "
+                         f"clusters of k = {k}")
+    return c
+
+
+def group_plain(union: torch.Tensor, rays8: torch.Tensor, rows: torch.Tensor,
+                k: int, block: int) -> torch.Tensor:
+    """Plain PyTorch version of K16: (5, Rpad) float32 rows [t (BIG on a
+    miss), nx, ny, nz, mati] for the (Rpad, 8) rays, each tested against
+    every cluster of its block's union, in ascending cluster order. A ray
+    with D = 0 (the zero rays that pad a batch) misses every triangle
+    (see `minarg_plain`) and is not tested."""
+    rpad = rays8.shape[0]
+    c = rows.shape[0] // k
+    ray_union = torch.where((rays8[:, 3:6] != 0.0).any(1),
+                            union.long().repeat_interleave(block), 0)
+    rays_t = rays8.t()
+    best_t = torch.full((rpad,), BIG, device=rays8.device)
+    best_g = torch.zeros(rpad, dtype=torch.int64, device=rays8.device)
+    chunk = max(1, _PLAIN_CELLS // k)
+    for ci in range(c):
+        sel = torch.nonzero((ray_union >> ci) & 1).flatten()
+        for s in range(0, sel.numel(), chunk):
+            idx = sel[s:s + chunk]
+            tm, local = cluster_nearest(rows[ci * k:(ci + 1) * k],
+                                        rays_t[:, idx])
+            better = tm < best_t[idx]
+            best_t[idx] = torch.where(better, tm, best_t[idx])
+            best_g[idx] = torch.where(better, ci * k + local, best_g[idx])
+    return torch.stack([best_t, *winner_attrs(rows, best_g, best_t < BIG)])
+
+
+def run_group(union: torch.Tensor, rays8: torch.Tensor, rows: torch.Tensor,
+              k: int, block: int):
+    """K16: (t, nx, ny, nz, mati), five (Rpad,) float32 tensors, for the
+    (Rpad, 8) mask-sorted ray rows, Rpad a multiple of block, against the
+    (C K, 24) cluster rows, C <= 30: union (G,) int32 holds each block's
+    cluster bits. CPU tensors take the plain version; CUDA tensors launch
+    the kernel or raise."""
+    _build.check(rays8, "rays8", (None, 8))
+    rpad = rays8.shape[0]
+    if block <= 0 or rpad % block:
+        raise ValueError(f"run_group needs Rpad ({rpad}) a multiple of "
+                         f"block ({block})")
+    c = _cluster_count(rows, k, "rows")
+    if c > MAX_GROUP_CLUSTERS:
+        raise ValueError(f"{c} clusters exceed K16's {MAX_GROUP_CLUSTERS}"
+                         "-bit mask")
+    _build.check(union, "union", (rpad // block,), torch.int32)
+    if union.device != rays8.device or rows.device != rays8.device:
+        raise ValueError("run_group's tensors must be on one device")
+    if rays8.device.type == "cpu":
+        return tuple(group_plain(union, rays8, rows, k, block))
+    out = torch.empty((5, rpad), dtype=torch.float32, device=rays8.device)
+    if rpad:
+        _build.launch("group", union, rays8, rows, out, rpad, block, c, k)
+    return tuple(out)
+
+
+def make_group_intersect(tris: TrianglesSoA, *, cluster_size: int = 128,
+                         block: int = 2048, tr: int | None = None,
+                         subtiles: int | None = None):
+    """The 'group' accel, for scenes of at most 30 clusters of
+    `build_clusters(split_large=True)`; intersect(rays) -> Hits. Per call:
+    each ray's cluster bitmask (`_perray_slab`), a stable sort by mask,
+    each block's union, K16, the results back in ray order. tr and
+    subtiles are accepted as in the JAX package: block = tr * subtiles."""
+    if tr is not None:
+        block = tr * (subtiles or 1)
+    scene, c, k = build_clusters(tris, cluster_size, split_large=True)
+    if c > MAX_GROUP_CLUSTERS:
+        raise ValueError(f"{c} clusters exceed the u32 mask (use the pair "
+                         "intersector)")
+    rows = scene.rows()
+
+    def intersect(rays: Rays) -> Hits:
+        order, union, rays8 = group_inputs(rays, scene.boxes, block)
+        outs = run_group(union, rays8, rows, k, block)
+        back = [torch.empty_like(o).index_copy_(0, order, o) for o in outs]
+        return _hits_from_raw(rays, back[0], back[1:4], back[4], rays.count)
+
+    return intersect
+
+
+def group_inputs(rays: Rays, boxes: torch.Tensor, block: int):
+    """K16's inputs for the rays, padded with zero rays to a multiple of
+    block: (order, the mask-sorted position -> ray; union (G,) int32,
+    each block's cluster bits; rays8 (Rpad, 8), the rays in mask order).
+    A ray's mask has bit c set when its slab test passes cluster c's box;
+    the sort is stable."""
+    r, c = rays.count, boxes.shape[0]
+    rpad = -(-r // block) * block
+    comps = [torch.cat([x, x.new_zeros(rpad - r)]) for x in (*rays.p, *rays.d)]
+    bits = torch.tensor([1 << b for b in range(c)], dtype=torch.int64,
+                        device=boxes.device)
+    passes = _perray_slab(comps, boxes)
+    _, order = torch.sort((passes.long() * bits).sum(1), stable=True)
+    union = (passes[order].view(-1, block, c).any(1).long() * bits).sum(1)
+    rays8 = pack_rays_rows([x[order] for x in comps[:3]],
+                           [x[order] for x in comps[3:]], rpad)
+    return order, union.to(torch.int32), rays8
 
 
 def candidates_plain(rays8t: torch.Tensor, boxes_r: torch.Tensor, l: int,
@@ -217,26 +347,130 @@ def _merge_best(cur, new):
     return tuple(torch.where(better, n, c) for n, c in zip(new, cur))
 
 
-def make_pair_intersect(tris: TrianglesSoA, *, cluster_size: int = 256,
-                        l1: int = 2, l2: int = 6, trp: int = 1024,
-                        tail: int = 8192, mxu: bool = True, dop: bool = True,
-                        move: str = "sort", infeat: bool = False,
-                        thin: bool = True, with_ids: bool = False,
+def pairs_plain(keys: torch.Tensor, rays8p: torch.Tensor, rows: torch.Tensor,
+                k: int) -> torch.Tensor:
+    """Plain PyTorch version of K12: (5, P) float32 rows [t (BIG on a
+    miss), nx, ny, nz, mati], each pair tested against the K triangles of
+    its cluster; keys C (the dummy) and above leave (BIG, 0, 0, 0, 0)."""
+    p = keys.shape[0]
+    c = rows.shape[0] // k - 1
+    out = torch.zeros((5, p), device=rays8p.device)
+    out[0] = BIG
+    keys_s, order = torch.sort(keys, stable=True)
+    runs, counts = torch.unique_consecutive(keys_s, return_counts=True)
+    chunk = max(1, _PLAIN_CELLS // k)
+    start = 0
+    for ci, n in zip(runs.tolist(), counts.tolist()):
+        if 0 <= ci < c:
+            for s in range(start, start + n, chunk):
+                idx = order[s:min(s + chunk, start + n)]
+                tm, local = cluster_nearest(rows[ci * k:(ci + 1) * k],
+                                            rays8p[:, idx])
+                out[0, idx] = tm
+                out[1:, idx] = torch.stack(
+                    winner_attrs(rows, ci * k + local, tm < BIG))
+        start += n
+    return out
+
+
+def run_pairs(keys: torch.Tensor, rays8p: torch.Tensor, rows: torch.Tensor,
+              k: int):
+    """K12: (t, nx, ny, nz, mati), five (P,) float32 tensors, for the
+    cluster-sorted pairs (keys (P,) int32 in 0..C, C the dummy; rays8p
+    (8, P) [p d 0 0]) against the ((C + 1) K, 24) cluster rows, the dummy
+    cluster's last. CPU tensors take the plain version; CUDA tensors
+    launch the kernel or raise."""
+    _build.check(keys, "keys", (None,), torch.int32)
+    p = keys.shape[0]
+    _build.check(rays8p, "rays8p", (8, p))
+    c1 = _cluster_count(rows, k, "rows")
+    if keys.device != rays8p.device or rows.device != rays8p.device:
+        raise ValueError("run_pairs' tensors must be on one device")
+    if rays8p.device.type == "cpu":
+        return tuple(pairs_plain(keys, rays8p, rows, k))
+    out = torch.empty((5, p), dtype=torch.float32, device=rays8p.device)
+    if p:
+        _build.launch("pair_vpu", keys, rays8p, rows, out, p, c1 - 1, k)
+    return tuple(out)
+
+
+def _pairs_round(comps, ids: torch.Tensor, rows: torch.Tensor, k: int,
+                 c: int, trp: int):
+    """One VPU pairs round: comps, six (R,) ray components; ids, (L, R)
+    rank-major candidate clusters (c = none). The pairs, sorted by
+    cluster key with dummy pairs to whole tiles of trp
+    (`pair_mxu.sort_pairs`), go through K12 and back to pair order; per
+    ray the least t over its L pairs (the first rank on ties) and that
+    pair's (nx, ny, nz, mati)."""
+    l, r = ids.shape
+    keys_s, rays8p, order = pair_mxu.sort_pairs(comps, ids, c, trp)
+    outs = run_pairs(keys_s, rays8p, rows, k)
+    back = [torch.empty_like(o).index_copy_(0, order, o)[:r * l].reshape(l, r)
+            for o in outs]
+    best, which = back[0].min(0)                 # first rank on ties
+    return (best,) + tuple(a.gather(0, which[None])[0] for a in back[1:])
+
+
+def _check_pair_config(mxu, dop, move, infeat, thin, with_ids, approx, l3):
+    """The JAX package's ValueErrors (sorted_intersect.py:750-784), then
+    NotImplementedError for the configurations not ported."""
+    if dop and not mxu:
+        raise ValueError("dop=True requires mxu=True (DOP supports are built "
+                         "from the march scene's cluster-ordered triangles)")
+    if move not in ("gather", "sort", "chain"):
+        raise ValueError(f"unknown move mode {move!r}")
+    if infeat and not mxu:
+        raise ValueError("infeat=True requires mxu=True")
+    if thin and not mxu:
+        raise ValueError("thin=True requires mxu=True (triangle ids come "
+                         "from the cluster-ordered march packs)")
+    if move == "chain":
+        if not thin:
+            raise ValueError("move='chain' requires thin=True")
+        if l3 >= 64:
+            raise ValueError("move='chain' folds march progress into a *128 "
+                             "sort key; l3 must be < 64")
+    if approx and with_ids:
+        raise ValueError("approx=True returns (Hits, resolved) and skips the "
+                         "escalations the ids overlay rides on; use it "
+                         "without with_ids")
+    if with_ids and not thin:
+        raise ValueError("with_ids=True requires thin=True (only the thin "
+                         "payload carries winner triangle ids)")
+    if with_ids and move == "chain":
+        raise ValueError("with_ids=True does not support move='chain'")
+    unported = [name for name, on in (
+        ("move='chain'", move == "chain"), ("infeat=True", infeat),
+        ("approx=True", approx),
+        ("mxu=True with thin=False (the pairmx payload)", mxu and not thin))
+        if on]
+    if unported:
+        raise NotImplementedError(
+            f"make_pair_intersect with {', '.join(unported)} is not ported "
+            "yet (ROADMAP.md queue 1); the port has move 'gather' and "
+            "'sort' with mxu=False (K12) or mxu=True and thin=True (K10)")
+
+
+def make_pair_intersect(tris: TrianglesSoA, *, cluster_size: int = 512,
+                        l1: int = 8, l2: int = 8, l3: int = 48,
+                        trp: int = 1024, trb: int = 512, u2_frac: int = 2,
+                        u3_frac: int = 32, tail: int = 8192,
+                        mxu: bool = False, dop: bool = False,
+                        move: str = "gather", infeat: bool = False,
+                        thin: bool = False, with_ids: bool = False,
                         approx: bool = False):
     """The pair-expansion intersector (see the module docstring):
     intersect(rays) -> Hits, or (Hits, ids) with with_ids=True (ids: the
-    winner's index in `tris`, -1 on a miss). The defaults are
-    `PAIR_TPU_WINNER`; its flags (mxu, dop, move, thin, and infeat and
-    approx off) are the only ones ported. See `STATS` for the schedule's
-    counts."""
-    if not (mxu and dop and thin and move == "sort") or infeat or approx:
-        raise NotImplementedError(
-            "make_pair_intersect is ported in its production configuration "
-            "only (mxu=True, dop=True, thin=True, move='sort', no infeat or "
-            "approx); the VPU pairs round (K12, mxu=False) and the other "
-            "modes are in ROADMAP.md queue 2")
-    if not (0 < l1 <= MAX_RANKS and 0 < l2 <= MAX_RANKS):
-        raise ValueError(f"l1 and l2 must be in 1..{MAX_RANKS}")
+    winner's index in `tris`, -1 on a miss). The defaults are the JAX
+    package's (the 'pair' accel); `PAIR_TPU_WINNER` is 'pairwin'. l1 and
+    l2 are the ranks tested by round 1 and the first escalation, l3 the
+    deepest (at most 48, K9's selection), trb the candidate kernel's ray
+    tile and trp the pair tile (together the padding unit), u2_frac and
+    u3_frac the escalations' capacity fractions, tail the dense tail's
+    rays per iteration. See `STATS` for the schedule's counts."""
+    _check_pair_config(mxu, dop, move, infeat, thin, with_ids, approx, l3)
+    if not all(0 < x <= MAX_RANKS for x in (l1, l2, l3)):
+        raise ValueError(f"l1, l2 and l3 must be in 1..{MAX_RANKS}")
     big, rest, big_idx, rest_idx = split_by_size(tris, with_indices=True)
     if rest is None:
         if with_ids:
@@ -249,24 +483,43 @@ def make_pair_intersect(tris: TrianglesSoA, *, cluster_size: int = 256,
                      if big is not None else None)
         big_map = (torch.as_tensor(big_idx, dtype=torch.int32, device=dev)
                    if big is not None else None)
-        mscene, rt, c, march_order = build_march_scene(rest, cs,
-                                                       with_order=True)
-        gmap = np.full((c * cs,), -1, np.int32)
-        gmap[:len(march_order)] = rest_idx[march_order]
-        g_to_orig = torch.as_tensor(gmap, device=dev)
     else:
         big_isect = (make_pallas_intersect(big) if big is not None else None)
-        mscene, rt, c = build_march_scene(rest, cs)
+    if mxu:
+        if with_ids:
+            mscene, rt, c, march_order = build_march_scene(rest, cs,
+                                                           with_order=True)
+            gmap = np.full((c * cs,), -1, np.int32)
+            gmap[:len(march_order)] = rest_idx[march_order]
+            g_to_orig = torch.as_tensor(gmap, device=dev)
+        else:
+            mscene, rt, c = build_march_scene(rest, cs)
+        boxes = [mscene.boxes_lo, mscene.boxes_hi,
+                 torch.zeros((c, 2), device=dev)]
+        if dop:
+            boxes.append(pair_mxu.build_dops(rt, cs, c))
+        boxes = torch.cat(boxes, dim=1)
+
+        def run_pairs_fn(comps, ids):
+            return pair_mxu.pairs_round_mxu(comps, ids, mscene, c, cs, trp)
+    else:
+        cscene, c, _ = build_clusters(rest, cs, split_large=False)
+        boxes = cscene.boxes
+        # The dummy cluster C: all-zero (never-hit) rows for the pairs of
+        # no cluster.
+        rows = torch.cat([cscene.rows(),
+                          torch.zeros((cs, TRI_COLS), device=dev)])
+
+        def run_pairs_fn(comps, ids):
+            return _pairs_round(comps, ids, rows, cs, c, trp), None
+
     cp = _round_up(c, 128)
-    boxes_r = torch.zeros((cp, 16), device=dev)
-    boxes_r[:c] = torch.cat([mscene.boxes_lo, mscene.boxes_hi,
-                             torch.zeros((c, 2), device=dev),
-                             pair_mxu.build_dops(rt, cs, c)], dim=1)
+    boxes_r = torch.zeros((cp, boxes.shape[1]), device=dev)
+    boxes_r[:c] = boxes
     # The TPU kernel's VMEM rule; it sets rpad through `unit`.
-    trb = TRB
     while cp * trb > 480_000 and trb > 128:
         trb //= 2
-    l1, l2, maxrank = min(l1, c), min(l2, c), min(L3, c)
+    l1, l2, maxrank = min(l1, c), min(l2, c), min(l3, c)
     if with_ids:
         tail_pack = build_tri_pack(tris)
         n_cols = tuple(tris.n[:, k].contiguous() for k in range(3))
@@ -274,9 +527,6 @@ def make_pair_intersect(tris: TrianglesSoA, *, cluster_size: int = 256,
         tail_isect = None
     else:
         tail_isect = make_pallas_intersect(tris)
-
-    def run_pairs(comps, ids):
-        return pair_mxu.pairs_round_mxu(comps, ids, mscene, c, cs, trp)
 
     def intersect(rays: Rays):
         r = rays.count
@@ -288,26 +538,43 @@ def make_pair_intersect(tris: TrianglesSoA, *, cluster_size: int = 256,
         zeros = torch.zeros(rpad, device=comps[0].device)
         seed_ids = (torch.full((rpad,), -1, dtype=torch.int32,
                                device=zeros.device) if with_ids else None)
+        # The best so far: (t, g) with the thin payload, whose seed and
+        # tail attributes live in `overlay` (g = -1 marks them), or
+        # (t, nx, ny, nz, mati).
         if big_isect is not None:
             hb = big_isect(Rays(p=tuple(comps[:3]), d=tuple(comps[3:])))
             if with_ids:
                 hb, bi = hb
                 seed_ids = torch.where(hb.valid, big_map[bi.clamp(min=0)],
                                        seed_ids)
-            best_t = torch.where(hb.valid, hb.t, torch.full_like(hb.t, BIG))
-            overlay = [hb.n[0].clone(), hb.n[1].clone(), hb.n[2].clone(),
-                       hb.mati.to(torch.float32)]
+            seed_t = torch.where(hb.valid, hb.t, torch.full_like(hb.t, BIG))
+            seed = [hb.n[0].clone(), hb.n[1].clone(), hb.n[2].clone(),
+                    hb.mati.to(torch.float32)]
         else:
-            best_t = torch.full((rpad,), BIG, device=zeros.device)
-            overlay = [zeros.clone() for _ in range(4)]
-        best_g = torch.full((rpad,), -1.0, device=zeros.device)
+            seed_t = torch.full((rpad,), BIG, device=zeros.device)
+            seed = [zeros.clone() for _ in range(4)]
+        if thin:
+            best = [seed_t, torch.full((rpad,), -1.0, device=zeros.device)]
+            overlay = seed
+        else:
+            best = [seed_t] + seed
+
+        def merge(idx, new):
+            """Min-merge the new (t, ...) payload of rays idx, strict <."""
+            cur = [b[idx] for b in best]
+            merged = _merge_best(cur, new)
+            for b, m in zip(best, merged):
+                b[idx] = m
+            return merged[0]
 
         # Round 1: every ray against its l1 nearest passing clusters.
         ids1, _, nxt1 = run_candidates(pack_rays(comps[:3], comps[3:]),
                                        boxes_r, l1, c)
-        (t_new, g_new), pend = run_pairs(comps, ids1)
-        best_t, best_g = _merge_best((best_t, best_g), (t_new, g_new))
-        resolved = ((best_t <= nxt1) | (nxt1 >= BIG)) & ~pend
+        new1, pend = run_pairs_fn(comps, ids1)
+        best[:] = _merge_best(best, new1)
+        if pend is None:
+            pend = torch.zeros(rpad, dtype=torch.bool, device=zeros.device)
+        resolved = ((best[0] <= nxt1) | (nxt1 >= BIG)) & ~pend
         done = torch.full((rpad,), l1, dtype=torch.int64, device=zeros.device)
         if stats is not None:
             stats["round1_resolved"] = int(resolved[:r].sum())
@@ -319,7 +586,7 @@ def make_pair_intersect(tris: TrianglesSoA, *, cluster_size: int = 256,
 
         def escalation(u, w, sel):
             """Test the next w untested ranks of the first u unresolved
-            rays (selection depth sel) and merge (`escalation_sort`)."""
+            rays (selection depth sel) and merge."""
             idx = first_unresolved(u)
             if stats is not None:
                 stats["escalations"].append(
@@ -328,36 +595,34 @@ def make_pair_intersect(tris: TrianglesSoA, *, cluster_size: int = 256,
             d0 = done[idx]
             ids_all, ents_all, nxt = run_candidates(
                 pack_rays(sub[:3], sub[3:]), boxes_r, sel, c)
-            rows = d0[None, :] + torch.arange(w, device=d0.device)[:, None]
-            ids = torch.where(rows < sel,
-                              ids_all.gather(0, rows.clamp(0, sel - 1)),
+            rows_ = d0[None, :] + torch.arange(w, device=d0.device)[:, None]
+            ids = torch.where(rows_ < sel,
+                              ids_all.gather(0, rows_.clamp(0, sel - 1)),
                               torch.full_like(ids_all[:1], c))
-            (t_new, g_new), pend_sub = run_pairs(sub, ids)
+            new_sub, pend_sub = run_pairs_fn(sub, ids)
             d1 = torch.clamp(d0 + w, max=sel)
             bound = torch.where(
                 d1 < sel, ents_all.gather(0, d1.clamp(0, sel - 1)[None])[0],
                 nxt)
-            t_cur = best_t[idx]
-            better = t_new < t_cur
-            t_m = torch.where(better, t_new, t_cur)
-            best_t[idx] = t_m
-            best_g[idx] = torch.where(better, g_new, best_g[idx])
-            p_m = pend[idx] | pend_sub
-            pend[idx] = p_m
+            t_m = merge(idx, new_sub)
+            p_m = pend[idx]
+            if pend_sub is not None:
+                p_m = p_m | pend_sub
+                pend[idx] = p_m
             done[idx] = torch.maximum(d0, d1)
             resolved[idx] = resolved[idx] | (
                 ((t_m <= bound) | (bound >= BIG)) & ~p_m)
 
-        u2 = max(unit, (rpad // U2_FRAC // unit) * unit)
+        u2 = max(unit, (rpad // u2_frac // unit) * unit)
         if l2 > l1:
             escalation(u2, l2 - l1, min(maxrank, l2))
         if maxrank > l2:
             w3 = maxrank - l2
-            escalation(max(unit, (rpad // U2_FRAC // 4 // unit) * unit), 8,
+            escalation(max(unit, (rpad // u2_frac // 4 // unit) * unit), 8,
                        min(maxrank, l2 + 8))
-            escalation(max(unit, (rpad // U2_FRAC // 16 // unit) * unit), w3,
+            escalation(max(unit, (rpad // u2_frac // 16 // unit) * unit), w3,
                        maxrank)
-            u3 = max(unit, (rpad // U3_FRAC // unit) * unit)
+            u3 = max(unit, (rpad // u3_frac // unit) * unit)
             it = 0
             while it < 4 and bool((~resolved & (done < maxrank)).any()):
                 escalation(u3, w3, maxrank)
@@ -387,23 +652,27 @@ def make_pair_intersect(tris: TrianglesSoA, *, cluster_size: int = 256,
                 ht = tail_isect(sub)
                 new_t = torch.where(ht.valid, ht.t, torch.full_like(ht.t, BIG))
                 attrs = (*ht.n, ht.mati.to(torch.float32))
-            t_cur = best_t[idx]
-            better = new_t < t_cur
-            best_t[idx] = torch.where(better, new_t, t_cur)
-            best_g[idx] = torch.where(better, torch.full_like(t_cur, -1.0),
-                                      best_g[idx])
-            for o, a in zip(overlay, attrs):
-                o[idx] = torch.where(better, a, o[idx])
-            if with_ids:
-                seed_ids[idx] = torch.where(
-                    better, torch.where(hit, g1, -1).to(torch.int32),
-                    seed_ids[idx])
+            if thin:
+                better = new_t < best[0][idx]
+                merge(idx, (new_t, torch.full_like(new_t, -1.0)))
+                for o, a in zip(overlay, attrs):
+                    o[idx] = torch.where(better, a, o[idx])
+                if with_ids:
+                    seed_ids[idx] = torch.where(
+                        better, torch.where(hit, g1, -1).to(torch.int32),
+                        seed_ids[idx])
+            else:
+                merge(idx, (new_t,) + tuple(attrs))
             resolved[idx] = True
             n_tail += 1
         if stats is not None:
             stats["tail_iterations"] = n_tail
             STATS.append(stats)
 
+        best_t = best[0]
+        if not thin:
+            return _hits_from_raw(rays, best_t, best[1:4], best[4], r)
+        best_g = best[1]
         fn = pair_mxu.fetch_attrs(best_g, mscene.tric)
         use = best_g >= 0.0
         n3 = tuple(torch.where(use, f, o) for f, o in zip(fn[:3], overlay))

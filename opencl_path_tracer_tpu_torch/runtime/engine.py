@@ -18,7 +18,13 @@ K4 certifies the rest, K11 fetches the winners' attributes).
 'bruteforce' is the plain PyTorch reference and is refused on CUDA, so
 no plain version carries the main path on the card. 'pallas' is K4, the
 dense exact intersector with attributes; 'tilecull' is K6 with groups
-ordered front to back from the camera eye, then K2. Analytic spheres go
+ordered front to back from the camera eye, then K2. 'pair' is the same
+pair intersector at its own defaults (the VPU pairs round K12 on Morton
+clusters of 512, K9 on their boxes, the full attribute payload, no K11);
+'cluster' is K17 (per-tile cluster lists, `make_cluster_intersect`);
+'group' is K16 (mask-sorted rays, scenes of at most 30 clusters,
+`make_group_intersect`). 'auto' never picks these three, and the port
+prints none of the JAX package's TPU-only warnings about them. Analytic spheres go
 through K3 (K3b above 64) and are min-merged after the triangles. With
 `smooth`, the triangle winner's normal is the interpolated vertex normal
 (`_make_smooth_tri_fn`): 'auto' is 'minarg' (K1 then K8) up to 4,096
@@ -54,8 +60,11 @@ from opencl_path_tracer_tpu_torch.ops.kernels.plucker_kernel import (
 from opencl_path_tracer_tpu_torch.ops.kernels.shading_kernel import (
     make_smooth_minarg_intersect,
 )
+from opencl_path_tracer_tpu_torch.ops.kernels.cluster_kernel import (
+    make_cluster_intersect,
+)
 from opencl_path_tracer_tpu_torch.ops.kernels.sorted_intersect import (
-    make_pair_intersect,
+    PAIR_TPU_WINNER, make_group_intersect, make_pair_intersect,
 )
 from opencl_path_tracer_tpu_torch.ops.kernels.sphere_kernel import (
     make_sphere_intersect,
@@ -81,8 +90,8 @@ def resolve_accel(accel: str, num_triangles: int, on_cuda: bool,
         raise ValueError(
             "accel 'bruteforce' is the plain PyTorch reference and does not "
             "run on CUDA; use 'minarg' (or 'auto')")
-    if accel not in ("minarg", "pallas", "tilecull", "pairwin",
-                     "bruteforce"):
+    if accel not in ("minarg", "pallas", "tilecull", "pairwin", "pair",
+                     "cluster", "group", "bruteforce"):
         raise NotImplementedError(
             f"accel {accel!r} is not ported yet (ROADMAP.md queue 2)")
     return accel
@@ -113,7 +122,8 @@ def _make_smooth_tri_fn(scene: Scene, accel: str):
     if accel == "tilecull":
         ids_fn = make_tilecull_intersect(scene.tris, with_ids=True)
     elif accel == "pairwin":
-        ids_fn = make_pair_intersect(scene.tris, with_ids=True)
+        ids_fn = make_pair_intersect(scene.tris, with_ids=True,
+                                     **PAIR_TPU_WINNER)
     elif accel == "bruteforce":
         ids_fn = functools.partial(intersect.first_intersect_ids,
                                    tris=scene.tris)
@@ -153,7 +163,13 @@ def make_intersect_fn(scene: Scene, accel: str = "auto", origin=None,
     elif accel == "tilecull":
         tri_fn = make_tilecull_intersect(scene.tris, origin=origin)
     elif accel == "pairwin":
+        tri_fn = make_pair_intersect(scene.tris, **PAIR_TPU_WINNER)
+    elif accel == "pair":
         tri_fn = make_pair_intersect(scene.tris)
+    elif accel == "cluster":
+        tri_fn = make_cluster_intersect(scene.tris)
+    elif accel == "group":
+        tri_fn = make_group_intersect(scene.tris)
     else:
         tri_fn = functools.partial(intersect.first_intersect, tris=scene.tris)
     if scene.spheres is None:

@@ -21,6 +21,12 @@ per step. Needs a GPU:
     python -m opencl_path_tracer_tpu_torch.runtime.profile --scene stress
     python -m opencl_path_tracer_tpu_torch.runtime.profile --scene stress \\
         --model wavefront
+    python -m opencl_path_tracer_tpu_torch.runtime.profile --scene stress \\
+        --accel pair
+    python -m opencl_path_tracer_tpu_torch.runtime.profile --scene stress \\
+        --accel cluster --spp 1
+    python -m opencl_path_tracer_tpu_torch.runtime.profile --scene reference \\
+        --models-dir tests/assets/models --accel group
 
 --model megakernel and wavefront render --spp samples through
 `RenderEngine` (with --nee, --nee-select, --accel, --smooth and

@@ -235,7 +235,7 @@ def test_fifth_slice_kernels_equal_plain_versions(cuda, monkeypatch):
     cpu = si.run_candidates(head.cpu(), boxes_r.cpu(), 6, c)
     gpu = si.run_candidates(head, boxes_r, 6, c)
     assert all(torch.equal(a, b.cpu()) for a, b in zip(cpu, gpu))
-    isect = si.make_pair_intersect(scene.tris)
+    isect = si.make_pair_intersect(scene.tris, **si.PAIR_TPU_WINNER)
     rays = Rays(p=tuple(rays8[k].contiguous() for k in range(3)),
                 d=tuple(rays8[k].contiguous() for k in range(3, 6)))
     h = isect(rays)
@@ -252,3 +252,81 @@ def test_fifth_slice_kernels_equal_plain_versions(cuda, monkeypatch):
         pm.pair_visits(keys_s, r8p, ms.trig, ms.tric, 256, 1024, c)
     with pytest.raises(RuntimeError, match="disabled"):
         pm.fetch_attrs(g, ms.tric)
+
+
+@pytest.mark.cuda
+def test_sixth_slice_kernels_equal_plain_versions(cuda, monkeypatch):
+    """K12, K16 and K17 against their plain versions on the card
+    (chip_smoke.py runs them at 1080p): K12 on a pairs round of
+    stress_scene(6000) with clusters of 512, K17 on the stress scene with
+    clusters of 128 (early exit off and on), K16 on the Cornell box; the
+    three intersectors' hits equal K4's; the CPU plain versions agree
+    with the card; with the loader broken, each raises."""
+    from opencl_path_tracer_tpu_torch.core.types import Rays
+    from opencl_path_tracer_tpu_torch.ops.kernels import cluster_kernel as ck
+    from opencl_path_tracer_tpu_torch.ops.kernels import pair_mxu as pm
+    from opencl_path_tracer_tpu_torch.ops.kernels import sorted_intersect as si
+    stress = library.stress_scene(6000, device=cuda)
+    cornell = library.cornell_box(with_spheres=True, device=cuda)
+    rays8 = _rays8(20_003, 6, cuda)
+    before = dict(_build.launches)
+    # K12.
+    _, rest = si.split_by_size(stress.tris)
+    cs, c, k = ck.build_clusters(rest, 512)
+    rows = torch.cat([cs.rows(), torch.zeros((k, 24), device=cuda)])
+    boxes_r = torch.zeros((128, 8), device=cuda)
+    boxes_r[:c] = cs.boxes
+    ids = si.run_candidates(rays8, boxes_r, 4, c)[0]
+    keys_s, r8p, _ = pm.sort_pairs([rays8[j] for j in range(6)], ids, c,
+                                   1024)
+    out = si.run_pairs(keys_s, r8p, rows, k)
+    assert all(torch.equal(a, b) for a, b in
+               zip(out, si.pairs_plain(keys_s, r8p, rows, k)))
+    assert int((out[0] < k1.BIG).sum()) > 0
+    cpu = si.run_pairs(keys_s[:4096].cpu(), r8p[:, :4096].cpu().contiguous(),
+                       rows.cpu(), k)
+    assert all(torch.equal(a, b[:4096].cpu()) for a, b in zip(cpu, out))
+    # K17.
+    cs17, c17, k17 = ck.build_clusters(stress.tris, 128)
+    r8 = ck.pack_rays_rows([rays8[j] for j in range(3)],
+                           [rays8[j] for j in range(3, 6)], 20_224)
+    ids17, cnt, ent = ck._tile_cluster_lists(r8, cs17.boxes, 256)
+    for ee in (False, True):
+        out17 = ck.run_cluster(r8, cnt, ids17, ent, cs17.rows(), k17, 256, ee)
+        assert all(torch.equal(a, b) for a, b in zip(out17, ck.cluster_plain(
+            r8, cnt, ids17, ent, cs17.rows(), k17, 256, ee)))
+    # K16.
+    cs16, c16, k16 = ck.build_clusters(cornell.tris, 128, split_large=True)
+    union = torch.randint(0, 1 << c16, (10,), dtype=torch.int32,
+                          device=cuda)
+    r16 = ck.pack_rays_rows([rays8[j] for j in range(3)],
+                            [rays8[j] for j in range(3, 6)], 20_480)
+    out16 = si.run_group(union, r16, cs16.rows(), k16, 2048)
+    assert all(torch.equal(a, b) for a, b in zip(out16, si.group_plain(
+        union, r16, cs16.rows(), k16, 2048)))
+    assert {n: _build.launches[n] - before[n]
+            for n in ("pair_vpu", "cluster", "group")} == {
+                "pair_vpu": 1, "cluster": 2, "group": 1}
+    # The three intersectors against K4: hit or miss equal, t within the
+    # JAX tests' rtol 2e-5 (tests/test_sorted_intersect.py::_check).
+    rays = Rays(p=tuple(rays8[j].contiguous() for j in range(3)),
+                d=tuple(rays8[j].contiguous() for j in range(3, 6)))
+    for scene, fn in ((stress, si.make_pair_intersect),
+                      (stress, ck.make_cluster_intersect),
+                      (cornell, si.make_group_intersect)):
+        h = fn(scene.tris)(rays)
+        td = k1.dense(rays8, k1.build_tri_pack(scene.tris))[0]
+        hit = td < k1.BIG
+        assert torch.equal(h.t > 0, hit)
+        torch.testing.assert_close(h.t[hit], td[hit], rtol=2e-5, atol=1e-3)
+
+    def broken(name):
+        raise RuntimeError("kernel loader disabled by the test")
+
+    monkeypatch.setattr(_build, "library", broken)
+    with pytest.raises(RuntimeError, match="disabled"):
+        si.run_pairs(keys_s, r8p, rows, k)
+    with pytest.raises(RuntimeError, match="disabled"):
+        ck.run_cluster(r8, cnt, ids17, ent, cs17.rows(), k17, 256)
+    with pytest.raises(RuntimeError, match="disabled"):
+        si.run_group(union, r16, cs16.rows(), k16, 2048)

@@ -41,7 +41,8 @@ def test_port_has_its_modules_and_kernel_sources():
     assert len(FILES) > 20
     for f in ("minarg.cu", "refine1.cu", "spheres.cu", "anyhit.cu",
               "tilecull.cu", "sphere_table.cu", "smooth_refine.cu",
-              "pair_cand.cu", "pair_visit.cu", "attr_fetch.cu"):
+              "pair_cand.cu", "pair_visit.cu", "attr_fetch.cu",
+              "pair_vpu.cu", "cluster.cu", "group.cu", "cluster_block.cuh"):
         assert (PORT / "csrc" / f).exists()
 
 

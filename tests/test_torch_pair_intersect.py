@@ -9,7 +9,6 @@ inputs; a forced-pend case (every pairs round reports every ray pending,
 on both sides) that sends every ray through a dense tail of 64 rays, in
 several iterations (test_torch_stress.py runs a deeper schedule)."""
 
-import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -151,13 +150,21 @@ def test_forced_pend_funnels_through_the_tail(scenes, monkeypatch, with_ids):
 
 
 def test_unported_configurations_refuse():
-    """The defaults are PAIR_TPU_WINNER, the one configuration ported."""
-    defaults = {k: p.default for k, p in inspect.signature(
-        si.make_pair_intersect).parameters.items()}
-    assert all(defaults[k] == v for k, v in si.PAIR_TPU_WINNER.items())
+    """What stays unported raises NotImplementedError naming ROADMAP.md:
+    move='chain', infeat, approx and mxu=True with thin=False (the
+    `pairmx` payload); invalid combinations raise the JAX package's
+    ValueErrors first, as its own function does."""
     tris = library.stress_scene(N_TRIS).tris
-    for kw in (dict(mxu=False), dict(move="gather"), dict(move="chain"),
-               dict(infeat=True), dict(approx=True), dict(thin=False),
-               dict(dop=False)):
+    for kw in (dict(move="chain"), dict(infeat=True), dict(approx=True),
+               dict(thin=False, dop=False), dict(thin=False)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             si.make_pair_intersect(tris, **dict(KW, **kw))
+    jt = jlib.stress_scene(N_TRIS).tris
+    for kw in (dict(dop=True), dict(thin=True), dict(infeat=True),
+               dict(with_ids=True), dict(move="scatter"),
+               dict(mxu=True, thin=True, move="chain", l3=64),
+               dict(mxu=True, thin=True, approx=True, with_ids=True)):
+        for fn, t in ((si.make_pair_intersect, tris),
+                      (jsi.make_pair_intersect, jt)):
+            with pytest.raises(ValueError):
+                fn(t, **kw)

@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the port's seventeen CUDA kernels from
+It builds the port's twenty-one CUDA kernels from
 `opencl_path_tracer_tpu_torch/csrc/`, holds each against its plain
 PyTorch version at 1080p ray and lane counts, renders the three goldens
 of `tests/golden/` through the kernels, and drives the main paths at
@@ -45,7 +45,17 @@ and read just after:
     spp; 'group' (K16) on the reference scene (15 clusters) and on the
     Cornell box (7 clusters), 8 spp each. K12, K17 and K16 are held
     against their plain versions at 1080p, and each accel's hits against
-    K4's on its camera and first-bounce rays.
+    K4's on its camera and first-bounce rays;
+  * the march family on the stress scene: 'march' (K18m copies, K18
+    rounds 1 and 2 over 195 clusters of 512, K4 tail) and 'flat' (K18
+    round 0 and K19 over 389 clusters of 256, K4 tail), 2 spp each, and
+    the lazy-certification wavefront (`models.lazy`, K20, K4 for pending
+    lanes; cs 512, tr 256, K 4, fast mode) for LAZY_STEPS steps after 2.
+    K18, K18m, K19 and K20 are held against their plain versions at 1080p
+    (K18, K19 and K20 on their first PLAIN_BLOCKS blocks), the 'march'
+    and 'flat' hits against K4's over the reordered triangles on the
+    camera and first-bounce rays, and the lazy lanes certified with a hit
+    against K4's hit.
 
 The last two lines are a JSON object per kernel (time, plain time,
 bound, launches) and the verdict; the line before them, the smoke's total
@@ -73,6 +83,13 @@ CLUSTER_SPP = 1  # spp of 'megakernel stress cluster' (cut from 8 likewise)
 # pairs.
 K12_PLAIN_CELLS = 6e9
 K12_PREFIX = 2_097_152
+# K18, K19 and K20 are held against their plain versions on the first
+# PLAIN_BLOCKS blocks of sorted lanes of their 1080p inputs (the plain
+# versions take about 1.5 ms per visit of 512 x 512 tests on the H100, and
+# 'march' round 1 alone holds up to 97,200 visits); the kernels run on the
+# whole input, and blocks are independent.
+PLAIN_BLOCKS = 256
+LAZY_STEPS = 24   # timed steps of 'lazy stress' after 2 warm-up steps
 STRESS_TRIS = 99_380   # the JAX builders' count (library.py:325-406)
 SLICE = 76_800   # lanes of the fused pipeline's exact slice at 1080p
 # H100 SXM data sheet, dense, at the full 700 W power limit.
@@ -123,6 +140,14 @@ KERNEL_META = {
                 "opencl_path_tracer_tpu/ops/pallas/cluster_kernel.py:245"),
     "group": ("opencl_path_tracer_tpu_torch/csrc/group.cu",
               "opencl_path_tracer_tpu/ops/pallas/sorted_intersect.py:121"),
+    "march": ("opencl_path_tracer_tpu_torch/csrc/march.cu",
+              "opencl_path_tracer_tpu/ops/pallas/march_kernel.py:232"),
+    "materialize": ("opencl_path_tracer_tpu_torch/csrc/materialize.cu",
+                    "opencl_path_tracer_tpu/ops/pallas/march_kernel.py:707"),
+    "flat_march": ("opencl_path_tracer_tpu_torch/csrc/flat.cu",
+                   "opencl_path_tracer_tpu/ops/pallas/flat_march.py:83"),
+    "lazy_march": ("opencl_path_tracer_tpu_torch/csrc/lazy.cu",
+                   "opencl_path_tracer_tpu/ops/pallas/lazy_march.py:50"),
 }
 # Every kernel of each main path must launch in that path's run.
 PATH_KERNELS = {
@@ -150,6 +175,9 @@ PATH_KERNELS = {
     "megakernel stress cluster": ("cluster",),
     "megakernel reference group": ("group",),
     "megakernel cornell group": ("group",),
+    "megakernel stress march": ("materialize", "march", "dense"),
+    "megakernel stress flat": ("materialize", "march", "flat_march", "dense"),
+    "lazy stress": ("lazy_march", "dense"),
 }
 PAIR_KERNELS = ("pair_cand", "pair_visit", "attr_fetch")
 MODELS_DIR = os.path.join(HERE, "tests", "assets", "models")
@@ -825,6 +853,191 @@ def check_slice6(torch, scenes, cam, cam_rays, errs):
     return inputs
 
 
+def march_round1(torch, scene, rays, cs, tr, K):
+    """'march' round 1's K18 inputs for rays: the scene's march packs, the
+    lanes in sort order, their features and block lists."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import (
+        intersect_kernel as k1, march_kernel as mk)
+    from opencl_path_tracer_tpu_torch.ops.kernels.plucker_kernel import (
+        plucker_feat)
+    ms, rt, c = mk.build_march_scene(scene.tris, cs)
+    r8 = k1.pack_rays(rays.p, rays.d, -(-rays.count // tr) * tr)
+    order = torch.sort(mk.lane_key(r8[0:3], r8[3:6], ms), stable=True).indices
+    r8s = r8[:, order].contiguous()
+    feat = plucker_feat(r8s)
+    ent, need = mk._slab_entries(r8s, ms, torch.full(
+        (r8s.shape[1],), k1.BIG, device=r8s.device))
+    return ms, rt, c, r8s, feat, ent, mk._block_lists(ent, need, tr, K)
+
+
+def hits_vs_k4(torch, name, h, rays, pack):
+    """An accel's hits against K4's over the reordered triangles: t, mati
+    and, on hits, the normal bit-equal (the JAX contract,
+    march_kernel.py:493-496 and flat_march.py:327). Returns the hits."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import intersect_kernel as k1
+    t4, _, nx, ny, nz, m = k1.dense(
+        k1.pack_rays(rays.p, rays.d).contiguous(), pack)
+    torch.cuda.synchronize()
+    hit = t4 < k1.BIG
+    need(torch.equal(h.t, torch.where(hit, t4, torch.full_like(t4, -1.0))),
+         f"{name}: t differs from K4's")
+    need(torch.equal(h.mati, torch.where(hit, m, torch.zeros_like(m)).to(
+        torch.int32)), f"{name}: mati differs from K4's")
+    need(all(torch.equal(a[hit], b[hit]) for a, b in zip(h.n, (nx, ny, nz))),
+         f"{name}: the hit normal differs from K4's")
+    return int(hit.sum())
+
+
+def check_slice7(torch, scenes, cam, cam_rays, errs):
+    """K18 (after its K18m copy) on 'march' round 1 of the stress camera
+    rays (cs = tr = 512, K1 = 24), K19 on 'flat' round 1 (cs = tr = 256,
+    K0 = 4), K20 on the second step of the lazy pipeline (cs 512, tr 256,
+    K 4), each against its plain version on the first PLAIN_BLOCKS blocks
+    (K18m on the whole input), torch.equal; the 'march' and 'flat' hits
+    equal to K4's over the reordered triangles on the camera and
+    first-bounce rays; the lazy lanes certified with a hit hold K4's hit.
+    Returns the inputs at which K18, K18m, K19 and K20 are timed, with
+    their plain versions' times (ms) from these checks."""
+    from opencl_path_tracer_tpu_torch.models import lazy
+    from opencl_path_tracer_tpu_torch.ops import rng
+    from opencl_path_tracer_tpu_torch.ops.kernels import (
+        flat_march as fm, intersect_kernel as k1, lazy_march as lm,
+        march_kernel as mk)
+    stress = scenes["stress"]
+
+    def compare(name, outs, plain, where):
+        torch.cuda.synchronize()
+        for a, b in zip(outs, plain):
+            errs[name] = max(errs[name], float(
+                (a.double() - b.double()).abs().max()) if a.numel() else 0.0)
+        need(all(torch.equal(a, b) for a, b in zip(outs, plain)),
+             f"{name} differs from its plain version on {where}")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    inputs = {}
+    # K18m and K18: 'march' round 1.
+    cs, tr, K = 512, 512, 24
+    ms, rt, c, r8s, feat, _, clist = march_round1(torch, stress, cam_rays, cs,
+                                                  tr, K)
+    copies = mk.materialize(clist, r8s, feat)
+    compare("materialize", copies, mk.materialize_plain(clist, r8s, feat),
+            "'march' round 1's operands")
+    out = mk.run_march(*copies, ms, cs, K, tr)
+    p = PLAIN_BLOCKS
+    plain, plain_ms = timed(lambda: mk.march_plain(
+        clist[:p * K], r8s[:, :p * tr].contiguous(), feat[:, :p * tr].contiguous(),
+        ms, cs, K, tr))
+    compare("march", (out[:, :p * tr],), (plain,),
+            f"'march' round 1 of the stress camera rays (first {p} blocks)")
+    nv = int((clist >= 0).sum())
+    print(f"stress 'march': {c} clusters of {cs}; materialize on round 1's "
+          f"operands equal to its plain version; march on "
+          f"{r8s.shape[1]} camera lanes ({nv} visits of {clist.numel()}, "
+          f"{int((out[0] < k1.BIG).sum())} hits, {int(out[6].sum())} "
+          f"pending) equal to its plain version on the first {p} blocks "
+          "(torch.equal)")
+    inputs["march"] = (clist, r8s, feat, ms, cs, K, tr, nv, plain_ms)
+    inputs["materialize"] = (clist, r8s, feat)
+    # K19: 'flat' round 1 (K18 round 0 at K0 = 4).
+    cs, tr, K0 = 256, 256, 4
+    fs, frt, fc, f8, ffeat, ent, clist0 = march_round1(torch, stress,
+                                                       cam_rays, cs, tr, K0)
+    rows0 = mk.run_march(clist0, f8, ffeat, fs, cs, K0, tr)
+    b = f8.shape[1] // tr
+    bu = (mk._need(ent, rows0[0]).view(fc, b, tr).any(dim=2)
+          & ~mk._visited_from(clist0, fc, K0))
+    del ent
+    vcap = -(-max(f8.shape[1] // 4, 4096) // 256) * 256
+    vb, vc, _, ovf = fm._build_visit_list(bu, vcap)
+    out = fm.run_flat(vb, vc, f8, ffeat, rows0, fs, cs, tr)
+    m = int((vb < p).sum())
+    plain, fplain_ms = timed(lambda: fm.flat_plain(
+        vb[:m], vc[:m], f8[:, :p * tr].contiguous(),
+        ffeat[:, :p * tr].contiguous(), rows0[:, :p * tr].contiguous(), fs,
+        cs, tr))
+    compare("flat_march", (out[:, :p * tr],), (plain,),
+            f"'flat' round 1 of the stress camera rays (first {p} blocks)")
+    fv = int((vc >= 0).sum())
+    print(f"stress 'flat': {fc} clusters of {cs}; flat_march on "
+          f"{f8.shape[1]} camera lanes ({fv} visits in a list of {vcap}, "
+          f"{int(ovf.sum())} blocks over it, "
+          f"{int((out[0] < rows0[0]).sum())} lanes closer than round 0) "
+          f"equal to its plain version on the first {p} blocks (torch.equal)")
+    inputs["flat_march"] = (vb, vc, f8, ffeat, rows0, fs, cs, tr, fv,
+                            fplain_ms)
+    # The hits of both accels against K4 over their reordered triangles.
+    for name, (isect, rt_) in (
+            ("march", mk.make_march_intersect(stress.tris)),
+            ("flat", fm.make_flat_march_intersect(stress.tris))):
+        pack = k1.build_tri_pack(rt_)
+        for rname, rays in (("camera", cam_rays),
+                            ("bounce", bounce_rays(torch, stress, cam,
+                                                   cam_rays, isect))):
+            nh = hits_vs_k4(torch, f"'{name}' on stress {rname} rays",
+                            isect(rays), rays, pack)
+            print(f"stress '{name}' on {rname} rays: t, mati and the hit "
+                  f"normals equal to K4's over the reordered triangles "
+                  f"({nh} hits)")
+    # K20: the second step of the lazy pipeline, its call captured.
+    step, init, lrt = lazy.make_lazy_pipeline(stress.tris, cs=512, tr=256,
+                                              K=4, tail=4096)
+    lpack = k1.build_tri_pack(lrt)
+    real_run, real_shade, got = lazy.run_lazy_march, lazy.shade, {}
+
+    def capture_run(*a):
+        got["args"] = a
+        return real_run(*a)
+
+    def capture_shade(cam_, mat, hit, ray_p, ray_d, inside, r1, r2, has_hit):
+        got["shade"] = (hit, ray_p, ray_d, has_hit)
+        return real_shade(cam_, mat, hit, ray_p, ray_d, inside, r1, r2,
+                          has_hit)
+
+    key = rng.key(1)
+    st = init(cam, W * H, mode="fast", key=key)
+    lazy.run_lazy_march, lazy.shade = capture_run, capture_shade
+    try:
+        certified = []
+        for _ in range(2):
+            c0 = int(st.completions)
+            st = step(cam, stress.mats, st, iterations=BOUNCES, mode="fast",
+                      key=key)
+            certified.append(int(st.completions) - c0)
+            hit, ray_p, ray_d, has_hit = got["shade"]
+            sel = torch.nonzero(has_hit).flatten()
+            sub = type(cam_rays)(p=tuple(x[sel] for x in ray_p),
+                                 d=tuple(x[sel] for x in ray_d))
+            sub_hits = type(hit)(t=hit.t[sel], p=tuple(x[sel] for x in hit.p),
+                                 n=tuple(x[sel] for x in hit.n),
+                                 mati=hit.mati[sel])
+            hits_vs_k4(torch, "lazy certified lanes", sub_hits, sub, lpack)
+    finally:
+        lazy.run_lazy_march, lazy.shade = real_run, real_shade
+    clist_l, l8, lfeat, rows_in, vis, lsc, lcs, lk, ltr = got["args"]
+    o20, v20 = lm.run_lazy_march(*got["args"])
+    pl = p * ltr
+    plain, lplain_ms = timed(lambda: lm.lazy_plain(
+        clist_l[:p * lk], l8[:, :pl].contiguous(), lfeat[:, :pl].contiguous(),
+        rows_in[:, :pl].contiguous(), vis[:, :pl].contiguous(), lsc, lcs, lk,
+        ltr))
+    compare("lazy_march", (o20[:, :pl], v20[:, :pl]), plain,
+            f"the lazy pipeline's second step (first {p} blocks)")
+    lv = int((clist_l >= 0).sum())
+    print(f"lazy stress: {W * H} lanes certified {certified} in its first "
+          f"two steps, each certified hit equal to K4's; lazy_march on the "
+          f"second step ({lv} visits, {int(o20[6].sum())} pending, "
+          f"{vis.shape[0]} mask words) equal to its plain version on the "
+          f"first {p} blocks (torch.equal)")
+    inputs["lazy_march"] = (got["args"], lv, lplain_ms)
+    return inputs
+
+
 def check_goldens(torch, np):
     from opencl_path_tracer_tpu_torch.models import megakernel
     from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
@@ -847,10 +1060,11 @@ def check_goldens(torch, np):
 
 def check_no_fallback(torch, scenes):
     """With the kernel loader broken, a CUDA call must raise (K1, K4, K7,
-    K6, K3b, K8, K9, K10, K11, K12, K17 and K16)."""
+    K6, K3b, K8, K9, K10, K11, K12, K17, K16, K18, K18m, K19 and K20)."""
     from opencl_path_tracer_tpu_torch.ops.kernels import _build
     from opencl_path_tracer_tpu_torch.ops.kernels import (
-        cluster_kernel as ck, intersect_kernel as k1, pair_mxu as pm,
+        cluster_kernel as ck, flat_march as fm, intersect_kernel as k1,
+        lazy_march as lm, march_kernel as mk, pair_mxu as pm,
         shading_kernel as k8, sorted_intersect as si, sphere_kernel as k3,
         tilecull_kernel as tk)
     pack = k1.build_tri_pack(scenes["cornell"].tris)
@@ -860,6 +1074,10 @@ def check_no_fallback(torch, scenes):
     gpack, groups, _ = tk.grouped_pack(scenes["cornell"].tris, 128)
     table = k3.build_sphere_table(scenes["many-lights"].spheres)
     rays8 = torch.zeros((8, 64), device="cuda")
+    msc = mk.build_march_scene(scenes["cornell"].tris, 256)[0]
+    mlist = torch.zeros(1, dtype=torch.int32, device="cuda")
+    m8 = torch.zeros((8, 128), device="cuda")
+    mfeat = torch.zeros((32, 128), dtype=torch.bfloat16, device="cuda")
     calls = {
         "minarg": lambda: k1.minarg(rays8, pack),
         "dense": lambda: k1.dense(rays8, pack),
@@ -893,6 +1111,16 @@ def check_no_fallback(torch, scenes):
             torch.zeros(1, dtype=torch.int32, device="cuda"),
             torch.zeros((2048, 8), device="cuda"),
             torch.zeros((128, 24), device="cuda"), 128, 2048),
+        "march": lambda: mk.run_march(mlist, m8, mfeat, msc, 256, 1, 128),
+        "materialize": lambda: mk.materialize(mlist, m8, mfeat),
+        "flat_march": lambda: fm.run_flat(
+            torch.zeros(1, dtype=torch.int32, device="cuda"),
+            torch.zeros(1, dtype=torch.int32, device="cuda"), m8, mfeat,
+            mk.miss_rows(128, "cuda"), msc, 256, 128),
+        "lazy_march": lambda: lm.run_lazy_march(
+            mlist, m8, mfeat, mk.miss_rows(128, "cuda")[:6].contiguous(),
+            torch.zeros((1, 128), dtype=torch.int32, device="cuda"), msc,
+            256, 1, 128),
     }
     real = _build.library
 
@@ -929,10 +1157,79 @@ def run_path(torch, name, fn):
     return result, dt, {k: v for k, v in counts.items() if v}
 
 
+def march_stats_line(name, stats):
+    """One line of the march or flat intersector's schedule over a run's
+    calls: the lanes resolved after round 1 (and, for 'march', round 2),
+    the dense tail's iterations and lanes, and the pending lanes."""
+    lanes = sum(s["lanes"] for s in stats)
+    r1 = sum(s["round1_resolved"] for s in stats)
+    line = (f"{name}: {len(stats)} intersector calls, {lanes} lanes; round 1 "
+            f"resolved {r1 / lanes:.4f}")
+    if "round2_resolved" in stats[0]:
+        r2 = sum(s["round2_resolved"] for s in stats)
+        line += f", after round 2 {r2 / lanes:.4f}"
+    else:
+        line += (f" ({sum(s['visits'] for s in stats)} visits, "
+                 f"{sum(s['overflow_blocks'] for s in stats)} blocks over "
+                 "the list's capacity)")
+    tail = sum(s["tail_lanes"] for s in stats)
+    iters = sum(s["tail_iterations"] for s in stats)
+    pend = sum(s["pending"] for s in stats)
+    print(f"{line}; tail {iters} iterations over {tail} lanes; pending "
+          f"{pend / lanes:.5f}")
+
+
+def lazy_path(torch, scene, cam, report):
+    """'lazy stress': the lazy pipeline as `bench.py --model lazy` builds
+    it (cs 512, tr 256, K 4, tail 4096, fast mode, key 1) at 1920x1080, 2
+    warm-up steps, then LAZY_STEPS timed ones. Reports segment
+    completions per second (certified lanes, as bench.py counts them) and
+    samples per second (per-pixel samples finished in the timed steps)."""
+    from opencl_path_tracer_tpu_torch.models import lazy
+    from opencl_path_tracer_tpu_torch.ops import rng
+    key = rng.key(1)
+    step, init, _ = lazy.make_lazy_pipeline(scene.tris, cs=512, tr=256, K=4,
+                                            tail=4096)
+    box = {}
+
+    def run():
+        st = init(cam, W * H, mode="fast", key=key)
+        for _ in range(2):
+            st = step(cam, scene.mats, st, iterations=BOUNCES, mode="fast",
+                      key=key)
+        c0, s0 = int(st.completions), int(st.samples.sum())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LAZY_STEPS):
+            st = step(cam, scene.mats, st, iterations=BOUNCES, mode="fast",
+                      key=key)
+        torch.cuda.synchronize()
+        box["dt"] = time.perf_counter() - t0
+        box["segs"] = int(st.completions) - c0
+        box["spp"] = (int(st.samples.sum()) - s0) / (W * H)
+        box["st"] = st
+
+    torch.cuda.reset_peak_memory_stats()
+    _, _, counts = run_path(torch, "lazy stress", run)
+    st, dt = box["st"], box["dt"]
+    cols = torch.stack(st.colors)
+    need(bool(torch.isfinite(cols).all()) and float(cols.mean()) > 0.0
+         and box["spp"] > 0.0, "lazy stress: bad state")
+    print(f"lazy stress: {LAZY_STEPS} timed steps in {dt:.3f} s: "
+          f"{box['segs']} segment completions ({box['segs'] / LAZY_STEPS / (W * H):.4f} "
+          f"of the lanes certified per step), "
+          f"{box['segs'] / dt / 1e6:.1f} M completions/s; "
+          f"{box['spp']:.4f} spp finished, mean samples "
+          f"{float(st.samples.float().mean()):.3f}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    report("lazy stress", dt, box["segs"], box["spp"], counts)
+
+
 def main_path(torch, np, scenes, cam):
     from opencl_path_tracer_tpu_torch.config import CameraConfig, RenderConfig
     from opencl_path_tracer_tpu_torch.models import pipeline
     from opencl_path_tracer_tpu_torch.ops import rng
+    from opencl_path_tracer_tpu_torch.ops.kernels import march_kernel as mk
     from opencl_path_tracer_tpu_torch.ops.kernels import sorted_intersect as si
     from opencl_path_tracer_tpu_torch.runtime.engine import RenderEngine
     total = {name: 0 for name in KERNEL_META}
@@ -998,16 +1295,35 @@ def main_path(torch, np, scenes, cam):
               cfg(spp=CLUSTER_SPP, accel="cluster")),
              ("megakernel reference group", "reference",
               cfg(camera=CameraConfig(), accel="group")),
-             ("megakernel cornell group", "cornell", cfg(accel="group"))]
+             ("megakernel cornell group", "cornell", cfg(accel="group")),
+             # The march family: 'march' (K18m + K18 rounds 1 and 2, K4
+             # tail) and 'flat' (K18 round 0, K19, K4 tail).
+             ("megakernel stress march", "stress",
+              cfg(spp=STRESS_SPP, accel="march")),
+             ("megakernel stress flat", "stress",
+              cfg(spp=STRESS_SPP, accel="flat"))]
     for name, sname, c in packs:
         engines.append((name, RenderEngine(scenes[sname], c, device="cuda")))
     for name, eng in engines:
         spp = eng.cfg.spp
+        torch.cuda.reset_peak_memory_stats()
         _, dt, counts = run_path(torch, name, lambda: eng.render(spp))
         img = eng.image()
         need(img.shape == (H, W, 3) and np.isfinite(img).all()
              and img.mean() > 0.0, f"{name}: bad image")
         report(name, dt, eng.rays_traced, spp, counts)
+        print(f"{name}: peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if counts.get("march"):
+            # The march schedule, from as many samples again with the
+            # counters on, outside the timed run.
+            mk.STATS = []
+            try:
+                eng.render(spp)
+                stats = mk.STATS
+            finally:
+                mk.STATS = None
+            march_stats_line(name, stats)
         if counts.get("pair_cand"):
             # The schedule, from as many samples again with the counters
             # on, outside the timed run: they read counts back per call.
@@ -1048,6 +1364,7 @@ def main_path(torch, np, scenes, cam):
           f"{int((st.samples == 0).sum())} lanes without a finished sample")
     report("fused cornell", secs, st.lanes * FUSED_STEPS, timed / (W * H),
            counts)
+    lazy_path(torch, scenes["stress"], cam, report)
     return total
 
 
@@ -1258,6 +1575,67 @@ def slice6_rows(torch, inputs):
     return rows_out
 
 
+def slice7_rows(torch, inputs):
+    """The timing rows of K18, K18m, K19 and K20 at the stress scene's
+    1080p shapes: K18 and K18m on 'march' round 1 of the camera rays, K19
+    on 'flat' round 1, K20 on the lazy pipeline's second step.
+
+    Operations (K10's count): per (lane, triangle) test of a real visit
+    (tr lanes x cs triangles; dummies none) 3 x 18 bf16 multiply-adds for
+    E at the bf16 rate and 26 float32 operations, and per (lane, visit) 2
+    x 48 for the candidates' exact tests. Bytes: the rays' six rows and
+    the features' 18 rows read (60 bytes a lane), the packs once, the list
+    (4 bytes a visit, K19 8), the seven rows out (28 bytes a lane), K19's
+    and K20's start rows (28 and 24) and K20's mask in and out. K18m: its
+    three buffers read and written once; library_ms is `.clone()` of the
+    three. The plain times are the checks' calls on the first
+    PLAIN_BLOCKS blocks. No single PyTorch call computes K18, K19 or K20:
+    their library_ms is null."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import (
+        flat_march as fm, lazy_march as lm, march_kernel as mk)
+    rows = []
+    clist, r8s, feat, ms, cs, K, tr, nv, plain_ms = inputs["march"]
+    n = r8s.shape[1]
+    packs = ms.trig.numel() * 2 + ms.tric.numel() * 4
+
+    def visit_ops(visits, tr_, cs_):
+        tests = visits * tr_ * cs_
+        return 26 * tests + 96 * visits * tr_, 2 * 54 * tests
+
+    ops, bf16 = visit_ops(nv, tr, cs)
+    rows.append(("march", lambda: mk.run_march(clist, r8s, feat, ms, cs, K,
+                                               tr),
+                 plain_ms, ops, bf16, 60 * n + packs + 4 * clist.numel()
+                 + 28 * n))
+    nbytes = clist.numel() * 4 + r8s.numel() * 4 + feat.numel() * 2
+    rows.append(("materialize", lambda: mk.materialize(clist, r8s, feat),
+                 lambda: mk.materialize_plain(clist, r8s, feat), 0, 0,
+                 2 * nbytes,
+                 lambda: (clist.clone(), r8s.clone(), feat.clone())))
+    vb, vc, f8, ffeat, rows0, fs, fcs, ftr, fv, fplain_ms = inputs[
+        "flat_march"]
+    fn = f8.shape[1]
+    ops, bf16 = visit_ops(fv, ftr, fcs)
+    rows.append(("flat_march", lambda: fm.run_flat(vb, vc, f8, ffeat, rows0,
+                                                   fs, fcs, ftr),
+                 fplain_ms, ops, bf16,
+                 60 * fn + fs.trig.numel() * 2 + fs.tric.numel() * 4
+                 + 8 * vb.numel() + 28 * fn + 28 * fn))
+    args, lv, lplain_ms = inputs["lazy_march"]
+    clist_l, l8, lfeat, rows_in, vis, lsc, lcs, lk, ltr = args
+    ln = l8.shape[1]
+    ops, bf16 = visit_ops(lv, ltr, lcs)
+    rows.append(("lazy_march", lambda: lm.run_lazy_march(*args), lplain_ms,
+                 ops, bf16,
+                 60 * ln + lsc.trig.numel() * 2 + lsc.tric.numel() * 4
+                 + 4 * clist_l.numel() + 24 * ln + 28 * ln
+                 + 2 * vis.numel() * 4))
+    print(f"march: {nv * tr * cs} (lane, triangle) tests over {nv} visits; "
+          f"flat_march: {fv * ftr * fcs} over {fv}; lazy_march: "
+          f"{lv * ltr * lcs} over {lv}")
+    return rows
+
+
 def measure(torch, inputs, errs, launches):
     from opencl_path_tracer_tpu_torch.models import fused_step as fs
     from opencl_path_tracer_tpu_torch.ops.kernels import (
@@ -1382,6 +1760,7 @@ def measure(torch, inputs, errs, launches):
           f"{pairs_b / b8.shape[1]:.1f} per ray")
     rows += pair_rows(torch, inputs)
     rows += slice6_rows(torch, inputs)
+    rows += slice7_rows(torch, inputs)
     out = []
     for name, kern, plain, ops, bf16_ops, nbytes, *lib in rows:
         ms = time_ms(torch, kern, 20)
@@ -1443,6 +1822,7 @@ def main() -> int:
     inputs.update(check_smooth(torch, scenes, errs))
     inputs.update(check_pairs(torch, scenes, cam, errs))
     inputs.update(check_slice6(torch, scenes, cam, cam_rays, errs))
+    inputs.update(check_slice7(torch, scenes, cam, cam_rays, errs))
     check_goldens(torch, np)
     check_no_fallback(torch, scenes)
     launches = main_path(torch, np, scenes, cam)

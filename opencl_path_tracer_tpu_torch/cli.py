@@ -152,7 +152,8 @@ def main(argv=None) -> int:
                         "minarg, pallas, tilecull, pairwin (the pair "
                         "intersector for large scenes), pair (the same at "
                         "its own defaults), cluster, group (at most 30 "
-                        "clusters of 128) or bruteforce (CPU)")
+                        "clusters of 128), march (block march), flat (flat "
+                        "visit list) or bruteforce (CPU)")
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--tonemap", default="reinhard")
     p.add_argument("--qmc", action="store_true",

@@ -6,7 +6,7 @@ port honours the megakernel and wavefront models, both modes, the
 camera, bounce depth, spp, seed, tonemap, QMC jitter, Russian roulette
 (wavefront), next-event estimation (nee, nee_select, nee_anyhit), smooth
 shading and the 'auto' / 'minarg' / 'pallas' / 'tilecull' / 'pairwin' /
-'pair' / 'cluster' / 'group' / 'bruteforce' accels; every
+'pair' / 'cluster' / 'group' / 'march' / 'flat' / 'bruteforce' accels; every
 other field raises NotImplementedError when it is set away from its
 default.
 """
@@ -21,7 +21,7 @@ REF_WIDTH = 192 * 8  # 1536
 REF_HEIGHT = 108 * 8  # 864
 REF_MAX_ITERATIONS = 50
 ACCELS = ("auto", "minarg", "pallas", "tilecull", "pairwin", "pair",
-          "cluster", "group", "bruteforce")
+          "cluster", "group", "march", "flat", "bruteforce")
 
 
 @dataclasses.dataclass

@@ -2,7 +2,7 @@
 
 No counterpart module in `opencl_path_tracer_tpu`. These functions take
 plain numpy arrays, so a JAX `Scene`, `TraceState`, `WavefrontState`,
-`ClusterScene` or the fused pipeline's packed `(F, I, step)` (or a
+`LazyState`, `ClusterScene` or the fused pipeline's packed `(F, I, step)` (or a
 checkpoint of one) converts with `np.asarray` on each field and no
 import of JAX here.
 Triangle constants are rebuilt from the vertices; they come out bit-equal
@@ -19,6 +19,7 @@ import torch
 from opencl_path_tracer_tpu_torch.core.geometry import TrianglesSoA
 from opencl_path_tracer_tpu_torch.core.materials import MaterialsSoA
 from opencl_path_tracer_tpu_torch.core.spheres import SpheresSoA
+from opencl_path_tracer_tpu_torch.models.lazy import LazyState
 from opencl_path_tracer_tpu_torch.models.megakernel import TraceState
 from opencl_path_tracer_tpu_torch.models.wavefront import WavefrontState
 from opencl_path_tracer_tpu_torch.ops.kernels.cluster_kernel import (
@@ -160,6 +161,66 @@ def wavefront_state_to_numpy(state: WavefrontState) -> dict:
         v = getattr(state, f.name)
         if f.name == "step":
             out[f.name] = int(v)
+        elif isinstance(v, tuple):
+            out[f.name] = tuple(c.cpu().numpy() for c in v)
+        elif f.name == "rng_state":
+            out[f.name] = v.cpu().numpy().astype(np.uint32)
+        else:
+            out[f.name] = v.cpu().numpy()
+    return out
+
+
+_LAZY_DTYPES = {"samples": torch.int32, "pixel": torch.int32,
+                "rng_state": torch.int64, "inside": torch.bool,
+                "bounce": torch.int32}
+
+
+def lazy_state_from_numpy(fields, device="cpu") -> LazyState:
+    """LazyState from a mapping of its field names to arrays, e.g.
+    `{f: jax.tree.map(np.asarray, getattr(jax_state, f)) ...}` of a JAX
+    LazyState: V3 fields as 3-tuples of (N,) arrays, rng_state uint32,
+    vis a tuple of CW (N,) uint32 arrays (held as one (CW, N) int32
+    tensor of the same bits), step and completions scalars."""
+    out = {}
+    for f in dataclasses.fields(LazyState):
+        v = fields[f.name]
+        if f.name == "step":
+            out[f.name] = int(np.asarray(v))
+        elif f.name == "completions":
+            out[f.name] = torch.tensor(int(np.asarray(v)), dtype=torch.int64,
+                                       device=device)
+        elif f.name == "vis":
+            words = np.stack([np.asarray(w, np.uint32) for w in v])
+            out[f.name] = torch.as_tensor(words.view(np.int32), device=device)
+        elif f.name in _LAZY_DTYPES:
+            a = np.array(v)
+            if f.name == "rng_state":
+                a = a.astype(np.int64)
+            out[f.name] = torch.as_tensor(a, device=device).to(
+                _LAZY_DTYPES[f.name])
+        elif isinstance(v, (tuple, list)):
+            out[f.name] = tuple(torch.as_tensor(np.array(c, np.float32),
+                                                device=device) for c in v)
+        else:
+            out[f.name] = torch.as_tensor(np.array(v, np.float32),
+                                          device=device)
+    return LazyState(**out)
+
+
+def lazy_state_to_numpy(state: LazyState) -> dict:
+    """Field name -> numpy in the JAX LazyState's layout: V3 fields as
+    3-tuples of (N,) float32, rng_state uint32, vis a tuple of CW (N,)
+    uint32, step an int, completions a uint32 scalar."""
+    out = {}
+    for f in dataclasses.fields(LazyState):
+        v = getattr(state, f.name)
+        if f.name == "step":
+            out[f.name] = int(v)
+        elif f.name == "completions":
+            out[f.name] = np.uint32(int(v) & 0xFFFFFFFF)
+        elif f.name == "vis":
+            words = v.cpu().numpy().view(np.uint32)
+            out[f.name] = tuple(words[k] for k in range(words.shape[0]))
         elif isinstance(v, tuple):
             out[f.name] = tuple(c.cpu().numpy() for c in v)
         elif f.name == "rng_state":

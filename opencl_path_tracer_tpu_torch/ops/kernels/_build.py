@@ -62,6 +62,12 @@ KERNELS = {
     "cluster": ("cluster.cu", "ptx_cluster",
                 [P, P, P, P, P, P, I, I, I, I, I, P]),
     "group": ("group.cu", "ptx_group", [P, P, P, P, I, I, I, I, P]),
+    "march": ("march.cu", "ptx_march", [P, P, P, P, P, P, I, I, I, I, P]),
+    "materialize": ("materialize.cu", "ptx_materialize",
+                    [P, P, P, P, P, P, I, I, I, P]),
+    "flat_march": ("flat.cu", "ptx_flat", [P, P, P, P, P, P, P, P, I, I, I, P]),
+    "lazy_march": ("lazy.cu", "ptx_lazy",
+                   [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P]),
 }
 
 # Launches per kernel since the last reset_launches(); each wrapper adds

@@ -35,10 +35,14 @@ _PLAIN_RAYS = 8192        # rays per chunk of minarg_plain
 _PLAIN_CELLS = 1 << 22    # (ray, triangle) tests per chunk of minarg_plain
 
 
-def pack_rays(p, d) -> torch.Tensor:
-    """(8, R) float32 rows [px py pz dx dy dz 0 0]."""
+def pack_rays(p, d, pad_to: int | None = None) -> torch.Tensor:
+    """(8, R) float32 rows [px py pz dx dy dz 0 0]; with pad_to, (8,
+    pad_to) with zero rays past R."""
     z = torch.zeros_like(p[0])
-    return torch.stack([p[0], p[1], p[2], d[0], d[1], d[2], z, z])
+    rows = torch.stack([p[0], p[1], p[2], d[0], d[1], d[2], z, z])
+    if pad_to is None or pad_to == rows.shape[1]:
+        return rows
+    return torch.cat([rows, rows.new_zeros((8, pad_to - rows.shape[1]))], 1)
 
 
 def _round_up(x: int, m: int) -> int:

@@ -1,0 +1,92 @@
+"""K20: the lazy march of the lazy-certification wavefront (CUDA kernel and
+plain version).
+
+Port of `opencl_path_tracer_tpu/ops/pallas/lazy_march.py`: the kernel
+`_lazy_kernel` (launched by `run_lazy_march`, lazy_march.py:50-254) and
+`unvisited_mask` (:257-264).
+
+K20 is K18's grid (block b of tr sorted lanes visits the clusters
+clist[b K : (b + 1) K], -1 a dummy) started from the six rows a lane
+carries across steps (t, nx, ny, nz, mati, g), pend from 0, merging as
+K18 (`march_kernel`). It also updates each lane's visited-cluster
+bitmask: a real visit that did not leave the lane pending sets cluster
+c's bit, bit c % 32 of word c // 32. The JAX package holds the mask as
+(CW, N) uint32; the port holds the same bits as int32 (`torch.uint32`
+lacks most kernels), and `interop` converts.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from opencl_path_tracer_tpu_torch.ops.kernels import _build
+from opencl_path_tracer_tpu_torch.ops.kernels import march_kernel as mk
+from opencl_path_tracer_tpu_torch.ops.kernels.plucker_kernel import _u32
+
+MAX_CW = 32   # visited words csrc/lazy.cu keeps in registers (C <= 1,024)
+
+
+def lazy_plain(clist, rays8s, feat, rows0, vis, scene, cs: int, K: int,
+               tr: int):
+    """Plain PyTorch version of K20: ((7, N) rows, (CW, N) int32 mask)."""
+    n = rays8s.shape[1]
+    nb = n // tr
+    vb = torch.arange(nb, device=clist.device).repeat_interleave(K)
+    vc = clist.long()
+    live = vc >= 0
+    res = mk._visits_plain(rays8s, feat, scene, cs, tr, vb[live], vc[live])
+    start = torch.cat([rows0, torch.zeros_like(rows0[:1])])
+    out = mk._merge_plain(start, vb[live], *res, scene.tric, tr)
+    # Visits of one list column touch distinct blocks, so each column's
+    # (word, block) pairs are distinct and its bits OR in one assignment.
+    words = _u32(vis).view(-1, nb, tr)
+    col = torch.arange(vb.numel(), device=clist.device)[live] % K
+    ok = ~res[3]
+    cid = vc[live]
+    bits = torch.where(ok, (1 << (cid % 32))[:, None],
+                       torch.zeros_like(cid)[:, None])
+    for u in range(K):
+        m = col == u
+        w, b = cid[m] // 32, vb[live][m]
+        words[w, b] = words[w, b] | bits[m]
+    words = words.view(-1, n)
+    return out, (words - ((words >> 31) << 32)).to(torch.int32)
+
+
+def run_lazy_march(clist, rays8s, feat, best_rows, vis, scene, cs: int,
+                   K: int, tr: int):
+    """K20: ((7, N) rows [t nx ny nz mati g pend], (CW, N) int32 visited
+    mask) for the sorted lanes rays8s (8, N) with features feat (32, N)
+    bfloat16, the carried rows best_rows (6, N) and mask vis (CW, N)
+    int32 (uint32 bits), block b visiting clist[b K : (b + 1) K]. CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    c = mk.check_march_inputs(rays8s, feat, scene, cs, tr, "run_lazy_march")
+    n = rays8s.shape[1]
+    _build.check(clist, "clist", (n // tr * K,), dtype=torch.int32)
+    _build.check(best_rows, "best_rows", (6, n))
+    cw = -(-c // 32)
+    _build.check(vis, "vis", (cw, n), dtype=torch.int32)
+    if not clist.device == best_rows.device == vis.device == rays8s.device:
+        raise ValueError("clist, best_rows, vis and rays8s must be on one "
+                         "device")
+    if cw > MAX_CW:
+        raise ValueError(f"run_lazy_march keeps at most {MAX_CW} visited "
+                         f"words (C <= {32 * MAX_CW}); C is {c}")
+    if clist.numel() and int(clist.max()) >= c:
+        raise ValueError(f"clist names a cluster past C = {c}")
+    if rays8s.device.type == "cpu":
+        return lazy_plain(clist, rays8s, feat, best_rows, vis, scene, cs, K,
+                          tr)
+    out = torch.empty((7, n), dtype=torch.float32, device=rays8s.device)
+    vis_out = torch.empty_like(vis)
+    if n:
+        _build.launch("lazy_march", clist, rays8s, feat, best_rows, vis,
+                      scene.trig, scene.tric, out, vis_out, n, K, tr, cs, cw)
+    return out, vis_out
+
+
+def unvisited_mask(vis: torch.Tensor, C: int) -> torch.Tensor:
+    """(CW, N) int32 bitmask -> (C, N) bool: cluster c NOT visited."""
+    c = torch.arange(C, device=vis.device)
+    return ((vis[c // 32] >> (c % 32).to(torch.int32)[:, None]) & 1) == 0

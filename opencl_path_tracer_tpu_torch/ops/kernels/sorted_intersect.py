@@ -68,7 +68,7 @@ from opencl_path_tracer_tpu_torch.ops.kernels.intersect_kernel import (
     pack_rays,
 )
 from opencl_path_tracer_tpu_torch.ops.kernels.march_kernel import (
-    build_march_scene,
+    _slab_axis, build_march_scene,
 )
 from opencl_path_tracer_tpu_torch.ops.kernels import pair_mxu
 from opencl_path_tracer_tpu_torch.ops.kernels.plucker_kernel import (
@@ -106,21 +106,6 @@ def _hits_from_raw(rays: Rays, best_t, n3, m, r: int) -> Hits:
         n=tuple(torch.where(any_hit, a[:r], z) for a in n3),
         mati=torch.where(any_hit, m[:r], z).to(torch.int32),
     )
-
-
-def _slab_axis(tmin, tmax, bl, bh, p, d):
-    """One slab of the cluster test (d == 0: containment), as K9."""
-    d0 = d == 0.0
-    inv = torch.ones_like(d) / torch.where(d0, torch.ones_like(d), d)
-    t1 = (bl - p) * inv
-    t2 = (bh - p) * inv
-    lo = _xmin(t1, t2)
-    hi = _xmax(t1, t2)
-    inside = (p >= bl) & (p <= bh)
-    big = torch.full_like(lo, BIG)
-    lo = torch.where(d0, torch.where(inside, -big, big), lo)
-    hi = torch.where(d0, torch.where(inside, big, -big), hi)
-    return _xmax(tmin, lo), _xmin(tmax, hi)
 
 
 def _perray_slab(comps, boxes: torch.Tensor) -> torch.Tensor:

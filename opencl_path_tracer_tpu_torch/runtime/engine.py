@@ -23,8 +23,13 @@ pair intersector at its own defaults (the VPU pairs round K12 on Morton
 clusters of 512, K9 on their boxes, the full attribute payload, no K11);
 'cluster' is K17 (per-tile cluster lists, `make_cluster_intersect`);
 'group' is K16 (mask-sorted rays, scenes of at most 30 clusters,
-`make_group_intersect`). 'auto' never picks these three, and the port
-prints none of the JAX package's TPU-only warnings about them. Analytic spheres go
+`make_group_intersect`). 'march' is the block march (K18 rounds 1 and 2
+after their K18m copies, K4 tail; `make_march_intersect` at cs = tr =
+512, K1 = 24, K2 = 64) and 'flat' the flat visit list (K18 round 0, K19,
+K4 tail; `make_flat_march_intersect` at cs = tr = 256, K0 = 4), the JAX
+engine's defaults (engine.py:435-450); their hits report no triangle
+ids, so smooth shading refuses them. 'auto' never picks these five, and
+the port prints none of the JAX package's TPU-only warnings about them. Analytic spheres go
 through K3 (K3b above 64) and are min-merged after the triangles. With
 `smooth`, the triangle winner's normal is the interpolated vertex normal
 (`_make_smooth_tri_fn`): 'auto' is 'minarg' (K1 then K8) up to 4,096
@@ -63,6 +68,12 @@ from opencl_path_tracer_tpu_torch.ops.kernels.shading_kernel import (
 from opencl_path_tracer_tpu_torch.ops.kernels.cluster_kernel import (
     make_cluster_intersect,
 )
+from opencl_path_tracer_tpu_torch.ops.kernels.flat_march import (
+    make_flat_march_intersect,
+)
+from opencl_path_tracer_tpu_torch.ops.kernels.march_kernel import (
+    make_march_intersect,
+)
 from opencl_path_tracer_tpu_torch.ops.kernels.sorted_intersect import (
     PAIR_TPU_WINNER, make_group_intersect, make_pair_intersect,
 )
@@ -91,7 +102,7 @@ def resolve_accel(accel: str, num_triangles: int, on_cuda: bool,
             "accel 'bruteforce' is the plain PyTorch reference and does not "
             "run on CUDA; use 'minarg' (or 'auto')")
     if accel not in ("minarg", "pallas", "tilecull", "pairwin", "pair",
-                     "cluster", "group", "bruteforce"):
+                     "cluster", "group", "march", "flat", "bruteforce"):
         raise NotImplementedError(
             f"accel {accel!r} is not ported yet (ROADMAP.md queue 2)")
     return accel
@@ -170,6 +181,10 @@ def make_intersect_fn(scene: Scene, accel: str = "auto", origin=None,
         tri_fn = make_cluster_intersect(scene.tris)
     elif accel == "group":
         tri_fn = make_group_intersect(scene.tris)
+    elif accel == "march":
+        tri_fn = make_march_intersect(scene.tris)[0]
+    elif accel == "flat":
+        tri_fn = make_flat_march_intersect(scene.tris)[0]
     else:
         tri_fn = functools.partial(intersect.first_intersect, tris=scene.tris)
     if scene.spheres is None:

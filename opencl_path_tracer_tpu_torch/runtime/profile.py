@@ -27,13 +27,22 @@ per step. Needs a GPU:
         --accel cluster --spp 1
     python -m opencl_path_tracer_tpu_torch.runtime.profile --scene reference \\
         --models-dir tests/assets/models --accel group
+    python -m opencl_path_tracer_tpu_torch.runtime.profile --scene stress \\
+        --accel march
+    python -m opencl_path_tracer_tpu_torch.runtime.profile --scene stress \\
+        --accel flat
+    python -m opencl_path_tracer_tpu_torch.runtime.profile --scene stress \\
+        --model lazy
 
 --model megakernel and wavefront render --spp samples through
 `RenderEngine` (with --nee, --nee-select, --accel, --smooth and
 --models-dir as `ptx-torch render` takes them; `--scene stress`, 99,380
 triangles, runs the pair intersector through 'auto'); fused runs --steps
 steps of `models.pipeline`'s fast pipeline (triangles only: --scene
-cornell).
+cornell); lazy runs --steps steps of `models.lazy`'s pipeline as
+`bench.py --model lazy` builds it (cs 512, tr 256, K 4, tail 4096, fast
+mode, key 1) after two warm-up steps, its samples the per-pixel samples
+those steps finished.
 """
 
 from __future__ import annotations
@@ -72,6 +81,8 @@ def _workload(args, dev):
                               if args.model == "wavefront" else None)
         return run
 
+    if args.model == "lazy":
+        return _lazy_workload(args, scene, w, h, dev)
     from opencl_path_tracer_tpu_torch.models import pipeline
     from opencl_path_tracer_tpu_torch.scene import library
     camera = library.cornell_camera(w, h, device=dev)
@@ -92,19 +103,46 @@ def _workload(args, dev):
     return run
 
 
+def _lazy_workload(args, scene, w, h, dev):
+    from opencl_path_tracer_tpu_torch.cli import _camera_preset
+    from opencl_path_tracer_tpu_torch.core.camera import make_camera
+    from opencl_path_tracer_tpu_torch.models import lazy
+    from opencl_path_tracer_tpu_torch.ops import rng
+    c = _camera_preset(args.scene, args)
+    cam = make_camera(w, h, fov=c.fov, yaw=c.yaw, pitch=c.pitch,
+                      shift=c.shift, device=dev)
+    key = rng.key(1)
+    step, init, _ = lazy.make_lazy_pipeline(scene.tris, cs=512, tr=256, K=4,
+                                            tail=4096, device=dev)
+    box = [init(cam, w * h, mode="fast", key=key)]
+    for _ in range(2):  # warm-up
+        box[0] = step(cam, scene.mats, box[0], iterations=args.iters,
+                      mode="fast", key=key)
+
+    def run():
+        st = box[0]
+        s0 = int(st.samples.sum())
+        for _ in range(args.steps):
+            st = step(cam, scene.mats, st, iterations=args.iters,
+                      mode="fast", key=key)
+        box[0] = st
+        return (int(st.samples.sum()) - s0) / (w * h), args.steps
+    return run
+
+
 def main(argv=None) -> int:
     from opencl_path_tracer_tpu_torch.utils.device import resolve_device
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="megakernel",
-                    choices=("megakernel", "wavefront", "fused"))
+                    choices=("megakernel", "wavefront", "fused", "lazy"))
     ap.add_argument("--scene", default="cornell")
     ap.add_argument("--size", default="1920x1080")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--spp", type=int, default=2,
                     help="samples per profiled run (megakernel, wavefront)")
     ap.add_argument("--steps", type=int, default=16,
-                    help="steps per profiled run (fused)")
+                    help="steps per profiled run (fused, lazy)")
     ap.add_argument("--mode", default="fast")
     ap.add_argument("--accel", default="auto")
     ap.add_argument("--nee", action="store_true",

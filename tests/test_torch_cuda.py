@@ -330,3 +330,89 @@ def test_sixth_slice_kernels_equal_plain_versions(cuda, monkeypatch):
         ck.run_cluster(r8, cnt, ids17, ent, cs17.rows(), k17, 256)
     with pytest.raises(RuntimeError, match="disabled"):
         si.run_group(union, r16, cs16.rows(), k16, 2048)
+
+
+@pytest.mark.cuda
+def test_seventh_slice_kernels_equal_plain_versions(cuda, monkeypatch):
+    """K18 (with its K18m copy), K19 and K20 against their plain versions
+    on the card, on stress_scene(6000) with clusters of 256 (chip_smoke.py
+    runs them on the 99,380-triangle scene at 1080p); the 'march' and
+    'flat' hits equal K4's over the reordered triangles; the CPU plain
+    versions agree with the card; with the loader broken, each raises."""
+    from opencl_path_tracer_tpu_torch.core.types import Rays
+    from opencl_path_tracer_tpu_torch.ops.kernels import flat_march as fm
+    from opencl_path_tracer_tpu_torch.ops.kernels import lazy_march as lm
+    from opencl_path_tracer_tpu_torch.ops.kernels import march_kernel as mk
+    from opencl_path_tracer_tpu_torch.ops.kernels.plucker_kernel import (
+        plucker_feat,
+    )
+    scene = library.stress_scene(6000, device=cuda)
+    cs, tr, K = 256, 256, 6
+    ms, rt, c = mk.build_march_scene(scene.tris, cs)
+    n = 20_224   # 79 blocks of 256
+    r8 = _rays8(n, 7, cuda)
+    order = torch.sort(mk.lane_key(r8[0:3], r8[3:6], ms), stable=True).indices
+    r8s = r8[:, order].contiguous()
+    feat = plucker_feat(r8s)
+    ent, need = mk._slab_entries(r8s, ms, torch.full((n,), k1.BIG,
+                                                     device=cuda))
+    clist = mk._block_lists(ent, need, tr, K)
+    before = dict(_build.launches)
+    copies = mk.materialize(clist, r8s, feat)
+    for a, b in zip(copies, mk.materialize_plain(clist, r8s, feat)):
+        assert torch.equal(a, b)
+    out = mk.run_march(clist, r8s, feat, ms, cs, K, tr)
+    plain = mk.march_plain(clist, r8s, feat, ms, cs, K, tr)
+    assert torch.equal(out, plain)
+    assert int((out[0] < k1.BIG).sum()) > 0
+    cpu = mk.run_march(clist[:4 * K].cpu(), r8s[:, :4 * tr].cpu(),
+                       feat[:, :4 * tr].cpu(), mk.MarchScene(
+                           *(x.cpu() for x in (ms.trig, ms.tric, ms.boxes_lo,
+                                               ms.boxes_hi, ms.scene_lo,
+                                               ms.scene_inv))), cs, K, tr)
+    assert torch.equal(cpu, out[:, :4 * tr].cpu())
+    # K19 on a list that leaves every fifth block out.
+    bu = mk._need(ent, out[0]).view(c, -1, tr).any(dim=2)
+    bu[:, ::5] = False
+    vb, vc, _, _ = fm._build_visit_list(bu, 4096)
+    keep = (vb % 5 != 0) | (vc >= 0)
+    vb, vc = vb[keep].contiguous(), vc[keep].contiguous()
+    o19 = fm.run_flat(vb, vc, r8s, feat, out, ms, cs, tr)
+    assert torch.equal(o19, fm.flat_plain(vb, vc, r8s, feat, out, ms, cs,
+                                          tr))
+    # K20 from carried rows and a mask with some bits set.
+    vis = torch.zeros((-(-c // 32), n), dtype=torch.int32, device=cuda)
+    vis[0, ::3] = 5
+    o20, v20 = lm.run_lazy_march(clist, r8s, feat, out[:6].contiguous(), vis,
+                                 ms, cs, K, tr)
+    p20, pv20 = lm.lazy_plain(clist, r8s, feat, out[:6].contiguous(), vis,
+                              ms, cs, K, tr)
+    assert torch.equal(o20, p20) and torch.equal(v20, pv20)
+    assert bool((v20 != vis).any())
+    assert {k: _build.launches[k] - before[k]
+            for k in ("materialize", "march", "flat_march",
+                      "lazy_march")} == {"materialize": 1, "march": 1,
+                                         "flat_march": 1, "lazy_march": 1}
+    pack = k1.build_tri_pack(rt)
+    rays = Rays(p=tuple(r8[k].contiguous() for k in range(3)),
+                d=tuple(r8[k].contiguous() for k in range(3, 6)))
+    td = k1.dense(r8, pack)[0]
+    for isect, _ in (mk.make_march_intersect(scene.tris, cs=cs, tr=tr, K1=3,
+                                             K2=6, tail=2048),
+                     fm.make_flat_march_intersect(scene.tris, cs=cs, tr=tr,
+                                                  K0=2, tail=2048)):
+        assert torch.equal(isect(rays).t, torch.where(td < k1.BIG, td, -1.0))
+
+    def broken(name):
+        raise RuntimeError("kernel loader disabled by the test")
+
+    monkeypatch.setattr(_build, "library", broken)
+    with pytest.raises(RuntimeError, match="disabled"):
+        mk.run_march(clist, r8s, feat, ms, cs, K, tr)
+    with pytest.raises(RuntimeError, match="disabled"):
+        mk.materialize(clist, r8s, feat)
+    with pytest.raises(RuntimeError, match="disabled"):
+        fm.run_flat(vb, vc, r8s, feat, out, ms, cs, tr)
+    with pytest.raises(RuntimeError, match="disabled"):
+        lm.run_lazy_march(clist, r8s, feat, out[:6].contiguous(), vis, ms,
+                          cs, K, tr)

@@ -90,8 +90,10 @@ def test_config_refuses_unported_fields(field, value):
 
 def test_config_validation_and_json_roundtrip():
     with pytest.raises(NotImplementedError, match="queue 2"):
-        _cfg(accel="march").validate()
+        _cfg(accel="bvh").validate()
     assert _cfg(accel="pairwin").validate().accel == "pairwin"
+    assert _cfg(accel="march").validate().accel == "march"
+    assert _cfg(accel="flat").validate().accel == "flat"
     with pytest.raises(ValueError):
         _cfg(mode="parity", qmc=True).validate()
     with pytest.raises(ValueError):
@@ -155,8 +157,10 @@ def test_accel_resolution():
         "bruteforce"
     assert engine.resolve_accel("pallas", 10, on_cuda=True) == "pallas"
     assert engine.resolve_accel("tilecull", 10, on_cuda=True) == "tilecull"
+    assert engine.resolve_accel("march", 99_380, on_cuda=True) == "march"
+    assert engine.resolve_accel("flat", 10, on_cuda=False) == "flat"
     with pytest.raises(NotImplementedError):
-        engine.resolve_accel("march", 10, on_cuda=True)
+        engine.resolve_accel("bvh", 10, on_cuda=True)
 
 
 def test_console_script_and_package_data_declared():

@@ -42,8 +42,13 @@ def test_port_has_its_modules_and_kernel_sources():
     for f in ("minarg.cu", "refine1.cu", "spheres.cu", "anyhit.cu",
               "tilecull.cu", "sphere_table.cu", "smooth_refine.cu",
               "pair_cand.cu", "pair_visit.cu", "attr_fetch.cu",
-              "pair_vpu.cu", "cluster.cu", "group.cu", "cluster_block.cuh"):
+              "pair_vpu.cu", "cluster.cu", "group.cu", "cluster_block.cuh",
+              "march.cu", "materialize.cu", "flat.cu", "lazy.cu",
+              "march_visit.cuh"):
         assert (PORT / "csrc" / f).exists()
+    for f in ("ops/kernels/march_kernel.py", "ops/kernels/flat_march.py",
+              "ops/kernels/lazy_march.py", "models/lazy.py"):
+        assert (PORT / f) in FILES
 
 
 def test_build_flags():

@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the port's twenty-one CUDA kernels from
+It builds the port's twenty-three CUDA kernels from
 `opencl_path_tracer_tpu_torch/csrc/`, holds each against its plain
 PyTorch version at 1080p ray and lane counts, renders the three goldens
 of `tests/golden/` through the kernels, and drives the main paths at
@@ -55,7 +55,16 @@ and read just after:
     (K18, K19 and K20 on their first PLAIN_BLOCKS blocks), the 'march'
     and 'flat' hits against K4's over the reordered triangles on the
     camera and first-bounce rays, and the lazy lanes certified with a hit
-    against K4's hit.
+    against K4's hit;
+  * the two intersectors that no accel names, injected into the
+    megakernel model on the Cornell box, 8 spp each: K14 (K1 and K2 in
+    one launch) through `make_minarg_intersect(fuse_fetch=True)` and K15
+    (K4's outputs with the dots rounded as one matmul) through
+    `make_mxu_intersect`; neither path may launch K1 or K2, nor the mxu
+    path K4. K14 is held against its plain version and against K1 + K2
+    on the Cornell camera and first-bounce rays and the reference camera
+    rays, K15 against its plain version on the Cornell rays, with its
+    lanes that differ from K4's counted.
 
 The last two lines are a JSON object per kernel (time, plain time,
 bound, launches) and the verdict; the line before them, the smoke's total
@@ -148,6 +157,11 @@ KERNEL_META = {
                    "opencl_path_tracer_tpu/ops/pallas/flat_march.py:83"),
     "lazy_march": ("opencl_path_tracer_tpu_torch/csrc/lazy.cu",
                    "opencl_path_tracer_tpu/ops/pallas/lazy_march.py:50"),
+    "minarg_fused": ("opencl_path_tracer_tpu_torch/csrc/minarg_fused.cu",
+                     "opencl_path_tracer_tpu/ops/pallas/plucker_kernel.py"
+                     ":601"),
+    "mxu": ("opencl_path_tracer_tpu_torch/csrc/mxu.cu",
+            "opencl_path_tracer_tpu/ops/pallas/intersect_kernel.py:291"),
 }
 # Every kernel of each main path must launch in that path's run.
 PATH_KERNELS = {
@@ -178,6 +192,14 @@ PATH_KERNELS = {
     "megakernel stress march": ("materialize", "march", "dense"),
     "megakernel stress flat": ("materialize", "march", "flat_march", "dense"),
     "lazy stress": ("lazy_march", "dense"),
+    "megakernel cornell minarg-fused": ("minarg_fused",),
+    "megakernel cornell mxu": ("mxu",),
+}
+# Kernels each main path must not launch: the injected intersectors of
+# the last two run their one kernel in place of K1 + K2 (and K4).
+PATH_EXCLUDES = {
+    "megakernel cornell minarg-fused": ("minarg", "refine1"),
+    "megakernel cornell mxu": ("minarg", "refine1", "dense"),
 }
 PAIR_KERNELS = ("pair_cand", "pair_visit", "attr_fetch")
 MODELS_DIR = os.path.join(HERE, "tests", "assets", "models")
@@ -742,13 +764,6 @@ def check_slice6(torch, scenes, cam, cam_rays, errs):
         need(all(torch.equal(a, b) for a, b in zip(outs, plain)),
              f"{name} differs from its plain version on {where}")
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
     inputs = {}
     # K12 and K9 at the 'pair' defaults.
     stress = scenes["stress"]
@@ -773,7 +788,8 @@ def check_slice6(torch, scenes, cam, cam_rays, errs):
          else min(K12_PREFIX, keys_s.shape[0]))
     keys_n, r8p_n = keys_s[:n].contiguous(), r8p[:, :n].contiguous()
     out = si.run_pairs(keys_n, r8p_n, rows, k)
-    plain, plain_ms = timed(lambda: si.pairs_plain(keys_n, r8p_n, rows, k))
+    plain, plain_ms = timed(torch, lambda: si.pairs_plain(keys_n, r8p_n,
+                                                          rows, k))
     compare("pair_vpu", out, plain, "round 1's pairs of the stress camera "
             "rays")
     print(f"stress 'pair': {c} clusters of {k}; pair_cand (8-column table, "
@@ -806,7 +822,7 @@ def check_slice6(torch, scenes, cam, cam_rays, errs):
         crows = csc.rows()
         for ee in (False, True):
             o = ck.run_cluster(rr8, cnt, ids17, ent, crows, kk, 256, ee)
-            plain, ms = timed(lambda: ck.cluster_plain(
+            plain, ms = timed(torch, lambda: ck.cluster_plain(
                 rr8, cnt, ids17, ent, crows, kk, 256, ee))
             compare("cluster", o, plain, f"{sname} rays (early_exit {ee})")
             if sname == "stress camera" and not ee:
@@ -837,7 +853,8 @@ def check_slice6(torch, scenes, cam, cam_rays, errs):
                                                isect))):
         _, union, g8 = si.group_inputs(rays, gscene.boxes, 2048)
         o = si.run_group(union, g8, grows, k16, 2048)
-        plain, ms = timed(lambda: si.group_plain(union, g8, grows, k16, 2048))
+        plain, ms = timed(torch, lambda: si.group_plain(union, g8, grows,
+                                                        k16, 2048))
         compare("group", o, plain, f"reference {rname} rays")
         if rname == "camera":
             inputs["group"] = (union, g8, grows, k16, ms)
@@ -913,13 +930,6 @@ def check_slice7(torch, scenes, cam, cam_rays, errs):
         need(all(torch.equal(a, b) for a, b in zip(outs, plain)),
              f"{name} differs from its plain version on {where}")
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
     inputs = {}
     # K18m and K18: 'march' round 1.
     cs, tr, K = 512, 512, 24
@@ -930,7 +940,7 @@ def check_slice7(torch, scenes, cam, cam_rays, errs):
             "'march' round 1's operands")
     out = mk.run_march(*copies, ms, cs, K, tr)
     p = PLAIN_BLOCKS
-    plain, plain_ms = timed(lambda: mk.march_plain(
+    plain, plain_ms = timed(torch, lambda: mk.march_plain(
         clist[:p * K], r8s[:, :p * tr].contiguous(), feat[:, :p * tr].contiguous(),
         ms, cs, K, tr))
     compare("march", (out[:, :p * tr],), (plain,),
@@ -957,7 +967,7 @@ def check_slice7(torch, scenes, cam, cam_rays, errs):
     vb, vc, _, ovf = fm._build_visit_list(bu, vcap)
     out = fm.run_flat(vb, vc, f8, ffeat, rows0, fs, cs, tr)
     m = int((vb < p).sum())
-    plain, fplain_ms = timed(lambda: fm.flat_plain(
+    plain, fplain_ms = timed(torch, lambda: fm.flat_plain(
         vb[:m], vc[:m], f8[:, :p * tr].contiguous(),
         ffeat[:, :p * tr].contiguous(), rows0[:, :p * tr].contiguous(), fs,
         cs, tr))
@@ -1022,7 +1032,7 @@ def check_slice7(torch, scenes, cam, cam_rays, errs):
     clist_l, l8, lfeat, rows_in, vis, lsc, lcs, lk, ltr = got["args"]
     o20, v20 = lm.run_lazy_march(*got["args"])
     pl = p * ltr
-    plain, lplain_ms = timed(lambda: lm.lazy_plain(
+    plain, lplain_ms = timed(torch, lambda: lm.lazy_plain(
         clist_l[:p * lk], l8[:, :pl].contiguous(), lfeat[:, :pl].contiguous(),
         rows_in[:, :pl].contiguous(), vis[:, :pl].contiguous(), lsc, lcs, lk,
         ltr))
@@ -1035,6 +1045,79 @@ def check_slice7(torch, scenes, cam, cam_rays, errs):
           f"{vis.shape[0]} mask words) equal to its plain version on the "
           f"first {p} blocks (torch.equal)")
     inputs["lazy_march"] = (got["args"], lv, lplain_ms)
+    return inputs
+
+
+def check_slice8(torch, scenes, cam, cam_rays, errs):
+    """K14 against its plain version and against K1 + K2 on the card, on
+    the cornell camera and first-bounce rays and on the reference camera
+    rays (1,838 triangles); K15 against its plain version on all six
+    outputs on the cornell rays, and its lanes whose t, index or hit/miss
+    differ from K4's counted (information: the two round their dots
+    differently by design); every comparison torch.equal. Returns the inputs at which K14 and K15 are timed, with
+    their plain versions' times (ms) from these checks."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import (
+        intersect_kernel as k1, plucker_kernel as k2)
+    from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
+    from opencl_path_tracer_tpu_torch.scene import library
+
+    def compare(name, outs, plain, where):
+        torch.cuda.synchronize()
+        for a, b in zip(outs, plain):
+            errs[name] = max(errs[name], float((a - b).abs().max()))
+        need(all(torch.equal(a, b) for a, b in zip(outs, plain)),
+             f"{name} differs from its plain version on {where}")
+
+    inputs = {}
+    corn = scenes["cornell"]
+    pack = k1.build_tri_pack(corn.tris)
+    isect = make_intersect_fn(corn, "auto")
+    for rname, rays in (("camera", cam_rays),
+                        ("bounce", bounce_rays(torch, corn, cam, cam_rays,
+                                               isect))):
+        where = f"cornell {rname} rays"
+        rays8 = k1.pack_rays(rays.p, rays.d).contiguous()
+        f = k2.minarg_fused(rays8, pack)
+        plain, f_ms = timed(torch,
+                            lambda: k2.minarg_fused_plain(rays8, pack))
+        compare("minarg_fused", f, plain, where)
+        need(all(torch.equal(a, b) for a, b in zip(
+            f, k2.refine1(*k1.minarg(rays8, pack), pack))),
+             f"minarg_fused differs from minarg + refine1 on {where}")
+        o = k1.mxu(rays8, pack)
+        plain, m_ms = timed(torch, lambda: k1.mxu_plain(rays8, pack))
+        compare("mxu", o, plain, where)
+        d = k1.dense(rays8, pack)
+        h15, h4 = o[0] < k1.BIG, d[0] < k1.BIG
+        print(f"{where} ({rays8.shape[1]}): minarg_fused ({int(h15.sum())} "
+              "hits) equal to its plain version and to minarg + refine1, "
+              f"mxu equal to its plain version (torch.equal); mxu against "
+              f"dense: {int((o[0] != d[0]).sum())} lanes with another t, "
+              f"{int((o[1] != d[1]).sum())} with another index, "
+              f"{int((h15 != h4).sum())} with another hit or miss")
+        if rname == "camera":
+            inputs["minarg_fused"] = (rays8, pack, f_ms)
+            inputs["mxu"] = m_ms
+    # K4 at the stress tails' shape: 16,384 lanes of the camera rays.
+    stress = scenes["stress"]
+    sl = slice(None, 126 * 16384, 126)
+    inputs["dense stress tail"] = (
+        k1.pack_rays(tuple(x[sl] for x in cam_rays.p),
+                     tuple(x[sl] for x in cam_rays.d)).contiguous(),
+        k1.build_tri_pack(stress.tris))
+    # A second, larger table: the reference scene.
+    ref = scenes["reference"]
+    rpack = k1.build_tri_pack(ref.tris)
+    rays = camera_rays(library.reference_camera(W, H, device="cuda"))
+    r8 = k1.pack_rays(rays.p, rays.d).contiguous()
+    f = k2.minarg_fused(r8, rpack)
+    compare("minarg_fused", f, k2.minarg_fused_plain(r8, rpack),
+            "reference camera rays")
+    need(all(torch.equal(a, b) for a, b in zip(
+        f, k2.refine1(*k1.minarg(r8, rpack), rpack))),
+         "minarg_fused differs from minarg + refine1 on reference camera rays")
+    print(f"reference camera rays ({ref.tris.count} triangles): minarg_fused "
+          "equal to its plain version and to minarg + refine1")
     return inputs
 
 
@@ -1060,13 +1143,14 @@ def check_goldens(torch, np):
 
 def check_no_fallback(torch, scenes):
     """With the kernel loader broken, a CUDA call must raise (K1, K4, K7,
-    K6, K3b, K8, K9, K10, K11, K12, K17, K16, K18, K18m, K19 and K20)."""
+    K6, K3b, K8, K9, K10, K11, K12, K17, K16, K18, K18m, K19, K20, K14
+    and K15)."""
     from opencl_path_tracer_tpu_torch.ops.kernels import _build
     from opencl_path_tracer_tpu_torch.ops.kernels import (
         cluster_kernel as ck, flat_march as fm, intersect_kernel as k1,
         lazy_march as lm, march_kernel as mk, pair_mxu as pm,
-        shading_kernel as k8, sorted_intersect as si, sphere_kernel as k3,
-        tilecull_kernel as tk)
+        plucker_kernel as k2, shading_kernel as k8, sorted_intersect as si,
+        sphere_kernel as k3, tilecull_kernel as tk)
     pack = k1.build_tri_pack(scenes["cornell"].tris)
     smooth = scenes["cornell-smooth"]
     spack = (k1.build_tri_pack(smooth.tris),
@@ -1121,6 +1205,8 @@ def check_no_fallback(torch, scenes):
             mlist, m8, mfeat, mk.miss_rows(128, "cuda")[:6].contiguous(),
             torch.zeros((1, 128), dtype=torch.int32, device="cuda"), msc,
             256, 1, 128),
+        "minarg_fused": lambda: k2.minarg_fused(rays8, pack),
+        "mxu": lambda: k1.mxu(rays8, pack),
     }
     real = _build.library
 
@@ -1154,6 +1240,8 @@ def run_path(torch, name, fn):
     counts = dict(_build.launches)
     missing = [k for k in PATH_KERNELS[name] if counts[k] == 0]
     need(not missing, f"main path {name} did not launch {missing}")
+    extra = [k for k in PATH_EXCLUDES.get(name, ()) if counts[k]]
+    need(not extra, f"main path {name} launched {extra}")
     return result, dt, {k: v for k, v in counts.items() if v}
 
 
@@ -1231,6 +1319,10 @@ def main_path(torch, np, scenes, cam):
     from opencl_path_tracer_tpu_torch.ops import rng
     from opencl_path_tracer_tpu_torch.ops.kernels import march_kernel as mk
     from opencl_path_tracer_tpu_torch.ops.kernels import sorted_intersect as si
+    from opencl_path_tracer_tpu_torch.ops.kernels.intersect_kernel import (
+        make_mxu_intersect)
+    from opencl_path_tracer_tpu_torch.ops.kernels.plucker_kernel import (
+        make_minarg_intersect)
     from opencl_path_tracer_tpu_torch.runtime.engine import RenderEngine
     total = {name: 0 for name in KERNEL_META}
 
@@ -1304,6 +1396,16 @@ def main_path(torch, np, scenes, cam):
               cfg(spp=STRESS_SPP, accel="flat"))]
     for name, sname, c in packs:
         engines.append((name, RenderEngine(scenes[sname], c, device="cuda")))
+    # The two intersectors that neither package names as an accel, injected
+    # into the megakernel model (RenderEngine's intersect_fn, the loop of
+    # `megakernel.render`): K14 (804 triangles, one tt block) and K15.
+    corn = scenes["cornell"]
+    for name, isect in (
+            ("megakernel cornell minarg-fused",
+             make_minarg_intersect(corn.tris, fuse_fetch=True)),
+            ("megakernel cornell mxu", make_mxu_intersect(corn.tris))):
+        engines.append((name, RenderEngine(corn, cfg(), intersect_fn=isect,
+                                           device="cuda")))
     for name, eng in engines:
         spp = eng.cfg.spp
         torch.cuda.reset_peak_memory_stats()
@@ -1366,6 +1468,16 @@ def main_path(torch, np, scenes, cam):
            counts)
     lazy_path(torch, scenes["stress"], cam, report)
     return total
+
+
+def timed(torch, fn):
+    """(fn(), its wall time in ms), the device synchronised before and
+    after: the plain versions' times, from the checks' own calls."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def time_ms(torch, fn, reps):
@@ -1636,6 +1748,73 @@ def slice7_rows(torch, inputs):
     return rows
 
 
+def slice8_rows(torch, inputs):
+    """The timing rows of K14 and K15 on the cornell camera rays, and,
+    beside them in the same call, K1 + K2 and K4 on the same rays, K4 at
+    the stress tails' shape (16,384 lanes of the stress camera rays, every
+    126th, against 99,380 triangles), and the yardstick of K15's dot stage
+    alone: the TPU kernel's matmul, torch.matmul(trig, rays8) with trig
+    the (8 T, 8) rows of the eight dots, with TF32 off, in 16 column
+    chunks.
+
+    K14's bound: K1's operations on these rays (12 per (ray, triangle)
+    test and per edge test reached) and K2's bytes (the rays once, the
+    pack once, five rows out). K15's: the same operations, the scene's
+    triangles and not the matmul's 8 x 8 products; the rays and the pack
+    once, six rows out. The plain times are the checks' calls. No
+    single PyTorch call computes either: library_ms is null."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import (
+        intersect_kernel as k1, plucker_kernel as k2)
+    rays8, pack, f_ms = inputs["minarg_fused"]
+    m_ms = inputs["mxu"]
+    r, t = rays8.shape[1], pack.shape[0]
+    ops = minarg_ops(torch, rays8, pack)
+    rows = [("minarg_fused", lambda: k2.minarg_fused(rays8, pack), f_ms, ops,
+             0, 24 * r + 96 * t + 20 * r),
+            ("mxu", lambda: k1.mxu(rays8, pack), m_ms, ops, 0,
+             24 * r + 96 * t + 24 * r)]
+    t1, g1 = k1.minarg(rays8, pack)
+    ms1 = time_ms(torch, lambda: k1.minarg(rays8, pack), 20)
+    ms2 = time_ms(torch, lambda: k2.refine1(t1, g1, pack), 20)
+    ms4 = time_ms(torch, lambda: k1.dense(rays8, pack), 20)
+    print(f"cornell camera rays ({r}): minarg {ms1:.4f} + refine1 {ms2:.4f} "
+          f"= {ms1 + ms2:.4f} ms, dense {ms4:.4f} ms (beside minarg_fused "
+          "and mxu below)")
+    r8t, spack = inputs["dense stress tail"]
+    ms_tail = time_ms(torch, lambda: k1.dense(r8t, spack), 20)
+    ops_tail = sum(minarg_ops(torch, r8t, spack[b:b + 8192])
+                   for b in range(0, spack.shape[0], 8192))
+    n = r8t.shape[1]
+    bound_tail = max(ops_tail / PEAK_FP32_FLOPS,
+                     (24 * n + 64 * spack.shape[0] + 24 * n)
+                     / PEAK_HBM_BYTES) * 1e3
+    print(f"dense at the stress tails' shape ({n} lanes x {spack.shape[0]} "
+          f"triangles): {ms_tail:.4f} ms, bound {bound_tail:.4f} ms by "
+          f"operations ({ops_tail:.4g} float32 operations)")
+    # Row 8 g + k of trig: dot k of triangle g, its vector in columns 0-2
+    # (a dot with P) or 3-5 (with D).
+    trig = torch.zeros((t, 8, 8), device=rays8.device)
+    for k in range(8):
+        v = pack[:, 4 * (k // 2):4 * (k // 2) + 3]
+        trig[:, k, 3 * (k % 2):3 * (k % 2) + 3] = v
+    trig = trig.reshape(8 * t, 8)
+    chunk = r // 16
+    need(chunk * 16 == r, "the yardstick's chunks must cover the rays")
+    buf = torch.empty((trig.shape[0], chunk), device=rays8.device)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ms_mm = time_ms(torch, lambda: [
+            torch.matmul(trig, rays8[:, s:s + chunk], out=buf)
+            for s in range(0, r, chunk)], 5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    del buf
+    print(f"mxu's dot stage alone: torch.matmul(trig {tuple(trig.shape)}, "
+          f"rays8 (8, {r})) with TF32 off, in 16 chunks: {ms_mm:.4f} ms")
+    return rows
+
+
 def measure(torch, inputs, errs, launches):
     from opencl_path_tracer_tpu_torch.models import fused_step as fs
     from opencl_path_tracer_tpu_torch.ops.kernels import (
@@ -1761,6 +1940,7 @@ def measure(torch, inputs, errs, launches):
     rows += pair_rows(torch, inputs)
     rows += slice6_rows(torch, inputs)
     rows += slice7_rows(torch, inputs)
+    rows += slice8_rows(torch, inputs)
     out = []
     for name, kern, plain, ops, bf16_ops, nbytes, *lib in rows:
         ms = time_ms(torch, kern, 20)
@@ -1823,6 +2003,7 @@ def main() -> int:
     inputs.update(check_pairs(torch, scenes, cam, errs))
     inputs.update(check_slice6(torch, scenes, cam, cam_rays, errs))
     inputs.update(check_slice7(torch, scenes, cam, cam_rays, errs))
+    inputs.update(check_slice8(torch, scenes, cam, cam_rays, errs))
     check_goldens(torch, np)
     check_no_fallback(torch, scenes)
     launches = main_path(torch, np, scenes, cam)

@@ -68,6 +68,9 @@ KERNELS = {
     "flat_march": ("flat.cu", "ptx_flat", [P, P, P, P, P, P, P, P, I, I, I, P]),
     "lazy_march": ("lazy.cu", "ptx_lazy",
                    [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P]),
+    "minarg_fused": ("minarg_fused.cu", "ptx_minarg_fused",
+                     [P, P, P, P, P, P, P, I, I, P]),
+    "mxu": ("mxu.cu", "ptx_mxu", [P, P, P, I, I, P]),
 }
 
 # Launches per kernel since the last reset_launches(); each wrapper adds

@@ -1,11 +1,13 @@
-"""K1: nearest triangle hit, min + argmin, and K4: the dense nearest hit
-with the winner's index and attributes (CUDA kernels and plain versions).
+"""K1: nearest triangle hit, min + argmin, K4: the dense nearest hit
+with the winner's index and attributes, and K15: K4's outputs with the
+dots as one matmul (CUDA kernels and plain versions).
 
 Port of `opencl_path_tracer_tpu/ops/pallas/intersect_kernel.py`:
 `_minarg_kernel` (launched by `_run_minarg`), `_kernel` (launched by
 `_run`) with `pallas_first_intersect`, `make_pallas_intersect` and
-`assemble_hits`, and the ray and triangle packs they read (`pack_rays`,
-`build_tri_pack`).
+`assemble_hits`, `_mxu_kernel` (launched by `_run_mxu`) with
+`make_mxu_intersect`, and the ray and triangle packs they read
+(`pack_rays`, `build_tri_pack`).
 
 For each ray, over all triangles: t = (c0 - dot(P, n)) / dot(D, n),
 accepted when t > 0 and dot(P, m_k) + t dot(D, m_k) >= d_k for the three
@@ -17,7 +19,8 @@ The reference values come from the Pallas kernel run in interpret mode
 on the CPU, where XLA fuses each dot product's first two terms and each
 edge test's `t * vm + pm` into fused multiply-adds; the plain version
 does the same with `core.fp.fma`, and the CUDA kernel
-(`csrc/minarg.cu`) with `__fmaf_rn`.
+(`csrc/minarg.cu`) with `__fmaf_rn`. K15 rounds its own way (see its
+section below).
 """
 
 from __future__ import annotations
@@ -236,5 +239,107 @@ def make_pallas_intersect(tris: TrianglesSoA):
 
     def intersect(rays: Rays) -> Hits:
         return first_intersect(rays, tris, tri_pack=tri_pack)
+
+    return intersect
+
+
+# --- K15: the dense intersect with its eight dots as one matmul ----------
+#
+# On the TPU `_mxu_kernel` computes the eight dots [pn vn pm1 vm1 pm2 vm2
+# pm3 vm3] of each (triangle, ray) as one (8 TT, 8) x (8, TR) float32
+# matmul at Precision.HIGHEST over a tiled copy of the triangle constants,
+# then K4's plane and edge tests, argmin per tile of TT triangles (first
+# index), strict < across tiles and one-hot float32 sums for the winner's
+# attributes. The result is the lexicographic (t, index) minimum whatever
+# the tiling, so the port reads K4's (T, 24) pack. In interpret mode XLA's
+# CPU matmul sums each dot as one chain of fused multiply-adds in k order,
+# fma(v2, a2, fma(v1, a1, v0 * a0)), then adds the five zero columns of
+# the row (exact zeros: only a -0.0 dot turns +0.0); the edge tests come
+# out as fma(t, vm, pm). This is not K4's rounding (`_dot3`), so K15 has
+# a test of its own here and in `csrc/mxu.cu`.
+
+
+def _mxu_dot(v, a):
+    """One dot of the matmul: fma(v2, a2, fma(v1, a1, v0 a0)) + 0.0."""
+    return fp.fma(v[:, 2:3], a[2], fp.fma(v[:, 1:2], a[1],
+                                          v[:, 0:1] * a[0])) + 0.0
+
+
+def mxu_plain(rays8: torch.Tensor, tri_pack: torch.Tensor):
+    """Plain PyTorch version of K15: (t, index, nx, ny, nz, mati), six
+    (R,) float32 tensors. t is BIG on a miss; the winner is the least t
+    with the lowest index (per-tile argmin and strict < across tiles give
+    the same); a miss keeps index 0 with triangle 0's attributes (tile
+    0's latch), and the attributes are `+ 0.0` (the one-hot sum turns
+    -0.0 into +0.0). Rays with D = 0 (padding) never hit and are not
+    tested."""
+    r = rays8.shape[1]
+    n_tris = tri_pack.shape[0]
+    t_out = torch.full((r,), BIG, dtype=torch.float32, device=rays8.device)
+    g_out = torch.zeros(r, dtype=torch.int64, device=rays8.device)
+    live = torch.nonzero((rays8[3:6] != 0.0).any(0)).flatten()
+    for s in range(0, live.numel(), _PLAIN_RAYS):
+        cols = live[s:s + _PLAIN_RAYS]
+        x = rays8[:, cols]
+        p, d = x[0:3], x[3:6]
+        step = max(1, _PLAIN_CELLS // x.shape[1])
+        best = best_g = None
+        for b in range(0, n_tris, step):
+            rows = tri_pack[b:b + step]
+            n = rows[:, 0:3]
+            t = (rows[:, 3:4] - _mxu_dot(n, p)) / _mxu_dot(n, d)
+            valid = t > 0.0
+            for e in range(4, 16, 4):
+                m = rows[:, e:e + 3]
+                valid &= (fp.fma(t, _mxu_dot(m, d), _mxu_dot(m, p))
+                          >= rows[:, e + 3:e + 4])
+            tm, a = torch.min(torch.where(valid, t, torch.full_like(t, BIG)),
+                              dim=0)                     # first on ties
+            a = a + b
+            if best is None:
+                best, best_g = tm, a
+            else:
+                bet = tm < best
+                best = torch.where(bet, tm, best)
+                best_g = torch.where(bet, a, best_g)
+        t_out[cols] = best
+        g_out[cols] = best_g
+    attrs = tri_pack[g_out][:, [0, 1, 2, 16]] + 0.0
+    return (t_out, g_out.to(torch.float32), attrs[:, 0], attrs[:, 1],
+            attrs[:, 2], attrs[:, 3])
+
+
+def mxu(rays8: torch.Tensor, tri_pack: torch.Tensor):
+    """K15 for each ray of the (8, R) pack against the (T, 24) triangle
+    pack: (t, index, nx, ny, nz, mati), six (R,) float32 tensors (t BIG
+    on a miss). CPU tensors take the plain version; CUDA tensors launch
+    the kernel or raise."""
+    _build.check(rays8, "rays8", (8, None))
+    _build.check(tri_pack, "tri_pack", (None, TRI_COLS))
+    if rays8.device != tri_pack.device:
+        raise ValueError("rays8 and tri_pack must be on one device")
+    if not 0 < tri_pack.shape[0] < 1 << 24:
+        raise ValueError("mxu needs 1 to 2^24 - 1 triangles (the winner "
+                         "index travels as an exact float32)")
+    if rays8.device.type == "cpu":
+        return mxu_plain(rays8, tri_pack)
+    r = rays8.shape[1]
+    rows = torch.empty((6, r), dtype=torch.float32, device=rays8.device)
+    _build.launch("mxu", rays8, tri_pack, rows, r, tri_pack.shape[0])
+    return tuple(rows)
+
+
+def make_mxu_intersect(tris: TrianglesSoA):
+    """K15 over `build_tri_pack(tris)`, built once (the JAX package's
+    `make_mxu_intersect`; its `tr`, `tt` and `interpret` are TPU tiling
+    and have no counterpart). intersect(rays) -> Hits: t = -1 on a miss,
+    the normals as the kernel returns them (a miss carries triangle 0's),
+    mati 0 on a miss."""
+    tri_pack = build_tri_pack(tris)
+
+    def intersect(rays: Rays) -> Hits:
+        t, _, nx, ny, nz, m = mxu(pack_rays(rays.p, rays.d), tri_pack)
+        t = torch.where(t < BIG, t, torch.full_like(t, -1.0))
+        return assemble_hits(rays, rays.count, t, nx, ny, nz, m)
 
     return intersect

@@ -1,10 +1,11 @@
-"""K2: attributes of the K1 winner, and K13a/K13b: the Plucker top-2
-candidates and their exact re-test (CUDA kernels and plain versions),
-with the intersectors that chain them.
+"""K2: attributes of the K1 winner, K14: K1 and K2 in one launch, and
+K13a/K13b: the Plucker top-2 candidates and their exact re-test (CUDA
+kernels and plain versions), with the intersectors that chain them.
 
 Port of `opencl_path_tracer_tpu/ops/pallas/plucker_kernel.py`:
-`_refine1_kernel` (launched by `_run_refine1`) and
-`make_minarg_intersect`; `_cand_kernel` (launched by `_run_candidates`),
+`_refine1_kernel` (launched by `_run_refine1`), `_minarg_fused_kernel`
+(launched by `_run_minarg_fused`) and `make_minarg_intersect`;
+`_cand_kernel` (launched by `_run_candidates`),
 `_refine_kernel` (launched by `_run_refine`), `build_plucker_packs`,
 `plucker_feat`, `_split_bf16_exact` and `make_plucker_intersect`.
 
@@ -28,7 +29,7 @@ from opencl_path_tracer_tpu_torch.core.types import Hits, Rays
 from opencl_path_tracer_tpu_torch.ops.kernels import _build
 from opencl_path_tracer_tpu_torch.ops.kernels.intersect_kernel import (
     BIG, TRI_COLS, _dot3, _round_up, assemble_hits, build_tri_pack, minarg,
-    pack_rays,
+    minarg_plain, pack_rays,
 )
 
 
@@ -60,16 +61,55 @@ def refine1(t1: torch.Tensor, g1: torch.Tensor, tri_pack: torch.Tensor):
     return tuple(outs)
 
 
-def make_minarg_intersect(tris: TrianglesSoA, *, with_ids: bool = False):
+def minarg_fused_plain(rays8: torch.Tensor, tri_pack: torch.Tensor):
+    """Plain PyTorch version of K14: K1's (t, index), then K2's fetch;
+    (t, nx, ny, nz, m), (R,) float32, t = -1 on a miss."""
+    return refine1_plain(*minarg_plain(rays8, tri_pack), tri_pack)
+
+
+def minarg_fused(rays8: torch.Tensor, tri_pack: torch.Tensor):
+    """K14: K1's exact min + argmin and K2's attribute fetch in one
+    launch, for each ray of the (8, R) pack against the (T, 24) triangle
+    pack: (t, nx, ny, nz, m), five (R,) float32 tensors, bit for bit K1
+    then K2. CPU tensors take the plain version; CUDA tensors launch the
+    kernel or raise."""
+    _build.check(rays8, "rays8", (8, None))
+    _build.check(tri_pack, "tri_pack", (None, TRI_COLS))
+    if rays8.device != tri_pack.device:
+        raise ValueError("rays8 and tri_pack must be on one device")
+    if not 0 < tri_pack.shape[0] < 1 << 24:
+        raise ValueError("minarg_fused needs 1 to 2^24 - 1 triangles")
+    if rays8.device.type == "cpu":
+        return minarg_fused_plain(rays8, tri_pack)
+    r = rays8.shape[1]
+    outs = [torch.empty(r, dtype=torch.float32, device=rays8.device)
+            for _ in range(5)]
+    _build.launch("minarg_fused", rays8, tri_pack, *outs, r,
+                  tri_pack.shape[0])
+    return tuple(outs)
+
+
+def make_minarg_intersect(tris: TrianglesSoA, *, fuse_fetch: bool = False,
+                          with_ids: bool = False):
     """The exact small-scene intersector: K1 min + argmin, then the K2
     attribute fetch. intersect(rays) -> Hits, or (Hits, ids) with ids
-    the winner's triangle index (-1 on a miss) when with_ids=True."""
+    the winner's triangle index (-1 on a miss) when with_ids=True.
+
+    fuse_fetch=True runs K14, the two in one launch, for any table (the
+    JAX package's one-tt-block limit is the TPU's VMEM; K14 here loops
+    over the whole pack and gives K1 + K2's bits)."""
+    if with_ids and fuse_fetch:
+        raise ValueError("with_ids needs fuse_fetch=False (the fused "
+                         "kernel never materializes the winner index)")
     tri_pack = build_tri_pack(tris)
 
     def intersect(rays: Rays):
         rays8 = pack_rays(rays.p, rays.d)
-        t1, g1 = minarg(rays8, tri_pack)
-        t, nx, ny, nz, m = refine1(t1, g1, tri_pack)
+        if fuse_fetch:
+            t, nx, ny, nz, m = minarg_fused(rays8, tri_pack)
+        else:
+            t1, g1 = minarg(rays8, tri_pack)
+            t, nx, ny, nz, m = refine1(t1, g1, tri_pack)
         any_hit = t > 0.0
         z = torch.zeros_like(t)
         safe_t = torch.where(any_hit, t, z)

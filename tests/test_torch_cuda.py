@@ -416,3 +416,47 @@ def test_seventh_slice_kernels_equal_plain_versions(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="disabled"):
         lm.run_lazy_march(clist, r8s, feat, out[:6].contiguous(), vis, ms,
                           cs, K, tr)
+
+
+@pytest.mark.cuda
+def test_eighth_slice_kernels_equal_plain_versions(cuda, monkeypatch):
+    """K14 against its plain version and against K1 + K2 on the card, K15
+    against its plain version on all six outputs, on the Cornell box and
+    a ragged ray tail (chip_smoke.py runs them at 1080p); the intersectors
+    launch K14 and K15 and not K1, K2 or K4; the CPU plain versions agree
+    with the card; with the loader broken, each raises."""
+    from opencl_path_tracer_tpu_torch.core.types import Rays
+    scene = library.cornell_box(with_spheres=True, device=cuda)
+    rays8 = _rays8(50_001, 8, cuda)
+    pack = k1.build_tri_pack(scene.tris)
+    before = dict(_build.launches)
+    f = k2.minarg_fused(rays8, pack)
+    for a, b, c in zip(f, k2.minarg_fused_plain(rays8, pack),
+                       k2.refine1(*k1.minarg(rays8, pack), pack)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    o = k1.mxu(rays8, pack)
+    for a, b in zip(o, k1.mxu_plain(rays8, pack)):
+        assert torch.equal(a, b)
+    assert int((o[0] < k1.BIG).sum()) > 0
+    assert {k: _build.launches[k] - before[k]
+            for k in ("minarg_fused", "mxu")} == {"minarg_fused": 1, "mxu": 1}
+    fc = k2.minarg_fused(rays8[:, :3000].cpu(), pack.cpu())
+    oc = k1.mxu(rays8[:, :3000].cpu(), pack.cpu())
+    assert all(torch.equal(a, b[:3000].cpu()) for a, b in zip(fc, f))
+    assert all(torch.equal(a, b[:3000].cpu()) for a, b in zip(oc, o))
+    rays = Rays(p=tuple(rays8[k].contiguous() for k in range(3)),
+                d=tuple(rays8[k].contiguous() for k in range(3, 6)))
+    _build.reset_launches()
+    k2.make_minarg_intersect(scene.tris, fuse_fetch=True)(rays)
+    k1.make_mxu_intersect(scene.tris)(rays)
+    launched = {k for k, v in _build.launches.items() if v}
+    assert launched == {"minarg_fused", "mxu"}
+
+    def broken(name):
+        raise RuntimeError("kernel loader disabled by the test")
+
+    monkeypatch.setattr(_build, "library", broken)
+    with pytest.raises(RuntimeError, match="disabled"):
+        k2.minarg_fused(rays8, pack)
+    with pytest.raises(RuntimeError, match="disabled"):
+        k1.mxu(rays8, pack)

@@ -44,7 +44,7 @@ def test_port_has_its_modules_and_kernel_sources():
               "pair_cand.cu", "pair_visit.cu", "attr_fetch.cu",
               "pair_vpu.cu", "cluster.cu", "group.cu", "cluster_block.cuh",
               "march.cu", "materialize.cu", "flat.cu", "lazy.cu",
-              "march_visit.cuh"):
+              "march_visit.cuh", "minarg_fused.cu", "mxu.cu"):
         assert (PORT / "csrc" / f).exists()
     for f in ("ops/kernels/march_kernel.py", "ops/kernels/flat_march.py",
               "ops/kernels/lazy_march.py", "models/lazy.py"):

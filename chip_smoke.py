@@ -66,6 +66,15 @@ and read just after:
     rays, K15 against its plain version on the Cornell rays, with its
     lanes that differ from K4's counted.
 
+K4 splits its triangles across blocks when the rays alone cannot fill
+the card (`intersect_kernel.dense_splits`): it is held against its plain
+version in both output layouts on the Cornell camera rays (one loop),
+at the stress tails' 16,384 lanes and on 300 lanes against a pack whose
+rows repeat (exact-t ties across chunks), with the splits printed, and
+timed at the tails' shape and on the fused slice with one loop and with
+other splits. K18m is also held against its plain version on an odd L
+and on views at storage offsets.
+
 The last two lines are a JSON object per kernel (time, plain time,
 bound, launches) and the verdict; the line before them, the smoke's total
 time. Any failed phase raises, and the
@@ -1121,6 +1130,84 @@ def check_slice8(torch, scenes, cam, cam_rays, errs):
     return inputs
 
 
+def check_slice9(torch, scenes, cam_rays, inputs, errs):
+    """K4 and K18m as redesigned for the H100. K4 against its plain
+    version in both layouts (the hit rows into a column slice of a wider
+    (6, N) from a column slice of wider rays) at three shapes: the 2,073,600
+    cornell camera rays (one loop, splits 1), the stress tails' 16,384
+    lanes x 99,380 triangles, and 300 lanes x 20,000 triangles whose rows
+    10,000-19,999 repeat rows 0-9,999 (exact-t ties across chunks); the
+    splits each shape takes are printed. K18m against its plain version on
+    an odd L and on views with storage offsets; every comparison
+    torch.equal."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import (
+        intersect_kernel as k1, march_kernel as mk)
+    dev = cam_rays.p[0].device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def compare(name, outs, plain, where):
+        torch.cuda.synchronize()
+        for a, b in zip(outs, plain):
+            errs[name] = max(errs[name], float((a - b).abs().max()))
+        need(all(torch.equal(a, b) for a, b in zip(outs, plain)),
+             f"{name} differs from its plain version on {where}")
+
+    def both_layouts(where, rays8, pack):
+        n = rays8.shape[1]
+        t = k1.dense(rays8, pack)
+        compare("dense", t, k1.dense_plain(rays8, pack), where)
+        wide = torch.zeros((8, n + 96), device=dev)
+        wide[:, 40:40 + n] = rays8
+        hk = torch.full((6, n + 64), 7.0, device=dev)
+        hp = hk.clone()
+        k1.dense(wide[:, 40:40 + n], pack, out=hk[:, 24:24 + n])
+        k1.dense_plain(wide[:, 40:40 + n], pack, out=hp[:, 24:24 + n])
+        compare("dense", (hk,), (hp,), where + " (hit rows, in place)")
+        splits, chunk = k1.dense_splits(n, pack.shape[0], sms)
+        print(f"dense on {where} ({n} lanes x {pack.shape[0]} triangles): "
+              f"{splits} split(s) of {chunk} triangles on {sms} SMs, "
+              f"{int((t[0] < k1.BIG).sum())} hits; both layouts equal to the "
+              "plain version (torch.equal)")
+        return splits
+
+    pack = k1.build_tri_pack(scenes["cornell"].tris)
+    need(both_layouts("cornell camera rays",
+                      k1.pack_rays(cam_rays.p, cam_rays.d).contiguous(),
+                      pack) == 1,
+         "dense splits the 2,073,600 cornell camera rays")
+    r8t, spack = inputs["dense stress tail"]
+    need(both_layouts("the stress tails' shape", r8t, spack) > 1,
+         "dense does not split the stress tails' shape")
+    twins = torch.cat([spack[:10_000], spack[:10_000]])
+    small = r8t[:, ::54][:, :300].contiguous()
+    g = k1.dense_plain(small, twins)[1]
+    need(bool(((g > 0) & (g < 10_000)).any()),
+         "no lane of the tie check hits a repeated triangle")
+    need(both_layouts("300 lanes against repeated rows", small, twins) > 1,
+         "dense does not split 300 lanes x 20,000 triangles")
+    # K18m on an odd L and on views whose storage starts off 16-byte
+    # boundaries (the bf16 one off 4-byte boundaries too).
+    clist, r8s, feat = inputs["march"][:3]
+    n = r8s.shape[1]
+    lbuf = torch.empty(clist.numel() + 2, dtype=torch.int32, device=dev)
+    lbuf[1:1 + clist.numel()] = clist
+    odd = lbuf[1:1 + clist.numel() - (1 - clist.numel() % 2)]
+    rbuf = torch.empty(8 * n + 3, device=dev)
+    r8v = rbuf[3:].view(8, n)
+    r8v.copy_(r8s)
+    fbuf = torch.empty(32 * n + 1, dtype=torch.bfloat16, device=dev)
+    fv = fbuf[1:].view(32, n)
+    fv.copy_(feat)
+    for what, args in (("odd L", (odd, r8s, feat)),
+                       ("storage offsets", (lbuf[1:1 + clist.numel()], r8v,
+                                            fv))):
+        compare("materialize", mk.materialize(*args),
+                mk.materialize_plain(*args), f"'march' round 1, {what}")
+    print(f"materialize on 'march' round 1 with an odd L ({odd.numel()}) "
+          "and with views at storage offsets of 4, 12 and 2 bytes: equal "
+          "to its plain version (torch.equal)")
+
+
 def check_goldens(torch, np):
     from opencl_path_tracer_tpu_torch.models import megakernel
     from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
@@ -1791,6 +1878,11 @@ def slice8_rows(torch, inputs):
     print(f"dense at the stress tails' shape ({n} lanes x {spack.shape[0]} "
           f"triangles): {ms_tail:.4f} ms, bound {bound_tail:.4f} ms by "
           f"operations ({ops_tail:.4g} float32 operations)")
+    dense_split_sweep(torch, "the stress tails' shape", r8t, spack,
+                      (8, 16, 33, 130))
+    sl, dpack, _ = inputs["dense"]
+    dense_split_sweep(torch, "the fused pipeline's exact slice", sl, dpack,
+                      (2,))
     # Row 8 g + k of trig: dot k of triangle g, its vector in columns 0-2
     # (a dot with P) or 3-5 (with D).
     trig = torch.zeros((t, 8, 8), device=rays8.device)
@@ -1813,6 +1905,48 @@ def slice8_rows(torch, inputs):
     print(f"mxu's dot stage alone: torch.matmul(trig {tuple(trig.shape)}, "
           f"rays8 (8, {r})) with TF32 off, in 16 chunks: {ms_mm:.4f} ms")
     return rows
+
+
+def dense_split_sweep(torch, where, rays8, pack, others):
+    """K4 launched with the splits its wrapper picks (`dense_splits`) and
+    with one chunk (the single loop), timed in turns (single, picked,
+    picked, single), and with each count of splits in `others` (chunks of
+    whole 256-triangle tiles); every launch shape's outputs equal the
+    wrapper's (torch.equal)."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import _build
+    from opencl_path_tracer_tpu_torch.ops.kernels import intersect_kernel as k1
+    r, t = rays8.shape[1], pack.shape[0]
+    sms = torch.cuda.get_device_properties(rays8.device).multi_processor_count
+    picked = k1.dense_splits(r, t, sms)[0]
+    want = torch.stack(k1.dense(rays8, pack))
+
+    def launcher(splits):
+        tiles = -(-t // 256)
+        chunk = -(-tiles // splits) * 256 if splits > 1 else t
+        splits = -(-t // chunk)
+        out = torch.empty((6, r), device=rays8.device)
+        work = (torch.empty(2 * splits * r, device=rays8.device)
+                if splits > 1 else 0)
+
+        def run():
+            _build.launch("dense", rays8, rays8.stride(0), pack, out,
+                          out.stride(0), 0, r, t, splits, chunk, work)
+        run()
+        torch.cuda.synchronize()
+        need(torch.equal(out, want), f"dense with {splits} splits differs "
+             f"from the wrapper's launch on {where}")
+        return splits, run
+
+    one, pick = launcher(1)[1], launcher(picked)[1]
+    turns = [time_ms(torch, f, 20) for f in (one, pick, pick, one)]
+    sweep = []
+    for s_ in others:
+        splits, run = launcher(s_)
+        sweep.append(f"{splits}: {time_ms(torch, run, 20):.4f}")
+    print(f"dense on {where}: in turns one loop, {picked} splits (the "
+          f"wrapper's), {picked}, one loop: "
+          + ", ".join(f"{x:.4f}" for x in turns) + " ms; by splits: "
+          + ", ".join(sweep) + " ms (outputs equal)")
 
 
 def measure(torch, inputs, errs, launches):
@@ -2004,6 +2138,7 @@ def main() -> int:
     inputs.update(check_slice6(torch, scenes, cam, cam_rays, errs))
     inputs.update(check_slice7(torch, scenes, cam, cam_rays, errs))
     inputs.update(check_slice8(torch, scenes, cam, cam_rays, errs))
+    check_slice9(torch, scenes, cam_rays, inputs, errs)
     check_goldens(torch, np)
     check_no_fallback(torch, scenes)
     launches = main_path(torch, np, scenes, cam)

@@ -104,8 +104,8 @@ class RenderConfig:
             raise ValueError(f"unknown tonemap {self.tonemap!r}")
         if self.accel not in ACCELS:
             raise NotImplementedError(
-                f"accel {self.accel!r} is not ported yet (ROADMAP.md queue "
-                f"2); the port has {ACCELS}")
+                f"accel {self.accel!r} is not ported yet (ROADMAP.md queue 1, "
+                f"the bvh and median accels); the port has {ACCELS}")
         if self.model not in ("megakernel", "wavefront"):
             raise ValueError(f"unknown model {self.model!r}")
         if self.nee_select not in ("power", "distance"):

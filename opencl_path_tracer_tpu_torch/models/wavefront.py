@@ -22,9 +22,10 @@ and MIS pickup, with the draws keyed by the step counter and the
 previous bounce's direction pdf carried per lane in `prev_pdf`. Not
 ported yet: EnvLight and environment maps (`env`), depth of field
 (`dof`) and adaptive sampling (`variance_tol`), which raise
-NotImplementedError (ROADMAP.md queue 1 items 7-8); `converged_mask`,
-`render_adaptive`, `sort_open_first`, `state_split` and `state_concat`
-come with the engine's `render_adaptive` (queue 1 item 7).
+NotImplementedError (ROADMAP.md queue 1, DOF and environment light, and
+adaptive sampling); `converged_mask`, `render_adaptive`,
+`sort_open_first`, `state_split` and `state_concat` come with the
+engine's `render_adaptive` (queue 1, adaptive sampling).
 """
 
 from __future__ import annotations
@@ -45,7 +46,10 @@ from opencl_path_tracer_tpu_torch.ops import nee as nee_ops
 from opencl_path_tracer_tpu_torch.ops import raygen, rng
 from opencl_path_tracer_tpu_torch.utils.device import resolve_device
 
-_UNPORTED = "is not ported yet (ROADMAP.md queue 1 items 7-8)"
+# Option -> the ROADMAP.md queue 1 feature that brings it.
+_UNPORTED = {"env": "DOF and environment light",
+             "dof": "DOF and environment light",
+             "variance_tol": "adaptive sampling"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,7 +86,9 @@ class WavefrontState:
 def _refuse(**opts) -> None:
     for name, val in opts.items():
         if val is not None:
-            raise NotImplementedError(f"wavefront {name} {_UNPORTED}")
+            raise NotImplementedError(
+                f"wavefront {name} is not ported yet (ROADMAP.md queue 1, "
+                f"{_UNPORTED[name]})")
 
 
 def init_wavefront(cam: Camera, num_pixels: int, *, seed: int = 1,

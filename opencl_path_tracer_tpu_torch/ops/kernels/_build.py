@@ -39,7 +39,8 @@ KERNELS = {
     "minarg": ("minarg.cu", "ptx_minarg", [P, P, P, P, I, I, P]),
     "refine1": ("refine1.cu", "ptx_refine1", [P, P, P, P, P, P, P, P, I, I, P]),
     "spheres": ("spheres.cu", "ptx_spheres", [P, P, P, P, P, P, P, I, I, P]),
-    "dense": ("dense.cu", "ptx_dense", [P, I, P, P, I, I, I, I, P]),
+    "dense": ("dense.cu", "ptx_dense",
+              [P, I, P, P, I, I, I, I, I, I, P, P]),
     "plucker_cand": ("plucker_cand.cu", "ptx_plucker_cand",
                      [P, I, P, P, P, I, I, I, P]),
     "plucker_refine": ("plucker_refine.cu", "ptx_plucker_refine",

@@ -36,6 +36,9 @@ BIG = 3.0e38
 TRI_COLS = 24
 _PLAIN_RAYS = 8192        # rays per chunk of minarg_plain
 _PLAIN_CELLS = 1 << 22    # (ray, triangle) tests per chunk of minarg_plain
+_KERNEL_BLOCK = 256       # rays per block of the CUDA kernels (kBlock)
+_KERNEL_TILE = 256        # triangles per shared-memory tile (kTile)
+_SPLIT_BLOCKS_PER_SM = 32  # K4 splits its triangles up to this many blocks
 
 
 def pack_rays(p, d, pad_to: int | None = None) -> torch.Tensor:
@@ -174,6 +177,26 @@ def dense_plain(rays8: torch.Tensor, tri_pack: torch.Tensor,
     return out
 
 
+def dense_splits(n_rays: int, n_tris: int, sms: int) -> tuple[int, int]:
+    """(splits, chunk): how K4 cuts the triangles across blocks. One
+    thread per ray gives ceil(n_rays / 256) blocks; below
+    _SPLIT_BLOCKS_PER_SM blocks per SM the triangles go in `splits`
+    chunks of `chunk` (a whole number of 256-triangle tiles), one grid
+    row of ray blocks each, so that the grid reaches that count or each
+    chunk is one tile. (1, n_tris) is the single-loop kernel, which the
+    2M-ray camera batches take; the stress tails' 16,384 lanes take 65
+    chunks of 1,536 and the fused pipeline's exact slice (76,800 lanes,
+    804 triangles) 4 of 256."""
+    blocks = -(-n_rays // _KERNEL_BLOCK)
+    tiles = -(-n_tris // _KERNEL_TILE)
+    want = -(-_SPLIT_BLOCKS_PER_SM * sms // max(blocks, 1))
+    splits = max(1, min(want, tiles))
+    if splits == 1:
+        return 1, n_tris
+    chunk_tiles = -(-tiles // splits)
+    return -(-tiles // chunk_tiles), chunk_tiles * _KERNEL_TILE
+
+
 def dense(rays8: torch.Tensor, tri_pack: torch.Tensor,
           out: torch.Tensor | None = None):
     """K4 for each ray of the (8, R) pack against the (T, 24) triangle
@@ -182,7 +205,8 @@ def dense(rays8: torch.Tensor, tri_pack: torch.Tensor,
     [t (-1 on a miss), nx, ny, nz, mati, 0] there instead and returns it.
     The rows of rays8 and of out need only be contiguous each, so column
     slices of wider tensors are read and written in place. CPU tensors
-    take the plain version; CUDA tensors launch the kernel or raise."""
+    take the plain version; CUDA tensors launch the kernel or raise (with
+    few rays, over triangle chunks and a combine: `dense_splits`)."""
     _build.check_rows(rays8, "rays8", 8)
     _build.check(tri_pack, "tri_pack", (None, TRI_COLS))
     r = rays8.shape[1]
@@ -200,8 +224,15 @@ def dense(rays8: torch.Tensor, tri_pack: torch.Tensor,
         return dense_plain(rays8, tri_pack, out)
     rows = out if out is not None else torch.empty(
         (6, r), dtype=torch.float32, device=rays8.device)
+    n_tris = tri_pack.shape[0]
+    splits, chunk = dense_splits(r, n_tris, torch.cuda.get_device_properties(
+        rays8.device).multi_processor_count)
+    # The chunks' (t, index) pairs: splits x r floats, then splits x r ints.
+    work = (torch.empty(2 * splits * r, dtype=torch.float32,
+                        device=rays8.device) if splits > 1 else 0)
     _build.launch("dense", rays8, rays8.stride(0), tri_pack, rows,
-                  rows.stride(0), int(out is not None), r, tri_pack.shape[0])
+                  rows.stride(0), int(out is not None), r, n_tris, splits,
+                  chunk, work)
     return out if out is not None else tuple(rows)
 
 

@@ -398,8 +398,9 @@ def materialize_plain(clist, rays8s, feat):
 
 def materialize(clist, rays8s, feat):
     """K18m: copies (clist, rays8s, feat) of the (L,) int32 list, the
-    (8, N) float32 rays and the (32, N) bfloat16 features. CPU tensors
-    take the plain version; CUDA tensors launch the kernel or raise."""
+    (8, N) float32 rays and the (32, N) bfloat16 features, byte for byte
+    at any storage offset. CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
     _build.check(clist, "clist", (None,), dtype=torch.int32)
     _build.check(rays8s, "rays8s", (8, None))
     _build.check(feat, "feat", (32, rays8s.shape[1]), dtype=torch.bfloat16)

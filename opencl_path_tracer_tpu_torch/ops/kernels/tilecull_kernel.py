@@ -247,7 +247,7 @@ def grouped_pack(tris: TrianglesSoA, gs: int = 128, origin=None):
         raise ValueError(
             f"{tris.count} tris -> {len(boxes)} groups exceeds MAX_GROUPS="
             f"{MAX_GROUPS} at gs={gs}; scenes this large need the pair "
-            "intersector (ROADMAP.md queue 2)")
+            "intersector, ported as accel 'pairwin' or 'pair'")
     return build_tri_pack(tris2), group_table(boxes, spans, tris.device), perm
 
 

@@ -104,7 +104,8 @@ def resolve_accel(accel: str, num_triangles: int, on_cuda: bool,
     if accel not in ("minarg", "pallas", "tilecull", "pairwin", "pair",
                      "cluster", "group", "march", "flat", "bruteforce"):
         raise NotImplementedError(
-            f"accel {accel!r} is not ported yet (ROADMAP.md queue 2)")
+            f"accel {accel!r} is not ported yet (ROADMAP.md queue 1, the bvh "
+            "and median accels)")
     return accel
 
 

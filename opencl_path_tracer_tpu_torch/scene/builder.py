@@ -145,7 +145,7 @@ class SceneBuilder:
                 raise NotImplementedError(
                     f"{path}: material {m.name!r} has map_Kd "
                     f"{m.diffuse_texname!r}; image textures are not "
-                    "ported yet (ROADMAP.md queue 1 item 4)")
+                    "ported yet (ROADMAP.md queue 1, textures)")
             # The reference's own keys (main.cpp:568-571); a missing one
             # raises, like its unchecked map::at.
             kn = tuple(float(x)

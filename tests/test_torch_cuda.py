@@ -460,3 +460,66 @@ def test_eighth_slice_kernels_equal_plain_versions(cuda, monkeypatch):
         k2.minarg_fused(rays8, pack)
     with pytest.raises(RuntimeError, match="disabled"):
         k1.mxu(rays8, pack)
+
+
+@pytest.mark.cuda
+def test_ninth_slice_kernels_equal_plain_versions(cuda, monkeypatch):
+    """K4 split across triangle chunks and the vectorised K18m against
+    their plain versions on the card (chip_smoke.py runs both at the main
+    paths' shapes). K4 at 300 lanes against a pack whose second half
+    repeats its first (exact-t ties across chunks), with rays that miss
+    everything, in both layouts, read from and written into column
+    slices; K18m on an odd L and on views at storage offsets of 4, 12 and
+    2 bytes; the CPU plain versions agree with the card; with the loader
+    broken, each raises."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import march_kernel as mk
+    half = k1.build_tri_pack(library.stress_scene(10_000, device=cuda).tris)
+    pack = torch.cat([half, half])
+    n = 300
+    splits, chunk = k1.dense_splits(
+        n, pack.shape[0],
+        torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert splits > 1 and chunk < half.shape[0]
+    rays8 = _rays8(n, 9, cuda)
+    rays8[0:3, -12:] = 1e5                 # far outside, pointing away
+    rays8[3:6, -12:] = 3 ** -0.5
+    rays8[3:6, -2:] = 0.0                  # zero rays, as padding
+    wide = torch.zeros((8, n + 40), device=cuda)
+    wide[:, 16:16 + n] = rays8
+    before = _build.launches["dense"]
+    got = k1.dense(wide[:, 16:16 + n], pack)
+    want = k1.dense_plain(rays8, pack)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    hit = want[0] < k1.BIG
+    assert hit[:-12].all() and not hit[-12:].any()
+    assert (want[1][hit] < half.shape[0]).all()     # ties keep the first
+    assert (want[1][~hit] == 0).all()
+    hk = torch.full((6, n + 50), 7.0, device=cuda)
+    hp = hk.clone()
+    k1.dense(wide[:, 16:16 + n], pack, out=hk[:, 30:30 + n])
+    k1.dense_plain(rays8, pack, out=hp[:, 30:30 + n])
+    assert torch.equal(hk, hp)
+    assert _build.launches["dense"] - before == 2
+    cpu = k1.dense(rays8.cpu(), pack.cpu())
+    assert all(torch.equal(a, b.cpu()) for a, b in zip(cpu, got))
+    # K18m: several blocks per buffer, an odd L, storage offsets.
+    m, L = 20_001, 1_001
+    lbuf = torch.arange(L + 1, dtype=torch.int32, device=cuda)
+    rbuf = torch.randn(8 * m + 3, device=cuda)
+    fbuf = torch.randn(32 * m + 1, device=cuda).to(torch.bfloat16)
+    views = (lbuf[1:], rbuf[3:].view(8, m), fbuf[1:].view(32, m))
+    before = _build.launches["materialize"]
+    for args in (views, tuple(x.clone() for x in views)):
+        out = mk.materialize(*args)
+        for a, b in zip(out, mk.materialize_plain(*args)):
+            assert torch.equal(a, b)
+    assert _build.launches["materialize"] - before == 2
+
+    def broken(name):
+        raise RuntimeError("kernel loader disabled by the test")
+
+    monkeypatch.setattr(_build, "library", broken)
+    with pytest.raises(RuntimeError, match="disabled"):
+        k1.dense(rays8, pack)
+    with pytest.raises(RuntimeError, match="disabled"):
+        mk.materialize(*views)

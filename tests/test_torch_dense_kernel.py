@@ -180,3 +180,105 @@ def test_dense_wrapper_checks_and_cpu_counts_no_launch():
         k.dense(torch.zeros((8, 10)), pack, out=torch.zeros((6, 9)))
     with pytest.raises(ValueError):
         k.dense(torch.zeros((8, 10)), pack, out=torch.zeros((5, 10)))
+
+
+def _tie_scene():
+    """A pack whose rows 300-599 repeat rows 0-299 (every hit there has an
+    exact-t tie 300 rows later) and whose rows 600-699 are other
+    triangles, some nearer; rays from the random scene's box, 20 that
+    point away from everything and 4 zero rays (the padding K4 meets)."""
+    _, a = rand_scene(300, seed=3)
+    _, b = rand_scene(100, seed=4)
+    pa, pb = k.build_tri_pack(a), k.build_tri_pack(b)
+    pack = torch.cat([pa, pa, pb])
+    p, d = rand_rays(600, seed=5)
+    p = np.concatenate([p, np.full((20, 3), 50.0, np.float32),
+                        np.zeros((4, 3), np.float32)])
+    d = np.concatenate([d, np.full((20, 3), 3 ** -0.5, np.float32),
+                        np.zeros((4, 3), np.float32)])
+    return rays8_both(p, d, 128)[1], pack
+
+
+def _chunked(rays8, pack, bounds):
+    """K4's split rule on the plain version: minarg_plain over each chunk
+    [lo, hi), the index offset by lo (a miss too, as the kernel does),
+    combined in chunk order with a strict <; then dense_plain's fetch."""
+    t = torch.full((rays8.shape[1],), k.BIG)
+    g = torch.zeros(rays8.shape[1])
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        tc, gc = k.minarg_plain(rays8, pack[lo:hi])
+        bet = tc < t
+        t, g = torch.where(bet, tc, t), torch.where(bet, gc + lo, g)
+    rows = pack[g.long()]
+    return (t, g, rows[:, 0] + 0.0, rows[:, 1] + 0.0, rows[:, 2] + 0.0,
+            rows[:, 16] + 0.0)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
+def test_chunked_combine_equals_whole_dense(splits):
+    """The rule the split K4 relies on: per-chunk first-index minima,
+    combined in chunk order with a strict <, are dense_plain over the
+    whole pack, at chunk bounds that are not tile multiples, with exact-t
+    ties across chunk boundaries, all-miss rays and winners in the last
+    chunk."""
+    rays8, pack = _tie_scene()
+    t_all = pack.shape[0]
+    bounds = [0] + [t_all * j // splits + 13 for j in range(1, splits)] + [
+        t_all]
+    assert all(b % 256 for b in bounds[1:-1])
+    got = _chunked(rays8, pack, bounds)
+    want = k.dense_plain(rays8, pack)
+    for what, a, b in zip(("t", "index", "nx", "ny", "nz", "mati"), got,
+                          want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), what
+    t, g = want[0], want[1].long()
+    hit = t < k.BIG
+    assert not hit[-24:].any() and (g[-24:] == 0).all()
+    # Ties: each winner below row 300 has its twin 300 rows on; the
+    # twin lies in a later chunk for some of them.
+    twin = hit & (g < 300)
+    assert twin.sum() > 20
+    chunk_of = torch.bucketize(g, torch.tensor(bounds[1:-1]), right=True)
+    twin_chunk = torch.bucketize(g + 300, torch.tensor(bounds[1:-1]),
+                                 right=True)
+    assert splits == 1 or bool((twin & (twin_chunk > chunk_of)).any())
+    assert bool((hit & (g >= max(bounds[-2], 600))).any())
+
+
+@pytest.mark.parametrize("n_rays,n_tris,sms,want", [
+    (2_073_600, 804, 132, 1),       # cornell camera rays
+    (2_073_600, 99_380, 132, 1),    # stress camera rays
+    (76_800, 804, 132, 4),          # the fused pipeline's exact slice
+    (16_384, 99_380, 132, 65),      # the stress tails
+    (8_192, 99_380, 132, 130),      # the 'pairwin' tail
+    (300, 20_000, 132, 79),         # tests/test_torch_cuda.py's split
+    (300, 3_000, 132, 12),          # one tile a chunk
+    (1_081_344, 99_380, 132, 1),    # 32 blocks per SM: no split
+    (200, 200, 132, 1),             # one tile: no split
+    (1, 1, 132, 1),
+])
+def test_dense_splits(n_rays, n_tris, sms, want):
+    """K4's launch shape: whole tiles per chunk, chunks covering the pack
+    with none empty, one split where the rays alone make 32 blocks per
+    SM, and at most one chunk per tile."""
+    splits, chunk = k.dense_splits(n_rays, n_tris, sms)
+    assert splits == want
+    assert (splits - 1) * chunk < n_tris <= splits * chunk
+    if splits > 1:
+        assert chunk % 256 == 0
+        assert -(-n_rays // 256) * (splits - 1) < 32 * sms or chunk == 256
+    else:
+        assert chunk == n_tris
+
+
+def test_dense_split_bounds_equal_whole_dense():
+    """The chunks dense_splits gives 300 rays against 3,000 triangles,
+    combined as the kernel does, equal dense_plain."""
+    _, tris = rand_scene(3000, seed=6)
+    pack = k.build_tri_pack(tris)
+    rays8 = rays8_both(*rand_rays(300, seed=7), 128)[1]
+    splits, chunk = k.dense_splits(300, 3000, 132)
+    bounds = [min(j * chunk, 3000) for j in range(splits + 1)]
+    assert splits == 12
+    for a, b in zip(_chunked(rays8, pack, bounds), k.dense_plain(rays8, pack)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))

@@ -233,7 +233,7 @@ def test_map_kd_raises(tmp_path):
                                     "v 0 1 0\nusemtl tex\nf 1 2 3\n")
     (tmp_path / "t.mtl").write_text("newmtl tex\nKd 1 1 1\nmap_Kd wood.png\n"
                                     "Kn 1 1 1\nKk 0 0 0\nTp 0\n")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="queue 1, textures"):
         builder.SceneBuilder().add_obj(str(tmp_path / "t.obj"), (0, 0, 0),
                                        (1, 1, 1))
 

@@ -161,9 +161,11 @@ def test_unported_options_raise():
     scene = library.cornell_box(with_spheres=False)
     cam = library.cornell_camera(4, 4)
     st = wavefront.init_wavefront(cam, 16, mode="fast", key=rng.key(1))
-    for kw in (dict(env=object()), dict(dof=(1.0, 2.0)),
-               dict(variance_tol=0.1)):
-        with pytest.raises(NotImplementedError, match="queue 1"):
+    for kw, feature in ((dict(env=object()), "environment light"),
+                        (dict(dof=(1.0, 2.0)), "DOF"),
+                        (dict(variance_tol=0.1), "adaptive sampling")):
+        with pytest.raises(NotImplementedError,
+                           match=f"queue 1, .*{feature}"):
             wavefront.wavefront_step(cam, scene.mats, st,
                                      intersect_fn=make_intersect_fn(scene),
                                      iterations=2, mode="fast",

@@ -75,6 +75,17 @@ timed at the tails' shape and on the fused slice with one loop and with
 other splits. K18m is also held against its plain version on an odd L
 and on views at storage offsets.
 
+K18 runs its edge values on the tensor cores behind a certified margin:
+it is also held against its first kernel (every product on the float32
+cores, `march_kernel.run_march_simt`) on every K18 launch that the
+'march' (rounds 1 and 2) and 'flat' (round 0) intersectors make on the
+camera rays, whole, with the edge tests that the margin sent to the
+float32 chain printed per launch, and the two are timed in turns on
+'march' round 1. K9 is held against its plain version at every l the
+paths use (2, 6, 14 and 48 on the 16-column table, 8, 16 and 48 on the
+8-column one). The build line is followed by ptxas's registers, stack
+frame and spills of every entry function of K18 and K9.
+
 The last two lines are a JSON object per kernel (time, plain time,
 bound, launches) and the verdict; the line before them, the smoke's total
 time. Any failed phase raises, and the
@@ -258,13 +269,29 @@ def build_line():
         _build.library(name)
     info = _build.build_info
     parts = []
-    for name, rep in info.get("ptxas", {}).items():
+    for src, rep in info.get("ptxas", {}).items():
         regs = re.search(r"Used (\d+) registers", rep)
         smem = re.search(r"(\d+) bytes smem", rep)
-        parts.append(f"{name} {regs.group(1) if regs else '?'} registers "
+        parts.append(f"{src} {regs.group(1) if regs else '?'} registers "
                      f"{smem.group(1) if smem else 0} B smem")
     print(f"build: {info['seconds']:.1f} s for {len(info['built'])} sources "
           f"(sm_90a, --fmad=false); " + "; ".join(parts))
+    # Every entry function of the two kernels redesigned last, as ptxas
+    # reports it: registers, stack frame, spills, shared memory.
+    for src in ("march.cu", "pair_cand.cu"):
+        rep = info.get("ptxas", {}).get(src, "")
+        for fn, body in re.findall(
+                r"Compiling entry function '(\w+)'(.*?)(?=Compiling entry|\Z)",
+                rep, re.S):
+            frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                              r"stores, (\d+) bytes spill loads", body)
+            regs = re.search(r"Used (\d+) registers", body)
+            smem = re.search(r"(\d+) bytes smem", body)
+            print(f"ptxas {src} {fn}: {regs.group(1) if regs else '?'} "
+                  f"registers, {smem.group(1) if smem else 0} B smem, "
+                  + (f"{frame.group(1)} B stack frame, {frame.group(2)} B "
+                     f"spill stores, {frame.group(3)} B spill loads"
+                     if frame else "no frame line"))
 
 
 def bounce_rays(torch, scene, cam, rays, isect):
@@ -639,8 +666,8 @@ def pair_stats_line(name, stats):
 
 
 def check_pairs(torch, scenes, cam, errs):
-    """K9 (l = 2 on the 1080p camera rays, l = 6 and 48 on the first
-    65,536), K10 on round 1's pairs and K11 on the final winners of the
+    """K9 (l = 2 on the 1080p camera rays, l = 6, 14 and 48 on the
+    first 65,536), K10 on round 1's pairs and K11 on the final winners of the
     stress scene, each against its plain version (torch.equal); the pair
     intersector's t against K4's over the whole scene on the camera and
     first-bounce rays. Returns the inputs at which K9-K11 are timed."""
@@ -675,7 +702,7 @@ def check_pairs(torch, scenes, cam, errs):
     compare("pair_cand", ids, si.candidates_plain(r8, boxes_r, 2, c),
             "stress camera rays (l = 2)")
     sub = r8[:, :65536].contiguous()
-    for l in (6, 48):
+    for l in (6, 14, 48):
         compare("pair_cand", si.run_candidates(sub, boxes_r, l, c),
                 si.candidates_plain(sub, boxes_r, l, c),
                 f"stress camera rays (l = {l})")
@@ -752,7 +779,7 @@ def exact_vs_k4(torch, name, h, t4, where):
 
 def check_slice6(torch, scenes, cam, cam_rays, errs):
     """K12 on the round-1 pairs of the 1080p stress camera rays at the
-    'pair' defaults (with K9 on the 8-column table at l = 8 and 48), K17
+    'pair' defaults (with K9 on the 8-column table at l = 8, 16 and 48), K17
     on the stress camera rays and the cornell first-bounce rays (early
     exit off and on), K16 on the reference camera and first-bounce rays,
     each against its plain version (torch.equal); the 'pair', 'cluster'
@@ -787,9 +814,10 @@ def check_slice6(torch, scenes, cam, cam_rays, errs):
     compare("pair_cand", ids, si.candidates_plain(r8, boxes_r, 8, c),
             "stress camera rays (8-column table, l = 8)")
     sub = r8[:, :65536].contiguous()
-    compare("pair_cand", si.run_candidates(sub, boxes_r, 48, c),
-            si.candidates_plain(sub, boxes_r, 48, c),
-            "stress camera rays (8-column table, l = 48)")
+    for l in (16, 48):
+        compare("pair_cand", si.run_candidates(sub, boxes_r, l, c),
+                si.candidates_plain(sub, boxes_r, l, c),
+                f"stress camera rays (8-column table, l = {l})")
     keys_s, r8p, _ = pm.sort_pairs([r8[j] for j in range(6)], ids[0], c,
                                    1024)
     n_real = int((keys_s < c).sum())
@@ -1206,6 +1234,68 @@ def check_slice9(torch, scenes, cam_rays, inputs, errs):
     print(f"materialize on 'march' round 1 with an odd L ({odd.numel()}) "
           "and with views at storage offsets of 4, 12 and 2 bytes: equal "
           "to its plain version (torch.equal)")
+
+
+def check_slice10(torch, scenes, cam_rays, inputs):
+    """K18 as redesigned for the H100 (the edge values on the tensor
+    cores behind a certified margin) against its first kernel, every
+    product on the float32 cores (`run_march_simt`), on whole launches:
+    each K18 launch of the 'march' intersector (rounds 1 and 2) and of
+    the 'flat' intersector (round 0) on the 1080p stress camera rays,
+    captured from the intersectors themselves, torch.equal; the counting
+    entry's rows equal too, and the edge tests its margin sent to the
+    float32 chain are printed per launch. Then the two bodies timed in
+    turns (first, new, new, first) on 'march' round 1's inputs."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import (
+        flat_march as fm, march_kernel as mk)
+    stress = scenes["stress"]
+    real, launches = mk.run_march, []
+
+    def capture(*a):
+        out = real(*a)
+        launches.append((a, out))
+        return out
+
+    mk.run_march = capture
+    try:
+        for name, make in (("march", mk.make_march_intersect),
+                           ("flat", fm.make_flat_march_intersect)):
+            launches.append(name)
+            make(stress.tris)[0](cam_rays)
+    finally:
+        mk.run_march = real
+    name, rnd = None, 0
+    for item in launches:
+        if isinstance(item, str):
+            name, rnd = item, (1 if item == "march" else 0)
+            continue
+        args, out = item
+        clist, r8, _, _, cs, K, tr = args
+        torch.cuda.synchronize()
+        where = f"'{name}' round {rnd} of the stress camera rays"
+        need(torch.equal(out, mk.run_march_simt(*args)),
+             f"march differs from its first kernel on {where}")
+        counted, exact = mk.run_march_counted(*args)
+        need(torch.equal(counted, out),
+             f"march's counting entry differs from it on {where}")
+        tests = int((clist >= 0).sum()) * tr * cs
+        print(f"march on {where} ({r8.shape[1]} lanes, {tests} (lane, "
+              f"triangle) tests): equal to its first kernel (torch.equal); "
+              f"{exact} of {3 * tests} edge tests took the float32 chain "
+              f"({exact / max(3 * tests, 1):.3e})")
+        rnd += 1
+    clist, r8s, feat, ms, cs, K, tr = inputs["march"][:7]
+
+    def first():
+        mk.run_march_simt(clist, r8s, feat, ms, cs, K, tr)
+
+    def new():
+        mk.run_march(clist, r8s, feat, ms, cs, K, tr)
+
+    turns = [time_ms(torch, f, 5) for f in (first, new, new, first)]
+    print("march on 'march' round 1 in turns (first kernel, tensor-core "
+          "kernel, tensor-core kernel, first kernel): "
+          + ", ".join(f"{x:.4f}" for x in turns) + " ms")
 
 
 def check_goldens(torch, np):
@@ -2139,6 +2229,7 @@ def main() -> int:
     inputs.update(check_slice7(torch, scenes, cam, cam_rays, errs))
     inputs.update(check_slice8(torch, scenes, cam, cam_rays, errs))
     check_slice9(torch, scenes, cam_rays, inputs, errs)
+    check_slice10(torch, scenes, cam_rays, inputs)
     check_goldens(torch, np)
     check_no_fallback(torch, scenes)
     launches = main_path(torch, np, scenes, cam)

@@ -4,7 +4,8 @@ No counterpart in `opencl_path_tracer_tpu` (Pallas compiles its kernels
 inside `jax.jit`). Each source in `csrc/*.cu` is compiled by its own
 `nvcc` process, all started together, into a shared library with a
 plain C interface under `_build/`, named by a hash of the sources and
-flags, and loaded with ctypes at first use. Every entry point takes
+flags, and loaded with ctypes at first use; a source with several entry
+points (march.cu) is built once. Every entry point takes
 device pointers, sizes and the CUDA stream, launches on that stream and
 returns the launch's `cudaError_t`.
 
@@ -64,6 +65,12 @@ KERNELS = {
                 [P, P, P, P, P, P, I, I, I, I, I, P]),
     "group": ("group.cu", "ptx_group", [P, P, P, P, I, I, I, I, P]),
     "march": ("march.cu", "ptx_march", [P, P, P, P, P, P, I, I, I, I, P]),
+    # K18's two entries for the checks only: its first (float32-core)
+    # body, and the kernel counting the edge tests its margin recomputes.
+    "march_simt": ("march.cu", "ptx_march_simt",
+                   [P, P, P, P, P, P, I, I, I, I, P]),
+    "march_count": ("march.cu", "ptx_march_count",
+                    [P, P, P, P, P, P, I, I, I, I, P, P]),
     "materialize": ("materialize.cu", "ptx_materialize",
                     [P, P, P, P, P, P, I, I, I, P]),
     "flat_march": ("flat.cu", "ptx_flat", [P, P, P, P, P, P, P, P, I, I, I, P]),
@@ -110,38 +117,40 @@ def _digest() -> str:
 def build() -> dict[str, pathlib.Path]:
     """Compile every source (in parallel) unless its library for this
     hash exists. Returns kernel name -> library path; records the build
-    time and nvcc's register and shared-memory report in `build_info`."""
+    time and nvcc's register and shared-memory report (by source) in
+    `build_info`."""
     digest = _digest()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    libs = {name: BUILD_DIR / f"lib{name}_{digest}.so" for name in KERNELS}
-    todo = [n for n, p in libs.items() if not p.exists()]
+    srcs = sorted({src for src, _, _ in KERNELS.values()})
+    libs = {src: BUILD_DIR / f"lib{src[:-3]}_{digest}.so" for src in srcs}
+    todo = [src for src, p in libs.items() if not p.exists()]
     t0 = time.perf_counter()
     if todo:
         nvcc = nvcc_path()
         procs = {}
-        for name in todo:
-            tmp = libs[name].with_suffix(f".{os.getpid()}.tmp")
+        for src in todo:
+            tmp = libs[src].with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-                   str(CSRC / KERNELS[name][0])]
-            procs[name] = (tmp, subprocess.Popen(
+                   str(CSRC / src)]
+            procs[src] = (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
         failed = []
-        for name, (tmp, proc) in procs.items():
+        for src, (tmp, proc) in procs.items():
             out, _ = proc.communicate()
             if proc.returncode != 0:
-                failed.append(f"{name}:\n{out}")
+                failed.append(f"{src}:\n{out}")
             else:
-                libs[name].with_suffix(".log").write_text(out)
-                os.replace(tmp, libs[name])
+                libs[src].with_suffix(".log").write_text(out)
+                os.replace(tmp, libs[src])
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
     build_info["seconds"] = time.perf_counter() - t0
     build_info["built"] = todo
     build_info["ptxas"] = {
-        name: path.with_suffix(".log").read_text()
-        for name, path in libs.items() if path.with_suffix(".log").exists()}
-    return libs
+        src: path.with_suffix(".log").read_text()
+        for src, path in libs.items() if path.with_suffix(".log").exists()}
+    return {name: libs[src] for name, (src, _, _) in KERNELS.items()}
 
 
 def library(name: str):

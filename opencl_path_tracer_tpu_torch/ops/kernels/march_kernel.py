@@ -37,6 +37,15 @@ mati, g, pend): the winner's normal and material are its tric row's
 columns 0-2 and 16 plus +0.0 (the TPU's one-hot fetch over the exact
 bf16 3-split turns -0.0 into +0.0); (BIG, 0, 0, 0, 0, 0) without a hit.
 
+K18's kernel (`csrc/march.cu` over `csrc/march_mma.cuh`) computes the
+edge values E_k on the tensor cores and decides an edge test from them
+only outside a certified margin, recomputing the float32 chain inside it:
+its rows are the first kernel's bit for bit (`run_march_simt`, every
+product on the float32 cores, `csrc/march_visit.cuh`). `run_march_simt`
+and `run_march_counted` (the same kernel, counting the edge tests the
+margin sent to the chain) serve the checks only; no render path calls
+them.
+
 K18m (`materialize`) copies clist, the sorted rays and their features
 before every K18 launch. On the TPU the copy forces XLA to materialize
 the kernel's operands; on the card it is a plain copy, launched where the
@@ -368,6 +377,17 @@ def check_march_inputs(rays8s, feat, scene: MarchScene, cs: int, tr: int,
     return c
 
 
+def _check_run_march(clist, rays8s, feat, scene: MarchScene, cs: int,
+                     K: int, tr: int, what: str) -> None:
+    c = check_march_inputs(rays8s, feat, scene, cs, tr, what)
+    n = rays8s.shape[1]
+    _build.check(clist, "clist", (n // tr * K,), dtype=torch.int32)
+    if clist.device != rays8s.device:
+        raise ValueError("clist and rays8s must be on one device")
+    if clist.numel() and int(clist.max()) >= c:
+        raise ValueError(f"clist names a cluster past C = {c}")
+
+
 def run_march(clist, rays8s, feat, scene: MarchScene, cs: int, K: int,
               tr: int) -> torch.Tensor:
     """K18: (7, N) float32 rows [t nx ny nz mati g pend] of the sorted
@@ -375,13 +395,8 @@ def run_march(clist, rays8s, feat, scene: MarchScene, cs: int, K: int,
     tr lanes visiting the clusters clist[b K : (b + 1) K] ((B K,) int32,
     -1 a dummy). CPU tensors take the plain version; CUDA tensors launch
     the kernel or raise."""
-    c = check_march_inputs(rays8s, feat, scene, cs, tr, "run_march")
+    _check_run_march(clist, rays8s, feat, scene, cs, K, tr, "run_march")
     n = rays8s.shape[1]
-    _build.check(clist, "clist", (n // tr * K,), dtype=torch.int32)
-    if clist.device != rays8s.device:
-        raise ValueError("clist and rays8s must be on one device")
-    if clist.numel() and int(clist.max()) >= c:
-        raise ValueError(f"clist names a cluster past C = {c}")
     if rays8s.device.type == "cpu":
         return march_plain(clist, rays8s, feat, scene, cs, K, tr)
     out = torch.empty((7, n), dtype=torch.float32, device=rays8s.device)
@@ -389,6 +404,40 @@ def run_march(clist, rays8s, feat, scene: MarchScene, cs: int, K: int,
         _build.launch("march", clist, rays8s, feat, scene.trig, scene.tric,
                       out, n, K, tr, cs)
     return out
+
+
+def _launch_entry(entry: str, clist, rays8s, feat, scene: MarchScene,
+                     cs: int, K: int, tr: int, *extra) -> torch.Tensor:
+    _check_run_march(clist, rays8s, feat, scene, cs, K, tr, entry)
+    if rays8s.device.type != "cuda":
+        raise ValueError(f"{entry} runs on CUDA tensors only")
+    n = rays8s.shape[1]
+    out = torch.empty((7, n), dtype=torch.float32, device=rays8s.device)
+    if n:
+        _build.launch(entry, clist, rays8s, feat, scene.trig, scene.tric,
+                      out, n, K, tr, cs, *extra)
+    return out
+
+
+def run_march_simt(clist, rays8s, feat, scene: MarchScene, cs: int, K: int,
+                   tr: int) -> torch.Tensor:
+    """K18's first kernel, every product on the float32 cores
+    (`csrc/march.cu::march_simt_kernel` over `march_visit.cuh`), on CUDA
+    tensors: run_march's rows. For the checks only (the smoke and the
+    cuda tests hold the tensor-core kernel against it on whole launches
+    and time the two in turns); no render path calls it."""
+    return _launch_entry("march_simt", clist, rays8s, feat, scene, cs, K, tr)
+
+
+def run_march_counted(clist, rays8s, feat, scene: MarchScene, cs: int,
+                      K: int, tr: int):
+    """run_march's kernel on CUDA tensors, also counting the edge tests
+    its margin sent to the float32 chain: ((7, N) rows, the count as an
+    int). For the checks only; no render path calls it."""
+    count = torch.zeros(1, dtype=torch.int64, device=rays8s.device)
+    out = _launch_entry("march_count", clist, rays8s, feat, scene, cs, K, tr,
+                        count)
+    return out, int(count.item())
 
 
 def materialize_plain(clist, rays8s, feat):

@@ -523,3 +523,144 @@ def test_ninth_slice_kernels_equal_plain_versions(cuda, monkeypatch):
         k1.dense(rays8, pack)
     with pytest.raises(RuntimeError, match="disabled"):
         mk.materialize(*views)
+
+
+def _crafted_boxes(c=40, seed=10):
+    """(Cp = 128, 16) cluster table: boxes and their 14-DOP intervals,
+    rows 20-29 repeating rows 0-9 (equal entries across clusters), rows
+    30-34 flat along x."""
+    from opencl_path_tracer_tpu_torch.ops.kernels.pair_mxu import DOP_SIGNS
+    rs = np.random.default_rng(seed)
+    lo = rs.uniform(-50, 50, (c, 3)).astype(np.float32)
+    hi = (lo + rs.uniform(1, 20, (c, 3))).astype(np.float32)
+    lo[20:30], hi[20:30] = lo[0:10], hi[0:10]
+    hi[30:35, 0] = lo[30:35, 0]
+    corners = np.stack([np.where(np.array([(m >> k) & 1 for k in range(3)],
+                                          bool), hi, lo)
+                        for m in range(8)], 1).astype(np.float64)
+    table = np.zeros((128, 16), np.float32)
+    table[:c, 0:3], table[:c, 3:6] = lo, hi
+    for j, s in enumerate(DOP_SIGNS):
+        pv = corners @ np.asarray(s)
+        table[:c, 8 + j], table[:c, 12 + j] = pv.min(1), pv.max(1)
+    return table, lo, hi
+
+
+def _crafted_rays(lo, hi, seed=11):
+    """(8, R) rays against _crafted_boxes: random ones; origins exactly on
+    box faces; directions with +0 and -0 components, subnormal ones
+    (whose reciprocal overflows: 0 * inf = NaN on a face), and ones
+    whose DOP projection is 0; origins inside boxes and on their
+    corners (entries of +-0)."""
+    rs = np.random.default_rng(seed)
+    n = 4096
+    p = rs.uniform(-60, 60, (n, 3))
+    d = rs.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    k = rs.integers(0, lo.shape[0], n)
+    ax = rs.integers(0, 3, n)
+    inside = lo[k] + rs.uniform(0, 1, (n, 3)) * (hi[k] - lo[k])
+    sel = np.arange(n) % 8
+    # 1: origin on a face of box k; 2: inside box k; 3: on its lo corner.
+    p[sel == 1] = inside[sel == 1]
+    face = sel == 1
+    p[face, ax[face]] = lo[k[face], ax[face]]
+    p[sel == 2] = inside[sel == 2]
+    p[sel == 3] = lo[k[sel == 3]]
+    # 4: a zero component (+0 or -0); 5: a subnormal one; 6: on a face
+    # with a subnormal component along that axis; 7: dx = dy (DOP 0).
+    for s, v in ((4, 0.0), (5, 1e-40), (6, 1e-40)):
+        m = sel == s
+        d[m, ax[m]] = v * rs.choice([-1.0, 1.0], int(m.sum()))
+    m = sel == 6
+    p[m] = inside[m]
+    p[m, ax[m]] = lo[k[m], ax[m]]
+    m = sel == 7
+    d[m, 1] = d[m, 0]
+    r8 = np.zeros((8, n), np.float32)
+    r8[0:3], r8[3:6] = p.T, d.T
+    r8[3:6][np.abs(r8[3:6]) == 0] = np.copysign(
+        0.0, rs.choice([-1.0, 1.0], int((np.abs(r8[3:6]) == 0).sum())))
+    return r8
+
+
+@pytest.mark.cuda
+def test_tenth_slice_candidates_on_crafted_rays(cuda, monkeypatch):
+    """K9 as redesigned (per-ray reciprocals, NaN-propagating min and max,
+    the top list in registers for capacities 3, 9 and 17, in local memory
+    for 49) against its plain version on rays crafted for its edge cases:
+    d = +-0, subnormal d whose reciprocal overflows, origins exactly on
+    box faces (0 * inf = NaN), entries of +-0, equal entries across
+    clusters; every l the paths use and one per capacity boundary, on the
+    8- and 16-column tables; the CPU plain version agrees."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import sorted_intersect as si
+    table, lo, hi = _crafted_boxes()
+    r8 = torch.as_tensor(_crafted_rays(lo, hi)).to(cuda)
+    assert bool((r8[3:6] == 0).any()) and bool(
+        ((r8[3:6].abs() > 0) & (r8[3:6].abs() < 1e-38)).any())
+    c = 40
+    for boxw in (8, 16):
+        boxes = torch.as_tensor(table[:, :boxw].copy()).to(cuda)
+        for l in (2, 3, 6, 8, 9, 14, 16, 17, 30, 48):
+            before = _build.launches["pair_cand"]
+            out = si.run_candidates(r8, boxes, l, c)
+            plain = si.candidates_plain(r8, boxes, l, c)
+            assert _build.launches["pair_cand"] - before == 1
+            for a, b in zip(out, plain):
+                assert torch.equal(a, b), (boxw, l)
+            ent = out[1]
+            assert bool((ent == 0).any()) and bool((ent < k1.BIG).any())
+        cpu = si.run_candidates(r8.cpu(), boxes.cpu(), 6, c)
+        gpu = si.run_candidates(r8, boxes, 6, c)
+        assert all(torch.equal(a, b.cpu()) for a, b in zip(cpu, gpu))
+    # Ties: clusters 0-9 and 20-29 hold the same boxes, so a ray whose
+    # nearest is one of them has an equal entry at rank 1, lower id first.
+    ids, ent, _ = si.run_candidates(
+        r8, torch.as_tensor(table).to(cuda), 2, c)
+    tie = (ent[0] == ent[1]) & (ent[0] < k1.BIG)
+    assert bool(tie.any()) and bool((ids[0][tie] < ids[1][tie]).all())
+
+
+@pytest.mark.cuda
+def test_tenth_slice_march_on_grazing_lanes(cuda):
+    """K18 on the tensor cores against its plain version and against its
+    first (float32-core) kernel on lanes of stress_scene(1200) aimed at
+    triangle vertices, along triangle edges and nearly in a triangle's
+    plane, with clusters and blocks of 128; the counting entry's rows are
+    the same and at least one edge test takes the float32 chain."""
+    from march_lanes import aimed_rays, grazing_rays
+
+    from opencl_path_tracer_tpu_torch.ops.kernels import march_kernel as mk
+    from opencl_path_tracer_tpu_torch.ops.kernels.plucker_kernel import (
+        plucker_feat,
+    )
+    scene = library.stress_scene(1200, device=cuda)
+    cs, tr, K = 128, 128, 6
+    ms, _, c = mk.build_march_scene(scene.tris, cs)
+    r8n = np.concatenate([grazing_rays(scene.tris, 6144, 3),
+                          aimed_rays(2048, 4, scene.tris)], 1)
+    r8 = torch.as_tensor(r8n).to(cuda)
+    n = r8.shape[1]
+    order = torch.sort(mk.lane_key(r8[0:3], r8[3:6], ms), stable=True).indices
+    r8s = r8[:, order].contiguous()
+    feat = plucker_feat(r8s)
+    ent, need = mk._slab_entries(r8s, ms, torch.full((n,), k1.BIG,
+                                                     device=cuda))
+    clist = mk._block_lists(ent, need, tr, K)
+    before = dict(_build.launches)
+    out = mk.run_march(clist, r8s, feat, ms, cs, K, tr)
+    assert torch.equal(out, mk.march_plain(clist, r8s, feat, ms, cs, K, tr))
+    assert torch.equal(out, mk.run_march_simt(clist, r8s, feat, ms, cs, K,
+                                              tr))
+    counted, exact = mk.run_march_counted(clist, r8s, feat, ms, cs, K, tr)
+    assert torch.equal(counted, out) and exact > 0
+    assert int((out[0] < k1.BIG).sum()) > 0
+    assert {k: _build.launches[k] - before[k]
+            for k in ("march", "march_simt", "march_count")} == {
+                "march": 1, "march_simt": 1, "march_count": 1}
+    cpu = mk.run_march(clist[:4 * K].cpu(), r8s[:, :4 * tr].cpu(),
+                       feat[:, :4 * tr].cpu(), mk.MarchScene(
+                           *(x.cpu() for x in (ms.trig, ms.tric, ms.boxes_lo,
+                                               ms.boxes_hi, ms.scene_lo,
+                                               ms.scene_inv))), cs, K, tr)
+    assert torch.equal(cpu, out[:, :4 * tr].cpu())

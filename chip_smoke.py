@@ -86,6 +86,23 @@ paths use (2, 6, 14 and 48 on the 16-column table, 8, 16 and 48 on the
 8-column one). The build line is followed by ptxas's registers, stack
 frame and spills of every entry function of K18 and K9.
 
+K13a runs its edge values on the tensor cores behind K18's certified
+margin and stops its scan at the live triangle count; K1 settles the
+pairs it can by sign or distance before the divide in warps of coherent
+rays and divides every pair of the others without a branch per ray.
+Each is held against its first kernel (`plucker_kernel.run_candidates_simt`,
+`intersect_kernel.minarg_simt`) and its plain version: K13a on every
+launch of the fused pipeline's first two steps at 1080p, with the edge
+tests the margin sent to the float32 chain printed per launch; K1 on the
+cornell and reference camera and first-bounce rays, the stress-analytic
+triangles and tests/minarg_rays.py's adversarial batch (and a pack whose
+rows repeat), with the shares of warps in the joint loop and of pairs
+that reached the divide and the edge tests; K13a also where whole chunks
+of padding follow a live count that ends a chunk. Both are timed in
+turns against their first kernels (K1 on camera and bounce rays), and
+the build line is followed by ptxas's report of their entry functions
+too. No main path may launch a check-only entry (CHECK_ONLY).
+
 The last two lines are a JSON object per kernel (time, plain time,
 bound, launches) and the verdict; the line before them, the smoke's total
 time. Any failed phase raises, and the
@@ -221,6 +238,10 @@ PATH_EXCLUDES = {
     "megakernel cornell minarg-fused": ("minarg", "refine1"),
     "megakernel cornell mxu": ("minarg", "refine1", "dense"),
 }
+# Entries kept for the checks only (a redesigned kernel's first body and
+# its counting entry): no main path may launch them.
+CHECK_ONLY = ("minarg_simt", "minarg_count", "plucker_cand_simt",
+              "plucker_cand_count", "march_simt", "march_count")
 PAIR_KERNELS = ("pair_cand", "pair_visit", "attr_fetch")
 MODELS_DIR = os.path.join(HERE, "tests", "assets", "models")
 REFERENCE_TRIS = 1838   # ground plane + the seven models (docs/BENCHMARKS.md)
@@ -276,9 +297,10 @@ def build_line():
                      f"{smem.group(1) if smem else 0} B smem")
     print(f"build: {info['seconds']:.1f} s for {len(info['built'])} sources "
           f"(sm_90a, --fmad=false); " + "; ".join(parts))
-    # Every entry function of the two kernels redesigned last, as ptxas
-    # reports it: registers, stack frame, spills, shared memory.
-    for src in ("march.cu", "pair_cand.cu"):
+    # Every entry function of the kernels redesigned in the last two
+    # slices, as ptxas reports it: registers, stack frame, spills, shared
+    # memory.
+    for src in ("march.cu", "pair_cand.cu", "plucker_cand.cu", "minarg.cu"):
         rep = info.get("ptxas", {}).get(src, "")
         for fn, body in re.findall(
                 r"Compiling entry function '(\w+)'(.*?)(?=Compiling entry|\Z)",
@@ -352,7 +374,7 @@ def check_kernels(torch, scenes, cam):
                     k2.refine1_plain(t, g, pack), where)
             dense = k1.dense(rays8, pack)
             compare("dense", dense, k1.dense_plain(rays8, pack), where)
-            cand = k2.candidates(rays8, trig, tric)
+            cand = k2.candidates(rays8, trig, tric, live=scene.tris.count)
             compare("plucker_cand", cand,
                     k2.candidates_plain(rays8, trig, tric), where)
             rows = k2.refine(rays8, cand, pack)
@@ -428,7 +450,7 @@ def check_fused(torch, scene, cam, errs):
     sl = slice(0, SLICE)
     trig, tric, _ = k2.build_plucker_packs(scene.tris)
     pack = k1.build_tri_pack(scene.tris)
-    cand = k2.candidates(rays8, trig, tric)
+    cand = k2.candidates(rays8, trig, tric, live=scene.tris.count)
     h = hrows.clone()
     torch.cuda.synchronize()
     return {"dense": (rays8[:, sl], pack, h[:, sl]),
@@ -1298,6 +1320,155 @@ def check_slice10(torch, scenes, cam_rays, inputs):
           + ", ".join(f"{x:.4f}" for x in turns) + " ms")
 
 
+def check_slice11(torch, scenes, cam, cam_rays, inputs):
+    """K13a and K1 as redesigned for the H100. K13a (the edge values on
+    the tensor cores behind K18's certified margin, the scan stopped at
+    the live triangle count) against its first kernel
+    (`run_candidates_simt`) and its plain version on every K13a launch of
+    the fused pipeline's first two steps at 1080p, captured from
+    `make_plucker_intersect` itself, torch.equal, with the edge tests the
+    margin sent to the float32 chain printed per launch; and on packs
+    whose live count ends a chunk before whole chunks of padding (1,280
+    and 1,792 parallel planes) with lanes that accept t above BIG on every
+    live row, where the first padding chunk's fill wins. K1 (pairs
+    settled by sign or distance before the divide in warps of coherent
+    rays, the joint loop in the others) against its first kernel
+    (`minarg_simt`) and `minarg_plain` on the cornell and reference
+    camera and first-bounce rays, the stress-analytic triangles and
+    tests/minarg_rays.py's adversarial batch (with a pack whose rows
+    repeat: exact t ties), torch.equal, with the shares of warps that ran
+    the joint loop and of pairs that reached the divide and the edges.
+    Then each timed in turns (first, new, new, first): K13a on its table
+    inputs, K1 on the cornell and reference camera and first-bounce
+    rays."""
+    from opencl_path_tracer_tpu_torch.models import pipeline
+    from opencl_path_tracer_tpu_torch.ops import rng
+    from opencl_path_tracer_tpu_torch.ops.kernels import (
+        intersect_kernel as k1, plucker_kernel as k2)
+    from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
+    from opencl_path_tracer_tpu_torch.scene import library
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from minarg_rays import (adversarial_rays, planes, t_above_big_rays,
+                             tie_pack)
+
+    corn = scenes["cornell"]
+    real, seen = k2.candidates, []
+
+    def capture(rays8, trig, tric, chunk=256, *, live):
+        out = real(rays8, trig, tric, chunk, live=live)
+        torch.cuda.synchronize()
+        where = f"fused step {len(seen) + 1} ({rays8.shape[1]} lanes)"
+        need(torch.equal(out, k2.run_candidates_simt(rays8, trig, tric,
+                                                     chunk)),
+             f"plucker_cand differs from its first kernel on {where}")
+        need(torch.equal(out, k2.candidates_plain(rays8, trig, tric, chunk)),
+             f"plucker_cand differs from its plain version on {where}")
+        counted, chain = k2.candidates_counted(rays8, trig, tric, chunk,
+                                               live=live)
+        need(torch.equal(counted, out),
+             f"plucker_cand's counting entry differs from it on {where}")
+        tests = 3 * rays8.shape[1] * live
+        print(f"plucker_cand on {where}, {live} live of {tric.shape[0]} "
+              f"rows: equal to its first kernel and its plain version "
+              f"(torch.equal); {chain} of {tests} edge tests took the "
+              f"float32 chain ({chain / tests:.3e})")
+        seen.append(live)
+        return out
+
+    k2.candidates = capture
+    try:
+        state, step, _ = pipeline.make_fast_pipeline(
+            corn, cam, width=W, height=H, iterations=BOUNCES, key=rng.key(1))
+        for _ in range(2):
+            state = step(*state)
+    finally:
+        k2.candidates = real
+    need(seen == [corn.tris.count] * 2,
+         f"the fused pipeline's first two steps made {len(seen)} K13a "
+         "launches, not 2 with the live count")
+    for count in (1280, 1792):
+        ptris = planes(count).to("cuda")
+        trig, tric, _ = k2.build_plucker_packs(ptris)
+        r8 = torch.cat([t_above_big_rays(65_536), torch.as_tensor(
+            adversarial_rays(ptris, 65_536, 19))], 1).cuda()
+        out = k2.candidates(r8, trig, tric, live=count)
+        torch.cuda.synchronize()
+        where = f"{count} planes in {tric.shape[0]} rows"
+        need(torch.equal(out, k2.run_candidates_simt(r8, trig, tric)),
+             f"plucker_cand differs from its first kernel on {where}")
+        need(torch.equal(out, k2.candidates_plain(r8, trig, tric)),
+             f"plucker_cand differs from its plain version on {where}")
+        fill = int((out[1, :65_536] == count).sum())
+        need(fill == 65_536, f"plucker_cand on {where}: {fill} of 65536 "
+             "lanes took the first padding chunk's fill")
+        print(f"plucker_cand on {where} (lanes accepting t above BIG on "
+              "every live row, and adversarial lanes): equal to its first "
+              "kernel and its plain version (torch.equal); the first "
+              "padding chunk's fill on every such lane")
+
+    def minarg_case(where, rays8, pack):
+        t, g = k1.minarg(rays8, pack)
+        torch.cuda.synchronize()
+        need(all(torch.equal(a, b) for a, b in zip(
+            (t, g), k1.minarg_simt(rays8, pack))),
+             f"minarg differs from its first kernel on {where}")
+        need(all(torch.equal(a, b) for a, b in zip(
+            (t, g), k1.minarg_plain(rays8, pack))),
+             f"minarg differs from its plain version on {where}")
+        (tc, gc), divides, edges, joint = k1.minarg_counted(rays8, pack)
+        need(torch.equal(tc, t) and torch.equal(gc, g),
+             f"minarg's counting entry differs from it on {where}")
+        pairs = rays8.shape[1] * pack.shape[0]
+        warps = -(-rays8.shape[1] // 512) * 8
+        print(f"minarg on {where} ({rays8.shape[1]} rays x {pack.shape[0]} "
+              f"triangles, {int((t < k1.BIG).sum())} hits): equal to its "
+              f"first kernel and its plain version (torch.equal); warps "
+              f"in the joint loop {joint / warps:.4f}; pairs that reached "
+              f"the divide {divides / pairs:.4f}, the edge tests "
+              f"{edges / pairs:.4f}")
+
+    ref = scenes["reference"]
+    rcam = library.reference_camera(W, H, device="cuda")
+    rcam_rays = camera_rays(rcam)
+    turns_on = {}
+    for sname, scene, c, crays in (("cornell", corn, cam, cam_rays),
+                                   ("reference", ref, rcam, rcam_rays)):
+        pack = k1.build_tri_pack(scene.tris)
+        isect = make_intersect_fn(scene, "auto")
+        for rname, rays in (("camera", crays),
+                            ("bounce", bounce_rays(torch, scene, c, crays,
+                                                   isect))):
+            r8 = k1.pack_rays(rays.p, rays.d).contiguous()
+            minarg_case(f"{sname} {rname} rays", r8, pack)
+            turns_on[f"{sname} {rname}"] = (r8, pack)
+        adv = torch.as_tensor(adversarial_rays(scene.tris, 100_003,
+                                               3)).cuda()
+        minarg_case(f"{sname} adversarial rays", adv, pack)
+        minarg_case(f"{sname} adversarial rays, rows repeated", adv,
+                    tie_pack(pack))
+    sa = scenes["stress-analytic"]
+    minarg_case("stress-analytic reference-camera rays",
+                k1.pack_rays(rcam_rays.p, rcam_rays.d).contiguous(),
+                k1.build_tri_pack(sa.tris))
+
+    rays8c, trig, tric, tp = inputs["plucker_cand"]
+    turns = [time_ms(torch, f, 10) for f in (
+        lambda: k2.run_candidates_simt(rays8c, trig, tric),
+        lambda: k2.candidates(rays8c, trig, tric, live=tp),
+        lambda: k2.candidates(rays8c, trig, tric, live=tp),
+        lambda: k2.run_candidates_simt(rays8c, trig, tric))]
+    print("plucker_cand on the fused lanes in turns (first kernel, "
+          "tensor-core kernel, tensor-core kernel, first kernel): "
+          + ", ".join(f"{x:.4f}" for x in turns) + " ms")
+    for where, (r8, pack) in turns_on.items():
+        turns = [time_ms(torch, f, 20) for f in (
+            lambda: k1.minarg_simt(r8, pack), lambda: k1.minarg(r8, pack),
+            lambda: k1.minarg(r8, pack), lambda: k1.minarg_simt(r8, pack))]
+        print(f"minarg on the {where} rays in turns (first kernel, "
+              "new kernel, new kernel, first kernel): "
+              + ", ".join(f"{x:.4f}" for x in turns) + " ms")
+
+
 def check_goldens(torch, np):
     from opencl_path_tracer_tpu_torch.models import megakernel
     from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
@@ -1319,9 +1490,9 @@ def check_goldens(torch, np):
 
 
 def check_no_fallback(torch, scenes):
-    """With the kernel loader broken, a CUDA call must raise (K1, K4, K7,
-    K6, K3b, K8, K9, K10, K11, K12, K17, K16, K18, K18m, K19, K20, K14
-    and K15)."""
+    """With the kernel loader broken, a CUDA call must raise (K1 and its
+    two check-only entries, K13a and its two, K4, K7, K6, K3b, K8, K9,
+    K10, K11, K12, K17, K16, K18, K18m, K19, K20, K14 and K15)."""
     from opencl_path_tracer_tpu_torch.ops.kernels import _build
     from opencl_path_tracer_tpu_torch.ops.kernels import (
         cluster_kernel as ck, flat_march as fm, intersect_kernel as k1,
@@ -1329,6 +1500,7 @@ def check_no_fallback(torch, scenes):
         plucker_kernel as k2, shading_kernel as k8, sorted_intersect as si,
         sphere_kernel as k3, tilecull_kernel as tk)
     pack = k1.build_tri_pack(scenes["cornell"].tris)
+    ppack = k2.build_plucker_packs(scenes["cornell"].tris)[:2]
     smooth = scenes["cornell-smooth"]
     spack = (k1.build_tri_pack(smooth.tris),
              k8.build_shading_pack(smooth.attribs))
@@ -1341,6 +1513,13 @@ def check_no_fallback(torch, scenes):
     mfeat = torch.zeros((32, 128), dtype=torch.bfloat16, device="cuda")
     calls = {
         "minarg": lambda: k1.minarg(rays8, pack),
+        "minarg_simt": lambda: k1.minarg_simt(rays8, pack),
+        "minarg_count": lambda: k1.minarg_counted(rays8, pack),
+        "plucker_cand": lambda: k2.candidates(
+            rays8, *ppack, live=scenes["cornell"].tris.count),
+        "plucker_cand_simt": lambda: k2.run_candidates_simt(rays8, *ppack),
+        "plucker_cand_count": lambda: k2.candidates_counted(
+            rays8, *ppack, live=scenes["cornell"].tris.count),
         "dense": lambda: k1.dense(rays8, pack),
         "anyhit": lambda: tk.anyhit(rays8, torch.ones(64, device="cuda"),
                                     gpack, groups),
@@ -1417,7 +1596,8 @@ def run_path(torch, name, fn):
     counts = dict(_build.launches)
     missing = [k for k in PATH_KERNELS[name] if counts[k] == 0]
     need(not missing, f"main path {name} did not launch {missing}")
-    extra = [k for k in PATH_EXCLUDES.get(name, ()) if counts[k]]
+    extra = [k for k in PATH_EXCLUDES.get(name, ()) + CHECK_ONLY
+             if counts[k]]
     need(not extra, f"main path {name} launched {extra}")
     return result, dt, {k: v for k, v in counts.items() if v}
 
@@ -2077,7 +2257,8 @@ def measure(torch, inputs, errs, launches):
     # that pad the packs to whole chunks (they never accept).
     rays8c, trig, tric, tp = inputs["plucker_cand"]
     rc = rays8c.shape[1]
-    rows.append(("plucker_cand", lambda: k2.candidates(rays8c, trig, tric),
+    rows.append(("plucker_cand",
+                 lambda: k2.candidates(rays8c, trig, tric, live=tp),
                  lambda: k2.candidates_plain(rays8c, trig, tric),
                  19 * rc * tp, 2 * 54 * rc * tp,
                  24 * rc + tp * (3 * trig.shape[1] * 2 + tric.shape[1] * 4)
@@ -2230,6 +2411,7 @@ def main() -> int:
     inputs.update(check_slice8(torch, scenes, cam, cam_rays, errs))
     check_slice9(torch, scenes, cam_rays, inputs, errs)
     check_slice10(torch, scenes, cam_rays, inputs)
+    check_slice11(torch, scenes, cam, cam_rays, inputs)
     check_goldens(torch, np)
     check_no_fallback(torch, scenes)
     launches = main_path(torch, np, scenes, cam)

@@ -38,12 +38,24 @@ P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 # Kernel name -> (source file, C symbol, argtypes).
 KERNELS = {
     "minarg": ("minarg.cu", "ptx_minarg", [P, P, P, P, I, I, P]),
+    # K1's two entries for the checks only: its first kernel (every pair
+    # divided), and the kernel counting the pairs that reach the divide
+    # and the edge tests.
+    "minarg_simt": ("minarg.cu", "ptx_minarg_simt", [P, P, P, P, I, I, P]),
+    "minarg_count": ("minarg.cu", "ptx_minarg_count",
+                     [P, P, P, P, I, I, P, P]),
     "refine1": ("refine1.cu", "ptx_refine1", [P, P, P, P, P, P, P, P, I, I, P]),
     "spheres": ("spheres.cu", "ptx_spheres", [P, P, P, P, P, P, P, I, I, P]),
     "dense": ("dense.cu", "ptx_dense",
               [P, I, P, P, I, I, I, I, I, I, P, P]),
     "plucker_cand": ("plucker_cand.cu", "ptx_plucker_cand",
-                     [P, I, P, P, P, I, I, I, P]),
+                     [P, I, P, P, P, I, I, I, I, P]),
+    # K13a's two entries for the checks only: its first (float32-core)
+    # kernel, and the kernel counting the edge tests its margin recomputes.
+    "plucker_cand_simt": ("plucker_cand.cu", "ptx_plucker_cand_simt",
+                          [P, I, P, P, P, I, I, I, P]),
+    "plucker_cand_count": ("plucker_cand.cu", "ptx_plucker_cand_count",
+                           [P, I, P, P, P, I, I, I, I, P, P]),
     "plucker_refine": ("plucker_refine.cu", "ptx_plucker_refine",
                        [P, I, P, P, P, I, I, P]),
     "fused_step": ("fused_step.cu", "ptx_fused_step",

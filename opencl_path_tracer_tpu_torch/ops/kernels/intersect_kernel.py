@@ -137,24 +137,63 @@ def minarg_plain(rays8: torch.Tensor, tri_pack: torch.Tensor):
     return t_out, g_out
 
 
-def minarg(rays8: torch.Tensor, tri_pack: torch.Tensor):
-    """K1: (t, g) for each ray of the (8, R) pack against the (T, 24)
-    triangle pack. CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise."""
+def _check_minarg(rays8: torch.Tensor, tri_pack: torch.Tensor,
+                  entry: str) -> None:
     _build.check(rays8, "rays8", (8, None))
     _build.check(tri_pack, "tri_pack", (None, TRI_COLS))
     if rays8.device != tri_pack.device:
         raise ValueError("rays8 and tri_pack must be on one device")
     if not 0 < tri_pack.shape[0] < 1 << 24:
-        raise ValueError("minarg needs 1 to 2^24 - 1 triangles (the winner "
-                         "index travels as an exact float32)")
-    if rays8.device.type == "cpu":
-        return minarg_plain(rays8, tri_pack)
+        raise ValueError(f"{entry} needs 1 to 2^24 - 1 triangles (the "
+                         "winner index travels as an exact float32)")
+
+
+def _launch_minarg(entry: str, rays8: torch.Tensor, tri_pack: torch.Tensor,
+                   *extra):
     r = rays8.shape[1]
     t = torch.empty(r, dtype=torch.float32, device=rays8.device)
     g = torch.empty(r, dtype=torch.float32, device=rays8.device)
-    _build.launch("minarg", rays8, tri_pack, t, g, r, tri_pack.shape[0])
+    _build.launch(entry, rays8, tri_pack, t, g, r, tri_pack.shape[0], *extra)
     return t, g
+
+
+def minarg(rays8: torch.Tensor, tri_pack: torch.Tensor):
+    """K1: (t, g) for each ray of the (8, R) pack against the (T, 24)
+    triangle pack. CPU tensors take the plain version; CUDA tensors
+    launch the kernel (`csrc/minarg.cu`, which settles the pairs it can
+    by sign or distance before the divide where a warp's rays are
+    coherent enough to skip it together) or raise."""
+    _check_minarg(rays8, tri_pack, "minarg")
+    if rays8.device.type == "cpu":
+        return minarg_plain(rays8, tri_pack)
+    return _launch_minarg("minarg", rays8, tri_pack)
+
+
+def minarg_simt(rays8: torch.Tensor, tri_pack: torch.Tensor):
+    """K1's first kernel (`csrc/minarg.cu::minarg_simt_kernel`, nearest.cuh's
+    loop: every pair divided), on CUDA tensors: minarg's (t, g). For the
+    checks only (the smoke and the cuda tests hold the kernel against it
+    and time the two in turns); no render path calls it."""
+    _check_minarg(rays8, tri_pack, "minarg_simt")
+    if rays8.device.type != "cuda":
+        raise ValueError("minarg_simt runs on CUDA tensors only")
+    return _launch_minarg("minarg_simt", rays8, tri_pack)
+
+
+def minarg_counted(rays8: torch.Tensor, tri_pack: torch.Tensor):
+    """minarg's kernel on CUDA tensors, also counting the (ray, triangle)
+    pairs that reached the divide, those that reached the edge tests, and
+    the warps that ran the tiles after the first through the joint loop
+    (their rays seldom skip the divide together; 0 for one tile):
+    ((t, g), divides, edge pairs, joint warps). For the checks only; no
+    render path calls it."""
+    _check_minarg(rays8, tri_pack, "minarg_counted")
+    if rays8.device.type != "cuda":
+        raise ValueError("minarg_counted runs on CUDA tensors only")
+    count = torch.zeros(3, dtype=torch.int64, device=rays8.device)
+    out = _launch_minarg("minarg_count", rays8, tri_pack, count)
+    divides, edges, joint = count.tolist()
+    return out, divides, edges, joint
 
 
 def dense_plain(rays8: torch.Tensor, tri_pack: torch.Tensor,

@@ -320,13 +320,9 @@ def candidates_plain(rays8: torch.Tensor, trig: torch.Tensor,
     return out
 
 
-def candidates(rays8: torch.Tensor, trig: torch.Tensor, tric: torch.Tensor,
-               chunk: int = 256) -> torch.Tensor:
-    """K13a: (4, R) rows [t1, g1, t2, g2] for the (8, R) rays (rows
-    contiguous each; a column slice is read in place) against the packs
-    of build_plucker_packs. The features are computed inside the kernel.
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+def _check_candidates(rays8, trig, tric, chunk, live=None):
+    """Raise unless the arguments suit K13a's kernels (and the live
+    count, where one is given, lies in 0..tpad)."""
     _build.check_rows(rays8, "rays8", 8)
     _build.check(tric, "tric", (None, 8))
     tpad = tric.shape[0]
@@ -337,13 +333,64 @@ def candidates(rays8: torch.Tensor, trig: torch.Tensor, tric: torch.Tensor,
         raise ValueError(f"candidates needs 0 < tpad < 2^24 with tpad a "
                          f"multiple of chunk and chunk of {CAND_TILE}; got "
                          f"tpad {tpad}, chunk {chunk}")
-    if rays8.device.type == "cpu":
-        return candidates_plain(rays8, trig, tric, chunk)
+    if live is not None and not 0 <= live <= tpad:
+        raise ValueError(f"candidates needs 0 <= live <= tpad ({tpad}); "
+                         f"got live {live}")
+
+
+def _launch_candidates(entry, rays8, trig, tric, chunk, *extra):
     r = rays8.shape[1]
     out = torch.empty((4, r), dtype=torch.float32, device=rays8.device)
-    _build.launch("plucker_cand", rays8, rays8.stride(0), trig, tric, out,
-                  r, tpad, chunk)
+    _build.launch(entry, rays8, rays8.stride(0), trig, tric, out, r,
+                  tric.shape[0], *extra)
     return out
+
+
+def candidates(rays8: torch.Tensor, trig: torch.Tensor, tric: torch.Tensor,
+               chunk: int = 256, *, live: int) -> torch.Tensor:
+    """K13a: (4, R) rows [t1, g1, t2, g2] for the (8, R) rays (rows
+    contiguous each; a column slice is read in place) against the packs
+    of build_plucker_packs. The features are computed inside the kernel.
+    `live` is the scene's triangle count (`tris.count`): the rows at or
+    above it are the packs' padding, which never accepts, and the kernel
+    does not scan them. CPU tensors take the plain version
+    (over every row: the same rows); CUDA tensors launch the kernel
+    (`csrc/plucker_cand.cu`, the edge values on the tensor cores behind a
+    certified margin) or raise."""
+    _check_candidates(rays8, trig, tric, chunk, live)
+    if rays8.device.type == "cpu":
+        return candidates_plain(rays8, trig, tric, chunk)
+    return _launch_candidates("plucker_cand", rays8, trig, tric, chunk,
+                              live, chunk)
+
+
+def run_candidates_simt(rays8: torch.Tensor, trig: torch.Tensor,
+                        tric: torch.Tensor, chunk: int = 256) -> torch.Tensor:
+    """K13a's first kernel (`csrc/plucker_cand.cu::plucker_cand_simt_kernel`,
+    every product on the float32 cores, every row of the packs), on CUDA
+    tensors: candidates' rows. For the checks only (the smoke and the
+    cuda tests hold the tensor-core kernel against it and time the two in
+    turns); no render path calls it."""
+    _check_candidates(rays8, trig, tric, chunk)
+    if rays8.device.type != "cuda":
+        raise ValueError("run_candidates_simt runs on CUDA tensors only")
+    return _launch_candidates("plucker_cand_simt", rays8, trig, tric, chunk,
+                              chunk)
+
+
+def candidates_counted(rays8: torch.Tensor, trig: torch.Tensor,
+                       tric: torch.Tensor, chunk: int = 256, *,
+                       live: int):
+    """candidates' kernel on CUDA tensors, also counting the edge tests
+    its margin sent to the float32 chain: ((4, R) rows, the count). For
+    the checks only; no render path calls it."""
+    _check_candidates(rays8, trig, tric, chunk, live)
+    if rays8.device.type != "cuda":
+        raise ValueError("candidates_counted runs on CUDA tensors only")
+    count = torch.zeros(1, dtype=torch.int64, device=rays8.device)
+    out = _launch_candidates("plucker_cand_count", rays8, trig, tric, chunk,
+                             live, chunk, count)
+    return out, int(count.item())
 
 
 def refine_plain(rays8: torch.Tensor, cand: torch.Tensor,
@@ -434,7 +481,8 @@ def make_plucker_intersect(tris: TrianglesSoA, *, tt: int = 1024,
                            "float32 table exactly")
 
     def rows(rays8: torch.Tensor) -> torch.Tensor:
-        return refine(rays8, candidates(rays8, trig, tric, chunk), tri_pack)
+        return refine(rays8, candidates(rays8, trig, tric, chunk,
+                                        live=tris.count), tri_pack)
 
     def intersect(rays: Rays):
         h = rows(pack_rays(rays.p, rays.d))

@@ -3,7 +3,10 @@
 No counterpart in `opencl_path_tracer_tpu`. Compares the K1 kernel of
 this checkout with the K1 kernel of another checkout's `csrc/` (its C
 interface must be the same), on the 1080p camera rays of the Cornell box
-with its 804 triangles, the inputs `chip_smoke.py` times K1 on. Both
+with its 804 triangles, the inputs `chip_smoke.py` times K1 on, or with
+`--scene reference` on the reference scene's (1,838 triangles), and with
+`--bounce` on the first-bounce rays instead (the camera rays' hits
+shaded once, as `chip_smoke.py` makes them: incoherent rays). Both
 builds use `_build`'s nvcc flags, run as base, this, this, base (each the
 mean of --reps launches timed with CUDA events), must give equal outputs,
 and one JSON line reports the four times. Needs a GPU:
@@ -34,6 +37,22 @@ def _compile(csrc: pathlib.Path, out: pathlib.Path):
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
+def _bounce(scene, cam, rays):
+    """The first-bounce rays: the camera rays' hits shaded once."""
+    from opencl_path_tracer_tpu_torch.core.types import Rays
+    from opencl_path_tracer_tpu_torch.models import megakernel
+    from opencl_path_tracer_tpu_torch.ops import rng
+    from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
+    n = rays.count
+    hit, mat = megakernel.fetch_material(
+        scene.mats, make_intersect_fn(scene, "auto"), rays)
+    u = rng.fast_uniforms(rng.key(7), 0, 1, n, 2, device=rays.device)
+    inside = torch.zeros(n, dtype=torch.bool, device=rays.device)
+    s = megakernel.shade(cam, mat, hit, rays.p, rays.d, inside, u[0], u[1],
+                         hit.valid)
+    return Rays(p=s["new_p"], d=s["new_d"])
+
+
 def main(argv=None) -> int:
     from opencl_path_tracer_tpu_torch.ops import raygen, rng
     from opencl_path_tracer_tpu_torch.ops.kernels import _build
@@ -44,6 +63,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--base", required=True, type=pathlib.Path,
                     help="the csrc/ directory of the checkout to compare")
+    ap.add_argument("--scene", choices=("cornell", "reference"),
+                    default="cornell",
+                    help="the scene whose 1080p camera rays and triangles "
+                    "K1 is timed on (reference: tests/assets/models)")
+    ap.add_argument("--bounce", action="store_true",
+                    help="time on the first-bounce rays (the camera rays' "
+                    "hits shaded once) instead of the camera rays")
     ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
@@ -64,11 +90,19 @@ def main(argv=None) -> int:
         regs[k] = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
 
     w, h = 1920, 1080
-    scene = library.cornell_box(with_spheres=True, device=dev)
-    cam = library.cornell_camera(w, h, device=dev)
+    if args.scene == "cornell":
+        scene = library.cornell_box(with_spheres=True, device=dev)
+        cam = library.cornell_camera(w, h, device=dev)
+    else:
+        models = pathlib.Path(__file__).resolve().parents[2] / "tests" / (
+            "assets/models")
+        scene = library.reference_scene(str(models), smooth=True, device=dev)
+        cam = library.reference_camera(w, h, device=dev)
     s1, r1 = rng.lehmer_step(rng.seed_pixel_streams(w * h, 1, device=dev))
     _, r2 = rng.lehmer_step(s1)
     rays = raygen.camera_rays(cam, raygen.pixel_ids(w, h, dev), r1, r2)
+    if args.bounce:
+        rays = _bounce(scene, cam, rays)
     rays8 = k1.pack_rays(rays.p, rays.d).contiguous()
     pack = k1.build_tri_pack(scene.tris)
     n = rays8.shape[1]
@@ -99,7 +133,9 @@ def main(argv=None) -> int:
     times = [time_ms(k) for k in order]
     equal = all(torch.equal(a, b) for a, b in zip(outs["base"], outs["this"]))
     print(json.dumps({
-        "kernel": "minarg", "rays": n, "triangles": pack.shape[0],
+        "kernel": "minarg", "scene": args.scene,
+        "rays_kind": "bounce" if args.bounce else "camera",
+        "rays": n, "triangles": pack.shape[0],
         "reps": args.reps, "device": torch.cuda.get_device_name(dev),
         "order": list(order), "ms": times, "registers": regs,
         "base_ms": (times[0] + times[3]) / 2,

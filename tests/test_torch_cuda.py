@@ -84,7 +84,7 @@ def test_second_slice_kernels_equal_plain_versions(cuda):
     k1.dense(sl, pack, out=h[:, 1024:3072])   # written in place
     k1.dense_plain(sl, pack, out=hp[:, 1024:3072])
     assert torch.equal(h, hp)
-    cand = k2.candidates(rays8, trig, tric)
+    cand = k2.candidates(rays8, trig, tric, live=scene.tris.count)
     assert torch.equal(cand, k2.candidates_plain(rays8, trig, tric))
     rows = k2.refine(rays8, cand, pack)
     assert torch.equal(rows, k2.refine_plain(rays8, cand, pack))
@@ -664,3 +664,136 @@ def test_tenth_slice_march_on_grazing_lanes(cuda):
                                                ms.boxes_hi, ms.scene_lo,
                                                ms.scene_inv))), cs, K, tr)
     assert torch.equal(cpu, out[:, :4 * tr].cpu())
+
+
+@pytest.mark.cuda
+def test_eleventh_slice_plucker_cand_equals_first_kernel(cuda, monkeypatch):
+    """K13a on the tensor cores against its first (float32-core) kernel
+    and its plain version on a ragged tail (R = 100,003 random lanes,
+    read from a column slice of a wider pack) and tests/minarg_rays.py's
+    adversarial batch (zero directions accept t = inf, which moves a
+    chunk's fill), with the scan stopped at the live triangle count and
+    not; on a pack with whole chunks of padding rows (1,104 triangles in
+    2,048 rows); the counting entry's rows equal and at least one edge
+    test takes the chain; only the launched entries count; with the
+    loader broken, each raises."""
+    import dataclasses
+
+    from minarg_rays import adversarial_rays
+    scene = library.cornell_box(with_spheres=True, device=cuda)
+    tris = scene.tris
+    more = type(tris)(**{f.name: torch.cat([getattr(tris, f.name),
+                                            getattr(tris, f.name)[:300]])
+                         for f in dataclasses.fields(tris)})
+    n = 100_003
+    wide = torch.zeros((8, n + 64), device=cuda)
+    wide[:, 32:32 + n] = _rays8(n, 13, cuda)
+    for t in (tris, more):
+        trig, tric, tpad = k2.build_plucker_packs(t)
+        adv = torch.as_tensor(adversarial_rays(t, 20_000, 14)).to(cuda)
+        for rays8 in (wide[:, 32:32 + n], adv):
+            plain = k2.candidates_plain(rays8, trig, tric)
+            first = k2.run_candidates_simt(rays8, trig, tric)
+            before = dict(_build.launches)
+            for live in (t.count, tpad):
+                assert torch.equal(k2.candidates(rays8, trig, tric,
+                                                 live=live), plain)
+            assert torch.equal(first, plain)
+            counted, chain = k2.candidates_counted(rays8, trig, tric,
+                                                   live=t.count)
+            assert torch.equal(counted, plain)
+            assert {k: _build.launches[k] - before[k] for k in (
+                "plucker_cand", "plucker_cand_simt", "plucker_cand_count")} \
+                == {"plucker_cand": 2, "plucker_cand_simt": 0,
+                    "plucker_cand_count": 1}
+        assert int((plain[0] < k1.BIG).sum()) > 0
+    assert tpad - more.count > 3 * 256
+    # Grazing lanes put some edge tests in the margin.
+    from march_lanes import grazing_rays
+    g8 = torch.as_tensor(grazing_rays(tris, 4096, 15)).to(cuda)
+    trig, tric, _ = k2.build_plucker_packs(tris)
+    out, chain = k2.candidates_counted(g8, trig, tric, live=tris.count)
+    assert torch.equal(out, k2.candidates_plain(g8, trig, tric))
+    assert chain > 0
+
+    def broken(name):
+        raise RuntimeError("kernel loader disabled by the test")
+
+    monkeypatch.setattr(_build, "library", broken)
+    for fn in (lambda: k2.candidates(g8, trig, tric, live=tris.count),
+               lambda: k2.run_candidates_simt(g8, trig, tric),
+               lambda: k2.candidates_counted(g8, trig, tric,
+                                             live=tris.count)):
+        with pytest.raises(RuntimeError, match="disabled"):
+            fn()
+
+
+@pytest.mark.cuda
+def test_eleventh_slice_plucker_cand_padding_after_t_above_big(cuda):
+    """K13a where the live count ends a chunk and whole chunks of
+    padding follow (1,280 and 1,792 triangles in 2,048 rows), on lanes
+    that accept t above BIG on every live row (tests/minarg_rays.py's
+    planes and lanes): the first padding chunk's fill, which the scan
+    merges after it stops, wins as in the plain version; equal to the
+    first kernel and the plain version."""
+    from minarg_rays import adversarial_rays, planes, t_above_big_rays
+    for count in (1280, 1792):
+        tris = planes(count).to(cuda)
+        trig, tric, _ = k2.build_plucker_packs(tris)
+        rays8 = torch.cat([t_above_big_rays(4096), torch.as_tensor(
+            adversarial_rays(tris, 4096, 18))], 1).to(cuda)
+        out = k2.candidates(rays8, trig, tric, live=count)
+        plain = k2.candidates_plain(rays8, trig, tric)
+        assert torch.equal(out, plain)
+        assert torch.equal(out, k2.run_candidates_simt(rays8, trig, tric))
+        assert bool((out[1, :4096] == count).all())
+
+
+@pytest.mark.cuda
+def test_eleventh_slice_minarg_equals_first_kernel(cuda, monkeypatch):
+    """K1 culled before the divide against its first kernel and its plain
+    version on a ragged tail (R = 100,003 random rays) and
+    tests/minarg_rays.py's adversarial batch (zero, NaN and infinite
+    directions, origins on a plane, rays parallel to one, subnormal
+    components), on the Cornell box and on a pack whose rows repeat
+    (exact t ties), and on 1080p camera rays (coherent warps, which keep
+    the cull; the random and adversarial rays' warps take the joint
+    loop); the counting entry's outputs equal and its counts in range;
+    with the loader broken, each raises."""
+    from minarg_rays import adversarial_rays, tie_pack
+    from opencl_path_tracer_tpu_torch.ops import raygen, rng
+    scene = library.cornell_box(with_spheres=True, device=cuda)
+    pack = k1.build_tri_pack(scene.tris)
+    cam = library.cornell_camera(1920, 1080, device=cuda)
+    ids = raygen.pixel_ids(1920, 1080, cuda)[:100_003]
+    s1, r1 = rng.lehmer_step(rng.seed_pixel_streams(ids.numel(), 1,
+                                                    device=cuda))
+    _, r2 = rng.lehmer_step(s1)
+    crays = raygen.camera_rays(cam, ids, r1, r2)
+    cases = [_rays8(100_003, 16, cuda),
+             torch.as_tensor(adversarial_rays(scene.tris, 100_003,
+                                              17)).to(cuda),
+             k1.pack_rays(crays.p, crays.d).contiguous()]
+    joint = []
+    for rays8 in cases:
+        for p in (pack, tie_pack(pack)):
+            got = k1.minarg(rays8, p)
+            for a, b, c in zip(got, k1.minarg_simt(rays8, p),
+                               k1.minarg_plain(rays8, p)):
+                assert torch.equal(a, b) and torch.equal(a, c)
+            out, divides, edges, warps = k1.minarg_counted(rays8, p)
+            assert all(torch.equal(a, b) for a, b in zip(out, got))
+            pairs = rays8.shape[1] * p.shape[0]
+            assert 0 < edges <= divides <= pairs
+            assert 0 <= warps <= -(-rays8.shape[1] // 512) * 8
+        assert int((got[0] < k1.BIG).sum()) > 0
+        joint.append(warps / (-(-rays8.shape[1] // 512) * 8))
+    assert joint[0] > 0.9 and joint[1] > 0.9 and joint[2] < 0.1
+
+    def broken(name):
+        raise RuntimeError("kernel loader disabled by the test")
+
+    monkeypatch.setattr(_build, "library", broken)
+    for fn in (k1.minarg, k1.minarg_simt, k1.minarg_counted):
+        with pytest.raises(RuntimeError, match="disabled"):
+            fn(cases[0], pack)

@@ -61,7 +61,7 @@ def test_candidates_and_refine_bit_equal(name):
     jcand = jpk._run_candidates(j8, jtrig, jtric, jpk.plucker_feat(j8), TR,
                                 min(1024, jtpad), 256, True)
     trig, tric, _ = k13.build_plucker_packs(ptris)
-    cand = k13.candidates(p8, trig, tric)
+    cand = k13.candidates(p8, trig, tric, live=ptris.count)
     for row, what in enumerate(("t1", "g1", "t2", "g2")):
         np.testing.assert_array_equal(cand[row].numpy(),
                                       np.asarray(jcand[row])[0, :r],
@@ -132,12 +132,15 @@ def test_wrapper_checks_and_cpu_counts_no_launch():
     trig, tric, _ = k13.build_plucker_packs(ptris)
     pack = k4.build_tri_pack(ptris)
     before = dict(_build.launches)
-    cand = k13.candidates(torch.zeros((8, 10)), trig, tric)
+    cand = k13.candidates(torch.zeros((8, 10)), trig, tric,
+                          live=ptris.count)
     k13.refine(torch.zeros((8, 10)), cand, pack)
     assert _build.launches == before
     with pytest.raises(ValueError):
-        k13.candidates(torch.zeros((8, 10)), trig, tric, chunk=100)
+        k13.candidates(torch.zeros((8, 10)), trig, tric, chunk=100,
+                       live=ptris.count)
     with pytest.raises(TypeError):
-        k13.candidates(torch.zeros((8, 10)), trig.float(), tric)
+        k13.candidates(torch.zeros((8, 10)), trig.float(), tric,
+                       live=ptris.count)
     with pytest.raises(ValueError):
         k13.refine(torch.zeros((8, 10)), cand[:3], pack)

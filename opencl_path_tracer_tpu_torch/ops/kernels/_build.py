@@ -5,7 +5,7 @@ inside `jax.jit`). Each source in `csrc/*.cu` is compiled by its own
 `nvcc` process, all started together, into a shared library with a
 plain C interface under `_build/`, named by a hash of the sources and
 flags, and loaded with ctypes at first use; a source with several entry
-points (march.cu) is built once. Every entry point takes
+points (march.cu, flat.cu, lazy.cu) is built once. Every entry point takes
 device pointers, sizes and the CUDA stream, launches on that stream and
 returns the launch's `cudaError_t`.
 
@@ -85,9 +85,22 @@ KERNELS = {
                     [P, P, P, P, P, P, I, I, I, I, P, P]),
     "materialize": ("materialize.cu", "ptx_materialize",
                     [P, P, P, P, P, P, I, I, I, P]),
-    "flat_march": ("flat.cu", "ptx_flat", [P, P, P, P, P, P, P, P, I, I, I, P]),
+    "flat_march": ("flat.cu", "ptx_flat",
+                   [P, I, P, P, P, P, P, P, P, P, P, I, I, I, P]),
+    # K19's two entries for the checks only: its first (float32-core,
+    # one block per segment) kernel, and the kernel counting the edge
+    # tests its margin recomputes.
+    "flat_march_simt": ("flat.cu", "ptx_flat_simt",
+                        [P, P, P, P, P, P, P, P, I, I, I, P]),
+    "flat_march_count": ("flat.cu", "ptx_flat_count",
+                         [P, I, P, P, P, P, P, P, P, P, P, I, I, I, P, P]),
     "lazy_march": ("lazy.cu", "ptx_lazy",
                    [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P]),
+    # K20's two entries for the checks only, as K19's.
+    "lazy_march_simt": ("lazy.cu", "ptx_lazy_simt",
+                        [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P]),
+    "lazy_march_count": ("lazy.cu", "ptx_lazy_count",
+                         [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P, P]),
     "minarg_fused": ("minarg_fused.cu", "ptx_minarg_fused",
                      [P, P, P, P, P, P, P, I, I, P]),
     "mxu": ("mxu.cu", "ptx_mxu", [P, P, P, I, I, P]),

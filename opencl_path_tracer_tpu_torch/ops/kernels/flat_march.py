@@ -21,7 +21,10 @@ triangles bit for bit. presorted=True skips the lane sort and unsort.
 
 On the TPU the list sat in scalar memory and did not compile at 1080p;
 on the card it lives in global memory, and a block with no visit under
-Vcap (never written on the TPU) keeps its round-0 rows.
+Vcap (never written on the TPU) keeps its round-0 rows. The kernel runs
+each block's segment in chunks of at most CHUNK real visits, the longest
+segments' chunks first (`flat_chunks`, built on the device), and merges
+the chunks as the visits merge, by the (t, g) minimum and pend's OR.
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ from opencl_path_tracer_tpu_torch.ops.kernels.intersect_kernel import (
 from opencl_path_tracer_tpu_torch.ops.kernels.plucker_kernel import (
     plucker_feat,
 )
+
+CHUNK = 32   # real visits per chunk of K19's work list (S; PERF.md)
 
 
 def _build_visit_list(bu: torch.Tensor, vcap: int):
@@ -80,35 +85,139 @@ def flat_plain(vb, vc, rays8s, feat, rows0, scene, cs: int, tr: int):
     return mk._merge_plain(rows0, vbl, *res, scene.tric, tr)
 
 
+def flat_chunks(vb, vc, nb: int, chunk: int, *, longest_first: bool = True):
+    """K19's work list over nb >= 1 tr-blocks: each block's real visits
+    (vc >= 0) cut into chunks of at most `chunk`, the chunks of the
+    blocks with the most real visits first (a stable sort: ties in block
+    order; block order throughout with longest_first=False, for the
+    smoke's measurement of what the order buys). Integer tensor
+    operations on vb's device, no host read. Returns (items, vcr,
+    counts): items (3, ceil(V / chunk) + nb) int32, per item its
+    tr-block (-1: a surplus item, no work) and its range [first, end) of
+    vcr; vcr (V,) int32, the real visits' clusters in list order (-1
+    past them); counts (nb,) int64, each block's real visits."""
+    dev, v = vc.device, vc.numel()
+    live = vc >= 0
+    rank = torch.cumsum(live, 0)
+    # Real visits before each list position, and at each block's start.
+    before = torch.cat([torch.zeros(1, dtype=rank.dtype, device=dev), rank])
+    offs = torch.searchsorted(
+        vb, torch.arange(nb + 1, dtype=vb.dtype, device=dev))
+    ro = before[offs]
+    counts = ro[1:] - ro[:-1]
+    # Slot v collects the dummies and is cut off below.
+    vcr = torch.full((v + 1,), -1, dtype=torch.int32, device=dev)
+    vcr[torch.where(live, rank - 1, v)] = vc
+    nch = (counts + chunk - 1) // chunk
+    order = (torch.sort(counts, descending=True, stable=True).indices
+             if longest_first else torch.arange(nb, device=dev))
+    ns = nch[order]
+    cum = torch.cumsum(ns, 0)
+    j = torch.arange(-(-v // chunk) + nb, device=dev)
+    k = torch.searchsorted(cum, j, right=True)
+    real = k < nb
+    k = k.clamp(max=nb - 1)
+    blk = order[k]
+    first = ro[blk] + (j - cum[k] + ns[k]) * chunk
+    end = torch.minimum(first + chunk, ro[blk + 1])
+    items = torch.stack([torch.where(real, blk, -1),
+                         torch.where(real, first, 0),
+                         torch.where(real, end, 0)]).to(torch.int32)
+    return items.contiguous(), vcr[:v], counts
+
+
+def _check_flat(vb, vc, rays8s, feat, rows0, scene, cs: int, tr: int,
+                what: str) -> int:
+    """Raise unless the tensors suit K19 (no host read); returns C."""
+    c = mk.check_march_inputs(rays8s, feat, scene, cs, tr, what)
+    _build.check(vb, "vb", (None,), dtype=torch.int32)
+    _build.check(vc, "vc", vb.shape, dtype=torch.int32)
+    _build.check(rows0, "rows0", (7, rays8s.shape[1]))
+    if not vb.device == vc.device == rows0.device == rays8s.device:
+        raise ValueError("vb, vc, rows0 and rays8s must be on one device")
+    return c
+
+
+def _check_list(vb, vc, c: int, nb: int, what: str) -> None:
+    """Raise unless vb holds non-decreasing block ids below nb and vc
+    cluster ids below c (one host read)."""
+    if vb.numel() and bool((vc.max() >= c) | (vb.min() < 0) | (vb.max() >= nb)
+                           | (vb[1:] < vb[:-1]).any()):
+        raise ValueError(f"{what} needs vb non-decreasing block ids and vc "
+                         f"cluster ids below C = {c}")
+
+
+def _launch_chunks(entry: str, vb, vc, rays8s, feat, rows0, scene, cs: int,
+                   tr: int, chunk: int, *extra,
+                   longest_first: bool = True) -> torch.Tensor:
+    c = _check_flat(vb, vc, rays8s, feat, rows0, scene, cs, tr, entry)
+    if rays8s.device.type != "cuda":
+        raise ValueError(f"{entry} runs on CUDA tensors only")
+    n = rays8s.shape[1]
+    dev = rays8s.device
+    out = torch.empty((7, n), dtype=torch.float32, device=dev)
+    if not n:
+        return out
+    # The work list and the chunks' merged (t, g) bits (all ones: no chunk
+    # beat rows0) and pend flags, queued before the list's check waits for
+    # the card (the list's indices stay in bounds whatever vb holds).
+    items, vcr, _ = flat_chunks(vb, vc, n // tr, chunk,
+                                longest_first=longest_first)
+    best = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    pend = torch.zeros((n,), dtype=torch.int32, device=dev)
+    _check_list(vb, vc, c, n // tr, entry)
+    _build.launch(entry, items, items.shape[1], vcr, rays8s, feat, rows0,
+                  scene.trig, scene.tric, best, pend, out, n, tr, cs, *extra)
+    return out
+
+
 def run_flat(vb, vc, rays8s, feat, rows0, scene, cs: int, tr: int):
     """K19: (7, N) float32 rows [t nx ny nz mati g pend] after the visits
     (vb, vc) ((V,) int32 each, vb non-decreasing, vc = -1 a dummy) of the
     sorted lanes rays8s (8, N) with features feat (32, N) bfloat16,
     starting from rows0 (7, N). CPU tensors take the plain version; CUDA
     tensors launch the kernel or raise."""
-    c = mk.check_march_inputs(rays8s, feat, scene, cs, tr, "run_flat")
-    n = rays8s.shape[1]
-    _build.check(vb, "vb", (None,), dtype=torch.int32)
-    _build.check(vc, "vc", vb.shape, dtype=torch.int32)
-    _build.check(rows0, "rows0", (7, n))
-    if not vb.device == vc.device == rows0.device == rays8s.device:
-        raise ValueError("vb, vc, rows0 and rays8s must be on one device")
-    if vb.numel() and (int(vc.max()) >= c or int(vb.min()) < 0
-                       or int(vb.max()) >= n // tr
-                       or bool((vb[1:] < vb[:-1]).any())):
-        raise ValueError("run_flat needs vb non-decreasing block ids and vc "
-                         f"cluster ids below C = {c}")
     if rays8s.device.type == "cpu":
+        c = _check_flat(vb, vc, rays8s, feat, rows0, scene, cs, tr,
+                        "run_flat")
+        _check_list(vb, vc, c, rays8s.shape[1] // tr, "run_flat")
         return flat_plain(vb, vc, rays8s, feat, rows0, scene, cs, tr)
-    # Block b's visits: [offs[b], offs[b + 1]).
+    return _launch_chunks("flat_march", vb, vc, rays8s, feat, rows0, scene,
+                          cs, tr, CHUNK)
+
+
+def run_flat_simt(vb, vc, rays8s, feat, rows0, scene, cs: int, tr: int):
+    """K19's first kernel (`csrc/flat.cu::flat_simt_kernel`: one CUDA
+    block per 128 lanes walking its whole segment, every product on the
+    float32 cores), on CUDA tensors: run_flat's rows. For the checks only
+    (the smoke and the cuda tests hold the new kernel against it on whole
+    launches and time the two in turns); no render path calls it."""
+    c = _check_flat(vb, vc, rays8s, feat, rows0, scene, cs, tr,
+                    "run_flat_simt")
+    if rays8s.device.type != "cuda":
+        raise ValueError("run_flat_simt runs on CUDA tensors only")
+    n = rays8s.shape[1]
+    _check_list(vb, vc, c, n // tr, "run_flat_simt")
     offs = torch.searchsorted(
         vb, torch.arange(n // tr + 1, dtype=torch.int32,
                          device=vb.device)).to(torch.int32)
     out = torch.empty((7, n), dtype=torch.float32, device=rays8s.device)
     if n:
-        _build.launch("flat_march", offs, vc, rays8s, feat, rows0,
+        _build.launch("flat_march_simt", offs, vc, rays8s, feat, rows0,
                       scene.trig, scene.tric, out, n, tr, cs)
     return out
+
+
+def run_flat_counted(vb, vc, rays8s, feat, rows0, scene, cs: int, tr: int,
+                     chunk: int = CHUNK):
+    """run_flat's kernel on CUDA tensors with chunks of `chunk` real
+    visits, also counting the edge tests its margin sent to the float32
+    chain: ((7, N) rows, the count as an int). For the checks only; no
+    render path calls it."""
+    count = torch.zeros(1, dtype=torch.int64, device=rays8s.device)
+    out = _launch_chunks("flat_march_count", vb, vc, rays8s, feat, rows0,
+                         scene, cs, tr, chunk, count)
+    return out, int(count.item())
 
 
 def make_flat_march_intersect(tris: TrianglesSoA, *, cs: int = 256,

@@ -23,7 +23,7 @@ from opencl_path_tracer_tpu_torch.ops.kernels import _build
 from opencl_path_tracer_tpu_torch.ops.kernels import march_kernel as mk
 from opencl_path_tracer_tpu_torch.ops.kernels.plucker_kernel import _u32
 
-MAX_CW = 32   # visited words csrc/lazy.cu keeps in registers (C <= 1,024)
+MAX_CW = 32   # visited words a lane of csrc/lazy.cu keeps (C <= 1,024)
 
 
 def lazy_plain(clist, rays8s, feat, rows0, vis, scene, cs: int, K: int,
@@ -53,15 +53,10 @@ def lazy_plain(clist, rays8s, feat, rows0, vis, scene, cs: int, K: int,
     return out, (words - ((words >> 31) << 32)).to(torch.int32)
 
 
-def run_lazy_march(clist, rays8s, feat, best_rows, vis, scene, cs: int,
-                   K: int, tr: int):
-    """K20: ((7, N) rows [t nx ny nz mati g pend], (CW, N) int32 visited
-    mask) for the sorted lanes rays8s (8, N) with features feat (32, N)
-    bfloat16, the carried rows best_rows (6, N) and mask vis (CW, N)
-    int32 (uint32 bits), block b visiting clist[b K : (b + 1) K]. CPU
-    tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
-    c = mk.check_march_inputs(rays8s, feat, scene, cs, tr, "run_lazy_march")
+def _check_lazy(clist, rays8s, feat, best_rows, vis, scene, cs: int, K: int,
+                tr: int, what: str) -> int:
+    """Raise unless the inputs suit K20; returns its CW mask words."""
+    c = mk.check_march_inputs(rays8s, feat, scene, cs, tr, what)
     n = rays8s.shape[1]
     _build.check(clist, "clist", (n // tr * K,), dtype=torch.int32)
     _build.check(best_rows, "best_rows", (6, n))
@@ -71,19 +66,74 @@ def run_lazy_march(clist, rays8s, feat, best_rows, vis, scene, cs: int,
         raise ValueError("clist, best_rows, vis and rays8s must be on one "
                          "device")
     if cw > MAX_CW:
-        raise ValueError(f"run_lazy_march keeps at most {MAX_CW} visited "
+        raise ValueError(f"{what} keeps at most {MAX_CW} visited "
                          f"words (C <= {32 * MAX_CW}); C is {c}")
     if clist.numel() and int(clist.max()) >= c:
         raise ValueError(f"clist names a cluster past C = {c}")
-    if rays8s.device.type == "cpu":
-        return lazy_plain(clist, rays8s, feat, best_rows, vis, scene, cs, K,
-                          tr)
+    return cw
+
+
+def _launch(entry: str, clist, rays8s, feat, best_rows, vis, scene, cs: int,
+            K: int, tr: int, cw: int, *extra):
+    n = rays8s.shape[1]
     out = torch.empty((7, n), dtype=torch.float32, device=rays8s.device)
     vis_out = torch.empty_like(vis)
     if n:
-        _build.launch("lazy_march", clist, rays8s, feat, best_rows, vis,
-                      scene.trig, scene.tric, out, vis_out, n, K, tr, cs, cw)
+        _build.launch(entry, clist, rays8s, feat, best_rows, vis, scene.trig,
+                      scene.tric, out, vis_out, n, K, tr, cs, cw, *extra)
     return out, vis_out
+
+
+def run_lazy_march(clist, rays8s, feat, best_rows, vis, scene, cs: int,
+                   K: int, tr: int):
+    """K20: ((7, N) rows [t nx ny nz mati g pend], (CW, N) int32 visited
+    mask) for the sorted lanes rays8s (8, N) with features feat (32, N)
+    bfloat16, the carried rows best_rows (6, N) and mask vis (CW, N)
+    int32 (uint32 bits), block b visiting clist[b K : (b + 1) K]. CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    cw = _check_lazy(clist, rays8s, feat, best_rows, vis, scene, cs, K, tr,
+                     "run_lazy_march")
+    if rays8s.device.type == "cpu":
+        return lazy_plain(clist, rays8s, feat, best_rows, vis, scene, cs, K,
+                          tr)
+    return _launch("lazy_march", clist, rays8s, feat, best_rows, vis, scene,
+                   cs, K, tr, cw)
+
+
+def _check_cuda(clist, rays8s, feat, best_rows, vis, scene, cs, K, tr,
+                what: str) -> int:
+    cw = _check_lazy(clist, rays8s, feat, best_rows, vis, scene, cs, K, tr,
+                     what)
+    if rays8s.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA tensors only")
+    return cw
+
+
+def run_lazy_march_simt(clist, rays8s, feat, best_rows, vis, scene, cs: int,
+                        K: int, tr: int):
+    """K20's first kernel (`csrc/lazy.cu::lazy_simt_kernel`: one lane per
+    thread over march_visit.cuh, every product on the float32 cores), on
+    CUDA tensors: run_lazy_march's outputs. For the checks only (the
+    smoke and the cuda tests hold the new kernel against it on whole
+    launches and time the two in turns); no render path calls it."""
+    cw = _check_cuda(clist, rays8s, feat, best_rows, vis, scene, cs, K, tr,
+                     "run_lazy_march_simt")
+    return _launch("lazy_march_simt", clist, rays8s, feat, best_rows, vis,
+                   scene, cs, K, tr, cw)
+
+
+def run_lazy_march_counted(clist, rays8s, feat, best_rows, vis, scene,
+                           cs: int, K: int, tr: int):
+    """run_lazy_march's kernel on CUDA tensors, also counting the edge
+    tests its margin sent to the float32 chain: (rows, mask, the count as
+    an int). For the checks only; no render path calls it."""
+    cw = _check_cuda(clist, rays8s, feat, best_rows, vis, scene, cs, K, tr,
+                     "run_lazy_march_counted")
+    count = torch.zeros(1, dtype=torch.int64, device=rays8s.device)
+    out, vis_out = _launch("lazy_march_count", clist, rays8s, feat,
+                           best_rows, vis, scene, cs, K, tr, cw, count)
+    return out, vis_out, int(count.item())
 
 
 def unvisited_mask(vis: torch.Tensor, C: int) -> torch.Tensor:

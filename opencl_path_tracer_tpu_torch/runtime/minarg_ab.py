@@ -29,12 +29,32 @@ import subprocess
 import torch
 
 
-def _compile(csrc: pathlib.Path, out: pathlib.Path):
+def _compile(csrc: pathlib.Path, out: pathlib.Path, src: str = "minarg.cu"):
     from opencl_path_tracer_tpu_torch.ops.kernels import _build
     return subprocess.Popen(
         [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o",
-         str(out), str(csrc / "minarg.cu")],
+         str(out), str(csrc / src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def time_in_turns(launch, reps: int, dev):
+    """Time launch("base") and launch("this") as base, this, this, base,
+    each the mean of `reps` launches after one more, with CUDA events.
+    Returns (the order, the four times in ms)."""
+    def time_ms(k):
+        launch(k)
+        torch.cuda.synchronize(dev)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            launch(k)
+        e1.record()
+        torch.cuda.synchronize(dev)
+        return e0.elapsed_time(e1) / reps
+
+    order = ("base", "this", "this", "base")
+    return order, [time_ms(k) for k in order]
 
 
 def _bounce(scene, cam, rays):
@@ -117,20 +137,7 @@ def main(argv=None) -> int:
         if err:
             raise RuntimeError(f"minarg ({k}) failed: cudaError_t {err}")
 
-    def time_ms(k):
-        launch(k)
-        torch.cuda.synchronize(dev)
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(args.reps):
-            launch(k)
-        e1.record()
-        torch.cuda.synchronize(dev)
-        return e0.elapsed_time(e1) / args.reps
-
-    order = ("base", "this", "this", "base")
-    times = [time_ms(k) for k in order]
+    order, times = time_in_turns(launch, args.reps, dev)
     equal = all(torch.equal(a, b) for a, b in zip(outs["base"], outs["this"]))
     print(json.dumps({
         "kernel": "minarg", "scene": args.scene,

@@ -797,3 +797,170 @@ def test_eleventh_slice_minarg_equals_first_kernel(cuda, monkeypatch):
     for fn in (k1.minarg, k1.minarg_simt, k1.minarg_counted):
         with pytest.raises(RuntimeError, match="disabled"):
             fn(cases[0], pack)
+
+
+def _sorted_march_lanes(scene, ms, n, seed, device):
+    """n lanes of tests/march_lanes.py (half grazing, half aimed) in lane
+    sort order, with their features."""
+    from march_lanes import aimed_rays, grazing_rays
+
+    from opencl_path_tracer_tpu_torch.ops.kernels import march_kernel as mk
+    from opencl_path_tracer_tpu_torch.ops.kernels.plucker_kernel import (
+        plucker_feat,
+    )
+    r8 = torch.as_tensor(np.concatenate(
+        [grazing_rays(scene.tris, n // 2, seed),
+         aimed_rays(n - n // 2, seed + 1, scene.tris)], 1)).to(device)
+    order = torch.sort(mk.lane_key(r8[0:3], r8[3:6], ms), stable=True).indices
+    r8s = r8[:, order].contiguous()
+    return r8s, plucker_feat(r8s)
+
+
+def _tie_rows(rows0, out, marks=(0.5, -0.25, 0.125, 9.0)):
+    """rows0 with the lanes that `out` moved carrying out's own (t, g)
+    and the attributes `marks`: a visit that found that hit only ties."""
+    moved = (out[0] != rows0[0]) | (out[5] != rows0[5])
+    tied = rows0.clone()
+    tied[0] = torch.where(moved, out[0], rows0[0])
+    tied[5] = torch.where(moved, out[5], rows0[5])
+    for j, mark in zip(range(1, 5), marks):
+        tied[j] = torch.where(moved, mark, rows0[j])
+    return tied, moved
+
+
+@pytest.mark.cuda
+def test_twelfth_slice_flat_equals_first_kernel(cuda, monkeypatch):
+    """K19 on the tensor-core visit over chunks against its first
+    (float32-core, one block per segment) kernel and its plain version on
+    a crafted list: tr-block 3 of 8 visits every one of the 68 clusters
+    of 64, the others only their dummies, on grazing and aimed lanes
+    (blocks of 256 lanes, two CUDA blocks each); at chunk sizes 1, 5, 32
+    and one chunk per block, in block order too; with start rows whose
+    (t, g) a visit only ties (nothing refetched); the CPU plain version
+    agrees; only the launched entries count; with the loader broken,
+    each raises."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import flat_march as fm
+    from opencl_path_tracer_tpu_torch.ops.kernels import march_kernel as mk
+    scene = library.stress_scene(5000, device=cuda)
+    cs, tr, nb = 64, 256, 8
+    ms, _, c = mk.build_march_scene(scene.tris, cs)
+    assert c == 68
+    r8s, feat = _sorted_march_lanes(scene, ms, nb * tr, 21, cuda)
+    ent, need = mk._slab_entries(r8s, ms, torch.full((nb * tr,), k1.BIG,
+                                                     device=cuda))
+    clist0 = mk._block_lists(ent, need, tr, 1)
+    rows0 = mk.run_march(clist0, r8s, feat, ms, cs, 1, tr)
+    bu = torch.zeros((c, nb), dtype=torch.bool, device=cuda)
+    bu[:, 3] = True
+    vb, vc, _, ovf = fm._build_visit_list(bu, 4096)
+    assert int((vc >= 0).sum()) == c and not bool(ovf.any())
+    before = dict(_build.launches)
+    out = fm.run_flat(vb, vc, r8s, feat, rows0, ms, cs, tr)
+    assert torch.equal(out, fm.run_flat_simt(vb, vc, r8s, feat, rows0, ms,
+                                             cs, tr))
+    assert torch.equal(out, fm.flat_plain(vb, vc, r8s, feat, rows0, ms, cs,
+                                          tr))
+    chains = []
+    for chunk in (1, 5, 32, 1 << 30):
+        counted, chain = fm.run_flat_counted(vb, vc, r8s, feat, rows0, ms,
+                                             cs, tr, chunk)
+        assert torch.equal(counted, out), chunk
+        chains.append(chain)
+    assert chains[0] > 0 and len(set(chains)) == 1
+    assert torch.equal(out, fm._launch_chunks(
+        "flat_march", vb, vc, r8s, feat, rows0, ms, cs, tr, 1 << 30,
+        longest_first=False))
+    assert {k: _build.launches[k] - before[k] for k in (
+        "flat_march", "flat_march_simt", "flat_march_count")} == {
+            "flat_march": 2, "flat_march_simt": 1, "flat_march_count": 4}
+    lanes = slice(3 * tr, 4 * tr)
+    assert bool((out[0, lanes] < rows0[0, lanes]).any())
+    assert torch.equal(out[:, :3 * tr], rows0[:, :3 * tr])
+    tied, moved = _tie_rows(rows0, out)
+    assert int(moved.sum()) > 10
+    got = fm.run_flat(vb, vc, r8s, feat, tied, ms, cs, tr)
+    assert torch.equal(got, fm.run_flat_simt(vb, vc, r8s, feat, tied, ms,
+                                             cs, tr))
+    assert torch.equal(got, fm.flat_plain(vb, vc, r8s, feat, tied, ms, cs,
+                                          tr))
+    assert torch.equal(got[:6, moved], tied[:6, moved])
+    cpu = mk.MarchScene(**{k: v.cpu() for k, v in vars(ms).items()})
+    assert torch.equal(fm.run_flat(vb.cpu(), vc.cpu(), r8s.cpu(), feat.cpu(),
+                                   rows0.cpu(), cpu, cs, tr), out.cpu())
+
+    def broken(name):
+        raise RuntimeError("kernel loader disabled by the test")
+
+    monkeypatch.setattr(_build, "library", broken)
+    for fn in (fm.run_flat, fm.run_flat_simt, fm.run_flat_counted):
+        with pytest.raises(RuntimeError, match="disabled"):
+            fn(vb, vc, r8s, feat, rows0, ms, cs, tr)
+
+
+@pytest.mark.cuda
+def test_twelfth_slice_lazy_equals_first_kernel(cuda, monkeypatch):
+    """K20 on the tensor-core visit against its first (float32-core)
+    kernel and its plain version with every mask word in use (1,013
+    clusters of 64, cw = 32, random visited bits; each block visits its
+    four nearest needed clusters and one of the last word's) on grazing
+    and aimed lanes; then from carried rows that a visit only ties: the lanes that
+    moved carry their own (t, g) with other attributes, and every third
+    lane g = 0 as the dense net writes it; the counting entry's outputs
+    equal; only the launched entries count; with the loader broken, each
+    raises."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import lazy_march as lm
+    from opencl_path_tracer_tpu_torch.ops.kernels import march_kernel as mk
+    scene = library.stress_scene(65000, device=cuda)
+    cs, tr, K, n = 64, 256, 5, 4096
+    ms, _, c = mk.build_march_scene(scene.tris, cs)
+    cw = -(-c // 32)
+    assert cw == 32
+    r8s, feat = _sorted_march_lanes(scene, ms, n, 23, cuda)
+    ent, need = mk._slab_entries(r8s, ms, torch.full((n,), k1.BIG,
+                                                     device=cuda))
+    rs = np.random.default_rng(24)
+    vis_u = (rs.integers(0, 1 << 32, (cw, n), dtype=np.uint64)
+             & rs.integers(0, 1 << 32, (cw, n), dtype=np.uint64)
+             ).astype(np.uint32)
+    vis = torch.as_tensor(vis_u.view(np.int32)).to(cuda)
+    # The four nearest needed clusters of each block, then one of the last
+    # mask word's (992-1012), so that every word can gain a bit.
+    near = mk._block_lists(ent, need & lm.unvisited_mask(vis, c), tr, K - 1)
+    far = 992 + torch.arange(n // tr, dtype=torch.int32, device=cuda) % 21
+    clist = torch.cat([near.view(-1, K - 1), far[:, None]], 1).reshape(-1)
+    rows = mk.miss_rows(n, cuda)[:6].contiguous()
+    before = dict(_build.launches)
+    runs = []
+    for start in ("miss", "tied"):
+        got = lm.run_lazy_march(clist, r8s, feat, rows, vis, ms, cs, K, tr)
+        for want in (lm.run_lazy_march_simt(clist, r8s, feat, rows, vis, ms,
+                                            cs, K, tr),
+                     lm.lazy_plain(clist, r8s, feat, rows, vis, ms, cs, K,
+                                   tr),
+                     lm.run_lazy_march_counted(clist, r8s, feat, rows, vis,
+                                               ms, cs, K, tr)[:2]):
+            assert torch.equal(got[0], want[0]) and torch.equal(
+                got[1], want[1]), start
+        assert bool((got[1] != vis).any()) and bool(
+            (got[1][31] != vis[31]).any())
+        runs.append(got)
+        if start == "miss":
+            start7 = torch.cat([rows, torch.zeros_like(rows[:1])])
+            tied, moved = _tie_rows(start7, got[0])
+            tied[5, ::3] = torch.where(moved[::3], 0.0, tied[5, ::3])
+            assert int(moved.sum()) > 100
+            rows = tied[:6].contiguous()
+    out = runs[1][0]
+    assert torch.equal(out[:6, moved], rows[:, moved])
+    assert {k: _build.launches[k] - before[k] for k in (
+        "lazy_march", "lazy_march_simt", "lazy_march_count")} == {
+            "lazy_march": 2, "lazy_march_simt": 2, "lazy_march_count": 2}
+
+    def broken(name):
+        raise RuntimeError("kernel loader disabled by the test")
+
+    monkeypatch.setattr(_build, "library", broken)
+    for fn in (lm.run_lazy_march, lm.run_lazy_march_simt,
+               lm.run_lazy_march_counted):
+        with pytest.raises(RuntimeError, match="disabled"):
+            fn(clist, r8s, feat, rows, vis, ms, cs, K, tr)

@@ -1,7 +1,8 @@
 """K20 (the lazy march) and the lazy-certification wavefront in the port
 against the JAX package on the CPU: K20's plain version equals
-interpret-mode `run_lazy_march` (seven rows and the visited mask) and
-`unvisited_mask` JAX's; three lazy steps from the JAX state equal JAX's
+interpret-mode `run_lazy_march` (seven rows and the visited mask), also
+across a mask-word boundary from the dense net's carried rows, and
+`unvisited_mask` JAX's; K20's check-only entries refuse CPU tensors; three lazy steps from the JAX state equal JAX's
 step, both modes, leaf for leaf through `interop` (the search carry, the
 mask, the counters and the integer fields bit for bit; the shading's
 floats to the wavefront tests' rtol 2e-5, atol 2e-6, as the port's eager
@@ -81,6 +82,77 @@ def test_k20_and_unvisited_mask_equal_interpret_mode():
     np.testing.assert_array_equal(
         lm.unvisited_mask(gvis, c).numpy(),
         np.asarray(jlm.unvisited_mask(wvis, c)))
+
+
+def test_k20_at_a_mask_word_boundary_with_dense_net_rows():
+    """K20's plain version equals interpret-mode `run_lazy_march` with two
+    mask words (46 clusters of 64: bits set on both sides of the word
+    boundary) and carried rows as the dense net writes them (every third
+    lane K4's hit with g = 0): where a visit finds that same hit it only
+    ties (t, g) = (t, 0), so the lane keeps g = 0 and K4's attributes."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import intersect_kernel as k1
+    cs = 64
+    jsc, _, c = jmk.build_march_scene(jlib.stress_scene(3000).tris, cs)
+    psc, rt, _ = mk.build_march_scene(library.stress_scene(3000).tris, cs)
+    cw = -(-c // 32)
+    assert cw == 2
+    r8 = aimed_rays(512, 22, jlib.stress_scene(3000).tris)
+    pr8 = torch.as_tensor(r8)
+    feat = plucker_feat(pr8)
+    ent, need = mk._slab_entries(pr8, psc, torch.full((512,), BIG))
+    rows = mk.run_march(mk._block_lists(ent, need, TR, 1), pr8, feat, psc,
+                        cs, 1, TR)[:6].clone()
+    t4, _, nx, ny, nz, m = k1.dense(pr8, k1.build_tri_pack(rt))
+    net = torch.stack([torch.where(t4 < BIG, t4, BIG), nx, ny, nz, m,
+                       torch.zeros_like(t4)])
+    rows[:, ::3] = net[:, ::3]
+    rs = np.random.default_rng(8)
+    vis_u = (rs.integers(0, 1 << 32, (cw, 512), dtype=np.uint64)
+             & rs.integers(0, 1 << 32, (cw, 512), dtype=np.uint64)
+             & rs.integers(0, 1 << 32, (cw, 512), dtype=np.uint64)
+             ).astype(np.uint32)
+    vis = torch.as_tensor(vis_u.view(np.int32))
+    cl = mk._block_lists(ent, mk._need(ent, rows[0]) & lm.unvisited_mask(
+        vis, c), TR, 6)
+    got, gvis = lm.run_lazy_march(cl, pr8, feat, rows, vis, psc, cs, 6, TR)
+    want, wvis = jlm.run_lazy_march(
+        jnp.asarray(cl.numpy()), jnp.asarray(r8), jfeat(jnp.asarray(r8)),
+        tuple(jnp.asarray(rows[k:k + 1].numpy()) for k in range(6)),
+        jnp.asarray(vis_u), jsc, cs, 6, TR, True)
+    for k in range(7):
+        np.testing.assert_array_equal(bits(got[k]), bits(want[k][0]),
+                                      err_msg=f"row {k}")
+    np.testing.assert_array_equal(gvis.numpy().view(np.uint32),
+                                  np.asarray(wvis))
+    # Both mask words gained bits.
+    gained = (gvis != vis).any(dim=1)
+    assert bool(gained.all())
+    # The lanes whose visits found K4's hit again: from a miss they reach
+    # t4; from the dense net's row they tie and keep it.
+    fresh, _ = lm.run_lazy_march(cl, pr8, feat,
+                                 mk.miss_rows(512, "cpu")[:6].contiguous(),
+                                 vis, psc, cs, 6, TR)
+    tie = torch.zeros(512, dtype=torch.bool)
+    tie[::3] = True
+    tie &= (fresh[0] == t4) & (t4 < BIG)
+    assert int(tie.sum()) > 5
+    assert torch.equal(got[:6, tie], rows[:, tie])
+
+
+def test_k20_check_entries_run_on_cuda_only():
+    """K20's first kernel and its counting entry take CUDA tensors only:
+    on the CPU they raise, where run_lazy_march takes the plain version."""
+    psc, _, c = mk.build_march_scene(library.stress_scene(1200).tris, CS)
+    pr8 = torch.as_tensor(aimed_rays(128, 5, jlib.stress_scene(1200).tris))
+    args = (torch.zeros(1, dtype=torch.int32), pr8, plucker_feat(pr8),
+            mk.miss_rows(128, "cpu")[:6].contiguous(),
+            torch.zeros((-(-c // 32), 128), dtype=torch.int32), psc, CS, 1,
+            TR)
+    out, vis = lm.run_lazy_march(*args)
+    assert out.shape == (7, 128) and vis.shape == args[4].shape
+    for fn in (lm.run_lazy_march_simt, lm.run_lazy_march_counted):
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            fn(*args)
 
 
 def _jax_fields(jst):

@@ -114,6 +114,17 @@ lazy pipeline's first two steps; each is timed in turns against its
 first kernel (K19 also unsplit and at other chunk sizes), and the
 kernels line has a K19 row on the first-bounce rays.
 
+K10 runs K18's tensor-core visit too, with the features computed from
+the rays in the kernel; K12 skips, per pair, the sub-blocks of 32 rows
+whose outward-rounded boxes (`sorted_intersect.pair_sub_boxes`) its
+segment misses. Each is held against its first kernel
+(`pair_mxu.pair_visits_simt`, `sorted_intersect.run_pairs_simt`), its
+counting entry and its plain version on round 1 of the stress camera
+and first-bounce pairs, with the counts printed (K10's edge tests sent
+to the float32 chain; K12's tests that reached the divide and sub-blocks
+tested), timed in turns against its first kernel on both, and the
+kernels line has K10 and K12 rows on the first-bounce pairs.
+
 The last two lines are a JSON object per kernel (time, plain time,
 bound, launches) and the verdict; the line before them, the smoke's total
 time. Any failed phase raises, and the
@@ -254,7 +265,8 @@ PATH_EXCLUDES = {
 CHECK_ONLY = ("minarg_simt", "minarg_count", "plucker_cand_simt",
               "plucker_cand_count", "march_simt", "march_count",
               "flat_march_simt", "flat_march_count", "lazy_march_simt",
-              "lazy_march_count")
+              "lazy_march_count", "pair_visit_simt", "pair_visit_count",
+              "pair_vpu_simt", "pair_vpu_count")
 PAIR_KERNELS = ("pair_cand", "pair_visit", "attr_fetch")
 MODELS_DIR = os.path.join(HERE, "tests", "assets", "models")
 REFERENCE_TRIS = 1838   # ground plane + the seven models (docs/BENCHMARKS.md)
@@ -310,11 +322,11 @@ def build_line():
                      f"{smem.group(1) if smem else 0} B smem")
     print(f"build: {info['seconds']:.1f} s for {len(info['built'])} sources "
           f"(sm_90a, --fmad=false); " + "; ".join(parts))
-    # Every entry function of the kernels redesigned in the last three
+    # Every entry function of the kernels redesigned in the last four
     # slices, as ptxas reports it: registers, stack frame, spills, shared
     # memory.
     for src in ("march.cu", "pair_cand.cu", "plucker_cand.cu", "minarg.cu",
-                "flat.cu", "lazy.cu"):
+                "flat.cu", "lazy.cu", "pair_visit.cu", "pair_vpu.cu"):
         rep = info.get("ptxas", {}).get(src, "")
         for fn, body in re.findall(
                 r"Compiling entry function '(\w+)'(.*?)(?=Compiling entry|\Z)",
@@ -765,10 +777,9 @@ def check_pairs(torch, scenes, cam, errs):
     pack = k1.build_tri_pack(scene.tris)
     pm.fetch_attrs = capture
     si.STATS = []
+    bounce = bounce_rays(torch, scene, cam, cam_rays, isect)
     try:
-        for rname, rays in (("camera", cam_rays),
-                            ("bounce", bounce_rays(torch, scene, cam, cam_rays,
-                                                   isect))):
+        for rname, rays in (("camera", cam_rays), ("bounce", bounce)):
             h = isect(rays)
             t4 = k1.dense(k1.pack_rays(rays.p, rays.d).contiguous(), pack)[0]
             torch.cuda.synchronize()
@@ -791,7 +802,7 @@ def check_pairs(torch, scenes, cam, errs):
     pair_stats_line("stress camera, bounce rays", stats)
     return {"pair_cand": (r8, boxes_r, c), "pair_visit": (keys_s, r8p, ms,
                                                            cs, trp, c, nv),
-            "attr_fetch": (g, tric)}
+            "attr_fetch": (g, tric), "stress bounce rays": bounce}
 
 
 def exact_vs_k4(torch, name, h, t4, where):
@@ -860,7 +871,8 @@ def check_slice6(torch, scenes, cam, cam_rays, errs):
     n = (keys_s.shape[0] if n_real * k <= K12_PLAIN_CELLS
          else min(K12_PREFIX, keys_s.shape[0]))
     keys_n, r8p_n = keys_s[:n].contiguous(), r8p[:, :n].contiguous()
-    out = si.run_pairs(keys_n, r8p_n, rows, k)
+    sub = si.pair_sub_boxes(rows, k)
+    out = si.run_pairs(keys_n, r8p_n, rows, k, sub)
     plain, plain_ms = timed(torch, lambda: si.pairs_plain(keys_n, r8p_n,
                                                           rows, k))
     compare("pair_vpu", out, plain, "round 1's pairs of the stress camera "
@@ -871,6 +883,7 @@ def check_slice6(torch, scenes, cam, cam_rays, errs):
           f"not dummy, {int((out[0] < k1.BIG).sum())} hits) equal to their "
           "plain versions (torch.equal)")
     inputs["pair_vpu"] = (keys_n, r8p_n, rows, k, plain_ms)
+    inputs["pair_vpu scene"] = (sub, boxes_r, c)
     pack = k1.build_tri_pack(stress.tris)
     isect = make_intersect_fn(stress, "pair")
     for rname, rays in (("camera", cam_rays),
@@ -1616,6 +1629,117 @@ def check_slice12(torch, inputs):
     return {"flat_march bounce": out_inputs["first-bounce"]}
 
 
+def check_slice13(torch, inputs):
+    """K10 and K12 as redesigned for the H100: K10 on K18's tensor-core
+    visit (march_mma.cuh) with the features computed in the kernel, K12
+    skipping the sub-blocks its rule proves cannot hold a hit. Each on
+    round 1 of the stress camera pairs and of the first-bounce pairs (K10
+    at PAIR_TPU_WINNER, K12 at the 'pair' defaults) against its first
+    kernel (`pair_visits_simt`, `run_pairs_simt`) and its counting entry
+    whole and its plain version (on the camera pairs in check_pairs and
+    check_slice6; K12's on the first K12_PREFIX pairs where the pairs
+    exceed K12_PLAIN_CELLS tests), torch.equal, with the counts printed
+    (K10: the edge tests its margin sent to the float32 chain; K12: the
+    tests that reached the divide, the sub-blocks whose box test passed
+    and those the whole warp ran); then each timed in turns (first, new,
+    new, first) on both inputs. Returns the first-bounce inputs for the
+    kernels line."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import (
+        intersect_kernel as k1, pair_mxu as pm, sorted_intersect as si)
+    bounce = inputs["stress bounce rays"]
+    rb8 = k1.pack_rays(bounce.p, bounce.d).contiguous()
+    out = {}
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def in_turns(first, new):
+        return ", ".join(f"{time_ms(torch, f, 5):.4f}"
+                         for f in (first, new, new, first))
+
+    keys_s, r8p, ms, cs, trp, c, nv = inputs["pair_visit"]
+    _, boxes_r, _ = inputs["pair_cand"]
+    ids = si.run_candidates(rb8, boxes_r, 2, c)
+    keys_b, r8p_b, _ = pm.sort_pairs([rb8[j] for j in range(6)], ids[0], c,
+                                     trp)
+    nv_b = int((pm.build_visits(keys_b, trp, c)[1] >= 0).sum())
+    for rname, keys, r8 in (("camera", keys_s, r8p),
+                            ("first-bounce", keys_b, r8p_b)):
+        args = (keys, r8, ms.trig, ms.tric, cs, trp, c)
+        where = f"round 1's pairs of the stress {rname} rays"
+        new = pm.pair_visits(*args)
+        torch.cuda.synchronize()
+        need(same(new, pm.pair_visits_simt(*args)),
+             f"pair_visit differs from its first kernel on {where}")
+        counted, chain = pm.pair_visits_counted(*args)
+        need(same(counted, new),
+             f"pair_visit's counting entry differs from it on {where}")
+        if rname == "first-bounce":   # the camera pairs' in check_pairs
+            plain, plain_ms = timed(torch,
+                                    lambda: pm.pair_visits_plain(*args))
+            need(same(new, plain),
+                 f"pair_visit differs from its plain version on {where}")
+        n_v = nv if rname == "camera" else nv_b
+        tests = n_v * trp * cs
+        hits = int((new[0] < k1.BIG).sum())
+        print(f"pair_visit on {where} ({keys.shape[0]} pairs, {n_v} visits, "
+              f"{tests} (pair, triangle) tests, {hits} hits, "
+              f"{int((new[1] % 2).sum())} pending): equal to its first "
+              f"kernel and its plain version (torch.equal); {chain} of "
+              f"{3 * tests} edge tests took the float32 chain "
+              f"({chain / max(3 * tests, 1):.3e})")
+        print(f"pair_visit on {where} in turns (first kernel, new kernel, "
+              "new kernel, first kernel): "
+              + in_turns(lambda: pm.pair_visits_simt(*args),
+                         lambda: pm.pair_visits(*args)) + " ms")
+        if rname == "first-bounce":
+            out["pair_visit bounce"] = (keys, r8, ms, cs, trp, c, n_v,
+                                        plain_ms)
+
+    keys_n, r8p_n, rows, k, _ = inputs["pair_vpu"]
+    sub, boxes8, c8 = inputs["pair_vpu scene"]
+    ids = si.run_candidates(rb8, boxes8, 8, c8)
+    keys_b, r8p_b, _ = pm.sort_pairs([rb8[j] for j in range(6)], ids[0], c8,
+                                     1024)
+    nsb = -(-k // si.SUB)
+    for rname, keys, r8 in (("camera", keys_n, r8p_n),
+                            ("first-bounce", keys_b, r8p_b)):
+        where = f"round 1's pairs of the stress {rname} rays"
+        new = si.run_pairs(keys, r8, rows, k, sub)
+        torch.cuda.synchronize()
+        need(same(new, si.run_pairs_simt(keys, r8, rows, k)),
+             f"pair_vpu differs from its first kernel on {where}")
+        counted, (n_div, n_box, n_coop) = si.run_pairs_counted(
+            keys, r8, rows, k, sub)
+        need(same(counted, new),
+             f"pair_vpu's counting entry differs from it on {where}")
+        real = int((keys < c8).sum())
+        n = (keys.shape[0] if real * k <= K12_PLAIN_CELLS
+             else min(K12_PREFIX, keys.shape[0]))
+        if rname == "first-bounce":   # the camera pairs' in check_slice6
+            kp, rp = keys[:n].contiguous(), r8[:, :n].contiguous()
+            plain, plain_ms = timed(torch, lambda: si.pairs_plain(
+                kp, rp, rows, k))
+            need(same(tuple(x[:n] for x in new), plain),
+                 f"pair_vpu differs from its plain version on {where}")
+        print(f"pair_vpu on {where} ({keys.shape[0]} pairs, {real} not "
+              f"dummy, {int((new[0] < k1.BIG).sum())} hits): equal to its "
+              f"first kernel and, on {n} pairs, its plain version "
+              f"(torch.equal); {n_div} of {real * k} (pair, triangle) tests "
+              f"reached the divide ({n_div / max(real * k, 1):.4f}); "
+              f"{n_box} of {real * nsb} sub-block box tests passed "
+              f"({n_box / max(real * nsb, 1):.4f}), {n_coop} of them run by "
+              "the whole warp")
+        print(f"pair_vpu on {where} in turns (first kernel, new kernel, new "
+              "kernel, first kernel): "
+              + in_turns(lambda: si.run_pairs_simt(keys, r8, rows, k),
+                         lambda: si.run_pairs(keys, r8, rows, k, sub))
+              + " ms")
+        if rname == "first-bounce":
+            out["pair_vpu bounce"] = (keys, r8, rows, k, plain_ms)
+    return out
+
+
 def check_goldens(torch, np):
     from opencl_path_tracer_tpu_torch.models import megakernel
     from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
@@ -1639,8 +1763,8 @@ def check_goldens(torch, np):
 def check_no_fallback(torch, scenes):
     """With the kernel loader broken, a CUDA call must raise (K1 and its
     two check-only entries, K13a and its two, K4, K7, K6, K3b, K8, K9,
-    K10, K11, K12, K17, K16, K18, K18m, K19 and its two, K20 and its two,
-    K14 and K15)."""
+    K10 and its two, K11, K12 and its two, K17, K16, K18, K18m, K19 and
+    its two, K20 and its two, K14 and K15)."""
     from opencl_path_tracer_tpu_torch.ops.kernels import _build
     from opencl_path_tracer_tpu_torch.ops.kernels import (
         cluster_kernel as ck, flat_march as fm, intersect_kernel as k1,
@@ -1665,6 +1789,12 @@ def check_no_fallback(torch, scenes):
     lazy_args = (mlist, m8, mfeat, mk.miss_rows(128, "cuda")[:6].contiguous(),
                  torch.zeros((1, 128), dtype=torch.int32, device="cuda"), msc,
                  256, 1, 128)
+    visit_args = (torch.zeros(1024, dtype=torch.int32, device="cuda"),
+                  torch.zeros((8, 1024), device="cuda"),
+                  torch.zeros((768, 32), dtype=torch.bfloat16, device="cuda"),
+                  torch.zeros((256, 24), device="cuda"), 256, 1024, 1)
+    vpu_args = (torch.zeros(64, dtype=torch.int32, device="cuda"), rays8,
+                torch.zeros((256, 24), device="cuda"), 128)
     calls = {
         "minarg": lambda: k1.minarg(rays8, pack),
         "minarg_simt": lambda: k1.minarg_simt(rays8, pack),
@@ -1684,17 +1814,16 @@ def check_no_fallback(torch, scenes):
             torch.zeros(64, device="cuda"), *spack),
         "pair_cand": lambda: si.run_candidates(
             rays8, torch.zeros((128, 16), device="cuda"), 2, 1),
-        "pair_visit": lambda: pm.pair_visits(
-            torch.zeros(1024, dtype=torch.int32, device="cuda"),
-            torch.zeros((8, 1024), device="cuda"),
-            torch.zeros((768, 32), dtype=torch.bfloat16, device="cuda"),
-            torch.zeros((256, 24), device="cuda"), 256, 1024, 1),
+        "pair_visit": lambda: pm.pair_visits(*visit_args),
+        "pair_visit_simt": lambda: pm.pair_visits_simt(*visit_args),
+        "pair_visit_count": lambda: pm.pair_visits_counted(*visit_args),
         "attr_fetch": lambda: pm.fetch_attrs(
             torch.zeros(64, device="cuda"),
             torch.zeros((256, 24), device="cuda")),
-        "pair_vpu": lambda: si.run_pairs(
-            torch.zeros(64, dtype=torch.int32, device="cuda"), rays8,
-            torch.zeros((256, 24), device="cuda"), 128),
+        "pair_vpu": lambda: si.run_pairs(*vpu_args),
+        "pair_vpu_simt": lambda: si.run_pairs_simt(*vpu_args),
+        "pair_vpu_count": lambda: si.run_pairs_counted(
+            *vpu_args, si.pair_sub_boxes(vpu_args[2], 128)),
         "cluster": lambda: ck.run_cluster(
             torch.zeros((256, 8), device="cuda"),
             torch.zeros((1, 1), dtype=torch.int32, device="cuda"),
@@ -2099,6 +2228,14 @@ def pair_rows(torch, inputs):
                  26 * tests + 96 * nv * trp, 2 * 54 * tests,
                  28 * ppad + ms.trig.numel() * 2 + ms.tric.numel() * 4
                  + 8 * ppad))
+    keys_b, r8p_b, _, _, _, _, nv_b, plain_b = inputs["pair_visit bounce"]
+    tests_b = nv_b * trp * cs
+    rows.append(("pair_visit bounce",
+                 lambda: pm.pair_visits(keys_b, r8p_b, ms.trig, ms.tric, cs,
+                                        trp, c),
+                 plain_b, 26 * tests_b + 96 * nv_b * trp, 2 * 54 * tests_b,
+                 28 * keys_b.shape[0] + ms.trig.numel() * 2
+                 + ms.tric.numel() * 4 + 8 * keys_b.shape[0]))
     g, tric = inputs["attr_fetch"]
     gi = g.long().clamp(min=0)
     cols = tric[:, [0, 1, 2, 16]].contiguous()
@@ -2140,23 +2277,29 @@ def slice6_rows(torch, inputs):
         cluster_kernel as ck, sorted_intersect as si)
     chunk = 1 << 24
     rows_out = []
-    keys, r8p, rows, k, plain_ms = inputs["pair_vpu"]
-    c = rows.shape[0] // k - 1
-    runs, counts = torch.unique_consecutive(keys, return_counts=True)
-    batches, start = [], 0
-    for ci, n in zip(runs.tolist(), counts.tolist()):
-        if ci < c:
-            for s0 in range(start, start + n, chunk // k):
-                s1 = min(s0 + chunk // k, start + n)
-                batches.append((torch.tensor([ci], device=keys.device),
-                                r8p[None, :, s0:s1]))
-        start += n
-    ops, tests = cluster_ops(torch, rows, k, batches)
-    p = keys.shape[0]
-    rows_out.append(("pair_vpu", lambda: si.run_pairs(keys, r8p, rows, k),
-                     plain_ms, ops, 0,
-                     28 * p + 68 * rows.shape[0] + 20 * p))
-    print(f"pair_vpu: {tests} (pair, triangle) tests over {p} pairs")
+    sub = inputs["pair_vpu scene"][0]
+    for name, (keys, r8p, rows, k, plain_ms) in (
+            ("pair_vpu", inputs["pair_vpu"]),
+            ("pair_vpu bounce", inputs["pair_vpu bounce"])):
+        c = rows.shape[0] // k - 1
+        runs, counts = torch.unique_consecutive(keys, return_counts=True)
+        batches, start = [], 0
+        for ci, n in zip(runs.tolist(), counts.tolist()):
+            if ci < c:
+                for s0 in range(start, start + n, chunk // k):
+                    s1 = min(s0 + chunk // k, start + n)
+                    batches.append((torch.tensor([ci], device=keys.device),
+                                    r8p[None, :, s0:s1]))
+            start += n
+        ops, tests = cluster_ops(torch, rows, k, batches)
+        p = keys.shape[0]
+        rows_out.append((name, lambda keys=keys, r8p=r8p, rows=rows, k=k:
+                         si.run_pairs(keys, r8p, rows, k, sub),
+                         plain_ms, ops, 0,
+                         28 * p + 68 * rows.shape[0] + 20 * p))
+        print(f"{name}: {tests} (pair, triangle) tests over {p} pairs (the "
+              "bound counts them all; the kernel's own counts are in the "
+              "slice-13 lines)")
     rr8, cnt, ids, ent, crows, kk, plain_ms = inputs["cluster"]
     g = cnt.shape[0]
     tiles = rr8.view(g, -1, 8)
@@ -2578,6 +2721,7 @@ def main() -> int:
     check_slice10(torch, scenes, cam_rays, inputs)
     check_slice11(torch, scenes, cam, cam_rays, inputs)
     inputs.update(check_slice12(torch, inputs))
+    inputs.update(check_slice13(torch, inputs))
     check_goldens(torch, np)
     check_no_fallback(torch, scenes)
     launches = main_path(torch, np, scenes, cam)

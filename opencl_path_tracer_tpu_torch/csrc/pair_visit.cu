@@ -25,20 +25,37 @@
 //
 // What bounds it on the H100: operations. Per (pair, triangle) test 3 x
 // 18 multiply-adds for E (the TPU ran them on its matrix unit; the bound
-// charges them at the bf16 tensor-core rate) and about 25 float32
-// operations more. This first kernel runs everything on the float32
-// cores: a block of 128 pairs lies in one tile; it lists the tile's
-// clusters from the sorted keys in shared memory, then for each cluster
-// stages its weights (as float32) and constants 64 triangles at a time
-// and each thread tests its pair; the candidates' exact rows come from
-// global memory (L2). The E sum is written out here rather than shared
-// with plucker_cand.cu through a header, so K13a's code stays as
-// measured. Tensor cores (mma/wgmma on the bf16 products) are the later
-// redesign.
+// charges them at the bf16 tensor-core rate) and about 26 float32
+// operations more. The first kernel (pair_simt_kernel below) ran
+// everything on the float32 cores, one pair per thread, with an early-exit
+// edge loop: about 232 G tests/s, as the first K18. This one runs the
+// tensor-core visit of K18, K19 and K20 (march_mma.cuh's mma_visit: the E
+// values by bf16 mma.sync behind the certified margin, the float32 chain
+// only inside it, the quad merge of the top two and the owned lane's exact
+// tests), so its outputs are the first kernel's bit for bit. What stays
+// K10's: a CUDA block of 128 pairs lies in one tile of trp pairs and
+// visits every cluster whose run of keys touches the whole tile (the
+// TPU's visit list, on which pend depends), listed in shared memory from
+// the sorted keys; the dummy key c is never visited (a block whose tile
+// starts with it, dummy pairs only, writes misses at once). Its own
+// prologue (pair_prologue) fills march_mma.cuh's MmaShared and MmaBlock
+// as mma_prologue does, but computes the bf16 features of (P x D, D) from
+// the rays in the kernel, each thread for its own lane, through shared
+// memory into the A fragments: no feature pass and no (32, n) array on
+// the path. The outputs are written at the lane each thread owns after
+// the quad merge (MmaBlock::ol).
+//
+// Entry points: ptx_pair_visit (the kernel the wrapper launches);
+// ptx_pair_visit_count (the same kernel, also adding to *counter the edge
+// tests the margin sent to the chain); ptx_pair_visit_simt (the first
+// kernel, kept to hold this one against whole launches and to time the
+// two in turns; no wrapper on a render path reaches either of the last
+// two). The first kernel's E sum is written out here rather than shared
+// with plucker_cand.cu through a header, so it stays as measured.
 
 #include <stdint.h>
 
-#include "nearest.cuh"
+#include "march_mma.cuh"
 
 namespace {
 
@@ -59,12 +76,12 @@ __device__ __forceinline__ float fetch0(const float* row, int k) {
 }
 
 __global__ void __launch_bounds__(kPairBlock)
-pair_visit_kernel(const int* __restrict__ keys,
-                  const float* __restrict__ rays8,
-                  const uint16_t* __restrict__ trig,
-                  const float* __restrict__ tric, float* __restrict__ t_out,
-                  float* __restrict__ gp_out, int n_pairs, int trp, int cs,
-                  int c) {
+pair_simt_kernel(const int* __restrict__ keys,
+                 const float* __restrict__ rays8,
+                 const uint16_t* __restrict__ trig,
+                 const float* __restrict__ tric, float* __restrict__ t_out,
+                 float* __restrict__ gp_out, int n_pairs, int trp, int cs,
+                 int c) {
   __shared__ float tw[kVisitTile][3][kW];
   __shared__ float tk[kVisitTile][10];   // n, c0, epsA(3), epsB(3)
   __shared__ int clist[kMaxTrp];
@@ -198,18 +215,186 @@ pair_visit_kernel(const int* __restrict__ keys,
   gp_out[i] = __fadd_rn(__fmul_rn(static_cast<float>(bg), 2.0f), pend);
 }
 
+// The bf16 bits of the features [phi_hi(6), phi_lo(6), phi_hi(6)] of a
+// ray, phi = (P x D, D), each product and difference rounded separately
+// (plucker_feat's and the first kernel's).
+__device__ __forceinline__ void ray_features(const float (&r)[6],
+                                             uint32_t (&h)[kMarchW]) {
+  const float px = r[0], py = r[1], pz = r[2], dx = r[3], dy = r[4],
+              dz = r[5];
+  const float phi[6] = {__fsub_rn(__fmul_rn(py, dz), __fmul_rn(pz, dy)),
+                        __fsub_rn(__fmul_rn(pz, dx), __fmul_rn(px, dz)),
+                        __fsub_rn(__fmul_rn(px, dy), __fmul_rn(py, dx)),
+                        dx, dy, dz};
+#pragma unroll
+  for (int q = 0; q < 6; ++q) {
+    const uint32_t hi = rne_bf16(__float_as_uint(phi[q]));
+    const uint32_t lo =
+        rne_bf16(__float_as_uint(__fsub_rn(phi[q], __uint_as_float(hi))));
+    h[q] = hi >> 16;
+    h[6 + q] = lo >> 16;
+    h[12 + q] = hi >> 16;
+  }
+}
+
+// Features q and q + 1 of block lane li as one bf16 pair (low half q).
+__device__ __forceinline__ uint32_t sh_feat_pair(const MmaShared& sh, int q,
+                                                 int li) {
+  return (__float_as_uint(sh.f[q][li]) >> 16) |
+         (__float_as_uint(sh.f[q + 1][li]) & 0xffff0000u);
+}
+
+// mma_prologue's set-up of the block of lanes [b0, b0 + 128) of the
+// (8, n) rays, with the features computed here: each thread computes its
+// own lane's and stores them (as float32, exactly) beside its lane in
+// shared memory, with the block's F_q; then each thread reads its four
+// fragment lanes back from there. The same MmaShared and MmaBlock as
+// mma_prologue's, bit for bit. Every thread calls it (it synchronises).
+__device__ __forceinline__ void pair_prologue(MmaShared& sh,
+                                              const float* __restrict__ rays8,
+                                              size_t nn, size_t b0,
+                                              MmaBlock& m) {
+  const int lid = threadIdx.x & 31, g = lid >> 2, tig = lid & 3;
+  const int wl = threadIdx.x & ~31;   // the warp's first lane in the block
+  unsigned int* fq = reinterpret_cast<unsigned int*>(sh.fq);
+  if (threadIdx.x < kMarchW) fq[threadIdx.x] = 0u;
+  float r[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    r[k] = rays8[k * nn + b0 + threadIdx.x];
+    sh.ray[k][threadIdx.x] = r[k];
+  }
+  uint32_t h[kMarchW];
+  ray_features(r, h);
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < kMarchW; ++q) {
+    const float f = bf16_bits_to_float(static_cast<uint16_t>(h[q]));
+    sh.f[q][threadIdx.x] = f;
+    atomicMax(&fq[q], bf16_outside(h[q]) ? 0x7f800000u
+                                         : __float_as_uint(fabsf(f)));
+  }
+  __syncthreads();
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int li = wl + 16 * mt + 8 * hh + g;
+      MmaLane& l = m.L[mt][hh];
+      const float px = sh.ray[0][li], py = sh.ray[1][li], pz = sh.ray[2][li];
+      l.dx = sh.ray[3][li];
+      l.dy = sh.ray[4][li];
+      l.dz = sh.ray[5][li];
+      l.ml = fmaxf(fmaxf(fabsf(__fmaf_rn(py, l.dz, -__fmul_rn(pz, l.dy))),
+                         fabsf(__fmaf_rn(pz, l.dx, -__fmul_rn(px, l.dz)))),
+                   fabsf(__fmaf_rn(px, l.dy, -__fmul_rn(py, l.dx))));
+      m.A[mt][hh] = sh_feat_pair(sh, 2 * tig, li);
+      m.A[mt][2 + hh] = sh_feat_pair(sh, 2 * tig + 8, li);
+      m.A8[mt][hh] = tig == 0 ? sh_feat_pair(sh, 16, li) : 0u;
+    }
+  }
+  // d0 = 2^-110 + 2^-126 sum_q F_q, rounded up, as mma_prologue.
+  float d0 = 0.f;
+#pragma unroll
+  for (int q = 0; q < kMarchW; ++q) d0 = __fadd_ru(d0, sh.fq[q]);
+  m.d0 = __fmaf_ru(d0, 0x1p-126f, 0x1p-110f);
+  m.ol = wl + 16 * (tig >> 1) + 8 * (tig & 1) + g;
+}
+
+template <bool COUNT>
+__global__ void __launch_bounds__(kMarchLanes, 3)
+pair_mma_kernel(const int* __restrict__ keys, const float* __restrict__ rays8,
+                const uint16_t* __restrict__ trig,
+                const float* __restrict__ tric, float* __restrict__ t_out,
+                float* __restrict__ gp_out, int n_pairs, int trp, int cs,
+                int c, unsigned long long* __restrict__ counter) {
+  __shared__ MmaShared sh;
+  __shared__ int clist[kMaxTrp];
+  __shared__ int ncl;
+  const size_t nn = static_cast<size_t>(n_pairs);
+  const size_t b0 = static_cast<size_t>(blockIdx.x) * kMarchLanes;
+  const size_t tile0 = (b0 / trp) * trp;
+  if (keys[tile0] >= c) {   // keys ascend: a tile of dummy pairs, misses
+    t_out[b0 + threadIdx.x] = kBig;
+    gp_out[b0 + threadIdx.x] = 0.f;
+    return;
+  }
+  if (threadIdx.x == 0) ncl = 0;
+  __syncthreads();
+  // The clusters of this tile, as the first kernel lists them (their
+  // order does not change the merge).
+  for (size_t q = tile0 + threadIdx.x; q < tile0 + trp; q += kMarchLanes) {
+    const int k = keys[q];
+    if (k < c && (q == tile0 || keys[q - 1] != k))
+      clist[atomicAdd(&ncl, 1)] = k;
+  }
+  __syncthreads();
+  const int nc = ncl;
+  MmaBlock m;
+  pair_prologue(sh, rays8, nn, b0, m);
+  MarchBest b{kBig, 0.f, 0.f, false};
+  unsigned long long cnt = 0;
+  for (int v = 0; v < nc; ++v)
+    if (mma_visit<COUNT>(sh, trig, tric, clist[v], cs, m, b, cnt))
+      b.pend = 1.f;
+  t_out[b0 + m.ol] = b.t;
+  gp_out[b0 + m.ol] = __fadd_rn(__fmul_rn(b.g, 2.0f), b.pend);
+  if (COUNT && cnt) atomicAdd(counter, cnt);
+}
+
+cudaError_t check_args(const void* trig, const float* tric, int n_pairs,
+                       int trp, int cs, int c) {
+  if (trp <= 0 || trp > kMaxTrp || trp % kPairBlock || n_pairs % trp ||
+      cs <= 0 || cs % kVisitTile || cs % kMmaTile || c <= 0)
+    return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(trig) % 16 ||
+      reinterpret_cast<uintptr_t>(tric) % 16)
+    return cudaErrorMisalignedAddress;
+  return cudaSuccess;
+}
+
+template <bool COUNT>
+int launch_mma(const int* keys, const float* rays8p, const void* trig,
+               const float* tric, float* t, float* gp, int n_pairs, int trp,
+               int cs, int c, void* counter, void* stream) {
+  if (n_pairs <= 0) return 0;
+  const cudaError_t bad = check_args(trig, tric, n_pairs, trp, cs, c);
+  if (bad != cudaSuccess) return static_cast<int>(bad);
+  pair_mma_kernel<COUNT><<<n_pairs / kMarchLanes, kMarchLanes, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      keys, rays8p, static_cast<const uint16_t*>(trig), tric, t, gp, n_pairs,
+      trp, cs, c, static_cast<unsigned long long*>(counter));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int ptx_pair_visit(const int* keys, const float* rays8p,
                               const void* trig, const float* tric, float* t,
                               float* gp, int n_pairs, int trp, int cs, int c,
                               void* stream) {
+  return launch_mma<false>(keys, rays8p, trig, tric, t, gp, n_pairs, trp, cs,
+                           c, nullptr, stream);
+}
+
+extern "C" int ptx_pair_visit_count(const int* keys, const float* rays8p,
+                                    const void* trig, const float* tric,
+                                    float* t, float* gp, int n_pairs, int trp,
+                                    int cs, int c, void* counter,
+                                    void* stream) {
+  return launch_mma<true>(keys, rays8p, trig, tric, t, gp, n_pairs, trp, cs,
+                          c, counter, stream);
+}
+
+extern "C" int ptx_pair_visit_simt(const int* keys, const float* rays8p,
+                                   const void* trig, const float* tric,
+                                   float* t, float* gp, int n_pairs, int trp,
+                                   int cs, int c, void* stream) {
   if (n_pairs <= 0) return 0;
-  if (trp <= 0 || trp > kMaxTrp || trp % kPairBlock || n_pairs % trp ||
-      cs <= 0 || cs % kVisitTile || c <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  pair_visit_kernel<<<n_pairs / kPairBlock, kPairBlock, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  const cudaError_t bad = check_args(trig, tric, n_pairs, trp, cs, c);
+  if (bad != cudaSuccess) return static_cast<int>(bad);
+  pair_simt_kernel<<<n_pairs / kPairBlock, kPairBlock, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
       keys, rays8p, static_cast<const uint16_t*>(trig), tric, t, gp, n_pairs,
       trp, cs, c);
   return static_cast<int>(cudaGetLastError());

@@ -70,9 +70,23 @@ KERNELS = {
                   [P, P, P, P, I, I, I, I, I, P]),
     "pair_visit": ("pair_visit.cu", "ptx_pair_visit",
                    [P, P, P, P, P, P, I, I, I, I, P]),
+    # K10's two entries for the checks only: its first (float32-core)
+    # kernel, and the kernel counting the edge tests its margin recomputes.
+    "pair_visit_simt": ("pair_visit.cu", "ptx_pair_visit_simt",
+                        [P, P, P, P, P, P, I, I, I, I, P]),
+    "pair_visit_count": ("pair_visit.cu", "ptx_pair_visit_count",
+                         [P, P, P, P, P, P, I, I, I, I, P, P]),
     "attr_fetch": ("attr_fetch.cu", "ptx_attr_fetch",
                    [P, P, P, P, P, P, I, I, P]),
-    "pair_vpu": ("pair_vpu.cu", "ptx_pair_vpu", [P, P, P, P, I, I, I, P]),
+    "pair_vpu": ("pair_vpu.cu", "ptx_pair_vpu",
+                 [P, P, P, P, P, I, I, I, I, I, P]),
+    # K12's two entries for the checks only: its first kernel (every
+    # pair, triangle test), and the kernel counting the tests that reach
+    # the divide and the sub-blocks its skip rule lets through.
+    "pair_vpu_simt": ("pair_vpu.cu", "ptx_pair_vpu_simt",
+                      [P, P, P, P, I, I, I, P]),
+    "pair_vpu_count": ("pair_vpu.cu", "ptx_pair_vpu_count",
+                       [P, P, P, P, P, I, I, I, I, I, P, P]),
     "cluster": ("cluster.cu", "ptx_cluster",
                 [P, P, P, P, P, P, I, I, I, I, I, P]),
     "group": ("group.cu", "ptx_group", [P, P, P, P, I, I, I, I, P]),

@@ -240,14 +240,7 @@ def _check_scene_packs(trig, tric, cs, c):
                          f"than {c} clusters of {cs} (or 2^22 or more)")
 
 
-def pair_visits(keys_s: torch.Tensor, rays8p: torch.Tensor,
-                trig: torch.Tensor, tric: torch.Tensor, cs: int, trp: int,
-                c: int):
-    """K10 (thin) on cluster-sorted pairs: (t, g * 2 + pend), (Ppad,)
-    float32 each. keys_s: (Ppad,) int32 ascending in [0, c], Ppad a
-    multiple of trp; rays8p: (8, Ppad). The features are computed in the
-    kernel. CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+def _check_visits(keys_s, rays8p, trig, tric, cs, trp, c, what):
     _build.check(keys_s, "keys_s", (None,), dtype=torch.int32)
     ppad = keys_s.shape[0]
     _build.check(rays8p, "rays8p", (8, ppad))
@@ -256,17 +249,66 @@ def pair_visits(keys_s: torch.Tensor, rays8p: torch.Tensor,
         raise ValueError("keys_s, rays8p, trig and tric must be on one "
                          "device")
     if ppad % trp or trp % 128 or not 0 < trp <= 1024 or cs % 64:
-        raise ValueError(f"pair_visits needs Ppad a multiple of trp, trp a "
+        raise ValueError(f"{what} needs Ppad a multiple of trp, trp a "
                          f"multiple of 128 up to 1024 and cs a multiple of "
                          f"64; got Ppad {ppad}, trp {trp}, cs {cs}")
-    if rays8p.device.type == "cpu":
-        return pair_visits_plain(keys_s, rays8p, trig, tric, cs, trp, c)
+
+
+def _launch_visits(entry, keys_s, rays8p, trig, tric, cs, trp, c, *extra):
+    ppad = keys_s.shape[0]
     t = torch.empty(ppad, dtype=torch.float32, device=rays8p.device)
     gp = torch.empty(ppad, dtype=torch.float32, device=rays8p.device)
     if ppad:
-        _build.launch("pair_visit", keys_s, rays8p, trig, tric, t, gp, ppad,
-                      trp, cs, c)
+        _build.launch(entry, keys_s, rays8p, trig, tric, t, gp, ppad, trp,
+                      cs, c, *extra)
     return t, gp
+
+
+def pair_visits(keys_s: torch.Tensor, rays8p: torch.Tensor,
+                trig: torch.Tensor, tric: torch.Tensor, cs: int, trp: int,
+                c: int):
+    """K10 (thin) on cluster-sorted pairs: (t, g * 2 + pend), (Ppad,)
+    float32 each. keys_s: (Ppad,) int32 ascending in [0, c], Ppad a
+    multiple of trp; rays8p: (8, Ppad). The features are computed in the
+    kernel, whose edge values run on the tensor cores behind a certified
+    margin (`csrc/pair_visit.cu`). CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise."""
+    _check_visits(keys_s, rays8p, trig, tric, cs, trp, c, "pair_visits")
+    if rays8p.device.type == "cpu":
+        return pair_visits_plain(keys_s, rays8p, trig, tric, cs, trp, c)
+    return _launch_visits("pair_visit", keys_s, rays8p, trig, tric, cs, trp,
+                          c)
+
+
+def pair_visits_simt(keys_s: torch.Tensor, rays8p: torch.Tensor,
+                     trig: torch.Tensor, tric: torch.Tensor, cs: int,
+                     trp: int, c: int):
+    """K10's first kernel (`csrc/pair_visit.cu::pair_simt_kernel`: every
+    product on the float32 cores, one pair per thread), on CUDA tensors:
+    pair_visits' (t, g * 2 + pend). For the checks only (the smoke and the
+    cuda tests hold the new kernel against it on whole launches and time
+    the two in turns); no render path calls it."""
+    _check_visits(keys_s, rays8p, trig, tric, cs, trp, c, "pair_visits_simt")
+    if rays8p.device.type != "cuda":
+        raise ValueError("pair_visits_simt runs on CUDA tensors only")
+    return _launch_visits("pair_visit_simt", keys_s, rays8p, trig, tric, cs,
+                          trp, c)
+
+
+def pair_visits_counted(keys_s: torch.Tensor, rays8p: torch.Tensor,
+                        trig: torch.Tensor, tric: torch.Tensor, cs: int,
+                        trp: int, c: int):
+    """pair_visits' kernel on CUDA tensors, also counting the edge tests
+    its margin sent to the float32 chain: ((t, g * 2 + pend), the count as
+    an int). For the checks only; no render path calls it."""
+    _check_visits(keys_s, rays8p, trig, tric, cs, trp, c,
+                  "pair_visits_counted")
+    if rays8p.device.type != "cuda":
+        raise ValueError("pair_visits_counted runs on CUDA tensors only")
+    count = torch.zeros(1, dtype=torch.int64, device=rays8p.device)
+    out = _launch_visits("pair_visit_count", keys_s, rays8p, trig, tric, cs,
+                         trp, c, count)
+    return out, int(count.item())
 
 
 def fetch_attrs_plain(g: torch.Tensor, tric: torch.Tensor):

@@ -964,3 +964,123 @@ def test_twelfth_slice_lazy_equals_first_kernel(cuda, monkeypatch):
                lm.run_lazy_march_counted):
         with pytest.raises(RuntimeError, match="disabled"):
             fn(clist, r8s, feat, rows, vis, ms, cs, K, tr)
+
+
+def _pair_rays(scene, device):
+    """Grazing and aimed rays of stress_scene(1200) (tests/march_lanes.py)
+    with a few special ones: D = 0 and a subnormal direction
+    component."""
+    from march_lanes import aimed_rays, grazing_rays
+    r8 = np.concatenate([grazing_rays(scene.tris, 6144, 13),
+                         aimed_rays(2048, 14, scene.tris)], 1)
+    r8[3:6, 0:8] = 0.0
+    r8[4, 8:16] = 1e-42
+    return torch.as_tensor(r8).to(device)
+
+
+def _tile_shapes(keys, c, block, tile):
+    """(a tile holds two runs or more, a block mixes real and dummy
+    pairs, a block is all dummies) for cluster-sorted keys."""
+    k = keys.cpu().numpy()
+    t = k.reshape(-1, tile)
+    b = k.reshape(-1, block)
+    runs = (np.diff(t, axis=1) != 0).sum(1) + 1
+    dummy = b == c
+    return ((runs >= 2).any(), (dummy.any(1) & ~dummy.all(1)).any(),
+            dummy.all(1).any())
+
+
+@pytest.mark.cuda
+def test_thirteenth_slice_pair_visit_equals_first_kernel(cuda):
+    """K10 on K18's tensor-core visit, the features computed in the
+    kernel, against its first (float32-core) kernel and its plain version
+    on the pairs of grazing and aimed lanes of stress_scene(1200) (K9's
+    two nearest clusters of 128, tiles of 256 pairs): tiles that span two
+    runs or more, blocks that mix real and dummy pairs and blocks of
+    dummies only; the counting entry's outputs equal and some edge tests
+    take the chain; only the launched entries count; a CPU prefix takes
+    the plain version."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import pair_mxu as pm
+    from opencl_path_tracer_tpu_torch.ops.kernels import sorted_intersect as si
+    from opencl_path_tracer_tpu_torch.ops.kernels.march_kernel import (
+        build_march_scene,
+    )
+    scene = library.stress_scene(1200, device=cuda)
+    cs, trp = 128, 256
+    ms, rt, c = build_march_scene(scene.tris, cs)
+    boxes = torch.cat([ms.boxes_lo, ms.boxes_hi,
+                       torch.zeros((c, 2), device=cuda),
+                       pm.build_dops(rt, cs, c)], 1)
+    boxes_r = torch.zeros((-(-c // 128) * 128, 16), device=cuda)
+    boxes_r[:c] = boxes
+    r8 = _pair_rays(scene, cuda)
+    ids = si.run_candidates(r8, boxes_r, 2, c)
+    keys_s, r8p, _ = pm.sort_pairs([r8[j] for j in range(6)], ids[0], c, trp)
+    # One more tile of dummy pairs (zero rays), as the padding makes them.
+    keys_s = torch.cat([keys_s, torch.full((trp,), c, dtype=torch.int32,
+                                           device=cuda)])
+    r8p = torch.cat([r8p, torch.zeros((8, trp), device=cuda)], 1)
+    assert all(_tile_shapes(keys_s, c, 128, trp))
+    args = (keys_s, r8p, ms.trig, ms.tric, cs, trp, c)
+    before = dict(_build.launches)
+    t, gp = pm.pair_visits(*args)
+    first = pm.pair_visits_simt(*args)
+    plain = pm.pair_visits_plain(*args)
+    assert torch.equal(t, first[0]) and torch.equal(gp, first[1])
+    assert torch.equal(t, plain[0]) and torch.equal(gp, plain[1])
+    (ct, cgp), chain = pm.pair_visits_counted(*args)
+    assert torch.equal(ct, t) and torch.equal(cgp, gp) and chain > 0
+    assert int((t < k1.BIG).sum()) > 1000
+    assert {k: _build.launches[k] - before[k]
+            for k in ("pair_visit", "pair_visit_simt",
+                      "pair_visit_count")} == {
+                "pair_visit": 1, "pair_visit_simt": 1, "pair_visit_count": 1}
+    n = 2 * trp
+    cpu = pm.pair_visits(keys_s[:n].cpu(), r8p[:, :n].cpu().contiguous(),
+                         ms.trig.cpu(), ms.tric.cpu(), cs, trp, c)
+    assert torch.equal(cpu[0], t[:n].cpu()) and torch.equal(cpu[1],
+                                                            gp[:n].cpu())
+
+
+@pytest.mark.cuda
+def test_thirteenth_slice_pair_vpu_equals_first_kernel(cuda, monkeypatch):
+    """K12 with its sub-block skip rule against its first kernel and its
+    plain version on the pairs of grazing, aimed and special lanes of
+    stress_scene(1200) (K9's eight nearest clusters of 128, sorted in
+    tiles of 256): tiles that span runs and blocks with dummy pairs; with
+    every sub-block run lane by lane, all by the whole warp and the
+    default mix, at 1, 2 and 3 runs of pairs a block; clusters of 1,024
+    (staged in two tiles of rows); the counting entry's outputs equal,
+    fewer tests reach the divide than the first kernel runs."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import cluster_kernel as ck
+    from opencl_path_tracer_tpu_torch.ops.kernels import pair_mxu as pm
+    from opencl_path_tracer_tpu_torch.ops.kernels import sorted_intersect as si
+    scene = library.stress_scene(1200, device=cuda)
+    r8 = _pair_rays(scene, cuda)
+    for cs in (128, 1024):
+        cscene, c, k = ck.build_clusters(scene.tris, cs)
+        rows = torch.cat([cscene.rows(), torch.zeros((k, 24), device=cuda)])
+        sub = si.pair_sub_boxes(rows, k)
+        boxes_r = torch.zeros((-(-c // 128) * 128, 8), device=cuda)
+        boxes_r[:c] = cscene.boxes
+        ids = si.run_candidates(r8, boxes_r, min(8, c), c)
+        keys_s, r8p, _ = pm.sort_pairs([r8[j] for j in range(6)], ids[0], c,
+                                       256)
+        shapes = _tile_shapes(keys_s, c, 256, 256)
+        assert shapes[0] and shapes[1]
+        first = si.run_pairs_simt(keys_s, r8p, rows, k)
+        plain = si.pairs_plain(keys_s, r8p, rows, k)
+        assert all(torch.equal(a, b) for a, b in zip(first, plain))
+        for coop in (0, 12, 32):
+            for rounds in (1, 2, 3):
+                monkeypatch.setattr(si, "PAIR_COOP", coop)
+                monkeypatch.setattr(si, "PAIR_ROUNDS", rounds)
+                out = si.run_pairs(keys_s, r8p, rows, k, sub)
+                assert all(torch.equal(a, b) for a, b in zip(out, first)), (
+                    cs, coop, rounds)
+        counted, (n_div, n_box, n_coop) = si.run_pairs_counted(
+            keys_s, r8p, rows, k, sub)
+        assert all(torch.equal(a, b) for a, b in zip(counted, first))
+        real = int((keys_s < c).sum())
+        assert 0 < n_div < real * k and n_coop <= n_box
+        assert int((first[0] < k1.BIG).sum()) > 1000

@@ -121,9 +121,10 @@ segment misses. Each is held against its first kernel
 (`pair_mxu.pair_visits_simt`, `sorted_intersect.run_pairs_simt`), its
 counting entry and its plain version on round 1 of the stress camera
 and first-bounce pairs, with the counts printed (K10's edge tests sent
-to the float32 chain; K12's tests that reached the divide and sub-blocks
-tested), timed in turns against its first kernel on both, and the
-kernels line has K10 and K12 rows on the first-bounce pairs.
+to the float32 chain; K12's tests that reached the divide, edge tests
+and sub-blocks tested, from which its bound counts its operations),
+timed in turns against its first kernel on both, and the kernels line
+has K10 and K12 rows on the first-bounce pairs.
 
 The last two lines are a JSON object per kernel (time, plain time,
 bound, launches) and the verdict; the line before them, the smoke's total
@@ -1709,7 +1710,7 @@ def check_slice13(torch, inputs):
         torch.cuda.synchronize()
         need(same(new, si.run_pairs_simt(keys, r8, rows, k)),
              f"pair_vpu differs from its first kernel on {where}")
-        counted, (n_div, n_box, n_coop) = si.run_pairs_counted(
+        counted, (n_div, n_box, n_coop, n_edge) = si.run_pairs_counted(
             keys, r8, rows, k, sub)
         need(same(counted, new),
              f"pair_vpu's counting entry differs from it on {where}")
@@ -1726,10 +1727,10 @@ def check_slice13(torch, inputs):
               f"dummy, {int((new[0] < k1.BIG).sum())} hits): equal to its "
               f"first kernel and, on {n} pairs, its plain version "
               f"(torch.equal); {n_div} of {real * k} (pair, triangle) tests "
-              f"reached the divide ({n_div / max(real * k, 1):.4f}); "
-              f"{n_box} of {real * nsb} sub-block box tests passed "
-              f"({n_box / max(real * nsb, 1):.4f}), {n_coop} of them run by "
-              "the whole warp")
+              f"reached the divide ({n_div / max(real * k, 1):.4f}) and "
+              f"{n_edge} edge tests; {n_box} of {real * nsb} sub-block box "
+              f"tests passed ({n_box / max(real * nsb, 1):.4f}), {n_coop} "
+              "of them run by the whole warp")
         print(f"pair_vpu on {where} in turns (first kernel, new kernel, new "
               "kernel, first kernel): "
               + in_turns(lambda: si.run_pairs_simt(keys, r8, rows, k),
@@ -1795,6 +1796,7 @@ def check_no_fallback(torch, scenes):
                   torch.zeros((256, 24), device="cuda"), 256, 1024, 1)
     vpu_args = (torch.zeros(64, dtype=torch.int32, device="cuda"), rays8,
                 torch.zeros((256, 24), device="cuda"), 128)
+    vpu_sub = si.pair_sub_boxes(vpu_args[2], 128)
     calls = {
         "minarg": lambda: k1.minarg(rays8, pack),
         "minarg_simt": lambda: k1.minarg_simt(rays8, pack),
@@ -1820,10 +1822,9 @@ def check_no_fallback(torch, scenes):
         "attr_fetch": lambda: pm.fetch_attrs(
             torch.zeros(64, device="cuda"),
             torch.zeros((256, 24), device="cuda")),
-        "pair_vpu": lambda: si.run_pairs(*vpu_args),
+        "pair_vpu": lambda: si.run_pairs(*vpu_args, vpu_sub),
         "pair_vpu_simt": lambda: si.run_pairs_simt(*vpu_args),
-        "pair_vpu_count": lambda: si.run_pairs_counted(
-            *vpu_args, si.pair_sub_boxes(vpu_args[2], 128)),
+        "pair_vpu_count": lambda: si.run_pairs_counted(*vpu_args, vpu_sub),
         "cluster": lambda: ck.run_cluster(
             torch.zeros((256, 8), device="cuda"),
             torch.zeros((1, 1), dtype=torch.int32, device="cuda"),
@@ -2261,18 +2262,22 @@ def cluster_ops(torch, rows, k, batches):
 
 def slice6_rows(torch, inputs):
     """The timing rows of K12, K17 and K16: K12 on round 1's pairs of the
-    stress camera rays at the 'pair' defaults, K17 (early exit off) on the
-    stress camera rays with clusters of 128, K16 on the reference camera
-    rays. Operations as K1's over the (pair or ray, triangle) tests each
-    runs (K12: each pair against its cluster, dummies none; K17: each
-    tile's rays against every listed cluster; K16: each ray against every
-    cluster of its block's union). Bytes: the rays once (24 per ray or
-    pair, and K12's key), the cluster rows once (the 17 columns read,
-    68 bytes a row), K17's lists as far as they are read, K16's unions,
-    the outputs once (20 bytes per pair or ray, K17 24). The plain times
-    are the checks' single calls. No single PyTorch call computes any of
-    the three (a nearest ray-triangle hit per pair, tile or block), so
-    library_ms is null."""
+    stress camera rays at the 'pair' defaults and on the first-bounce
+    pairs, K17 (early exit off) on the stress camera rays with clusters of
+    128, K16 on the reference camera rays. K12's operations, as K6's and
+    K7's: 25 per (pair, sub-block) box test of every real pair, then K1's
+    12 per (pair, triangle) test plus 12 per edge test reached, in the
+    sub-blocks whose box test passed (the counting entry's counts on the
+    same inputs). K17 and K16: K1's over the (ray, triangle) tests each
+    runs (K17: each tile's rays against every listed cluster; K16: each
+    ray against every cluster of its block's union). Bytes: the rays once
+    (24 per ray; K12 the key of every pair and the 24 of each real one,
+    as it reads no ray for a dummy pair), the cluster rows once (the 17
+    columns read, 68 bytes a row), K12's sub-block table, K17's lists as
+    far as they are read, K16's unions, the outputs once (20 bytes per
+    pair or ray, K17 24). The plain times are the checks' single calls.
+    No single PyTorch call computes any of the three (a nearest
+    ray-triangle hit per pair, tile or block), so library_ms is null."""
     from opencl_path_tracer_tpu_torch.ops.kernels import (
         cluster_kernel as ck, sorted_intersect as si)
     chunk = 1 << 24
@@ -2282,24 +2287,22 @@ def slice6_rows(torch, inputs):
             ("pair_vpu", inputs["pair_vpu"]),
             ("pair_vpu bounce", inputs["pair_vpu bounce"])):
         c = rows.shape[0] // k - 1
-        runs, counts = torch.unique_consecutive(keys, return_counts=True)
-        batches, start = [], 0
-        for ci, n in zip(runs.tolist(), counts.tolist()):
-            if ci < c:
-                for s0 in range(start, start + n, chunk // k):
-                    s1 = min(s0 + chunk // k, start + n)
-                    batches.append((torch.tensor([ci], device=keys.device),
-                                    r8p[None, :, s0:s1]))
-            start += n
-        ops, tests = cluster_ops(torch, rows, k, batches)
+        real = int((keys < c).sum())
+        nsb = -(-k // si.SUB)
+        _, (n_div, n_box, _, n_edge) = si.run_pairs_counted(keys, r8p, rows,
+                                                            k, sub)
         p = keys.shape[0]
         rows_out.append((name, lambda keys=keys, r8p=r8p, rows=rows, k=k:
                          si.run_pairs(keys, r8p, rows, k, sub),
-                         plain_ms, ops, 0,
-                         28 * p + 68 * rows.shape[0] + 20 * p))
-        print(f"{name}: {tests} (pair, triangle) tests over {p} pairs (the "
-              "bound counts them all; the kernel's own counts are in the "
-              "slice-13 lines)")
+                         plain_ms, 25 * real * nsb + 12 * n_div
+                         + 12 * n_edge, 0,
+                         4 * p + 24 * real + 68 * rows.shape[0]
+                         + 4 * sub.numel() + 20 * p))
+        print(f"{name}: {real * nsb} (pair, sub-block) box tests over {p} "
+              f"pairs, {n_box} passed; {n_div} (pair, triangle) tests and "
+              f"{n_edge} edge tests in those (the bound's count; every "
+              f"(pair, triangle) test of the real pairs would be "
+              f"{real * k})")
     rr8, cnt, ids, ent, crows, kk, plain_ms = inputs["cluster"]
     g = cnt.shape[0]
     tiles = rr8.view(g, -1, 8)

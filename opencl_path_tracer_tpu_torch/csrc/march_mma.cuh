@@ -1,7 +1,8 @@
-// The cluster visit of K18 (march.cu), K19 (flat.cu) and K20 (lazy.cu)
-// with the edge values on the tensor cores: the visit of march_visit.cuh,
-// the same bits, another schedule (mma_prologue sets up a CUDA block of
-// 128 lanes once, mma_visit merges one cluster into each lane's best).
+// The cluster visit of K18 (march.cu), K19 (flat.cu), K20 (lazy.cu) and
+// K10 (pair_visit.cu) with the edge values on the tensor cores: the visit
+// of march_visit.cuh, the same bits, another schedule (mma_prologue sets
+// up a CUDA block of 128 lanes once, mma_visit merges one cluster into
+// each lane's best).
 //
 // A visit (lane, cluster cid of cs triangles) needs, per (lane, triangle),
 // the three bf16 Plucker edge values E_k = sum_q w_kq f_q (18 exact bf16
@@ -282,12 +283,6 @@ __device__ __forceinline__ void mma_stage(MmaShared& sh,
   }
 }
 
-__device__ __forceinline__ uint32_t feat_pair(const uint16_t* __restrict__ feat,
-                                              size_t n, int q, size_t i) {
-  return static_cast<uint32_t>(feat[q * n + i]) |
-         (static_cast<uint32_t>(feat[(q + 1) * n + i]) << 16);
-}
-
 // What a CUDA block of 128 lanes sets up once for its visits
 // (mma_prologue): the four lanes of this thread's fragments, [m tile][g
 // or g + 8]; the warp's A fragments, features 0-15 (k16) and 16-17 (k8,
@@ -301,50 +296,79 @@ struct MmaBlock {
   int ol;
 };
 
-// Set up the block of lanes [b0, b0 + 128) of the (8, n) rays and (32, n)
-// bf16 features: the fragments, the lanes (origin, direction, features as
-// float32) in shared memory, and the block's F_q (the largest |feature q|
-// of its lanes, infinite for a column where a feature is subnormal or not
-// finite) with d0 from them. Every thread calls it (it synchronises).
+// The features of K18, K19 and K20: lane i's bf16 bits from the (32, n)
+// array `feat`.
+struct PackedFeatures {
+  const uint16_t* __restrict__ feat;
+  size_t nn;
+  __device__ __forceinline__ void operator()(size_t i, const float (&)[6],
+                                             uint32_t (&h)[kMarchW]) const {
+#pragma unroll
+    for (int q = 0; q < kMarchW; ++q) h[q] = feat[q * nn + i];
+  }
+};
+
+// Features q and q + 1 of block lane li as one bf16 pair (low half q).
+__device__ __forceinline__ uint32_t sh_feat_pair(const MmaShared& sh, int q,
+                                                 int li) {
+  return (__float_as_uint(sh.f[q][li]) >> 16) |
+         (__float_as_uint(sh.f[q + 1][li]) & 0xffff0000u);
+}
+
+// Set up the block of lanes [b0, b0 + 128) of the (8, n) rays. Each
+// thread takes its own lane: its origin and direction, and its bf16
+// features from features(i, ray, h) (PackedFeatures reads them from an
+// array; K10 computes them from the ray), which it stores beside the lane
+// in shared memory (as float32, exactly), with the block's F_q (the
+// largest |feature q| of its lanes, infinite for a column where a feature
+// is subnormal or not finite) and d0 from them. Then each thread reads
+// the four lanes of its fragments back from there. Every thread calls it
+// (it synchronises).
+template <typename Features>
 __device__ __forceinline__ void mma_prologue(MmaShared& sh,
                                              const float* __restrict__ rays8,
-                                             const uint16_t* __restrict__ feat,
                                              size_t nn, size_t b0,
-                                             MmaBlock& m) {
+                                             MmaBlock& m,
+                                             const Features& features) {
   const int lid = threadIdx.x & 31, g = lid >> 2, tig = lid & 3;
   const int wl = threadIdx.x & ~31;   // the warp's first lane in the block
+  unsigned int* fq = reinterpret_cast<unsigned int*>(sh.fq);
+  if (threadIdx.x < kMarchW) fq[threadIdx.x] = 0u;
+  float r[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    r[k] = rays8[k * nn + b0 + threadIdx.x];
+    sh.ray[k][threadIdx.x] = r[k];
+  }
+  uint32_t h[kMarchW];
+  features(b0 + threadIdx.x, r, h);
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < kMarchW; ++q) {
+    const float f = bf16_bits_to_float(static_cast<uint16_t>(h[q]));
+    sh.f[q][threadIdx.x] = f;
+    atomicMax(&fq[q], bf16_outside(h[q]) ? 0x7f800000u
+                                         : __float_as_uint(fabsf(f)));
+  }
+  __syncthreads();
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const size_t li = b0 + wl + 16 * mt + 8 * h + g;
-      MmaLane& l = m.L[mt][h];
-      const float px = rays8[li], py = rays8[nn + li], pz = rays8[2 * nn + li];
-      l.dx = rays8[3 * nn + li];
-      l.dy = rays8[4 * nn + li];
-      l.dz = rays8[5 * nn + li];
+    for (int hh = 0; hh < 2; ++hh) {
+      const int li = wl + 16 * mt + 8 * hh + g;
+      MmaLane& l = m.L[mt][hh];
+      const float px = sh.ray[0][li], py = sh.ray[1][li], pz = sh.ray[2][li];
+      l.dx = sh.ray[3][li];
+      l.dy = sh.ray[4][li];
+      l.dz = sh.ray[5][li];
       l.ml = fmaxf(fmaxf(fabsf(__fmaf_rn(py, l.dz, -__fmul_rn(pz, l.dy))),
                          fabsf(__fmaf_rn(pz, l.dx, -__fmul_rn(px, l.dz)))),
                    fabsf(__fmaf_rn(px, l.dy, -__fmul_rn(py, l.dx))));
-      m.A[mt][h] = feat_pair(feat, nn, 2 * tig, li);
-      m.A[mt][2 + h] = feat_pair(feat, nn, 2 * tig + 8, li);
-      m.A8[mt][h] = tig == 0 ? feat_pair(feat, nn, 16, li) : 0u;
+      m.A[mt][hh] = sh_feat_pair(sh, 2 * tig, li);
+      m.A[mt][2 + hh] = sh_feat_pair(sh, 2 * tig + 8, li);
+      m.A8[mt][hh] = tig == 0 ? sh_feat_pair(sh, 16, li) : 0u;
     }
   }
-  unsigned int* fq = reinterpret_cast<unsigned int*>(sh.fq);
-  if (threadIdx.x < kMarchW) fq[threadIdx.x] = 0u;
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < 6; ++k)
-    sh.ray[k][threadIdx.x] = rays8[k * nn + b0 + threadIdx.x];
-#pragma unroll
-  for (int q = 0; q < kMarchW; ++q) {
-    const uint16_t h = feat[q * nn + b0 + threadIdx.x];
-    const float f = bf16_bits_to_float(h);
-    sh.f[q][threadIdx.x] = f;
-    atomicMax(&fq[q], bf16_outside(h) ? 0x7f800000u : __float_as_uint(fabsf(f)));
-  }
-  __syncthreads();
   // d0 = 2^-110 + 2^-126 sum_q F_q, rounded up (the margin's absolute
   // term, with the subnormal weights a tensor core may flush).
   float d0 = 0.f;
@@ -352,6 +376,15 @@ __device__ __forceinline__ void mma_prologue(MmaShared& sh,
   for (int q = 0; q < kMarchW; ++q) d0 = __fadd_ru(d0, sh.fq[q]);
   m.d0 = __fmaf_ru(d0, 0x1p-126f, 0x1p-110f);
   m.ol = wl + 16 * (tig >> 1) + 8 * (tig & 1) + g;
+}
+
+// mma_prologue with the features of the (32, n) bf16 array feat.
+__device__ __forceinline__ void mma_prologue(MmaShared& sh,
+                                             const float* __restrict__ rays8,
+                                             const uint16_t* __restrict__ feat,
+                                             size_t nn, size_t b0,
+                                             MmaBlock& m) {
+  mma_prologue(sh, rays8, nn, b0, m, PackedFeatures{feat, nn});
 }
 
 // Visit cluster cid (>= 0) of cs triangles with the block set up by

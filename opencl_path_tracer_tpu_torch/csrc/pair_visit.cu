@@ -37,10 +37,10 @@
 // visits every cluster whose run of keys touches the whole tile (the
 // TPU's visit list, on which pend depends), listed in shared memory from
 // the sorted keys; the dummy key c is never visited (a block whose tile
-// starts with it, dummy pairs only, writes misses at once). Its own
-// prologue (pair_prologue) fills march_mma.cuh's MmaShared and MmaBlock
-// as mma_prologue does, but computes the bf16 features of (P x D, D) from
-// the rays in the kernel, each thread for its own lane, through shared
+// starts with it, dummy pairs only, writes misses at once). The
+// features of (P x D, D) are computed from the rays in the kernel
+// (RayFeatures, given to mma_prologue, which K18, K19 and K20 give their
+// (32, n) array instead), each thread for its own lane, through shared
 // memory into the A fragments: no feature pass and no (32, n) array on
 // the path. The outputs are written at the lane each thread owns after
 // the quad merge (MmaBlock::ol).
@@ -216,90 +216,28 @@ pair_simt_kernel(const int* __restrict__ keys,
 }
 
 // The bf16 bits of the features [phi_hi(6), phi_lo(6), phi_hi(6)] of a
-// ray, phi = (P x D, D), each product and difference rounded separately
-// (plucker_feat's and the first kernel's).
-__device__ __forceinline__ void ray_features(const float (&r)[6],
-                                             uint32_t (&h)[kMarchW]) {
-  const float px = r[0], py = r[1], pz = r[2], dx = r[3], dy = r[4],
-              dz = r[5];
-  const float phi[6] = {__fsub_rn(__fmul_rn(py, dz), __fmul_rn(pz, dy)),
-                        __fsub_rn(__fmul_rn(pz, dx), __fmul_rn(px, dz)),
-                        __fsub_rn(__fmul_rn(px, dy), __fmul_rn(py, dx)),
-                        dx, dy, dz};
+// ray r = (P, D), phi = (P x D, D), each product and difference rounded
+// separately (plucker_feat's and the first kernel's), for mma_prologue.
+struct RayFeatures {
+  __device__ __forceinline__ void operator()(size_t, const float (&r)[6],
+                                             uint32_t (&h)[kMarchW]) const {
+    const float px = r[0], py = r[1], pz = r[2], dx = r[3], dy = r[4],
+                dz = r[5];
+    const float phi[6] = {__fsub_rn(__fmul_rn(py, dz), __fmul_rn(pz, dy)),
+                          __fsub_rn(__fmul_rn(pz, dx), __fmul_rn(px, dz)),
+                          __fsub_rn(__fmul_rn(px, dy), __fmul_rn(py, dx)),
+                          dx, dy, dz};
 #pragma unroll
-  for (int q = 0; q < 6; ++q) {
-    const uint32_t hi = rne_bf16(__float_as_uint(phi[q]));
-    const uint32_t lo =
-        rne_bf16(__float_as_uint(__fsub_rn(phi[q], __uint_as_float(hi))));
-    h[q] = hi >> 16;
-    h[6 + q] = lo >> 16;
-    h[12 + q] = hi >> 16;
-  }
-}
-
-// Features q and q + 1 of block lane li as one bf16 pair (low half q).
-__device__ __forceinline__ uint32_t sh_feat_pair(const MmaShared& sh, int q,
-                                                 int li) {
-  return (__float_as_uint(sh.f[q][li]) >> 16) |
-         (__float_as_uint(sh.f[q + 1][li]) & 0xffff0000u);
-}
-
-// mma_prologue's set-up of the block of lanes [b0, b0 + 128) of the
-// (8, n) rays, with the features computed here: each thread computes its
-// own lane's and stores them (as float32, exactly) beside its lane in
-// shared memory, with the block's F_q; then each thread reads its four
-// fragment lanes back from there. The same MmaShared and MmaBlock as
-// mma_prologue's, bit for bit. Every thread calls it (it synchronises).
-__device__ __forceinline__ void pair_prologue(MmaShared& sh,
-                                              const float* __restrict__ rays8,
-                                              size_t nn, size_t b0,
-                                              MmaBlock& m) {
-  const int lid = threadIdx.x & 31, g = lid >> 2, tig = lid & 3;
-  const int wl = threadIdx.x & ~31;   // the warp's first lane in the block
-  unsigned int* fq = reinterpret_cast<unsigned int*>(sh.fq);
-  if (threadIdx.x < kMarchW) fq[threadIdx.x] = 0u;
-  float r[6];
-#pragma unroll
-  for (int k = 0; k < 6; ++k) {
-    r[k] = rays8[k * nn + b0 + threadIdx.x];
-    sh.ray[k][threadIdx.x] = r[k];
-  }
-  uint32_t h[kMarchW];
-  ray_features(r, h);
-  __syncthreads();
-#pragma unroll
-  for (int q = 0; q < kMarchW; ++q) {
-    const float f = bf16_bits_to_float(static_cast<uint16_t>(h[q]));
-    sh.f[q][threadIdx.x] = f;
-    atomicMax(&fq[q], bf16_outside(h[q]) ? 0x7f800000u
-                                         : __float_as_uint(fabsf(f)));
-  }
-  __syncthreads();
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int li = wl + 16 * mt + 8 * hh + g;
-      MmaLane& l = m.L[mt][hh];
-      const float px = sh.ray[0][li], py = sh.ray[1][li], pz = sh.ray[2][li];
-      l.dx = sh.ray[3][li];
-      l.dy = sh.ray[4][li];
-      l.dz = sh.ray[5][li];
-      l.ml = fmaxf(fmaxf(fabsf(__fmaf_rn(py, l.dz, -__fmul_rn(pz, l.dy))),
-                         fabsf(__fmaf_rn(pz, l.dx, -__fmul_rn(px, l.dz)))),
-                   fabsf(__fmaf_rn(px, l.dy, -__fmul_rn(py, l.dx))));
-      m.A[mt][hh] = sh_feat_pair(sh, 2 * tig, li);
-      m.A[mt][2 + hh] = sh_feat_pair(sh, 2 * tig + 8, li);
-      m.A8[mt][hh] = tig == 0 ? sh_feat_pair(sh, 16, li) : 0u;
+    for (int q = 0; q < 6; ++q) {
+      const uint32_t hi = rne_bf16(__float_as_uint(phi[q]));
+      const uint32_t lo = rne_bf16(
+          __float_as_uint(__fsub_rn(phi[q], __uint_as_float(hi))));
+      h[q] = hi >> 16;
+      h[6 + q] = lo >> 16;
+      h[12 + q] = hi >> 16;
     }
   }
-  // d0 = 2^-110 + 2^-126 sum_q F_q, rounded up, as mma_prologue.
-  float d0 = 0.f;
-#pragma unroll
-  for (int q = 0; q < kMarchW; ++q) d0 = __fadd_ru(d0, sh.fq[q]);
-  m.d0 = __fmaf_ru(d0, 0x1p-126f, 0x1p-110f);
-  m.ol = wl + 16 * (tig >> 1) + 8 * (tig & 1) + g;
-}
+};
 
 template <bool COUNT>
 __global__ void __launch_bounds__(kMarchLanes, 3)
@@ -331,7 +269,7 @@ pair_mma_kernel(const int* __restrict__ keys, const float* __restrict__ rays8,
   __syncthreads();
   const int nc = ncl;
   MmaBlock m;
-  pair_prologue(sh, rays8, nn, b0, m);
+  mma_prologue(sh, rays8, nn, b0, m, RayFeatures{});
   MarchBest b{kBig, 0.f, 0.f, false};
   unsigned long long cnt = 0;
   for (int v = 0; v < nc; ++v)

@@ -79,28 +79,30 @@
 // is exact too. best only falls, so a sub-block skipped once stays right.
 //
 // Layout: one thread per pair, blocks of kBlock consecutive pairs, and
-// `rounds` such runs of pairs per CUDA block. The block walks its runs as
-// the TPU kernel does (the key at a run's start read by every thread, the
-// next run after the count of pairs with that key, __syncthreads_count);
-// a cluster's rows (up to kStage of them, 32 KB) and its sub-blocks' boxes
-// are staged once and kept while the following runs of the block's pairs
-// have the same key. Per sub-block a warp takes the ballot of its pairs
-// whose box test passed. With more than coop_max of them each lane tests
-// its own pair's rows in order. With fewer, the warp tests them one pair
-// at a time, each lane one row of the sub-block against that pair's ray,
-// and the pair's lane merges the least (t, index) (two __reduce_min_sync
-// over t's bits, which order as t for t > 0, then over the indices at that
-// t) with a strict <: the lanes of a sparse ballot would otherwise idle
-// through the whole sub-block (first-bounce pairs, whose warps mix
-// directions, take this path in half their passes).
+// kRuns such runs of pairs per CUDA block. The block walks its runs of
+// equal keys as the TPU kernel does (the key at a run's start read by
+// every thread, the next run after the count of pairs with that key,
+// __syncthreads_count); a cluster's rows (up to kStage of them, 32 KB)
+// and its sub-blocks' boxes are staged once and kept while the following
+// runs of the block's pairs have the same key. Per sub-block a warp
+// takes the ballot of its pairs whose box test passed. With more than
+// coop_max of them each lane tests its own pair's rows in order. With
+// fewer, the warp tests them one pair at a time, each lane one row of the
+// sub-block against that pair's ray, and the pair's lane merges the least
+// (t, index) (two __reduce_min_sync over t's bits, which order as t for
+// t > 0, then over the indices at that t) with a strict <: the lanes of a
+// sparse ballot would otherwise idle through the whole sub-block
+// (first-bounce pairs, whose warps mix directions, take this path in half
+// their passes).
 //
 // Entry points: ptx_pair_vpu (the kernel the wrapper launches);
 // ptx_pair_vpu_count (the same kernel, also adding to counter[0] the
 // (pair, row) tests that reached the divide, to counter[1] the (pair,
-// sub-block) box tests that passed and to counter[2] those run by the
-// whole warp); ptx_pair_vpu_simt (the first kernel, kept to hold this one
-// against whole launches and to time the two in turns; no wrapper on a
-// render path reaches either of the last two).
+// sub-block) box tests that passed, to counter[2] those of them run by
+// the whole warp and to counter[3] the edge tests that exact_hit reached
+// in the rows of counter[0]); ptx_pair_vpu_simt (the first kernel, kept
+// to hold this one against whole launches and to time the two in turns;
+// no wrapper on a render path reaches either of the last two).
 
 #include <stdint.h>
 
@@ -112,6 +114,11 @@ using namespace ptx;
 
 constexpr int kSub = 32;      // triangles per sub-block (the table's)
 constexpr int kStage = 512;   // cluster rows staged at a time
+// Runs of kBlock pairs a CUDA block walks, keeping a cluster's staged rows
+// while the next run has its key: 2 measured 4 % faster than 1 in turns
+// on round 1 of the stress scene's camera and first-bounce pairs
+// (runtime/pair_vpu_ab.py; PERF.md).
+constexpr int kRuns = 2;
 constexpr unsigned kFull = 0xffffffffu;
 
 __global__ void __launch_bounds__(kBlock)
@@ -238,21 +245,42 @@ __device__ __forceinline__ void coop_sub_block(
   }
 }
 
+// The edge tests that exact_hit reaches for a row (t > 0, then each edge
+// until one fails), for the counting entry only.
+__device__ __forceinline__ int edges_reached(const float4* c, float px,
+                                             float py, float pz, float dx,
+                                             float dy, float dz) {
+  const float t = plane_t(c[0], px, py, pz, dx, dy, dz);
+  int n = 0;
+  bool ok = t > 0.f;
+#pragma unroll
+  for (int e = 1; e < 4 && ok; ++e) {
+    ++n;
+    ok = __fmaf_rn(t, dot3(c[e], dx, dy, dz), dot3(c[e], px, py, pz)) >=
+         c[e].w;
+  }
+  return n;
+}
+
+// Five blocks an SM (48 registers): ptxas's own choice of 64 left four,
+// which measured 4-5 % slower (PERF.md). The counting entry, for the
+// checks only, keeps four so that its counters do not spill.
 template <bool COUNT>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, COUNT ? 4 : 5)
 pair_cull_kernel(const int* __restrict__ keys, const float* __restrict__ rays8,
                  const float4* __restrict__ tri,
                  const float4* __restrict__ sub, float* __restrict__ out,
-                 int n_pairs, int n_clusters, int k, int rounds, int coop_max,
+                 int n_pairs, int n_clusters, int k, int coop_max,
                  unsigned long long* __restrict__ counter) {
   __shared__ float4 tile[kStage * 4];
   __shared__ float4 boxes[kStage / kSub * 2];
   const size_t np = static_cast<size_t>(n_pairs);
   const int nsb = (k + kSub - 1) / kSub;   // sub-blocks per cluster
   int staged = -1;   // the cluster in shared memory when k <= kStage
-  unsigned long long n_div = 0, n_box = 0, n_coop = 0;
-  for (int r = 0; r < rounds; ++r) {
-    const int start = (blockIdx.x * rounds + r) * kBlock;
+  unsigned long long n_div = 0, n_box = 0, n_coop = 0, n_edge = 0;
+#pragma unroll 1
+  for (int r = 0; r < kRuns; ++r) {
+    const int start = (blockIdx.x * kRuns + r) * kBlock;
     if (start >= n_pairs) break;
     const int i = start + threadIdx.x;
     const bool live = i < n_pairs;
@@ -313,9 +341,28 @@ pair_cull_kernel(const int* __restrict__ keys, const float* __restrict__ rays8,
                   best.t = t;
                   best.g = ci * k + tb + j;
                 }
+                if (COUNT)
+                  n_edge +=
+                      edges_reached(&tile[4 * j], px, py, pz, dx, dy, dz);
               }
             } else {
-              if (COUNT && go) ++n_coop;
+              if (COUNT) {
+                if (go) ++n_coop;
+                // Lane l's row s0 + l against each pair of the ballot.
+                for (unsigned rest = bal; rest; rest &= rest - 1) {
+                  const int src = __ffs(rest) - 1;
+                  const float q[6] = {__shfl_sync(kFull, px, src),
+                                      __shfl_sync(kFull, py, src),
+                                      __shfl_sync(kFull, pz, src),
+                                      __shfl_sync(kFull, dx, src),
+                                      __shfl_sync(kFull, dy, src),
+                                      __shfl_sync(kFull, dz, src)};
+                  const int j = s0 + (threadIdx.x & 31);
+                  if (j < s1)
+                    n_edge += edges_reached(&tile[4 * j], q[0], q[1], q[2],
+                                            q[3], q[4], q[5]);
+                }
+              }
               coop_sub_block(tile, s0, s1, bal, px, py, pz, dx, dy, dz,
                              ci * k + tb, best);
             }
@@ -338,26 +385,25 @@ pair_cull_kernel(const int* __restrict__ keys, const float* __restrict__ rays8,
     atomicAdd(&counter[0], n_div);
     atomicAdd(&counter[1], n_box);
     atomicAdd(&counter[2], n_coop);
+    atomicAdd(&counter[3], n_edge);
   }
 }
 
 template <bool COUNT>
 int launch_cull(const int* keys, const float* rays8p, const float* rows,
                 const float* sub, float* out, int n_pairs, int n_clusters,
-                int k, int rounds, int coop_max, void* counter,
-                void* stream) {
+                int k, int coop_max, void* counter, void* stream) {
   if (n_pairs <= 0) return 0;
-  if (k <= 0 || rounds <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (k <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(rows) % 16 ||
       reinterpret_cast<uintptr_t>(sub) % 16)
     return static_cast<int>(cudaErrorMisalignedAddress);
-  const int per_block = kBlock * rounds;
-  const int grid = (n_pairs + per_block - 1) / per_block;
+  const int grid = (n_pairs + kBlock * kRuns - 1) / (kBlock * kRuns);
   pair_cull_kernel<COUNT>
       <<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
           keys, rays8p, reinterpret_cast<const float4*>(rows),
           reinterpret_cast<const float4*>(sub), out, n_pairs, n_clusters, k,
-          rounds, coop_max, static_cast<unsigned long long*>(counter));
+          coop_max, static_cast<unsigned long long*>(counter));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -365,19 +411,19 @@ int launch_cull(const int* keys, const float* rays8p, const float* rows,
 
 extern "C" int ptx_pair_vpu(const int* keys, const float* rays8p,
                             const float* rows, const float* sub, float* out,
-                            int n_pairs, int n_clusters, int k, int rounds,
-                            int coop_max, void* stream) {
+                            int n_pairs, int n_clusters, int k, int coop_max,
+                            void* stream) {
   return launch_cull<false>(keys, rays8p, rows, sub, out, n_pairs,
-                            n_clusters, k, rounds, coop_max, nullptr, stream);
+                            n_clusters, k, coop_max, nullptr, stream);
 }
 
 extern "C" int ptx_pair_vpu_count(const int* keys, const float* rays8p,
                                   const float* rows, const float* sub,
                                   float* out, int n_pairs, int n_clusters,
-                                  int k, int rounds, int coop_max,
-                                  void* counter, void* stream) {
+                                  int k, int coop_max, void* counter,
+                                  void* stream) {
   return launch_cull<true>(keys, rays8p, rows, sub, out, n_pairs, n_clusters,
-                           k, rounds, coop_max, counter, stream);
+                           k, coop_max, counter, stream);
 }
 
 extern "C" int ptx_pair_vpu_simt(const int* keys, const float* rays8p,

@@ -79,14 +79,15 @@ KERNELS = {
     "attr_fetch": ("attr_fetch.cu", "ptx_attr_fetch",
                    [P, P, P, P, P, P, I, I, P]),
     "pair_vpu": ("pair_vpu.cu", "ptx_pair_vpu",
-                 [P, P, P, P, P, I, I, I, I, I, P]),
+                 [P, P, P, P, P, I, I, I, I, P]),
     # K12's two entries for the checks only: its first kernel (every
     # pair, triangle test), and the kernel counting the tests that reach
-    # the divide and the sub-blocks its skip rule lets through.
+    # the divide, the sub-blocks its skip rule lets through and the edge
+    # tests reached.
     "pair_vpu_simt": ("pair_vpu.cu", "ptx_pair_vpu_simt",
                       [P, P, P, P, I, I, I, P]),
     "pair_vpu_count": ("pair_vpu.cu", "ptx_pair_vpu_count",
-                       [P, P, P, P, P, I, I, I, I, I, P, P]),
+                       [P, P, P, P, P, I, I, I, I, P, P]),
     "cluster": ("cluster.cu", "ptx_cluster",
                 [P, P, P, P, P, P, I, I, I, I, I, P]),
     "group": ("group.cu", "ptx_group", [P, P, P, P, I, I, I, I, P]),

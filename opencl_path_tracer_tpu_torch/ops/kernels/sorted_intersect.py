@@ -362,7 +362,6 @@ def pairs_plain(keys: torch.Tensor, rays8p: torch.Tensor, rows: torch.Tensor,
 
 
 SUB = 32   # triangles per sub-block of K12's skip rule (csrc/pair_vpu.cu)
-PAIR_ROUNDS = 2   # runs of 256 pairs per CUDA block of K12
 # A warp tests a sub-block for at most this many of its pairs together,
 # all 32 lanes on one pair's rows (csrc/pair_vpu.cu); for more, each lane
 # tests its own pair.
@@ -515,20 +514,22 @@ def run_pairs(keys: torch.Tensor, rays8p: torch.Tensor, rows: torch.Tensor,
     """K12: (t, nx, ny, nz, mati), five (P,) float32 tensors, for the
     cluster-sorted pairs (keys (P,) int32 in 0..C, C the dummy; rays8p
     (8, P) [p d 0 0]) against the ((C + 1) K, 24) cluster rows, the dummy
-    cluster's last. sub: the rows' `pair_sub_boxes` table (built here when
-    None; `make_pair_intersect` builds it once per scene). CPU tensors
-    take the plain version; CUDA tensors launch the kernel or raise."""
+    cluster's last. sub: the rows' `pair_sub_boxes` table, which the
+    kernel needs (`make_pair_intersect` builds it once per scene; the
+    plain version ignores it). CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
     c1 = _check_pairs(keys, rays8p, rows, k, "run_pairs")
     p = keys.shape[0]
     if rays8p.device.type == "cpu":
         return tuple(pairs_plain(keys, rays8p, rows, k))
     if sub is None:
-        sub = pair_sub_boxes(rows, k)
+        raise ValueError("run_pairs on CUDA tensors needs sub, the rows' "
+                         "pair_sub_boxes table")
     _check_sub(sub, rows, k)
     out = torch.empty((5, p), dtype=torch.float32, device=rays8p.device)
     if p:
         _build.launch("pair_vpu", keys, rays8p, rows, sub, out, p, c1 - 1, k,
-                      PAIR_ROUNDS, PAIR_COOP)
+                      PAIR_COOP)
     return tuple(out)
 
 
@@ -553,18 +554,18 @@ def run_pairs_counted(keys: torch.Tensor, rays8p: torch.Tensor,
                       rows: torch.Tensor, k: int, sub: torch.Tensor):
     """run_pairs' kernel on CUDA tensors, also counting: (rows, (tests
     that reached the divide, (pair, sub-block) box tests that passed,
-    (pair, triangle) tests in those sub-blocks)). For the checks only; no
-    render path calls it."""
+    those of them run by the whole warp, edge tests reached)). For the
+    checks only; no render path calls it."""
     c1 = _check_pairs(keys, rays8p, rows, k, "run_pairs_counted")
     _check_sub(sub, rows, k)
     if rays8p.device.type != "cuda":
         raise ValueError("run_pairs_counted runs on CUDA tensors only")
     p = keys.shape[0]
     out = torch.empty((5, p), dtype=torch.float32, device=rays8p.device)
-    count = torch.zeros(3, dtype=torch.int64, device=rays8p.device)
+    count = torch.zeros(4, dtype=torch.int64, device=rays8p.device)
     if p:
         _build.launch("pair_vpu_count", keys, rays8p, rows, sub, out, p,
-                      c1 - 1, k, PAIR_ROUNDS, PAIR_COOP, count)
+                      c1 - 1, k, PAIR_COOP, count)
     return tuple(out), tuple(int(x) for x in count.tolist())
 
 
@@ -575,7 +576,7 @@ def _pairs_round(comps, ids: torch.Tensor, rows: torch.Tensor, k: int,
     cluster key with dummy pairs to whole tiles of trp
     (`pair_mxu.sort_pairs`), go through K12 and back to pair order; per
     ray the least t over its L pairs (the first rank on ties) and that
-    pair's (nx, ny, nz, mati)."""
+    pair's (nx, ny, nz, mati). sub: as run_pairs'."""
     l, r = ids.shape
     keys_s, rays8p, order = pair_mxu.sort_pairs(comps, ids, c, trp)
     outs = run_pairs(keys_s, rays8p, rows, k, sub)
@@ -683,7 +684,7 @@ def make_pair_intersect(tris: TrianglesSoA, *, cluster_size: int = 512,
         # no cluster.
         rows = torch.cat([cscene.rows(),
                           torch.zeros((cs, TRI_COLS), device=dev)])
-        sub = pair_sub_boxes(rows, cs)
+        sub = pair_sub_boxes(rows, cs) if dev.type == "cuda" else None
 
         def run_pairs_fn(comps, ids):
             return _pairs_round(comps, ids, rows, cs, c, trp, sub), None

@@ -279,7 +279,8 @@ def test_sixth_slice_kernels_equal_plain_versions(cuda, monkeypatch):
     ids = si.run_candidates(rays8, boxes_r, 4, c)[0]
     keys_s, r8p, _ = pm.sort_pairs([rays8[j] for j in range(6)], ids, c,
                                    1024)
-    out = si.run_pairs(keys_s, r8p, rows, k)
+    sub = si.pair_sub_boxes(rows, k)
+    out = si.run_pairs(keys_s, r8p, rows, k, sub)
     assert all(torch.equal(a, b) for a, b in
                zip(out, si.pairs_plain(keys_s, r8p, rows, k)))
     assert int((out[0] < k1.BIG).sum()) > 0
@@ -325,7 +326,7 @@ def test_sixth_slice_kernels_equal_plain_versions(cuda, monkeypatch):
 
     monkeypatch.setattr(_build, "library", broken)
     with pytest.raises(RuntimeError, match="disabled"):
-        si.run_pairs(keys_s, r8p, rows, k)
+        si.run_pairs(keys_s, r8p, rows, k, sub)
     with pytest.raises(RuntimeError, match="disabled"):
         ck.run_cluster(r8, cnt, ids17, ent, cs17.rows(), k17, 256)
     with pytest.raises(RuntimeError, match="disabled"):
@@ -1049,9 +1050,10 @@ def test_thirteenth_slice_pair_vpu_equals_first_kernel(cuda, monkeypatch):
     stress_scene(1200) (K9's eight nearest clusters of 128, sorted in
     tiles of 256): tiles that span runs and blocks with dummy pairs; with
     every sub-block run lane by lane, all by the whole warp and the
-    default mix, at 1, 2 and 3 runs of pairs a block; clusters of 1,024
-    (staged in two tiles of rows); the counting entry's outputs equal,
-    fewer tests reach the divide than the first kernel runs."""
+    default mix; clusters of 1,024 (staged in two tiles of rows); the
+    counting entry's outputs equal, fewer tests reach the divide than the
+    first kernel runs, at most three edge tests each, the same counts
+    whichever way the warp runs a sub-block."""
     from opencl_path_tracer_tpu_torch.ops.kernels import cluster_kernel as ck
     from opencl_path_tracer_tpu_torch.ops.kernels import pair_mxu as pm
     from opencl_path_tracer_tpu_torch.ops.kernels import sorted_intersect as si
@@ -1071,16 +1073,20 @@ def test_thirteenth_slice_pair_vpu_equals_first_kernel(cuda, monkeypatch):
         first = si.run_pairs_simt(keys_s, r8p, rows, k)
         plain = si.pairs_plain(keys_s, r8p, rows, k)
         assert all(torch.equal(a, b) for a, b in zip(first, plain))
+        counts = {}
         for coop in (0, 12, 32):
-            for rounds in (1, 2, 3):
-                monkeypatch.setattr(si, "PAIR_COOP", coop)
-                monkeypatch.setattr(si, "PAIR_ROUNDS", rounds)
-                out = si.run_pairs(keys_s, r8p, rows, k, sub)
-                assert all(torch.equal(a, b) for a, b in zip(out, first)), (
-                    cs, coop, rounds)
-        counted, (n_div, n_box, n_coop) = si.run_pairs_counted(
-            keys_s, r8p, rows, k, sub)
-        assert all(torch.equal(a, b) for a, b in zip(counted, first))
+            monkeypatch.setattr(si, "PAIR_COOP", coop)
+            out = si.run_pairs(keys_s, r8p, rows, k, sub)
+            assert all(torch.equal(a, b) for a, b in zip(out, first)), (
+                cs, coop)
+            counted, counts[coop] = si.run_pairs_counted(keys_s, r8p, rows,
+                                                         k, sub)
+            assert all(torch.equal(a, b) for a, b in zip(counted, first))
+        n_div, n_box, n_coop, n_edge = counts[12]
         real = int((keys_s < c).sum())
         assert 0 < n_div < real * k and n_coop <= n_box
+        assert 0 < n_edge <= 3 * n_div
+        assert counts[0][3] == counts[32][3] == n_edge
+        assert counts[0][:2] == counts[32][:2] == (n_div, n_box)
+        assert counts[0][2] == 0 and counts[32][2] == n_box
         assert int((first[0] < k1.BIG).sum()) > 1000

@@ -126,6 +126,24 @@ and sub-blocks tested, from which its bound counts its operations),
 timed in turns against its first kernel on both, and the kernels line
 has K10 and K12 rows on the first-bounce pairs.
 
+K17 and K7 skip, per ray, the sub-blocks of 32 rows whose boxes
+(`cluster_kernel.sub_boxes`, the table K12's rule reads) the ray's
+segment to its running best (K17) or to rmax (K7) misses, with nothing
+staged for a block. K17 is held against its first kernel
+(`cluster_kernel.run_cluster_simt`) and its counting entry on the
+stress camera and first-bounce rays (and against its plain version on
+the first CLUSTER_PLAIN_TILES first-bounce tiles), K7 against its first
+kernel (`tilecull_kernel.anyhit_simt`), its counting entry and its
+plain version on the NEE shadow rays of bounces 0, 1 and 2 of cornell
+and reference, with the clusters listed per tile, the sub-blocks passed
+per ray and each check's time printed; each is timed in turns against
+its first kernel, and the kernels line has K17 rows on the camera and
+first-bounce rays and K7 rows on the three shadow batches of cornell,
+their bounds counted from the tests the rule leaves. `megakernel
+cornell nee` must launch K7 on every bounce but the last, whose NEE
+contribution is zero. The kernels line's plain times are one call each
+(the checks' own calls where they time one).
+
 The last two lines are a JSON object per kernel (time, plain time,
 bound, launches) and the verdict; the line before them, the smoke's total
 time. Any failed phase raises, and the
@@ -159,6 +177,14 @@ K12_PREFIX = 2_097_152
 # whole input, and blocks are independent.
 PLAIN_BLOCKS = 256
 LAZY_STEPS = 24   # timed steps of 'lazy stress' after 2 warm-up steps
+# K7's plain version on 1080p shadow rays in chunks of this many rays (its
+# default of 8,192 takes about 6 s a call on the H100; a ray's flag does
+# not depend on the chunk).
+ANYHIT_PLAIN_CHUNK = 1 << 18
+# K17's plain version runs on this many tiles of 256 stress first-bounce
+# rays (each lists nearly all 777 clusters; about 1 s on the H100); the
+# kernels run on all 8,100.
+CLUSTER_PLAIN_TILES = 64
 STRESS_TRIS = 99_380   # the JAX builders' count (library.py:325-406)
 SLICE = 76_800   # lanes of the fused pipeline's exact slice at 1080p
 # H100 SXM data sheet, dense, at the full 700 W power limit.
@@ -267,7 +293,8 @@ CHECK_ONLY = ("minarg_simt", "minarg_count", "plucker_cand_simt",
               "plucker_cand_count", "march_simt", "march_count",
               "flat_march_simt", "flat_march_count", "lazy_march_simt",
               "lazy_march_count", "pair_visit_simt", "pair_visit_count",
-              "pair_vpu_simt", "pair_vpu_count")
+              "pair_vpu_simt", "pair_vpu_count", "cluster_simt",
+              "cluster_count", "anyhit_simt", "anyhit_count")
 PAIR_KERNELS = ("pair_cand", "pair_visit", "attr_fetch")
 MODELS_DIR = os.path.join(HERE, "tests", "assets", "models")
 REFERENCE_TRIS = 1838   # ground plane + the seven models (docs/BENCHMARKS.md)
@@ -488,28 +515,10 @@ def check_fused(torch, scene, cam, errs):
 
 def nee_shadow_rays(torch, scene, cam, rays, isect):
     """The shadow rays (and their rmax = dist (1 - 1e-3)) that NEE traces
-    at the first hits of `rays`, one per lane, captured from
-    `ops.nee.direct_light` itself."""
-    from opencl_path_tracer_tpu_torch.core.types import vdot, vneg, vwhere
-    from opencl_path_tracer_tpu_torch.models import megakernel
-    from opencl_path_tracer_tpu_torch.ops import nee, rng
-    n = rays.count
-    hit, mat = megakernel.fetch_material(scene.mats, isect, rays)
-    n_vec = vwhere(vdot(rays.d, hit.n) > 0.0, vneg(hit.n), hit.n)
-    table = nee.build_emitter_table(scene.tris, scene.mats, scene.spheres)
-    u = rng.fast_uniforms(rng.key(7), 0, 10_000, n, 3, device=rays.device)
-    ones = tuple(torch.ones(n, device=rays.device) for _ in range(3))
-    got = {}
-
-    def capture(shadow, rmax):
-        got["rays"], got["rmax"] = shadow, rmax
-        return torch.zeros_like(rmax, dtype=torch.bool)
-
-    nee.direct_light(table, intersect_fn=None, cam_eye=cam.eye, hit_p=hit.p,
-                     n_vec=n_vec, mat=mat, f_l=ones, f_b=ones, f_s=ones,
-                     f_r=ones, is_diff=hit.valid & (mat.type == 0), u1=u[0],
-                     u2=u[1], u3=u[2], occluded_fn=capture)
-    return got["rays"], got["rmax"].contiguous()
+    at the first hits of `rays`, one per lane (`runtime.cull_ab`'s
+    capture from `ops.nee.direct_light` itself)."""
+    from opencl_path_tracer_tpu_torch.runtime.cull_ab import shadow_rays
+    return shadow_rays(scene, cam, rays, isect)
 
 
 def check_slice3(torch, scenes, cam, cam_rays, errs):
@@ -525,10 +534,11 @@ def check_slice3(torch, scenes, cam, cam_rays, errs):
     eye = tuple(float(v) for v in cam.eye.cpu())
     isect = make_intersect_fn(scene, "auto")
     pack, groups, _ = tk.grouped_pack(scene.tris, 128)
+    sub = tk.anyhit_sub_boxes(pack, groups)
     shadow, rmax = nee_shadow_rays(torch, scene, cam, cam_rays, isect)
     s8 = k1.pack_rays(shadow.p, shadow.d).contiguous()
-    occ = tk.anyhit(s8, rmax, pack, groups)
-    plain = tk.anyhit_plain(s8, rmax, pack, groups)
+    occ = tk.anyhit(s8, rmax, pack, groups, sub)
+    plain = tk.anyhit_plain(s8, rmax, pack, groups, ANYHIT_PLAIN_CHUNK)
     torch.cuda.synchronize()
     errs["anyhit"] = float((occ != plain).any())
     need(torch.equal(occ, plain), "anyhit differs from its plain version on "
@@ -539,7 +549,7 @@ def check_slice3(torch, scenes, cam, cam_rays, errs):
     print(f"anyhit on {s8.shape[1]} cornell first-bounce NEE shadow rays: "
           f"{int(occ.sum())} occluded; equal to its plain version and to "
           f"(K4 t valid and t < rmax) (torch.equal)")
-    inputs = {"anyhit": (s8, rmax, pack, groups)}
+    inputs = {"anyhit": (s8, rmax, pack, groups, sub)}
     cpack, cgroups, _ = tk.grouped_pack(scene.tris, 128, origin=eye)
     minarg_pack = k1.build_tri_pack(scene.tris)
     for rname, rays in (("camera", cam_rays),
@@ -672,7 +682,8 @@ def check_smooth(torch, scenes, errs):
         shadow, rmax = nee_shadow_rays(torch, scene, cam, cam_rays, isect)
         s8 = k1.pack_rays(shadow.p, shadow.d).contiguous()
         gpack, groups, _ = tk.grouped_pack(scene.tris, 128)
-        occ = tk.anyhit(s8, rmax, gpack, groups)
+        gsub = tk.anyhit_sub_boxes(gpack, groups)
+        occ = tk.anyhit(s8, rmax, gpack, groups, gsub)
         t4, g4 = k1.dense(s8, pack)[:2]
         torch.cuda.synchronize()
         strip = strip_hits(torch, scene, pack, s8, rmax, occ, t4, g4)
@@ -690,7 +701,7 @@ def check_smooth(torch, scenes, errs):
               f"ground plane spans 20,000; the widest other box "
               f"{float(ext[~wide].max()):.1f})")
         inputs["reference kernels"] = (cpack, cgroups, s8, rmax, gpack,
-                                       groups, pack)
+                                       groups, gsub, pack)
     return inputs
 
 
@@ -907,13 +918,17 @@ def check_slice6(torch, scenes, cam, cam_rays, errs):
         rr8 = ck.pack_rays_rows(rays.p, rays.d, -(-rays.count // 256) * 256)
         ids17, cnt, ent = ck._tile_cluster_lists(rr8, csc.boxes, 256)
         crows = csc.rows()
+        csub = ck.cluster_sub_boxes(crows, kk)
         for ee in (False, True):
-            o = ck.run_cluster(rr8, cnt, ids17, ent, crows, kk, 256, ee)
+            o = ck.run_cluster(rr8, cnt, ids17, ent, crows, kk, 256, ee,
+                               csub)
             plain, ms = timed(torch, lambda: ck.cluster_plain(
                 rr8, cnt, ids17, ent, crows, kk, 256, ee))
             compare("cluster", o, plain, f"{sname} rays (early_exit {ee})")
             if sname == "stress camera" and not ee:
-                inputs["cluster"] = (rr8, cnt, ids17, ent, crows, kk, ms)
+                inputs["cluster"] = (rr8, cnt, ids17, ent, crows, kk, csub,
+                                     ms)
+                inputs["cluster boxes"] = csc.boxes
         print(f"cluster on {rays.count} {sname} rays ({csc.boxes.shape[0]} "
               f"clusters of {kk}; {float(cnt.float().mean()):.1f} listed per "
               f"tile of 256): {int((o[0] < k1.BIG).sum())} hits; equal to "
@@ -1741,6 +1756,133 @@ def check_slice13(torch, inputs):
     return out
 
 
+def check_slice14(torch, scenes, cam, cam_rays, inputs):
+    """K17 and K7 as redesigned for the H100: a ray skips each sub-block
+    of 32 rows whose box (`cluster_kernel.sub_boxes`) its segment to its
+    running best (K17) or to rmax (K7) misses, and nothing is staged for
+    a block. K17 on the stress camera rays (its plain version's check is
+    in check_slice6) and first-bounce rays, K7 on the NEE shadow rays of
+    bounces 0, 1 and 2 of cornell and of reference, each against its
+    first kernel (`run_cluster_simt`, `anyhit_simt`) and its counting
+    entry, K7 also against its plain version, K17 on the first-bounce
+    rays on its first CLUSTER_PLAIN_TILES tiles (torch.equal), with the
+    clusters listed per tile and the counts printed; then each timed in
+    turns (first, new, new, first). Returns the inputs of the kernels
+    line's rows on bounce rays, with the counts their bounds read."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import (
+        cluster_kernel as ck, intersect_kernel as k1, tilecull_kernel as tk)
+    from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
+    from opencl_path_tracer_tpu_torch.scene import library
+    out = {}
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def in_turns(first, new, reps):
+        return ", ".join(f"{time_ms(torch, f, reps):.4f}"
+                         for f in (first, new, new, first))
+
+    rr8, cnt, ids, ent, crows, kk, csub, _ = inputs["cluster"]
+    boxes = inputs["cluster boxes"]
+    bounce = inputs["stress bounce rays"]
+    br8 = ck.pack_rays_rows(bounce.p, bounce.d,
+                            -(-bounce.count // 256) * 256)
+    bids, bcnt, bent = ck._tile_cluster_lists(br8, boxes, 256)
+    c = boxes.shape[0]
+    for rname, args, reps in (
+            ("camera", (rr8, cnt, ids, ent, crows, kk, 256), 5),
+            ("first-bounce", (br8, bcnt, bids, bent, crows, kk, 256), 2)):
+        where = f"the stress {rname} rays"
+        t0 = time.perf_counter()
+        new = ck.run_cluster(*args, False, csub)
+        need(same(new, ck.run_cluster_simt(*args, False)),
+             f"cluster differs from its first kernel on {where}")
+        counted, counts = ck.run_cluster_counted(*args, False, csub)
+        need(same(counted, new),
+             f"cluster's counting entry differs from it on {where}")
+        plain_ms = None
+        if rname == "first-bounce":
+            # Every first-bounce tile lists nearly every cluster: the plain
+            # version would take minutes on all of them.
+            m = CLUSTER_PLAIN_TILES
+            pre = (args[0][:m * 256], args[1][:m], args[2][:m],
+                   args[3][:m]) + args[4:]
+            plain, plain_ms = timed(torch, lambda: ck.cluster_plain(
+                *pre, False))
+            need(same(tuple(x[:m * 256] for x in new), plain),
+                 f"cluster differs from its plain version on {where}' "
+                 f"first {m} tiles")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n_div, n_box, n_coop, n_edge, n_made = counts
+        r, g = args[0].shape[0], args[1].shape[0]
+        listed = int(args[1].sum())
+        tests = listed * 256 * kk
+        print(f"cluster on {where} ({g} tiles of 256): {listed / g:.1f} of "
+              f"{c} clusters listed per tile, {tests} (ray, triangle) tests "
+              f"over them; {n_box / r:.2f} sub-blocks passed per ray of "
+              f"{n_made / r:.1f} box tests ({n_coop} of the {n_box} run by "
+              f"the whole warp), {n_div} tests reached the divide "
+              f"({n_div / tests:.5f} of the listed), {n_edge} edge tests; "
+              f"{int((new[0] < k1.BIG).sum())} hits; equal to its first "
+              "kernel and its counting entry"
+              + (f", and on its first {CLUSTER_PLAIN_TILES} tiles its plain "
+                 f"version ({plain_ms:.1f} ms)" if plain_ms else "")
+              + f" (torch.equal); checks {dt:.2f} s")
+        print(f"cluster on {where} in turns (first kernel, new kernel, new "
+              "kernel, first kernel): "
+              + in_turns(lambda: ck.run_cluster_simt(*args, False),
+                         lambda: ck.run_cluster(*args, False, csub), reps)
+              + " ms")
+        if rname == "first-bounce":
+            out["cluster bounce"] = (args, csub, counts, plain_ms)
+    for sname in ("cornell", "reference"):
+        scene = scenes[sname]
+        scam = (cam if sname == "cornell"
+                else library.reference_camera(W, H, device="cuda"))
+        rays = cam_rays if sname == "cornell" else camera_rays(scam)
+        isect = make_intersect_fn(scene, "auto")
+        pack, groups, _ = tk.grouped_pack(scene.tris, 128)
+        sub = tk.anyhit_sub_boxes(pack, groups)
+        for b in range(3):
+            if b:
+                rays = bounce_rays(torch, scene, scam, rays, isect)
+            shadow, rmax = nee_shadow_rays(torch, scene, scam, rays, isect)
+            s8 = k1.pack_rays(shadow.p, shadow.d).contiguous()
+            where = f"the {sname} bounce-{b} NEE shadow rays"
+            t0 = time.perf_counter()
+            new = tk.anyhit(s8, rmax, pack, groups, sub)
+            need(torch.equal(new, tk.anyhit_simt(s8, rmax, pack, groups)),
+                 f"anyhit differs from its first kernel on {where}")
+            plain, plain_ms = timed(torch, lambda: tk.anyhit_plain(
+                s8, rmax, pack, groups, ANYHIT_PLAIN_CHUNK))
+            need(torch.equal(new, plain),
+                 f"anyhit differs from its plain version on {where}")
+            counted, counts = tk.anyhit_counted(s8, rmax, pack, groups, sub)
+            need(torch.equal(counted, new),
+                 f"anyhit's counting entry differs from it on {where}")
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            n_div, n_box, n_coop, n_edge, n_made = counts
+            r = s8.shape[1]
+            print(f"anyhit on {where} ({r} rays, {groups.shape[0]} groups, "
+                  f"{int(new.sum())} occluded): {n_box / r:.3f} sub-blocks "
+                  f"passed per ray ({n_coop} of {n_box} by the whole warp), "
+                  f"{n_div} tests reached the divide, {n_edge} edge tests, "
+                  f"{n_made} slab and box tests; equal to its first kernel, "
+                  "its plain version and its counting entry (torch.equal); "
+                  f"checks {dt:.2f} s")
+            print(f"anyhit on {where} in turns (first kernel, new kernel, "
+                  "new kernel, first kernel): "
+                  + in_turns(lambda: tk.anyhit_simt(s8, rmax, pack, groups),
+                             lambda: tk.anyhit(s8, rmax, pack, groups, sub),
+                             10) + " ms")
+            if sname == "cornell":
+                out[f"anyhit bounce {b}"] = (s8, rmax, pack, groups, sub,
+                                             counts, plain_ms)
+    return out
+
+
 def check_goldens(torch, np):
     from opencl_path_tracer_tpu_torch.models import megakernel
     from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
@@ -1763,9 +1905,9 @@ def check_goldens(torch, np):
 
 def check_no_fallback(torch, scenes):
     """With the kernel loader broken, a CUDA call must raise (K1 and its
-    two check-only entries, K13a and its two, K4, K7, K6, K3b, K8, K9,
-    K10 and its two, K11, K12 and its two, K17, K16, K18, K18m, K19 and
-    its two, K20 and its two, K14 and K15)."""
+    two check-only entries, K13a and its two, K4, K7 and its two, K6, K3b,
+    K8, K9, K10 and its two, K11, K12 and its two, K17 and its two, K16,
+    K18, K18m, K19 and its two, K20 and its two, K14 and K15)."""
     from opencl_path_tracer_tpu_torch.ops.kernels import _build
     from opencl_path_tracer_tpu_torch.ops.kernels import (
         cluster_kernel as ck, flat_march as fm, intersect_kernel as k1,
@@ -1797,6 +1939,14 @@ def check_no_fallback(torch, scenes):
     vpu_args = (torch.zeros(64, dtype=torch.int32, device="cuda"), rays8,
                 torch.zeros((256, 24), device="cuda"), 128)
     vpu_sub = si.pair_sub_boxes(vpu_args[2], 128)
+    ones = torch.ones(64, device="cuda")
+    gsub = tk.anyhit_sub_boxes(gpack, groups)
+    cluster_args = (torch.zeros((256, 8), device="cuda"),
+                    torch.zeros((1, 1), dtype=torch.int32, device="cuda"),
+                    torch.zeros((1, 1), dtype=torch.int32, device="cuda"),
+                    torch.zeros((1, 1), device="cuda"),
+                    torch.zeros((128, 24), device="cuda"), 128, 256)
+    csub = ck.cluster_sub_boxes(cluster_args[4], 128)
     calls = {
         "minarg": lambda: k1.minarg(rays8, pack),
         "minarg_simt": lambda: k1.minarg_simt(rays8, pack),
@@ -1807,8 +1957,10 @@ def check_no_fallback(torch, scenes):
         "plucker_cand_count": lambda: k2.candidates_counted(
             rays8, *ppack, live=scenes["cornell"].tris.count),
         "dense": lambda: k1.dense(rays8, pack),
-        "anyhit": lambda: tk.anyhit(rays8, torch.ones(64, device="cuda"),
-                                    gpack, groups),
+        "anyhit": lambda: tk.anyhit(rays8, ones, gpack, groups, gsub),
+        "anyhit_simt": lambda: tk.anyhit_simt(rays8, ones, gpack, groups),
+        "anyhit_count": lambda: tk.anyhit_counted(rays8, ones, gpack, groups,
+                                                  gsub),
         "tilecull": lambda: tk.tilecull(rays8, gpack, groups),
         "sphere_table": lambda: k3.sphere_table(rays8, table),
         "smooth_refine": lambda: k8.smooth_refine(
@@ -1825,12 +1977,10 @@ def check_no_fallback(torch, scenes):
         "pair_vpu": lambda: si.run_pairs(*vpu_args, vpu_sub),
         "pair_vpu_simt": lambda: si.run_pairs_simt(*vpu_args),
         "pair_vpu_count": lambda: si.run_pairs_counted(*vpu_args, vpu_sub),
-        "cluster": lambda: ck.run_cluster(
-            torch.zeros((256, 8), device="cuda"),
-            torch.zeros((1, 1), dtype=torch.int32, device="cuda"),
-            torch.zeros((1, 1), dtype=torch.int32, device="cuda"),
-            torch.zeros((1, 1), device="cuda"),
-            torch.zeros((128, 24), device="cuda"), 128, 256),
+        "cluster": lambda: ck.run_cluster(*cluster_args, False, csub),
+        "cluster_simt": lambda: ck.run_cluster_simt(*cluster_args),
+        "cluster_count": lambda: ck.run_cluster_counted(*cluster_args, False,
+                                                        csub),
         "group": lambda: si.run_group(
             torch.zeros(1, dtype=torch.int32, device="cuda"),
             torch.zeros((2048, 8), device="cuda"),
@@ -2053,6 +2203,10 @@ def main_path(torch, np, scenes, cam):
         need(img.shape == (H, W, 3) and np.isfinite(img).all()
              and img.mean() > 0.0, f"{name}: bad image")
         report(name, dt, eng.rays_traced, spp, counts)
+        if name == "megakernel cornell nee":
+            need(counts["anyhit"] == spp * (BOUNCES - 1),
+                 f"{name} launched anyhit {counts['anyhit']} times, not on "
+                 f"each of the first {BOUNCES - 1} bounces of {spp} samples")
         print(f"{name}: peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         if counts.get("march"):
@@ -2166,11 +2320,11 @@ def minarg_ops(torch, rays8, pack):
     return 12 * r * pack.shape[0] + 12 * reached
 
 
-def grouped_ops(torch, rays8, pack, groups, rmax=None):
-    """Float32 operations K6 (rmax None) or K7 need on these inputs: about
-    25 per (ray, group) slab test, then K1's 12 per pair plus 12 per edge
-    test reached, over the pairs whose group the ray's slab test passes
-    (for K7 also tn <= rmax). Returns (operations, pairs)."""
+def grouped_ops(torch, rays8, pack, groups):
+    """Float32 operations K6 needs on these inputs: about 25 per (ray,
+    group) slab test, then K1's 12 per pair plus 12 per edge test
+    reached, over the pairs whose group the ray's slab test passes.
+    Returns (operations, pairs)."""
     from opencl_path_tracer_tpu_torch.ops.kernels import tilecull_kernel as tk
     r = rays8.shape[1]
     pairs = reached = 0
@@ -2180,8 +2334,6 @@ def grouped_ops(torch, rays8, pack, groups, rmax=None):
         for row in groups.cpu().tolist():
             tn, tf = tk._slab(x[0:3], inv, row[0:3], row[3:6])
             m = (tf >= tn) & (tf >= 0.0)
-            if rmax is not None:
-                m &= tn <= rmax[s:s + 16384]
             base, end = int(row[6]), int(row[7])
             pairs += int(m.sum()) * (end - base)
             reached += edges_reached(pack[base:end], x[0:3], x[3:6], m)
@@ -2263,21 +2415,22 @@ def cluster_ops(torch, rows, k, batches):
 def slice6_rows(torch, inputs):
     """The timing rows of K12, K17 and K16: K12 on round 1's pairs of the
     stress camera rays at the 'pair' defaults and on the first-bounce
-    pairs, K17 (early exit off) on the stress camera rays with clusters of
-    128, K16 on the reference camera rays. K12's operations, as K6's and
-    K7's: 25 per (pair, sub-block) box test of every real pair, then K1's
-    12 per (pair, triangle) test plus 12 per edge test reached, in the
-    sub-blocks whose box test passed (the counting entry's counts on the
-    same inputs). K17 and K16: K1's over the (ray, triangle) tests each
-    runs (K17: each tile's rays against every listed cluster; K16: each
-    ray against every cluster of its block's union). Bytes: the rays once
-    (24 per ray; K12 the key of every pair and the 24 of each real one,
-    as it reads no ray for a dummy pair), the cluster rows once (the 17
-    columns read, 68 bytes a row), K12's sub-block table, K17's lists as
-    far as they are read, K16's unions, the outputs once (20 bytes per
-    pair or ray, K17 24). The plain times are the checks' single calls.
-    No single PyTorch call computes any of the three (a nearest
-    ray-triangle hit per pair, tile or block), so library_ms is null."""
+    pairs, K17 (early exit off) on the stress camera and first-bounce
+    rays with clusters of 128, K16 on the reference camera rays. K12's
+    and K17's operations, as K7's: 25 per (pair or ray, sub-block) box
+    test made, then K1's 12 per (pair or ray, triangle) test plus 12 per
+    edge test reached, in the sub-blocks whose box test passed (the
+    counting entries' counts on the same inputs). K16: K1's over the
+    (ray, triangle) tests it runs (each ray against every cluster of its
+    block's union). Bytes: the rays once (24 per ray; K12 the key of
+    every pair and the 24 of each real one, as it reads no ray for a
+    dummy pair), the cluster rows once (the 17 columns read, 68 bytes a
+    row), K12's and K17's sub-block tables, K17's lists as far as they
+    are read, K16's unions, the outputs once (20 bytes per pair or ray,
+    K17 24). The plain times are the checks' single calls (K17's on the
+    first-bounce rays on CLUSTER_PLAIN_TILES tiles). No single PyTorch
+    call computes any of the three (a nearest ray-triangle hit per pair,
+    tile or block), so library_ms is null."""
     from opencl_path_tracer_tpu_torch.ops.kernels import (
         cluster_kernel as ck, sorted_intersect as si)
     chunk = 1 << 24
@@ -2303,25 +2456,23 @@ def slice6_rows(torch, inputs):
               f"{n_edge} edge tests in those (the bound's count; every "
               f"(pair, triangle) test of the real pairs would be "
               f"{real * k})")
-    rr8, cnt, ids, ent, crows, kk, plain_ms = inputs["cluster"]
-    g = cnt.shape[0]
-    tiles = rr8.view(g, -1, 8)
-    per = max(1, chunk // (kk * tiles.shape[1]))
-    batches = []
-    for slot in range(int(cnt.max())):
-        live = torch.nonzero(cnt[:, 0] > slot).flatten()
-        for s0 in range(0, live.numel(), per):
-            tl = live[s0:s0 + per]
-            batches.append((ids[tl, slot].long(),
-                            tiles[tl].transpose(1, 2)))
-    ops, tests = cluster_ops(torch, crows, kk, batches)
-    listed = int(cnt.sum())
-    rows_out.append(("cluster", lambda: ck.run_cluster(
-        rr8, cnt, ids, ent, crows, kk, 256, False), plain_ms, ops, 0,
-        24 * rr8.shape[0] + 4 * g + 8 * listed + 68 * crows.shape[0]
-        + 24 * rr8.shape[0]))
-    print(f"cluster: {tests} (ray, triangle) tests, {listed} listed "
-          f"clusters over {g} tiles")
+    rr8, cnt, ids, ent, crows, kk, csub, plain_ms = inputs["cluster"]
+    args = (rr8, cnt, ids, ent, crows, kk, 256)
+    _, counts = ck.run_cluster_counted(*args, False, csub)
+    (bargs, _, bcounts, bplain_ms) = inputs["cluster bounce"]
+    for name, a, (n_div, _, _, n_edge, n_made), p_ms in (
+            ("cluster", args, counts, plain_ms),
+            ("cluster bounce", bargs, bcounts, bplain_ms)):
+        g = a[1].shape[0]
+        rows_out.append((name, lambda a=a: ck.run_cluster(*a, False, csub),
+                         p_ms, 25 * n_made + 12 * n_div + 12 * n_edge, 0,
+                         24 * a[0].shape[0] + 4 * g + 8 * int(a[1].sum())
+                         + 68 * crows.shape[0] + 4 * csub.numel()
+                         + 24 * a[0].shape[0]))
+        print(f"{name}: {n_made} (ray, sub-block) box tests, {n_div} "
+              f"(ray, triangle) tests and {n_edge} edge tests in the "
+              f"sub-blocks they pass (the bound's count), "
+              f"{int(a[1].sum())} listed clusters over {g} tiles")
     union, g8, grows, k16, plain_ms = inputs["group"]
     block = g8.shape[0] // union.shape[0]
     ray_union = union.long().repeat_interleave(block)
@@ -2591,25 +2742,35 @@ def measure(torch, inputs, errs, launches):
                  300 * nl, 0,
                  (F.shape[0] * 4 + I.shape[0] * 4) * 2 * nl
                  + hrows.shape[0] * 4 * nl))
-    # K7 on the NEE shadow rays, K6 on the camera rays: the grouped pairs
-    # each ray's slab (and segment) test lets through; rays (and rmax) in
-    # once, the pack once, flags (one byte) or (t, g) out.
-    s8, rmax, gpack, groups = inputs["anyhit"]
+    # K7 on the NEE shadow rays of bounces 0, 1 and 2: 25 operations per
+    # group slab test and sub-block box test it makes, K1's 12 per
+    # (ray, triangle) test and per edge test reached in the sub-blocks
+    # its rule leaves (its counting entry's counts); rays and rmax in
+    # once, the pack and its tables once, a flag byte out. K6 on the
+    # camera rays: the grouped pairs each ray's slab test lets through;
+    # (t, g) out.
+    for b in range(3):
+        s8, rmax, gpack, groups, gsub, counts, plain_ms = inputs[
+            f"anyhit bounce {b}"]
+        n_div, _, _, n_edge, n_made = counts
+        rows.append(("anyhit" + (f" bounce {b}" if b else ""),
+                     lambda s8=s8, rmax=rmax: tk.anyhit(s8, rmax, gpack,
+                                                        groups, gsub),
+                     plain_ms, 25 * n_made + 12 * n_div + 12 * n_edge, 0,
+                     (24 + 4 + 1) * s8.shape[1] + 64 * gpack.shape[0]
+                     + groups.numel() * 4 + gsub.numel() * 4))
+    s8 = inputs["anyhit"][0]
     ra = s8.shape[1]
-    ops7, pairs7 = grouped_ops(torch, s8, gpack, groups, rmax)
-    rows.append(("anyhit", lambda: tk.anyhit(s8, rmax, gpack, groups),
-                 lambda: tk.anyhit_plain(s8, rmax, gpack, groups), ops7, 0,
-                 (24 + 4 + 1) * ra + 64 * gpack.shape[0]
-                 + groups.numel() * 4))
+    pairs7 = inputs["anyhit bounce 0"][5][0]
     c8, cpack, cgroups = inputs["tilecull"]
     rc6 = c8.shape[1]
     ops6, pairs6 = grouped_ops(torch, c8, cpack, cgroups)
     rows.append(("tilecull", lambda: tk.tilecull(c8, cpack, cgroups),
                  lambda: tk.tilecull_plain(c8, cpack, cgroups), ops6, 0,
                  (24 + 8) * rc6 + 64 * cpack.shape[0] + cgroups.numel() * 4))
-    print(f"grouped pairs: anyhit {pairs7 / ra:.1f} per shadow ray, tilecull "
-          f"{pairs6 / rc6:.1f} per camera ray (of {gpack.shape[0]} "
-          "triangles)")
+    print(f"grouped pairs: anyhit {pairs7 / ra:.1f} per shadow ray (the "
+          f"tests its rule leaves), tilecull {pairs6 / rc6:.1f} per camera "
+          f"ray (of {cpack.shape[0]} triangles)")
     # K3b as K3: about 19 operations per (ray, sphere) pair, 10 per ray and
     # 12 per hit for the normal.
     rb, tab = inputs["sphere_table"]
@@ -2630,7 +2791,7 @@ def measure(torch, inputs, errs, launches):
                  45 * rk8, 0, (24 + 8 + 20) * rk8 + (96 + 68) * tk8))
     # K1, K6 and K7 on the reference scene's rays, beside the cornell
     # times of the rows below.
-    cpack, cgroups, rs8, rrmax, rgpack, rgroups, rpack = inputs[
+    cpack, cgroups, rs8, rrmax, rgpack, rgroups, rgsub, rpack = inputs[
         "reference kernels"]
     rc8 = inputs["reference camera"]
     ref_ms = {
@@ -2638,7 +2799,7 @@ def measure(torch, inputs, errs, launches):
         "tilecull": time_ms(torch, lambda: tk.tilecull(rc8, cpack, cgroups),
                             20),
         "anyhit": time_ms(torch, lambda: tk.anyhit(rs8, rrmax, rgpack,
-                                                   rgroups), 20),
+                                                   rgroups, rgsub), 20),
     }
     print(f"reference ({rpack.shape[0]} triangles) camera rays: minarg "
           f"{ref_ms['minarg']:.4f} ms, tilecull {ref_ms['tilecull']:.4f} ms; "
@@ -2658,8 +2819,9 @@ def measure(torch, inputs, errs, launches):
     out = []
     for name, kern, plain, ops, bf16_ops, nbytes, *lib in rows:
         ms = time_ms(torch, kern, 20)
-        plain_ms = (plain if isinstance(plain, float)
-                    else time_ms(torch, plain, 2))
+        # One call of each plain version (seconds each, at these shapes).
+        plain_ms = plain if isinstance(plain, float) else timed(torch,
+                                                                 plain)[1]
         library_ms = time_ms(torch, lib[0], 20) if lib else None
         t_ops = max(ops / PEAK_FP32_FLOPS, bf16_ops / PEAK_BF16_FLOPS) * 1e3
         t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
@@ -2725,6 +2887,7 @@ def main() -> int:
     check_slice11(torch, scenes, cam, cam_rays, inputs)
     inputs.update(check_slice12(torch, inputs))
     inputs.update(check_slice13(torch, inputs))
+    inputs.update(check_slice14(torch, scenes, cam, cam_rays, inputs))
     check_goldens(torch, np)
     check_no_fallback(torch, scenes)
     launches = main_path(torch, np, scenes, cam)

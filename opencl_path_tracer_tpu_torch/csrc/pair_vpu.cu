@@ -77,6 +77,9 @@
 // finite is never accepted at or below best (P: num is +-inf or NaN, so t
 // is; D: vn is, so t is +-0 or NaN), so whatever the test decides for it
 // is exact too. best only falls, so a sub-block skipped once stays right.
+// The slab test (cull_ray, box_maybe) and the warp's run of a sub-block
+// for a few rays (coop_sub_block) are in sub_cull.cuh, shared with K17
+// (cluster.cu) and K7 (anyhit.cu), which read tables of the same rule.
 //
 // Layout: one thread per pair, blocks of kBlock consecutive pairs, and
 // kRuns such runs of pairs per CUDA block. The block walks its runs of
@@ -107,19 +110,18 @@
 #include <stdint.h>
 
 #include "cluster_block.cuh"
+#include "sub_cull.cuh"
 
 namespace {
 
 using namespace ptx;
 
-constexpr int kSub = 32;      // triangles per sub-block (the table's)
 constexpr int kStage = 512;   // cluster rows staged at a time
 // Runs of kBlock pairs a CUDA block walks, keeping a cluster's staged rows
 // while the next run has its key: 2 measured 4 % faster than 1 in turns
 // on round 1 of the stress scene's camera and first-bounce pairs
 // (runtime/pair_vpu_ab.py; PERF.md).
 constexpr int kRuns = 2;
-constexpr unsigned kFull = 0xffffffffu;
 
 __global__ void __launch_bounds__(kBlock)
 pair_simt_kernel(const int* __restrict__ keys, const float* __restrict__ rays8,
@@ -162,104 +164,6 @@ pair_simt_kernel(const int* __restrict__ keys, const float* __restrict__ rays8,
   out[2 * np + i] = a[1];
   out[3 * np + i] = a[2];
   out[4 * np + i] = a[3];
-}
-
-// A pair as the skip rule reads it: the origin, the reciprocals of D
-// rounded down and up, and |P|_1 rounded up (infinite for a ray outside
-// the rule's ranges).
-struct CullRay {
-  float p[3], rlo[3], rhi[3], pn;
-};
-
-__device__ __forceinline__ CullRay cull_ray(float px, float py, float pz,
-                                            float dx, float dy, float dz) {
-  CullRay c;
-  const float d[3] = {dx, dy, dz};
-  c.p[0] = px;
-  c.p[1] = py;
-  c.p[2] = pz;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    c.rlo[i] = __frcp_rd(d[i]);
-    c.rhi[i] = __frcp_ru(d[i]);
-  }
-  const float ap = fmaxf(fmaxf(fabsf(px), fabsf(py)), fabsf(pz));
-  const float ad = fmaxf(fmaxf(fabsf(dx), fabsf(dy)), fabsf(dz));
-  const bool in_range = ap <= 0x1p64f && ad <= 0x1p40f && ad >= 0x1p-64f;
-  c.pn = in_range ? __fadd_ru(__fadd_ru(fabsf(px), fabsf(py)), fabsf(pz))
-                  : INFINITY;
-  return c;
-}
-
-// Whether the segment P + s D, 0 <= s <= best, may meet the sub-block's
-// box [lo - I, hi + I], I = A + Gp |P|_1 (blo = [lo A], bhi = [hi Gp]);
-// false only where it certainly misses (the rule above).
-__device__ __forceinline__ bool box_maybe(const CullRay& c, float4 blo,
-                                          float4 bhi, float best) {
-  const float wid = __fadd_ru(blo.w, __fmul_ru(bhi.w, c.pn));   // I
-  const float lo[3] = {blo.x, blo.y, blo.z}, hi[3] = {bhi.x, bhi.y, bhi.z};
-  float smin = 0.f, smax = best;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const float a = __fadd_rd(__fadd_rd(lo[i], -wid), -c.p[i]);
-    const float b = __fadd_ru(__fadd_ru(hi[i], wid), -c.p[i]);
-    // D_i's sign bit: the lower end of s comes from a (clear) or b (set).
-    const bool neg = __float_as_int(c.rlo[i]) < 0;
-    const float x = neg ? b : a, y = neg ? a : b;
-    smin = fmaxf(smin, __fmul_rd(x, x < 0.f ? c.rhi[i] : c.rlo[i]));
-    smax = fminf(smax, __fmul_ru(y, y < 0.f ? c.rlo[i] : c.rhi[i]));
-  }
-  return smin <= smax;
-}
-
-// A sub-block [s0, s1) (at most 32 rows) of the staged rows for the
-// pairs of the warp's ballot `bal`, one pair at a time: lane l tests row
-// s0 + l against the pair's ray (taken by shuffle), and the pair's lane
-// merges the least (t, index) accepted, as the sequential scan would (a
-// strict < against its best; a lower index wins a tie within the
-// sub-block, an earlier sub-block across them).
-__device__ __forceinline__ void coop_sub_block(
-    const float4* tile, int s0, int s1, unsigned bal, float px, float py,
-    float pz, float dx, float dy, float dz, int base, Nearest& best) {
-  const int lane = threadIdx.x & 31;
-  const int j = s0 + lane;
-  for (unsigned rest = bal; rest; rest &= rest - 1) {
-    const int src = __ffs(rest) - 1;
-    const float qx = __shfl_sync(kFull, px, src);
-    const float qy = __shfl_sync(kFull, py, src);
-    const float qz = __shfl_sync(kFull, pz, src);
-    const float ex = __shfl_sync(kFull, dx, src);
-    const float ey = __shfl_sync(kFull, dy, src);
-    const float ez = __shfl_sync(kFull, dz, src);
-    unsigned tb = 0xffffffffu;   // no hit; an accepted t > 0 orders as bits
-    float t;
-    if (j < s1 && exact_hit(&tile[4 * j], qx, qy, qz, ex, ey, ez, t))
-      tb = __float_as_uint(t);
-    const unsigned tm = __reduce_min_sync(kFull, tb);
-    const unsigned jm = __reduce_min_sync(
-        kFull, tb == tm ? static_cast<unsigned>(j) : 0xffffffffu);
-    if (lane == src && tm != 0xffffffffu && __uint_as_float(tm) < best.t) {
-      best.t = __uint_as_float(tm);
-      best.g = base + static_cast<int>(jm);
-    }
-  }
-}
-
-// The edge tests that exact_hit reaches for a row (t > 0, then each edge
-// until one fails), for the counting entry only.
-__device__ __forceinline__ int edges_reached(const float4* c, float px,
-                                             float py, float pz, float dx,
-                                             float dy, float dz) {
-  const float t = plane_t(c[0], px, py, pz, dx, dy, dz);
-  int n = 0;
-  bool ok = t > 0.f;
-#pragma unroll
-  for (int e = 1; e < 4 && ok; ++e) {
-    ++n;
-    ok = __fmaf_rn(t, dot3(c[e], dx, dy, dz), dot3(c[e], px, py, pz)) >=
-         c[e].w;
-  }
-  return n;
 }
 
 // Five blocks an SM (48 registers): ptxas's own choice of 64 left four,
@@ -363,8 +267,8 @@ pair_cull_kernel(const int* __restrict__ keys, const float* __restrict__ rays8,
                                             q[3], q[4], q[5]);
                 }
               }
-              coop_sub_block(tile, s0, s1, bal, px, py, pz, dx, dy, dz,
-                             ci * k + tb, best);
+              coop_sub_block<4>(tile, s0, s1, bal, px, py, pz, dx, dy, dz,
+                                ci * k + tb, best);
             }
           }
         }

@@ -1,0 +1,138 @@
+// The sub-block skip rule shared by K12 (pair_vpu.cu), K17 (cluster.cu)
+// and K7 (anyhit.cu): a ray skips a sub-block of at most kSub consecutive
+// triangle-pack rows when its segment P + s D, 0 <= s <= best, misses the
+// sub-block's box widened by I = A + Gp |P|_1, the slab test rounded
+// outward. The argument that such a sub-block holds no row that the
+// exact test (nearest.cuh) accepts with t <= best is in pair_vpu.cu's
+// header; the per-scene table ([lo A] [hi Gp], two float4s a sub-block)
+// is built on the host (cluster_kernel.sub_boxes). Also here: a
+// sub-block run for a few rays of a warp by all 32 lanes, and the count
+// of the edge tests the exact test reaches (for the counting entries).
+
+#pragma once
+
+#include "nearest.cuh"
+
+namespace ptx {
+
+constexpr int kSub = 32;      // rows per sub-block (the table's)
+constexpr unsigned kFull = 0xffffffffu;
+
+// A ray as the skip rule reads it: the origin, the reciprocals of D
+// rounded down and up, and |P|_1 rounded up (infinite for a ray outside
+// the rule's ranges).
+struct CullRay {
+  float p[3], rlo[3], rhi[3], pn;
+};
+
+__device__ __forceinline__ CullRay cull_ray(float px, float py, float pz,
+                                            float dx, float dy, float dz) {
+  CullRay c;
+  const float d[3] = {dx, dy, dz};
+  c.p[0] = px;
+  c.p[1] = py;
+  c.p[2] = pz;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    c.rlo[i] = __frcp_rd(d[i]);
+    c.rhi[i] = __frcp_ru(d[i]);
+  }
+  const float ap = fmaxf(fmaxf(fabsf(px), fabsf(py)), fabsf(pz));
+  const float ad = fmaxf(fmaxf(fabsf(dx), fabsf(dy)), fabsf(dz));
+  const bool in_range = ap <= 0x1p64f && ad <= 0x1p40f && ad >= 0x1p-64f;
+  c.pn = in_range ? __fadd_ru(__fadd_ru(fabsf(px), fabsf(py)), fabsf(pz))
+                  : INFINITY;
+  return c;
+}
+
+// Whether the segment P + s D, 0 <= s <= best, may meet the sub-block's
+// box [lo - I, hi + I], I = A + Gp |P|_1 (blo = [lo A], bhi = [hi Gp]);
+// false only where it certainly misses (pair_vpu.cu's rule).
+__device__ __forceinline__ bool box_maybe(const CullRay& c, float4 blo,
+                                          float4 bhi, float best) {
+  const float wid = __fadd_ru(blo.w, __fmul_ru(bhi.w, c.pn));   // I
+  const float lo[3] = {blo.x, blo.y, blo.z}, hi[3] = {bhi.x, bhi.y, bhi.z};
+  float smin = 0.f, smax = best;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float a = __fadd_rd(__fadd_rd(lo[i], -wid), -c.p[i]);
+    const float b = __fadd_ru(__fadd_ru(hi[i], wid), -c.p[i]);
+    // D_i's sign bit: the lower end of s comes from a (clear) or b (set).
+    const bool neg = __float_as_int(c.rlo[i]) < 0;
+    const float x = neg ? b : a, y = neg ? a : b;
+    smin = fmaxf(smin, __fmul_rd(x, x < 0.f ? c.rhi[i] : c.rlo[i]));
+    smax = fminf(smax, __fmul_ru(y, y < 0.f ? c.rlo[i] : c.rhi[i]));
+  }
+  return smin <= smax;
+}
+
+// The rows [s0, s1) (at most 32) of `rows` (kStride float4s apart, the
+// constants in the first four) for the rays of the warp's ballot `bal`,
+// one ray at a time: lane l tests row s0 + l against the ray (taken by
+// shuffle), and the ray's lane merges the least (t, index) accepted, as
+// the sequential scan would (a strict < against its best; a lower index
+// wins a tie within the sub-block, an earlier sub-block across them).
+// Row j's index is base + j.
+template <int kStride>
+__device__ __forceinline__ void coop_sub_block(
+    const float4* rows, int s0, int s1, unsigned bal, float px, float py,
+    float pz, float dx, float dy, float dz, int base, Nearest& best) {
+  const int lane = threadIdx.x & 31;
+  const int j = s0 + lane;
+  for (unsigned rest = bal; rest; rest &= rest - 1) {
+    const int src = __ffs(rest) - 1;
+    const float qx = __shfl_sync(kFull, px, src);
+    const float qy = __shfl_sync(kFull, py, src);
+    const float qz = __shfl_sync(kFull, pz, src);
+    const float ex = __shfl_sync(kFull, dx, src);
+    const float ey = __shfl_sync(kFull, dy, src);
+    const float ez = __shfl_sync(kFull, dz, src);
+    unsigned tb = 0xffffffffu;   // no hit; an accepted t > 0 orders as bits
+    float t;
+    if (j < s1 && exact_hit(&rows[kStride * j], qx, qy, qz, ex, ey, ez, t))
+      tb = __float_as_uint(t);
+    const unsigned tm = __reduce_min_sync(kFull, tb);
+    const unsigned jm = __reduce_min_sync(
+        kFull, tb == tm ? static_cast<unsigned>(j) : 0xffffffffu);
+    if (lane == src && tm != 0xffffffffu && __uint_as_float(tm) < best.t) {
+      best.t = __uint_as_float(tm);
+      best.g = base + static_cast<int>(jm);
+    }
+  }
+}
+
+// The edge tests that exact_hit reaches for a row (t > 0, then each edge
+// until one fails), for the counting entries only.
+__device__ __forceinline__ int edges_reached(const float4* c, float px,
+                                             float py, float pz, float dx,
+                                             float dy, float dz) {
+  const float t = plane_t(c[0], px, py, pz, dx, dy, dz);
+  int n = 0;
+  bool ok = t > 0.f;
+#pragma unroll
+  for (int e = 1; e < 4 && ok; ++e) {
+    ++n;
+    ok = __fmaf_rn(t, dot3(c[e], dx, dy, dz), dot3(c[e], px, py, pz)) >=
+         c[e].w;
+  }
+  return n;
+}
+
+// Counting entries' tallies, added to counter[0..4] once per thread.
+struct CullCounts {
+  unsigned long long div = 0;    // (ray, row) tests that reached the divide
+  unsigned long long box = 0;    // (ray, sub-block) box tests that passed
+  unsigned long long coop = 0;   // of those, run by the whole warp
+  unsigned long long edge = 0;   // edge tests reached in the rows of div
+  unsigned long long made = 0;   // box (and slab) tests made
+
+  __device__ void add_to(unsigned long long* counter) const {
+    atomicAdd(&counter[0], div);
+    atomicAdd(&counter[1], box);
+    atomicAdd(&counter[2], coop);
+    atomicAdd(&counter[3], edge);
+    atomicAdd(&counter[4], made);
+  }
+};
+
+}  // namespace ptx

@@ -41,6 +41,11 @@ IntersectFn = Callable[[Rays], Hits]
 _INV_PI = float(np.float32(1.0 / np.pi))
 
 
+def _unoccluded(rays, rmax):
+    """A shadow-ray visibility that traces nothing: every ray visible."""
+    return torch.zeros_like(rmax, dtype=torch.bool)
+
+
 @dataclasses.dataclass
 class TraceState:
     """Progressive state: the running average (colors, prog.cl:379), the
@@ -151,9 +156,10 @@ def trace_sample(cam: Camera, mats: MaterialsSoA, state: TraceState, *,
     fold_in(key, 0) (key(1791) when key is None, as in parity mode), salt
     10,000 + bounce, so parity mode's Lehmer streams stay the reference's.
     occluded_fn: the any-hit shadow-ray test (`make_scene_occluded`);
-    None sends the shadow rays through intersect_fn.
+    None sends the shadow rays through intersect_fn. Neither traces the
+    last bounce's shadow rays, whose contribution is zero.
     with_stats=True also returns the number of rays traced (live lanes at
-    each bounce, twice where NEE traces a shadow batch) as a 0-dim
+    each bounce, twice with NEE: its shadow batch, traced or not) as a 0-dim
     tensor."""
     rng_state = state.rng_state
     n = rng_state.shape[0]
@@ -213,11 +219,16 @@ def trace_sample(cam: Camera, mats: MaterialsSoA, state: TraceState, *,
             # pickup takes the MIS complement through prev_pdf.
             u = rng.fast_uniforms(nee_key, s_idx, 10_000 + b, n, 3,
                                   device=dev)
+            last = b == iterations - 1
+            # The last bounce's contribution is masked to zero (is_diff
+            # is false on every lane), so its shadow rays are traced by
+            # nobody; they still count in rays_traced below.
             color = vadd(color, nee_ops.direct_light(
                 nee, intersect_fn=intersect_fn, cam_eye=cam.eye,
                 hit_p=hit.p, n_vec=s["n_vec"], mat=mat, f_l=f_l, f_b=f_b,
-                f_s=f_s, f_r=f_r, is_diff=s["is_diff"] & (b < iterations - 1),
-                u1=u[0], u2=u[1], u3=u[2], occluded_fn=occluded_fn))
+                f_s=f_s, f_r=f_r, is_diff=s["is_diff"] & (not last),
+                u1=u[0], u2=u[1], u3=u[2],
+                occluded_fn=_unoccluded if last else occluded_fn))
             if with_stats:
                 rays_traced = rays_traced + alive.sum()  # the shadow batch
             emit_scale = nee_ops.pickup_mis_weight(

@@ -60,7 +60,16 @@ KERNELS = {
                        [P, I, P, P, P, I, I, P]),
     "fused_step": ("fused_step.cu", "ptx_fused_step",
                    [P, P, P, P, I, P, P, I, U, U, U, I, P]),
-    "anyhit": ("anyhit.cu", "ptx_anyhit", [P, I, P, P, P, P, I, I, P]),
+    "anyhit": ("anyhit.cu", "ptx_anyhit",
+               [P, I, P, P, P, P, P, I, I, I, I, P]),
+    # K7's two entries for the checks only: its first kernel (a group's
+    # rows staged for the block), and the kernel counting the tests that
+    # reach the divide, the sub-blocks its skip rule lets through, the
+    # edge tests reached and the slab and box tests made.
+    "anyhit_simt": ("anyhit.cu", "ptx_anyhit_simt",
+                    [P, I, P, P, P, P, I, I, P]),
+    "anyhit_count": ("anyhit.cu", "ptx_anyhit_count",
+                     [P, I, P, P, P, P, P, I, I, I, I, P, P]),
     "tilecull": ("tilecull.cu", "ptx_tilecull", [P, I, P, P, P, P, I, I, P]),
     "sphere_table": ("sphere_table.cu", "ptx_sphere_table",
                      [P, P, P, P, P, P, P, I, I, P]),
@@ -89,7 +98,12 @@ KERNELS = {
     "pair_vpu_count": ("pair_vpu.cu", "ptx_pair_vpu_count",
                        [P, P, P, P, P, I, I, I, I, P, P]),
     "cluster": ("cluster.cu", "ptx_cluster",
-                [P, P, P, P, P, P, I, I, I, I, I, P]),
+                [P, P, P, P, P, P, P, I, I, I, I, I, I, P]),
+    # K17's two entries for the checks only, as K7's.
+    "cluster_simt": ("cluster.cu", "ptx_cluster_simt",
+                     [P, P, P, P, P, P, I, I, I, I, I, P]),
+    "cluster_count": ("cluster.cu", "ptx_cluster_count",
+                      [P, P, P, P, P, P, P, I, I, I, I, I, I, P, P]),
     "group": ("group.cu", "ptx_group", [P, P, P, P, I, I, I, I, P]),
     "march": ("march.cu", "ptx_march", [P, P, P, P, P, P, I, I, I, I, P]),
     # K18's two entries for the checks only: its first (float32-core)

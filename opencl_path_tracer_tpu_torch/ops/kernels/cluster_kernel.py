@@ -1,5 +1,6 @@
-"""K17: the two-level cluster intersector (`accel='cluster'`), and the
-Morton cluster packs and cluster-block test that K12 and K16 share.
+"""K17: the two-level cluster intersector (`accel='cluster'`), the
+Morton cluster packs and cluster-block test that K12 and K16 share, and
+the skip rule's table (`sub_boxes`) that K12, K17 and K7 share.
 
 Port of `opencl_path_tracer_tpu/ops/pallas/cluster_kernel.py`: `BIG`,
 `ClusterScene` and `build_clusters` (cluster_kernel.py:58-139), the
@@ -31,7 +32,10 @@ of the clusters its interval slab test passes (`_tile_cluster_lists`),
 in list order; with `early_exit` it stops at the first entry that is
 not below the tile's largest best t. On the card one CUDA block is one
 tile (`csrc/cluster.cu`); the tile, not the block size, is what the
-result depends on.
+result depends on. There each ray also skips the sub-blocks of `SUB`
+rows whose boxes (`cluster_sub_boxes`, built once per scene) its
+segment to its running best misses, which the skip rule proves hold no
+accepted t at or below that best: the same bits.
 """
 
 from __future__ import annotations
@@ -52,6 +56,12 @@ from opencl_path_tracer_tpu_torch.ops.kernels.intersect_kernel import (
 
 _PLAIN_CELLS = 1 << 22    # (ray, triangle) tests per chunk of a plain version
 MAX_TILE = 1024   # rays per tile K17 takes on the card (one CUDA block)
+# K17's warp tests a sub-block for at most this many of its rays together,
+# all 32 lanes on one ray's rows (csrc/cluster.cu); for more, each lane
+# tests its own ray. 16 measured 1 % faster than 12 and 4-13 % faster
+# than 8 and 4 on the stress camera and first-bounce rays, 24 the same
+# (runtime/cull_ab.py --coop; PERF.md).
+CLUSTER_COOP = 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,6 +240,150 @@ def _tile_cluster_lists(rays8: torch.Tensor, boxes: torch.Tensor, tr: int):
 
 
 # -------------------------------------------------------------------------
+# The skip rule's table, shared by K12, K17 and K7: the argument is in
+# csrc/pair_vpu.cu, the slab test in csrc/sub_cull.cuh.
+
+SUB = 32   # rows per sub-block of the skip rule
+_U = 2.0 ** -24
+_KAPPA = 6 * _U   # the rule's coefficient of |P| + t |D|
+
+
+def _cross(a, b):
+    return np.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                     a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                     a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], -1)
+
+
+def _f32_down(x):
+    """float64 -> the float32 at or below (nan stays nan)."""
+    f = x.astype(np.float32)
+    with np.errstate(invalid="ignore"):
+        return np.where(f > x, np.nextafter(f, np.float32(-np.inf)), f)
+
+
+def _f32_up(x):
+    f = x.astype(np.float32)
+    with np.errstate(invalid="ignore"):
+        return np.where(f < x, np.nextafter(f, np.float32(np.inf)), f)
+
+
+def _row_boxes(rows: np.ndarray):
+    """The skip rule's per-row terms (the argument in csrc/pair_vpu.cu),
+    float64, for (N, 24) triangle-pack rows: (zero, ok, lo (N, 3), hi (N, 3), G, Omega).
+    zero: n = 0 (never accepted: the row is left out); ok: in the rule's
+    ranges and a proper triangle, so that an accepted hit point X lies in
+    [lo - G H, hi + G H], H = 6u (|P| + t |D|) + Omega."""
+    r = rows[:, :16].astype(np.float64)
+    n, c0 = r[:, 0:3], r[:, 3]
+    m = np.stack([r[:, 4:7], r[:, 8:11], r[:, 12:15]], 1)      # (N, 3, 3)
+    d = r[:, [7, 11, 15]]
+    zero = ~(rows[:, 0:3] != 0).any(1)
+    with np.errstate(all="ignore"):
+        nn = np.sqrt((n * n).sum(1))
+        mn = np.sqrt((m * m).sum(2))
+        ok = (np.isfinite(r).all(1) & (np.abs(n).max(1) <= 2.0 ** 32)
+              & (np.abs(m).max((1, 2)) <= 2.0 ** 32)
+              & (np.abs(c0) <= 2.0 ** 100) & (np.abs(d).max(1) <= 2.0 ** 100)
+              & (nn >= 2.0 ** -50) & (mn.min(1) >= 2.0 ** -50))
+        nh = n / nn[:, None]
+        ch = c0 / nn
+        mh = m / mn[:, :, None]
+        dh = d / mn
+        nu = (mh * nh[:, None]).sum(2)                            # (N, 3)
+        mu = mh - nu[:, :, None] * nh[:, None]
+        beta = dh - nu * ch[:, None]
+        cc = 1.0 + np.abs(nu)
+        corners, moves = [], []
+        for a, b, c in ((0, 1, 2), (1, 2, 0), (2, 0, 1)):
+            ub, ua = _cross(mu[:, b], nh), _cross(mu[:, a], nh)
+            det = (mu[:, a] * ub).sum(1)
+            v = (beta[:, a, None] * ub - beta[:, b, None] * ua) / det[:, None]
+            w = (cc[:, b, None] * ua - cc[:, a, None] * ub) / det[:, None]
+            # The crossing of lines a and b strictly inside half-plane c
+            # (beyond float64's rounding of it).
+            res = (mu[:, c] * v).sum(1) - beta[:, c]
+            tol = 2.0 ** -36 * (np.abs(beta[:, c]) + np.abs(v).sum(1))
+            ok &= (np.abs(det) >= 2.0 ** -40) & (res > tol)
+            corners.append(v + ch[:, None] * nh)
+            moves.append(np.abs(w))
+        corners = np.stack(corners, 1)                            # (N, 3, 3)
+        g = (np.stack(moves, 1).max(1) + np.abs(nh)).max(1) * (1 + 2.0 ** -20)
+        slack = 2.0 ** -30 * np.abs(corners).max((1, 2)) + 2.0 ** -90
+        lo = corners.min(1) - slack[:, None]
+        hi = corners.max(1) + slack[:, None]
+        omega = np.maximum(2.01 * _U * np.abs(c0) / nn,
+                           (1.01 * _U * np.abs(d) / mn).max(1)) + 2.0 ** -90
+        ok &= np.isfinite(lo).all(1) & np.isfinite(hi).all(1) & (
+            g * _KAPPA * np.sqrt(3.0) <= 0.5) & np.isfinite(omega)
+    return zero, ok & ~zero, lo, hi, g, omega
+
+
+def sub_boxes(rows: torch.Tensor, spans) -> torch.Tensor:
+    """The skip rule's per-scene table for the (N, 24) triangle-pack rows
+    cut into `spans`, (base, end) row ranges in order: each span's
+    ceil((end - base) / SUB) sub-blocks of SUB consecutive rows from its
+    base (the last partial; none straddles a span), in span order, as
+    (S, 8) float32 [lo(3) A hi(3) Gp]: the union of the sub-block's row
+    boxes rounded outward, and I = A + Gp |P|_1 the widening for a ray
+    from P. A sub-block with a row the rule does not cover (not a proper
+    triangle, or outside the rule's ranges) gets lo = -inf, hi = inf, A =
+    inf (never skipped); one with only n = 0 rows, lo = inf, hi = -inf
+    (always skipped). Built on the host, float64."""
+    r = rows.detach().cpu().numpy()
+    sp = np.asarray(spans, np.int64).reshape(-1, 2)
+    size = sp[:, 1] - sp[:, 0]
+    n_sb = -(-size // SUB)
+    first = np.cumsum(n_sb) - n_sb
+    idx = np.concatenate([np.arange(b, e) for b, e in sp])
+    # Row -> sub-block index, then the per-sub-block reductions.
+    sb = np.repeat(first, size) + (idx - np.repeat(sp[:, 0], size)) // SUB
+    ns = int(n_sb.sum())
+    zero, ok, lo, hi, g, omega = _row_boxes(r[idx])
+    bad = ~zero & ~ok
+    lo = np.where(ok[:, None], lo, np.inf)
+    hi = np.where(ok[:, None], hi, -np.inf)
+    g = np.where(ok, g, 0.0)
+    omega = np.where(ok, omega, 0.0)
+    blo = np.full((ns, 3), np.inf)
+    bhi = np.full((ns, 3), -np.inf)
+    np.minimum.at(blo, sb, lo)
+    np.maximum.at(bhi, sb, hi)
+    bg = np.zeros(ns)
+    bom = np.zeros(ns)
+    np.maximum.at(bg, sb, g)
+    np.maximum.at(bom, sb, omega)
+    nbad = np.zeros(ns, np.int64)
+    np.add.at(nbad, sb, bad)
+    empty = ~np.isfinite(blo).all(1)
+    out = np.zeros((ns, 8), np.float32)
+    out[:, 0:3] = np.where(empty[:, None], np.float32(np.inf), _f32_down(blo))
+    out[:, 4:7] = np.where(empty[:, None], np.float32(-np.inf), _f32_up(bhi))
+    with np.errstate(invalid="ignore", over="ignore"):
+        # B: the largest norm of a corner of the (rounded) box.
+        corner = np.maximum(np.abs(out[:, 0:3]), np.abs(out[:, 4:7]))
+        big_b = np.sqrt((corner.astype(np.float64) ** 2).sum(1))
+        gk = bg * _KAPPA
+        a = (2.0 * bg * bom + 2.0 * gk * big_b) * (1 + 2.0 ** -40)
+    out[:, 3] = np.where(empty, np.float32(0), _f32_up(a))
+    out[:, 7] = np.where(empty, np.float32(0),
+                         _f32_up(4.0 * gk * (1 + 2.0 ** -40)))
+    never = nbad > 0
+    out[never, 0:3] = -np.inf
+    out[never, 4:7] = np.inf
+    out[never, 3] = np.inf
+    out[never, 7] = 0.0
+    return torch.as_tensor(out, device=rows.device)
+
+
+def cluster_sub_boxes(rows: torch.Tensor, k: int) -> torch.Tensor:
+    """`sub_boxes` of the (C K, 24) cluster rows, one span per cluster:
+    (C ceil(K / SUB), 8), cluster c's sub-blocks at [c ceil(K / SUB),
+    (c + 1) ceil(K / SUB))."""
+    c = rows.shape[0] // k
+    return sub_boxes(rows, [(i * k, (i + 1) * k) for i in range(c)])
+
+
+# -------------------------------------------------------------------------
 # K17.
 
 
@@ -274,19 +428,12 @@ def cluster_plain(rays8: torch.Tensor, cnt: torch.Tensor, ids: torch.Tensor,
                         *winner_attrs(rows, g_out, hit)])
 
 
-def run_cluster(rays8: torch.Tensor, cnt: torch.Tensor, ids: torch.Tensor,
-                entry: torch.Tensor, rows: torch.Tensor, k: int, tr: int,
-                early_exit: bool = False):
-    """K17: (t, index, nx, ny, nz, mati), six (Rpad,) float32 tensors, for
-    the (Rpad, 8) ray rows, Rpad a multiple of tr, walking each tile's
-    cluster list (cnt (G, 1) int32, ids and entry (G, C) from
-    `_tile_cluster_lists`) over the (C K, 24) cluster rows. CPU tensors
-    take the plain version; CUDA tensors launch the kernel or raise."""
+def _check_cluster(rays8, cnt, ids, entry, rows, k, tr, sub, what):
     _build.check(rays8, "rays8", (None, 8))
     rpad = rays8.shape[0]
     if tr <= 0 or rpad % tr:
-        raise ValueError(f"run_cluster needs Rpad ({rpad}) a multiple of "
-                         f"tr ({tr})")
+        raise ValueError(f"{what} needs Rpad ({rpad}) a multiple of tr "
+                         f"({tr})")
     g = rpad // tr
     _build.check(rows, "rows", (None, TRI_COLS))
     c = rows.shape[0] // k if k > 0 else 0
@@ -296,20 +443,85 @@ def run_cluster(rays8: torch.Tensor, cnt: torch.Tensor, ids: torch.Tensor,
     _build.check(cnt, "cnt", (g, 1), torch.int32)
     _build.check(ids, "ids", (g, c), torch.int32)
     _build.check(entry, "entry", (g, c))
-    if any(x.device != rays8.device for x in (cnt, ids, entry, rows)):
-        raise ValueError("run_cluster's tensors must be on one device")
-    if rays8.device.type == "cpu":
-        return tuple(cluster_plain(rays8, cnt, ids, entry, rows, k, tr,
-                                   early_exit))
-    if tr > MAX_TILE or tr % 32:
+    if sub is not None:
+        _build.check(sub, "sub", (c * -(-k // SUB), 8))
+    if any(x is not None and x.device != rays8.device
+           for x in (cnt, ids, entry, rows, sub)):
+        raise ValueError(f"{what}'s tensors must be on one device")
+    if rays8.device.type == "cuda" and (tr > MAX_TILE or tr % 32):
         raise ValueError(f"K17 on the card takes tiles of a multiple of 32 "
                          f"rays, at most {MAX_TILE} (one CUDA block); "
                          f"tr = {tr}")
-    out = torch.empty((6, rpad), dtype=torch.float32, device=rays8.device)
+    return g, c
+
+
+def run_cluster(rays8: torch.Tensor, cnt: torch.Tensor, ids: torch.Tensor,
+                entry: torch.Tensor, rows: torch.Tensor, k: int, tr: int,
+                early_exit: bool = False, sub: torch.Tensor | None = None):
+    """K17: (t, index, nx, ny, nz, mati), six (Rpad,) float32 tensors, for
+    the (Rpad, 8) ray rows, Rpad a multiple of tr, walking each tile's
+    cluster list (cnt (G, 1) int32, ids and entry (G, C) from
+    `_tile_cluster_lists`) over the (C K, 24) cluster rows. sub: the rows'
+    `cluster_sub_boxes` table, which the kernel needs
+    (`make_cluster_intersect` builds it once per scene; the plain version
+    ignores it). CPU tensors take the plain version; CUDA tensors launch
+    the kernel or raise."""
+    g, c = _check_cluster(rays8, cnt, ids, entry, rows, k, tr, sub,
+                          "run_cluster")
+    if rays8.device.type == "cpu":
+        return tuple(cluster_plain(rays8, cnt, ids, entry, rows, k, tr,
+                                   early_exit))
+    if sub is None:
+        raise ValueError("run_cluster on CUDA tensors needs sub, the rows' "
+                         "cluster_sub_boxes table")
+    out = torch.empty((6, rays8.shape[0]), dtype=torch.float32,
+                      device=rays8.device)
     if g:
-        _build.launch("cluster", rays8, cnt, ids, entry, rows, out, g, tr,
-                      c, k, int(early_exit))
+        _build.launch("cluster", rays8, cnt, ids, entry, rows, sub, out, g,
+                      tr, c, k, int(early_exit), CLUSTER_COOP)
     return tuple(out)
+
+
+def run_cluster_simt(rays8: torch.Tensor, cnt: torch.Tensor,
+                     ids: torch.Tensor, entry: torch.Tensor,
+                     rows: torch.Tensor, k: int, tr: int,
+                     early_exit: bool = False):
+    """K17's first kernel (`csrc/cluster.cu::cluster_simt_kernel`: every
+    ray of a tile against every row of every listed cluster, staged for
+    the block), on CUDA tensors: run_cluster's rows. For the checks only
+    (the smoke and the cuda tests hold the new kernel against it on whole
+    launches and time the two in turns); no render path calls it."""
+    g, c = _check_cluster(rays8, cnt, ids, entry, rows, k, tr, None,
+                          "run_cluster_simt")
+    if rays8.device.type != "cuda":
+        raise ValueError("run_cluster_simt runs on CUDA tensors only")
+    out = torch.empty((6, rays8.shape[0]), dtype=torch.float32,
+                      device=rays8.device)
+    if g:
+        _build.launch("cluster_simt", rays8, cnt, ids, entry, rows, out, g,
+                      tr, c, k, int(early_exit))
+    return tuple(out)
+
+
+def run_cluster_counted(rays8: torch.Tensor, cnt: torch.Tensor,
+                        ids: torch.Tensor, entry: torch.Tensor,
+                        rows: torch.Tensor, k: int, tr: int,
+                        early_exit: bool, sub: torch.Tensor):
+    """run_cluster's kernel on CUDA tensors, also counting: (rows, (tests
+    that reached the divide, (ray, sub-block) box tests that passed,
+    those of them run by the whole warp, edge tests reached, box tests
+    made)). For the checks only; no render path calls it."""
+    g, c = _check_cluster(rays8, cnt, ids, entry, rows, k, tr, sub,
+                          "run_cluster_counted")
+    if rays8.device.type != "cuda":
+        raise ValueError("run_cluster_counted runs on CUDA tensors only")
+    out = torch.empty((6, rays8.shape[0]), dtype=torch.float32,
+                      device=rays8.device)
+    count = torch.zeros(5, dtype=torch.int64, device=rays8.device)
+    if g:
+        _build.launch("cluster_count", rays8, cnt, ids, entry, rows, sub,
+                      out, g, tr, c, k, int(early_exit), CLUSTER_COOP, count)
+    return tuple(out), tuple(int(x) for x in count.tolist())
 
 
 def make_cluster_intersect(tris: TrianglesSoA, *, cluster_size: int = 128,
@@ -322,6 +534,7 @@ def make_cluster_intersect(tris: TrianglesSoA, *, cluster_size: int = 128,
     JAX package, a miss keeps the kernel's zero normal."""
     scene, _, k = build_clusters(tris, cluster_size)
     rows = scene.rows()
+    sub = cluster_sub_boxes(rows, k) if rows.device.type == "cuda" else None
 
     def intersect(rays: Rays) -> Hits:
         r = rays.count
@@ -330,7 +543,7 @@ def make_cluster_intersect(tris: TrianglesSoA, *, cluster_size: int = 128,
         rays8 = pack_rays_rows(rays.p, rays.d, rpad)
         ids, cnt, entry = _tile_cluster_lists(rays8, scene.boxes, tr)
         best_t, _, nx, ny, nz, m = run_cluster(rays8, cnt, ids, entry, rows,
-                                               k, tr, early_exit)
+                                               k, tr, early_exit, sub)
         best_t = best_t[:r]
         any_hit = best_t < BIG
         z = torch.zeros_like(best_t)

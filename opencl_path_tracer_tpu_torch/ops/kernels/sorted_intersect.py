@@ -63,8 +63,8 @@ from opencl_path_tracer_tpu_torch.core.geometry import TrianglesSoA
 from opencl_path_tracer_tpu_torch.core.types import Hits, Rays
 from opencl_path_tracer_tpu_torch.ops.kernels import _build
 from opencl_path_tracer_tpu_torch.ops.kernels.cluster_kernel import (
-    _PLAIN_CELLS, _xmax, _xmin, build_clusters, cluster_nearest,
-    pack_rays_rows, winner_attrs,
+    _PLAIN_CELLS, SUB, _xmax, _xmin, build_clusters, cluster_nearest,
+    cluster_sub_boxes, pack_rays_rows, winner_attrs,
 )
 from opencl_path_tracer_tpu_torch.ops.kernels.intersect_kernel import (
     BIG, TRI_COLS, _round_up, build_tri_pack, make_pallas_intersect, minarg,
@@ -361,136 +361,13 @@ def pairs_plain(keys: torch.Tensor, rays8p: torch.Tensor, rows: torch.Tensor,
     return out
 
 
-SUB = 32   # triangles per sub-block of K12's skip rule (csrc/pair_vpu.cu)
 # A warp tests a sub-block for at most this many of its pairs together,
 # all 32 lanes on one pair's rows (csrc/pair_vpu.cu); for more, each lane
 # tests its own pair.
 PAIR_COOP = 12
-_U = 2.0 ** -24
-_KAPPA = 6 * _U   # the rule's coefficient of |P| + t |D|
-
-
-def _cross(a, b):
-    return np.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
-                     a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
-                     a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], -1)
-
-
-def _f32_down(x):
-    """float64 -> the float32 at or below (nan stays nan)."""
-    f = x.astype(np.float32)
-    with np.errstate(invalid="ignore"):
-        return np.where(f > x, np.nextafter(f, np.float32(-np.inf)), f)
-
-
-def _f32_up(x):
-    f = x.astype(np.float32)
-    with np.errstate(invalid="ignore"):
-        return np.where(f < x, np.nextafter(f, np.float32(np.inf)), f)
-
-
-def _row_boxes(rows: np.ndarray):
-    """The skip rule's per-row terms of K12 (csrc/pair_vpu.cu), float64,
-    for (N, 24) cluster rows: (zero, ok, lo (N, 3), hi (N, 3), G, Omega).
-    zero: n = 0 (never accepted: the row is left out); ok: in the rule's
-    ranges and a proper triangle, so that an accepted hit point X lies in
-    [lo - G H, hi + G H], H = 6u (|P| + t |D|) + Omega."""
-    r = rows[:, :16].astype(np.float64)
-    n, c0 = r[:, 0:3], r[:, 3]
-    m = np.stack([r[:, 4:7], r[:, 8:11], r[:, 12:15]], 1)      # (N, 3, 3)
-    d = r[:, [7, 11, 15]]
-    zero = ~(rows[:, 0:3] != 0).any(1)
-    with np.errstate(all="ignore"):
-        nn = np.sqrt((n * n).sum(1))
-        mn = np.sqrt((m * m).sum(2))
-        ok = (np.isfinite(r).all(1) & (np.abs(n).max(1) <= 2.0 ** 32)
-              & (np.abs(m).max((1, 2)) <= 2.0 ** 32)
-              & (np.abs(c0) <= 2.0 ** 100) & (np.abs(d).max(1) <= 2.0 ** 100)
-              & (nn >= 2.0 ** -50) & (mn.min(1) >= 2.0 ** -50))
-        nh = n / nn[:, None]
-        ch = c0 / nn
-        mh = m / mn[:, :, None]
-        dh = d / mn
-        nu = (mh * nh[:, None]).sum(2)                            # (N, 3)
-        mu = mh - nu[:, :, None] * nh[:, None]
-        beta = dh - nu * ch[:, None]
-        cc = 1.0 + np.abs(nu)
-        corners, moves = [], []
-        for a, b, c in ((0, 1, 2), (1, 2, 0), (2, 0, 1)):
-            ub, ua = _cross(mu[:, b], nh), _cross(mu[:, a], nh)
-            det = (mu[:, a] * ub).sum(1)
-            v = (beta[:, a, None] * ub - beta[:, b, None] * ua) / det[:, None]
-            w = (cc[:, b, None] * ua - cc[:, a, None] * ub) / det[:, None]
-            # The crossing of lines a and b strictly inside half-plane c
-            # (beyond float64's rounding of it).
-            res = (mu[:, c] * v).sum(1) - beta[:, c]
-            tol = 2.0 ** -36 * (np.abs(beta[:, c]) + np.abs(v).sum(1))
-            ok &= (np.abs(det) >= 2.0 ** -40) & (res > tol)
-            corners.append(v + ch[:, None] * nh)
-            moves.append(np.abs(w))
-        corners = np.stack(corners, 1)                            # (N, 3, 3)
-        g = (np.stack(moves, 1).max(1) + np.abs(nh)).max(1) * (1 + 2.0 ** -20)
-        slack = 2.0 ** -30 * np.abs(corners).max((1, 2)) + 2.0 ** -90
-        lo = corners.min(1) - slack[:, None]
-        hi = corners.max(1) + slack[:, None]
-        omega = np.maximum(2.01 * _U * np.abs(c0) / nn,
-                           (1.01 * _U * np.abs(d) / mn).max(1)) + 2.0 ** -90
-        ok &= np.isfinite(lo).all(1) & np.isfinite(hi).all(1) & (
-            g * _KAPPA * np.sqrt(3.0) <= 0.5) & np.isfinite(omega)
-    return zero, ok & ~zero, lo, hi, g, omega
-
-
-def pair_sub_boxes(rows: torch.Tensor, k: int):
-    """K12's per-scene table of its skip rule (csrc/pair_vpu.cu): for the
-    ((C + 1) K, 24) cluster rows, per cluster its ceil(K / SUB)
-    sub-blocks of SUB consecutive rows, ((C + 1) ceil(K / SUB), 8)
-    float32 [lo(3) A hi(3) Gp]: the union of the sub-block's row boxes
-    rounded outward, and I = A + Gp |P|_1 the widening for a ray from P.
-    A sub-block with a row the rule does not cover gets lo = -inf, hi =
-    inf, A = inf (never skipped); one with only n = 0 rows, lo = inf, hi =
-    -inf (always skipped). Built on the host, float64."""
-    r = rows.detach().cpu().numpy()
-    n_rows = r.shape[0]
-    c1 = n_rows // k
-    nsb = -(-k // SUB)
-    zero, ok, lo, hi, g, omega = _row_boxes(r)
-    bad = ~zero & ~ok
-    lo = np.where(ok[:, None], lo, np.inf)
-    hi = np.where(ok[:, None], hi, -np.inf)
-    g = np.where(ok, g, 0.0)
-    omega = np.where(ok, omega, 0.0)
-    # Row index -> sub-block index, then the per-sub-block reductions.
-    sb = (np.arange(n_rows) // k) * nsb + (np.arange(n_rows) % k) // SUB
-    ns = c1 * nsb
-    blo = np.full((ns, 3), np.inf)
-    bhi = np.full((ns, 3), -np.inf)
-    np.minimum.at(blo, sb, lo)
-    np.maximum.at(bhi, sb, hi)
-    bg = np.zeros(ns)
-    bom = np.zeros(ns)
-    np.maximum.at(bg, sb, g)
-    np.maximum.at(bom, sb, omega)
-    nbad = np.zeros(ns, np.int64)
-    np.add.at(nbad, sb, bad)
-    empty = ~np.isfinite(blo).all(1)
-    out = np.zeros((ns, 8), np.float32)
-    out[:, 0:3] = np.where(empty[:, None], np.float32(np.inf), _f32_down(blo))
-    out[:, 4:7] = np.where(empty[:, None], np.float32(-np.inf), _f32_up(bhi))
-    with np.errstate(invalid="ignore", over="ignore"):
-        # B: the largest norm of a corner of the (rounded) box.
-        corner = np.maximum(np.abs(out[:, 0:3]), np.abs(out[:, 4:7]))
-        big_b = np.sqrt((corner.astype(np.float64) ** 2).sum(1))
-        gk = bg * _KAPPA
-        a = (2.0 * bg * bom + 2.0 * gk * big_b) * (1 + 2.0 ** -40)
-    out[:, 3] = np.where(empty, np.float32(0), _f32_up(a))
-    out[:, 7] = np.where(empty, np.float32(0),
-                         _f32_up(4.0 * gk * (1 + 2.0 ** -40)))
-    never = nbad > 0
-    out[never, 0:3] = -np.inf
-    out[never, 4:7] = np.inf
-    out[never, 3] = np.inf
-    out[never, 7] = 0.0
-    return torch.as_tensor(out, device=rows.device)
+# K12's table of its skip rule: the rows' clusters, the dummy's included
+# (its rows are all n = 0, so its sub-blocks are always skipped).
+pair_sub_boxes = cluster_sub_boxes
 
 
 def _check_pairs(keys, rays8p, rows, k, what):

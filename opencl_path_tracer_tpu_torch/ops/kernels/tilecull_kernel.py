@@ -24,8 +24,12 @@ nearest hit. Groups are scanned in order and rows in order with a strict
 coarsely a kernel skips groups: a skipped group has no hit below its tn.
 
 The plain versions apply the culling lane by lane; the TPU kernels skip
-a group for a 1,024-ray tile only when no lane needs it, and the CUDA
-kernels for a 256-ray block. All three give the same bits.
+a group for a 1,024-ray tile only when no lane needs it, K6's CUDA
+kernel for a 256-ray block, and K7's for a warp of 32; inside a group it
+needs, a K7 ray also skips each sub-block of `SUB` rows whose box
+(`anyhit_sub_boxes`, built once per scene) its segment to rmax misses,
+which the skip rule proves holds no hit below rmax (csrc/anyhit.cu). All
+give the same bits.
 """
 
 from __future__ import annotations
@@ -36,6 +40,9 @@ import torch
 from opencl_path_tracer_tpu_torch.core.geometry import TrianglesSoA
 from opencl_path_tracer_tpu_torch.core.types import Rays
 from opencl_path_tracer_tpu_torch.ops.kernels import _build
+from opencl_path_tracer_tpu_torch.ops.kernels.cluster_kernel import (
+    sub_boxes,
+)
 from opencl_path_tracer_tpu_torch.ops.kernels.intersect_kernel import (
     BIG, TRI_COLS, assemble_hits, build_tri_pack, exact_test, pack_rays,
 )
@@ -46,6 +53,12 @@ from opencl_path_tracer_tpu_torch.ops.kernels.sphere_kernel import (
 
 MAX_GROUPS = 64
 GROUP_COLS = 8   # [lo_x lo_y lo_z hi_x hi_y hi_z base end]
+# K7's warp tests a sub-block for at most this many of its rays together,
+# all 32 lanes on one ray's rows (csrc/anyhit.cu); for more, each lane
+# tests its own ray. 16 and 12 measured within 0.5 % on the Cornell
+# bounce-0 and bounce-1 shadow rays, 4 and 8 slower (runtime/cull_ab.py
+# --coop; PERF.md).
+ANYHIT_COOP = 16
 
 
 def build_groups(tris: TrianglesSoA, gs: int = 128, origin=None):
@@ -217,25 +230,86 @@ def tilecull(rays8: torch.Tensor, tri_pack: torch.Tensor,
     return t, g
 
 
-def anyhit(rays8: torch.Tensor, rmax: torch.Tensor, tri_pack: torch.Tensor,
-           groups: torch.Tensor) -> torch.Tensor:
-    """K7: (R,) bool occlusion flags for the (8, R) pack with segment
-    lengths rmax (R,) against the Morton-ordered pack and its group
-    table. CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+def anyhit_sub_boxes(tri_pack: torch.Tensor, groups: torch.Tensor):
+    """K7's table of the skip rule (`cluster_kernel.sub_boxes`) for the
+    Morton-ordered pack cut into its groups' spans: (S, 8), each group's
+    ceil(rows / SUB) sub-blocks in table order."""
+    spans = groups[:, 6:8].cpu().numpy().astype(np.int64)
+    return sub_boxes(tri_pack, spans)
+
+
+def _check_anyhit(rays8, rmax, tri_pack, groups, sub, what):
     _build.check_rows(rays8, "rays8", 8)
     r = rays8.shape[1]
     _build.check(rmax, "rmax", (r,))
     _check_groups(tri_pack, groups)
     if not (rays8.device == rmax.device == tri_pack.device == groups.device):
-        raise ValueError("rays8, rmax, tri_pack and groups must be on one "
-                         "device")
+        raise ValueError(f"{what}'s rays8, rmax, tri_pack and groups must "
+                         "be on one device")
+    if sub is not None:
+        # Its row count is not checked against the groups' spans (that
+        # would read the table back from the card on every call): the
+        # kernel never skips a sub-block past the table's end.
+        _build.check(sub, "sub", (None, 8))
+        if sub.device != rays8.device:
+            raise ValueError(f"{what}'s sub must be on the rays' device")
+    return r
+
+
+def anyhit(rays8: torch.Tensor, rmax: torch.Tensor, tri_pack: torch.Tensor,
+           groups: torch.Tensor, sub: torch.Tensor | None = None
+           ) -> torch.Tensor:
+    """K7: (R,) bool occlusion flags for the (8, R) pack with segment
+    lengths rmax (R,) against the Morton-ordered pack and its group
+    table. sub: the pack's `anyhit_sub_boxes` table, which the kernel
+    needs (`make_anyhit_occluded` builds it once per scene; the plain
+    version ignores it). CPU tensors take the plain version; CUDA tensors
+    launch the kernel or raise."""
+    r = _check_anyhit(rays8, rmax, tri_pack, groups, sub, "anyhit")
     if rays8.device.type == "cpu":
         return anyhit_plain(rays8, rmax, tri_pack, groups)
+    if sub is None:
+        raise ValueError("anyhit on CUDA tensors needs sub, the pack's "
+                         "anyhit_sub_boxes table")
     occ = torch.empty(r, dtype=torch.bool, device=rays8.device)
     _build.launch("anyhit", rays8, rays8.stride(0), rmax, tri_pack, groups,
-                  occ, r, groups.shape[0])
+                  sub, occ, r, groups.shape[0], sub.shape[0], ANYHIT_COOP)
     return occ
+
+
+def anyhit_simt(rays8: torch.Tensor, rmax: torch.Tensor,
+                tri_pack: torch.Tensor, groups: torch.Tensor) -> torch.Tensor:
+    """K7's first kernel (`csrc/anyhit.cu::anyhit_simt_kernel`: a group's
+    rows staged for the block where any of its rays needs it), on CUDA
+    tensors: anyhit's flags. For the checks only (the smoke and the cuda
+    tests hold the new kernel against it on whole launches and time the
+    two in turns); no render path calls it."""
+    r = _check_anyhit(rays8, rmax, tri_pack, groups, None, "anyhit_simt")
+    if rays8.device.type != "cuda":
+        raise ValueError("anyhit_simt runs on CUDA tensors only")
+    occ = torch.empty(r, dtype=torch.bool, device=rays8.device)
+    _build.launch("anyhit_simt", rays8, rays8.stride(0), rmax, tri_pack,
+                  groups, occ, r, groups.shape[0])
+    return occ
+
+
+def anyhit_counted(rays8: torch.Tensor, rmax: torch.Tensor,
+                   tri_pack: torch.Tensor, groups: torch.Tensor,
+                   sub: torch.Tensor):
+    """anyhit's kernel on CUDA tensors, also counting: (flags, (tests
+    that reached the divide, (ray, sub-block) box tests that passed,
+    those of them run by the whole warp, edge tests reached, group slab
+    and box tests made)). For the checks only; no render path calls
+    it."""
+    r = _check_anyhit(rays8, rmax, tri_pack, groups, sub, "anyhit_counted")
+    if rays8.device.type != "cuda":
+        raise ValueError("anyhit_counted runs on CUDA tensors only")
+    occ = torch.empty(r, dtype=torch.bool, device=rays8.device)
+    count = torch.zeros(5, dtype=torch.int64, device=rays8.device)
+    _build.launch("anyhit_count", rays8, rays8.stride(0), rmax, tri_pack,
+                  groups, sub, occ, r, groups.shape[0], sub.shape[0],
+                  ANYHIT_COOP, count)
+    return occ, tuple(int(x) for x in count.tolist())
 
 
 def grouped_pack(tris: TrianglesSoA, gs: int = 128, origin=None):
@@ -277,12 +351,16 @@ def make_tilecull_intersect(tris: TrianglesSoA, *, gs: int = 128,
 def make_anyhit_occluded(tris: TrianglesSoA, *, gs: int = 128):
     """occluded(rays, rmax) -> (R,) bool through K7: True iff some
     triangle's exact hit lies in (0, rmax). With rmax = dist (1 - 1e-3)
-    it answers NEE's visibility exactly as the nearest hit does."""
+    it answers NEE's visibility exactly as the nearest hit does. The
+    Morton-ordered pack, its groups and, on the card, K7's table of the
+    skip rule (`anyhit_sub_boxes`) are built once here."""
     pack, groups, _ = grouped_pack(tris, gs)
+    sub = (anyhit_sub_boxes(pack, groups) if pack.device.type == "cuda"
+           else None)
 
     def occluded(rays: Rays, rmax: torch.Tensor) -> torch.Tensor:
         return anyhit(pack_rays(rays.p, rays.d), rmax.to(torch.float32)
-                      .contiguous(), pack, groups)
+                      .contiguous(), pack, groups, sub)
 
     return occluded
 

@@ -1,0 +1,294 @@
+"""K17 (the cluster intersector) or K7 (the any-hit test) built from two
+source trees and timed in one process.
+
+No counterpart in `opencl_path_tracer_tpu`. Compares the kernel of this
+checkout with the kernel of another checkout's `csrc/`, on the inputs
+`chip_smoke.py` checks them on:
+
+- `--kernel cluster`: K17 over the stress scene's 777 clusters of 128
+  (tiles of 256 rays, each tile's list from `_tile_cluster_lists`,
+  early exit off as the 'cluster' accel runs it), on the 1080p camera
+  rays, or with `--bounce N` on the rays of the N-th bounce (the camera
+  rays' hits shaded N times);
+- `--kernel anyhit`: K7 over the Cornell box's Morton groups of 128
+  rows, on the NEE shadow rays (`shadow_rays`) at the hits of the 1080p
+  camera rays, or with `--bounce N` at the hits of the N-th bounce's
+  rays; `--scene reference` takes the reference scene
+  (tests/assets/models) and its camera instead.
+
+A source tree whose library exports `ptx_cluster_simt` (or
+`ptx_anyhit_simt`) takes the sub-block table of the skip rule and a
+ballot threshold (this tree's interface); one without takes neither (the
+first kernels' interface). Both builds use `_build`'s nvcc flags and run
+as base, this, this, base (each the mean of --reps launches timed with
+CUDA events), must give equal outputs, and one JSON line (per ballot
+threshold of this tree's kernel given with --coop, the wrapper's by
+default; a base with a table takes the wrapper's) reports the four
+times with what the inputs ask of the kernel: K17's clusters listed
+per tile and (ray, triangle) tests over the listed clusters; K7's groups
+a block of 256 rays stages where any of its rays needs one, and the
+(ray, triangle) tests the first kernel runs (each needing ray until its
+first hit below rmax). Where this tree has the counting entry, the line
+also has its counts at the wrapper's threshold: the tests that reached
+the divide, the sub-block box tests that passed, those of them run by
+the whole warp, the edge tests reached, and the box (K7: and group
+slab) tests made. Needs a GPU:
+
+    python -m opencl_path_tracer_tpu_torch.runtime.cull_ab \\
+        --kernel cluster|anyhit [--bounce N] [--scene reference] \\
+        [--coop N ...] --base DIR
+
+where DIR is, for example, the `opencl_path_tracer_tpu_torch/csrc` of a
+`git archive` of the parent commit unpacked in a gitignored directory.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import pathlib
+import re
+
+import torch
+
+from opencl_path_tracer_tpu_torch.runtime.minarg_ab import (
+    _bounce, _compile, time_in_turns)
+
+W, H = 1920, 1080
+P, I = ctypes.c_void_p, ctypes.c_int
+# The first kernels' C interfaces (no table, no ballot threshold).
+FIRST_ARGTYPES = {"cluster": [P, P, P, P, P, P, I, I, I, I, I, P],
+                  "anyhit": [P, I, P, P, P, P, I, I, P]}
+CHUNK = 1 << 18   # rays per pass of the plain counts
+
+
+def shadow_rays(scene, cam, rays, isect):
+    """The shadow rays (and their rmax = dist (1 - 1e-3)) that NEE traces
+    at the first hits of `rays`, one per lane, captured from
+    `ops.nee.direct_light` itself."""
+    from opencl_path_tracer_tpu_torch.core.types import vdot, vneg, vwhere
+    from opencl_path_tracer_tpu_torch.models import megakernel
+    from opencl_path_tracer_tpu_torch.ops import nee, rng
+    n = rays.count
+    hit, mat = megakernel.fetch_material(scene.mats, isect, rays)
+    n_vec = vwhere(vdot(rays.d, hit.n) > 0.0, vneg(hit.n), hit.n)
+    table = nee.build_emitter_table(scene.tris, scene.mats, scene.spheres)
+    u = rng.fast_uniforms(rng.key(7), 0, 10_000, n, 3, device=rays.device)
+    ones = tuple(torch.ones(n, device=rays.device) for _ in range(3))
+    got = {}
+
+    def capture(shadow, rmax):
+        got["rays"], got["rmax"] = shadow, rmax
+        return torch.zeros_like(rmax, dtype=torch.bool)
+
+    nee.direct_light(table, intersect_fn=None, cam_eye=cam.eye, hit_p=hit.p,
+                     n_vec=n_vec, mat=mat, f_l=ones, f_b=ones, f_s=ones,
+                     f_r=ones, is_diff=hit.valid & (mat.type == 0), u1=u[0],
+                     u2=u[1], u3=u[2], occluded_fn=capture)
+    return got["rays"], got["rmax"].contiguous()
+
+
+def anyhit_staging(s8, rmax, pack, groups, block=256):
+    """What the first K7 kernel does on these inputs: (groups staged per
+    block of `block` rays (a group is staged where any ray of the block
+    needs it), (ray, triangle) tests run (each needing ray through a
+    group's rows until its first hit below rmax))."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import intersect_kernel as k1
+    from opencl_path_tracer_tpu_torch.ops.kernels import tilecull_kernel as tk
+    r = s8.shape[1]
+    n_blocks = -(-r // block)
+    staged = tests = 0
+    gl = groups.cpu().tolist()
+    for s in range(0, r, CHUNK):
+        x, rm = s8[:, s:s + CHUNK], rmax[s:s + CHUNK]
+        inv = [tk._safe_inv(c) for c in x[3:6]]
+        occ = torch.zeros_like(rm, dtype=torch.bool)
+        for row in gl:
+            tn, tf = tk._slab(x[0:3], inv, row[0:3], row[3:6])
+            need = (tf >= tn) & (tf >= 0.0) & (tn <= rm) & ~occ
+            pad = -need.shape[0] % block
+            staged += int(torch.nn.functional.pad(need, (0, pad))
+                          .view(-1, block).any(1).sum())
+            base, end = int(row[6]), int(row[7])
+            t, valid = k1.exact_test(pack[base:end], x)
+            hit = valid & (t < rm[None])
+            first = torch.where(hit.any(0), hit.int().argmax(0) + 1,
+                                torch.full_like(rm, end - base,
+                                                dtype=torch.int64))
+            tests += int(first[need].sum())
+            occ |= need & hit.any(0)
+    return staged / n_blocks, tests
+
+
+def _load(name, path, log):
+    lib = ctypes.CDLL(str(path))
+    table = hasattr(lib, f"ptx_{name}_simt")
+    fn = getattr(lib, f"ptx_{name}")
+    from opencl_path_tracer_tpu_torch.ops.kernels import _build
+    fn.argtypes = (_build.KERNELS[name][2] if table
+                   else FIRST_ARGTYPES[name])
+    fn.restype = ctypes.c_int
+    regs = [[int(x) for x in m] for m in re.findall(
+        r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) "
+        r"bytes spill loads\s+ptxas info\s+: Used (\d+) registers", log)]
+    return fn, table, regs
+
+
+def _cluster_case(args, dev):
+    """K17's inputs and stats: (the launch arguments before the table and
+    after the outputs, those that only a kernel with a table takes, the
+    outputs' shape, the table's and the counting entry's makers, the
+    JSON fields)."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import cluster_kernel as ck
+    from opencl_path_tracer_tpu_torch.scene import library
+    scene = library.stress_scene(device=dev)
+    cam = library.cornell_camera(W, H, device=dev)
+    rays = _camera_rays(cam, dev)
+    for _ in range(args.bounce):
+        rays = _bounce(scene, cam, rays)
+    cscene, c, k = ck.build_clusters(scene.tris, 128)
+    rows = cscene.rows()
+    tr = 256
+    rr8 = ck.pack_rays_rows(rays.p, rays.d, -(-rays.count // tr) * tr)
+    ids, cnt, ent = ck._tile_cluster_lists(rr8, cscene.boxes, tr)
+    g = cnt.shape[0]
+    info = {"clusters": c, "k": k, "tiles": g,
+            "listed_per_tile": float(cnt.float().mean()),
+            "tests": int(cnt.sum()) * tr * k}
+
+    def table():
+        return ck.cluster_sub_boxes(rows, k)
+
+    def counted(sub):
+        return ck.run_cluster_counted(rr8, cnt, ids, ent, rows, k, tr,
+                                      False, sub)[1]
+
+    return ((rr8, cnt, ids, ent, rows), (g, tr, c, k, 0), (),
+            (6, rr8.shape[0]), table, counted, info)
+
+
+def _anyhit_case(args, dev):
+    """K7's inputs and stats, as `_cluster_case`'s."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import intersect_kernel as k1
+    from opencl_path_tracer_tpu_torch.ops.kernels import tilecull_kernel as tk
+    from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
+    from opencl_path_tracer_tpu_torch.scene import library
+    if args.scene == "cornell":
+        scene = library.cornell_box(with_spheres=True, device=dev)
+        cam = library.cornell_camera(W, H, device=dev)
+    else:
+        models = pathlib.Path(__file__).resolve().parents[2] / "tests" / (
+            "assets/models")
+        scene = library.reference_scene(str(models), smooth=True, device=dev)
+        cam = library.reference_camera(W, H, device=dev)
+    rays = _camera_rays(cam, dev)
+    for _ in range(args.bounce):
+        rays = _bounce(scene, cam, rays)
+    shadow, rmax = shadow_rays(scene, cam, rays,
+                               make_intersect_fn(scene, "auto"))
+    s8 = k1.pack_rays(shadow.p, shadow.d).contiguous()
+    pack, groups, _ = tk.grouped_pack(scene.tris, 128)
+    r = s8.shape[1]
+    staged, tests = anyhit_staging(s8, rmax, pack, groups)
+    info = {"scene": args.scene, "triangles": pack.shape[0],
+            "groups": groups.shape[0], "staged_per_block": staged,
+            "first_kernel_tests": tests}
+
+    sub = tk.anyhit_sub_boxes(pack, groups)
+
+    def counted(sub):
+        return tk.anyhit_counted(s8, rmax, pack, groups, sub)[1]
+
+    return ((s8, s8.stride(0), rmax, pack, groups), (r, groups.shape[0]),
+            (sub.shape[0],), (r,), lambda: sub, counted, info)
+
+
+def _camera_rays(cam, dev):
+    from opencl_path_tracer_tpu_torch.ops import raygen, rng
+    s1, r1 = rng.lehmer_step(rng.seed_pixel_streams(W * H, 1, device=dev))
+    _, r2 = rng.lehmer_step(s1)
+    return raygen.camera_rays(cam, raygen.pixel_ids(W, H, dev), r1, r2)
+
+
+def main(argv=None) -> int:
+    from opencl_path_tracer_tpu_torch.ops.kernels import _build
+    from opencl_path_tracer_tpu_torch.ops.kernels import cluster_kernel as ck
+    from opencl_path_tracer_tpu_torch.ops.kernels import tilecull_kernel as tk
+    from opencl_path_tracer_tpu_torch.utils.device import resolve_device
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--kernel", required=True, choices=("cluster", "anyhit"))
+    ap.add_argument("--base", required=True, type=pathlib.Path,
+                    help="the csrc/ directory of the checkout to compare")
+    ap.add_argument("--bounce", type=int, default=0,
+                    help="rays of this bounce (0: the camera rays)")
+    ap.add_argument("--scene", choices=("cornell", "reference"),
+                    default="cornell", help="K7's scene")
+    ap.add_argument("--coop", type=int, nargs="+", default=None,
+                    help="ballot thresholds of this tree's kernel, one "
+                    "line each (default: the wrapper's)")
+    ap.add_argument("--reps", type=int, default=10)
+    args = ap.parse_args(argv)
+    dev = resolve_device("cuda")
+    name = args.kernel
+    out_dir = _build.BUILD_DIR / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    srcs = {"base": args.base.resolve(), "this": _build.CSRC}
+    libs = {k: out_dir / f"lib{name}_{k}.so" for k in srcs}
+    procs = {k: _compile(d, libs[k], f"{name}.cu") for k, d in srcs.items()}
+    fns, tables, regs = {}, {}, {}
+    for k, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {k}:\n{log}")
+        fns[k], tables[k], regs[k] = _load(name, libs[k], log)
+
+    case = _cluster_case if name == "cluster" else _anyhit_case
+    before, after, extra, shape, table, counted, info = case(args, dev)
+    sub = table() if any(tables.values()) else None
+    default = ck.CLUSTER_COOP if name == "cluster" else tk.ANYHIT_COOP
+    if tables["this"]:
+        # The counting entry at the wrapper's threshold (only the whole
+        # warp's share depends on it).
+        n_div, n_box, n_coop, n_edge, n_tests = counted(sub)
+        info.update({"divide_tests": n_div, "box_passed": n_box,
+                     "box_passed_warp": n_coop, "edge_tests": n_edge,
+                     "box_tests": n_tests})
+    outs = {k: torch.empty(shape, device=dev,
+                           dtype=torch.float32 if name == "cluster"
+                           else torch.bool) for k in fns}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def ptr(a):
+        return a.data_ptr() if isinstance(a, torch.Tensor) else a
+
+    status = 0
+    for coop in args.coop or [default]:
+        def launch(k):
+            if tables[k]:
+                a = (*before, sub, outs[k], *after, *extra,
+                     coop if k == "this" else default)
+            else:
+                a = (*before, outs[k], *after)
+            err = fns[k](*(ptr(x) for x in a), stream)
+            if err:
+                raise RuntimeError(f"{name} ({k}) failed: cudaError_t {err}")
+
+        order, times = time_in_turns(launch, args.reps, dev)
+        equal = torch.equal(outs["base"], outs["this"])
+        status |= not equal
+        print(json.dumps({
+            "kernel": name, "bounce": args.bounce, **info,
+            "coop_max": coop if tables["this"] else None, "reps": args.reps,
+            "device": torch.cuda.get_device_name(dev), "tables": tables,
+            "order": list(order), "ms": times,
+            "ptxas_frame_spills_registers": regs,
+            "base_ms": (times[0] + times[3]) / 2,
+            "this_ms": (times[1] + times[2]) / 2, "outputs_equal": equal,
+        }))
+    return status
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

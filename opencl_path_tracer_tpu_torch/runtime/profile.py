@@ -5,8 +5,9 @@ No counterpart module in `opencl_path_tracer_tpu` (its profiling helper,
 render paths on one of `ptx-torch render`'s scenes, with its camera
 preset, under `torch.profiler` and prints one
 JSON line: wall time, device busy time and the busy share, device
-launches and the kernels that take the most device time, per sample and
-per step. Needs a GPU:
+launches, the kernels that take the most device time, per sample and
+per step, and every hand-written kernel's time and launches per sample.
+Needs a GPU:
 
     python -m opencl_path_tracer_tpu_torch.runtime.profile --scene cornell
     python -m opencl_path_tracer_tpu_torch.runtime.profile --model wavefront \\
@@ -172,12 +173,14 @@ def main(argv=None) -> int:
         wall = time.perf_counter() - t0
     busy_us, launches = 0.0, 0
     by_name: dict[str, float] = collections.Counter()
+    count: dict[str, int] = collections.Counter()
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             us = e.time_range.elapsed_us()
             busy_us += us
             launches += 1
             by_name[e.name] += us
+            count[e.name] += 1
 
     def per(x, n):
         return x / n if n else None
@@ -185,6 +188,13 @@ def main(argv=None) -> int:
     top = [{"name": n[:80], "ms_per_sample": per(us / 1e3, samples),
             "ms_per_step": per(us / 1e3, steps)}
            for n, us in by_name.most_common(8)]
+    # The port's own kernels (csrc/, in anonymous namespaces), however
+    # small.
+    port = [{"name": n[:80], "ms_per_sample": per(us / 1e3, samples),
+             "launches_per_sample": per(count[n], samples)}
+            for n, us in by_name.most_common()
+            if n.startswith(("(anonymous namespace)::",
+                             "void (anonymous namespace)::"))]
     print(json.dumps({
         "model": args.model, "scene": args.scene, "size": args.size,
         "bounces": args.iters, "mode": args.mode, "accel": args.accel,
@@ -202,7 +212,7 @@ def main(argv=None) -> int:
         "busy_share": (busy_us / 1e6 / wall_plain if launches else None),
         "device_launches_per_sample": per(launches, samples),
         "device_launches_per_step": per(launches, steps),
-        "top_kernels": top,
+        "top_kernels": top, "port_kernels": port,
     }))
     return 0
 

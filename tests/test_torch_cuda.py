@@ -121,7 +121,8 @@ def test_third_slice_kernels_equal_plain_versions(cuda):
     assert torch.equal(t, t1)
     rmax = torch.rand(rays8.shape[1], device=cuda,
                       generator=torch.Generator(cuda).manual_seed(0)) * 900.0
-    occ = tk.anyhit(rays8, rmax, pack, groups)
+    occ = tk.anyhit(rays8, rmax, pack, groups,
+                    tk.anyhit_sub_boxes(pack, groups))
     assert torch.equal(occ, tk.anyhit_plain(rays8, rmax, pack, groups))
     assert torch.equal(occ, (t1 < k1.BIG) & (t1 < rmax))
     many = library.many_light_scene(64, device=cuda)
@@ -150,7 +151,7 @@ def test_no_fallback_when_the_loader_fails(cuda, monkeypatch):
         tk.tilecull(_rays8(64, 1, cuda), pack, groups)
     with pytest.raises(RuntimeError, match="disabled"):
         tk.anyhit(_rays8(64, 1, cuda), torch.ones(64, device=cuda), pack,
-                  groups)
+                  groups, tk.anyhit_sub_boxes(pack, groups))
     many = library.many_light_scene(64, device=cuda)
     with pytest.raises(RuntimeError, match="disabled"):
         k3.sphere_table(_rays8(64, 1, cuda),
@@ -292,8 +293,10 @@ def test_sixth_slice_kernels_equal_plain_versions(cuda, monkeypatch):
     r8 = ck.pack_rays_rows([rays8[j] for j in range(3)],
                            [rays8[j] for j in range(3, 6)], 20_224)
     ids17, cnt, ent = ck._tile_cluster_lists(r8, cs17.boxes, 256)
+    sub17 = ck.cluster_sub_boxes(cs17.rows(), k17)
     for ee in (False, True):
-        out17 = ck.run_cluster(r8, cnt, ids17, ent, cs17.rows(), k17, 256, ee)
+        out17 = ck.run_cluster(r8, cnt, ids17, ent, cs17.rows(), k17, 256, ee,
+                               sub17)
         assert all(torch.equal(a, b) for a, b in zip(out17, ck.cluster_plain(
             r8, cnt, ids17, ent, cs17.rows(), k17, 256, ee)))
     # K16.
@@ -328,7 +331,8 @@ def test_sixth_slice_kernels_equal_plain_versions(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="disabled"):
         si.run_pairs(keys_s, r8p, rows, k, sub)
     with pytest.raises(RuntimeError, match="disabled"):
-        ck.run_cluster(r8, cnt, ids17, ent, cs17.rows(), k17, 256)
+        ck.run_cluster(r8, cnt, ids17, ent, cs17.rows(), k17, 256, False,
+                       sub17)
     with pytest.raises(RuntimeError, match="disabled"):
         si.run_group(union, r16, cs16.rows(), k16, 2048)
 
@@ -1090,3 +1094,145 @@ def test_thirteenth_slice_pair_vpu_equals_first_kernel(cuda, monkeypatch):
         assert counts[0][:2] == counts[32][:2] == (n_div, n_box)
         assert counts[0][2] == 0 and counts[32][2] == n_box
         assert int((first[0] < k1.BIG).sum()) > 1000
+
+
+@pytest.mark.cuda
+def test_fourteenth_slice_cluster_equals_first_kernel(cuda, monkeypatch):
+    """K17 with the sub-block skip rule against its first kernel and its
+    plain version on stress_scene(1200)'s clusters of 128, tiles of 256
+    (and of 96, three warps), on grazing and aimed rays with D = 0 and a
+    subnormal direction component, with the early exit off and on; with
+    every sub-block run lane by lane, all by the whole warp and the
+    default mix; the counting entry's outputs equal, fewer tests reach
+    the divide than the first kernel runs, at most three edge tests each,
+    the same counts whichever way the warp runs a sub-block; with the
+    loader broken, the three entries raise."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import cluster_kernel as ck
+    scene = library.stress_scene(1200, device=cuda)
+    cscene, c, k = ck.build_clusters(scene.tris, 128)
+    rows = cscene.rows()
+    sub = ck.cluster_sub_boxes(rows, k)
+    r8 = _pair_rays(scene, cuda)
+    for tr in (256, 96):
+        rpad = -(-r8.shape[1] // tr) * tr
+        rr8 = ck.pack_rays_rows([r8[j] for j in range(3)],
+                                [r8[j] for j in range(3, 6)], rpad)
+        ids, cnt, ent = ck._tile_cluster_lists(rr8, cscene.boxes, tr)
+        args = (rr8, cnt, ids, ent, rows, k, tr)
+        for ee in (False, True):
+            first = ck.run_cluster_simt(*args, ee)
+            plain = ck.cluster_plain(*args, ee)
+            assert all(torch.equal(a, b) for a, b in zip(first, plain))
+            counts = {}
+            for coop in (-1, 12, 32):
+                monkeypatch.setattr(ck, "CLUSTER_COOP", coop)
+                out = ck.run_cluster(*args, ee, sub)
+                assert all(torch.equal(a, b) for a, b in zip(out, first)), (
+                    tr, ee, coop)
+                counted, counts[coop] = ck.run_cluster_counted(*args, ee, sub)
+                assert all(torch.equal(a, b) for a, b in zip(counted, first))
+            n_div, n_box, n_coop, n_edge, n_made = counts[12]
+            assert 0 < n_div < int(cnt.sum()) * tr * k and n_coop <= n_box
+            assert 0 < n_edge <= 3 * n_div and n_box < n_made
+            assert counts[-1][1:2] == counts[32][1:2] == (n_box,)
+            assert counts[-1][2] == 0 and counts[32][2] == n_box
+            assert counts[-1][3] == counts[32][3] == n_edge
+            assert int((first[0] < k1.BIG).sum()) > 1000
+
+    def broken(name):
+        raise RuntimeError("kernel loader disabled by the test")
+
+    monkeypatch.setattr(_build, "library", broken)
+    for fn in (lambda: ck.run_cluster(*args, False, sub),
+               lambda: ck.run_cluster_simt(*args),
+               lambda: ck.run_cluster_counted(*args, False, sub)):
+        with pytest.raises(RuntimeError, match="disabled"):
+            fn()
+
+
+@pytest.mark.cuda
+def test_fourteenth_slice_anyhit_equals_first_kernel(cuda, monkeypatch):
+    """K7 with the sub-block skip rule against its first kernel and its
+    plain version on the Cornell box and the reference scene (its
+    zero-area triangles), on random rays and on rays aimed at triangles,
+    with rmax 0, -0, negative, NaN, infinite, subnormal, BIG and random,
+    a batch that ends inside a warp; every sub-block lane by lane, all by
+    the whole warp and the default mix; the counting entry's flags equal;
+    with the loader broken, the three entries raise."""
+    import pathlib
+    from march_lanes import aimed_rays
+    from opencl_path_tracer_tpu_torch.ops.kernels import tilecull_kernel as tk
+    models = pathlib.Path(__file__).resolve().parent / "assets" / "models"
+    scenes = (library.cornell_box(with_spheres=True, device=cuda),
+              library.reference_scene(str(models), smooth=True, device=cuda))
+    special = torch.tensor([0.0, -0.0, -5.0, float("nan"), float("inf"),
+                            1e-42, 3.0e38], device=cuda)
+    for scene in scenes:
+        pack, groups, _ = tk.grouped_pack(scene.tris, 128)
+        sub = tk.anyhit_sub_boxes(pack, groups)
+        rays8 = torch.cat([_rays8(30_001, 7, cuda), torch.as_tensor(
+            aimed_rays(20_000, 8, scene.tris)).to(cuda)], 1)
+        rmax = torch.rand(rays8.shape[1], device=cuda,
+                          generator=torch.Generator(cuda).manual_seed(1))
+        rmax = rmax * 1500.0
+        rmax[::11] = special.repeat(-(-rmax[::11].shape[0] // 7))[
+            :rmax[::11].shape[0]]
+        first = tk.anyhit_simt(rays8, rmax, pack, groups)
+        assert torch.equal(first, tk.anyhit_plain(rays8, rmax, pack, groups))
+        assert 100 < int(first.sum()) < rays8.shape[1] - 100
+        counts = {}
+        for coop in (-1, 12, 32):
+            monkeypatch.setattr(tk, "ANYHIT_COOP", coop)
+            assert torch.equal(tk.anyhit(rays8, rmax, pack, groups, sub),
+                               first)
+            occ, counts[coop] = tk.anyhit_counted(rays8, rmax, pack, groups,
+                                                  sub)
+            assert torch.equal(occ, first)
+        n_div, n_box, n_coop, n_edge, n_made = counts[12]
+        assert 0 < n_div and n_coop <= n_box < n_made
+        assert 0 < n_edge <= 3 * n_div
+        assert counts[-1][2] == 0 and counts[32][2] == counts[32][1]
+
+    def broken(name):
+        raise RuntimeError("kernel loader disabled by the test")
+
+    monkeypatch.setattr(_build, "library", broken)
+    for fn in (lambda: tk.anyhit(rays8, rmax, pack, groups, sub),
+               lambda: tk.anyhit_simt(rays8, rmax, pack, groups),
+               lambda: tk.anyhit_counted(rays8, rmax, pack, groups, sub)):
+        with pytest.raises(RuntimeError, match="disabled"):
+            fn()
+
+
+@pytest.mark.cuda
+def test_fourteenth_slice_megakernel_nee_skips_the_last_shadow_batch(
+        cuda, monkeypatch):
+    """The megakernel with NEE through K7 at 64x64, 5 bounces, 2 spp:
+    K7 launches 4 times a sample, and the image is the same bits as when
+    the last bounce's shadow rays go through K7 too (5 launches)."""
+    from opencl_path_tracer_tpu_torch.models import megakernel
+    from opencl_path_tracer_tpu_torch.ops import nee, rng
+    from opencl_path_tracer_tpu_torch.ops.kernels import tilecull_kernel as tk
+    from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
+    scene = library.cornell_box(with_spheres=True, device=cuda)
+    cam = library.cornell_camera(64, 64, device=cuda)
+    table = nee.build_emitter_table(scene.tris, scene.mats, scene.spheres)
+    occ = tk.make_scene_occluded(scene)
+    isect = make_intersect_fn(scene, "auto")
+
+    def render():
+        before = _build.launches["anyhit"]
+        st = megakernel.init_state(64 * 64, 1, device=cuda)
+        for _ in range(2):
+            st = megakernel.trace_sample(
+                cam, scene.mats, st, intersect_fn=isect, iterations=5,
+                mode="fast", key=rng.key(1), nee=table, occluded_fn=occ)
+        torch.cuda.synchronize()
+        return megakernel.colors_array(st), _build.launches["anyhit"] - before
+
+    colors, n = render()
+    assert n == 2 * 4
+    monkeypatch.setattr(megakernel, "_unoccluded", occ)
+    colors_all, n_all = render()
+    assert n_all == 2 * 5
+    assert torch.equal(colors, colors_all)

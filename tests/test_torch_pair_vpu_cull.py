@@ -6,7 +6,8 @@ of `sorted_intersect.pair_sub_boxes` widened by I = A + Gp |P|_1, with the
 slab test rounded outward (CUDA's __fadd_rd/_ru, __fmul_rd/_ru and
 __frcp_rd/_ru, emulated here exactly: float32 sums and products are exact
 in float64 up to a TwoSum error term, reciprocals are checked by an exact
-product). These tests hold that mirror to the rule's promise: no
+product; the mirror is tests/sub_cull_mirror.py, shared with K17's and
+K7's tests). These tests hold that mirror to the rule's promise: no
 (pair, triangle) that K1's exact test (`intersect_kernel.exact_test`)
 accepts with t below the running best is ever skipped. The rays are
 `stress_scene(1200)`'s: aimed at triangle corners, along edges, grazing
@@ -24,110 +25,18 @@ import pytest
 import torch
 
 from march_lanes import aimed_rays, grazing_rays
+from sub_cull_mirror import (BIG32, F32, accepted, add_dir, box_maybe,
+                             cull_ray, mirrored_pairs, mul_dir, rcp_dir)
 from opencl_path_tracer_tpu_torch.ops.kernels import cluster_kernel as ck
 from opencl_path_tracer_tpu_torch.ops.kernels import intersect_kernel as k1
 from opencl_path_tracer_tpu_torch.ops.kernels import sorted_intersect as si
-from opencl_path_tracer_tpu_torch.ops.kernels.intersect_kernel import BIG
 from opencl_path_tracer_tpu_torch.scene import library
 
 # pytest workers share the machine: one intra-op thread each.
 torch.set_num_threads(1)
 
-F32 = np.float32
-BIG32 = F32(BIG)
 CS = 128
 N_TRIS = 1200
-
-
-# ---------------------------------------------------------------------
-# CUDA's directed roundings of float32, exactly.
-
-def _step(f, up):
-    return np.nextafter(f, F32(np.inf) if up else F32(-np.inf))
-
-
-def add_dir(a, b, up):
-    """__fadd_ru (up) or __fadd_rd of float32 arrays."""
-    a64, b64 = a.astype(np.float64), b.astype(np.float64)
-    with np.errstate(all="ignore"):
-        s = a64 + b64
-        bb = s - a64
-        e = (a64 - (s - bb)) + (b64 - bb)      # a + b = s + e exactly
-        f = s.astype(F32)
-        f64 = f.astype(np.float64)
-        move = (f64 < s) | ((f64 == s) & (e > 0)) if up else (
-            (f64 > s) | ((f64 == s) & (e < 0)))
-        move &= np.isfinite(s)
-    return np.where(move, _step(f, up), f)
-
-
-def mul_dir(a, b, up):
-    """__fmul_ru (up) or __fmul_rd: the exact product, rounded."""
-    with np.errstate(all="ignore"):
-        x = a.astype(np.float64) * b.astype(np.float64)
-        f = x.astype(F32)
-        f64 = f.astype(np.float64)
-        move = (f64 < x) if up else (f64 > x)
-    return np.where(move, _step(f, up), f)
-
-
-def rcp_dir(d, up):
-    """__frcp_ru (up) or __frcp_rd: the float32 just above (below) 1/d,
-    decided by the exact product q d against 1."""
-    d64 = d.astype(np.float64)
-    with np.errstate(all="ignore"):
-        q = (1.0 / d64).astype(F32)
-
-        def above(x):       # x > 1/d exactly
-            return (x.astype(np.float64) * d64 - 1.0) * np.sign(d64) > 0
-
-        def below(x):
-            return (x.astype(np.float64) * d64 - 1.0) * np.sign(d64) < 0
-
-        fin = np.isfinite(d64) & (d64 != 0)
-        if up:
-            q = np.where(fin & below(q), _step(q, True), q)
-            q = np.where(fin & ~below(_step(q, False)), _step(q, False), q)
-        else:
-            q = np.where(fin & above(q), _step(q, False), q)
-            q = np.where(fin & ~above(_step(q, True)), _step(q, True), q)
-    return q
-
-
-# ---------------------------------------------------------------------
-# The rule, as the kernel computes it (cull_ray, box_maybe).
-
-def cull_ray(p, d):
-    """(P, rlo, rhi, |P|_1 rounded up or inf): p, d (3, R) float32."""
-    rlo, rhi = rcp_dir(d, False), rcp_dir(d, True)
-    # fmaxf drops NaN: the kernel's maxima skip a NaN component.
-    ap, ad = np.fmax.reduce(np.abs(p), 0), np.fmax.reduce(np.abs(d), 0)
-    with np.errstate(invalid="ignore"):
-        ok = (ap <= 2.0 ** 64) & (ad <= 2.0 ** 40) & (ad >= 2.0 ** -64)
-    a = np.abs(p)
-    pn = add_dir(add_dir(a[0], a[1], True), a[2], True)
-    return p, rlo, rhi, np.where(ok, pn, F32(np.inf))
-
-
-def box_maybe(cr, box, best):
-    """The kernel's box_maybe, broadcast over (..., R): box (..., 8)
-    [lo A hi Gp] with a trailing ray axis, best (..., R)."""
-    p, rlo, rhi, pn = cr
-    lo, hi = box[..., 0:3, :], box[..., 4:7, :]
-    widen = add_dir(box[..., 3, :], mul_dir(box[..., 7, :], pn, True), True)
-    smin = np.zeros(np.broadcast(widen, best).shape, F32)
-    smax = np.broadcast_to(best, smin.shape).astype(F32)
-    for i in range(3):
-        a = add_dir(add_dir(lo[..., i, :], -widen, False), -p[i], False)
-        b = add_dir(add_dir(hi[..., i, :], widen, True), -p[i], True)
-        neg = np.signbit(rlo[i])
-        x, y = np.where(neg, b, a), np.where(neg, a, b)
-        lower = mul_dir(x, np.where(x < 0, rhi[i], rlo[i]), False)
-        upper = mul_dir(y, np.where(y < 0, rlo[i], rhi[i]), True)
-        with np.errstate(invalid="ignore"):
-            smin = np.fmax(smin, lower)     # fmaxf: NaN dropped
-            smax = np.fmin(smax, upper)
-    return smin <= smax
 
 
 # ---------------------------------------------------------------------
@@ -188,13 +97,6 @@ def special_rays(tris, seed):
     far[0:3] *= F32(2.0 ** 66)
     out.append(far)
     return np.concatenate(out, 1)
-
-
-def accepted(rows, k, ci, r8):
-    """K1's exact test of the rays r8 (8, R) against cluster ci: (t, ok),
-    (k, R) each."""
-    t, ok = k1.exact_test(rows[ci * k:(ci + 1) * k], torch.from_numpy(r8))
-    return t.numpy(), ok.numpy()
 
 
 def check_never_skips(r8, clusters=None):
@@ -373,51 +275,6 @@ def test_rule_hypothesis():
             assert box_maybe(cr, box, best).all()
 
     prop()
-
-
-def mirrored_pairs(keys, r8, rows, k, sub, warp):
-    """The kernel's loop, per pair: its cluster's sub-blocks in order,
-    skipped where box_maybe fails against the running best; then the
-    exact test of every row of the others, merged by a strict < in
-    ascending index (each lane its own pair) or, with warp=True, as the
-    warp-cooperative path merges (the sub-block's least (t, index) first,
-    then a strict <). Returns (t (P,), winner row (P,), tests reaching
-    the divide, sub-blocks tested)."""
-    nsb = -(-k // si.SUB)
-    c = rows.shape[0] // k - 1
-    p = keys.shape[0]
-    best_t = np.full(p, BIG32)
-    best_g = np.zeros(p, np.int64)
-    n_div = n_box = 0
-    cr = cull_ray(r8[0:3], r8[3:6])
-    for ci in np.unique(keys):
-        if not 0 <= ci < c:
-            continue
-        sel = np.nonzero(keys == ci)[0]
-        t, ok = accepted(rows, k, ci, r8[:, sel])
-        tm = np.where(ok, t, F32(np.inf))
-        crs = tuple(x[..., sel] for x in cr)
-        bt = best_t[sel]
-        bg = best_g[sel]
-        for s in range(nsb):
-            go = box_maybe(crs, sub[ci * nsb + s][:, None], bt)
-            js = range(s * si.SUB, min(k, (s + 1) * si.SUB))
-            n_box += int(go.sum())
-            n_div += int(go.sum()) * len(js)
-            if warp:
-                blk = tm[js.start:js.stop]
-                jm = blk.argmin(0)                  # first index at the min
-                tmin = blk[jm, np.arange(sel.size)]
-                win = go & (tmin < bt)
-                bt = np.where(win, tmin, bt)
-                bg = np.where(win, ci * k + js.start + jm, bg)
-                continue
-            for j in js:
-                win = go & ok[j] & (t[j] < bt)
-                bt = np.where(win, t[j], bt)
-                bg = np.where(win, ci * k + j, bg)
-        best_t[sel], best_g[sel] = bt, bg
-    return best_t, best_g, n_div, n_box
 
 
 @pytest.mark.parametrize("kind", ["camera", "aimed"])

@@ -144,6 +144,20 @@ cornell nee` must launch K7 on every bounce but the last, whose NEE
 contribution is zero. The kernels line's plain times are one call each
 (the checks' own calls where they time one).
 
+K6 and K16 skip, per ray, the sub-blocks of 32 rows whose boxes (K7's
+table for K6, K17's for K16) the ray's segment to its running best
+misses, with nothing staged for a block. K6 is held against its first
+kernel (`tilecull_kernel.tilecull_simt`) and its counting entry on the
+cornell camera and first-bounce rays, K16 (`sorted_intersect.
+run_group_simt`) on the reference camera and first-bounce rays and on
+the 'group' accel's own launches on the cornell camera and first-bounce
+rays (there also against its plain version; the other plain checks are
+above), with the groups or clusters a first kernel's block stages, the
+tests it runs and the counts printed; each is timed in turns against its
+first kernel, and the kernels line has K6 rows on the cornell camera and
+first-bounce rays and K16 rows on the reference camera and first-bounce
+rays, their bounds counted from the tests the rule leaves.
+
 The last two lines are a JSON object per kernel (time, plain time,
 bound, launches) and the verdict; the line before them, the smoke's total
 time. Any failed phase raises, and the
@@ -294,7 +308,8 @@ CHECK_ONLY = ("minarg_simt", "minarg_count", "plucker_cand_simt",
               "flat_march_simt", "flat_march_count", "lazy_march_simt",
               "lazy_march_count", "pair_visit_simt", "pair_visit_count",
               "pair_vpu_simt", "pair_vpu_count", "cluster_simt",
-              "cluster_count", "anyhit_simt", "anyhit_count")
+              "cluster_count", "anyhit_simt", "anyhit_count",
+              "tilecull_simt", "tilecull_count", "group_simt", "group_count")
 PAIR_KERNELS = ("pair_cand", "pair_visit", "attr_fetch")
 MODELS_DIR = os.path.join(HERE, "tests", "assets", "models")
 REFERENCE_TRIS = 1838   # ground plane + the seven models (docs/BENCHMARKS.md)
@@ -350,11 +365,12 @@ def build_line():
                      f"{smem.group(1) if smem else 0} B smem")
     print(f"build: {info['seconds']:.1f} s for {len(info['built'])} sources "
           f"(sm_90a, --fmad=false); " + "; ".join(parts))
-    # Every entry function of the kernels redesigned in the last four
-    # slices, as ptxas reports it: registers, stack frame, spills, shared
+    # Every entry function of the kernels redesigned in the last slices,
+    # as ptxas reports it: registers, stack frame, spills, shared
     # memory.
     for src in ("march.cu", "pair_cand.cu", "plucker_cand.cu", "minarg.cu",
-                "flat.cu", "lazy.cu", "pair_visit.cu", "pair_vpu.cu"):
+                "flat.cu", "lazy.cu", "pair_visit.cu", "pair_vpu.cu",
+                "tilecull.cu", "group.cu"):
         rep = info.get("ptxas", {}).get(src, "")
         for fn, body in re.findall(
                 r"Compiling entry function '(\w+)'(.*?)(?=Compiling entry|\Z)",
@@ -551,14 +567,15 @@ def check_slice3(torch, scenes, cam, cam_rays, errs):
           f"(K4 t valid and t < rmax) (torch.equal)")
     inputs = {"anyhit": (s8, rmax, pack, groups, sub)}
     cpack, cgroups, _ = tk.grouped_pack(scene.tris, 128, origin=eye)
+    csub = tk.anyhit_sub_boxes(cpack, cgroups)
     minarg_pack = k1.build_tri_pack(scene.tris)
     for rname, rays in (("camera", cam_rays),
                         ("bounce", bounce_rays(torch, scene, cam, cam_rays,
                                                isect))):
         r8 = k1.pack_rays(rays.p, rays.d).contiguous()
-        t, g = tk.tilecull(r8, cpack, cgroups)
-        tp, gp = tk.tilecull_plain(r8, cpack, cgroups)
-        torch.cuda.synchronize()
+        t, g = tk.tilecull(r8, cpack, cgroups, csub)
+        (tp, gp), plain_ms = timed(torch, lambda: tk.tilecull_plain(
+            r8, cpack, cgroups))
         errs["tilecull"] = max(errs["tilecull"], float((t - tp).abs().max()),
                                float((g - gp).abs().max()))
         need(torch.equal(t, tp) and torch.equal(g, gp),
@@ -569,9 +586,10 @@ def check_slice3(torch, scenes, cam, cam_rays, errs):
         print(f"tilecull on {r8.shape[1]} cornell {rname} rays: "
               f"{int((t < k1.BIG).sum())} hits; equal to its plain version, "
               "t equal to minarg's (torch.equal)")
-        inputs.setdefault("tilecull", (r8, cpack, cgroups))
+        inputs.setdefault("tilecull", (r8, cpack, cgroups, csub, plain_ms))
         if rname == "bounce":
-            inputs["bounce rays"] = (r8, cpack, cgroups, minarg_pack)
+            inputs["bounce rays"] = (r8, cpack, cgroups, csub, plain_ms,
+                                     minarg_pack)
     many = scenes["many-lights"]
     table = k3.build_sphere_table(many.spheres)
     r8 = k1.pack_rays(cam_rays.p, cam_rays.d).contiguous()
@@ -672,9 +690,10 @@ def check_smooth(torch, scenes, errs):
             continue
         eye = tuple(float(v) for v in cam.eye.cpu())
         cpack, cgroups, _ = tk.grouped_pack(scene.tris, 128, origin=eye)
+        csub = tk.anyhit_sub_boxes(cpack, cgroups)
         for rname in ("camera", "bounce"):
             r8 = inputs[f"reference {rname}"]
-            t6, _ = tk.tilecull(r8, cpack, cgroups)
+            t6, _ = tk.tilecull(r8, cpack, cgroups, csub)
             torch.cuda.synchronize()
             need(torch.equal(t6, k1.minarg(r8, pack)[0]),
                  f"tilecull t differs from minarg t on reference {rname} "
@@ -700,8 +719,8 @@ def check_smooth(torch, scenes, errs):
               f"{cgroups.shape[0]} group boxes wider than 1,000 (the "
               f"ground plane spans 20,000; the widest other box "
               f"{float(ext[~wide].max()):.1f})")
-        inputs["reference kernels"] = (cpack, cgroups, s8, rmax, gpack,
-                                       groups, gsub, pack)
+        inputs["reference kernels"] = (cpack, cgroups, csub, s8, rmax,
+                                       gpack, groups, gsub, pack)
     return inputs
 
 
@@ -947,6 +966,7 @@ def check_slice6(torch, scenes, cam, cam_rays, errs):
     rcam = library.reference_camera(W, H, device="cuda")
     gscene, c16, k16 = ck.build_clusters(ref.tris, 128, split_large=True)
     grows = gscene.rows()
+    gsub = ck.cluster_sub_boxes(grows, k16)
     rpack = k1.build_tri_pack(ref.tris)
     isect = make_intersect_fn(ref, "group")
     rcam_rays = camera_rays(rcam)
@@ -954,12 +974,11 @@ def check_slice6(torch, scenes, cam, cam_rays, errs):
                         ("bounce", bounce_rays(torch, ref, rcam, rcam_rays,
                                                isect))):
         _, union, g8 = si.group_inputs(rays, gscene.boxes, 2048)
-        o = si.run_group(union, g8, grows, k16, 2048)
+        o = si.run_group(union, g8, grows, k16, 2048, gsub)
         plain, ms = timed(torch, lambda: si.group_plain(union, g8, grows,
                                                         k16, 2048))
         compare("group", o, plain, f"reference {rname} rays")
-        if rname == "camera":
-            inputs["group"] = (union, g8, grows, k16, ms)
+        inputs[f"group {rname}"] = (union, g8, grows, k16, gsub, ms)
         t4 = k1.dense(k1.pack_rays(rays.p, rays.d).contiguous(), rpack)[0]
         nd = exact_vs_k4(torch, "group", isect(rays), t4,
                          f"reference {rname}")
@@ -1883,6 +1902,131 @@ def check_slice14(torch, scenes, cam, cam_rays, inputs):
     return out
 
 
+def check_slice15(torch, scenes, inputs):
+    """K6 and K16 as redesigned for the H100: a ray skips each sub-block
+    of 32 rows whose box (`tilecull_kernel.anyhit_sub_boxes`,
+    `cluster_kernel.cluster_sub_boxes`) its segment to its running best
+    misses, and nothing is staged for a block. K6 on the cornell camera
+    and first-bounce rays (its plain version's checks are in
+    check_slice3), K16 on the reference camera and first-bounce rays (in
+    check_slice6) and on the launches of the 'group' accel on the cornell
+    camera and first-bounce rays (its plain version here), each against
+    its first kernel (`tilecull_simt`, `run_group_simt`) and its counting
+    entry (torch.equal), with the groups or clusters a first kernel's
+    block of 256 rays stages, the tests it runs and the counts printed;
+    then each timed in turns (first, new, new, first). Returns the counts
+    that the kernels line's bounds read."""
+    from opencl_path_tracer_tpu_torch.core.types import Rays
+    from opencl_path_tracer_tpu_torch.ops.kernels import (
+        intersect_kernel as k1, sorted_intersect as si, tilecull_kernel as tk)
+    from opencl_path_tracer_tpu_torch.runtime.cull_ab import tilecull_staging
+    from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
+    out = {}
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def in_turns(first, new, reps):
+        return ", ".join(f"{time_ms(torch, f, reps):.4f}"
+                         for f in (first, new, new, first))
+
+    for rname, key in (("camera", "tilecull"), ("first-bounce",
+                                                "bounce rays")):
+        r8, pack, groups, sub = inputs[key][:4]
+        where = f"the cornell {rname} rays"
+        t0 = time.perf_counter()
+        new = tk.tilecull(r8, pack, groups, sub)
+        need(same(new, tk.tilecull_simt(r8, pack, groups)),
+             f"tilecull differs from its first kernel on {where}")
+        counted, counts = tk.tilecull_counted(r8, pack, groups, sub)
+        need(same(counted, new),
+             f"tilecull's counting entry differs from it on {where}")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        staged, tests = tilecull_staging(r8, pack, groups)
+        n_div, n_box, n_coop, n_edge, n_made = counts
+        r = r8.shape[1]
+        print(f"tilecull on {where} ({r} rays, {groups.shape[0]} groups): "
+              f"the first kernel stages {staged:.2f} groups a block of 256 "
+              f"and runs {tests} (ray, triangle) tests; {n_box / r:.3f} "
+              f"sub-blocks passed per ray ({n_coop} of {n_box} by the whole "
+              f"warp), {n_div} tests reached the divide "
+              f"({n_div / max(tests, 1):.4f} of the first kernel's), "
+              f"{n_edge} edge tests, {n_made} slab and box tests; "
+              f"{int((new[0] < k1.BIG).sum())} hits; equal to its first "
+              f"kernel and its counting entry (torch.equal); checks "
+              f"{dt:.2f} s")
+        print(f"tilecull on {where} in turns (first kernel, new kernel, new "
+              "kernel, first kernel): "
+              + in_turns(lambda: tk.tilecull_simt(r8, pack, groups),
+                         lambda: tk.tilecull(r8, pack, groups, sub), 10)
+              + " ms")
+        out[f"counts tilecull {rname}"] = counts
+    # K16 on the 'group' accel's own launches on cornell.
+    cornell = scenes["cornell"]
+    b8 = inputs["bounce rays"][0]
+    got = []
+    real = si.run_group
+
+    def capture(*a):
+        got.append(a)
+        return real(*a)
+
+    si.run_group = capture
+    try:
+        isect = make_intersect_fn(cornell, "group")
+        for r8 in (inputs["tilecull"][0], b8):
+            isect(Rays(p=tuple(r8[j] for j in range(3)),
+                       d=tuple(r8[j] for j in range(3, 6))))
+    finally:
+        si.run_group = real
+    need(len(got) == 2, f"the 'group' accel launched K16 {len(got)} times "
+         "on two batches")
+    cases = [(f"the reference {r} rays", inputs[f"group {r}"][:5],
+              inputs[f"group {r}"][5]) for r in ("camera", "bounce")]
+    for rname, a in zip(("camera", "first-bounce"), got):
+        cases.append((f"the cornell {rname} rays", a[:4] + a[5:],
+                      si.group_plain(*a[:5])))
+    for where, (union, g8, rows, k, sub), plain in cases:
+        block = g8.shape[0] // union.shape[0]
+        args = (union, g8, rows, k, block)
+        t0 = time.perf_counter()
+        new = si.run_group(*args, sub)
+        need(same(new, si.run_group_simt(*args)),
+             f"group differs from its first kernel on {where}")
+        if not isinstance(plain, float):
+            need(same(new, plain),
+                 f"group differs from its plain version on {where}")
+        counted, counts = si.run_group_counted(*args, sub)
+        need(same(counted, new),
+             f"group's counting entry differs from it on {where}")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        c = rows.shape[0] // k
+        bits = sum(((union >> b) & 1).long() for b in range(c))
+        tests = int(bits.sum()) * block * k
+        n_div, n_box, n_coop, n_edge, n_made = counts
+        rg = g8.shape[0]
+        print(f"group on {where} ({rg} rays, {c} clusters of {k}): the first "
+              f"kernel stages {float(bits.float().mean()):.2f} clusters a "
+              f"block of 256 and runs {tests} (ray, triangle) tests; "
+              f"{n_box / rg:.3f} sub-blocks passed per ray ({n_coop} of "
+              f"{n_box} by the whole warp), {n_div} tests reached the divide "
+              f"({n_div / max(tests, 1):.4f} of the first kernel's), "
+              f"{n_edge} edge tests, {n_made} box tests; "
+              f"{int((new[0] < k1.BIG).sum())} hits; equal to its first "
+              "kernel" + ("" if isinstance(plain, float) else
+                          ", its plain version")
+              + f" and its counting entry (torch.equal); checks {dt:.2f} s")
+        print(f"group on {where} in turns (first kernel, new kernel, new "
+              "kernel, first kernel): "
+              + in_turns(lambda: si.run_group_simt(*args),
+                         lambda: si.run_group(*args, sub), 10) + " ms")
+        if where.startswith("the reference"):
+            out[f"counts group {where.split()[2]}"] = counts
+    return out
+
+
 def check_goldens(torch, np):
     from opencl_path_tracer_tpu_torch.models import megakernel
     from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
@@ -1905,9 +2049,10 @@ def check_goldens(torch, np):
 
 def check_no_fallback(torch, scenes):
     """With the kernel loader broken, a CUDA call must raise (K1 and its
-    two check-only entries, K13a and its two, K4, K7 and its two, K6, K3b,
-    K8, K9, K10 and its two, K11, K12 and its two, K17 and its two, K16,
-    K18, K18m, K19 and its two, K20 and its two, K14 and K15)."""
+    two check-only entries, K13a and its two, K4, K7 and its two, K6 and
+    its two, K3b, K8, K9, K10 and its two, K11, K12 and its two, K17 and
+    its two, K16 and its two, K18, K18m, K19 and its two, K20 and its two,
+    K14 and K15)."""
     from opencl_path_tracer_tpu_torch.ops.kernels import _build
     from opencl_path_tracer_tpu_torch.ops.kernels import (
         cluster_kernel as ck, flat_march as fm, intersect_kernel as k1,
@@ -1947,6 +2092,9 @@ def check_no_fallback(torch, scenes):
                     torch.zeros((1, 1), device="cuda"),
                     torch.zeros((128, 24), device="cuda"), 128, 256)
     csub = ck.cluster_sub_boxes(cluster_args[4], 128)
+    group_args = (torch.zeros(1, dtype=torch.int32, device="cuda"),
+                  torch.zeros((2048, 8), device="cuda"),
+                  torch.zeros((128, 24), device="cuda"), 128, 2048)
     calls = {
         "minarg": lambda: k1.minarg(rays8, pack),
         "minarg_simt": lambda: k1.minarg_simt(rays8, pack),
@@ -1961,7 +2109,10 @@ def check_no_fallback(torch, scenes):
         "anyhit_simt": lambda: tk.anyhit_simt(rays8, ones, gpack, groups),
         "anyhit_count": lambda: tk.anyhit_counted(rays8, ones, gpack, groups,
                                                   gsub),
-        "tilecull": lambda: tk.tilecull(rays8, gpack, groups),
+        "tilecull": lambda: tk.tilecull(rays8, gpack, groups, gsub),
+        "tilecull_simt": lambda: tk.tilecull_simt(rays8, gpack, groups),
+        "tilecull_count": lambda: tk.tilecull_counted(rays8, gpack, groups,
+                                                      gsub),
         "sphere_table": lambda: k3.sphere_table(rays8, table),
         "smooth_refine": lambda: k8.smooth_refine(
             rays8, torch.full((64,), k1.BIG, device="cuda"),
@@ -1981,10 +2132,9 @@ def check_no_fallback(torch, scenes):
         "cluster_simt": lambda: ck.run_cluster_simt(*cluster_args),
         "cluster_count": lambda: ck.run_cluster_counted(*cluster_args, False,
                                                         csub),
-        "group": lambda: si.run_group(
-            torch.zeros(1, dtype=torch.int32, device="cuda"),
-            torch.zeros((2048, 8), device="cuda"),
-            torch.zeros((128, 24), device="cuda"), 128, 2048),
+        "group": lambda: si.run_group(*group_args, csub),
+        "group_simt": lambda: si.run_group_simt(*group_args),
+        "group_count": lambda: si.run_group_counted(*group_args, csub),
         "march": lambda: mk.run_march(mlist, m8, mfeat, msc, 256, 1, 128),
         "materialize": lambda: mk.materialize(mlist, m8, mfeat),
         "flat_march": lambda: fm.run_flat(*flat_args),
@@ -2286,11 +2436,10 @@ def time_ms(torch, fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
-def edges_reached(pack, p, d, mask=None):
+def edges_reached(pack, p, d):
     """Edge tests K1's exact test reaches for the rays (p, d: (3, R) rows
     of an (8, R) pack) against the rows of `pack` (T, 24): t > 0, then
-    each edge that passed; only for the rays in mask (None: all). Leading
-    batch dimensions, (..., 3, R) and (..., T, 24), broadcast."""
+    each edge that passed."""
     c = pack[..., :16, None]
 
     def col(j):
@@ -2301,7 +2450,7 @@ def edges_reached(pack, p, d, mask=None):
                 + col(b + 2) * v[..., 2:3, :])
 
     t = (col(3) - dot(0, p)) / dot(0, d)
-    ok = t > 0.0 if mask is None else (t > 0.0) & mask
+    ok = t > 0.0
     reached = 0
     for b in (4, 8, 12):
         reached += int(ok.sum())
@@ -2318,26 +2467,6 @@ def minarg_ops(torch, rays8, pack):
                                 rays8[3:6, s:s + 16384])
                   for s in range(0, r, 16384))
     return 12 * r * pack.shape[0] + 12 * reached
-
-
-def grouped_ops(torch, rays8, pack, groups):
-    """Float32 operations K6 needs on these inputs: about 25 per (ray,
-    group) slab test, then K1's 12 per pair plus 12 per edge test
-    reached, over the pairs whose group the ray's slab test passes.
-    Returns (operations, pairs)."""
-    from opencl_path_tracer_tpu_torch.ops.kernels import tilecull_kernel as tk
-    r = rays8.shape[1]
-    pairs = reached = 0
-    for s in range(0, r, 16384):
-        x = rays8[:, s:s + 16384]
-        inv = [tk._safe_inv(c) for c in x[3:6]]
-        for row in groups.cpu().tolist():
-            tn, tf = tk._slab(x[0:3], inv, row[0:3], row[3:6])
-            m = (tf >= tn) & (tf >= 0.0)
-            base, end = int(row[6]), int(row[7])
-            pairs += int(m.sum()) * (end - base)
-            reached += edges_reached(pack[base:end], x[0:3], x[3:6], m)
-    return 25 * r * groups.shape[0] + 12 * pairs + 12 * reached, pairs
 
 
 def pair_rows(torch, inputs):
@@ -2400,40 +2529,26 @@ def pair_rows(torch, inputs):
     return rows
 
 
-def cluster_ops(torch, rows, k, batches):
-    """Float32 operations of the cluster-block tests in `batches`, pairs of
-    (cluster ids (N,), rays (N, 8, R)): K1's 12 per (ray, triangle) test
-    plus 12 per edge test reached. Returns (operations, tests)."""
-    blocks = rows.view(-1, k, rows.shape[1])
-    tests = reached = 0
-    for ci, rays in batches:
-        tests += ci.numel() * k * rays.shape[2]
-        reached += edges_reached(blocks[ci], rays[:, 0:3], rays[:, 3:6])
-    return 12 * tests + 12 * reached, tests
-
-
 def slice6_rows(torch, inputs):
     """The timing rows of K12, K17 and K16: K12 on round 1's pairs of the
     stress camera rays at the 'pair' defaults and on the first-bounce
     pairs, K17 (early exit off) on the stress camera and first-bounce
-    rays with clusters of 128, K16 on the reference camera rays. K12's
-    and K17's operations, as K7's: 25 per (pair or ray, sub-block) box
-    test made, then K1's 12 per (pair or ray, triangle) test plus 12 per
-    edge test reached, in the sub-blocks whose box test passed (the
-    counting entries' counts on the same inputs). K16: K1's over the
-    (ray, triangle) tests it runs (each ray against every cluster of its
-    block's union). Bytes: the rays once (24 per ray; K12 the key of
-    every pair and the 24 of each real one, as it reads no ray for a
-    dummy pair), the cluster rows once (the 17 columns read, 68 bytes a
-    row), K12's and K17's sub-block tables, K17's lists as far as they
-    are read, K16's unions, the outputs once (20 bytes per pair or ray,
-    K17 24). The plain times are the checks' single calls (K17's on the
-    first-bounce rays on CLUSTER_PLAIN_TILES tiles). No single PyTorch
+    rays with clusters of 128, K16 on the reference camera and
+    first-bounce rays. Operations, as K7's: 25 per (pair or ray,
+    sub-block) box test made, then K1's 12 per (pair or ray, triangle)
+    test plus 12 per edge test reached, in the sub-blocks whose box test
+    passed (the counting entries' counts on the same inputs). Bytes: the
+    rays once (24 per ray; K12 the key of every pair and the 24 of each
+    real one, as it reads no ray for a dummy pair), the cluster rows once
+    (the 17 columns read, 68 bytes a row), the sub-block tables, K17's
+    lists as far as they are read, K16's unions, the outputs once (20
+    bytes per pair or ray, K17 24). The plain times are the checks'
+    single calls (K17's on the first-bounce rays on CLUSTER_PLAIN_TILES
+    tiles). No single PyTorch
     call computes any of the three (a nearest ray-triangle hit per pair,
     tile or block), so library_ms is null."""
     from opencl_path_tracer_tpu_torch.ops.kernels import (
         cluster_kernel as ck, sorted_intersect as si)
-    chunk = 1 << 24
     rows_out = []
     sub = inputs["pair_vpu scene"][0]
     for name, (keys, r8p, rows, k, plain_ms) in (
@@ -2473,23 +2588,19 @@ def slice6_rows(torch, inputs):
               f"(ray, triangle) tests and {n_edge} edge tests in the "
               f"sub-blocks they pass (the bound's count), "
               f"{int(a[1].sum())} listed clusters over {g} tiles")
-    union, g8, grows, k16, plain_ms = inputs["group"]
-    block = g8.shape[0] // union.shape[0]
-    ray_union = union.long().repeat_interleave(block)
-    batches = []
-    for ci in range(grows.shape[0] // k16):
-        sel = torch.nonzero((ray_union >> ci) & 1).flatten()
-        for s0 in range(0, sel.numel(), chunk // k16):
-            batches.append((torch.tensor([ci], device=g8.device),
-                            g8[sel[s0:s0 + chunk // k16]].t()[None]))
-    ops, tests = cluster_ops(torch, grows, k16, batches)
-    rg = g8.shape[0]
-    rows_out.append(("group", lambda: si.run_group(union, g8, grows, k16,
-                                                   block),
-                     plain_ms, ops, 0,
-                     24 * rg + 4 * union.shape[0] + 68 * grows.shape[0]
-                     + 20 * rg))
-    print(f"group: {tests} (ray, triangle) tests over {rg} rays")
+    for name, rname in (("group", "camera"), ("group bounce", "bounce")):
+        union, g8, grows, k16, gsub, plain_ms = inputs[f"group {rname}"]
+        n_div, _, _, n_edge, n_made = inputs[f"counts group {rname}"]
+        block = g8.shape[0] // union.shape[0]
+        rg = g8.shape[0]
+        rows_out.append((name, lambda a=(union, g8, grows, k16, block, gsub):
+                         si.run_group(*a), plain_ms,
+            25 * n_made + 12 * n_div + 12 * n_edge, 0,
+            24 * rg + 4 * union.shape[0] + 68 * grows.shape[0]
+            + 4 * gsub.numel() + 20 * rg))
+        print(f"{name}: {n_made} (ray, sub-block) box tests, {n_div} (ray, "
+              f"triangle) tests and {n_edge} edge tests in the sub-blocks "
+              f"they pass (the bound's count) over {rg} rays")
     return rows_out
 
 
@@ -2747,8 +2858,7 @@ def measure(torch, inputs, errs, launches):
     # (ray, triangle) test and per edge test reached in the sub-blocks
     # its rule leaves (its counting entry's counts); rays and rmax in
     # once, the pack and its tables once, a flag byte out. K6 on the
-    # camera rays: the grouped pairs each ray's slab test lets through;
-    # (t, g) out.
+    # camera and first-bounce rays likewise, (t, g) out.
     for b in range(3):
         s8, rmax, gpack, groups, gsub, counts, plain_ms = inputs[
             f"anyhit bounce {b}"]
@@ -2762,15 +2872,22 @@ def measure(torch, inputs, errs, launches):
     s8 = inputs["anyhit"][0]
     ra = s8.shape[1]
     pairs7 = inputs["anyhit bounce 0"][5][0]
-    c8, cpack, cgroups = inputs["tilecull"]
-    rc6 = c8.shape[1]
-    ops6, pairs6 = grouped_ops(torch, c8, cpack, cgroups)
-    rows.append(("tilecull", lambda: tk.tilecull(c8, cpack, cgroups),
-                 lambda: tk.tilecull_plain(c8, cpack, cgroups), ops6, 0,
-                 (24 + 8) * rc6 + 64 * cpack.shape[0] + cgroups.numel() * 4))
-    print(f"grouped pairs: anyhit {pairs7 / ra:.1f} per shadow ray (the "
-          f"tests its rule leaves), tilecull {pairs6 / rc6:.1f} per camera "
-          f"ray (of {cpack.shape[0]} triangles)")
+    for name, at, rname in (("tilecull", "tilecull", "camera"),
+                            ("tilecull bounce", "bounce rays",
+                             "first-bounce")):
+        c8, cpack, cgroups, csub, plain_ms = inputs[at][:5]
+        n_div, _, _, n_edge, n_made = inputs[f"counts tilecull {rname}"]
+        rows.append((name, lambda a=(c8, cpack, cgroups, csub):
+                     tk.tilecull(*a),
+                     plain_ms, 25 * n_made + 12 * n_div + 12 * n_edge, 0,
+                     (24 + 8) * c8.shape[1] + 64 * cpack.shape[0]
+                     + cgroups.numel() * 4 + csub.numel() * 4))
+    rc6 = inputs["tilecull"][0].shape[1]
+    pairs6 = inputs["counts tilecull camera"][0]
+    print(f"tests that reach the divide: anyhit {pairs7 / ra:.1f} per "
+          f"shadow ray, tilecull {pairs6 / rc6:.1f} per camera ray (of "
+          f"{inputs['tilecull'][1].shape[0]} triangles), the tests their "
+          "rules leave")
     # K3b as K3: about 19 operations per (ray, sphere) pair, 10 per ray and
     # 12 per hit for the normal.
     rb, tab = inputs["sphere_table"]
@@ -2790,27 +2907,25 @@ def measure(torch, inputs, errs, launches):
                  lambda: k8.smooth_refine_plain(r8k, t8, g8, pk8, spk8),
                  45 * rk8, 0, (24 + 8 + 20) * rk8 + (96 + 68) * tk8))
     # K1, K6 and K7 on the reference scene's rays, beside the cornell
-    # times of the rows below.
-    cpack, cgroups, rs8, rrmax, rgpack, rgroups, rgsub, rpack = inputs[
-        "reference kernels"]
+    # times of the rows below. (Names of their own: the rows' lambdas
+    # above read theirs when the loop below calls them.)
+    ref = inputs["reference kernels"]
     rc8 = inputs["reference camera"]
     ref_ms = {
-        "minarg": time_ms(torch, lambda: k1.minarg(rc8, rpack), 20),
-        "tilecull": time_ms(torch, lambda: tk.tilecull(rc8, cpack, cgroups),
-                            20),
-        "anyhit": time_ms(torch, lambda: tk.anyhit(rs8, rrmax, rgpack,
-                                                   rgroups, rgsub), 20),
+        "minarg": time_ms(torch, lambda: k1.minarg(rc8, ref[8]), 20),
+        "tilecull": time_ms(torch, lambda: tk.tilecull(rc8, *ref[0:3]), 20),
+        "anyhit": time_ms(torch, lambda: tk.anyhit(*ref[3:8]), 20),
     }
-    print(f"reference ({rpack.shape[0]} triangles) camera rays: minarg "
+    print(f"reference ({ref[8].shape[0]} triangles) camera rays: minarg "
           f"{ref_ms['minarg']:.4f} ms, tilecull {ref_ms['tilecull']:.4f} ms; "
           f"NEE shadow rays: anyhit {ref_ms['anyhit']:.4f} ms")
     # K6 against K1 on incoherent rays: the first-bounce rays of cornell.
-    b8, bpack, bgroups, mpack = inputs["bounce rays"]
-    ms6 = time_ms(torch, lambda: tk.tilecull(b8, bpack, bgroups), 20)
+    b8, bpack, bgroups, bsub, _, mpack = inputs["bounce rays"]
+    ms6 = time_ms(torch, lambda: tk.tilecull(b8, bpack, bgroups, bsub), 20)
     ms1 = time_ms(torch, lambda: k1.minarg(b8, mpack), 20)
-    pairs_b = grouped_ops(torch, b8, bpack, bgroups)[1]
+    pairs_b = inputs["counts tilecull first-bounce"][0]
     print(f"cornell first-bounce rays: tilecull {ms6:.4f} ms, minarg "
-          f"{ms1:.4f} ms; tilecull's grouped pairs "
+          f"{ms1:.4f} ms; tilecull's tests that reach the divide "
           f"{pairs_b / b8.shape[1]:.1f} per ray")
     rows += pair_rows(torch, inputs)
     rows += slice6_rows(torch, inputs)
@@ -2888,6 +3003,7 @@ def main() -> int:
     inputs.update(check_slice12(torch, inputs))
     inputs.update(check_slice13(torch, inputs))
     inputs.update(check_slice14(torch, scenes, cam, cam_rays, inputs))
+    inputs.update(check_slice15(torch, scenes, inputs))
     check_goldens(torch, np)
     check_no_fallback(torch, scenes)
     launches = main_path(torch, np, scenes, cam)

@@ -158,34 +158,13 @@ cluster_cull_kernel(const float* __restrict__ rays8,
       }
       if (__popc(bal) > coop_max) {
         // Many of the warp's rays: each tests the rows in order.
-        if (!go) continue;
-        for (int j = 0; j < n; ++j) {
-          float t;
-          if (exact_hit(r0 + j * kRow, px, py, pz, dx, dy, dz, t) &&
-              t < best.t) {
-            best.t = t;
-            best.g = ci * k + s0 + j;
-          }
-          if (COUNT)
-            ct.edge += edges_reached(r0 + j * kRow, px, py, pz, dx, dy, dz);
-        }
+        if (go)
+          lane_sub_block<kRow, COUNT>(r0, n, ci * k + s0, px, py, pz, dx, dy,
+                                      dz, best, ct);
       } else {
         if (COUNT) {
           if (go) ++ct.coop;
-          // Lane l's row against each ray of the ballot.
-          const int lane = threadIdx.x & 31;
-          for (unsigned rest = bal; rest; rest &= rest - 1) {
-            const int src = __ffs(rest) - 1;
-            const float q[6] = {__shfl_sync(kFull, px, src),
-                                __shfl_sync(kFull, py, src),
-                                __shfl_sync(kFull, pz, src),
-                                __shfl_sync(kFull, dx, src),
-                                __shfl_sync(kFull, dy, src),
-                                __shfl_sync(kFull, dz, src)};
-            if (lane < n)
-              ct.edge += edges_reached(r0 + lane * kRow, q[0], q[1], q[2],
-                                       q[3], q[4], q[5]);
-          }
+          coop_edges<kRow>(r0, n, bal, px, py, pz, dx, dy, dz, ct);
         }
         coop_sub_block<kRow>(rows, s0, s0 + n, bal, px, py, pz, dx, dy, dz,
                              ci * k, best);

@@ -1,13 +1,14 @@
-// The sub-block skip rule shared by K12 (pair_vpu.cu), K17 (cluster.cu)
-// and K7 (anyhit.cu): a ray skips a sub-block of at most kSub consecutive
-// triangle-pack rows when its segment P + s D, 0 <= s <= best, misses the
-// sub-block's box widened by I = A + Gp |P|_1, the slab test rounded
-// outward. The argument that such a sub-block holds no row that the
+// The sub-block skip rule shared by K12 (pair_vpu.cu), K17 (cluster.cu),
+// K7 (anyhit.cu), K6 (tilecull.cu) and K16 (group.cu): a ray skips a
+// sub-block of at most kSub consecutive triangle-pack rows when its
+// segment P + s D, 0 <= s <= best, misses the sub-block's box widened by
+// I = A + Gp |P|_1, the slab test rounded outward. The argument that such a sub-block holds no row that the
 // exact test (nearest.cuh) accepts with t <= best is in pair_vpu.cu's
 // header; the per-scene table ([lo A] [hi Gp], two float4s a sub-block)
 // is built on the host (cluster_kernel.sub_boxes). Also here: a
-// sub-block run for a few rays of a warp by all 32 lanes, and the count
-// of the edge tests the exact test reaches (for the counting entries).
+// sub-block run for a few rays of a warp by all 32 lanes or by each lane
+// for its own ray, and the count of the edge tests the exact test reaches
+// (for the counting entries).
 
 #pragma once
 
@@ -134,5 +135,47 @@ struct CullCounts {
     atomicAdd(&counter[4], made);
   }
 };
+
+// The rows [r0, r0 + n) (kStride float4s apart) against the lane's own
+// ray in order, merged into best with a strict < (row j's index is base +
+// j); with COUNT, the edge tests reached are added to ct.edge.
+template <int kStride, bool COUNT>
+__device__ __forceinline__ void lane_sub_block(
+    const float4* r0, int n, int base, float px, float py, float pz,
+    float dx, float dy, float dz, Nearest& best, CullCounts& ct) {
+  for (int j = 0; j < n; ++j) {
+    float t;
+    if (exact_hit(r0 + j * kStride, px, py, pz, dx, dy, dz, t) &&
+        t < best.t) {
+      best.t = t;
+      best.g = base + j;
+    }
+    if (COUNT)
+      ct.edge += edges_reached(r0 + j * kStride, px, py, pz, dx, dy, dz);
+  }
+}
+
+// For the counting entries: the edge tests that coop_sub_block reaches
+// on the rows [r0, r0 + n) for the rays of the ballot bal (lane l's row
+// against each ray), added to ct.edge.
+template <int kStride>
+__device__ __forceinline__ void coop_edges(const float4* r0, int n,
+                                           unsigned bal, float px, float py,
+                                           float pz, float dx, float dy,
+                                           float dz, CullCounts& ct) {
+  const int lane = threadIdx.x & 31;
+  for (unsigned rest = bal; rest; rest &= rest - 1) {
+    const int src = __ffs(rest) - 1;
+    const float q[6] = {__shfl_sync(kFull, px, src),
+                        __shfl_sync(kFull, py, src),
+                        __shfl_sync(kFull, pz, src),
+                        __shfl_sync(kFull, dx, src),
+                        __shfl_sync(kFull, dy, src),
+                        __shfl_sync(kFull, dz, src)};
+    if (lane < n)
+      ct.edge += edges_reached(r0 + lane * kStride, q[0], q[1], q[2], q[3],
+                               q[4], q[5]);
+  }
+}
 
 }  // namespace ptx

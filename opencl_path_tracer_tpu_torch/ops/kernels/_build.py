@@ -70,7 +70,13 @@ KERNELS = {
                     [P, I, P, P, P, P, I, I, P]),
     "anyhit_count": ("anyhit.cu", "ptx_anyhit_count",
                      [P, I, P, P, P, P, P, I, I, I, I, P, P]),
-    "tilecull": ("tilecull.cu", "ptx_tilecull", [P, I, P, P, P, P, I, I, P]),
+    "tilecull": ("tilecull.cu", "ptx_tilecull",
+                 [P, I, P, P, P, P, P, I, I, I, I, P]),
+    # K6's two entries for the checks only, as K7's.
+    "tilecull_simt": ("tilecull.cu", "ptx_tilecull_simt",
+                      [P, I, P, P, P, P, I, I, P]),
+    "tilecull_count": ("tilecull.cu", "ptx_tilecull_count",
+                       [P, I, P, P, P, P, P, I, I, I, I, P, P]),
     "sphere_table": ("sphere_table.cu", "ptx_sphere_table",
                      [P, P, P, P, P, P, P, I, I, P]),
     "smooth_refine": ("smooth_refine.cu", "ptx_smooth_refine",
@@ -104,7 +110,12 @@ KERNELS = {
                      [P, P, P, P, P, P, I, I, I, I, I, P]),
     "cluster_count": ("cluster.cu", "ptx_cluster_count",
                       [P, P, P, P, P, P, P, I, I, I, I, I, I, P, P]),
-    "group": ("group.cu", "ptx_group", [P, P, P, P, I, I, I, I, P]),
+    "group": ("group.cu", "ptx_group", [P, P, P, P, P, I, I, I, I, I, P]),
+    # K16's two entries for the checks only, as K7's.
+    "group_simt": ("group.cu", "ptx_group_simt",
+                   [P, P, P, P, I, I, I, I, P]),
+    "group_count": ("group.cu", "ptx_group_count",
+                    [P, P, P, P, P, I, I, I, I, I, P, P]),
     "march": ("march.cu", "ptx_march", [P, P, P, P, P, P, I, I, I, I, P]),
     # K18's two entries for the checks only: its first (float32-core)
     # body, and the kernel counting the edge tests its margin recomputes.

@@ -22,7 +22,10 @@ K16 (`run_group`, `make_group_intersect`, scenes of at most 30
 clusters of `build_clusters(split_large=True)`): each ray's bitmask of
 the clusters whose box its slab test passes; the rays sorted by mask
 (stably); every block of `block` sorted rays tests every cluster of the
-union of its masks, in ascending cluster order.
+union of its masks, in ascending cluster order. On the card a ray skips
+the sub-blocks of `SUB` rows whose boxes (`cluster_sub_boxes`, built
+once per scene) its segment to the running best misses
+(`csrc/group.cu`).
 
 K12 (`run_pairs`): per (ray, cluster) pair, sorted by cluster key, the
 nearest hit among that cluster's K triangles with its normal and
@@ -161,31 +164,91 @@ def group_plain(union: torch.Tensor, rays8: torch.Tensor, rows: torch.Tensor,
     return torch.stack([best_t, *winner_attrs(rows, best_g, best_t < BIG)])
 
 
-def run_group(union: torch.Tensor, rays8: torch.Tensor, rows: torch.Tensor,
-              k: int, block: int):
-    """K16: (t, nx, ny, nz, mati), five (Rpad,) float32 tensors, for the
-    (Rpad, 8) mask-sorted ray rows, Rpad a multiple of block, against the
-    (C K, 24) cluster rows, C <= 30: union (G,) int32 holds each block's
-    cluster bits. CPU tensors take the plain version; CUDA tensors launch
-    the kernel or raise."""
+# K16's warp tests a sub-block for at most this many of its rays
+# together, all 32 lanes on one ray's rows (csrc/group.cu); for more, each
+# lane tests its own ray. On the reference camera and first-bounce rays
+# 16 and 24 measured within 1 % and 2.5 % of each other, 12 and 8 up to
+# 7 % and 9 % slower than 16, 32 up to 1.7x (runtime/cull_ab.py --coop;
+# PERF.md).
+GROUP_COOP = 16
+
+
+def _check_group(union, rays8, rows, k, block, what):
     _build.check(rays8, "rays8", (None, 8))
     rpad = rays8.shape[0]
     if block <= 0 or rpad % block:
-        raise ValueError(f"run_group needs Rpad ({rpad}) a multiple of "
-                         f"block ({block})")
+        raise ValueError(f"{what} needs Rpad ({rpad}) a multiple of block "
+                         f"({block})")
     c = _cluster_count(rows, k, "rows")
     if c > MAX_GROUP_CLUSTERS:
         raise ValueError(f"{c} clusters exceed K16's {MAX_GROUP_CLUSTERS}"
                          "-bit mask")
     _build.check(union, "union", (rpad // block,), torch.int32)
     if union.device != rays8.device or rows.device != rays8.device:
-        raise ValueError("run_group's tensors must be on one device")
+        raise ValueError(f"{what}'s tensors must be on one device")
+    return c
+
+
+def run_group(union: torch.Tensor, rays8: torch.Tensor, rows: torch.Tensor,
+              k: int, block: int, sub: torch.Tensor | None = None):
+    """K16: (t, nx, ny, nz, mati), five (Rpad,) float32 tensors, for the
+    (Rpad, 8) mask-sorted ray rows, Rpad a multiple of block, against the
+    (C K, 24) cluster rows, C <= 30: union (G,) int32 holds each block's
+    cluster bits. sub: the rows' `cluster_sub_boxes` table, which the
+    kernel needs (`make_group_intersect` builds it once per scene; the
+    plain version ignores it). CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
+    c = _check_group(union, rays8, rows, k, block, "run_group")
+    rpad = rays8.shape[0]
     if rays8.device.type == "cpu":
         return tuple(group_plain(union, rays8, rows, k, block))
+    if sub is None:
+        raise ValueError("run_group on CUDA tensors needs sub, the rows' "
+                         "cluster_sub_boxes table")
+    _check_sub(sub, rows, k)
     out = torch.empty((5, rpad), dtype=torch.float32, device=rays8.device)
     if rpad:
-        _build.launch("group", union, rays8, rows, out, rpad, block, c, k)
+        _build.launch("group", union, rays8, rows, sub, out, rpad, block, c,
+                      k, GROUP_COOP)
     return tuple(out)
+
+
+def run_group_simt(union: torch.Tensor, rays8: torch.Tensor,
+                   rows: torch.Tensor, k: int, block: int):
+    """K16's first kernel (`csrc/group.cu::group_simt_kernel`: each
+    cluster of the union staged for the block where any of its rays takes
+    it), on CUDA tensors: run_group's rows. For the checks only (the smoke
+    and the cuda tests hold the new kernel against it on whole launches
+    and time the two in turns); no render path calls it."""
+    c = _check_group(union, rays8, rows, k, block, "run_group_simt")
+    if rays8.device.type != "cuda":
+        raise ValueError("run_group_simt runs on CUDA tensors only")
+    rpad = rays8.shape[0]
+    out = torch.empty((5, rpad), dtype=torch.float32, device=rays8.device)
+    if rpad:
+        _build.launch("group_simt", union, rays8, rows, out, rpad, block, c,
+                      k)
+    return tuple(out)
+
+
+def run_group_counted(union: torch.Tensor, rays8: torch.Tensor,
+                      rows: torch.Tensor, k: int, block: int,
+                      sub: torch.Tensor):
+    """run_group's kernel on CUDA tensors, also counting: (rows, (tests
+    that reached the divide, (ray, sub-block) box tests that passed,
+    those of them run by the whole warp, edge tests reached, box tests
+    made)). For the checks only; no render path calls it."""
+    c = _check_group(union, rays8, rows, k, block, "run_group_counted")
+    _check_sub(sub, rows, k)
+    if rays8.device.type != "cuda":
+        raise ValueError("run_group_counted runs on CUDA tensors only")
+    rpad = rays8.shape[0]
+    out = torch.empty((5, rpad), dtype=torch.float32, device=rays8.device)
+    count = torch.zeros(5, dtype=torch.int64, device=rays8.device)
+    if rpad:
+        _build.launch("group_count", union, rays8, rows, sub, out, rpad,
+                      block, c, k, GROUP_COOP, count)
+    return tuple(out), tuple(int(x) for x in count.tolist())
 
 
 def make_group_intersect(tris: TrianglesSoA, *, cluster_size: int = 128,
@@ -195,7 +258,9 @@ def make_group_intersect(tris: TrianglesSoA, *, cluster_size: int = 128,
     `build_clusters(split_large=True)`; intersect(rays) -> Hits. Per call:
     each ray's cluster bitmask (`_perray_slab`), a stable sort by mask,
     each block's union, K16, the results back in ray order. tr and
-    subtiles are accepted as in the JAX package: block = tr * subtiles."""
+    subtiles are accepted as in the JAX package: block = tr * subtiles.
+    On the card, K16's table of the skip rule (`cluster_sub_boxes`) is
+    built once here."""
     if tr is not None:
         block = tr * (subtiles or 1)
     scene, c, k = build_clusters(tris, cluster_size, split_large=True)
@@ -203,10 +268,11 @@ def make_group_intersect(tris: TrianglesSoA, *, cluster_size: int = 128,
         raise ValueError(f"{c} clusters exceed the u32 mask (use the pair "
                          "intersector)")
     rows = scene.rows()
+    sub = cluster_sub_boxes(rows, k) if rows.device.type == "cuda" else None
 
     def intersect(rays: Rays) -> Hits:
         order, union, rays8 = group_inputs(rays, scene.boxes, block)
-        outs = run_group(union, rays8, rows, k, block)
+        outs = run_group(union, rays8, rows, k, block, sub)
         back = [torch.empty_like(o).index_copy_(0, order, o) for o in outs]
         return _hits_from_raw(rays, back[0], back[1:4], back[4], rays.count)
 

@@ -24,12 +24,12 @@ nearest hit. Groups are scanned in order and rows in order with a strict
 coarsely a kernel skips groups: a skipped group has no hit below its tn.
 
 The plain versions apply the culling lane by lane; the TPU kernels skip
-a group for a 1,024-ray tile only when no lane needs it, K6's CUDA
-kernel for a 256-ray block, and K7's for a warp of 32; inside a group it
-needs, a K7 ray also skips each sub-block of `SUB` rows whose box
-(`anyhit_sub_boxes`, built once per scene) its segment to rmax misses,
-which the skip rule proves holds no hit below rmax (csrc/anyhit.cu). All
-give the same bits.
+a group for a 1,024-ray tile only when no lane needs it, the CUDA
+kernels for a warp of 32; inside a group it needs, a ray also skips each
+sub-block of `SUB` rows whose box (`anyhit_sub_boxes`, built once per
+scene) its segment misses, to its running best t (K6) or to rmax (K7),
+which the skip rule proves holds no accepted t at or below that bound
+(csrc/tilecull.cu, csrc/anyhit.cu). All give the same bits.
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ from opencl_path_tracer_tpu_torch.core.geometry import TrianglesSoA
 from opencl_path_tracer_tpu_torch.core.types import Rays
 from opencl_path_tracer_tpu_torch.ops.kernels import _build
 from opencl_path_tracer_tpu_torch.ops.kernels.cluster_kernel import (
-    sub_boxes,
+    SUB, sub_boxes,
 )
 from opencl_path_tracer_tpu_torch.ops.kernels.intersect_kernel import (
     BIG, TRI_COLS, assemble_hits, build_tri_pack, exact_test, pack_rays,
@@ -59,6 +59,10 @@ GROUP_COLS = 8   # [lo_x lo_y lo_z hi_x hi_y hi_z base end]
 # bounce-0 and bounce-1 shadow rays, 4 and 8 slower (runtime/cull_ab.py
 # --coop; PERF.md).
 ANYHIT_COOP = 16
+# K6's warp likewise (csrc/tilecull.cu): 12, 16 and 24 measured within
+# 0.7 % on the Cornell camera and first-bounce rays, 8 1-3 % slower and 32
+# up to 2.3x (runtime/cull_ab.py --coop; PERF.md).
+TILECULL_COOP = 16
 
 
 def build_groups(tris: TrianglesSoA, gs: int = 128, origin=None):
@@ -211,29 +215,95 @@ def _check_groups(tri_pack, groups):
                          "winner index travels as an exact float32)")
 
 
-def tilecull(rays8: torch.Tensor, tri_pack: torch.Tensor,
-             groups: torch.Tensor):
-    """K6: (t, g) for each ray of the (8, R) pack against the Morton-
-    ordered (T, 24) pack and its (G, 8) group table. CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise."""
+def _check_sub(sub, tri_pack, groups, what):
+    """Refuse a table that cannot be `anyhit_sub_boxes` of these groups:
+    spans covering the T rows cut into G groups make between ceil(T /
+    SUB) and (T + (SUB - 1) G) // SUB sub-blocks. (The spans themselves
+    are not read: that would copy the table back from the card on every
+    call; the kernels never skip a sub-block past the table's end.)"""
+    _build.check(sub, "sub", (None, 8))
+    if sub.device != tri_pack.device:
+        raise ValueError(f"{what}'s sub must be on the pack's device")
+    t, g = tri_pack.shape[0], groups.shape[0]
+    lo, hi = -(-t // SUB), (t + (SUB - 1) * g) // SUB
+    if not lo <= sub.shape[0] <= hi:
+        raise ValueError(f"{what}'s sub has {sub.shape[0]} rows: the "
+                         f"anyhit_sub_boxes table of {t} rows in {g} groups "
+                         f"has {lo} to {hi}")
+
+
+def _check_tilecull(rays8, tri_pack, groups, sub, what):
     _build.check_rows(rays8, "rays8", 8)
     _check_groups(tri_pack, groups)
     if not (rays8.device == tri_pack.device == groups.device):
-        raise ValueError("rays8, tri_pack and groups must be on one device")
+        raise ValueError(f"{what}'s rays8, tri_pack and groups must be on "
+                         "one device")
+    if sub is not None:
+        _check_sub(sub, tri_pack, groups, what)
+    return rays8.shape[1]
+
+
+def tilecull(rays8: torch.Tensor, tri_pack: torch.Tensor,
+             groups: torch.Tensor, sub: torch.Tensor | None = None):
+    """K6: (t, g) for each ray of the (8, R) pack against the Morton-
+    ordered (T, 24) pack and its (G, 8) group table. sub: the pack's
+    `anyhit_sub_boxes` table, which the kernel needs
+    (`make_tilecull_intersect` builds it once per scene; the plain
+    version ignores it). CPU tensors take the plain version; CUDA tensors
+    launch the kernel or raise."""
+    r = _check_tilecull(rays8, tri_pack, groups, sub, "tilecull")
     if rays8.device.type == "cpu":
         return tilecull_plain(rays8, tri_pack, groups)
-    r = rays8.shape[1]
+    if sub is None:
+        raise ValueError("tilecull on CUDA tensors needs sub, the pack's "
+                         "anyhit_sub_boxes table")
     t = torch.empty(r, dtype=torch.float32, device=rays8.device)
     g = torch.empty(r, dtype=torch.float32, device=rays8.device)
-    _build.launch("tilecull", rays8, rays8.stride(0), tri_pack, groups, t, g,
-                  r, groups.shape[0])
+    _build.launch("tilecull", rays8, rays8.stride(0), tri_pack, groups, sub,
+                  t, g, r, groups.shape[0], sub.shape[0], TILECULL_COOP)
     return t, g
 
 
+def tilecull_simt(rays8: torch.Tensor, tri_pack: torch.Tensor,
+                  groups: torch.Tensor):
+    """K6's first kernel (`csrc/tilecull.cu::tilecull_simt_kernel`: a
+    group's rows staged for the block where any of its rays needs it), on
+    CUDA tensors: tilecull's (t, g). For the checks only (the smoke and
+    the cuda tests hold the new kernel against it on whole launches and
+    time the two in turns); no render path calls it."""
+    r = _check_tilecull(rays8, tri_pack, groups, None, "tilecull_simt")
+    if rays8.device.type != "cuda":
+        raise ValueError("tilecull_simt runs on CUDA tensors only")
+    t = torch.empty(r, dtype=torch.float32, device=rays8.device)
+    g = torch.empty(r, dtype=torch.float32, device=rays8.device)
+    _build.launch("tilecull_simt", rays8, rays8.stride(0), tri_pack, groups,
+                  t, g, r, groups.shape[0])
+    return t, g
+
+
+def tilecull_counted(rays8: torch.Tensor, tri_pack: torch.Tensor,
+                     groups: torch.Tensor, sub: torch.Tensor):
+    """tilecull's kernel on CUDA tensors, also counting: ((t, g), (tests
+    that reached the divide, (ray, sub-block) box tests that passed,
+    those of them run by the whole warp, edge tests reached, group slab
+    and box tests made)). For the checks only; no render path calls
+    it."""
+    r = _check_tilecull(rays8, tri_pack, groups, sub, "tilecull_counted")
+    if rays8.device.type != "cuda":
+        raise ValueError("tilecull_counted runs on CUDA tensors only")
+    t = torch.empty(r, dtype=torch.float32, device=rays8.device)
+    g = torch.empty(r, dtype=torch.float32, device=rays8.device)
+    count = torch.zeros(5, dtype=torch.int64, device=rays8.device)
+    _build.launch("tilecull_count", rays8, rays8.stride(0), tri_pack, groups,
+                  sub, t, g, r, groups.shape[0], sub.shape[0], TILECULL_COOP,
+                  count)
+    return (t, g), tuple(int(x) for x in count.tolist())
+
+
 def anyhit_sub_boxes(tri_pack: torch.Tensor, groups: torch.Tensor):
-    """K7's table of the skip rule (`cluster_kernel.sub_boxes`) for the
-    Morton-ordered pack cut into its groups' spans: (S, 8), each group's
-    ceil(rows / SUB) sub-blocks in table order."""
+    """K6's and K7's table of the skip rule (`cluster_kernel.sub_boxes`)
+    for the Morton-ordered pack cut into its groups' spans: (S, 8), each
+    group's ceil(rows / SUB) sub-blocks in table order."""
     spans = groups[:, 6:8].cpu().numpy().astype(np.int64)
     return sub_boxes(tri_pack, spans)
 
@@ -247,12 +317,7 @@ def _check_anyhit(rays8, rmax, tri_pack, groups, sub, what):
         raise ValueError(f"{what}'s rays8, rmax, tri_pack and groups must "
                          "be on one device")
     if sub is not None:
-        # Its row count is not checked against the groups' spans (that
-        # would read the table back from the card on every call): the
-        # kernel never skips a sub-block past the table's end.
-        _build.check(sub, "sub", (None, 8))
-        if sub.device != rays8.device:
-            raise ValueError(f"{what}'s sub must be on the rays' device")
+        _check_sub(sub, tri_pack, groups, what)
     return r
 
 
@@ -332,12 +397,16 @@ def make_tilecull_intersect(tris: TrianglesSoA, *, gs: int = 128,
     winner's original triangle index (-1 on a miss) when with_ids=True.
     origin (the camera eye) orders the groups front to back. On exact-t
     ties the winner is the first in Morton order, where K1's is the first
-    in scene order; t is the same."""
+    in scene order; t is the same. The Morton-ordered pack, its groups
+    and, on the card, K6's table of the skip rule (`anyhit_sub_boxes`)
+    are built once here."""
     pack, groups, perm = grouped_pack(tris, gs, origin)
     perm_t = torch.as_tensor(perm, device=tris.device)
+    sub = (anyhit_sub_boxes(pack, groups) if pack.device.type == "cuda"
+           else None)
 
     def intersect(rays: Rays):
-        t1, g1 = tilecull(pack_rays(rays.p, rays.d), pack, groups)
+        t1, g1 = tilecull(pack_rays(rays.p, rays.d), pack, groups, sub)
         hits = assemble_hits(rays, rays.count, *refine1(t1, g1, pack))
         if not with_ids:
             return hits

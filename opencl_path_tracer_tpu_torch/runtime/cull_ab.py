@@ -1,5 +1,6 @@
-"""K17 (the cluster intersector) or K7 (the any-hit test) built from two
-source trees and timed in one process.
+"""K17 (the cluster intersector), K7 (the any-hit test), K6 (the
+tile-culled nearest hit) or K16 (the mask-grouped intersector) built from
+two source trees and timed in one process.
 
 No counterpart in `opencl_path_tracer_tpu`. Compares the kernel of this
 checkout with the kernel of another checkout's `csrc/`, on the inputs
@@ -14,29 +15,41 @@ checkout with the kernel of another checkout's `csrc/`, on the inputs
   rows, on the NEE shadow rays (`shadow_rays`) at the hits of the 1080p
   camera rays, or with `--bounce N` at the hits of the N-th bounce's
   rays; `--scene reference` takes the reference scene
-  (tests/assets/models) and its camera instead.
+  (tests/assets/models) and its camera instead;
+- `--kernel tilecull`: K6 over the Cornell box's Morton groups of 128
+  rows ordered front to back from the camera's eye, as the 'tilecull'
+  accel builds them, on the 1080p camera rays or with `--bounce N` the
+  N-th bounce's rays; `--scene reference` as for K7;
+- `--kernel group`: K16 over the reference scene's 15 clusters of 128
+  (`build_clusters(split_large=True)`), on the 1080p camera rays or the
+  N-th bounce's, mask-sorted in blocks of 2,048 by `group_inputs`, as
+  the 'group' accel runs it (the line also times `group_inputs`, the
+  plain passes that make K16's inputs); `--scene cornell` takes the
+  Cornell box's 7 clusters instead.
 
-A source tree whose library exports `ptx_cluster_simt` (or
-`ptx_anyhit_simt`) takes the sub-block table of the skip rule and a
-ballot threshold (this tree's interface); one without takes neither (the
-first kernels' interface). Both builds use `_build`'s nvcc flags and run
-as base, this, this, base (each the mean of --reps launches timed with
-CUDA events), must give equal outputs, and one JSON line (per ballot
-threshold of this tree's kernel given with --coop, the wrapper's by
-default; a base with a table takes the wrapper's) reports the four
-times with what the inputs ask of the kernel: K17's clusters listed
-per tile and (ray, triangle) tests over the listed clusters; K7's groups
-a block of 256 rays stages where any of its rays needs one, and the
-(ray, triangle) tests the first kernel runs (each needing ray until its
-first hit below rmax). Where this tree has the counting entry, the line
-also has its counts at the wrapper's threshold: the tests that reached
-the divide, the sub-block box tests that passed, those of them run by
-the whole warp, the edge tests reached, and the box (K7: and group
-slab) tests made. Needs a GPU:
+A source tree whose library exports `ptx_<kernel>_simt` takes the
+sub-block table of the skip rule and a ballot threshold (this tree's
+interface); one without takes neither (the first kernels' interface).
+Both builds use `_build`'s nvcc flags and run as base, this, this, base
+(each the mean of --reps launches timed with CUDA events), must give
+equal outputs, and one JSON line (per ballot threshold of this tree's
+kernel given with --coop, the wrapper's by default; a base with a table
+takes the wrapper's) reports the four times with what the inputs ask of
+the kernel: K17's clusters listed per tile and (ray, triangle) tests
+over the listed clusters; K7's and K6's groups, K16's clusters, that a
+block of 256 rays stages where any of its rays needs one, and the (ray,
+triangle) tests the first kernel runs (K7: each needing ray until its
+first hit below rmax; K6: each needing ray through the group's rows; K16:
+each ray through every cluster of its block's union). Where this tree
+has the counting entry, the line also has its counts at the wrapper's
+threshold: the tests that reached the divide (and their share of the
+first kernel's tests), the sub-block box tests that passed, those of
+them run by the whole warp, the edge tests reached, and the box (K7, K6:
+and group slab) tests made. Needs a GPU:
 
     python -m opencl_path_tracer_tpu_torch.runtime.cull_ab \\
-        --kernel cluster|anyhit [--bounce N] [--scene reference] \\
-        [--coop N ...] --base DIR
+        --kernel cluster|anyhit|tilecull|group [--bounce N] \\
+        [--scene cornell|reference] [--coop N ...] --base DIR
 
 where DIR is, for example, the `opencl_path_tracer_tpu_torch/csrc` of a
 `git archive` of the parent commit unpacked in a gitignored directory.
@@ -59,7 +72,9 @@ W, H = 1920, 1080
 P, I = ctypes.c_void_p, ctypes.c_int
 # The first kernels' C interfaces (no table, no ballot threshold).
 FIRST_ARGTYPES = {"cluster": [P, P, P, P, P, P, I, I, I, I, I, P],
-                  "anyhit": [P, I, P, P, P, P, I, I, P]}
+                  "anyhit": [P, I, P, P, P, P, I, I, P],
+                  "tilecull": [P, I, P, P, P, P, I, I, P],
+                  "group": [P, P, P, P, I, I, I, I, P]}
 CHUNK = 1 << 18   # rays per pass of the plain counts
 
 
@@ -121,6 +136,36 @@ def anyhit_staging(s8, rmax, pack, groups, block=256):
     return staged / n_blocks, tests
 
 
+def tilecull_staging(r8, pack, groups, block=256):
+    """What the first K6 kernel does on these rays: (groups staged per
+    block of `block` rays (a group is staged where any ray of the block
+    needs it: its slab test passes and tn < its best t so far), (ray,
+    triangle) tests run (each needing ray through all the group's
+    rows))."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import intersect_kernel as k1
+    from opencl_path_tracer_tpu_torch.ops.kernels import tilecull_kernel as tk
+    r = r8.shape[1]
+    n_blocks = -(-r // block)
+    staged = tests = 0
+    gl = groups.cpu().tolist()
+    for s in range(0, r, CHUNK):
+        x = r8[:, s:s + CHUNK]
+        inv = [tk._safe_inv(c) for c in x[3:6]]
+        best = torch.full_like(x[0], k1.BIG)
+        for row in gl:
+            tn, tf = tk._slab(x[0:3], inv, row[0:3], row[3:6])
+            need = (tf >= tn) & (tf >= 0.0) & (tn < best)
+            pad = -need.shape[0] % block
+            staged += int(torch.nn.functional.pad(need, (0, pad))
+                          .view(-1, block).any(1).sum())
+            base, end = int(row[6]), int(row[7])
+            tests += int(need.sum()) * (end - base)
+            t, valid = k1.exact_test(pack[base:end], x)
+            tm = torch.where(valid & need[None], t, torch.full_like(t, k1.BIG))
+            best = torch.minimum(best, tm.min(0).values)
+    return staged / n_blocks, tests
+
+
 def _load(name, path, log):
     lib = ctypes.CDLL(str(path))
     table = hasattr(lib, f"ptx_{name}_simt")
@@ -164,8 +209,11 @@ def _cluster_case(args, dev):
         return ck.run_cluster_counted(rr8, cnt, ids, ent, rows, k, tr,
                                       False, sub)[1]
 
-    return ((rr8, cnt, ids, ent, rows), (g, tr, c, k, 0), (),
-            (6, rr8.shape[0]), table, counted, info)
+    def alloc():
+        return (torch.empty((6, rr8.shape[0]), device=dev),)
+
+    return ((rr8, cnt, ids, ent, rows), (g, tr, c, k, 0), (), alloc, table,
+            counted, info)
 
 
 def _anyhit_case(args, dev):
@@ -173,15 +221,7 @@ def _anyhit_case(args, dev):
     from opencl_path_tracer_tpu_torch.ops.kernels import intersect_kernel as k1
     from opencl_path_tracer_tpu_torch.ops.kernels import tilecull_kernel as tk
     from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
-    from opencl_path_tracer_tpu_torch.scene import library
-    if args.scene == "cornell":
-        scene = library.cornell_box(with_spheres=True, device=dev)
-        cam = library.cornell_camera(W, H, device=dev)
-    else:
-        models = pathlib.Path(__file__).resolve().parents[2] / "tests" / (
-            "assets/models")
-        scene = library.reference_scene(str(models), smooth=True, device=dev)
-        cam = library.reference_camera(W, H, device=dev)
+    scene, cam = _scene_camera(args.scene, dev)
     rays = _camera_rays(cam, dev)
     for _ in range(args.bounce):
         rays = _bounce(scene, cam, rays)
@@ -200,8 +240,89 @@ def _anyhit_case(args, dev):
     def counted(sub):
         return tk.anyhit_counted(s8, rmax, pack, groups, sub)[1]
 
+    def alloc():
+        return (torch.empty(r, dtype=torch.bool, device=dev),)
+
     return ((s8, s8.stride(0), rmax, pack, groups), (r, groups.shape[0]),
-            (sub.shape[0],), (r,), lambda: sub, counted, info)
+            (sub.shape[0],), alloc, lambda: sub, counted, info)
+
+
+def _scene_camera(name, dev):
+    from opencl_path_tracer_tpu_torch.scene import library
+    if name == "cornell":
+        return (library.cornell_box(with_spheres=True, device=dev),
+                library.cornell_camera(W, H, device=dev))
+    models = pathlib.Path(__file__).resolve().parents[2] / "tests" / (
+        "assets/models")
+    return (library.reference_scene(str(models), smooth=True, device=dev),
+            library.reference_camera(W, H, device=dev))
+
+
+def _tilecull_case(args, dev):
+    """K6's inputs and stats, as `_cluster_case`'s."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import intersect_kernel as k1
+    from opencl_path_tracer_tpu_torch.ops.kernels import tilecull_kernel as tk
+    scene, cam = _scene_camera(args.scene, dev)
+    rays = _camera_rays(cam, dev)
+    for _ in range(args.bounce):
+        rays = _bounce(scene, cam, rays)
+    r8 = k1.pack_rays(rays.p, rays.d).contiguous()
+    eye = tuple(float(v) for v in cam.eye.cpu())
+    pack, groups, _ = tk.grouped_pack(scene.tris, 128, origin=eye)
+    r = r8.shape[1]
+    staged, tests = tilecull_staging(r8, pack, groups)
+    info = {"scene": args.scene, "triangles": pack.shape[0],
+            "groups": groups.shape[0], "staged_per_block": staged,
+            "first_kernel_tests": tests}
+    sub = tk.anyhit_sub_boxes(pack, groups)
+
+    def counted(sub):
+        return tk.tilecull_counted(r8, pack, groups, sub)[1]
+
+    def alloc():
+        return tuple(torch.empty(r, device=dev) for _ in range(2))
+
+    return ((r8, r8.stride(0), pack, groups), (r, groups.shape[0]),
+            (sub.shape[0],), alloc, lambda: sub, counted, info)
+
+
+def _group_case(args, dev):
+    """K16's inputs and stats, as `_cluster_case`'s."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import cluster_kernel as ck
+    from opencl_path_tracer_tpu_torch.ops.kernels import sorted_intersect as si
+    scene, cam = _scene_camera(args.scene, dev)
+    rays = _camera_rays(cam, dev)
+    for _ in range(args.bounce):
+        rays = _bounce(scene, cam, rays)
+    gscene, c, k = ck.build_clusters(scene.tris, 128, split_large=True)
+    rows = gscene.rows()
+    block = 2048
+    _, union, g8 = si.group_inputs(rays, gscene.boxes, block)
+    # The plain passes before K16 (masks, sort, unions), for scale.
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(args.reps):
+        si.group_inputs(rays, gscene.boxes, block)
+    e1.record()
+    torch.cuda.synchronize(dev)
+    rpad = g8.shape[0]
+    # Every block of 256 rays lies in one group of 2,048: the first kernel
+    # stages its group's union, and every ray tests all of it.
+    bits = sum(((union >> b) & 1).long() for b in range(c))
+    info = {"scene": args.scene, "clusters": c, "k": k,
+            "staged_per_block": float(bits.float().mean()),
+            "first_kernel_tests": int(bits.sum()) * block * k,
+            "group_inputs_ms": e0.elapsed_time(e1) / args.reps}
+
+    def counted(sub):
+        return si.run_group_counted(union, g8, rows, k, block, sub)[1]
+
+    def alloc():
+        return (torch.empty((5, rpad), device=dev),)
+
+    return ((union, g8, rows), (rpad, block, c, k), (), alloc,
+            lambda: ck.cluster_sub_boxes(rows, k), counted, info)
 
 
 def _camera_rays(cam, dev):
@@ -214,22 +335,27 @@ def _camera_rays(cam, dev):
 def main(argv=None) -> int:
     from opencl_path_tracer_tpu_torch.ops.kernels import _build
     from opencl_path_tracer_tpu_torch.ops.kernels import cluster_kernel as ck
+    from opencl_path_tracer_tpu_torch.ops.kernels import sorted_intersect as si
     from opencl_path_tracer_tpu_torch.ops.kernels import tilecull_kernel as tk
     from opencl_path_tracer_tpu_torch.utils.device import resolve_device
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernel", required=True, choices=("cluster", "anyhit"))
+    ap.add_argument("--kernel", required=True,
+                    choices=("cluster", "anyhit", "tilecull", "group"))
     ap.add_argument("--base", required=True, type=pathlib.Path,
                     help="the csrc/ directory of the checkout to compare")
     ap.add_argument("--bounce", type=int, default=0,
                     help="rays of this bounce (0: the camera rays)")
     ap.add_argument("--scene", choices=("cornell", "reference"),
-                    default="cornell", help="K7's scene")
+                    default=None, help="K7's, K6's or K16's scene (default: "
+                    "cornell, for K16 reference)")
     ap.add_argument("--coop", type=int, nargs="+", default=None,
                     help="ballot thresholds of this tree's kernel, one "
                     "line each (default: the wrapper's)")
     ap.add_argument("--reps", type=int, default=10)
     args = ap.parse_args(argv)
+    if args.scene is None:
+        args.scene = "reference" if args.kernel == "group" else "cornell"
     dev = resolve_device("cuda")
     name = args.kernel
     out_dir = _build.BUILD_DIR / "ab"
@@ -244,10 +370,12 @@ def main(argv=None) -> int:
             raise RuntimeError(f"nvcc failed for {k}:\n{log}")
         fns[k], tables[k], regs[k] = _load(name, libs[k], log)
 
-    case = _cluster_case if name == "cluster" else _anyhit_case
-    before, after, extra, shape, table, counted, info = case(args, dev)
+    case = {"cluster": _cluster_case, "anyhit": _anyhit_case,
+            "tilecull": _tilecull_case, "group": _group_case}[name]
+    before, after, extra, alloc, table, counted, info = case(args, dev)
     sub = table() if any(tables.values()) else None
-    default = ck.CLUSTER_COOP if name == "cluster" else tk.ANYHIT_COOP
+    default = {"cluster": ck.CLUSTER_COOP, "anyhit": tk.ANYHIT_COOP,
+               "tilecull": tk.TILECULL_COOP, "group": si.GROUP_COOP}[name]
     if tables["this"]:
         # The counting entry at the wrapper's threshold (only the whole
         # warp's share depends on it).
@@ -255,9 +383,9 @@ def main(argv=None) -> int:
         info.update({"divide_tests": n_div, "box_passed": n_box,
                      "box_passed_warp": n_coop, "edge_tests": n_edge,
                      "box_tests": n_tests})
-    outs = {k: torch.empty(shape, device=dev,
-                           dtype=torch.float32 if name == "cluster"
-                           else torch.bool) for k in fns}
+        if "first_kernel_tests" in info:
+            info["divide_share"] = n_div / max(info["first_kernel_tests"], 1)
+    outs = {k: alloc() for k in fns}
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def ptr(a):
@@ -267,16 +395,17 @@ def main(argv=None) -> int:
     for coop in args.coop or [default]:
         def launch(k):
             if tables[k]:
-                a = (*before, sub, outs[k], *after, *extra,
+                a = (*before, sub, *outs[k], *after, *extra,
                      coop if k == "this" else default)
             else:
-                a = (*before, outs[k], *after)
+                a = (*before, *outs[k], *after)
             err = fns[k](*(ptr(x) for x in a), stream)
             if err:
                 raise RuntimeError(f"{name} ({k}) failed: cudaError_t {err}")
 
         order, times = time_in_turns(launch, args.reps, dev)
-        equal = torch.equal(outs["base"], outs["this"])
+        equal = all(torch.equal(a, b)
+                    for a, b in zip(outs["base"], outs["this"]))
         status |= not equal
         print(json.dumps({
             "kernel": name, "bounce": args.bounce, **info,

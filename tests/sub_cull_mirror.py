@@ -1,8 +1,10 @@
 """An exact float32 mirror of the sub-block skip rule's slab test
 (csrc/sub_cull.cuh: cull_ray, box_maybe) and of the loops that K12
-(csrc/pair_vpu.cu), K17 (csrc/cluster.cu) and K7 (csrc/anyhit.cu) run
-over it, on the CPU. Shared by tests/test_torch_pair_vpu_cull.py,
-test_torch_cluster_cull.py and test_torch_anyhit_cull.py.
+(csrc/pair_vpu.cu), K17 (csrc/cluster.cu), K7 (csrc/anyhit.cu), K6
+(csrc/tilecull.cu) and K16 (csrc/group.cu) run over it, on the CPU.
+Shared by tests/test_torch_pair_vpu_cull.py, test_torch_cluster_cull.py,
+test_torch_anyhit_cull.py, test_torch_tilecull_cull.py and
+test_torch_group_cull.py.
 
 CUDA's directed roundings (__fadd_rd/_ru, __fmul_rd/_ru, __frcp_rd/_ru)
 are emulated exactly: float32 sums and products are exact in float64 up
@@ -260,3 +262,86 @@ def mirrored_anyhit(s8, rmax, pack, groups, sub):
             occ |= go & hit[j0:j1].any(0)
         sb += -(-(end - base) // SUB)
     return occ, n_div, n_box
+
+
+def mirrored_tilecull(r8, pack, groups, sub, coop):
+    """K6's loop: per ray, the groups in table order (needed where the
+    slab test passes and tn is below the ray's best t), in a needed group
+    the sub-blocks in order, skipped where box_maybe fails against the
+    running best (never one past the table's end), merged as the
+    kernel's warps of 32 consecutive rays choose with coop. r8 (8, R)
+    float32. Returns (t (R,), winner row (R,), tests reaching the
+    divide, box tests passed, slab and box tests made)."""
+    rays = torch.from_numpy(r8)
+    inv = [tk._safe_inv(c) for c in rays[3:6]]
+    cr = cull_ray(r8[0:3], r8[3:6])
+    r = r8.shape[1]
+    bt = np.full(r, BIG32)
+    bg = np.zeros(r, np.int64)
+    n_div = n_box = n_made = 0
+    sb = 0
+    for row in groups.tolist():
+        tn, tf = (x.numpy() for x in tk._slab(rays[0:3], inv, row[0:3],
+                                             row[3:6]))
+        with np.errstate(invalid="ignore"):
+            need = (tf >= tn) & (tf >= 0) & (tn < bt)
+        base, end = int(row[6]), int(row[7])
+        t, ok = (x.numpy() for x in k1.exact_test(pack[base:end], rays))
+        n_made += r
+        nsb = -(-(end - base) // SUB)
+        for s in range(nsb):
+            j0, j1 = s * SUB, min(end - base, (s + 1) * SUB)
+            go = need.copy()
+            if sb + s < sub.shape[0]:
+                go &= box_maybe(cr, sub[sb + s][:, None], bt)
+            n_made += int(need.sum())
+            n_box += int(go.sum())
+            n_div += int(go.sum()) * (j1 - j0)
+            bt, bg = merge_sub_block(t[j0:j1], ok[j0:j1], go, bt, bg,
+                                     base + j0, warp_ballots(go, coop))
+        sb += nsb
+    return bt, bg, n_div, n_box, n_made
+
+
+def mirrored_group(union, rr8, rows, k, block, sub, coop):
+    """K16's loop: per ray of the (Rpad, 8) rows, the clusters of its
+    block's union (union (G,), none for a ray with D = 0) in ascending
+    order, each cluster's sub-blocks in order, skipped where box_maybe
+    fails against the running best, merged as the kernel's warps of 32
+    consecutive rays choose with coop. Returns (t (Rpad,), winner row
+    (Rpad,), tests reaching the divide, box tests passed, box tests
+    made)."""
+    r8 = np.ascontiguousarray(rr8.T)
+    u = np.repeat(np.asarray(union, np.int64), block)
+    u = np.where((r8[3:6] != 0).any(0), u, 0)
+    cr = cull_ray(r8[0:3], r8[3:6])
+    nsb = -(-k // SUB)
+    r = r8.shape[1]
+    bt = np.full(r, BIG32)
+    bg = np.zeros(r, np.int64)
+    n_div = n_box = n_made = 0
+    for ci in range(rows.shape[0] // k):
+        take = ((u >> ci) & 1) == 1
+        if not take.any():
+            continue
+        t, ok = accepted(rows, k, ci, r8)
+        for s in range(nsb):
+            j0, j1 = s * SUB, min(k, (s + 1) * SUB)
+            go = take & box_maybe(cr, sub[ci * nsb + s][:, None], bt)
+            n_made += int(take.sum())
+            n_box += int(go.sum())
+            n_div += int(go.sum()) * (j1 - j0)
+            bt, bg = merge_sub_block(t[j0:j1], ok[j0:j1], go, bt, bg,
+                                     ci * k + j0, warp_ballots(go, coop))
+    return bt, bg, n_div, n_box, n_made
+
+
+def never_skipped(n):
+    """A table of n sub-blocks none of which is ever skipped (the
+    infinite box): the mirrors then run every row, the first kernels'
+    walk."""
+    out = np.zeros((n, 8), F32)
+    out[:, 0:3] = -np.inf
+    out[:, 4:7] = np.inf
+    out[:, 3] = np.inf
+    return out

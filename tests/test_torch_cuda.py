@@ -114,15 +114,15 @@ def test_third_slice_kernels_equal_plain_versions(cuda):
     pack, groups, _ = tk.grouped_pack(scene.tris, 128,
                                      origin=(500.0, 500.0, -1299.0))
     counts = dict(_build.launches)
-    t, g = tk.tilecull(rays8, pack, groups)
+    sub = tk.anyhit_sub_boxes(pack, groups)
+    t, g = tk.tilecull(rays8, pack, groups, sub)
     tp, gp = tk.tilecull_plain(rays8, pack, groups)
     assert torch.equal(t, tp) and torch.equal(g, gp)
     t1, _ = k1.minarg(rays8, k1.build_tri_pack(scene.tris))
     assert torch.equal(t, t1)
     rmax = torch.rand(rays8.shape[1], device=cuda,
                       generator=torch.Generator(cuda).manual_seed(0)) * 900.0
-    occ = tk.anyhit(rays8, rmax, pack, groups,
-                    tk.anyhit_sub_boxes(pack, groups))
+    occ = tk.anyhit(rays8, rmax, pack, groups, sub)
     assert torch.equal(occ, tk.anyhit_plain(rays8, rmax, pack, groups))
     assert torch.equal(occ, (t1 < k1.BIG) & (t1 < rmax))
     many = library.many_light_scene(64, device=cuda)
@@ -147,11 +147,12 @@ def test_no_fallback_when_the_loader_fails(cuda, monkeypatch):
         k1.dense(_rays8(64, 1, cuda), k1.build_tri_pack(scene.tris))
     from opencl_path_tracer_tpu_torch.ops.kernels import tilecull_kernel as tk
     pack, groups, _ = tk.grouped_pack(scene.tris, 128)
+    sub = tk.anyhit_sub_boxes(pack, groups)
     with pytest.raises(RuntimeError, match="disabled"):
-        tk.tilecull(_rays8(64, 1, cuda), pack, groups)
+        tk.tilecull(_rays8(64, 1, cuda), pack, groups, sub)
     with pytest.raises(RuntimeError, match="disabled"):
         tk.anyhit(_rays8(64, 1, cuda), torch.ones(64, device=cuda), pack,
-                  groups, tk.anyhit_sub_boxes(pack, groups))
+                  groups, sub)
     many = library.many_light_scene(64, device=cuda)
     with pytest.raises(RuntimeError, match="disabled"):
         k3.sphere_table(_rays8(64, 1, cuda),
@@ -305,7 +306,8 @@ def test_sixth_slice_kernels_equal_plain_versions(cuda, monkeypatch):
                           device=cuda)
     r16 = ck.pack_rays_rows([rays8[j] for j in range(3)],
                             [rays8[j] for j in range(3, 6)], 20_480)
-    out16 = si.run_group(union, r16, cs16.rows(), k16, 2048)
+    sub16 = ck.cluster_sub_boxes(cs16.rows(), k16)
+    out16 = si.run_group(union, r16, cs16.rows(), k16, 2048, sub16)
     assert all(torch.equal(a, b) for a, b in zip(out16, si.group_plain(
         union, r16, cs16.rows(), k16, 2048)))
     assert {n: _build.launches[n] - before[n]
@@ -334,7 +336,7 @@ def test_sixth_slice_kernels_equal_plain_versions(cuda, monkeypatch):
         ck.run_cluster(r8, cnt, ids17, ent, cs17.rows(), k17, 256, False,
                        sub17)
     with pytest.raises(RuntimeError, match="disabled"):
-        si.run_group(union, r16, cs16.rows(), k16, 2048)
+        si.run_group(union, r16, cs16.rows(), k16, 2048, sub16)
 
 
 @pytest.mark.cuda
@@ -1236,3 +1238,148 @@ def test_fourteenth_slice_megakernel_nee_skips_the_last_shadow_batch(
     colors_all, n_all = render()
     assert n_all == 2 * 5
     assert torch.equal(colors, colors_all)
+
+
+@pytest.mark.cuda
+def test_fifteenth_slice_tilecull_equals_first_kernel(cuda, monkeypatch):
+    """K6 with the sub-block skip rule against its first kernel, its
+    plain version and its counting entry on the Cornell box and the
+    reference scene (its zero-area triangles), groups front to back from
+    the camera's eye, on random rays, rays aimed at triangles and rays
+    with zero, subnormal and huge components, a batch that ends inside a
+    warp; every sub-block lane by lane, all by the whole warp and the
+    default mix; t equal to K1's; with the loader broken, the three
+    entries raise."""
+    import pathlib
+    from march_lanes import aimed_rays
+    from opencl_path_tracer_tpu_torch.ops.kernels import tilecull_kernel as tk
+    models = pathlib.Path(__file__).resolve().parent / "assets" / "models"
+    for scene, cam in (
+            (library.cornell_box(with_spheres=True, device=cuda),
+             library.cornell_camera(16, 16, device=cuda)),
+            (library.reference_scene(str(models), smooth=True, device=cuda),
+             library.reference_camera(16, 16, device=cuda))):
+        eye = tuple(float(v) for v in cam.eye.cpu())
+        pack, groups, _ = tk.grouped_pack(scene.tris, 128, origin=eye)
+        sub = tk.anyhit_sub_boxes(pack, groups)
+        rays8 = torch.cat([_rays8(30_001, 7, cuda), torch.as_tensor(
+            aimed_rays(20_000, 8, scene.tris)).to(cuda)], 1)
+        sel = rays8[:, ::13]
+        for n, (row, v) in enumerate([(3, 0.0), (4, -0.0), (3, 1e-42),
+                                      (5, -3e-39), (4, 1e30), (0, 3e20),
+                                      (3, 2e12)]):
+            sel[row, n::7] = v
+        sel[3:6, 7::14] = 0.0
+        rays8[:, ::13] = sel
+        first = tk.tilecull_simt(rays8, pack, groups)
+        plain = tk.tilecull_plain(rays8, pack, groups)
+        assert all(torch.equal(a, b) for a, b in zip(first, plain))
+        t1 = k1.minarg(rays8, k1.build_tri_pack(scene.tris))[0]
+        assert torch.equal(first[0], t1)
+        counts = {}
+        for coop in (-1, 12, 32):
+            monkeypatch.setattr(tk, "TILECULL_COOP", coop)
+            out = tk.tilecull(rays8, pack, groups, sub)
+            assert all(torch.equal(a, b) for a, b in zip(out, first)), coop
+            counted, counts[coop] = tk.tilecull_counted(rays8, pack, groups,
+                                                        sub)
+            assert all(torch.equal(a, b) for a, b in zip(counted, first))
+        n_div, n_box, n_coop, n_edge, n_made = counts[12]
+        assert 0 < n_div and n_coop <= n_box < n_made
+        assert 0 < n_edge <= 3 * n_div
+        assert counts[-1][:2] == counts[32][:2] == (n_div, n_box)
+        assert counts[-1][2] == 0 and counts[32][2] == n_box
+        assert counts[-1][3] == counts[32][3] == n_edge
+        assert int((first[0] < k1.BIG).sum()) > 1000
+
+    def broken(name):
+        raise RuntimeError("kernel loader disabled by the test")
+
+    monkeypatch.setattr(_build, "library", broken)
+    for fn in (lambda: tk.tilecull(rays8, pack, groups, sub),
+               lambda: tk.tilecull_simt(rays8, pack, groups),
+               lambda: tk.tilecull_counted(rays8, pack, groups, sub)):
+        with pytest.raises(RuntimeError, match="disabled"):
+            fn()
+
+
+@pytest.mark.cuda
+def test_fifteenth_slice_group_equals_first_kernel(cuda, monkeypatch):
+    """K16 with the sub-block skip rule against its first kernel, its
+    plain version and its counting entry on the Cornell box's and the
+    reference scene's clusters, on camera and first-bounce rays (64 x 64)
+    mask-sorted by `group_inputs` in blocks of 2,048 and of 96 (blocks
+    that straddle warps), and on random rays under random unions (bits
+    of clusters a ray's own mask lacks); every sub-block lane by lane,
+    all by the whole warp and the default mix; the 'group' accel's hits
+    equal K4's; with the loader broken, the three entries raise."""
+    import pathlib
+    from opencl_path_tracer_tpu_torch.core.types import Rays
+    from opencl_path_tracer_tpu_torch.ops.kernels import cluster_kernel as ck
+    from opencl_path_tracer_tpu_torch.ops.kernels import sorted_intersect as si
+    from opencl_path_tracer_tpu_torch.runtime.cull_ab import _bounce
+    from opencl_path_tracer_tpu_torch.ops import raygen, rng
+    models = pathlib.Path(__file__).resolve().parent / "assets" / "models"
+    gen = torch.Generator(cuda).manual_seed(2)
+    for scene, cam in (
+            (library.cornell_box(with_spheres=True, device=cuda),
+             library.cornell_camera(64, 64, device=cuda)),
+            (library.reference_scene(str(models), smooth=True, device=cuda),
+             library.reference_camera(64, 64, device=cuda))):
+        cscene, c, k = ck.build_clusters(scene.tris, 128, split_large=True)
+        rows = cscene.rows()
+        sub = ck.cluster_sub_boxes(rows, k)
+        s1, u1 = rng.lehmer_step(rng.seed_pixel_streams(64 * 64, 1,
+                                                        device=cuda))
+        _, u2 = rng.lehmer_step(s1)
+        rays = raygen.camera_rays(cam, raygen.pixel_ids(64, 64, cuda), u1,
+                                  u2)
+        r8 = _rays8(10_240, 9, cuda)
+        batches = []
+        for block in (2048, 96):
+            for rs in (rays, _bounce(scene, cam, rays)):
+                _, union, rr8 = si.group_inputs(rs, cscene.boxes, block)
+                batches.append((union, rr8, block, True))
+        union = torch.randint(0, 1 << c, (5,), dtype=torch.int32,
+                              device=cuda, generator=gen)
+        batches.append((union, ck.pack_rays_rows(
+            [r8[j] for j in range(3)], [r8[j] for j in range(3, 6)],
+            10_240), 2048, False))
+        for union, rr8, block, aimed in batches:
+            args = (union, rr8, rows, k, block)
+            first = si.run_group_simt(*args)
+            plain = si.group_plain(*args)
+            assert all(torch.equal(a, b) for a, b in zip(first, plain))
+            counts = {}
+            for coop in (-1, 12, 32):
+                monkeypatch.setattr(si, "GROUP_COOP", coop)
+                out = si.run_group(*args, sub)
+                assert all(torch.equal(a, b) for a, b in zip(out, first)), (
+                    block, coop)
+                counted, counts[coop] = si.run_group_counted(*args, sub)
+                assert all(torch.equal(a, b) for a, b in zip(counted, first))
+            n_div, n_box, n_coop, n_edge, n_made = counts[12]
+            bits = sum(int(((union >> b) & 1).sum()) for b in range(c))
+            assert n_div < bits * block * k and n_coop <= n_box < n_made
+            assert n_edge <= 3 * n_div and (n_edge > 0 or not aimed)
+            assert counts[-1][:2] == counts[32][:2] == (n_div, n_box)
+            assert counts[-1][2] == 0 and counts[32][2] == n_box
+            assert counts[-1][3] == counts[32][3] == n_edge
+        monkeypatch.setattr(si, "GROUP_COOP", 16)
+        both = Rays(p=tuple(r8[j].contiguous() for j in range(3)),
+                    d=tuple(r8[j].contiguous() for j in range(3, 6)))
+        h = si.make_group_intersect(scene.tris)(both)
+        td = k1.dense(r8, k1.build_tri_pack(scene.tris))[0]
+        hit = td < k1.BIG
+        assert torch.equal(h.t > 0, hit)
+        torch.testing.assert_close(h.t[hit], td[hit], rtol=2e-5, atol=1e-3)
+
+    def broken(name):
+        raise RuntimeError("kernel loader disabled by the test")
+
+    monkeypatch.setattr(_build, "library", broken)
+    for fn in (lambda: si.run_group(*args, sub),
+               lambda: si.run_group_simt(*args),
+               lambda: si.run_group_counted(*args, sub)):
+        with pytest.raises(RuntimeError, match="disabled"):
+            fn()

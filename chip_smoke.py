@@ -158,6 +158,19 @@ first kernel, and the kernels line has K6 rows on the cornell camera and
 first-bounce rays and K16 rows on the reference camera and first-bounce
 rays, their bounds counted from the tests the rule leaves.
 
+K14 and K15 walk their pack's sub-blocks of 32 rows in row order and
+skip, per ray, those whose boxes (the pack's one-span table) the ray's
+segment to its running best misses (K15 none while its best is above
+BIG), with nothing staged for a block. Each is held against its first
+kernel (`plucker_kernel.minarg_fused_simt`, `intersect_kernel.
+mxu_simt`) and its counting entry on the cornell camera and first-bounce
+rays and the reference camera rays, and against its plain version and
+first kernel (K14 also K1 + K2) on tests/sub_cull_mirror.py's crafted
+batches, with the sub-blocks passed and the tests that reach the divide
+printed; each is timed in turns against its first kernel, and the
+kernels line has their rows on the cornell camera and first-bounce rays,
+their bounds counted from the tests the rule leaves.
+
 The last two lines are a JSON object per kernel (time, plain time,
 bound, launches) and the verdict; the line before them, the smoke's total
 time. Any failed phase raises, and the
@@ -309,7 +322,9 @@ CHECK_ONLY = ("minarg_simt", "minarg_count", "plucker_cand_simt",
               "lazy_march_count", "pair_visit_simt", "pair_visit_count",
               "pair_vpu_simt", "pair_vpu_count", "cluster_simt",
               "cluster_count", "anyhit_simt", "anyhit_count",
-              "tilecull_simt", "tilecull_count", "group_simt", "group_count")
+              "tilecull_simt", "tilecull_count", "group_simt", "group_count",
+              "minarg_fused_simt", "minarg_fused_count", "mxu_simt",
+              "mxu_count")
 PAIR_KERNELS = ("pair_cand", "pair_visit", "attr_fetch")
 MODELS_DIR = os.path.join(HERE, "tests", "assets", "models")
 REFERENCE_TRIS = 1838   # ground plane + the seven models (docs/BENCHMARKS.md)
@@ -1199,12 +1214,24 @@ def check_slice8(torch, scenes, cam, cam_rays, errs):
     rays (1,838 triangles); K15 against its plain version on all six
     outputs on the cornell rays, and its lanes whose t, index or hit/miss
     differ from K4's counted (information: the two round their dots
-    differently by design); every comparison torch.equal. Returns the inputs at which K14 and K15 are timed, with
-    their plain versions' times (ms) from these checks."""
+    differently by design); every comparison torch.equal. Both take their
+    pack's table of the skip rule (`cluster_kernel.sub_boxes` over the one
+    span [0, T), its host build timed here). Returns the inputs at which
+    K14 and K15 are checked further and timed (check_slice16), with their
+    plain versions' times (ms) from these checks."""
     from opencl_path_tracer_tpu_torch.ops.kernels import (
-        intersect_kernel as k1, plucker_kernel as k2)
+        cluster_kernel as ck, intersect_kernel as k1, plucker_kernel as k2)
     from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
     from opencl_path_tracer_tpu_torch.scene import library
+
+    def table(pack):
+        t0 = time.perf_counter()
+        sub = ck.sub_boxes(pack, [(0, pack.shape[0])])
+        torch.cuda.synchronize()
+        print(f"the skip rule's table of {pack.shape[0]} rows in one span "
+              f"({sub.shape[0]} sub-blocks): built on the host in "
+              f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
+        return sub
 
     def compare(name, outs, plain, where):
         torch.cuda.synchronize()
@@ -1216,20 +1243,21 @@ def check_slice8(torch, scenes, cam, cam_rays, errs):
     inputs = {}
     corn = scenes["cornell"]
     pack = k1.build_tri_pack(corn.tris)
+    sub = table(pack)
     isect = make_intersect_fn(corn, "auto")
     for rname, rays in (("camera", cam_rays),
                         ("bounce", bounce_rays(torch, corn, cam, cam_rays,
                                                isect))):
         where = f"cornell {rname} rays"
         rays8 = k1.pack_rays(rays.p, rays.d).contiguous()
-        f = k2.minarg_fused(rays8, pack)
+        f = k2.minarg_fused(rays8, pack, sub)
         plain, f_ms = timed(torch,
                             lambda: k2.minarg_fused_plain(rays8, pack))
         compare("minarg_fused", f, plain, where)
         need(all(torch.equal(a, b) for a, b in zip(
             f, k2.refine1(*k1.minarg(rays8, pack), pack))),
              f"minarg_fused differs from minarg + refine1 on {where}")
-        o = k1.mxu(rays8, pack)
+        o = k1.mxu(rays8, pack, sub)
         plain, m_ms = timed(torch, lambda: k1.mxu_plain(rays8, pack))
         compare("mxu", o, plain, where)
         d = k1.dense(rays8, pack)
@@ -1240,9 +1268,7 @@ def check_slice8(torch, scenes, cam, cam_rays, errs):
               f"dense: {int((o[0] != d[0]).sum())} lanes with another t, "
               f"{int((o[1] != d[1]).sum())} with another index, "
               f"{int((h15 != h4).sum())} with another hit or miss")
-        if rname == "camera":
-            inputs["minarg_fused"] = (rays8, pack, f_ms)
-            inputs["mxu"] = m_ms
+        inputs[f"dense16 cornell {rname}"] = (rays8, pack, sub, f_ms, m_ms)
     # K4 at the stress tails' shape: 16,384 lanes of the camera rays.
     stress = scenes["stress"]
     sl = slice(None, 126 * 16384, 126)
@@ -1253,16 +1279,21 @@ def check_slice8(torch, scenes, cam, cam_rays, errs):
     # A second, larger table: the reference scene.
     ref = scenes["reference"]
     rpack = k1.build_tri_pack(ref.tris)
+    rsub = table(rpack)
     rays = camera_rays(library.reference_camera(W, H, device="cuda"))
     r8 = k1.pack_rays(rays.p, rays.d).contiguous()
-    f = k2.minarg_fused(r8, rpack)
+    f = k2.minarg_fused(r8, rpack, rsub)
     compare("minarg_fused", f, k2.minarg_fused_plain(r8, rpack),
             "reference camera rays")
     need(all(torch.equal(a, b) for a, b in zip(
         f, k2.refine1(*k1.minarg(r8, rpack), rpack))),
          "minarg_fused differs from minarg + refine1 on reference camera rays")
+    o = k1.mxu(r8, rpack, rsub)
+    compare("mxu", o, k1.mxu_plain(r8, rpack), "reference camera rays")
     print(f"reference camera rays ({ref.tris.count} triangles): minarg_fused "
-          "equal to its plain version and to minarg + refine1")
+          "equal to its plain version and to minarg + refine1, mxu equal to "
+          "its plain version (torch.equal)")
+    inputs["dense16 reference camera"] = (r8, rpack, rsub)
     return inputs
 
 
@@ -2027,6 +2058,124 @@ def check_slice15(torch, scenes, inputs):
     return out
 
 
+def check_slice16(torch, scenes, inputs):
+    """K14 and K15 as redesigned for the H100: a ray walks the pack's
+    sub-blocks of 32 rows in row order and skips each whose box (the
+    one-span `sub_boxes` table) its segment to its running best misses
+    (K15 none while its best is above BIG), with nothing staged for a
+    block. Each against its first kernel (`minarg_fused_simt`,
+    `mxu_simt`) and its counting entry on the cornell camera and
+    first-bounce rays and the reference camera rays (their plain versions'
+    checks are in check_slice8), and on tests/sub_cull_mirror.py's crafted
+    batches (exact-t ties across sub-blocks, rows accepted above BIG for
+    K15, -0.0 normals, D = 0 rays; T = 1, 31, 33 and 804) against its plain
+    version and its first kernel, K14 also against K1 + K2 and, on batches
+    with rows accepted above BIG, against K1 + K2, its first kernel and
+    the plain version's t; every comparison torch.equal on the float32
+    bits, with the sub-blocks passed per ray and the tests that reached
+    the divide printed. Then each timed in turns (first, new, new, first)
+    on the cornell camera and first-bounce rays. Returns the counts that
+    the kernels line's bounds read."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import (
+        cluster_kernel as ck, intersect_kernel as k1, plucker_kernel as k2)
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from sub_cull_mirror import ABOVE_BIG_CASES, CRAFTED_CASES, crafted_dense
+
+    def bits(a):
+        return [x.view(torch.int32) for x in a]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(bits(a), bits(b)))
+
+    def k1_k2(r8, pack):
+        return k2.refine1(*k1.minarg(r8, pack), pack)
+
+    entries = {"minarg_fused": (k2.minarg_fused, k2.minarg_fused_simt,
+                                k2.minarg_fused_counted,
+                                k2.minarg_fused_plain),
+               "mxu": (k1.mxu, k1.mxu_simt, k1.mxu_counted, k1.mxu_plain)}
+    out = {}
+    for where, key in (("the cornell camera rays", "dense16 cornell camera"),
+                       ("the cornell first-bounce rays",
+                        "dense16 cornell bounce"),
+                       ("the reference camera rays",
+                        "dense16 reference camera")):
+        r8, pack, sub = inputs[key][:3]
+        r, t = r8.shape[1], pack.shape[0]
+        for name, (fn, simt, counted, _) in entries.items():
+            t0 = time.perf_counter()
+            new = fn(r8, pack, sub)
+            need(same(new, simt(r8, pack)),
+                 f"{name} differs from its first kernel on {where}")
+            c_out, counts = counted(r8, pack, sub)
+            need(same(c_out, new),
+                 f"{name}'s counting entry differs from it on {where}")
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            n_div, n_box, n_coop, n_edge, n_made = counts
+            hits = int((new[0] > 0.0).sum() if name == "minarg_fused"
+                       else (new[0] < k1.BIG).sum())
+            print(f"{name} on {where} ({r} rays, {t} triangles in "
+                  f"{sub.shape[0]} sub-blocks): {n_box / r:.3f} sub-blocks "
+                  f"passed per ray ({n_coop} of {n_box} by the whole warp), "
+                  f"{n_div} tests reached the divide ({n_div / (r * t):.4f} "
+                  f"of the first kernel's {r * t}), {n_edge} edge tests, "
+                  f"{n_made} box tests; {hits} hits; equal to its first "
+                  "kernel and its counting entry (torch.equal on the bits); "
+                  f"checks {dt:.2f} s")
+            out[f"counts {name} {key.split()[-2]} {key.split()[-1]}"] = counts
+    tris = scenes["cornell"].tris
+    n_lanes = 0
+    for name, n_rows, n_deg in CRAFTED_CASES:
+        fn, simt, _, plain = entries[name]
+        pack, r8 = crafted_dense(tris, n_rows, n_deg)
+        pack, r8 = pack.cuda(), torch.as_tensor(r8).cuda()
+        sub = ck.sub_boxes(pack, [(0, n_rows)])
+        new = fn(r8, pack, sub)
+        where = f"the crafted batch of {n_rows} rows ({n_deg} degenerate)"
+        need(same(new, plain(r8, pack)),
+             f"{name} differs from its plain version on {where}")
+        need(same(new, simt(r8, pack)),
+             f"{name} differs from its first kernel on {where}")
+        if name == "minarg_fused":
+            need(same(new, k1_k2(r8, pack)),
+                 f"minarg_fused differs from minarg + refine1 on {where}")
+        n_lanes += r8.shape[1]
+    for n_rows, n_deg in ABOVE_BIG_CASES:
+        pack, r8 = crafted_dense(tris, n_rows, n_deg)
+        pack, r8 = pack.cuda(), torch.as_tensor(r8).cuda()
+        sub = ck.sub_boxes(pack, [(0, n_rows)])
+        new = k2.minarg_fused(r8, pack, sub)
+        where = f"the crafted batch of {n_rows} rows ({n_deg} accepted " \
+            "above BIG)"
+        need(same(new, k2.minarg_fused_simt(r8, pack))
+             and same(new, k1_k2(r8, pack)),
+             f"minarg_fused differs from its first kernel or minarg + "
+             f"refine1 on {where}")
+        need(same(new[:1], k2.minarg_fused_plain(r8, pack)[:1]),
+             f"minarg_fused's t differs from its plain version's on {where}")
+    print(f"crafted batches ({len(CRAFTED_CASES)}, {n_lanes} lanes): "
+          "minarg_fused and mxu equal to their plain versions and first "
+          "kernels, minarg_fused to minarg + refine1; with rows accepted "
+          f"above BIG ({len(ABOVE_BIG_CASES)} batches) minarg_fused equal to "
+          "its first kernel and minarg + refine1, its t to its plain "
+          "version's (torch.equal on the bits)")
+
+    def in_turns(first, new, reps):
+        return ", ".join(f"{time_ms(torch, f, reps):.4f}"
+                         for f in (first, new, new, first))
+
+    for rname, key in (("camera", "dense16 cornell camera"),
+                       ("first-bounce", "dense16 cornell bounce")):
+        r8, pack, sub = inputs[key][:3]
+        for name, (fn, simt, _, _) in entries.items():
+            print(f"{name} on the cornell {rname} rays in turns (first "
+                  "kernel, new kernel, new kernel, first kernel): "
+                  + in_turns(lambda: simt(r8, pack),
+                             lambda: fn(r8, pack, sub), 10) + " ms")
+    return out
+
+
 def check_goldens(torch, np):
     from opencl_path_tracer_tpu_torch.models import megakernel
     from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
@@ -2052,7 +2201,7 @@ def check_no_fallback(torch, scenes):
     two check-only entries, K13a and its two, K4, K7 and its two, K6 and
     its two, K3b, K8, K9, K10 and its two, K11, K12 and its two, K17 and
     its two, K16 and its two, K18, K18m, K19 and its two, K20 and its two,
-    K14 and K15)."""
+    K14 and its two, K15 and its two)."""
     from opencl_path_tracer_tpu_torch.ops.kernels import _build
     from opencl_path_tracer_tpu_torch.ops.kernels import (
         cluster_kernel as ck, flat_march as fm, intersect_kernel as k1,
@@ -2092,6 +2241,7 @@ def check_no_fallback(torch, scenes):
                     torch.zeros((1, 1), device="cuda"),
                     torch.zeros((128, 24), device="cuda"), 128, 256)
     csub = ck.cluster_sub_boxes(cluster_args[4], 128)
+    dsub = ck.sub_boxes(pack, [(0, pack.shape[0])])
     group_args = (torch.zeros(1, dtype=torch.int32, device="cuda"),
                   torch.zeros((2048, 8), device="cuda"),
                   torch.zeros((128, 24), device="cuda"), 128, 2048)
@@ -2143,8 +2293,13 @@ def check_no_fallback(torch, scenes):
         "lazy_march": lambda: lm.run_lazy_march(*lazy_args),
         "lazy_march_simt": lambda: lm.run_lazy_march_simt(*lazy_args),
         "lazy_march_count": lambda: lm.run_lazy_march_counted(*lazy_args),
-        "minarg_fused": lambda: k2.minarg_fused(rays8, pack),
-        "mxu": lambda: k1.mxu(rays8, pack),
+        "minarg_fused": lambda: k2.minarg_fused(rays8, pack, dsub),
+        "minarg_fused_simt": lambda: k2.minarg_fused_simt(rays8, pack),
+        "minarg_fused_count": lambda: k2.minarg_fused_counted(rays8, pack,
+                                                              dsub),
+        "mxu": lambda: k1.mxu(rays8, pack, dsub),
+        "mxu_simt": lambda: k1.mxu_simt(rays8, pack),
+        "mxu_count": lambda: k1.mxu_counted(rays8, pack, dsub),
     }
     real = _build.library
 
@@ -2677,30 +2832,45 @@ def slice7_rows(torch, inputs):
 
 
 def slice8_rows(torch, inputs):
-    """The timing rows of K14 and K15 on the cornell camera rays, and,
-    beside them in the same call, K1 + K2 and K4 on the same rays, K4 at
-    the stress tails' shape (16,384 lanes of the stress camera rays, every
-    126th, against 99,380 triangles), and the yardstick of K15's dot stage
-    alone: the TPU kernel's matmul, torch.matmul(trig, rays8) with trig
-    the (8 T, 8) rows of the eight dots, with TF32 off, in 16 column
-    chunks.
+    """The timing rows of K14 and K15 on the cornell camera and
+    first-bounce rays, and, beside them in the same call, K1 + K2 on the
+    same rays, K4 on the camera rays, K4 at the stress tails' shape
+    (16,384 lanes of the stress camera rays, every 126th, against 99,380
+    triangles), and the yardstick of K15's dot stage alone: the TPU
+    kernel's matmul, torch.matmul(trig, rays8) with trig the (8 T, 8) rows
+    of the eight dots, with TF32 off, in 16 column chunks.
 
-    K14's bound: K1's operations on these rays (12 per (ray, triangle)
-    test and per edge test reached) and K2's bytes (the rays once, the
-    pack once, five rows out). K15's: the same operations, the scene's
-    triangles and not the matmul's 8 x 8 products; the rays and the pack
-    once, six rows out. The plain times are the checks' calls. No
-    single PyTorch call computes either: library_ms is null."""
+    K14's and K15's bounds, as K6's: from their counting entries'
+    counts (check_slice16), 12 float32 operations per test that reached
+    the divide and per edge test reached, 25 per box test made; bytes:
+    the rays (six rows), the pack and its table read once, five rows out
+    (K15 six). The first kernels' bound, K1's operations on every (ray,
+    triangle) pair (12 per pair and per edge test reached), is printed
+    beside it. The plain times are check_slice8's calls. No single PyTorch
+    call computes either: library_ms is null."""
     from opencl_path_tracer_tpu_torch.ops.kernels import (
         intersect_kernel as k1, plucker_kernel as k2)
-    rays8, pack, f_ms = inputs["minarg_fused"]
-    m_ms = inputs["mxu"]
+    rows = []
+    for rname, tag in (("camera", ""), ("bounce", " bounce")):
+        rays8, pack, sub, f_ms, m_ms = inputs[f"dense16 cornell {rname}"]
+        r, t = rays8.shape[1], pack.shape[0]
+        every_pair = minarg_ops(torch, rays8, pack) / PEAK_FP32_FLOPS * 1e3
+        for name, fn, plain_ms, n_out in (
+                ("minarg_fused", k2.minarg_fused, f_ms, 5),
+                ("mxu", k1.mxu, m_ms, 6)):
+            n_div, _, _, n_edge, n_made = inputs[
+                f"counts {name} cornell {rname}"]
+            rows.append((name + tag,
+                         lambda fn=fn, a=(rays8, pack, sub): fn(*a),
+                         plain_ms, 25 * n_made + 12 * n_div + 12 * n_edge, 0,
+                         24 * r + 96 * t + sub.numel() * 4 + 4 * n_out * r))
+            print(f"{name} on the cornell {rname} rays: {n_made} (ray, "
+                  f"sub-block) box tests, {n_div} (ray, triangle) tests and "
+                  f"{n_edge} edge tests in the sub-blocks they pass (the "
+                  "bound's count); the first kernel's bound, every pair "
+                  f"tested: {every_pair:.4f} ms by operations")
+    rays8, pack = inputs["dense16 cornell camera"][:2]
     r, t = rays8.shape[1], pack.shape[0]
-    ops = minarg_ops(torch, rays8, pack)
-    rows = [("minarg_fused", lambda: k2.minarg_fused(rays8, pack), f_ms, ops,
-             0, 24 * r + 96 * t + 20 * r),
-            ("mxu", lambda: k1.mxu(rays8, pack), m_ms, ops, 0,
-             24 * r + 96 * t + 24 * r)]
     t1, g1 = k1.minarg(rays8, pack)
     ms1 = time_ms(torch, lambda: k1.minarg(rays8, pack), 20)
     ms2 = time_ms(torch, lambda: k2.refine1(t1, g1, pack), 20)
@@ -2708,6 +2878,13 @@ def slice8_rows(torch, inputs):
     print(f"cornell camera rays ({r}): minarg {ms1:.4f} + refine1 {ms2:.4f} "
           f"= {ms1 + ms2:.4f} ms, dense {ms4:.4f} ms (beside minarg_fused "
           "and mxu below)")
+    b8 = inputs["dense16 cornell bounce"][0]
+    tb, gb = k1.minarg(b8, pack)
+    ms1 = time_ms(torch, lambda: k1.minarg(b8, pack), 20)
+    ms2 = time_ms(torch, lambda: k2.refine1(tb, gb, pack), 20)
+    print(f"cornell first-bounce rays ({b8.shape[1]}): minarg {ms1:.4f} + "
+          f"refine1 {ms2:.4f} = {ms1 + ms2:.4f} ms (beside minarg_fused "
+          "bounce below)")
     r8t, spack = inputs["dense stress tail"]
     ms_tail = time_ms(torch, lambda: k1.dense(r8t, spack), 20)
     ops_tail = sum(minarg_ops(torch, r8t, spack[b:b + 8192])
@@ -3004,6 +3181,7 @@ def main() -> int:
     inputs.update(check_slice13(torch, inputs))
     inputs.update(check_slice14(torch, scenes, cam, cam_rays, inputs))
     inputs.update(check_slice15(torch, scenes, inputs))
+    inputs.update(check_slice16(torch, scenes, inputs))
     check_goldens(torch, np)
     check_no_fallback(torch, scenes)
     launches = main_path(torch, np, scenes, cam)

@@ -5,32 +5,78 @@
 // the make_minarg_intersect(fuse_fetch=True) path). The TPU kernel holds
 // the whole table in one VMEM block; this one loops over any table.
 //
-// What it computes: K1's (t, index) by the loop of nearest.cuh (the
-// least accepted t, the lowest index on ties), then, in the same thread,
-// K2's fetch of the winner's row: t (-1 on a miss), the normal and the
-// material. On the TPU the fetch is a one-hot matmul over an exact bf16
-// three-way split of the table; an indexed load of the float32 row gives
-// the same bits, and `+ 0.0f` (never folded under --fmad=false) turns
-// -0.0 into +0.0 as the one-hot sum does. A miss keeps index 0, so its
-// lanes carry triangle 0's attributes, as K1 + K2's do. The result is K1
-// then K2 bit for bit.
+// What it computes: K1's (t, index) (the least accepted t, the lowest
+// index on ties; (BIG, 0) when nothing accepts), then, in the same
+// thread, K2's fetch of the winner's row: t (-1 on a miss), the normal
+// and the material. On the TPU the fetch is a one-hot matmul over an
+// exact bf16 three-way split of the table; an indexed load of the float32
+// row gives the same bits, and `+ 0.0f` (never folded under --fmad=false)
+// turns -0.0 into +0.0 as the one-hot sum does. A miss keeps index 0, so
+// its lanes carry triangle 0's attributes, as K1 + K2's do. The result is
+// K1 then K2 bit for bit.
 //
-// What bounds it on the H100: operations, as K1 (about 48 float32
-// operations per (ray, triangle) pair); it saves K2's launch and the
-// round trip of (t, index) through memory, 20 bytes out per ray.
+// What bounds it on the H100: operations, 12 float32 operations per
+// (ray, triangle) test that reaches the divide and 12 per edge test
+// reached, plus about 25 per (ray, sub-block) box test; the rays, the
+// pack and its table read once, five rows out. The first kernel
+// (minarg_fused_simt_kernel below, nearest.cuh's loop) staged every row
+// of the pack through shared memory for the block and ran every (ray,
+// triangle) test: an IEEE divide and up to three edge tests each. This
+// kernel walks the pack's sub-blocks of kSub = 32 rows in row order
+// (sub_cull.cuh's nearest_in_order) and skips per ray each sub-block whose
+// box (the table cluster_kernel.sub_boxes builds over the one span [0, T),
+// once per scene) its segment P + s D, 0 <= s <= best t, misses: the rule
+// (pair_vpu.cu's header) proves such a sub-block holds no accepted t <=
+// best, so no tie is skipped either, and the strict < across sub-blocks
+// with the lowest index within one gives the first kernel's (t, index)
+// bit for bit. A ray with D = 0 (padding) accepts no row (t is +-inf or
+// NaN, and an infinite t fails the edge tests on a zero vm) and tests
+// none: it keeps (BIG, 0). Each mesh's triangles are one run of pack
+// rows, so sub-blocks in row order are compact boxes.
+//
+// Layout: one thread per ray, kBlock rays a block, nothing shared by the
+// block; the table and the rows come through the read-only path. Per
+// sub-block a warp takes the ballot of its rays whose box test passed; a
+// ballot of at most coop_max rays runs the sub-block on all 32 lanes, one
+// ray at a time, else each lane tests the rows against its own ray.
+//
+// Entry points: ptx_minarg_fused (the kernel the wrapper launches);
+// ptx_minarg_fused_count (the same kernel, also adding to counter[0..4]
+// the tests that reached the divide, the box tests that passed, those of
+// them run by the whole warp, the edge tests reached and the box tests
+// made); ptx_minarg_fused_simt (the first kernel, kept to hold this one
+// against whole launches and to time the two in turns; no wrapper on a
+// render path reaches either of the last two).
 
-#include "nearest.cuh"
+#include <stdint.h>
+
+#include "sub_cull.cuh"
 
 namespace {
 
 using namespace ptx;
 
+struct Rows5 {
+  float *t, *nx, *ny, *nz, *m;
+};
+
+// K2's fetch of the winner's row into lane i's outputs.
+__device__ __forceinline__ void write_fetch(const float4* __restrict__ tri,
+                                            const Nearest& best, int i,
+                                            Rows5 out) {
+  const float* row =
+      reinterpret_cast<const float*>(tri) + (size_t)best.g * kTriCols;
+  out.t[i] = best.t < kBig ? best.t : -1.0f;
+  out.nx[i] = __fadd_rn(row[0], 0.0f);
+  out.ny[i] = __fadd_rn(row[1], 0.0f);
+  out.nz[i] = __fadd_rn(row[2], 0.0f);
+  out.m[i] = __fadd_rn(row[16], 0.0f);
+}
+
 __global__ void __launch_bounds__(kBlock)
-minarg_fused_kernel(const float* __restrict__ rays8,
-                    const float4* __restrict__ tri, float* __restrict__ t_out,
-                    float* __restrict__ nx, float* __restrict__ ny,
-                    float* __restrict__ nz, float* __restrict__ m,
-                    int n_rays, int n_tris) {
+minarg_fused_simt_kernel(const float* __restrict__ rays8,
+                         const float4* __restrict__ tri, Rows5 out,
+                         int n_rays, int n_tris) {
   __shared__ float4 tile[kTile * 4];
   const int i = blockIdx.x * kBlock + threadIdx.x;
   const bool live = i < n_rays;
@@ -45,26 +91,83 @@ minarg_fused_kernel(const float* __restrict__ rays8,
   }
   const Nearest best =
       nearest_triangle(tile, tri, n_tris, live, px, py, pz, dx, dy, dz);
-  if (!live) return;
-  const float* row =
-      reinterpret_cast<const float*>(tri) + (size_t)best.g * kTriCols;
-  t_out[i] = best.t < kBig ? best.t : -1.0f;
-  nx[i] = __fadd_rn(row[0], 0.0f);
-  ny[i] = __fadd_rn(row[1], 0.0f);
-  nz[i] = __fadd_rn(row[2], 0.0f);
-  m[i] = __fadd_rn(row[16], 0.0f);
+  if (live) write_fetch(tri, best, i, out);
+}
+
+template <bool COUNT>
+__global__ void __launch_bounds__(kBlock)
+minarg_fused_kernel(const float* __restrict__ rays8,
+                    const float4* __restrict__ tri,
+                    const float4* __restrict__ sub, Rows5 out, int n_rays,
+                    int n_tris, int coop_max,
+                    unsigned long long* __restrict__ counter) {
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  float px = 0.f, py = 0.f, pz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
+  if (i < n_rays) {
+    px = rays8[i];
+    py = rays8[n_rays + i];
+    pz = rays8[2 * n_rays + i];
+    dx = rays8[3 * n_rays + i];
+    dy = rays8[4 * n_rays + i];
+    dz = rays8[5 * n_rays + i];
+  }
+  const bool live = i < n_rays && (dx != 0.f || dy != 0.f || dz != 0.f);
+  CullCounts ct;
+  Nearest best{kBig, 0};
+  nearest_in_order<ExactHit, COUNT>(tri, sub, n_tris, live, px, py, pz, dx,
+                                    dy, dz, coop_max, best, ct);
+  if (i < n_rays) write_fetch(tri, best, i, out);
+  if (COUNT) ct.add_to(counter);
+}
+
+template <bool COUNT>
+int launch(const float* rays8, const float* tri_pack, const float* sub,
+           Rows5 out, int n_rays, int n_tris, int coop_max, void* counter,
+           void* stream) {
+  if (n_rays <= 0) return 0;
+  if (n_tris < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(tri_pack) % 16 ||
+      reinterpret_cast<uintptr_t>(sub) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const int grid = (n_rays + kBlock - 1) / kBlock;
+  minarg_fused_kernel<COUNT>
+      <<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+          rays8, reinterpret_cast<const float4*>(tri_pack),
+          reinterpret_cast<const float4*>(sub), out, n_rays, n_tris,
+          coop_max, static_cast<unsigned long long*>(counter));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int ptx_minarg_fused(const float* rays8, const float* tri_pack,
-                                float* t_out, float* nx, float* ny, float* nz,
-                                float* m, int n_rays, int n_tris,
-                                void* stream) {
+                                const float* sub, float* t_out, float* nx,
+                                float* ny, float* nz, float* m, int n_rays,
+                                int n_tris, int coop_max, void* stream) {
+  return launch<false>(rays8, tri_pack, sub, Rows5{t_out, nx, ny, nz, m},
+                       n_rays, n_tris, coop_max, nullptr, stream);
+}
+
+extern "C" int ptx_minarg_fused_count(const float* rays8,
+                                      const float* tri_pack, const float* sub,
+                                      float* t_out, float* nx, float* ny,
+                                      float* nz, float* m, int n_rays,
+                                      int n_tris, int coop_max, void* counter,
+                                      void* stream) {
+  return launch<true>(rays8, tri_pack, sub, Rows5{t_out, nx, ny, nz, m},
+                      n_rays, n_tris, coop_max, counter, stream);
+}
+
+extern "C" int ptx_minarg_fused_simt(const float* rays8,
+                                     const float* tri_pack, float* t_out,
+                                     float* nx, float* ny, float* nz,
+                                     float* m, int n_rays, int n_tris,
+                                     void* stream) {
   if (n_rays <= 0) return 0;
   const int grid = (n_rays + kBlock - 1) / kBlock;
-  minarg_fused_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      rays8, reinterpret_cast<const float4*>(tri_pack), t_out, nx, ny, nz, m,
-      n_rays, n_tris);
+  minarg_fused_simt_kernel<<<grid, kBlock, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      rays8, reinterpret_cast<const float4*>(tri_pack),
+      Rows5{t_out, nx, ny, nz, m}, n_rays, n_tris);
   return static_cast<int>(cudaGetLastError());
 }

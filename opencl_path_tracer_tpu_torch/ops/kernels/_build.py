@@ -142,8 +142,16 @@ KERNELS = {
     "lazy_march_count": ("lazy.cu", "ptx_lazy_count",
                          [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P, P]),
     "minarg_fused": ("minarg_fused.cu", "ptx_minarg_fused",
-                     [P, P, P, P, P, P, P, I, I, P]),
-    "mxu": ("mxu.cu", "ptx_mxu", [P, P, P, I, I, P]),
+                     [P, P, P, P, P, P, P, P, I, I, I, P]),
+    # K14's two entries for the checks only, as K7's.
+    "minarg_fused_simt": ("minarg_fused.cu", "ptx_minarg_fused_simt",
+                          [P, P, P, P, P, P, P, I, I, P]),
+    "minarg_fused_count": ("minarg_fused.cu", "ptx_minarg_fused_count",
+                           [P, P, P, P, P, P, P, P, I, I, I, P, P]),
+    "mxu": ("mxu.cu", "ptx_mxu", [P, P, P, P, I, I, I, P]),
+    # K15's two entries for the checks only, as K7's.
+    "mxu_simt": ("mxu.cu", "ptx_mxu_simt", [P, P, P, I, I, P]),
+    "mxu_count": ("mxu.cu", "ptx_mxu_count", [P, P, P, P, I, I, I, P, P]),
 }
 
 # Launches per kernel since the last reset_launches(); each wrapper adds

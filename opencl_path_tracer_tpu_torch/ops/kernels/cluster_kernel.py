@@ -51,7 +51,7 @@ from opencl_path_tracer_tpu_torch.core.geometry import TrianglesSoA
 from opencl_path_tracer_tpu_torch.core.types import Hits, Rays
 from opencl_path_tracer_tpu_torch.ops.kernels import _build
 from opencl_path_tracer_tpu_torch.ops.kernels.intersect_kernel import (
-    BIG, TRI_COLS, build_tri_pack, exact_test,
+    BIG, SUB, TRI_COLS, build_tri_pack, exact_test,
 )
 
 _PLAIN_CELLS = 1 << 22    # (ray, triangle) tests per chunk of a plain version
@@ -240,10 +240,10 @@ def _tile_cluster_lists(rays8: torch.Tensor, boxes: torch.Tensor, tr: int):
 
 
 # -------------------------------------------------------------------------
-# The skip rule's table, shared by K12, K17 and K7: the argument is in
-# csrc/pair_vpu.cu, the slab test in csrc/sub_cull.cuh.
+# The skip rule's table, shared by K12, K17, K7, K6, K16, K14 and K15:
+# the argument is in csrc/pair_vpu.cu, the slab test in csrc/sub_cull.cuh
+# (SUB rows a sub-block).
 
-SUB = 32   # rows per sub-block of the skip rule
 _U = 2.0 ** -24
 _KAPPA = 6 * _U   # the rule's coefficient of |P| + t |D|
 

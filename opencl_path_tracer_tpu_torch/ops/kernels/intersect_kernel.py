@@ -39,6 +39,13 @@ _PLAIN_CELLS = 1 << 22    # (ray, triangle) tests per chunk of minarg_plain
 _KERNEL_BLOCK = 256       # rays per block of the CUDA kernels (kBlock)
 _KERNEL_TILE = 256        # triangles per shared-memory tile (kTile)
 _SPLIT_BLOCKS_PER_SM = 32  # K4 splits its triangles up to this many blocks
+SUB = 32   # rows per sub-block of the skip rule (csrc/sub_cull.cuh's kSub)
+# K15's warp tests a sub-block for at most this many of its rays together,
+# all 32 lanes on one ray's rows (csrc/mxu.cu); for more, each lane tests
+# its own ray. 12, 16 and 24 measured within 0.6 % on the Cornell camera
+# and first-bounce rays, 4 up to 12 % slower and 32 1.2-1.5x
+# (runtime/cull_ab.py --coop; PERF.md).
+MXU_COOP = 16
 
 
 def pack_rays(p, d, pad_to: int | None = None) -> torch.Tensor:
@@ -335,6 +342,21 @@ def _mxu_dot(v, a):
                                           v[:, 0:1] * a[0])) + 0.0
 
 
+def mxu_exact_test(rows: torch.Tensor, rays: torch.Tensor):
+    """K15's exact test of the rays of an (8, R) pack against the rows of a
+    (T, 24) pack: (t, valid), two (T, R) tensors, with the matmul's dots
+    (`_mxu_dot`) and edge tests fma(t, vm, pm)."""
+    p, d = rays[0:3], rays[3:6]
+    n = rows[:, 0:3]
+    t = (rows[:, 3:4] - _mxu_dot(n, p)) / _mxu_dot(n, d)
+    valid = t > 0.0
+    for e in range(4, 16, 4):
+        m = rows[:, e:e + 3]
+        valid &= (fp.fma(t, _mxu_dot(m, d), _mxu_dot(m, p))
+                  >= rows[:, e + 3:e + 4])
+    return t, valid
+
+
 def mxu_plain(rays8: torch.Tensor, tri_pack: torch.Tensor):
     """Plain PyTorch version of K15: (t, index, nx, ny, nz, mati), six
     (R,) float32 tensors. t is BIG on a miss; the winner is the least t
@@ -351,18 +373,10 @@ def mxu_plain(rays8: torch.Tensor, tri_pack: torch.Tensor):
     for s in range(0, live.numel(), _PLAIN_RAYS):
         cols = live[s:s + _PLAIN_RAYS]
         x = rays8[:, cols]
-        p, d = x[0:3], x[3:6]
         step = max(1, _PLAIN_CELLS // x.shape[1])
         best = best_g = None
         for b in range(0, n_tris, step):
-            rows = tri_pack[b:b + step]
-            n = rows[:, 0:3]
-            t = (rows[:, 3:4] - _mxu_dot(n, p)) / _mxu_dot(n, d)
-            valid = t > 0.0
-            for e in range(4, 16, 4):
-                m = rows[:, e:e + 3]
-                valid &= (fp.fma(t, _mxu_dot(m, d), _mxu_dot(m, p))
-                          >= rows[:, e + 3:e + 4])
+            t, valid = mxu_exact_test(tri_pack[b:b + step], x)
             tm, a = torch.min(torch.where(valid, t, torch.full_like(t, BIG)),
                               dim=0)                     # first on ties
             a = a + b
@@ -379,36 +393,93 @@ def mxu_plain(rays8: torch.Tensor, tri_pack: torch.Tensor):
             attrs[:, 2], attrs[:, 3])
 
 
-def mxu(rays8: torch.Tensor, tri_pack: torch.Tensor):
+def check_dense(rays8: torch.Tensor, tri_pack: torch.Tensor,
+                sub: torch.Tensor | None, what: str) -> int:
+    """K14's and K15's checks: K1's, and, given, the table, which must be
+    able to be `cluster_kernel.sub_boxes(tri_pack, [(0, T)])`: (ceil(T /
+    SUB), 8) float32 on the pack's device (its values are not read back
+    from the card). Returns R."""
+    _check_minarg(rays8, tri_pack, what)
+    if sub is not None:
+        _build.check(sub, "sub", (None, 8))
+        if sub.device != tri_pack.device:
+            raise ValueError(f"{what}'s sub must be on the pack's device")
+        t = tri_pack.shape[0]
+        if sub.shape[0] != -(-t // SUB):
+            raise ValueError(f"{what}'s sub has {sub.shape[0]} rows: the "
+                             f"sub_boxes table of {t} rows in one span has "
+                             f"{-(-t // SUB)}")
+    return rays8.shape[1]
+
+
+def mxu(rays8: torch.Tensor, tri_pack: torch.Tensor,
+        sub: torch.Tensor | None = None):
     """K15 for each ray of the (8, R) pack against the (T, 24) triangle
     pack: (t, index, nx, ny, nz, mati), six (R,) float32 tensors (t BIG
-    on a miss). CPU tensors take the plain version; CUDA tensors launch
+    on a miss). sub: the pack's table of the skip rule,
+    `cluster_kernel.sub_boxes(tri_pack, [(0, T)])`, which the kernel needs
+    (`make_mxu_intersect` builds it once per scene; the plain version
+    ignores it). CPU tensors take the plain version; CUDA tensors launch
     the kernel or raise."""
-    _build.check(rays8, "rays8", (8, None))
-    _build.check(tri_pack, "tri_pack", (None, TRI_COLS))
-    if rays8.device != tri_pack.device:
-        raise ValueError("rays8 and tri_pack must be on one device")
-    if not 0 < tri_pack.shape[0] < 1 << 24:
-        raise ValueError("mxu needs 1 to 2^24 - 1 triangles (the winner "
-                         "index travels as an exact float32)")
+    r = check_dense(rays8, tri_pack, sub, "mxu")
     if rays8.device.type == "cpu":
         return mxu_plain(rays8, tri_pack)
-    r = rays8.shape[1]
+    if sub is None:
+        raise ValueError("mxu on CUDA tensors needs sub, the pack's "
+                         "sub_boxes table")
     rows = torch.empty((6, r), dtype=torch.float32, device=rays8.device)
-    _build.launch("mxu", rays8, tri_pack, rows, r, tri_pack.shape[0])
+    _build.launch("mxu", rays8, tri_pack, sub, rows, r, tri_pack.shape[0],
+                  MXU_COOP)
     return tuple(rows)
+
+
+def mxu_simt(rays8: torch.Tensor, tri_pack: torch.Tensor):
+    """K15's first kernel (`csrc/mxu.cu::mxu_simt_kernel`: every row
+    staged for the block, every (ray, triangle) test run), on CUDA
+    tensors: mxu's outputs. For the checks only (the smoke and the cuda
+    tests hold the new kernel against it and time the two in turns); no
+    render path calls it."""
+    r = check_dense(rays8, tri_pack, None, "mxu_simt")
+    if rays8.device.type != "cuda":
+        raise ValueError("mxu_simt runs on CUDA tensors only")
+    rows = torch.empty((6, r), dtype=torch.float32, device=rays8.device)
+    _build.launch("mxu_simt", rays8, tri_pack, rows, r, tri_pack.shape[0])
+    return tuple(rows)
+
+
+def mxu_counted(rays8: torch.Tensor, tri_pack: torch.Tensor,
+                sub: torch.Tensor):
+    """mxu's kernel on CUDA tensors, also counting: (outputs, (tests that
+    reached the divide, (ray, sub-block) box tests that passed, those of
+    them run by the whole warp, edge tests reached, box tests made)). For
+    the checks only; no render path calls it."""
+    r = check_dense(rays8, tri_pack, sub, "mxu_counted")
+    if rays8.device.type != "cuda":
+        raise ValueError("mxu_counted runs on CUDA tensors only")
+    rows = torch.empty((6, r), dtype=torch.float32, device=rays8.device)
+    count = torch.zeros(5, dtype=torch.int64, device=rays8.device)
+    _build.launch("mxu_count", rays8, tri_pack, sub, rows, r,
+                  tri_pack.shape[0], MXU_COOP, count)
+    return tuple(rows), tuple(int(x) for x in count.tolist())
 
 
 def make_mxu_intersect(tris: TrianglesSoA):
     """K15 over `build_tri_pack(tris)`, built once (the JAX package's
     `make_mxu_intersect`; its `tr`, `tt` and `interpret` are TPU tiling
-    and have no counterpart). intersect(rays) -> Hits: t = -1 on a miss,
-    the normals as the kernel returns them (a miss carries triangle 0's),
-    mati 0 on a miss."""
+    and have no counterpart), with, on the card, the pack's table of the
+    skip rule (`cluster_kernel.sub_boxes` over the one span [0, T)), also
+    built once. intersect(rays) -> Hits: t = -1 on a miss, the normals as
+    the kernel returns them (a miss carries triangle 0's), mati 0 on a
+    miss."""
+    # Imported here: cluster_kernel imports this module.
+    from opencl_path_tracer_tpu_torch.ops.kernels.cluster_kernel import (
+        sub_boxes)
     tri_pack = build_tri_pack(tris)
+    sub = (sub_boxes(tri_pack, [(0, tri_pack.shape[0])])
+           if tri_pack.device.type == "cuda" else None)
 
     def intersect(rays: Rays) -> Hits:
-        t, _, nx, ny, nz, m = mxu(pack_rays(rays.p, rays.d), tri_pack)
+        t, _, nx, ny, nz, m = mxu(pack_rays(rays.p, rays.d), tri_pack, sub)
         t = torch.where(t < BIG, t, torch.full_like(t, -1.0))
         return assemble_hits(rays, rays.count, t, nx, ny, nz, m)
 

@@ -27,10 +27,18 @@ from opencl_path_tracer_tpu_torch.core import fp
 from opencl_path_tracer_tpu_torch.core.geometry import TrianglesSoA
 from opencl_path_tracer_tpu_torch.core.types import Hits, Rays
 from opencl_path_tracer_tpu_torch.ops.kernels import _build
+from opencl_path_tracer_tpu_torch.ops.kernels.cluster_kernel import sub_boxes
 from opencl_path_tracer_tpu_torch.ops.kernels.intersect_kernel import (
-    BIG, TRI_COLS, _dot3, _round_up, assemble_hits, build_tri_pack, minarg,
-    minarg_plain, pack_rays,
+    BIG, TRI_COLS, _dot3, _round_up, assemble_hits, build_tri_pack,
+    check_dense, minarg, minarg_plain, pack_rays,
 )
+
+# K14's warp tests a sub-block for at most this many of its rays together,
+# all 32 lanes on one ray's rows (csrc/minarg_fused.cu); for more, each
+# lane tests its own ray. 12, 16 and 24 measured within 0.3 % on the
+# Cornell camera and first-bounce rays, 4 up to 11 % slower and 32
+# 1.3-1.5x (runtime/cull_ab.py --coop; PERF.md).
+MINARG_FUSED_COOP = 16
 
 
 def refine1_plain(t1: torch.Tensor, g1: torch.Tensor,
@@ -67,26 +75,62 @@ def minarg_fused_plain(rays8: torch.Tensor, tri_pack: torch.Tensor):
     return refine1_plain(*minarg_plain(rays8, tri_pack), tri_pack)
 
 
-def minarg_fused(rays8: torch.Tensor, tri_pack: torch.Tensor):
+def _check_minarg_fused(rays8, tri_pack, sub, what):
+    """(R, K14's five output rows) after `check_dense`."""
+    r = check_dense(rays8, tri_pack, sub, what)
+    return r, [torch.empty(r, dtype=torch.float32, device=rays8.device)
+               for _ in range(5)]
+
+
+def minarg_fused(rays8: torch.Tensor, tri_pack: torch.Tensor,
+                 sub: torch.Tensor | None = None):
     """K14: K1's exact min + argmin and K2's attribute fetch in one
     launch, for each ray of the (8, R) pack against the (T, 24) triangle
     pack: (t, nx, ny, nz, m), five (R,) float32 tensors, bit for bit K1
-    then K2. CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
-    _build.check(rays8, "rays8", (8, None))
-    _build.check(tri_pack, "tri_pack", (None, TRI_COLS))
-    if rays8.device != tri_pack.device:
-        raise ValueError("rays8 and tri_pack must be on one device")
-    if not 0 < tri_pack.shape[0] < 1 << 24:
-        raise ValueError("minarg_fused needs 1 to 2^24 - 1 triangles")
+    then K2. sub: the pack's table of the skip rule,
+    `cluster_kernel.sub_boxes(tri_pack, [(0, T)])`, which the kernel needs
+    (`make_minarg_intersect(fuse_fetch=True)` builds it once per scene; the
+    plain version ignores it). CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
+    r, outs = _check_minarg_fused(rays8, tri_pack, sub, "minarg_fused")
     if rays8.device.type == "cpu":
         return minarg_fused_plain(rays8, tri_pack)
-    r = rays8.shape[1]
-    outs = [torch.empty(r, dtype=torch.float32, device=rays8.device)
-            for _ in range(5)]
-    _build.launch("minarg_fused", rays8, tri_pack, *outs, r,
+    if sub is None:
+        raise ValueError("minarg_fused on CUDA tensors needs sub, the "
+                         "pack's sub_boxes table")
+    _build.launch("minarg_fused", rays8, tri_pack, sub, *outs, r,
+                  tri_pack.shape[0], MINARG_FUSED_COOP)
+    return tuple(outs)
+
+
+def minarg_fused_simt(rays8: torch.Tensor, tri_pack: torch.Tensor):
+    """K14's first kernel (`csrc/minarg_fused.cu::minarg_fused_simt_kernel`,
+    nearest.cuh's loop: every row staged for the block, every (ray,
+    triangle) test run), on CUDA tensors: minarg_fused's outputs. For the
+    checks only (the smoke and the cuda tests hold the new kernel against
+    it and time the two in turns); no render path calls it."""
+    r, outs = _check_minarg_fused(rays8, tri_pack, None, "minarg_fused_simt")
+    if rays8.device.type != "cuda":
+        raise ValueError("minarg_fused_simt runs on CUDA tensors only")
+    _build.launch("minarg_fused_simt", rays8, tri_pack, *outs, r,
                   tri_pack.shape[0])
     return tuple(outs)
+
+
+def minarg_fused_counted(rays8: torch.Tensor, tri_pack: torch.Tensor,
+                         sub: torch.Tensor):
+    """minarg_fused's kernel on CUDA tensors, also counting: (outputs,
+    (tests that reached the divide, (ray, sub-block) box tests that
+    passed, those of them run by the whole warp, edge tests reached, box
+    tests made)). For the checks only; no render path calls it."""
+    r, outs = _check_minarg_fused(rays8, tri_pack, sub,
+                                  "minarg_fused_counted")
+    if rays8.device.type != "cuda":
+        raise ValueError("minarg_fused_counted runs on CUDA tensors only")
+    count = torch.zeros(5, dtype=torch.int64, device=rays8.device)
+    _build.launch("minarg_fused_count", rays8, tri_pack, sub, *outs, r,
+                  tri_pack.shape[0], MINARG_FUSED_COOP, count)
+    return tuple(outs), tuple(int(x) for x in count.tolist())
 
 
 def make_minarg_intersect(tris: TrianglesSoA, *, fuse_fetch: bool = False,
@@ -97,16 +141,20 @@ def make_minarg_intersect(tris: TrianglesSoA, *, fuse_fetch: bool = False,
 
     fuse_fetch=True runs K14, the two in one launch, for any table (the
     JAX package's one-tt-block limit is the TPU's VMEM; K14 here loops
-    over the whole pack and gives K1 + K2's bits)."""
+    over the whole pack and gives K1 + K2's bits); on the card its table
+    of the skip rule (`sub_boxes` over the one span [0, T)) is built once
+    here."""
     if with_ids and fuse_fetch:
         raise ValueError("with_ids needs fuse_fetch=False (the fused "
                          "kernel never materializes the winner index)")
     tri_pack = build_tri_pack(tris)
+    sub = (sub_boxes(tri_pack, [(0, tri_pack.shape[0])])
+           if fuse_fetch and tri_pack.device.type == "cuda" else None)
 
     def intersect(rays: Rays):
         rays8 = pack_rays(rays.p, rays.d)
         if fuse_fetch:
-            t, nx, ny, nz, m = minarg_fused(rays8, tri_pack)
+            t, nx, ny, nz, m = minarg_fused(rays8, tri_pack, sub)
         else:
             t1, g1 = minarg(rays8, tri_pack)
             t, nx, ny, nz, m = refine1(t1, g1, tri_pack)

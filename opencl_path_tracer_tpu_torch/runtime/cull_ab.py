@@ -1,6 +1,7 @@
 """K17 (the cluster intersector), K7 (the any-hit test), K6 (the
-tile-culled nearest hit) or K16 (the mask-grouped intersector) built from
-two source trees and timed in one process.
+tile-culled nearest hit), K16 (the mask-grouped intersector), K14 (the
+fused minarg) or K15 (the mxu dense intersect) built from two source trees
+and timed in one process.
 
 No counterpart in `opencl_path_tracer_tpu`. Compares the kernel of this
 checkout with the kernel of another checkout's `csrc/`, on the inputs
@@ -25,7 +26,11 @@ checkout with the kernel of another checkout's `csrc/`, on the inputs
   N-th bounce's, mask-sorted in blocks of 2,048 by `group_inputs`, as
   the 'group' accel runs it (the line also times `group_inputs`, the
   plain passes that make K16's inputs); `--scene cornell` takes the
-  Cornell box's 7 clusters instead.
+  Cornell box's 7 clusters instead;
+- `--kernel minarg_fused`, `--kernel mxu`: K14 or K15 over the Cornell
+  box's pack (804 rows in scene order, 26 sub-blocks), as the injected
+  intersectors build it, on the 1080p camera rays or the N-th bounce's;
+  `--scene reference` as for K7 (1,838 rows).
 
 A source tree whose library exports `ptx_<kernel>_simt` takes the
 sub-block table of the skip rule and a ballot threshold (this tree's
@@ -48,8 +53,8 @@ them run by the whole warp, the edge tests reached, and the box (K7, K6:
 and group slab) tests made. Needs a GPU:
 
     python -m opencl_path_tracer_tpu_torch.runtime.cull_ab \\
-        --kernel cluster|anyhit|tilecull|group [--bounce N] \\
-        [--scene cornell|reference] [--coop N ...] --base DIR
+        --kernel cluster|anyhit|tilecull|group|minarg_fused|mxu \\
+        [--bounce N] [--scene cornell|reference] [--coop N ...] --base DIR
 
 where DIR is, for example, the `opencl_path_tracer_tpu_torch/csrc` of a
 `git archive` of the parent commit unpacked in a gitignored directory.
@@ -74,7 +79,9 @@ P, I = ctypes.c_void_p, ctypes.c_int
 FIRST_ARGTYPES = {"cluster": [P, P, P, P, P, P, I, I, I, I, I, P],
                   "anyhit": [P, I, P, P, P, P, I, I, P],
                   "tilecull": [P, I, P, P, P, P, I, I, P],
-                  "group": [P, P, P, P, I, I, I, I, P]}
+                  "group": [P, P, P, P, I, I, I, I, P],
+                  "minarg_fused": [P, P, P, P, P, P, P, I, I, P],
+                  "mxu": [P, P, P, I, I, P]}
 CHUNK = 1 << 18   # rays per pass of the plain counts
 
 
@@ -325,6 +332,37 @@ def _group_case(args, dev):
             lambda: ck.cluster_sub_boxes(rows, k), counted, info)
 
 
+def _dense_case(args, dev):
+    """K14's or K15's inputs and stats, as `_cluster_case`'s: the pack in
+    scene order and its one-span table."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import cluster_kernel as ck
+    from opencl_path_tracer_tpu_torch.ops.kernels import intersect_kernel as k1
+    from opencl_path_tracer_tpu_torch.ops.kernels import plucker_kernel as k2
+    scene, cam = _scene_camera(args.scene, dev)
+    rays = _camera_rays(cam, dev)
+    for _ in range(args.bounce):
+        rays = _bounce(scene, cam, rays)
+    r8 = k1.pack_rays(rays.p, rays.d).contiguous()
+    pack = k1.build_tri_pack(scene.tris)
+    r, t = r8.shape[1], pack.shape[0]
+    sub = ck.sub_boxes(pack, [(0, t)])
+    info = {"scene": args.scene, "triangles": t,
+            "sub_blocks": sub.shape[0], "first_kernel_tests": r * t}
+    if args.kernel == "minarg_fused":
+        def counted(sub):
+            return k2.minarg_fused_counted(r8, pack, sub)[1]
+
+        def alloc():
+            return tuple(torch.empty(r, device=dev) for _ in range(5))
+    else:
+        def counted(sub):
+            return k1.mxu_counted(r8, pack, sub)[1]
+
+        def alloc():
+            return (torch.empty((6, r), device=dev),)
+    return ((r8, pack), (r, t), (), alloc, lambda: sub, counted, info)
+
+
 def _camera_rays(cam, dev):
     from opencl_path_tracer_tpu_torch.ops import raygen, rng
     s1, r1 = rng.lehmer_step(rng.seed_pixel_streams(W * H, 1, device=dev))
@@ -335,20 +373,23 @@ def _camera_rays(cam, dev):
 def main(argv=None) -> int:
     from opencl_path_tracer_tpu_torch.ops.kernels import _build
     from opencl_path_tracer_tpu_torch.ops.kernels import cluster_kernel as ck
+    from opencl_path_tracer_tpu_torch.ops.kernels import intersect_kernel as k1
+    from opencl_path_tracer_tpu_torch.ops.kernels import plucker_kernel as k2
     from opencl_path_tracer_tpu_torch.ops.kernels import sorted_intersect as si
     from opencl_path_tracer_tpu_torch.ops.kernels import tilecull_kernel as tk
     from opencl_path_tracer_tpu_torch.utils.device import resolve_device
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel", required=True,
-                    choices=("cluster", "anyhit", "tilecull", "group"))
+                    choices=("cluster", "anyhit", "tilecull", "group",
+                             "minarg_fused", "mxu"))
     ap.add_argument("--base", required=True, type=pathlib.Path,
                     help="the csrc/ directory of the checkout to compare")
     ap.add_argument("--bounce", type=int, default=0,
                     help="rays of this bounce (0: the camera rays)")
     ap.add_argument("--scene", choices=("cornell", "reference"),
-                    default=None, help="K7's, K6's or K16's scene (default: "
-                    "cornell, for K16 reference)")
+                    default=None, help="K7's, K6's, K16's, K14's or K15's "
+                    "scene (default: cornell, for K16 reference)")
     ap.add_argument("--coop", type=int, nargs="+", default=None,
                     help="ballot thresholds of this tree's kernel, one "
                     "line each (default: the wrapper's)")
@@ -371,11 +412,14 @@ def main(argv=None) -> int:
         fns[k], tables[k], regs[k] = _load(name, libs[k], log)
 
     case = {"cluster": _cluster_case, "anyhit": _anyhit_case,
-            "tilecull": _tilecull_case, "group": _group_case}[name]
+            "tilecull": _tilecull_case, "group": _group_case,
+            "minarg_fused": _dense_case, "mxu": _dense_case}[name]
     before, after, extra, alloc, table, counted, info = case(args, dev)
     sub = table() if any(tables.values()) else None
     default = {"cluster": ck.CLUSTER_COOP, "anyhit": tk.ANYHIT_COOP,
-               "tilecull": tk.TILECULL_COOP, "group": si.GROUP_COOP}[name]
+               "tilecull": tk.TILECULL_COOP, "group": si.GROUP_COOP,
+               "minarg_fused": k2.MINARG_FUSED_COOP,
+               "mxu": k1.MXU_COOP}[name]
     if tables["this"]:
         # The counting entry at the wrapper's threshold (only the whole
         # warp's share depends on it).

@@ -34,11 +34,17 @@ Needs a GPU:
         --accel flat
     python -m opencl_path_tracer_tpu_torch.runtime.profile --scene stress \\
         --model lazy
+    python -m opencl_path_tracer_tpu_torch.runtime.profile \\
+        --intersect minarg-fused
+    python -m opencl_path_tracer_tpu_torch.runtime.profile --intersect mxu
 
 --model megakernel and wavefront render --spp samples through
 `RenderEngine` (with --nee, --nee-select, --accel, --smooth and
 --models-dir as `ptx-torch render` takes them; `--scene stress`, 99,380
-triangles, runs the pair intersector through 'auto'); fused runs --steps
+triangles, runs the pair intersector through 'auto'; --intersect
+minarg-fused or mxu passes the intersector that no accel names, K14
+through `make_minarg_intersect(fuse_fetch=True)` or K15 through
+`make_mxu_intersect`, as `chip_smoke.py` injects it); fused runs --steps
 steps of `models.pipeline`'s fast pipeline (triangles only: --scene
 cornell); lazy runs --steps steps of `models.lazy`'s pipeline as
 `bench.py --model lazy` builds it (cs 512, tr 256, K 4, tail 4096, fast
@@ -62,6 +68,10 @@ def _workload(args, dev):
     from opencl_path_tracer_tpu_torch.cli import _build_scene, _camera_preset
     from opencl_path_tracer_tpu_torch.config import RenderConfig
     from opencl_path_tracer_tpu_torch.ops import rng
+    from opencl_path_tracer_tpu_torch.ops.kernels.intersect_kernel import (
+        make_mxu_intersect)
+    from opencl_path_tracer_tpu_torch.ops.kernels.plucker_kernel import (
+        make_minarg_intersect)
     from opencl_path_tracer_tpu_torch.runtime.engine import RenderEngine
 
     w, h = (int(x) for x in args.size.split("x"))
@@ -72,7 +82,12 @@ def _workload(args, dev):
                            camera=_camera_preset(args.scene, args),
                            accel=args.accel, nee=args.nee,
                            nee_select=args.nee_select, smooth=args.smooth)
-        eng = RenderEngine(scene, cfg, device=dev)
+        isect = None
+        if args.intersect == "minarg-fused":
+            isect = make_minarg_intersect(scene.tris, fuse_fetch=True)
+        elif args.intersect == "mxu":
+            isect = make_mxu_intersect(scene.tris)
+        eng = RenderEngine(scene, cfg, intersect_fn=isect, device=dev)
         eng.render(1)  # warm-up: kernel build, allocator, first launches
 
         def run():
@@ -154,6 +169,10 @@ def main(argv=None) -> int:
                     help="smooth shading (interpolated vertex normals)")
     ap.add_argument("--models-dir", default=None,
                     help="the reference scene's OBJ models")
+    ap.add_argument("--intersect", default=None,
+                    choices=("minarg-fused", "mxu"),
+                    help="megakernel and wavefront: an intersector that no "
+                    "accel names (K14 or K15) in place of --accel's")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     run = _workload(args, dev)
@@ -199,7 +218,7 @@ def main(argv=None) -> int:
         "model": args.model, "scene": args.scene, "size": args.size,
         "bounces": args.iters, "mode": args.mode, "accel": args.accel,
         "nee": args.nee, "nee_select": args.nee_select,
-        "smooth": args.smooth,
+        "smooth": args.smooth, "intersect": args.intersect,
         "samples_per_pixel": samples, "steps": steps,
         "device": torch.cuda.get_device_name(dev),
         "wall_ms_per_sample": per(wall_plain * 1e3, samples),

@@ -1,16 +1,19 @@
 """An exact float32 mirror of the sub-block skip rule's slab test
 (csrc/sub_cull.cuh: cull_ray, box_maybe) and of the loops that K12
 (csrc/pair_vpu.cu), K17 (csrc/cluster.cu), K7 (csrc/anyhit.cu), K6
-(csrc/tilecull.cu) and K16 (csrc/group.cu) run over it, on the CPU.
-Shared by tests/test_torch_pair_vpu_cull.py, test_torch_cluster_cull.py,
-test_torch_anyhit_cull.py, test_torch_tilecull_cull.py and
-test_torch_group_cull.py.
+(csrc/tilecull.cu), K16 (csrc/group.cu), K14 (csrc/minarg_fused.cu) and
+K15 (csrc/mxu.cu) run over it, on the CPU, and a crafted batch for K14
+and K15. Shared by tests/test_torch_pair_vpu_cull.py,
+test_torch_cluster_cull.py, test_torch_anyhit_cull.py,
+test_torch_tilecull_cull.py, test_torch_group_cull.py,
+test_torch_dense_cull.py and test_torch_cuda.py.
 
 CUDA's directed roundings (__fadd_rd/_ru, __fmul_rd/_ru, __frcp_rd/_ru)
 are emulated exactly: float32 sums and products are exact in float64 up
 to a TwoSum error term, reciprocals are checked by an exact product. The
 loops test the rows with K1's exact test (`intersect_kernel.exact_test`,
-the kernels' arithmetic op for op) and merge as the kernels do: lane by
+the kernels' arithmetic op for op; K15's loop with
+`intersect_kernel.mxu_exact_test`) and merge as the kernels do: lane by
 lane (a strict < in ascending row order, each lane its own ray) or, as
 the warp-cooperative path does, per sub-block (the sub-block's least
 (t, index) first, then a strict <), chosen per warp of 32 rays by the
@@ -345,3 +348,126 @@ def never_skipped(n):
     out[:, 4:7] = np.inf
     out[:, 3] = np.inf
     return out
+
+
+def dense_tests(r8, pack, test):
+    """The exact test of K14 (test "k1") or K15 (test "mxu") of the rays
+    r8 (8, R) float32 against every row of pack: (t, ok), (T, R) numpy."""
+    fn = k1.mxu_exact_test if test == "mxu" else k1.exact_test
+    return tuple(x.numpy() for x in fn(pack, torch.from_numpy(r8)))
+
+
+def mirrored_dense(r8, pack, sub, coop, test, tested=None):
+    """K14's (test "k1") or K15's (test "mxu") loop: per ray with D != 0,
+    the pack's sub-blocks of SUB rows in row order, skipped where
+    box_maybe fails against the running best but never while the best is
+    above BIG, merged as the kernel's warps of 32 consecutive rays choose
+    with coop. K1's test merges the accepted rows' t from a start of (BIG,
+    0); K15's lets every row compete with tm (t where it accepts, BIG
+    elsewhere) from a start of +inf. A ray with D = 0 tests nothing and
+    keeps (BIG, 0). r8 (8, R) float32, pack (T, 24) tensor, sub (S, 8);
+    tested: `dense_tests(r8, pack, test)` where the caller has it.
+    Returns (t (R,), winner row (R,), tests reaching the divide, box
+    tests passed, box tests made)."""
+    live = (r8[3:6] != 0).any(0)
+    cr = cull_ray(r8[0:3], r8[3:6])
+    r, n = r8.shape[1], pack.shape[0]
+    t, ok = tested if tested is not None else dense_tests(r8, pack, test)
+    if test == "mxu":
+        t, ok = np.where(ok, t, BIG32), np.ones_like(ok)
+        bt = np.where(live, F32(np.inf), BIG32)
+    else:
+        bt = np.full(r, BIG32)
+    bg = np.zeros(r, np.int64)
+    n_div = n_box = n_made = 0
+    for s in range(-(-n // SUB)):
+        j0, j1 = s * SUB, min(n, (s + 1) * SUB)
+        go = live & ((bt > BIG32) | box_maybe(cr, sub[s][:, None], bt))
+        n_made += int(live.sum())
+        n_box += int(go.sum())
+        n_div += int(go.sum()) * (j1 - j0)
+        bt, bg = merge_sub_block(t[j0:j1], ok[j0:j1], go, bt, bg, j0,
+                                 warp_ballots(go, coop))
+    return bt, bg, n_div, n_box, n_made
+
+
+# The crafted batches (kernel, T, degenerate rows), on the CPU
+# (tests/test_torch_dense_cull.py) and on the card (chip_smoke.py,
+# tests/test_torch_cuda.py): K14 keeps K1's start, (BIG, 0), where the
+# plain version's rows that do not accept compete with BIG, so the two
+# differ on the attributes of a miss after rows accepted only above BIG
+# and K14's batches have none; K15's have.
+CRAFTED_CASES = [("minarg_fused", t, 0) for t in (1, 31, 33, 804)] + [
+    ("mxu", 1, 0), ("mxu", 1, 1), ("mxu", 31, 1), ("mxu", 33, 32),
+    ("mxu", 804, 1)]
+# K14's batches with rows accepted above BIG: K14 equals its first kernel
+# and K1 + K2 there, and the plain version's t.
+ABOVE_BIG_CASES = [(31, 1), (33, 32), (804, 1)]
+
+# Row constants of the crafted pack's degenerate rows: n = (1, -0, -0),
+# c0 = 3.1e38 and m_k = 0, d_k = 0, so a ray with D_x in (0.911, 1]
+# accepts them at t = (c0 - P_x) / D_x above BIG (a finite t; the edge
+# tests 0 >= 0 pass), and no other ray does.
+DEGENERATE_C0 = 3.1e38
+
+
+def crafted_dense(tris, n_rows, n_deg, n_rays=512, seed=0):
+    """(pack (n_rows, 24) CPU tensor, rays (8, n_rays) float32 numpy) for K14
+    and K15: the rows of the triangles `tris` (TrianglesSoA) in turn, the
+    zero normal components of every odd row made -0.0, row 1 copied into
+    row 33 (exact-t ties across sub-blocks 0 and 1) where n_rows > 33,
+    and the first n_deg rows degenerate (DEGENERATE_C0). Lane i's ray is
+    of kind i % 6: 0 aimed at a row's centroid (row 1's one time in four);
+    1 D near +x from inside the scene (it accepts the degenerate rows above
+    BIG); 2 D = +x from far above the scene, missing every real row's box;
+    3 D = 0 (signed zeros); 4 a random direction; 5 an axis direction with
+    -0.0 components from inside the scene."""
+    rs = np.random.default_rng(seed)
+    base = k1.build_tri_pack(tris).cpu()
+    take = np.arange(n_rows) % base.shape[0]
+    pack = base[torch.as_tensor(take)].clone()
+    verts = [getattr(tris, f).cpu().numpy().astype(np.float64)[take]
+             for f in ("r1", "r2", "r3")]
+    nrm = pack[1::2, 0:3]
+    pack[1::2, 0:3] = torch.where(nrm == 0.0, torch.full_like(nrm, -0.0),
+                                  nrm)
+    if n_rows > 33:
+        pack[33] = pack[1]
+        for v in verts:
+            v[33] = v[1]
+    pack[:n_deg] = 0.0
+    pack[:n_deg, 0:4] = torch.tensor([1.0, -0.0, -0.0, DEGENERATE_C0])
+    pack[:n_deg, 16] = 3.0
+    lo = np.min([v.min(0) for v in verts], 0)
+    hi = np.max([v.max(0) for v in verts], 0)
+    inner_lo = np.maximum(lo, -1000.0)
+    inner_hi = np.minimum(hi, 1000.0)
+    kind = np.arange(n_rays) % 6
+    p = rs.uniform(inner_lo, inner_hi, (n_rays, 3))
+    d = rs.normal(size=(n_rays, 3))
+    target = rs.integers(n_deg, n_rows, n_rays) if n_rows > n_deg else None
+    aim = kind == 0
+    if target is not None:
+        target = np.where(rs.random(n_rays) < 0.25, min(1, n_rows - 1),
+                          target)
+        cen = sum(v[target] for v in verts) / 3.0
+        d[aim] = cen[aim] - p[aim]
+    near_x = kind == 1
+    d[near_x] = [1.0, 0.0, 0.0] + 0.2 * rs.normal(size=(near_x.sum(), 3))
+    far = kind == 2
+    p[far] = [lo[0] - 1000.0, hi[1] + 4000.0, 0.0]
+    p[far, 2] = rs.uniform(lo[2], hi[2], far.sum())
+    d[far] = [1.0, 0.0, 0.0]
+    zero = kind == 3
+    d[zero] = np.where(rs.random((zero.sum(), 1)) < 0.5, 0.0, -0.0)
+    axis = kind == 5
+    ax = rs.integers(0, 3, axis.sum())
+    d[axis] = -0.0
+    d[np.nonzero(axis)[0], ax] = np.where(rs.random(axis.sum()) < 0.5, 1.0,
+                                          -1.0)
+    with np.errstate(invalid="ignore"):
+        norm = np.linalg.norm(d, axis=1, keepdims=True)
+        d = np.where(norm > 0, d / np.where(norm > 0, norm, 1.0), d)
+    r8 = np.zeros((8, n_rays), F32)
+    r8[0:3], r8[3:6] = p.T, d.T
+    return pack.contiguous(), r8

@@ -433,15 +433,17 @@ def test_eighth_slice_kernels_equal_plain_versions(cuda, monkeypatch):
     launch K14 and K15 and not K1, K2 or K4; the CPU plain versions agree
     with the card; with the loader broken, each raises."""
     from opencl_path_tracer_tpu_torch.core.types import Rays
+    from opencl_path_tracer_tpu_torch.ops.kernels import cluster_kernel as ck
     scene = library.cornell_box(with_spheres=True, device=cuda)
     rays8 = _rays8(50_001, 8, cuda)
     pack = k1.build_tri_pack(scene.tris)
+    sub = ck.sub_boxes(pack, [(0, pack.shape[0])])
     before = dict(_build.launches)
-    f = k2.minarg_fused(rays8, pack)
+    f = k2.minarg_fused(rays8, pack, sub)
     for a, b, c in zip(f, k2.minarg_fused_plain(rays8, pack),
                        k2.refine1(*k1.minarg(rays8, pack), pack)):
         assert torch.equal(a, b) and torch.equal(a, c)
-    o = k1.mxu(rays8, pack)
+    o = k1.mxu(rays8, pack, sub)
     for a, b in zip(o, k1.mxu_plain(rays8, pack)):
         assert torch.equal(a, b)
     assert int((o[0] < k1.BIG).sum()) > 0
@@ -464,9 +466,9 @@ def test_eighth_slice_kernels_equal_plain_versions(cuda, monkeypatch):
 
     monkeypatch.setattr(_build, "library", broken)
     with pytest.raises(RuntimeError, match="disabled"):
-        k2.minarg_fused(rays8, pack)
+        k2.minarg_fused(rays8, pack, sub)
     with pytest.raises(RuntimeError, match="disabled"):
-        k1.mxu(rays8, pack)
+        k1.mxu(rays8, pack, sub)
 
 
 @pytest.mark.cuda
@@ -1383,3 +1385,108 @@ def test_fifteenth_slice_group_equals_first_kernel(cuda, monkeypatch):
                lambda: si.run_group_counted(*args, sub)):
         with pytest.raises(RuntimeError, match="disabled"):
             fn()
+
+
+def _bits_equal(a, b):
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_sixteenth_slice_dense_equals_first_kernel(cuda, monkeypatch):
+    """K14 and K15 with the sub-block skip rule against their first
+    kernels, their plain versions and their counting entries on the
+    Cornell box and the reference scene (its zero-area triangles), on
+    random rays, rays aimed at triangles and rays with zero, subnormal and
+    huge components, a batch that ends inside a warp; every sub-block lane
+    by lane, all by the whole warp and the default mix; K14 equal to K1 +
+    K2; without the table, and with the loader broken, they raise."""
+    import pathlib
+    from march_lanes import aimed_rays
+    from opencl_path_tracer_tpu_torch.ops.kernels import cluster_kernel as ck
+    models = pathlib.Path(__file__).resolve().parent / "assets" / "models"
+    entries = {"minarg_fused": (k2, "MINARG_FUSED_COOP", k2.minarg_fused,
+                                k2.minarg_fused_simt, k2.minarg_fused_counted,
+                                k2.minarg_fused_plain),
+               "mxu": (k1, "MXU_COOP", k1.mxu, k1.mxu_simt, k1.mxu_counted,
+                       k1.mxu_plain)}
+    for scene in (library.cornell_box(with_spheres=True, device=cuda),
+                  library.reference_scene(str(models), smooth=True,
+                                          device=cuda)):
+        pack = k1.build_tri_pack(scene.tris)
+        sub = ck.sub_boxes(pack, [(0, pack.shape[0])])
+        rays8 = torch.cat([_rays8(30_001, 7, cuda), torch.as_tensor(
+            aimed_rays(20_000, 8, scene.tris)).to(cuda)], 1).contiguous()
+        sel = rays8[:, ::13]
+        for n, (row, v) in enumerate([(3, 0.0), (4, -0.0), (3, 1e-42),
+                                      (5, -3e-39), (4, 1e30), (0, 3e20),
+                                      (3, 2e12)]):
+            sel[row, n::7] = v
+        sel[3:6, 7::14] = 0.0
+        rays8[:, ::13] = sel
+        k12 = k2.refine1(*k1.minarg(rays8, pack), pack)
+        for name, (mod, coop_name, fn, simt, counted, plain) in (
+                entries.items()):
+            first = simt(rays8, pack)
+            assert _bits_equal(first, plain(rays8, pack)), name
+            if name == "minarg_fused":
+                assert _bits_equal(first, k12)
+            counts = {}
+            for coop in (-1, 12, 32):
+                monkeypatch.setattr(mod, coop_name, coop)
+                assert _bits_equal(fn(rays8, pack, sub), first), (name, coop)
+                out, counts[coop] = counted(rays8, pack, sub)
+                assert _bits_equal(out, first), (name, coop)
+            n_div, n_box, n_coop, n_edge, n_made = counts[12]
+            assert 0 < n_div < 0.5 * rays8.shape[1] * pack.shape[0]
+            assert n_coop <= n_box < n_made
+            assert 0 < n_edge <= 3 * n_div
+            assert counts[-1][:2] == counts[32][:2] == (n_div, n_box)
+            assert counts[-1][2] == 0 and counts[32][2] == n_box
+            assert counts[-1][3] == counts[32][3] == n_edge
+            with pytest.raises(ValueError, match="needs sub"):
+                fn(rays8, pack)
+
+    def broken(name):
+        raise RuntimeError("kernel loader disabled by the test")
+
+    monkeypatch.setattr(_build, "library", broken)
+    for _, _, fn, simt, counted, _ in entries.values():
+        for call in (lambda: fn(rays8, pack, sub), lambda: simt(rays8, pack),
+                     lambda: counted(rays8, pack, sub)):
+            with pytest.raises(RuntimeError, match="disabled"):
+                call()
+
+
+@pytest.mark.cuda
+def test_sixteenth_slice_dense_on_crafted_batches(cuda):
+    """K14 and K15 on tests/sub_cull_mirror.py's crafted batches (exact-t
+    ties across sub-blocks, rows accepted above BIG for K15, -0.0 normals,
+    D = 0 rays, T = 1, 31, 33 and 804): equal to their plain versions and
+    first kernels, K14 to K1 + K2; on K14's batches with rows accepted
+    above BIG, K14 equal to its first kernel and K1 + K2, its t to the
+    plain version's."""
+    from sub_cull_mirror import ABOVE_BIG_CASES, CRAFTED_CASES, crafted_dense
+    from opencl_path_tracer_tpu_torch.ops.kernels import cluster_kernel as ck
+    tris = library.cornell_box(with_spheres=True).tris
+    entries = {"minarg_fused": (k2.minarg_fused, k2.minarg_fused_simt,
+                                k2.minarg_fused_plain),
+               "mxu": (k1.mxu, k1.mxu_simt, k1.mxu_plain)}
+    for name, n_rows, n_deg in CRAFTED_CASES:
+        fn, simt, plain = entries[name]
+        pack, r8 = crafted_dense(tris, n_rows, n_deg)
+        pack, r8 = pack.to(cuda), torch.as_tensor(r8).to(cuda)
+        sub = ck.sub_boxes(pack, [(0, n_rows)])
+        out = fn(r8, pack, sub)
+        assert _bits_equal(out, plain(r8, pack)), (name, n_rows)
+        assert _bits_equal(out, simt(r8, pack)), (name, n_rows)
+        if name == "minarg_fused":
+            assert _bits_equal(out, k2.refine1(*k1.minarg(r8, pack), pack))
+    for n_rows, n_deg in ABOVE_BIG_CASES:
+        pack, r8 = crafted_dense(tris, n_rows, n_deg)
+        pack, r8 = pack.to(cuda), torch.as_tensor(r8).to(cuda)
+        sub = ck.sub_boxes(pack, [(0, n_rows)])
+        out = k2.minarg_fused(r8, pack, sub)
+        assert _bits_equal(out, k2.minarg_fused_simt(r8, pack))
+        assert _bits_equal(out, k2.refine1(*k1.minarg(r8, pack), pack))
+        assert _bits_equal(out[:1], k2.minarg_fused_plain(r8, pack)[:1])

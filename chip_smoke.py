@@ -324,7 +324,7 @@ CHECK_ONLY = ("minarg_simt", "minarg_count", "plucker_cand_simt",
               "cluster_count", "anyhit_simt", "anyhit_count",
               "tilecull_simt", "tilecull_count", "group_simt", "group_count",
               "minarg_fused_simt", "minarg_fused_count", "mxu_simt",
-              "mxu_count")
+              "mxu_count", "sphere_table_simt", "sphere_table_count")
 PAIR_KERNELS = ("pair_cand", "pair_visit", "attr_fetch")
 MODELS_DIR = os.path.join(HERE, "tests", "assets", "models")
 REFERENCE_TRIS = 1838   # ground plane + the seven models (docs/BENCHMARKS.md)
@@ -385,7 +385,8 @@ def build_line():
     # memory.
     for src in ("march.cu", "pair_cand.cu", "plucker_cand.cu", "minarg.cu",
                 "flat.cu", "lazy.cu", "pair_visit.cu", "pair_vpu.cu",
-                "tilecull.cu", "group.cu"):
+                "tilecull.cu", "group.cu", "minarg_fused.cu",
+                "sphere_table.cu"):
         rep = info.get("ptxas", {}).get(src, "")
         for fn, body in re.findall(
                 r"Compiling entry function '(\w+)'(.*?)(?=Compiling entry|\Z)",
@@ -608,7 +609,7 @@ def check_slice3(torch, scenes, cam, cam_rays, errs):
     many = scenes["many-lights"]
     table = k3.build_sphere_table(many.spheres)
     r8 = k1.pack_rays(cam_rays.p, cam_rays.d).contiguous()
-    so = k3.sphere_table(r8, table)
+    so = k3.sphere_table(r8, table, k3.sphere_groups(table))
     sp = k3.sphere_table_plain(r8, table)
     torch.cuda.synchronize()
     errs["sphere_table"] = max(float((a - b).abs().max())
@@ -619,7 +620,6 @@ def check_slice3(torch, scenes, cam, cam_rays, errs):
     print(f"sphere_table on {r8.shape[1]} many-lights camera rays "
           f"({table.shape[0]} spheres): {int((so[0] > 0).sum())} hits; equal "
           "to its plain version (torch.equal)")
-    inputs["sphere_table"] = (r8, table)
     return inputs
 
 
@@ -2071,7 +2071,7 @@ def check_slice16(torch, scenes, inputs):
     K15, -0.0 normals, D = 0 rays; T = 1, 31, 33 and 804) against its plain
     version and its first kernel, K14 also against K1 + K2 and, on batches
     with rows accepted above BIG, against K1 + K2, its first kernel and
-    the plain version's t; every comparison torch.equal on the float32
+    its plain version; every comparison torch.equal on the float32
     bits, with the sub-blocks passed per ray and the tests that reached
     the divide printed. Then each timed in turns (first, new, new, first)
     on the cornell camera and first-bounce rays. Returns the counts that
@@ -2152,14 +2152,14 @@ def check_slice16(torch, scenes, inputs):
              and same(new, k1_k2(r8, pack)),
              f"minarg_fused differs from its first kernel or minarg + "
              f"refine1 on {where}")
-        need(same(new[:1], k2.minarg_fused_plain(r8, pack)[:1]),
-             f"minarg_fused's t differs from its plain version's on {where}")
+        need(same(new, k2.minarg_fused_plain(r8, pack)),
+             f"minarg_fused differs from its plain version on {where}")
     print(f"crafted batches ({len(CRAFTED_CASES)}, {n_lanes} lanes): "
           "minarg_fused and mxu equal to their plain versions and first "
           "kernels, minarg_fused to minarg + refine1; with rows accepted "
           f"above BIG ({len(ABOVE_BIG_CASES)} batches) minarg_fused equal to "
-          "its first kernel and minarg + refine1, its t to its plain "
-          "version's (torch.equal on the bits)")
+          "its plain version, its first kernel and minarg + refine1 "
+          "(torch.equal on the bits)")
 
     def in_turns(first, new, reps):
         return ", ".join(f"{time_ms(torch, f, reps):.4f}"
@@ -2173,6 +2173,134 @@ def check_slice16(torch, scenes, inputs):
                   "kernel, new kernel, new kernel, first kernel): "
                   + in_turns(lambda: simt(r8, pack),
                              lambda: fn(r8, pack, sub), 10) + " ms")
+    return out
+
+
+def check_slice17(torch, scenes, cam, cam_rays, inputs):
+    """K1's and K14's start, and K3b as redesigned for the H100.
+
+    K1 (its kernel, first kernel and counting entry) and K14 (the same
+    three) on tests/sub_cull_mirror.py's batches whose rays accept row 0
+    above BIG: torch.equal to minarg_plain and minarg_fused_plain, the
+    reference's argmin (csrc/argmin_start.cuh).
+
+    K3b walks groups of at most eight spheres (`sphere_groups`, Morton
+    order) and skips per ray each whose box, widened by the sphere margin
+    (csrc/sphere_table.cu), its segment to its running best misses; it
+    runs the sqrt only where some lane of the warp has disc > 0. It is held
+    torch.equal to its plain version, its first kernel
+    (`sphere_table_simt`) and its counting entry on the 1080p many-lights
+    camera and first-bounce rays and the stress-analytic camera rays, with
+    the groups entered, the pairs computing disc and those reaching the
+    sqrt per ray printed; on 300 random spheres (38 groups) and
+    tests/sphere_cull_mirror.py's crafted batch at 1080p (grazing rays,
+    tangents on box faces, origins inside spheres, exact-t ties across
+    groups, radii 1e-3 to 1e4). Then timed in turns against its first
+    kernel, five readings each. Returns the inputs and counts of the kernels line's K3b rows."""
+    import numpy as np
+    from opencl_path_tracer_tpu_torch.core.spheres import SpheresSoA
+    from opencl_path_tracer_tpu_torch.ops.kernels import (
+        cluster_kernel as ck, intersect_kernel as k1, plucker_kernel as k2,
+        sphere_kernel as k3)
+    from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from sphere_cull_mirror import KINDS, crafted_rays, crafted_spheres
+    from sub_cull_mirror import ABOVE_BIG_CASES, crafted_dense
+
+    def same(a, b):
+        return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                   for x, y in zip(a, b))
+
+    tris = scenes["cornell"].tris
+    n_above = 0
+    for n_rows, n_deg in ABOVE_BIG_CASES:
+        pack, r8 = crafted_dense(tris, n_rows, n_deg)
+        pack, r8 = pack.cuda(), torch.as_tensor(r8).cuda()
+        sub = ck.sub_boxes(pack, [(0, n_rows)])
+        where = f"the crafted batch of {n_rows} rows ({n_deg} accepted " \
+            "above BIG)"
+        want = k1.minarg_plain(r8, pack)
+        for name, got in (("minarg", k1.minarg(r8, pack)),
+                          ("minarg_simt", k1.minarg_simt(r8, pack)),
+                          ("minarg's counting entry",
+                           k1.minarg_counted(r8, pack)[0])):
+            need(same(got, want), f"{name} differs from minarg_plain on "
+                 f"{where}")
+        t, ok = k1.exact_test(pack, r8)
+        above = ok[0] & (t[0] > k1.BIG) & (want[0] == k1.BIG)
+        need(bool((want[1][above] == n_deg).all()),
+             f"minarg_plain misses at a row other than {n_deg} on {where}")
+        n_above += int(above.sum())
+        want = k2.minarg_fused_plain(r8, pack)
+        for name, got in (("minarg_fused", k2.minarg_fused(r8, pack, sub)),
+                          ("minarg_fused_simt",
+                           k2.minarg_fused_simt(r8, pack)),
+                          ("minarg_fused's counting entry",
+                           k2.minarg_fused_counted(r8, pack, sub)[0])):
+            need(same(got, want), f"{name} differs from minarg_fused_plain "
+                 f"on {where}")
+    print(f"the reference's start: on {len(ABOVE_BIG_CASES)} crafted batches "
+          f"({n_above} rays accept row 0 above BIG and miss at the first row "
+          "that does not accept) minarg, minarg_simt, minarg_count, "
+          "minarg_fused, minarg_fused_simt and minarg_fused_count equal to "
+          "minarg_plain and minarg_fused_plain (torch.equal on the bits)")
+
+    many = k3.build_sphere_table(scenes["many-lights"].spheres)
+    cam8 = k1.pack_rays(cam_rays.p, cam_rays.d).contiguous()
+    bounce = bounce_rays(torch, scenes["many-lights"], cam, cam_rays,
+                         make_intersect_fn(scenes["many-lights"], "auto"))
+    c, r, m = crafted_spheres()
+    rs = np.random.default_rng(17)
+    rand = SpheresSoA.build(np.float32(rs.uniform(-200, 1200, (300, 3))),
+                            np.float32(rs.uniform(2, 40, 300)),
+                            np.int32(np.arange(300) % 9), device="cuda")
+    # (the kernels line's row or None, where, table, rays)
+    cases = [
+        ("sphere_table", "the many-lights camera rays", many, cam8),
+        ("sphere_table bounce", "the many-lights first-bounce rays", many,
+         k1.pack_rays(bounce.p, bounce.d).contiguous()),
+        ("sphere_table stress", "the stress-analytic camera rays",
+         k3.build_sphere_table(scenes["stress-analytic"].spheres), cam8),
+        (None, "300 random spheres on the many-lights camera rays",
+         k3.build_sphere_table(rand), cam8),
+        (None, f"the crafted batch ({W * H} lanes of {KINDS} kinds)",
+         k3.build_sphere_table(SpheresSoA.build(c, r, m, device="cuda")),
+         torch.as_tensor(crafted_rays(c, r, W * H)).cuda())]
+    out = {}
+    for key, where, table, r8 in cases:
+        groups = k3.sphere_groups(table)
+        want, plain_ms = timed(torch, lambda: k3.sphere_table_plain(r8,
+                                                                    table))
+        need(same(k3.sphere_table_simt(r8, table), want),
+             f"sphere_table_simt differs from its plain version on {where}")
+        need(same(k3.sphere_table(r8, table, groups), want),
+             f"sphere_table differs from its plain version on {where}")
+        got, counts = k3.sphere_table_counted(r8, table, groups)
+        need(same(got, want), "sphere_table's counting entry differs from "
+             f"its plain version on {where}")
+        made, passed, n_disc, n_sqrt, n_warp = counts
+        n, g = r8.shape[1], groups.data.shape[0]
+        hits = int((want[0] > 0).sum())
+        print(f"sphere_table on {where} ({n} rays, {table.shape[0]} spheres "
+              f"in {g} groups): {passed / n:.3f} groups entered per ray "
+              f"({n_warp * 32 / n:.3f} per warp), {n_disc / n:.3f} pairs "
+              f"computing disc and {n_sqrt / n:.4f} reaching the sqrt per ray "
+              f"(the first kernel: {table.shape[0]} each); {hits} hits; equal "
+              "to the plain version, the first kernel and the counting entry "
+              "(torch.equal on the bits)")
+        if key is not None:
+            out[key] = (r8, table, groups, plain_ms, counts, hits)
+    for key, where, _, _ in cases[:3]:
+        r8, table, groups = out[key][:3]
+        first = lambda: k3.sphere_table_simt(r8, table)
+        new = lambda: k3.sphere_table(r8, table, groups)
+        firsts, news = [], []
+        for _ in range(5):
+            firsts.append(time_ms(torch, first, 20))
+            news.append(time_ms(torch, new, 20))
+        print(f"sphere_table on {where} in turns (first kernel, new kernel) "
+              "x 5: first " + ", ".join(f"{x:.4f}" for x in firsts)
+              + "; new " + ", ".join(f"{x:.4f}" for x in news) + " ms")
     return out
 
 
@@ -2201,7 +2329,7 @@ def check_no_fallback(torch, scenes):
     two check-only entries, K13a and its two, K4, K7 and its two, K6 and
     its two, K3b, K8, K9, K10 and its two, K11, K12 and its two, K17 and
     its two, K16 and its two, K18, K18m, K19 and its two, K20 and its two,
-    K14 and its two, K15 and its two)."""
+    K14 and its two, K15 and its two, K3b's two)."""
     from opencl_path_tracer_tpu_torch.ops.kernels import _build
     from opencl_path_tracer_tpu_torch.ops.kernels import (
         cluster_kernel as ck, flat_march as fm, intersect_kernel as k1,
@@ -2215,6 +2343,7 @@ def check_no_fallback(torch, scenes):
              k8.build_shading_pack(smooth.attribs))
     gpack, groups, _ = tk.grouped_pack(scenes["cornell"].tris, 128)
     table = k3.build_sphere_table(scenes["many-lights"].spheres)
+    sgroups = k3.sphere_groups(table)
     rays8 = torch.zeros((8, 64), device="cuda")
     msc = mk.build_march_scene(scenes["cornell"].tris, 256)[0]
     mlist = torch.zeros(1, dtype=torch.int32, device="cuda")
@@ -2263,7 +2392,10 @@ def check_no_fallback(torch, scenes):
         "tilecull_simt": lambda: tk.tilecull_simt(rays8, gpack, groups),
         "tilecull_count": lambda: tk.tilecull_counted(rays8, gpack, groups,
                                                       gsub),
-        "sphere_table": lambda: k3.sphere_table(rays8, table),
+        "sphere_table": lambda: k3.sphere_table(rays8, table, sgroups),
+        "sphere_table_simt": lambda: k3.sphere_table_simt(rays8, table),
+        "sphere_table_count": lambda: k3.sphere_table_counted(rays8, table,
+                                                              sgroups),
         "smooth_refine": lambda: k8.smooth_refine(
             rays8, torch.full((64,), k1.BIG, device="cuda"),
             torch.zeros(64, device="cuda"), *spack),
@@ -2589,6 +2721,55 @@ def time_ms(torch, fn, reps):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def device_ms(torch, fn, reps, what):
+    """The mean device time of fn's kernels over `reps` calls, read from
+    torch.profiler's kernel events as runtime/profile.py reads them: the
+    spans of the port's own CUDA kernels (csrc/, in anonymous
+    namespaces), by kernel, each kernel's mean span times its launches a
+    call (its spans over reps, rounded), summed. Unlike time_ms it leaves
+    out the host's cost per call (the arguments' checks, the output
+    allocations, the ctypes launch), which sets time_ms below about
+    0.1 ms.
+
+    On an H100 torch.profiler has kept one kernel span fewer than were
+    launched in every profile from some point of a smoke's run on (19 of
+    20 calls, 39 of 40 where a call launches two kernels; idle time at
+    the window's ends did not change it), so a kernel's mean is read
+    from the spans the profiler kept. A profile that lost more than a
+    tenth of a kernel's spans is taken again, up to three times; then
+    the run fails. `what` names the row in the messages."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    seen = []
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = {}
+        for e in prof.events():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.name.startswith(("(anonymous namespace)::",
+                                           "void (anonymous namespace)::"))):
+                spans.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        per_call = {k: round(len(v) / reps) for k, v in spans.items()}
+        if spans and all(n >= 1 and abs(len(spans[k]) - n * reps)
+                         <= reps // 10 for k, n in per_call.items()):
+            lost = sum(n * reps - len(spans[k]) for k, n in per_call.items())
+            if lost:
+                print(f"{what}: torch.profiler kept "
+                      f"{sum(map(len, spans.values()))} kernel spans of "
+                      f"{sum(per_call.values()) * reps} in {reps} calls; "
+                      "device time from each kernel's mean span")
+            return sum(n * sum(spans[k]) / len(spans[k])
+                       for k, n in per_call.items()) / 1e3
+        seen.append({k: len(v) for k, v in spans.items()})
+    need(False, f"{what}: torch.profiler's kernel spans of the port in "
+         f"three profiles of {reps} calls each: {seen}")
 
 
 def edges_reached(pack, p, d):
@@ -3065,15 +3246,20 @@ def measure(torch, inputs, errs, launches):
           f"shadow ray, tilecull {pairs6 / rc6:.1f} per camera ray (of "
           f"{inputs['tilecull'][1].shape[0]} triangles), the tests their "
           "rules leave")
-    # K3b as K3: about 19 operations per (ray, sphere) pair, 10 per ray and
-    # 12 per hit for the normal.
-    rb, tab = inputs["sphere_table"]
-    rsb, sb = rb.shape[1], tab.shape[0]
-    hits_b = int((k3.sphere_table_plain(rb, tab)[0] > 0).sum())
-    rows.append(("sphere_table", lambda: k3.sphere_table(rb, tab),
-                 lambda: k3.sphere_table_plain(rb, tab),
-                 10 * rsb + 19 * rsb * sb + 12 * hits_b, 0,
-                 24 * rsb + 32 * sb + 20 * rsb))
+    # K3b, from its counting entry (check_slice17): 25 operations per
+    # (ray, group) box test made, 13 per pair whose disc is computed, 6
+    # more per pair reaching the sqrt, 10 per ray and 12 per hit for the
+    # normal; the rays, the table and the groups read once, five rows out.
+    for name in ("sphere_table", "sphere_table bounce",
+                 "sphere_table stress"):
+        rb, tab, grp, p_ms, (made, _, n_disc, n_sqrt, _), hits_b = inputs[
+            name]
+        rsb = rb.shape[1]
+        rows.append((name, lambda a=(rb, tab, grp): k3.sphere_table(*a),
+                     p_ms, 25 * made + 13 * n_disc + 6 * n_sqrt + 10 * rsb
+                     + 12 * hits_b, 0,
+                     24 * rsb + 32 * tab.shape[0] + grp.data.numel() * 4
+                     + 20 * rsb))
     # K8: the rays (six rows), t1 and g1 in, five rows out per ray; its
     # two tables, read once (they stay in L2); about 45 float32
     # operations per ray.
@@ -3111,6 +3297,7 @@ def measure(torch, inputs, errs, launches):
     out = []
     for name, kern, plain, ops, bf16_ops, nbytes, *lib in rows:
         ms = time_ms(torch, kern, 20)
+        dev_ms = device_ms(torch, kern, 20, name)
         # One call of each plain version (seconds each, at these shapes).
         plain_ms = plain if isinstance(plain, float) else timed(torch,
                                                                  plain)[1]
@@ -3122,12 +3309,13 @@ def measure(torch, inputs, errs, launches):
         out.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
             "launches": launches[kern_name], "max_abs_err": errs[kern_name],
-            "ms": ms,
+            "ms": ms, "device_ms": dev_ms,
             "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms,
         })
-        print(f"{name}: {ms:.4f} ms (plain {plain_ms:.2f} ms"
+        print(f"{name}: {ms:.4f} ms, device {dev_ms:.4f} ms (plain "
+              f"{plain_ms:.2f} ms"
               + (f", library {library_ms:.4f} ms" if lib else "")
               + f"), bound {max(t_ops, t_bytes):.4f} ms by "
               f"{out[-1]['bound_by']} ({ops:.4g} float32 and {bf16_ops:.4g} "
@@ -3182,6 +3370,7 @@ def main() -> int:
     inputs.update(check_slice14(torch, scenes, cam, cam_rays, inputs))
     inputs.update(check_slice15(torch, scenes, inputs))
     inputs.update(check_slice16(torch, scenes, inputs))
+    inputs.update(check_slice17(torch, scenes, cam, cam_rays, inputs))
     check_goldens(torch, np)
     check_no_fallback(torch, scenes)
     launches = main_path(torch, np, scenes, cam)

@@ -3,16 +3,21 @@
 // Replaces the TPU kernel opencl_path_tracer_tpu/ops/pallas/
 // intersect_kernel.py::_minarg_kernel (launched by _run_minarg).
 //
-// What it computes is the loop of nearest.cuh: the least accepted t per
-// ray and the lowest triangle index that reaches it.
+// What it computes is the reference's argmin: per ray the least tm over
+// the triangles in index order, tm = t where the exact test accepts and
+// BIG elsewhere, the lowest index on ties. Its loops are nearest.cuh's
+// (the accepted rows merged into a start of (BIG, 0)), which give the same
+// (t, index) unless triangle 0 accepts the ray above BIG; such a ray takes
+// the reference's own scan instead (argmin_start.cuh), after the loop.
 //
 // What bounds it on the H100: operations. The rays are read once, and
 // the triangle constants are staged through shared memory in tiles of 256
 // that every thread of the block reads by broadcast (nearest.cuh's
 // staging). The first kernel (minarg_simt_kernel below, nearest.cuh's
-// loop) paid the IEEE divide t = (c0 - n.P) / (n.D) for every pair and
-// then tested edges until one failed, about 45 instructions a pair, even
-// where t could not beat the ray's running best. This one settles the
+// loop, then the same step for triangle 0 above BIG) paid the IEEE
+// divide t = (c0 - n.P) / (n.D) for every pair and then tested edges
+// until one failed, about 45 instructions a pair, even where t could not
+// beat the ray's running best. This one settles the
 // pairs it can before the divide, with num = c0 - n.P and vn = n.D rounded as
 // nearest.cuh rounds them:
 //   (a) num and vn not of one strict sign (either is +-0 or NaN, or the
@@ -24,6 +29,12 @@
 //       correctly rounded divide is monotone, so t >= best and the
 //       strict < fails. No margin is needed, subnormals included; a
 //       product that overflows to inf rejects nothing.
+// Rule (a)'s infinite t needs the running best to be at most BIG. It is:
+// the loops start at (BIG, 0) and best only falls. The reference's start
+// of +inf, under which best exceeds BIG after a triangle 0 accepted above
+// BIG, is not the loops' start: such a ray's output comes from
+// argmin_start.cuh's scan, and its loop result is dropped, so the rules
+// never see a best above BIG.
 // Only the other pairs divide, then test t > 0 (which still catches an
 // underflow to 0) and t < best, and only then read the three edge rows
 // and test them as nearest.cuh's exact_hit does. So the outputs are the
@@ -54,7 +65,7 @@
 // launches and to time the two in turns; no wrapper on a render path
 // reaches either of the last two).
 
-#include "nearest.cuh"
+#include "argmin_start.cuh"
 
 namespace {
 
@@ -81,8 +92,12 @@ minarg_simt_kernel(const float* __restrict__ rays8,
     dy = rays8[4 * n_rays + i];
     dz = rays8[5 * n_rays + i];
   }
-  const Nearest best =
+  const bool maybe =
+      live && row0_may_exceed_big(tri, px, py, pz, dx, dy, dz);
+  Nearest best =
       nearest_triangle(tile, tri, n_tris, live, px, py, pz, dx, dy, dz);
+  if (maybe && row0_above_big(tri, px, py, pz, dx, dy, dz))
+    best = reference_scan(tri, n_tris, px, py, pz, dx, dy, dz);
   if (live) {
     t_out[i] = best.t;
     g_out[i] = (float)best.g;
@@ -231,8 +246,11 @@ __device__ __forceinline__ void joint_tile(
   }
 }
 
+// At most 40 registers (six blocks an SM), as the loops take without the
+// rare path after them (argmin_start.cuh): left to itself the compiler
+// gave the kernel 62 for that path, and it ran 2.5-6.6 % slower.
 template <bool COUNT>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, 6)
 minarg_cull_kernel(const float* __restrict__ rays8,
                    const float4* __restrict__ tri, float* __restrict__ t_out,
                    float* __restrict__ g_out, int n_rays, int n_tris,
@@ -240,6 +258,7 @@ minarg_cull_kernel(const float* __restrict__ rays8,
   __shared__ float4 tile[kTile * 4];
   float px[kRays], py[kRays], pz[kRays], dx[kRays], dy[kRays], dz[kRays];
   Nearest best[kRays];
+  bool maybe[kRays];   // row 0 may accept the ray above BIG
 #pragma unroll
   for (int r = 0; r < kRays; ++r) {
     const int i = (blockIdx.x * kRays + r) * kBlock + threadIdx.x;
@@ -253,6 +272,8 @@ minarg_cull_kernel(const float* __restrict__ rays8,
       dz[r] = rays8[5 * n_rays + i];
     }
     best[r] = Nearest{kBig, 0};
+    maybe[r] = i < n_rays && row0_may_exceed_big(
+                                 tri, px[r], py[r], pz[r], dx[r], dy[r], dz[r]);
   }
   unsigned long long n_div = 0, n_edge = 0;
   const bool joint = spread_wide(dx, dy, dz);
@@ -276,6 +297,10 @@ minarg_cull_kernel(const float* __restrict__ rays8,
   for (int r = 0; r < kRays; ++r) {
     const int i = (blockIdx.x * kRays + r) * kBlock + threadIdx.x;
     if (i < n_rays) {
+      if (maybe[r] &&
+          row0_above_big(tri, px[r], py[r], pz[r], dx[r], dy[r], dz[r]))
+        best[r] = reference_scan(tri, n_tris, px[r], py[r], pz[r], dx[r],
+                                 dy[r], dz[r]);
       t_out[i] = best[r].t;
       g_out[i] = (float)best[r].g;
     } else if (COUNT && joint) {

@@ -78,7 +78,14 @@ KERNELS = {
     "tilecull_count": ("tilecull.cu", "ptx_tilecull_count",
                        [P, I, P, P, P, P, P, I, I, I, I, P, P]),
     "sphere_table": ("sphere_table.cu", "ptx_sphere_table",
-                     [P, P, P, P, P, P, P, I, I, P]),
+                     [P, P, P, P, P, P, P, P, I, I, P]),
+    # K3b's two entries for the checks only: its first kernel (every
+    # (ray, sphere) pair), and the kernel counting the box tests made and
+    # passed, the pairs whose disc it computed and those with disc > 0.
+    "sphere_table_simt": ("sphere_table.cu", "ptx_sphere_table_simt",
+                          [P, P, P, P, P, P, P, I, I, P]),
+    "sphere_table_count": ("sphere_table.cu", "ptx_sphere_table_count",
+                           [P, P, P, P, P, P, P, P, I, I, P, P]),
     "smooth_refine": ("smooth_refine.cu", "ptx_smooth_refine",
                       [P, P, P, P, P, P, P, P, P, P, I, I, P]),
     "pair_cand": ("pair_cand.cu", "ptx_pair_cand",
@@ -142,12 +149,12 @@ KERNELS = {
     "lazy_march_count": ("lazy.cu", "ptx_lazy_count",
                          [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P, P]),
     "minarg_fused": ("minarg_fused.cu", "ptx_minarg_fused",
-                     [P, P, P, P, P, P, P, P, I, I, I, P]),
+                     [P, P, P, P, P, P, P, P, P, I, I, I, P]),
     # K14's two entries for the checks only, as K7's.
     "minarg_fused_simt": ("minarg_fused.cu", "ptx_minarg_fused_simt",
                           [P, P, P, P, P, P, P, I, I, P]),
     "minarg_fused_count": ("minarg_fused.cu", "ptx_minarg_fused_count",
-                           [P, P, P, P, P, P, P, P, I, I, I, P, P]),
+                           [P, P, P, P, P, P, P, P, P, I, I, I, P, P]),
     "mxu": ("mxu.cu", "ptx_mxu", [P, P, P, P, I, I, I, P]),
     # K15's two entries for the checks only, as K7's.
     "mxu_simt": ("mxu.cu", "ptx_mxu_simt", [P, P, P, I, I, P]),

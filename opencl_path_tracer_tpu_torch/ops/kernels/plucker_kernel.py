@@ -75,6 +75,12 @@ def minarg_fused_plain(rays8: torch.Tensor, tri_pack: torch.Tensor):
     return refine1_plain(*minarg_plain(rays8, tri_pack), tri_pack)
 
 
+def start_flags(n_rays: int, device) -> torch.Tensor:
+    """K14's scratch between its two kernels: a bit for each ray that
+    row 0 may accept above BIG (csrc/minarg_fused.cu), int32 words."""
+    return torch.empty(-(-n_rays // 32), dtype=torch.int32, device=device)
+
+
 def _check_minarg_fused(rays8, tri_pack, sub, what):
     """(R, K14's five output rows) after `check_dense`."""
     r = check_dense(rays8, tri_pack, sub, what)
@@ -98,8 +104,9 @@ def minarg_fused(rays8: torch.Tensor, tri_pack: torch.Tensor,
     if sub is None:
         raise ValueError("minarg_fused on CUDA tensors needs sub, the "
                          "pack's sub_boxes table")
-    _build.launch("minarg_fused", rays8, tri_pack, sub, *outs, r,
-                  tri_pack.shape[0], MINARG_FUSED_COOP)
+    _build.launch("minarg_fused", rays8, tri_pack, sub, *outs,
+                  start_flags(r, rays8.device), r, tri_pack.shape[0],
+                  MINARG_FUSED_COOP)
     return tuple(outs)
 
 
@@ -128,8 +135,9 @@ def minarg_fused_counted(rays8: torch.Tensor, tri_pack: torch.Tensor,
     if rays8.device.type != "cuda":
         raise ValueError("minarg_fused_counted runs on CUDA tensors only")
     count = torch.zeros(5, dtype=torch.int64, device=rays8.device)
-    _build.launch("minarg_fused_count", rays8, tri_pack, sub, *outs, r,
-                  tri_pack.shape[0], MINARG_FUSED_COOP, count)
+    _build.launch("minarg_fused_count", rays8, tri_pack, sub, *outs,
+                  start_flags(r, rays8.device), r, tri_pack.shape[0],
+                  MINARG_FUSED_COOP, count)
     return tuple(outs), tuple(int(x) for x in count.tolist())
 
 

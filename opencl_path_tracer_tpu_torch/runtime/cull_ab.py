@@ -1,7 +1,7 @@
 """K17 (the cluster intersector), K7 (the any-hit test), K6 (the
 tile-culled nearest hit), K16 (the mask-grouped intersector), K14 (the
-fused minarg) or K15 (the mxu dense intersect) built from two source trees
-and timed in one process.
+fused minarg), K15 (the mxu dense intersect) or K3b (the sphere table)
+built from two source trees and timed in one process.
 
 No counterpart in `opencl_path_tracer_tpu`. Compares the kernel of this
 checkout with the kernel of another checkout's `csrc/`, on the inputs
@@ -30,7 +30,14 @@ checkout with the kernel of another checkout's `csrc/`, on the inputs
 - `--kernel minarg_fused`, `--kernel mxu`: K14 or K15 over the Cornell
   box's pack (804 rows in scene order, 26 sub-blocks), as the injected
   intersectors build it, on the 1080p camera rays or the N-th bounce's;
-  `--scene reference` as for K7 (1,838 rows).
+  `--scene reference` as for K7 (1,838 rows);
+- `--kernel sphere_table`: K3b over the many-light scene's 66 spheres
+  (`--scene stress-analytic`: the analytic stress scene's 138) and their
+  `sphere_groups`, on the 1080p Cornell camera rays or the N-th bounce's,
+  with this tree's counting entry's counts (box tests made and passed,
+  pairs whose disc it computed, pairs with disc > 0, groups some ray of a
+  warp entered). A base without `ptx_sphere_table_simt` is the first
+  kernel (table only).
 
 A source tree whose library exports `ptx_<kernel>_simt` takes the
 sub-block table of the skip rule and a ballot threshold (this tree's
@@ -53,8 +60,9 @@ them run by the whole warp, the edge tests reached, and the box (K7, K6:
 and group slab) tests made. Needs a GPU:
 
     python -m opencl_path_tracer_tpu_torch.runtime.cull_ab \\
-        --kernel cluster|anyhit|tilecull|group|minarg_fused|mxu \\
-        [--bounce N] [--scene cornell|reference] [--coop N ...] --base DIR
+        --kernel cluster|anyhit|tilecull|group|minarg_fused|mxu|sphere_table \\
+        [--bounce N] [--scene cornell|reference|many-lights|stress-analytic] \\
+        [--coop N ...] --base DIR
 
 where DIR is, for example, the `opencl_path_tracer_tpu_torch/csrc` of a
 `git archive` of the parent commit unpacked in a gitignored directory.
@@ -81,7 +89,8 @@ FIRST_ARGTYPES = {"cluster": [P, P, P, P, P, P, I, I, I, I, I, P],
                   "tilecull": [P, I, P, P, P, P, I, I, P],
                   "group": [P, P, P, P, I, I, I, I, P],
                   "minarg_fused": [P, P, P, P, P, P, P, I, I, P],
-                  "mxu": [P, P, P, I, I, P]}
+                  "mxu": [P, P, P, I, I, P],
+                  "sphere_table": [P, P, P, P, P, P, P, I, I, P]}
 CHUNK = 1 << 18   # rays per pass of the plain counts
 
 
@@ -173,13 +182,19 @@ def tilecull_staging(r8, pack, groups, block=256):
     return staged / n_blocks, tests
 
 
-def _load(name, path, log):
+def _load(name, path, log, flags):
+    """(the entry, whether it takes the sub-block table, ptxas's frame,
+    spills and registers); flags: whether a minarg_fused entry takes its
+    scratch of flags (this tree's K14, its rare path in a second kernel)."""
     lib = ctypes.CDLL(str(path))
     table = hasattr(lib, f"ptx_{name}_simt")
     fn = getattr(lib, f"ptx_{name}")
     from opencl_path_tracer_tpu_torch.ops.kernels import _build
-    fn.argtypes = (_build.KERNELS[name][2] if table
-                   else FIRST_ARGTYPES[name])
+    argtypes = list(_build.KERNELS[name][2] if table
+                    else FIRST_ARGTYPES[name])
+    if table and name == "minarg_fused" and not flags:
+        del argtypes[8]
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     regs = [[int(x) for x in m] for m in re.findall(
         r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) "
@@ -363,6 +378,57 @@ def _dense_case(args, dev):
     return ((r8, pack), (r, t), (), alloc, lambda: sub, counted, info)
 
 
+def _sphere_ab(args, dev, fns, tables, regs) -> int:
+    """K3b of both trees in turns (see the module docstring): one JSON
+    line; 0 when every output is equal."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import intersect_kernel as k1
+    from opencl_path_tracer_tpu_torch.ops.kernels import sphere_kernel as k3
+    from opencl_path_tracer_tpu_torch.scene import library
+    scene = (library.stress_scene(analytic=True, device=dev)
+             if args.scene == "stress-analytic"
+             else library.many_light_scene(64, device=dev))
+    cam = library.cornell_camera(W, H, device=dev)
+    rays = _camera_rays(cam, dev)
+    for _ in range(args.bounce):
+        rays = _bounce(scene, cam, rays)
+    r8 = k1.pack_rays(rays.p, rays.d).contiguous()
+    table = k3.build_sphere_table(scene.spheres)
+    groups = k3.sphere_groups(table)
+    r, s, g = r8.shape[1], table.shape[0], groups.data.shape[0]
+    outs = {k: [torch.empty(r, device=dev) for _ in range(5)] for k in fns}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    counts = k3.sphere_table_counted(r8, table, groups)[1]
+
+    def launch(k):
+        if tables[k]:
+            a = (r8, table, groups.data, *outs[k], r, g)
+        else:
+            a = (r8, table, *outs[k], r, s)
+        err = fns[k](*(x.data_ptr() if isinstance(x, torch.Tensor)
+                       else x for x in a), stream)
+        if err:
+            raise RuntimeError(f"sphere_table ({k}) failed: "
+                               f"cudaError_t {err}")
+
+    order, times = time_in_turns(launch, args.reps, dev)
+    equal = all(torch.equal(a, b) for a, b in zip(outs["base"], outs["this"]))
+    made, passed, n_disc, n_sqrt, n_warp = counts
+    print(json.dumps({
+        "kernel": "sphere_table", "scene": args.scene,
+        "bounce": args.bounce, "rays": r, "spheres": s, "groups": g,
+        "box_tests": made, "box_passed_per_ray": passed / r,
+        "disc_pairs_per_ray": n_disc / r, "sqrt_pairs_per_ray": n_sqrt / r,
+        "groups_entered_per_warp": n_warp * 32 / r,
+        "first_kernel_pairs_per_ray": s, "reps": args.reps,
+        "device": torch.cuda.get_device_name(dev), "tables": tables,
+        "order": list(order), "ms": times,
+        "ptxas_frame_spills_registers": regs,
+        "base_ms": (times[0] + times[3]) / 2,
+        "this_ms": (times[1] + times[2]) / 2, "outputs_equal": equal,
+    }))
+    return int(not equal)
+
+
 def _camera_rays(cam, dev):
     from opencl_path_tracer_tpu_torch.ops import raygen, rng
     s1, r1 = rng.lehmer_step(rng.seed_pixel_streams(W * H, 1, device=dev))
@@ -382,21 +448,29 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel", required=True,
                     choices=("cluster", "anyhit", "tilecull", "group",
-                             "minarg_fused", "mxu"))
+                             "minarg_fused", "mxu", "sphere_table"))
     ap.add_argument("--base", required=True, type=pathlib.Path,
                     help="the csrc/ directory of the checkout to compare")
     ap.add_argument("--bounce", type=int, default=0,
                     help="rays of this bounce (0: the camera rays)")
-    ap.add_argument("--scene", choices=("cornell", "reference"),
+    ap.add_argument("--scene", choices=("cornell", "reference",
+                                        "many-lights", "stress-analytic"),
                     default=None, help="K7's, K6's, K16's, K14's or K15's "
-                    "scene (default: cornell, for K16 reference)")
+                    "scene, cornell or reference (default: cornell, for K16 "
+                    "reference); K3b's, many-lights (the default) or "
+                    "stress-analytic")
     ap.add_argument("--coop", type=int, nargs="+", default=None,
                     help="ballot thresholds of this tree's kernel, one "
                     "line each (default: the wrapper's)")
     ap.add_argument("--reps", type=int, default=10)
     args = ap.parse_args(argv)
     if args.scene is None:
-        args.scene = "reference" if args.kernel == "group" else "cornell"
+        args.scene = {"group": "reference",
+                      "sphere_table": "many-lights"}.get(args.kernel,
+                                                         "cornell")
+    sphere = args.kernel == "sphere_table"
+    if sphere != (args.scene in ("many-lights", "stress-analytic")):
+        ap.error(f"--scene {args.scene} is not a scene of {args.kernel}")
     dev = resolve_device("cuda")
     name = args.kernel
     out_dir = _build.BUILD_DIR / "ab"
@@ -404,12 +478,17 @@ def main(argv=None) -> int:
     srcs = {"base": args.base.resolve(), "this": _build.CSRC}
     libs = {k: out_dir / f"lib{name}_{k}.so" for k in srcs}
     procs = {k: _compile(d, libs[k], f"{name}.cu") for k, d in srcs.items()}
+    # Whether each tree's K14 takes a scratch of flags after its outputs.
+    flags = {k: name == "minarg_fused" and "start_kernel" in (
+        d / "minarg_fused.cu").read_text() for k, d in srcs.items()}
     fns, tables, regs = {}, {}, {}
     for k, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {k}:\n{log}")
-        fns[k], tables[k], regs[k] = _load(name, libs[k], log)
+        fns[k], tables[k], regs[k] = _load(name, libs[k], log, flags[k])
+    if sphere:
+        return _sphere_ab(args, dev, fns, tables, regs)
 
     case = {"cluster": _cluster_case, "anyhit": _anyhit_case,
             "tilecull": _tilecull_case, "group": _group_case,
@@ -431,6 +510,10 @@ def main(argv=None) -> int:
             info["divide_share"] = n_div / max(info["first_kernel_tests"], 1)
     outs = {k: alloc() for k in fns}
     stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = (k2.start_flags(before[0].shape[1], dev),)
+
+    def this_extra(k):
+        return scratch if flags[k] else ()
 
     def ptr(a):
         return a.data_ptr() if isinstance(a, torch.Tensor) else a
@@ -439,7 +522,7 @@ def main(argv=None) -> int:
     for coop in args.coop or [default]:
         def launch(k):
             if tables[k]:
-                a = (*before, sub, *outs[k], *after, *extra,
+                a = (*before, sub, *outs[k], *this_extra(k), *after, *extra,
                      coop if k == "this" else default)
             else:
                 a = (*before, *outs[k], *after)

@@ -363,9 +363,12 @@ def mirrored_dense(r8, pack, sub, coop, test, tested=None):
     box_maybe fails against the running best but never while the best is
     above BIG, merged as the kernel's warps of 32 consecutive rays choose
     with coop. K1's test merges the accepted rows' t from a start of (BIG,
-    0); K15's lets every row compete with tm (t where it accepts, BIG
-    elsewhere) from a start of +inf. A ray with D = 0 tests nothing and
-    keeps (BIG, 0). r8 (8, R) float32, pack (T, 24) tensor, sub (S, 8);
+    0), except on a ray whose row 0 accepts it above BIG, which takes the
+    reference's argmin (every row competing with tm) and tests nothing in
+    the loop (csrc/argmin_start.cuh); K15's lets every row compete with tm
+    (t where it accepts, BIG elsewhere) from a start of +inf. A ray with D
+    = 0 tests nothing and keeps (BIG, 0). r8 (8, R) float32, pack (T, 24)
+    tensor, sub (S, 8);
     tested: `dense_tests(r8, pack, test)` where the caller has it.
     Returns (t (R,), winner row (R,), tests reaching the divide, box
     tests passed, box tests made)."""
@@ -373,12 +376,18 @@ def mirrored_dense(r8, pack, sub, coop, test, tested=None):
     cr = cull_ray(r8[0:3], r8[3:6])
     r, n = r8.shape[1], pack.shape[0]
     t, ok = tested if tested is not None else dense_tests(r8, pack, test)
+    bg = np.zeros(r, np.int64)
     if test == "mxu":
         t, ok = np.where(ok, t, BIG32), np.ones_like(ok)
         bt = np.where(live, F32(np.inf), BIG32)
     else:
         bt = np.full(r, BIG32)
-    bg = np.zeros(r, np.int64)
+        with np.errstate(invalid="ignore"):
+            above = live & ok[0] & (t[0] > BIG32)
+        tm = np.where(ok[:, above], t[:, above], BIG32)
+        bg[above] = tm.argmin(0)                # first index at the min
+        bt[above] = tm[bg[above], np.arange(tm.shape[1])]
+        live = live & ~above
     n_div = n_box = n_made = 0
     for s in range(-(-n // SUB)):
         j0, j1 = s * SUB, min(n, (s + 1) * SUB)
@@ -393,15 +402,15 @@ def mirrored_dense(r8, pack, sub, coop, test, tested=None):
 
 # The crafted batches (kernel, T, degenerate rows), on the CPU
 # (tests/test_torch_dense_cull.py) and on the card (chip_smoke.py,
-# tests/test_torch_cuda.py): K14 keeps K1's start, (BIG, 0), where the
-# plain version's rows that do not accept compete with BIG, so the two
-# differ on the attributes of a miss after rows accepted only above BIG
-# and K14's batches have none; K15's have.
+# tests/test_torch_cuda.py). K15's have rows accepted above BIG.
 CRAFTED_CASES = [("minarg_fused", t, 0) for t in (1, 31, 33, 804)] + [
     ("mxu", 1, 0), ("mxu", 1, 1), ("mxu", 31, 1), ("mxu", 33, 32),
     ("mxu", 804, 1)]
-# K14's batches with rows accepted above BIG: K14 equals its first kernel
-# and K1 + K2 there, and the plain version's t.
+# The batches (T, degenerate rows) whose rays accept row 0 above BIG, for
+# K1 and K14 (csrc/argmin_start.cuh): there they follow the reference's
+# argmin, whose rows that do not accept compete with BIG, so such a miss
+# takes the first row that does not accept (row n_deg). Each kernel equals
+# its plain version, its first kernel and (K14) K1 + K2 on them.
 ABOVE_BIG_CASES = [(31, 1), (33, 32), (804, 1)]
 
 # Row constants of the crafted pack's degenerate rows: n = (1, -0, -0),

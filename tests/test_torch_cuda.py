@@ -127,7 +127,7 @@ def test_third_slice_kernels_equal_plain_versions(cuda):
     assert torch.equal(occ, (t1 < k1.BIG) & (t1 < rmax))
     many = library.many_light_scene(64, device=cuda)
     table = k3.build_sphere_table(many.spheres)
-    for a, b in zip(k3.sphere_table(rays8, table),
+    for a, b in zip(k3.sphere_table(rays8, table, k3.sphere_groups(table)),
                     k3.sphere_table_plain(rays8, table)):
         assert torch.equal(a, b)
     for name in ("tilecull", "anyhit", "sphere_table"):
@@ -154,9 +154,9 @@ def test_no_fallback_when_the_loader_fails(cuda, monkeypatch):
         tk.anyhit(_rays8(64, 1, cuda), torch.ones(64, device=cuda), pack,
                   groups, sub)
     many = library.many_light_scene(64, device=cuda)
+    table = k3.build_sphere_table(many.spheres)
     with pytest.raises(RuntimeError, match="disabled"):
-        k3.sphere_table(_rays8(64, 1, cuda),
-                        k3.build_sphere_table(many.spheres))
+        k3.sphere_table(_rays8(64, 1, cuda), table, k3.sphere_groups(table))
 
 
 @pytest.mark.cuda
@@ -1464,8 +1464,8 @@ def test_sixteenth_slice_dense_on_crafted_batches(cuda):
     ties across sub-blocks, rows accepted above BIG for K15, -0.0 normals,
     D = 0 rays, T = 1, 31, 33 and 804): equal to their plain versions and
     first kernels, K14 to K1 + K2; on K14's batches with rows accepted
-    above BIG, K14 equal to its first kernel and K1 + K2, its t to the
-    plain version's."""
+    above BIG, K14 equal to its plain version, its first kernel and K1 +
+    K2 (the reference's start, csrc/argmin_start.cuh)."""
     from sub_cull_mirror import ABOVE_BIG_CASES, CRAFTED_CASES, crafted_dense
     from opencl_path_tracer_tpu_torch.ops.kernels import cluster_kernel as ck
     tris = library.cornell_box(with_spheres=True).tris
@@ -1489,4 +1489,117 @@ def test_sixteenth_slice_dense_on_crafted_batches(cuda):
         out = k2.minarg_fused(r8, pack, sub)
         assert _bits_equal(out, k2.minarg_fused_simt(r8, pack))
         assert _bits_equal(out, k2.refine1(*k1.minarg(r8, pack), pack))
-        assert _bits_equal(out[:1], k2.minarg_fused_plain(r8, pack)[:1])
+        assert _bits_equal(out, k2.minarg_fused_plain(r8, pack))
+
+
+@pytest.mark.cuda
+def test_seventeenth_slice_start_above_big(cuda):
+    """K1 (its kernel, first kernel and counting entry) and K14 (its
+    kernel, first kernel and counting entry) on tests/sub_cull_mirror.py's
+    batches whose rays accept row 0 above BIG: equal to minarg_plain and
+    minarg_fused_plain, the reference's argmin (a miss there carries row
+    n_deg, the first row that does not accept)."""
+    from sub_cull_mirror import ABOVE_BIG_CASES, crafted_dense
+    from opencl_path_tracer_tpu_torch.ops.kernels import cluster_kernel as ck
+    tris = library.cornell_box(with_spheres=True).tris
+    for n_rows, n_deg in ABOVE_BIG_CASES:
+        pack, r8 = crafted_dense(tris, n_rows, n_deg)
+        pack, r8 = pack.to(cuda), torch.as_tensor(r8).to(cuda)
+        sub = ck.sub_boxes(pack, [(0, n_rows)])
+        want = k1.minarg_plain(r8, pack)
+        for got in (k1.minarg(r8, pack), k1.minarg_simt(r8, pack),
+                    k1.minarg_counted(r8, pack)[0]):
+            assert _bits_equal(got, want), n_rows
+        t, ok = k1.exact_test(pack, r8)
+        above = ok[0] & (t[0] > k1.BIG) & (want[0] == k1.BIG)
+        assert int(above.sum()) > 10 and (want[1][above] == n_deg).all()
+        want = k2.minarg_fused_plain(r8, pack)
+        for got in (k2.minarg_fused(r8, pack, sub),
+                    k2.minarg_fused_simt(r8, pack),
+                    k2.minarg_fused_counted(r8, pack, sub)[0]):
+            assert _bits_equal(got, want), n_rows
+
+
+@pytest.mark.cuda
+def test_seventeenth_slice_sphere_table_equals_first_kernel(cuda,
+                                                            monkeypatch):
+    """K3b over its groups against its first kernel, its plain version and
+    its counting entry: the many-light scene
+    (66 spheres) and the analytic stress scene (138) on random rays, the
+    Cornell camera's rays and tests/sphere_cull_mirror.py's crafted batch
+    (grazing rays, tangents on box faces, origins inside spheres, exact-t
+    ties across groups, radii 1e-3 to 1e4), 300 random spheres (38
+    groups), a table with dead rows and one with none live; without the
+    groups, and with the loader broken, it raises."""
+    from sphere_cull_mirror import (
+        KINDS, crafted_rays, crafted_spheres, mirrored_sphere_table)
+    from opencl_path_tracer_tpu_torch.core.spheres import SpheresSoA
+    from opencl_path_tracer_tpu_torch.ops import raygen, rng
+    cam = library.cornell_camera(96, 54, device=cuda)
+    s1, u1 = rng.lehmer_step(rng.seed_pixel_streams(96 * 54, 1, device=cuda))
+    _, u2 = rng.lehmer_step(s1)
+    cray = raygen.camera_rays(cam, raygen.pixel_ids(96, 54, cuda), u1, u2)
+    cam8 = k1.pack_rays(cray.p, cray.d).contiguous()
+    c, r, m = crafted_spheres()
+    rs = np.random.default_rng(5)
+    n = 300
+    tables = {
+        "many-lights": k3.build_sphere_table(
+            library.many_light_scene(64, device=cuda).spheres),
+        "stress-analytic": k3.build_sphere_table(
+            library.stress_scene(analytic=True, device=cuda).spheres),
+        "crafted": k3.build_sphere_table(
+            SpheresSoA.build(c, r, m, device=cuda)),
+        "random 300": k3.build_sphere_table(SpheresSoA.build(
+            np.float32(rs.uniform(-200, 1200, (n, 3))),
+            np.float32(rs.uniform(2, 40, n)),
+            np.int32(np.arange(n) % 9), device=cuda)),
+    }
+    dead = tables["many-lights"].clone()
+    dead[::3, 7] = 0.0
+    tables["dead rows"] = dead
+    none = dead.clone()
+    none[:, 7] = -1.0
+    tables["none live"] = none
+    crafted = torch.as_tensor(crafted_rays(c, r, 200 * KINDS)).to(cuda)
+    for name, table in tables.items():
+        groups = k3.sphere_groups(table)
+        if name in ("random 300", "none live"):
+            assert groups.data.shape[0] == (38 if name == "random 300" else 0)
+        for rays8 in (_rays8(30_001, 9, cuda), cam8, crafted):
+            want = k3.sphere_table_plain(rays8, table)
+            assert _bits_equal(k3.sphere_table_simt(rays8, table), want)
+            before = _build.launches["sphere_table"]
+            got = k3.sphere_table(rays8, table, groups)
+            assert _bits_equal(got, want), name
+            out, counts = k3.sphere_table_counted(rays8, table, groups)
+            assert _bits_equal(out, want), name
+            made, passed, n_disc, n_sqrt, n_warp = counts
+            assert made == rays8.shape[1] * groups.data.shape[0]
+            assert passed <= made and n_sqrt <= n_disc
+            assert n_disc <= passed * k3.SPHERE_GROUP
+            assert passed / 32 <= n_warp <= passed
+            assert _bits_equal(k3.sphere_table(rays8.cpu(), table.cpu()),
+                               [x.cpu() for x in want])
+            assert _build.launches["sphere_table"] == before + 1
+        if name == "crafted":
+            got, mc = mirrored_sphere_table(crafted.cpu().numpy(),
+                                            table.cpu(), groups)
+            assert _bits_equal([x.to(cuda) for x in got], want)
+            assert mc == k3.sphere_table_counted(crafted, table, groups)[1]
+    table = tables["many-lights"]
+    with pytest.raises(ValueError, match="needs groups"):
+        k3.sphere_table(cam8, table)
+    with pytest.raises(ValueError, match="of 66 spheres, not 300"):
+        k3.sphere_table(cam8, tables["random 300"], k3.sphere_groups(table))
+
+    def broken(name):
+        raise RuntimeError("kernel loader disabled by the test")
+
+    groups = k3.sphere_groups(table)
+    monkeypatch.setattr(_build, "library", broken)
+    for call in (lambda: k3.sphere_table(cam8, table, groups),
+                 lambda: k3.sphere_table_simt(cam8, table),
+                 lambda: k3.sphere_table_counted(cam8, table, groups)):
+        with pytest.raises(RuntimeError, match="disabled"):
+            call()

@@ -226,27 +226,26 @@ def test_intersectors_build_no_table_on_the_cpu():
 
 
 @pytest.mark.parametrize("n_rows,n_deg", ABOVE_BIG_CASES)
-def test_minarg_fused_keeps_k1s_start_above_big(n_rows, n_deg):
-    """K14 starts at K1's (BIG, 0) and merges accepted rows only, so a ray
-    that accepts rows only above BIG keeps index 0 where the plain version
-    (and the reference's argmin, whose rows that do not accept compete
-    with BIG) takes the first row that does not accept. t is -1 either
-    way; only the attributes such a miss carries differ, and K1 + K2 on
-    the card give K14's (the mirror here)."""
+def test_minarg_fused_follows_reference_above_big(n_rows, n_deg):
+    """A ray whose row 0 accepts it above BIG takes the reference's argmin
+    (csrc/argmin_start.cuh), whose rows that do not accept compete with
+    BIG: K14's mirror equals the plain version, t and every attribute,
+    and such a miss carries the first row that does not accept, row
+    n_deg, not K1's old start (BIG, 0)."""
     sc = scene_and_camera("cornell")[0]
     pack, r8 = crafted_dense(sc.tris, n_rows, n_deg)
     sub = ck.sub_boxes(pack, [(0, n_rows)])
     rays = torch.from_numpy(r8)
-    got, _ = mirror("minarg_fused", rays, pack, sub.numpy(), 16)
     plain = k2.minarg_fused_plain(rays, pack)
-    assert torch.equal(got[0].view(torch.int32), plain[0].view(torch.int32))
+    for coop in (-1, 16, 32):
+        got, _ = mirror("minarg_fused", rays, pack, sub.numpy(), coop)
+        assert bits_equal(got, plain), coop
     t, ok = k1.exact_test(pack, rays)
-    above = (ok & (t > k1.BIG))[:n_deg].any(0) & ~(ok & (t < k1.BIG)).any(0)
+    above = ok[0] & (t[0] > k1.BIG) & ~(ok & (t < k1.BIG)).any(0)
     g = k1.minarg_plain(rays, pack)[1]
-    diff = torch.zeros_like(above)
-    for a, b in zip(got[1:], plain[1:]):
-        diff |= a.view(torch.int32) != b.view(torch.int32)
     assert int(above.sum()) > 10 and (got[0][above] == -1.0).all()
-    assert not diff[~above].any() and (g[above] == n_deg).all()
-    assert diff[above].any()
+    assert (g[above] == n_deg).all()
+    # Row n_deg's attributes, not row 0's: the start that K1 kept before.
+    assert not torch.equal(pack[n_deg, 16], pack[0, 16])
+    assert (got[4][above] == pack[n_deg, 16] + 0.0).all()
     assert DEGENERATE_C0 > k1.BIG

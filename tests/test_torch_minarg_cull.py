@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from minarg_rays import KINDS, adversarial_rays, tie_pack
+from sub_cull_mirror import ABOVE_BIG_CASES, crafted_dense
 from opencl_path_tracer_tpu_torch.ops import raygen, rng
 from opencl_path_tracer_tpu_torch.ops.kernels import intersect_kernel as k1
 from opencl_path_tracer_tpu_torch.ops.kernels.intersect_kernel import (
@@ -224,9 +225,12 @@ def joint_warps(rays8):
 
 def minarg_culled(rays8, pack):
     """The loops of csrc/minarg.cu written out in PyTorch, one triangle
-    at a time over all rays: (t, g) as minarg_plain gives them, the pairs
-    that reached the divide, and the warps that ran the joint loop (no
-    cull: every pair divided)."""
+    at a time over all rays, then the step of csrc/argmin_start.cuh (a
+    ray whose triangle 0 accepts it above BIG takes the reference's
+    argmin, every row competing with t where it accepts and BIG
+    elsewhere): (t, g) as minarg_plain gives them, the pairs that reached
+    the divide, and the warps that ran the joint loop (no cull: every pair
+    divided)."""
     r = rays8.shape[1]
     p = (rays8[0], rays8[1], rays8[2])
     d = (rays8[3], rays8[4], rays8[5])
@@ -253,6 +257,11 @@ def minarg_culled(rays8, pack):
             ok &= fp.fma(t, vm, pm) >= c[b + 3]
         best[idx[ok]] = t[ok]
         g[idx[ok]] = float(j)
+    t, ok = k1.exact_test(pack, rays8)
+    above = ok[0] & (t[0] > BIG)
+    tm, gm = torch.min(torch.where(ok, t, torch.full_like(t, BIG)), dim=0)
+    best = torch.where(above, tm, best)
+    g = torch.where(above, gm.to(torch.float32), g)
     return best, g, reached, warps
 
 
@@ -300,3 +309,22 @@ def test_culled_loop_equals_minarg_plain(name):
     t2, g2 = k1.minarg_plain(adv, tie_pack(pack))
     hit = t2 < BIG
     assert bool(hit.any()) and bool((g2[hit] < pack.shape[0]).all())
+
+
+@pytest.mark.parametrize("n_rows,n_deg", ABOVE_BIG_CASES)
+def test_culled_loop_follows_reference_above_big(n_rows, n_deg):
+    """On tests/sub_cull_mirror.py's crafted batches, whose first n_deg
+    rows accept some rays above BIG, the kernel's loops with the step of
+    csrc/argmin_start.cuh give minarg_plain's (t, g): such a ray misses
+    at (BIG, n_deg), the first row that does not accept it, where the
+    loops alone keep (BIG, 0)."""
+    tris = library.cornell_box(with_spheres=True).tris
+    pack, r8 = crafted_dense(tris, n_rows, n_deg)
+    rays8 = torch.from_numpy(r8)
+    t, g, _, _ = minarg_culled(rays8, pack)
+    tp, gp = k1.minarg_plain(rays8, pack)
+    assert torch.equal(t, tp) and torch.equal(g, gp)
+    tt, ok = k1.exact_test(pack, rays8)
+    above = ok[0] & (tt[0] > BIG)
+    assert int(above.sum()) > 10
+    assert (gp[above & (tp == BIG)] == float(n_deg)).all()

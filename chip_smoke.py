@@ -171,11 +171,35 @@ printed; each is timed in turns against its first kernel, and the
 kernels line has their rows on the cornell camera and first-bounce rays,
 their bounds counted from the tests the rule leaves.
 
+Checkpoints and adaptive sampling (`check_slice18`, after the main
+paths above, with the same counts reset before and read after each
+path): a parity resume (2 spp, `RenderEngine.save`, `load` into a new
+engine, 2 spp) equals an unbroken render with torch.equal on the colors,
+Lehmer states and samples, for `megakernel cornell resume` (K1, K2;
+unbroken = 4 spp) and `wavefront cornell-sphere-lamp nee resume` (K1,
+K2, K3, K7; unbroken = 2 spp then 2 spp in one engine: NEE's draws key on
+the step counter, and the split moves the steps at which a lane
+bounces), with each checkpoint's size and its save and load seconds
+printed. `wavefront cornell-sphere-lamp nee adaptive` is
+`RenderEngine.render_adaptive` in parity mode (tol 0.05, min_spp 8, a
+cap of 32): it prints the buckets it stepped (at least one below
+2,073,600), spp min / mean / max and its Mrays/s and samples/s beside
+the fixed 32-spp render of the same engine configuration; pixels below
+the cap satisfy the stop rule.
+NEE's draws also key on lane position, so compaction changes that
+render's bits (in the JAX package too); the equality of compaction on
+and off is held on `wavefront cornell-sphere-lamp adaptive` (the same
+render without NEE: K1, K2, K3; off is `models.wavefront.render_adaptive`
+with compact=False), colors and samples by pixel. K1, K2, K3 and K7 are
+held against their plain versions at every bucket size of the 1080p
+ladder, 2,073,600 halved down to 8,100.
+
 The last two lines are a JSON object per kernel (time, plain time,
 bound, launches) and the verdict; the line before them, the smoke's total
 time. Any failed phase raises, and the
 script exits non-zero without the verdict. It writes nothing but the
-kernel build under the package's `_build/`.
+kernel build under the package's `_build/` and the resume checks'
+checkpoints in a temporary directory, which it removes.
 """
 
 from __future__ import annotations
@@ -185,6 +209,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -307,7 +332,15 @@ PATH_KERNELS = {
     "lazy stress": ("lazy_march", "dense"),
     "megakernel cornell minarg-fused": ("minarg_fused",),
     "megakernel cornell mxu": ("mxu",),
+    "megakernel cornell resume": ("minarg", "refine1"),
+    "wavefront cornell-sphere-lamp nee resume": ("minarg", "refine1",
+                                                 "spheres", "anyhit"),
+    "wavefront cornell-sphere-lamp nee adaptive": ("minarg", "refine1",
+                                                   "spheres", "anyhit"),
+    "wavefront cornell-sphere-lamp adaptive": ("minarg", "refine1",
+                                               "spheres"),
 }
+ADAPTIVE_TOL, ADAPTIVE_MIN_SPP, ADAPTIVE_MAX_SPP = 0.05, 8, 32
 # Kernels each main path must not launch: the injected intersectors of
 # the last two run their one kernel in place of K1 + K2 (and K4).
 PATH_EXCLUDES = {
@@ -2700,6 +2733,206 @@ def main_path(torch, np, scenes, cam):
     return total
 
 
+def by_pixel(torch, st):
+    """(colors (N, 3), samples (N,)) of a wavefront state by pixel id."""
+    from opencl_path_tracer_tpu_torch.models import wavefront
+    samples = torch.zeros_like(st.samples)
+    samples[st.pixel.long()] = st.samples
+    return wavefront.colors_by_pixel(st, W * H), samples
+
+
+def check_resume(torch, name, make, first, split, path, launches):
+    """`first` samples, save, load into a new engine, `split` more: equal
+    (torch.equal) to an unbroken engine that renders first + split in
+    one call, or `first` then `split` in two (split=(a, b))."""
+    unbroken = make()
+    for spp in split:
+        unbroken.render(spp)
+    eng = make()
+    eng.render(first)
+    t0 = time.perf_counter()
+    eng.save(path)
+    t_save = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    resumed = make()
+    t0 = time.perf_counter()
+    resumed.load(path)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    need(resumed.state.rng_state.device.type == "cuda",
+         f"{name}: the checkpoint did not load onto the card")
+    _, dt, counts = run_path(torch, name,
+                             lambda: resumed.render(sum(split) - first))
+    for k, v in counts.items():
+        launches[k] += v
+    a, b = resumed.state, unbroken.state
+    same = (all(torch.equal(x, y) for x, y in zip(a.colors, b.colors))
+            and torch.equal(a.rng_state, b.rng_state))
+    if resumed.cfg.model == "wavefront":
+        same = (same and torch.equal(a.samples, b.samples)
+                and torch.equal(a.lum_m2, b.lum_m2) and a.step == b.step)
+    else:
+        same = same and a.sample == b.sample
+    need(same, f"{name}: the resumed render differs from the unbroken one")
+    print(f"{name}: {W}x{H}, {BOUNCES} bounces, parity; {first} spp, save, "
+          f"load, {sum(split) - first} spp equal to the unbroken render "
+          f"{' + '.join(map(str, split))} spp (torch.equal: colors, Lehmer "
+          f"states{', samples, M2, step' if resumed.cfg.model == 'wavefront' else ', sample'}); "
+          f"checkpoint {size / 2**20:.1f} MiB, save {t_save:.2f} s, load "
+          f"{t_load:.2f} s; resumed {sum(split) - first} spp in {dt:.3f} s; "
+          f"launches {counts}")
+    os.remove(path)
+
+
+def check_slice18(torch, scenes, launches):
+    """Resume and adaptive sampling at 1920x1080 (the module docstring).
+    Adds each path's launches to `launches`."""
+    from opencl_path_tracer_tpu_torch.config import CameraConfig, RenderConfig
+    from opencl_path_tracer_tpu_torch.models import wavefront
+    from opencl_path_tracer_tpu_torch.ops.kernels import (
+        intersect_kernel as k1, plucker_kernel as k2, sphere_kernel as k3,
+        tilecull_kernel as tk)
+    from opencl_path_tracer_tpu_torch.runtime import engine as engine_mod
+    from opencl_path_tracer_tpu_torch.runtime.engine import RenderEngine
+
+    def cfg(**kw):
+        return RenderConfig(width=W, height=H, iterations=BOUNCES,
+                            mode="parity", camera=CameraConfig(
+                                fov=60.0, yaw=0.0, pitch=0.0,
+                                shift=(0.0, 0.0, 0.0)), **kw)
+
+    lamp = scenes["cornell-sphere-lamp"]
+    with tempfile.TemporaryDirectory() as tmp:
+        check_resume(torch, "megakernel cornell resume",
+                     lambda: RenderEngine(scenes["cornell"], cfg(),
+                                          device="cuda"),
+                     2, (4,), os.path.join(tmp, "mk.npz"), launches)
+        check_resume(torch, "wavefront cornell-sphere-lamp nee resume",
+                     lambda: RenderEngine(lamp, cfg(model="wavefront",
+                                                    nee=True),
+                                          device="cuda"),
+                     2, (2, 2), os.path.join(tmp, "wf.npz"), launches)
+
+    # The adaptive main path, with the rays of the first intersect and
+    # shadow-ray call at each lane count kept for the kernel checks.
+    eng = RenderEngine(lamp, cfg(model="wavefront", nee=True), device="cuda")
+    seen, shadows = {}, {}
+    isect, occluded = eng.intersect_fn, eng.occluded
+
+    def keep_isect(rays):
+        seen.setdefault(rays.count, (rays.p, rays.d))
+        return isect(rays)
+
+    def keep_occluded(rays, rmax):
+        shadows.setdefault(rays.count, (rays.p, rays.d, rmax))
+        return occluded(rays, rmax)
+
+    eng.intersect_fn, eng.occluded = keep_isect, keep_occluded
+    name = "wavefront cornell-sphere-lamp nee adaptive"
+    _, dt, counts = run_path(torch, name, lambda: eng.render_adaptive(
+        ADAPTIVE_TOL, ADAPTIVE_MAX_SPP, ADAPTIVE_MIN_SPP))
+    for k, v in counts.items():
+        launches[k] += v
+    cols, smp = by_pixel(torch, eng.state)
+    done = wavefront.converged_mask(eng.state.samples, eng.state.colors,
+                                    eng.state.lum_m2, ADAPTIVE_TOL,
+                                    ADAPTIVE_MIN_SPP)
+    below = eng.state.samples < ADAPTIVE_MAX_SPP
+    buckets = eng.adaptive_buckets
+    need(bool(torch.isfinite(cols).all()) and float(cols.mean()) > 0,
+         f"{name}: bad colors")
+    need(int(smp.min()) >= ADAPTIVE_MIN_SPP
+         and int(smp.max()) <= ADAPTIVE_MAX_SPP,
+         f"{name}: samples {int(smp.min())}..{int(smp.max())} outside "
+         f"[{ADAPTIVE_MIN_SPP}, {ADAPTIVE_MAX_SPP}]")
+    need(bool(done[below].all()),
+         f"{name}: {int((below & ~done).sum())} pixels stopped below the "
+         "cap without meeting the stop rule")
+    need(min(buckets) < W * H, f"{name}: never compacted ({buckets})")
+    ladder = [(b, buckets.count(b)) for b in dict.fromkeys(buckets)]
+    mean_spp = float(smp.float().mean())
+    print(f"main path {name}: {W}x{H}, {BOUNCES} bounces, parity, tol "
+          f"{ADAPTIVE_TOL}, spp min {int(smp.min())} / mean {mean_spp:.2f} "
+          f"/ max {int(smp.max())} in {dt:.3f} s: "
+          f"{eng.rays_traced / dt / 1e6:.1f} Mrays/s, "
+          f"{mean_spp / dt:.2f} samples/s; {eng.steps_run} steps; buckets "
+          f"(lanes, checks) {ladder}; launches {counts}")
+    fixed = RenderEngine(lamp, cfg(model="wavefront", nee=True),
+                         device="cuda")
+    _, fdt, _ = run_path(torch, "wavefront cornell-sphere-lamp nee",
+                         lambda: fixed.render(ADAPTIVE_MAX_SPP))
+    print(f"{name}: against the fixed {ADAPTIVE_MAX_SPP}-spp render of the "
+          f"same engine configuration, {fdt:.3f} s: "
+          f"{fixed.rays_traced / fdt / 1e6:.1f} Mrays/s, "
+          f"{ADAPTIVE_MAX_SPP / fdt:.2f} samples/s; wall {dt / fdt:.3f}x")
+
+    # Compaction on (the engine) and off (the model's render_adaptive with
+    # compact=False, on the engine's camera and intersector) give the same
+    # bits in parity mode without NEE. The rays of the engine's first
+    # intersect call at each lane count are kept too.
+    name = "wavefront cornell-sphere-lamp adaptive"
+    e = RenderEngine(lamp, cfg(model="wavefront"), device="cuda")
+    isect = e.intersect_fn
+    e.intersect_fn = keep_isect
+    _, dta, counts = run_path(torch, name, lambda: e.render_adaptive(
+        ADAPTIVE_TOL, ADAPTIVE_MAX_SPP, ADAPTIVE_MIN_SPP))
+    for k, v in counts.items():
+        launches[k] += v
+    ca, sa = by_pixel(torch, e.state)
+    ba = e.adaptive_buckets
+    off, dtb = timed(torch, lambda: wavefront.render_adaptive(
+        e.camera, lamp.mats, intersect_fn=isect, num_pixels=W * H,
+        iterations=BOUNCES, tol=ADAPTIVE_TOL, max_spp=ADAPTIVE_MAX_SPP,
+        min_spp=ADAPTIVE_MIN_SPP, mode="parity", compact=False,
+        device="cuda"))
+    cb, sb = by_pixel(torch, off)
+    dtb /= 1e3
+    need(min(ba) < W * H, f"{name}: never compacted ({ba})")
+    need(torch.equal(ca, cb) and torch.equal(sa, sb),
+         f"{name}: compaction on differs from compaction off")
+    print(f"main path {name}: parity, spp min {int(sa.min())} / mean "
+          f"{float(sa.float().mean()):.2f} / max {int(sa.max())}; compaction "
+          f"on ({dta:.3f} s, buckets {sorted(set(ba), reverse=True)}) equal "
+          f"to compaction off ({dtb:.3f} s): colors and samples by pixel "
+          "(torch.equal)")
+
+    # K1, K2, K3 and K7 at every bucket size of the 1080p ladder: on the
+    # rays the two adaptive renders gave them at the sizes they stepped,
+    # on prefixes of their first full-frame rays at the others.
+    ladder = [W * H]
+    while (t := wavefront.compact_target(ladder[-1], ladder[-1] // 2,
+                                         engine_mod.ADAPTIVE_MIN_BUCKET)
+           ) < ladder[-1]:
+        ladder.append(t)
+    pack = k1.build_tri_pack(lamp.tris)
+    table = k3.build_sphere_table(lamp.spheres)
+    gpack, groups, _ = tk.grouped_pack(lamp.tris, 128)
+    sub = tk.anyhit_sub_boxes(gpack, groups)
+    for n in ladder:
+        p_, d_ = seen.get(n, seen[W * H])
+        r8 = k1.pack_rays(tuple(c[:n] for c in p_),
+                          tuple(c[:n] for c in d_)).contiguous()
+        t, g = k1.minarg(r8, pack)
+        sp_, sd_, rmax = shadows.get(n, shadows[W * H])
+        s8 = k1.pack_rays(tuple(c[:n] for c in sp_),
+                          tuple(c[:n] for c in sd_)).contiguous()
+        for got, plain, kname in (
+                ((t, g), k1.minarg_plain(r8, pack), "minarg"),
+                (k2.refine1(t, g, pack), k2.refine1_plain(t, g, pack),
+                 "refine1"),
+                (k3.spheres(r8, table), k3.spheres_plain(r8, table),
+                 "spheres"),
+                ((tk.anyhit(s8, rmax[:n], gpack, groups, sub),),
+                 (tk.anyhit_plain(s8, rmax[:n], gpack, groups,
+                                  ANYHIT_PLAIN_CHUNK),), "anyhit")):
+            need(all(torch.equal(a, b) for a, b in zip(got, plain)),
+                 f"{kname} differs from its plain version on {n} lanes")
+    print(f"adaptive buckets: minarg, refine1, spheres and anyhit equal to "
+          f"their plain versions (torch.equal) at every size of the ladder "
+          f"{ladder} (stepped: rays {sorted(seen, reverse=True)}, shadow "
+          f"rays {sorted(shadows, reverse=True)})")
+
+
 def timed(torch, fn):
     """(fn(), its wall time in ms), the device synchronised before and
     after: the plain versions' times, from the checks' own calls."""
@@ -3374,6 +3607,7 @@ def main() -> int:
     check_goldens(torch, np)
     check_no_fallback(torch, scenes)
     launches = main_path(torch, np, scenes, cam)
+    check_slice18(torch, scenes, launches)
     kernels = measure(torch, inputs, errs, launches)
     print(f"smoke: {time.perf_counter() - t_start:.1f} s in all, the kernel "
           "build included")

@@ -2,8 +2,10 @@
 
 Port of the `render` command of `opencl_path_tracer_tpu/cli.py`
 (`_build_scene`, `_camera_preset` and `cmd_render`): an offline
-progressive render to PNG. It runs on the GPU unless `--device cpu` is
-given.
+progressive render to PNG, or to linear HDR when `--out` ends in `.pfm`
+or `.npy`. It runs on the GPU unless `--device cpu` is given.
+Checkpoints (`--checkpoint`, `--resume`, `--autosave-every`) are the
+JAX package's files: either CLI resumes the other's.
 
     ptx-torch render --scene cornell --size 1920x1080 --iters 5 --spp 8
     ptx-torch render --scene cornell-analytic --model wavefront --rr 3
@@ -15,6 +17,10 @@ given.
     ptx-torch render --scene stress          # 99,380 triangles: 'pairwin'
     ptx-torch render --scene stress --smooth
     ptx-torch render --scene stress-analytic
+    ptx-torch render --spp 4 --checkpoint run.npz --autosave-every 2
+    ptx-torch render --spp 4 --resume run.npz --out hdr.pfm
+    ptx-torch render --model wavefront --nee --adaptive 0.05 --min-spp 8
+    ptx-torch render --config render.json   # a RenderConfig as JSON
 """
 
 from __future__ import annotations
@@ -101,24 +107,71 @@ def cmd_render(args) -> int:
     from opencl_path_tracer_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
-    w, h = (int(x) for x in args.size.split("x"))
-    cfg = RenderConfig(width=w, height=h, iterations=args.iters,
-                       spp=args.spp, mode=args.mode, seed=args.seed,
-                       tonemap=args.tonemap, accel=args.accel, qmc=args.qmc,
-                       model=args.model, rr_start=args.rr, nee=args.nee,
-                       nee_select=args.nee_select,
-                       nee_anyhit=not args.no_nee_anyhit, smooth=args.smooth,
-                       camera=_camera_preset(args.scene, args))
-    scene = _build_scene(args.scene, device, args.models_dir, args.smooth)
+    if args.config:
+        # The JSON config overrides the other render flags.
+        with open(args.config) as fh:
+            cfg = RenderConfig.from_json(fh.read())
+    else:
+        w, h = (int(x) for x in args.size.split("x"))
+        cfg = RenderConfig(width=w, height=h, iterations=args.iters,
+                           spp=args.spp, mode=args.mode, seed=args.seed,
+                           tonemap=args.tonemap, accel=args.accel,
+                           qmc=args.qmc, model=args.model, rr_start=args.rr,
+                           nee=args.nee, nee_select=args.nee_select,
+                           nee_anyhit=not args.no_nee_anyhit,
+                           smooth=args.smooth,
+                           camera=_camera_preset(args.scene, args))
+    tol = None
+    if args.adaptive is not None:
+        if cfg.model != "wavefront":
+            raise SystemExit("--adaptive needs --model wavefront "
+                             "(per-pixel sample counts)")
+        if args.adaptive == "auto":
+            tol = args.adaptive_tol
+        else:
+            try:
+                tol = float(args.adaptive)
+            except ValueError:
+                raise SystemExit(f"--adaptive takes a tolerance or 'auto', "
+                                 f"got {args.adaptive!r}") from None
+    scene = _build_scene(args.scene, device, args.models_dir, cfg.smooth)
     eng = RenderEngine(scene, cfg, device=device)
+    if args.resume:
+        eng.load(args.resume)
+        at = (eng._sample_host if cfg.model == "wavefront"
+              else eng.state.sample)
+        print(f"resumed at sample {at}", file=sys.stderr)
     t0 = time.perf_counter()
-    eng.render(cfg.spp)
+    if args.adaptive == "auto":
+        decision, speedup, zero_var = eng.render_adaptive_auto(
+            max_spp=cfg.spp, tol=tol, min_spp=args.min_spp)
+        print(f"adaptive auto -> {decision} (predicted speedup "
+              f"x{speedup:.2f}, zero-variance frac {zero_var:.2f}, "
+              f"tol {tol})", file=sys.stderr)
+    elif tol is not None:
+        eng.render_adaptive(tol, max_spp=cfg.spp, min_spp=args.min_spp)
+    else:
+        eng.render(cfg.spp, autosave_every=args.autosave_every,
+                   autosave_path=args.checkpoint)
     dt = time.perf_counter() - t0
-    print(f"{cfg.spp} spp in {dt:.2f}s ({cfg.spp / dt:.2f} samples/s, "
-          f"{eng.rays_traced / dt / 1e6:.1f} Mrays/s on {device})",
-          file=sys.stderr)
-    eng.save_png(args.out)
+    if tol is not None:
+        smp = eng.state.samples.cpu().numpy()
+        print(f"adaptive: spp min {int(smp.min())} / mean {smp.mean():.1f} "
+              f"/ max {int(smp.max())} (cap {cfg.spp}, tol {tol}) in "
+              f"{dt:.2f}s ({eng.rays_traced / dt / 1e6:.1f} Mrays/s on "
+              f"{device})", file=sys.stderr)
+    else:
+        print(f"{cfg.spp} spp in {dt:.2f}s ({cfg.spp / dt:.2f} samples/s, "
+              f"{eng.rays_traced / dt / 1e6:.1f} Mrays/s on {device})",
+              file=sys.stderr)
+    if args.out.endswith((".pfm", ".npy")):
+        eng.save_hdr(args.out)   # linear radiance, untonemapped
+    else:
+        eng.save_png(args.out)
     print(f"wrote {args.out}", file=sys.stderr)
+    if args.checkpoint:
+        eng.save(args.checkpoint)
+        print(f"wrote {args.checkpoint}", file=sys.stderr)
     return 0
 
 
@@ -178,7 +231,32 @@ def main(argv=None) -> int:
     p.add_argument("--pitch", type=float, default=None)
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu' for the plain versions")
-    p.add_argument("--out", default="render.png")
+    p.add_argument("--out", default="render.png",
+                   help="the image: PNG, or linear HDR by the extension "
+                        ".pfm or .npy")
+    p.add_argument("--config", default=None,
+                   help="a RenderConfig as JSON (overrides the other "
+                        "render flags)")
+    p.add_argument("--checkpoint", default=None,
+                   help="write the progressive state here at the end (and "
+                        "with --autosave-every, during the render)")
+    p.add_argument("--resume", default=None,
+                   help="start from this checkpoint (either package's)")
+    p.add_argument("--autosave-every", type=int, default=0,
+                   help="checkpoint to --checkpoint every N samples "
+                        "(wavefront: at each convergence check)")
+    p.add_argument("--adaptive", default=None, metavar="TOL|auto",
+                   help="adaptive sampling (needs --model wavefront): a "
+                        "pixel stops once its relative luminance standard "
+                        "error is within TOL; --spp is the cap. 'auto' "
+                        "probes --min-spp samples and goes adaptive only "
+                        "where the probe predicts a win (its bars are TPU "
+                        "choices)")
+    p.add_argument("--adaptive-tol", type=float, default=0.05,
+                   metavar="TOL", help="the tolerance of --adaptive auto")
+    p.add_argument("--min-spp", type=int, default=8,
+                   help="adaptive floor: samples every pixel takes before "
+                        "it may stop")
     p.set_defaults(func=cmd_render)
     args = ap.parse_args(argv)
     return args.func(args)

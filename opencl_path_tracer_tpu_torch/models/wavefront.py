@@ -2,7 +2,9 @@
 
 Port of `opencl_path_tracer_tpu/models/wavefront.py`: `WavefrontState`,
 `init_wavefront`, `wavefront_step`, `sort_state`, `morton3_components`,
-`render_wavefront` and `colors_by_pixel`.
+`render_wavefront`, `colors_by_pixel` and adaptive sampling
+(`converged_mask`, `sort_open_first`, `state_split`, `state_concat`,
+`render_adaptive`).
 
 One lane per pixel (or per pixel id in `ids`). The moment a lane's path
 terminates (a miss, the bounce budget, or Russian roulette) it folds the
@@ -20,12 +22,22 @@ keyed by it, and keeping it on the host costs no device read.
 Next-event estimation (`nee`, `occluded_fn`) is the megakernel's gather
 and MIS pickup, with the draws keyed by the step counter and the
 previous bounce's direction pdf carried per lane in `prev_pdf`. Not
-ported yet: EnvLight and environment maps (`env`), depth of field
-(`dof`) and adaptive sampling (`variance_tol`), which raise
-NotImplementedError (ROADMAP.md queue 1, DOF and environment light, and
-adaptive sampling); `converged_mask`, `render_adaptive`,
-`sort_open_first`, `state_split` and `state_concat` come with the
-engine's `render_adaptive` (queue 1, adaptive sampling).
+ported yet: EnvLight and environment maps (`env`) and depth of field
+(`dof`), which raise NotImplementedError (ROADMAP.md queue 1, DOF and
+environment light).
+
+Adaptive sampling (`variance_tol`) keeps a Welford M2 of each pixel's
+completed-sample luminance in `lum_m2` and idles a lane once
+`converged_mask` holds. Its arithmetic rounds as the JAX package's does
+op by op, as the rest of this step does: inside a jitted step XLA's CPU
+backend contracts `_luminance` to fma(c, z, fma(a, x, b * y)) and the
+fold's `colors * s + cur` to an FMA too, so the port equals JAX's
+adaptive renders bit for bit where JAX runs them under
+`jax.disable_jit()`, and its jitted ones to the goldens' tolerance.
+Compaction (`render_adaptive`) permutes, splits and concatenates lanes:
+parity mode gives the same bits with it on or off, but the fast draws
+and NEE's draws are keyed by lane position, so they change with it, in
+JAX as here.
 """
 
 from __future__ import annotations
@@ -48,8 +60,7 @@ from opencl_path_tracer_tpu_torch.utils.device import resolve_device
 
 # Option -> the ROADMAP.md queue 1 feature that brings it.
 _UNPORTED = {"env": "DOF and environment light",
-             "dof": "DOF and environment light",
-             "variance_tol": "adaptive sampling"}
+             "dof": "DOF and environment light"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,6 +159,15 @@ _LANE_FIELDS = tuple(f.name for f in dataclasses.fields(WavefrontState)
                      if f.name != "step")
 
 
+def _lanes(st: WavefrontState, fn) -> WavefrontState:
+    """st with fn applied to every lane array (each V3 component); `step`
+    rides along."""
+    return st.replace(**{
+        f: (tuple(fn(c) for c in getattr(st, f))
+            if isinstance(getattr(st, f), tuple) else fn(getattr(st, f)))
+        for f in _LANE_FIELDS})
+
+
 def _expand_bits(v: torch.Tensor) -> torch.Tensor:
     """Spread the low 10 bits of v so they occupy every 3rd bit."""
     v = (v * 0x00010001) & 0xFF0000FF
@@ -178,12 +198,26 @@ def sort_state(st: WavefrontState, scene_lo, scene_inv_extent
     octant = ((st.ray_d[0] >= 0).long() * 4 + (st.ray_d[1] >= 0).long() * 2
               + (st.ray_d[2] >= 0).long())
     order = torch.sort((octant << 27) | (cell >> 3), stable=True).indices
+    return _lanes(st, lambda a: a[order])
 
-    def perm(v):
-        return (tuple(c[order] for c in v) if isinstance(v, tuple)
-                else v[order])
 
-    return st.replace(**{f: perm(getattr(st, f)) for f in _LANE_FIELDS})
+_LUM = (0.2126, 0.7152, 0.0722)  # Reinhard's weights (prog.cl:249)
+
+
+def _luminance(v3: V3) -> torch.Tensor:
+    return _LUM[0] * v3[0] + _LUM[1] * v3[1] + _LUM[2] * v3[2]
+
+
+def converged_mask(samples: torch.Tensor, colors: V3, lum_m2: torch.Tensor,
+                   tol: float, min_samples: int) -> torch.Tensor:
+    """Adaptive sampling's stop rule, per lane: at least min_samples
+    samples, and the standard error of the mean sample luminance within
+    `tol` of the mean (plus a 0.05 floor, so that black pixels stop):
+    m2 / (n (n - 1)) <= (tol (mean + 0.05))^2, multiplied out."""
+    n = samples.to(torch.float32)
+    a = tol * (_luminance(colors) + 0.05)
+    rhs = a * a * n * (n - 1.0)
+    return (samples >= min_samples) & (lum_m2 <= rhs)
 
 
 def wavefront_step(cam: Camera, mats: MaterialsSoA, st: WavefrontState, *,
@@ -209,8 +243,10 @@ def wavefront_step(cam: Camera, mats: MaterialsSoA, st: WavefrontState, *,
     f_s by 1/p; its draws ride an independent counter-hash stream.
     nee: an `ops.nee.EmitterTable` (draws keyed by key, or key(1791),
     salt 2); occluded_fn: the any-hit shadow-ray test, None for the
-    intersector."""
-    _refuse(env=env, dof=dof, variance_tol=variance_tol)
+    intersector. variance_tol: adaptive sampling; lanes idle once
+    `converged_mask(..., variance_tol, min_samples)` holds, and finished
+    samples update `lum_m2` (None leaves it as it is)."""
+    _refuse(env=env, dof=dof)
     n = st.lanes
     dev = st.samples.device
     if sort_every and scene_bounds is not None and st.step % sort_every == 0:
@@ -220,6 +256,9 @@ def wavefront_step(cam: Camera, mats: MaterialsSoA, st: WavefrontState, *,
         active = torch.ones(n, dtype=torch.bool, device=dev)
     else:
         active = st.samples < max_samples
+    if variance_tol is not None:
+        active = active & ~converged_mask(st.samples, st.colors, st.lum_m2,
+                                          variance_tol, min_samples)
 
     hit, mat = fetch_material(mats, intersect_fn,
                               Rays(p=st.ray_p, d=st.ray_d))
@@ -290,6 +329,16 @@ def wavefront_step(cam: Camera, mats: MaterialsSoA, st: WavefrontState, *,
                                (st.colors[k] * s_f + cur_color[k]) * inv,
                                st.colors[k]) for k in range(3))
     samples = torch.where(terminated, st.samples + 1, st.samples)
+    lum_m2 = st.lum_m2
+    if variance_tol is not None:
+        # Welford on the finished samples' luminance: colors is each
+        # channel's running mean, so _luminance(colors) is the running
+        # mean of the luminances.
+        lum_new = _luminance(cur_color)
+        delta = lum_new - _luminance(st.colors)
+        lum_m2 = torch.where(terminated,
+                             st.lum_m2 + delta * (lum_new - _luminance(colors)),
+                             st.lum_m2)
 
     # Regenerate: the next sample's camera ray (gen_ray, prog.cl:384-389).
     if mode == "parity":
@@ -322,7 +371,7 @@ def wavefront_step(cam: Camera, mats: MaterialsSoA, st: WavefrontState, *,
         had_diffuse=st.had_diffuse,
         prev_pdf=(torch.where(terminated, 0.0, prev_pdf) if nee is not None
                   else prev_pdf),
-        lum_m2=st.lum_m2,
+        lum_m2=lum_m2,
         step=st.step + 1,
     )
 
@@ -358,6 +407,90 @@ def render_wavefront(cam: Camera, mats: MaterialsSoA, *, intersect_fn,
         if int(state.samples.min()) >= min_spp:
             break
     return state
+
+
+def sort_open_first(st: WavefrontState,
+                    open_mask: torch.Tensor) -> WavefrontState:
+    """Lanes permuted so that the open ones (still sampling) come first,
+    each class in its old order; `step` rides along. Any lane order is
+    correct (each lane carries its pixel, accumulators and Lehmer
+    stream), so the converged tail can be parked (`render_adaptive`)."""
+    order = torch.sort((~open_mask).to(torch.uint8), stable=True).indices
+    return _lanes(st, lambda a: a[order])
+
+
+def state_split(st: WavefrontState, n: int):
+    """(the first n lanes, the rest); both keep `step`."""
+    return _lanes(st, lambda a: a[:n]), _lanes(st, lambda a: a[n:])
+
+
+def state_concat(parts) -> WavefrontState:
+    """The lanes of `parts` in order; `step` is the first part's."""
+    first = parts[0]
+    out = {}
+    for f in _LANE_FIELDS:
+        vs = [getattr(p, f) for p in parts]
+        out[f] = (tuple(torch.cat(cs) for cs in zip(*vs))
+                  if isinstance(vs[0], tuple) else torch.cat(vs))
+    return first.replace(**out)
+
+
+def compact_target(bucket: int, n_open: int, min_bucket: int) -> int:
+    """The bucket after a convergence check: halved while the open lanes
+    still fit in half of it and half of it is at least min_bucket, and
+    only while it is even (2,073,600 = 2^10 x 2025 halves ten times)."""
+    target = bucket
+    while target // 2 >= max(n_open, min_bucket) and target % 2 == 0:
+        target //= 2
+    return target
+
+
+def render_adaptive(cam: Camera, mats: MaterialsSoA, *, intersect_fn,
+                    num_pixels: int, iterations: int, tol: float,
+                    max_spp: int, min_spp: int = 8, mode: str = "fast",
+                    seed: int = 1, key=None, env=None, nee=None, rr=None,
+                    qmc: bool = False, dof=None, compact: bool = True,
+                    min_bucket: int = 4096,
+                    max_extra_steps: int = 1_000_000,
+                    device=None) -> WavefrontState:
+    """Adaptive render: each pixel takes min_spp to max_spp samples and
+    stops once `converged_mask` holds (the reference gives every pixel
+    every sample, prog.cl:379). A host check every max(6 iterations, 24)
+    steps; with `compact`, once the open lanes fit in half the live
+    bucket, they are moved to the front (`sort_open_first`), the bucket
+    halves (`compact_target`) and the converged tail is parked until the
+    end. Runs on `device` (CUDA unless "cpu" is asked for)."""
+    dev = resolve_device(device)
+    if cam.eye.device.type != dev.type or mats.n.device.type != dev.type:
+        raise ValueError(f"cam and mats must be on {dev}")
+    if mode == "fast" and key is None:
+        key = rng.key(seed)
+    state = init_wavefront(cam, num_pixels, seed=seed, mode=mode, key=key,
+                           qmc=qmc, dof=dof)
+    chunk = max(iterations * 6, 24)
+    parked = []
+    bucket = num_pixels
+    for _ in range(max_extra_steps):
+        for _ in range(chunk):
+            state = wavefront_step(
+                cam, mats, state, intersect_fn=intersect_fn,
+                iterations=iterations, mode=mode, key=key,
+                max_samples=max_spp, env=env, nee=nee, rr=rr, qmc=qmc,
+                dof=dof, variance_tol=tol, min_samples=min_spp)
+        done = (converged_mask(state.samples, state.colors, state.lum_m2,
+                               tol, min_spp)
+                | (state.samples >= max_spp))
+        n_open = int((~done).sum())
+        if n_open == 0:
+            break
+        if compact:
+            target = compact_target(bucket, n_open, min_bucket)
+            if target < bucket:
+                state, tail = state_split(sort_open_first(state, ~done),
+                                          target)
+                parked.append(tail)
+                bucket = target
+    return state_concat([state] + parked) if parked else state
 
 
 def colors_by_pixel(state: WavefrontState,

@@ -1,12 +1,15 @@
 """Progressive render engine (offline path).
 
 Port of `make_intersect_fn` and of `RenderEngine.__init__`, `render`
-(with `_render_wavefront`), `image` and `save_png` from
+(with `_render_wavefront` and autosave), `render_adaptive`,
+`adaptive_prediction`, `render_adaptive_auto`, `image`, `save_png`,
+`save_hdr`, `save` and `load` from
 `opencl_path_tracer_tpu/runtime/engine.py` (the reference's frame loop,
 main.cpp:683-687 and 1171-1241, without interactivity). The engine owns
 the progressive state on its device, in the megakernel model
 (TraceState) or the wavefront model (WavefrontState), and picks the
-intersector.
+intersector. The port has no progress meter yet (ROADMAP.md queue 1,
+the engine's interactive state), so no method takes `progress`.
 
 Accel choice: 'auto' resolves to 'minarg' (K1 + K2) up to 8,192
 triangles and to 'pairwin' above, the JAX package's cut (engine.py:
@@ -45,13 +48,17 @@ test (K7, or-ed with the spheres), and hands both to the model.
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
 
 from opencl_path_tracer_tpu_torch.config import RenderConfig
 from opencl_path_tracer_tpu_torch.core.camera import make_camera
-from opencl_path_tracer_tpu_torch.io.image import write_png
+from opencl_path_tracer_tpu_torch.io.checkpoint import (
+    load_checkpoint, save_checkpoint,
+)
+from opencl_path_tracer_tpu_torch.io.image import write_pfm, write_png
 from opencl_path_tracer_tpu_torch.models import megakernel, wavefront
 from opencl_path_tracer_tpu_torch.ops import intersect, rng
 from opencl_path_tracer_tpu_torch.ops import tonemap as tonemap_ops
@@ -89,6 +96,20 @@ from opencl_path_tracer_tpu_torch.utils.device import resolve_device
 
 AUTO_MINARG_MAX_TRIS = 8192
 SMOOTH_MINARG_MAX_TRIS = 4096   # a TPU VMEM limit (see the docstring)
+
+# render_adaptive_auto's bars, copied from the JAX package
+# (engine.py:59-61) as the starting choice: they were calibrated on TPU
+# renders and no H100 measurement has re-decided them. Adaptive
+# sampling goes on when the probe predicts at least this speedup
+# (fixed cost over adaptive cost, the latter times the overhead of the
+# checks and the compaction) and at most this share of the pixels has
+# a variance of exactly zero (without NEE such pixels have not yet met
+# an emitter, and their estimate lies).
+ADAPTIVE_MIN_PREDICTED_SPEEDUP = 1.2
+ADAPTIVE_MAX_ZERO_VAR_FRAC = 0.25
+ADAPTIVE_OVERHEAD_FACTOR = 1.15
+# The smallest bucket compaction halves to (the JAX engine's 4096).
+ADAPTIVE_MIN_BUCKET = 4096
 
 
 def resolve_accel(accel: str, num_triangles: int, on_cuda: bool,
@@ -241,19 +262,30 @@ class RenderEngine:
         # steps (wavefront, host), as the JAX engine counts them.
         self._rays = torch.zeros((), dtype=torch.float32, device=self.device)
         self._wf_rays = 0
-        self._sample_host = 0  # samples per pixel the wavefront targets
+        self._sample_host = 0  # samples per pixel (wavefront: the floor)
         self.steps_run = 0     # wavefront steps since construction
 
     @property
     def rays_traced(self) -> float:
         return float(self._rays) + float(self._wf_rays)
 
-    def render(self, spp: int) -> None:
-        """Accumulate spp more samples per pixel and wait for the device."""
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def render(self, spp: int, autosave_every: int = 0,
+               autosave_path: str | None = None) -> None:
+        """Accumulate spp more samples per pixel and wait for the device.
+
+        autosave_every > 0 (with autosave_path) checkpoints the state:
+        the megakernel every that many samples, the wavefront model at
+        each convergence check after the first, as the JAX engine does.
+        Each autosave writes `autosave_path + ".tmp.npz"` and renames it
+        over autosave_path, so a checkpoint is never half-written."""
         if self.cfg.model == "wavefront":
-            self._render_wavefront(spp)
+            self._render_wavefront(spp, autosave_every, autosave_path)
         else:
-            for _ in range(spp):
+            for i in range(spp):
                 self.state, rays = megakernel.trace_sample(
                     self.camera, self.scene.mats, self.state,
                     intersect_fn=self.intersect_fn,
@@ -261,10 +293,36 @@ class RenderEngine:
                     key=self.key, qmc=self.cfg.qmc, with_stats=True,
                     nee=self.nee, occluded_fn=self.occluded)
                 self._rays += rays
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+                self._sample_host += 1
+                if (autosave_every and autosave_path
+                        and (i + 1) % autosave_every == 0):
+                    self._autosave(autosave_path)
+        self._sync()
 
-    def _render_wavefront(self, spp: int) -> None:
+    def _autosave(self, path: str) -> None:
+        tmp = path + ".tmp.npz"
+        self.save(tmp)
+        os.replace(tmp, path)
+
+    def _wf_steps(self, state, k: int, cap: int, variance=None):
+        """k wavefront steps with samples capped at `cap`; variance:
+        (tol, min_samples) for adaptive sampling."""
+        vkw = ({} if variance is None
+               else dict(variance_tol=variance[0], min_samples=variance[1]))
+        for _ in range(k):
+            state = wavefront.wavefront_step(
+                self.camera, self.scene.mats, state,
+                intersect_fn=self.intersect_fn,
+                iterations=self.cfg.iterations, mode=self.cfg.mode,
+                key=self.key, max_samples=cap, rr=self.rr,
+                qmc=self.cfg.qmc, nee=self.nee, occluded_fn=self.occluded,
+                **vkw)
+        self.steps_run += k
+        self._wf_rays += k * state.lanes
+        return state
+
+    def _render_wavefront(self, spp: int, autosave_every: int = 0,
+                          autosave_path: str | None = None) -> None:
         """Wavefront steps until every pixel has `spp` more samples, capped
         there. A lane finishes a sample in 1 to `iterations` steps, so
         (target - min samples) steps are always useful: one host read of
@@ -276,25 +334,107 @@ class RenderEngine:
         done = 0
         while done < max_steps:
             floor = int(self.state.samples.min())
+            if autosave_every and autosave_path and done:
+                self._autosave(autosave_path)
             if floor >= target:
                 break
             k = min(max(target - floor, 1), max_steps - done)
-            for _ in range(k):
-                self.state = wavefront.wavefront_step(
-                    self.camera, self.scene.mats, self.state,
-                    intersect_fn=self.intersect_fn, iterations=iters,
-                    mode=self.cfg.mode, key=self.key, max_samples=target,
-                    rr=self.rr, qmc=self.cfg.qmc, nee=self.nee,
-                    occluded_fn=self.occluded)
+            self.state = self._wf_steps(self.state, k, target)
             done += k
-            self.steps_run += k
-            self._wf_rays += k * self.num_pixels
         else:
             floor = int(self.state.samples.min())
             if floor < target:
                 raise RuntimeError(f"wavefront render stuck at {floor}/"
                                    f"{target} spp after {done} steps")
         self._sample_host = target
+
+    def render_adaptive(self, tol: float, max_spp: int,
+                        min_spp: int = 8) -> None:
+        """Adaptive offline render (model='wavefront'): every pixel takes
+        min_spp to max_spp samples in all and idles once its relative
+        luminance SEM is within `tol` (`wavefront.converged_mask`). A
+        host check every max(6 iterations, 24) steps, a fixed cadence
+        (the JAX engine sizes its later dispatches by the clock, a TPU
+        runtime's watchdog policy, which the port leaves out); at each,
+        the open lanes move to the front and the bucket halves while
+        they fit in half of it (`wavefront.compact_target`,
+        down to ADAPTIVE_MIN_BUCKET), and the converged tail is parked.
+        The bucket sizes stepped, one per check, are in
+        `adaptive_buckets`."""
+        if self.cfg.model != "wavefront":
+            raise ValueError(
+                "adaptive rendering needs model='wavefront' (per-pixel "
+                "sample counts; the megakernel steps every pixel in "
+                "lockstep)")
+        variance = (float(tol), int(min_spp))
+        chunk = max(self.cfg.iterations * 6, 24)
+        max_steps = max_spp * self.cfg.iterations + chunk
+        live, parked = self.state, []
+        bucket = live.lanes
+        self.adaptive_buckets = []
+        done = 0
+        while done < max_steps:
+            mask = (wavefront.converged_mask(live.samples, live.colors,
+                                             live.lum_m2, tol, min_spp)
+                    | (live.samples >= max_spp))
+            n_open = int((~mask).sum())
+            if n_open == 0:
+                break
+            target = wavefront.compact_target(bucket, n_open,
+                                              ADAPTIVE_MIN_BUCKET)
+            if target < bucket:
+                live, tail = wavefront.state_split(
+                    wavefront.sort_open_first(live, ~mask), target)
+                parked.append(tail)
+                bucket = target
+            k = min(max_steps - done, chunk)
+            live = self._wf_steps(live, k, max_spp, variance)
+            self.adaptive_buckets.append(bucket)
+            done += k
+        self.state = (wavefront.state_concat([live] + parked) if parked
+                      else live)
+        self._sample_host = int(self.state.samples.min())
+        self._sync()
+
+    def adaptive_prediction(self, tol: float, max_spp: int,
+                            min_spp: int = 8) -> tuple[float, float]:
+        """(predicted speedup, zero-variance share) of an adaptive render
+        against a fixed one, from the current state's per-pixel SEMs (after
+        a variance-tracked probe, `render_adaptive` to min_spp), reckoned
+        on the host in float64 as the JAX engine does: each pixel needs
+        n (rel / tol)^2 samples, clipped to [min_spp, max_spp]; the fixed
+        render's max_spp over ADAPTIVE_OVERHEAD_FACTOR times their mean."""
+        st = self.state
+
+        def host(t):
+            return t.cpu().numpy().astype(np.float64)
+
+        n = host(st.samples)
+        lum = sum(w * host(c) for w, c in zip(wavefront._LUM, st.colors))
+        m2 = host(st.lum_m2)
+        sem = np.sqrt(np.maximum(m2, 0.0) / np.maximum(n * (n - 1.0), 1.0))
+        rel = sem / (lum + 0.05)
+        zero_var_frac = float(np.mean(m2 <= 1e-12))
+        need = np.clip(n * (rel / tol) ** 2, float(min_spp), float(max_spp))
+        speedup = float(max_spp / (ADAPTIVE_OVERHEAD_FACTOR * need.mean()))
+        return speedup, zero_var_frac
+
+    def render_adaptive_auto(self, max_spp: int, tol: float = 0.05,
+                             min_spp: int = 8) -> tuple[str, float, float]:
+        """Render the min_spp floor with variance tracking, predict the
+        adaptive win (`adaptive_prediction`), then go on adaptively when
+        it clears the bars (the module's ADAPTIVE_* constants, TPU
+        choices) and with the fixed render otherwise. Returns (decision,
+        predicted speedup, zero-variance share), decision 'adaptive' or
+        'fixed'."""
+        self.render_adaptive(tol, max_spp=min_spp, min_spp=min_spp)
+        speedup, zero_var = self.adaptive_prediction(tol, max_spp, min_spp)
+        if (speedup >= ADAPTIVE_MIN_PREDICTED_SPEEDUP
+                and zero_var <= ADAPTIVE_MAX_ZERO_VAR_FRAC):
+            self.render_adaptive(tol, max_spp=max_spp, min_spp=min_spp)
+            return "adaptive", speedup, zero_var
+        self.render(max_spp - min_spp)
+        return "fixed", speedup, zero_var
 
     def image(self, apply_tonemap: bool | str = True) -> np.ndarray:
         """(H, W, 3) float32 image, top row first (the reference's
@@ -311,3 +451,38 @@ class RenderEngine:
 
     def save_png(self, path: str) -> None:
         write_png(path, self.image())
+
+    def save_hdr(self, path: str) -> None:
+        """Linear, untonemapped radiance: `.npy` by its extension, else
+        PFM."""
+        img = self.image(apply_tonemap=False)
+        if path.endswith(".npy"):
+            np.save(path, img)
+        else:
+            write_pfm(path, img)
+
+    def save(self, path: str) -> None:
+        """Checkpoint the state (`io.checkpoint`; the JAX package's file,
+        which its engine resumes too)."""
+        save_checkpoint(path, self.state, meta={
+            "width": self.cfg.width, "height": self.cfg.height,
+            "mode": self.cfg.mode, "seed": self.cfg.seed})
+
+    def load(self, path: str) -> None:
+        """Resume from a checkpoint of either package, onto this engine's
+        device. Refuses another resolution or model."""
+        state, meta = load_checkpoint(path, device=self.device)
+        if (meta.get("width") != self.cfg.width
+                or meta.get("height") != self.cfg.height):
+            raise ValueError(
+                "checkpoint resolution mismatch: "
+                f"{meta.get('width')}x{meta.get('height')} vs "
+                f"{self.cfg.width}x{self.cfg.height}")
+        ck_model = meta.get("model", "megakernel")
+        if ck_model != self.cfg.model:
+            raise ValueError(f"checkpoint model {ck_model!r} != engine "
+                             f"model {self.cfg.model!r}")
+        self.state = state
+        self._sample_host = (int(state.samples.min())
+                             if self.cfg.model == "wavefront"
+                             else int(state.sample))

@@ -162,8 +162,7 @@ def test_unported_options_raise():
     cam = library.cornell_camera(4, 4)
     st = wavefront.init_wavefront(cam, 16, mode="fast", key=rng.key(1))
     for kw, feature in ((dict(env=object()), "environment light"),
-                        (dict(dof=(1.0, 2.0)), "DOF"),
-                        (dict(variance_tol=0.1), "adaptive sampling")):
+                        (dict(dof=(1.0, 2.0)), "DOF")):
         with pytest.raises(NotImplementedError,
                            match=f"queue 1, .*{feature}"):
             wavefront.wavefront_step(cam, scene.mats, st,

@@ -194,6 +194,24 @@ with compact=False), colors and samples by pixel. K1, K2, K3 and K7 are
 held against their plain versions at every bucket size of the 1080p
 ladder, 2,073,600 halved down to 8,100.
 
+The engine's interactive state, the environment and depth of field
+(`check_slice19`, at 1920x1080, 5 bounces, fast mode): `megakernel
+cornell frame` runs FRAMES `RenderEngine.frame(1/60)` calls with real
+time off (a sync every third sample), holds 'w' for FRAMES_MOVE frames,
+releases it and runs FRAMES_AFTER more; the sample counter restarts on
+the move and the release, an idle frame reuses the controller's camera,
+and the last frames equal a fresh engine's samples at the moved pose
+(torch.equal: fast draws key on the sample counter); it prints frames/s,
+Mrays/s and the meter's line. `megakernel cornell envmap-sunsky` (2 spp)
+traces the environment gather's escape rays through K7 at rmax 3.0e38;
+its flags on the bounce-0 and bounce-1 escape rays equal K7's plain
+version and its counting entry, and (K4 t valid and t < 3.0e38) but for
+zero-area strips. `wavefront cornell-sphere-lamp nee envmap-gradient`
+(the emitter and the environment gathers in one step), `megakernel
+cornell-analytic env` (the dormant sky, EnvLight) and `megakernel cornell
+dof` (aperture 20, focus 600) render 2 spp each. The kernels line has an
+`anyhit escape` row (K7 on the bounce-1 escape rays).
+
 The last two lines are a JSON object per kernel (time, plain time,
 bound, launches) and the verdict; the line before them, the smoke's total
 time. Any failed phase raises, and the
@@ -339,7 +357,16 @@ PATH_KERNELS = {
                                                    "spheres", "anyhit"),
     "wavefront cornell-sphere-lamp adaptive": ("minarg", "refine1",
                                                "spheres"),
+    "megakernel cornell frame": ("minarg", "refine1"),
+    "megakernel cornell envmap-sunsky": ("minarg", "refine1", "anyhit"),
+    "wavefront cornell-sphere-lamp nee envmap-gradient": (
+        "minarg", "refine1", "spheres", "anyhit"),
+    "megakernel cornell-analytic env": ("minarg", "refine1", "spheres"),
+    "megakernel cornell dof": ("minarg", "refine1"),
 }
+FRAMES, FRAMES_MOVE, FRAMES_AFTER = 30, 3, 6   # check_slice19's frame path
+ENV_SPP = 2   # spp of check_slice19's environment and DOF paths
+DOF = (20.0, 600.0)   # aperture, focus: the middle of the box
 ADAPTIVE_TOL, ADAPTIVE_MIN_SPP, ADAPTIVE_MAX_SPP = 0.05, 8, 32
 # Kernels each main path must not launch: the injected intersectors of
 # the last two run their one kernel in place of K1 + K2 (and K4).
@@ -2668,7 +2695,8 @@ def main_path(torch, np, scenes, cam):
     for name, eng in engines:
         spp = eng.cfg.spp
         torch.cuda.reset_peak_memory_stats()
-        _, dt, counts = run_path(torch, name, lambda: eng.render(spp))
+        _, dt, counts = run_path(torch, name,
+                                 lambda: eng.render(spp, progress=False))
         img = eng.image()
         need(img.shape == (H, W, 3) and np.isfinite(img).all()
              and img.mean() > 0.0, f"{name}: bad image")
@@ -2684,7 +2712,7 @@ def main_path(torch, np, scenes, cam):
             # counters on, outside the timed run.
             mk.STATS = []
             try:
-                eng.render(spp)
+                eng.render(spp, progress=False)
                 stats = mk.STATS
             finally:
                 mk.STATS = None
@@ -2696,7 +2724,7 @@ def main_path(torch, np, scenes, cam):
             try:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                eng.render(spp)
+                eng.render(spp, progress=False)
                 torch.cuda.synchronize()
                 dt_stats = time.perf_counter() - t0
                 stats = si.STATS
@@ -2747,9 +2775,9 @@ def check_resume(torch, name, make, first, split, path, launches):
     one call, or `first` then `split` in two (split=(a, b))."""
     unbroken = make()
     for spp in split:
-        unbroken.render(spp)
+        unbroken.render(spp, progress=False)
     eng = make()
-    eng.render(first)
+    eng.render(first, progress=False)
     t0 = time.perf_counter()
     eng.save(path)
     t_save = time.perf_counter() - t0
@@ -2762,7 +2790,8 @@ def check_resume(torch, name, make, first, split, path, launches):
     need(resumed.state.rng_state.device.type == "cuda",
          f"{name}: the checkpoint did not load onto the card")
     _, dt, counts = run_path(torch, name,
-                             lambda: resumed.render(sum(split) - first))
+                             lambda: resumed.render(sum(split) - first,
+                                                    progress=False))
     for k, v in counts.items():
         launches[k] += v
     a, b = resumed.state, unbroken.state
@@ -2830,7 +2859,7 @@ def check_slice18(torch, scenes, launches):
     eng.intersect_fn, eng.occluded = keep_isect, keep_occluded
     name = "wavefront cornell-sphere-lamp nee adaptive"
     _, dt, counts = run_path(torch, name, lambda: eng.render_adaptive(
-        ADAPTIVE_TOL, ADAPTIVE_MAX_SPP, ADAPTIVE_MIN_SPP))
+        ADAPTIVE_TOL, ADAPTIVE_MAX_SPP, ADAPTIVE_MIN_SPP, progress=False))
     for k, v in counts.items():
         launches[k] += v
     cols, smp = by_pixel(torch, eng.state)
@@ -2860,7 +2889,8 @@ def check_slice18(torch, scenes, launches):
     fixed = RenderEngine(lamp, cfg(model="wavefront", nee=True),
                          device="cuda")
     _, fdt, _ = run_path(torch, "wavefront cornell-sphere-lamp nee",
-                         lambda: fixed.render(ADAPTIVE_MAX_SPP))
+                         lambda: fixed.render(ADAPTIVE_MAX_SPP,
+                                              progress=False))
     print(f"{name}: against the fixed {ADAPTIVE_MAX_SPP}-spp render of the "
           f"same engine configuration, {fdt:.3f} s: "
           f"{fixed.rays_traced / fdt / 1e6:.1f} Mrays/s, "
@@ -2875,7 +2905,7 @@ def check_slice18(torch, scenes, launches):
     isect = e.intersect_fn
     e.intersect_fn = keep_isect
     _, dta, counts = run_path(torch, name, lambda: e.render_adaptive(
-        ADAPTIVE_TOL, ADAPTIVE_MAX_SPP, ADAPTIVE_MIN_SPP))
+        ADAPTIVE_TOL, ADAPTIVE_MAX_SPP, ADAPTIVE_MIN_SPP, progress=False))
     for k, v in counts.items():
         launches[k] += v
     ca, sa = by_pixel(torch, e.state)
@@ -2931,6 +2961,186 @@ def check_slice18(torch, scenes, launches):
           f"their plain versions (torch.equal) at every size of the ladder "
           f"{ladder} (stepped: rays {sorted(seen, reverse=True)}, shadow "
           f"rays {sorted(shadows, reverse=True)})")
+
+
+def check_slice19(torch, np, scenes):
+    """The engine's interactive frames, the environment and depth of field
+    at 1920x1080, 5 bounces, fast mode (the module docstring), with the
+    counts reset before and read after each path. Returns (the launches
+    of these paths, the kernels line's input for K7 on the escape rays)."""
+    import io
+    from opencl_path_tracer_tpu_torch.config import CameraConfig, RenderConfig
+    from opencl_path_tracer_tpu_torch.models import megakernel, wavefront
+    from opencl_path_tracer_tpu_torch.ops import envmap
+    from opencl_path_tracer_tpu_torch.ops.kernels import (
+        intersect_kernel as k1, tilecull_kernel as tk)
+    from opencl_path_tracer_tpu_torch.runtime.engine import RenderEngine
+    from opencl_path_tracer_tpu_torch.runtime.meter import PerfMeter
+    launches = {}
+    preset = dict(fov=60.0, yaw=0.0, pitch=0.0, shift=(0.0, 0.0, 0.0))
+
+    def cfg(camera=None, **kw):
+        return RenderConfig(width=W, height=H, iterations=BOUNCES,
+                            mode="fast",
+                            camera=camera or CameraConfig(**preset), **kw)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def image_ok(name, eng):
+        img = eng.image()
+        need(img.shape == (H, W, 3) and np.isfinite(img).all()
+             and img.mean() > 0.0, f"{name}: bad image")
+        return img
+
+    # The interactive loop: FRAMES frames, then 'w' held for FRAMES_MOVE
+    # frames, released, and FRAMES_AFTER more; real time off ('r'), so
+    # frame() syncs every third sample.
+    name = "megakernel cornell frame"
+    corn = scenes["cornell"]
+    eng = RenderEngine(corn, cfg(), device="cuda")
+    buf = io.StringIO()
+    eng.meter = PerfMeter(stream=buf)
+    eng.controller.key_down("r")
+    cam0 = eng.camera
+    seen = {}
+
+    def frames():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(FRAMES):
+            eng.frame(1 / 60)
+        torch.cuda.synchronize()
+        seen["dt"] = time.perf_counter() - t0
+        seen["rays"] = eng.rays_traced
+        seen["idle_camera"] = eng.camera is cam0
+        seen["sample"] = eng.state.sample
+        eng.controller.key_down("w")
+        after = []
+        for _ in range(FRAMES_MOVE):
+            eng.frame(1 / 60)
+            after.append(eng.state.sample)
+        eng.controller.key_up("w")
+        for _ in range(FRAMES_AFTER):
+            eng.frame(1 / 60)
+            after.append(eng.state.sample)
+        seen["after"] = after
+
+    _, dt, counts = run_path(torch, name, frames)
+    add(counts)
+    need(seen["idle_camera"], f"{name}: an idle frame rebuilt the camera")
+    need(seen["sample"] == FRAMES
+         and seen["after"] == [1] * FRAMES_MOVE + list(
+             range(1, FRAMES_AFTER + 1)),
+         f"{name}: the sample counter did not restart on the move "
+         f"({seen['sample']}, then {seen['after']})")
+    image_ok(name, eng)
+    shift = tuple(float(v) for v in eng.controller.state.shift)
+    fresh = RenderEngine(corn, cfg(camera=CameraConfig(
+        **dict(preset, shift=shift))), device="cuda")
+    fresh.render(FRAMES_AFTER, progress=False)
+    need(torch.equal(megakernel.colors_array(eng.state),
+                     megakernel.colors_array(fresh.state)),
+         f"{name}: the {FRAMES_AFTER} frames after the reset differ from a "
+         "fresh engine's samples at the moved pose")
+    meter_line = buf.getvalue().split("\r")[-1]
+    print(f"main path {name}: {W}x{H}, {BOUNCES} bounces, fast, real time "
+          f"off; {FRAMES} frames in {seen['dt']:.3f} s: "
+          f"{FRAMES / seen['dt']:.2f} frames/s, "
+          f"{seen['rays'] / seen['dt'] / 1e6:.1f} Mrays/s (the first frame "
+          "includes estimated_rays' one instrumented sample); 'w' held "
+          f"{FRAMES_MOVE} frames (shift {shift}), released, "
+          f"{FRAMES_AFTER} more: samples {seen['after']}; the last "
+          f"{FRAMES_AFTER} frames equal to a fresh engine's {FRAMES_AFTER} "
+          f"samples at the moved pose (torch.equal); all {dt:.3f} s; "
+          f"meter: {meter_line.strip() or 'no line (under 1 s)'}; "
+          f"launches {counts}")
+
+    # The environment map's gather: escape rays through K7 at rmax 3.0e38.
+    name = "megakernel cornell envmap-sunsky"
+    eng = RenderEngine(corn, cfg(env_map="sunsky"), device="cuda")
+    occluded, calls = eng.occluded, []
+
+    def keep(rays, rmax):
+        out = occluded(rays, rmax)
+        if len(calls) < 2:
+            calls.append((rays, rmax, out))
+        return out
+
+    eng.occluded = keep
+    _, dt, counts = run_path(torch, name,
+                             lambda: eng.render(ENV_SPP, progress=False))
+    add(counts)
+    image_ok(name, eng)
+    need(counts["anyhit"] == ENV_SPP * (BOUNCES - 1),
+         f"{name} launched anyhit {counts['anyhit']} times, not on each of "
+         f"the first {BOUNCES - 1} bounces of {ENV_SPP} samples")
+    print(f"main path {name}: {W}x{H}, {BOUNCES} bounces, {ENV_SPP} spp in "
+          f"{dt:.3f} s: {eng.rays_traced / dt / 1e6:.1f} Mrays/s, "
+          f"{ENV_SPP / dt:.2f} samples/s; launches {counts}")
+    pack, groups, _ = tk.grouped_pack(corn.tris, 128)
+    sub = tk.anyhit_sub_boxes(pack, groups)
+    dpack = k1.build_tri_pack(corn.tris)
+    out = {}
+    for b, (rays, rmax, flags) in enumerate(calls):
+        where = f"the cornell bounce-{b} escape rays"
+        need(bool((rmax == envmap.ESCAPE_RMAX).all()),
+             f"{where}: rmax is not 3.0e38")
+        s8 = k1.pack_rays(rays.p, rays.d).contiguous()
+        plain, plain_ms = timed(torch, lambda: tk.anyhit_plain(
+            s8, rmax, pack, groups, ANYHIT_PLAIN_CHUNK))
+        need(torch.equal(flags, plain),
+             f"anyhit differs from its plain version on {where}")
+        need(torch.equal(tk.anyhit(s8, rmax, pack, groups, sub), flags),
+             f"anyhit differs from the main path's launch on {where}")
+        t4, g4 = k1.dense(s8, dpack)[:2]
+        strips = strip_hits(torch, corn, dpack, s8, rmax, flags, t4, g4)
+        counted, kcounts = tk.anyhit_counted(s8, rmax, pack, groups, sub)
+        need(torch.equal(counted, flags),
+             f"anyhit's counting entry differs from it on {where}")
+        n_div, n_box, n_coop, n_edge, n_made = kcounts
+        r = s8.shape[1]
+        print(f"anyhit at rmax 3.0e38 on {where} ({r} rays, "
+              f"{int(flags.sum())} occluded): equal to its plain version "
+              f"({plain_ms:.1f} ms) and to (K4 t valid and t < 3.0e38) but "
+              f"for {strips} zero-area strips (torch.equal); "
+              f"{n_box / r:.3f} sub-blocks passed per ray, {n_div} tests "
+              f"reached the divide, {n_edge} edge tests, {n_made} slab and "
+              "box tests")
+        if b == 1:
+            out["anyhit escape"] = (s8, rmax, pack, groups, sub, kcounts,
+                                    plain_ms)
+
+    # The emitter gather and the environment gather in one wavefront step.
+    name = "wavefront cornell-sphere-lamp nee envmap-gradient"
+    eng = RenderEngine(scenes["cornell-sphere-lamp"],
+                       cfg(model="wavefront", nee=True,
+                           env_map="gradient"), device="cuda")
+    _, dt, counts = run_path(torch, name,
+                             lambda: eng.render(ENV_SPP, progress=False))
+    add(counts)
+    image_ok(name, eng)
+    print(f"main path {name}: {W}x{H}, {BOUNCES} bounces, {ENV_SPP} spp "
+          f"({eng.steps_run} steps) in {dt:.3f} s: "
+          f"{eng.rays_traced / dt / 1e6:.1f} Mrays/s, "
+          f"{ENV_SPP / dt:.2f} samples/s; launches {counts}")
+
+    # The dormant sky light (EnvLight) and thin-lens depth of field.
+    for name, sname, kw in (
+            ("megakernel cornell-analytic env", "cornell-analytic",
+             dict(env_light=True)),
+            ("megakernel cornell dof", "cornell",
+             dict(dof_aperture=DOF[0], dof_focus=DOF[1]))):
+        eng = RenderEngine(scenes[sname], cfg(**kw), device="cuda")
+        _, dt, counts = run_path(torch, name,
+                                 lambda: eng.render(ENV_SPP, progress=False))
+        add(counts)
+        image_ok(name, eng)
+        print(f"main path {name}: {W}x{H}, {BOUNCES} bounces, {ENV_SPP} spp "
+              f"in {dt:.3f} s: {eng.rays_traced / dt / 1e6:.1f} Mrays/s, "
+              f"{ENV_SPP / dt:.2f} samples/s; launches {counts}")
+    return launches, out
 
 
 def timed(torch, fn):
@@ -3460,6 +3670,15 @@ def measure(torch, inputs, errs, launches):
                      plain_ms, 25 * n_made + 12 * n_div + 12 * n_edge, 0,
                      (24 + 4 + 1) * s8.shape[1] + 64 * gpack.shape[0]
                      + groups.numel() * 4 + gsub.numel() * 4))
+    # K7 at rmax 3.0e38 on the sunsky map's bounce-1 escape rays
+    # (check_slice19), counted likewise.
+    s8, rmax, gpack, groups, gsub, counts, plain_ms = inputs["anyhit escape"]
+    n_div, _, _, n_edge, n_made = counts
+    rows.append(("anyhit escape",
+                 lambda a=(s8, rmax, gpack, groups, gsub): tk.anyhit(*a),
+                 plain_ms, 25 * n_made + 12 * n_div + 12 * n_edge, 0,
+                 (24 + 4 + 1) * s8.shape[1] + 64 * gpack.shape[0]
+                 + groups.numel() * 4 + gsub.numel() * 4))
     s8 = inputs["anyhit"][0]
     ra = s8.shape[1]
     pairs7 = inputs["anyhit bounce 0"][5][0]
@@ -3608,6 +3827,10 @@ def main() -> int:
     check_no_fallback(torch, scenes)
     launches = main_path(torch, np, scenes, cam)
     check_slice18(torch, scenes, launches)
+    env_launches, env_inputs = check_slice19(torch, np, scenes)
+    for k, v in env_launches.items():
+        launches[k] += v
+    inputs.update(env_inputs)
     kernels = measure(torch, inputs, errs, launches)
     print(f"smoke: {time.perf_counter() - t_start:.1f} s in all, the kernel "
           "build included")

@@ -1,11 +1,12 @@
 """`ptx-torch` command-line interface.
 
-Port of the `render` command of `opencl_path_tracer_tpu/cli.py`
-(`_build_scene`, `_camera_preset` and `cmd_render`): an offline
-progressive render to PNG, or to linear HDR when `--out` ends in `.pfm`
-or `.npy`. It runs on the GPU unless `--device cpu` is given.
-Checkpoints (`--checkpoint`, `--resume`, `--autosave-every`) are the
-JAX package's files: either CLI resumes the other's.
+Port of the `render` and `info` commands of
+`opencl_path_tracer_tpu/cli.py` (`_build_scene`, `_camera_preset`,
+`cmd_render`, `cmd_info`): an offline progressive render to PNG, or to
+linear HDR when `--out` ends in `.pfm` or `.npy`, with the 1 Hz meter on
+stderr; and the device table. Both run on the GPU unless `--device cpu`
+is given. Checkpoints (`--checkpoint`, `--resume`, `--autosave-every`)
+are the JAX package's files: either CLI resumes the other's.
 
     ptx-torch render --scene cornell --size 1920x1080 --iters 5 --spp 8
     ptx-torch render --scene cornell-analytic --model wavefront --rr 3
@@ -20,7 +21,11 @@ JAX package's files: either CLI resumes the other's.
     ptx-torch render --spp 4 --checkpoint run.npz --autosave-every 2
     ptx-torch render --spp 4 --resume run.npz --out hdr.pfm
     ptx-torch render --model wavefront --nee --adaptive 0.05 --min-spp 8
+    ptx-torch render --envmap sunsky        # or gradient, or a .pfm path
+    ptx-torch render --scene cornell-analytic --env
+    ptx-torch render --dof 20 600           # lens radius, focal distance
     ptx-torch render --config render.json   # a RenderConfig as JSON
+    ptx-torch info                          # the CUDA devices
 """
 
 from __future__ import annotations
@@ -30,8 +35,8 @@ import sys
 import time
 
 
-SCENES = ("cornell", "cornell-analytic", "cornell-sphere-lamp",
-          "many-lights", "many-lights-N", "reference", "reference-analytic",
+SCENES = ("cornell", "cornell-analytic", "cornell-empty",
+          "cornell-sphere-lamp", "many-lights", "many-lights-N", "reference", "reference-analytic",
           "stress", "stress-analytic", "*.obj")
 
 
@@ -45,6 +50,8 @@ def _build_scene(name: str, device, models_dir: str | None = None,
         # 12 box triangles + 2 exact quadrics.
         return library.cornell_box(with_spheres=True, analytic_spheres=True,
                                    device=device)
+    if name == "cornell-empty":
+        return library.cornell_box(with_spheres=False, device=device)
     if name == "cornell-sphere-lamp":
         # An emissive analytic sphere as the lamp (NEE's cone sampler).
         return library.cornell_box(with_spheres=True, analytic_spheres=True,
@@ -120,6 +127,12 @@ def cmd_render(args) -> int:
                            nee=args.nee, nee_select=args.nee_select,
                            nee_anyhit=not args.no_nee_anyhit,
                            smooth=args.smooth,
+                           dof_aperture=args.dof[0] if args.dof else 0.0,
+                           dof_focus=args.dof[1] if args.dof else 0.0,
+                           env_light=args.env, env_sky=tuple(args.env_sky),
+                           env_deep=tuple(args.env_deep),
+                           env_map=args.envmap, env_scale=args.env_scale,
+                           env_nee=not args.no_env_nee,
                            camera=_camera_preset(args.scene, args))
     tol = None
     if args.adaptive is not None:
@@ -156,12 +169,12 @@ def cmd_render(args) -> int:
     dt = time.perf_counter() - t0
     if tol is not None:
         smp = eng.state.samples.cpu().numpy()
-        print(f"adaptive: spp min {int(smp.min())} / mean {smp.mean():.1f} "
+        print(f"\nadaptive: spp min {int(smp.min())} / mean {smp.mean():.1f} "
               f"/ max {int(smp.max())} (cap {cfg.spp}, tol {tol}) in "
               f"{dt:.2f}s ({eng.rays_traced / dt / 1e6:.1f} Mrays/s on "
               f"{device})", file=sys.stderr)
     else:
-        print(f"{cfg.spp} spp in {dt:.2f}s ({cfg.spp / dt:.2f} samples/s, "
+        print(f"\n{cfg.spp} spp in {dt:.2f}s ({cfg.spp / dt:.2f} samples/s, "
               f"{eng.rays_traced / dt / 1e6:.1f} Mrays/s on {device})",
               file=sys.stderr)
     if args.out.endswith((".pfm", ".npy")):
@@ -172,6 +185,17 @@ def cmd_render(args) -> int:
     if args.checkpoint:
         eng.save(args.checkpoint)
         print(f"wrote {args.checkpoint}", file=sys.stderr)
+    return 0
+
+
+def cmd_info(args) -> int:
+    """The device table (the reference's list_info, main.cpp:389-455)."""
+    from opencl_path_tracer_tpu_torch.parallel.mesh import describe_devices
+    from opencl_path_tracer_tpu_torch.utils.device import resolve_device
+    import torch
+    dev = resolve_device(args.device)
+    print(f"torch {torch.__version__} backend: {dev.type}")
+    describe_devices(verbose=True, device=dev)
     return 0
 
 
@@ -222,10 +246,33 @@ def main(argv=None) -> int:
                         "distance weights; sphere emitters only, e.g. "
                         "--scene many-lights)")
     p.add_argument("--no-nee-anyhit", action="store_true",
-                   help="trace NEE shadow rays through the nearest-hit "
-                        "intersector instead of the any-hit kernel (the "
+                   help="trace the shadow rays of --nee and --envmap "
+                        "through the nearest-hit intersector instead of "
+                        "the any-hit kernel (the "
                         "same bits but for rays that graze a zero-area "
                         "triangle)")
+    p.add_argument("--dof", type=float, nargs=2, default=None,
+                   metavar=("APERTURE", "FOCUS"),
+                   help="thin-lens depth of field: lens radius and "
+                        "focal-plane distance (world units)")
+    p.add_argument("--env", action="store_true",
+                   help="the reference kernel's dormant miss-branch sky "
+                        "(prog.cl:367-376)")
+    p.add_argument("--env-sky", type=float, nargs=3,
+                   default=(0.0, 0.75, 2.0), metavar=("R", "G", "B"),
+                   help="the sky color of --env")
+    p.add_argument("--env-deep", type=float, nargs=3,
+                   default=(1.0, 1.0, 1.0), metavar=("R", "G", "B"),
+                   help="the fill color of --env after a diffuse bounce")
+    p.add_argument("--envmap", default=None, metavar="SRC",
+                   help="environment map: 'gradient', 'sunsky', or a "
+                        ".pfm/.npy/.png equirectangular image; adds an "
+                        "importance-sampled gather with MIS unless "
+                        "--no-env-nee")
+    p.add_argument("--env-scale", type=float, default=1.0,
+                   help="radiance multiplier of --envmap")
+    p.add_argument("--no-env-nee", action="store_true",
+                   help="--envmap lights misses only (no escape rays)")
     p.add_argument("--fov", type=float, default=None)
     p.add_argument("--yaw", type=float, default=None)
     p.add_argument("--pitch", type=float, default=None)
@@ -258,6 +305,10 @@ def main(argv=None) -> int:
                    help="adaptive floor: samples every pixel takes before "
                         "it may stop")
     p.set_defaults(func=cmd_render)
+    p = sub.add_parser("info", help="device table")
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (default: every CUDA device) or 'cpu'")
+    p.set_defaults(func=cmd_info)
     args = ap.parse_args(argv)
     return args.func(args)
 

@@ -5,7 +5,10 @@ defaults (reference globals main.cpp:19-43), JSON round-trippable. The
 port honours the megakernel and wavefront models, both modes, the
 camera, bounce depth, spp, seed, tonemap, QMC jitter, Russian roulette
 (wavefront), next-event estimation (nee, nee_select, nee_anyhit), smooth
-shading and the 'auto' / 'minarg' / 'pallas' / 'tilecull' / 'pairwin' /
+shading, the environment (env_light with env_sky and env_deep, or env_map
+with env_scale, env_nee and env_sample_res), thin-lens depth of field
+(dof_aperture, dof_focus) and the 'auto' / 'minarg' / 'pallas' /
+'tilecull' / 'pairwin' /
 'pair' / 'cluster' / 'group' / 'march' / 'flat' / 'bruteforce' accels; every
 other field raises NotImplementedError when it is set away from its
 default.
@@ -67,24 +70,30 @@ class RenderConfig:
     # Smooth shading: interpolated vertex normals at triangle hits (the
     # scene must carry them: Scene.attribs).
     smooth: bool = False
-    # Fields of the JAX package's config that this port does not honour
-    # yet; validate() refuses them away from these defaults.
-    accel_force: bool = False
-    textured: bool = False
+    # The reference's dormant miss-branch sky (prog.cl:367-376;
+    # models.megakernel.EnvLight): False is the shipped kernel's plain
+    # break on a miss.
     env_light: bool = False
     env_sky: tuple[float, float, float] = (0.0, 0.75, 2.0)
     env_deep: tuple[float, float, float] = (1.0, 1.0, 1.0)
+    # An environment map (ops/envmap.py): 'gradient', 'sunsky' or a
+    # .pfm/.npy/.png path; env_nee adds the importance-sampled gather and
+    # its MIS split. Exclusive with env_light.
     env_map: str | None = None
     env_scale: float = 1.0
     env_nee: bool = True
     env_sample_res: tuple[int, int] = (64, 32)
+    # Thin-lens depth of field: lens radius and focal-plane distance in
+    # world units; aperture 0 is the reference's pinhole.
     dof_aperture: float = 0.0
     dof_focus: float = 0.0
+    # Fields of the JAX package's config that this port does not honour
+    # yet; validate() refuses them away from these defaults.
+    accel_force: bool = False
+    textured: bool = False
     devices: int = 1
 
-    UNPORTED = ("accel_force", "textured", "env_light",
-                "env_sky", "env_deep", "env_map", "env_scale", "env_nee",
-                "env_sample_res", "dof_aperture", "dof_focus", "devices")
+    UNPORTED = ("accel_force", "textured", "devices")
 
     def validate(self) -> "RenderConfig":
         defaults = RenderConfig()
@@ -111,6 +120,23 @@ class RenderConfig:
         if self.nee_select not in ("power", "distance"):
             raise ValueError(f"unknown nee_select {self.nee_select!r} "
                              "('power' or 'distance')")
+        if len(self.env_sky) != 3 or len(self.env_deep) != 3:
+            raise ValueError("env_sky/env_deep must be RGB 3-tuples")
+        if self.env_map is not None:
+            if self.env_light:
+                raise ValueError("env_map and env_light are mutually "
+                                 "exclusive (one environment at a time)")
+            if self.env_scale <= 0.0:
+                raise ValueError("env_scale must be > 0")
+            if (len(self.env_sample_res) != 2
+                    or min(self.env_sample_res) < 1):
+                raise ValueError(
+                    "env_sample_res must be (Ws, Hs) positive ints")
+        if self.dof_aperture < 0.0:
+            raise ValueError("dof_aperture must be >= 0")
+        if self.dof_aperture > 0.0 and self.dof_focus <= 0.0:
+            raise ValueError("dof_aperture > 0 needs dof_focus > 0 (the "
+                             "focal-plane distance in world units)")
         if self.qmc and self.mode != "fast":
             raise ValueError("qmc needs mode='fast' (parity mode's "
                              "per-pixel Lehmer draws are the reference spec)")

@@ -2,8 +2,8 @@
 
 No counterpart module in `opencl_path_tracer_tpu`. These functions take
 plain numpy arrays, so a JAX `Scene`, `TraceState`, `WavefrontState`,
-`LazyState`, `ClusterScene` or the fused pipeline's packed `(F, I, step)` (or a
-checkpoint of one) converts with `np.asarray` on each field and no
+`LazyState`, `ClusterScene`, `EnvMap` or the fused pipeline's packed
+`(F, I, step)` (or a checkpoint of one) converts with `np.asarray` on each field and no
 import of JAX here.
 Triangle constants are rebuilt from the vertices; they come out bit-equal
 to the JAX package's.
@@ -22,6 +22,7 @@ from opencl_path_tracer_tpu_torch.core.spheres import SpheresSoA
 from opencl_path_tracer_tpu_torch.models.lazy import LazyState
 from opencl_path_tracer_tpu_torch.models.megakernel import TraceState
 from opencl_path_tracer_tpu_torch.models.wavefront import WavefrontState
+from opencl_path_tracer_tpu_torch.ops.envmap import EnvMap
 from opencl_path_tracer_tpu_torch.ops.kernels.cluster_kernel import (
     ClusterScene,
 )
@@ -257,3 +258,22 @@ def cluster_scene_to_numpy(scene: ClusterScene) -> dict:
     """{'boxes': (C, 8) float32, 'tri_pack': (C, 24, K) float32}."""
     return {"boxes": scene.boxes.cpu().numpy(),
             "tri_pack": scene.tri_pack.cpu().numpy()}
+
+
+def envmap_from_numpy(img, prob, cum, *, Wi: int, Hi: int, Ws: int, Hs: int,
+                      nee: bool = True, device="cpu") -> EnvMap:
+    """EnvMap from its (Hi * Wi, 4) radiance rows, (Hs * Ws,)
+    probabilities and cumulative table (float32) and its sizes."""
+    def f32(a):
+        return torch.as_tensor(np.array(a, np.float32), device=device)
+
+    return EnvMap(img=f32(img), prob=f32(prob), cum=f32(cum), Wi=int(Wi),
+                  Hi=int(Hi), Ws=int(Ws), Hs=int(Hs), nee=bool(nee))
+
+
+def envmap_to_numpy(em: EnvMap) -> dict:
+    """{'img', 'prob', 'cum': float32 arrays, 'Wi', 'Hi', 'Ws', 'Hs': int,
+    'nee': bool}: envmap_from_numpy(**d) rebuilds it."""
+    return {"img": em.img.cpu().numpy(), "prob": em.prob.cpu().numpy(),
+            "cum": em.cum.cpu().numpy(), "Wi": em.Wi, "Hi": em.Hi,
+            "Ws": em.Ws, "Hs": em.Hs, "nee": em.nee}

@@ -15,9 +15,12 @@ The intersector is injected (`intersect_fn`); a Python loop runs the
 samples and bounces. Next-event estimation (`nee`, an
 `ops.nee.EmitterTable`) gathers direct light at every diffuse vertex
 through one shadow ray (`occluded_fn`, the any-hit test, or the
-intersector) and MIS-weights the next bounce's emitter pickup. The
-dormant sky light (`EnvLight`), environment maps, depth of field and the
-textured intersector are not ported yet.
+intersector) and MIS-weights the next bounce's emitter pickup. `env` is
+the reference's dormant sky light (`EnvLight`) or an environment map
+(`ops.envmap.EnvMap`, whose gather traces an escape ray through the same
+any-hit test at rmax 3.0e38); `dof` = (aperture, focus) makes thin-lens
+camera rays. The textured intersector (one returning (Hits, kd)) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from opencl_path_tracer_tpu_torch.core.types import (
     Hits, Rays, V3, vadd, vdot, vmul, vneg, vnormalize, vscale, vwhere,
 )
 from opencl_path_tracer_tpu_torch.ops import bsdf, raygen, rng
+from opencl_path_tracer_tpu_torch.ops import envmap as envmap_ops
 from opencl_path_tracer_tpu_torch.ops import nee as nee_ops
 from opencl_path_tracer_tpu_torch.utils.device import resolve_device
 
@@ -44,6 +48,58 @@ _INV_PI = float(np.float32(1.0 / np.pi))
 def _unoccluded(rays, rmax):
     """A shadow-ray visibility that traces nothing: every ray visible."""
     return torch.zeros_like(rmax, dtype=torch.bool)
+
+
+@dataclasses.dataclass(frozen=True)
+class EnvLight:
+    """The reference's dormant miss shading (prog.cl:367-376), an opt-in:
+    a primary miss shows `sky` (prog.cl:369); a miss on a path with no
+    diffuse bounce yet (cntr <= 0, prog.cl:370) tints `sky` by the path
+    throughput (f_l + f_b) f_s f_r; a miss after a diffuse bounce adds
+    `deep` (white in the dormant code, prog.cl:372) times the throughput.
+    `scale` multiplies `sky` (the literal `*1` at prog.cl:369). env=None
+    keeps the shipped kernel's plain break."""
+
+    sky: tuple = (0.0, 0.75, 2.0)   # prog.cl:369,371
+    deep: tuple = (1.0, 1.0, 1.0)   # prog.cl:373
+    scale: float = 1.0              # prog.cl:369
+
+
+def env_miss_update(env: EnvLight, miss_now, is_primary, had_diffuse,
+                    f_l: V3, f_b: V3, f_s: V3, f_r: V3, color: V3) -> V3:
+    """Fold the dormant code's miss contribution into `color` on the lanes
+    whose live path missed this bounce (they die right after). is_primary:
+    a bool (the megakernel's bounce 0) or a per-lane mask (the
+    wavefront's); had_diffuse: the per-lane cntr > 0."""
+    # float32 sky * scale, as the JAX package folds it.
+    sky = tuple(float(np.float32(c) * np.float32(env.scale))
+                for c in env.sky)
+    deep = tuple(float(np.float32(c)) for c in env.deep)
+    ref = f_l[0]
+    tint = tuple(torch.where(had_diffuse, torch.full_like(ref, deep[k]),
+                             torch.full_like(ref, sky[k]))
+                 for k in range(3))
+    # Left to right, as the reference's tint*(f_L+f_B)*f_S*f_R
+    # (prog.cl:371,373).
+    tinted = vmul(vmul(vmul(tint, vadd(f_l, f_b)), f_s), f_r)
+    sky_v = tuple(torch.full_like(ref, sky[k]) for k in range(3))
+    if isinstance(is_primary, bool):
+        contrib = sky_v if is_primary else tinted
+    else:
+        contrib = vwhere(is_primary, sky_v, tinted)
+    return vwhere(miss_now, vadd(color, contrib), color)
+
+
+def _env_kind(env):
+    """'map', 'light' or None for an env argument; raises for others."""
+    if env is None:
+        return None
+    if isinstance(env, envmap_ops.EnvMap):
+        return "map"
+    if isinstance(env, EnvLight):
+        return "light"
+    raise TypeError(f"env must be an EnvLight or an ops.envmap.EnvMap, not "
+                    f"{type(env).__name__}")
 
 
 @dataclasses.dataclass
@@ -70,6 +126,10 @@ def fetch_material(mats: MaterialsSoA, intersect_fn: IntersectFn,
                    rays: Rays):
     """Intersect + per-lane material fetch."""
     hit = intersect_fn(rays)
+    if isinstance(hit, tuple):
+        raise NotImplementedError(
+            "textured intersectors ((Hits, kd) results) are not ported yet "
+            "(ROADMAP.md queue 1, textures)")
     return hit, mats.take(hit.mati)
 
 
@@ -145,7 +205,7 @@ def trace_sample(cam: Camera, mats: MaterialsSoA, state: TraceState, *,
                  intersect_fn: IntersectFn, iterations: int,
                  mode: str = "parity", key: tuple[int, int] | None = None,
                  qmc: bool = False, with_stats: bool = False, nee=None,
-                 occluded_fn=None):
+                 occluded_fn=None, env=None, dof=None):
     """Render one progressive sample for every pixel (lane j is pixel j)
     and fold it into the running average (prog.cl:379). `iterations` is
     the bounce depth.
@@ -155,19 +215,29 @@ def trace_sample(cam: Camera, mats: MaterialsSoA, state: TraceState, *,
     nee: an `ops.nee.EmitterTable`; its draws come from the hash keyed by
     fold_in(key, 0) (key(1791) when key is None, as in parity mode), salt
     10,000 + bounce, so parity mode's Lehmer streams stay the reference's.
+    env: an `EnvLight` (the dormant sky, prog.cl:367-376) or an
+    `ops.envmap.EnvMap`; with env.nee a map's gather draws from
+    fold_in(key or key(3791), 0), salt 30,000 + bounce, and its escape
+    rays go through occluded_fn at rmax 3.0e38.
+    dof: (aperture, focus): thin-lens camera rays whose lens draws come
+    from fold_in(key or key(401), 0), salt 20,000.
     occluded_fn: the any-hit shadow-ray test (`make_scene_occluded`);
     None sends the shadow rays through intersect_fn. Neither traces the
     last bounce's shadow rays, whose contribution is zero.
     with_stats=True also returns the number of rays traced (live lanes at
-    each bounce, twice with NEE: its shadow batch, traced or not) as a 0-dim
-    tensor."""
+    each bounce, once more for each shadow batch, NEE's and the
+    environment's, traced or not) as a 0-dim tensor."""
     rng_state = state.rng_state
     n = rng_state.shape[0]
     dev = rng_state.device
     ids = raygen.pixel_ids_like(n, device=dev)
     s_idx = state.sample
+    env_kind = _env_kind(env)
+    env_gather = env_kind == "map" and env.nee
     if nee is not None:
         nee_key = rng.fold_in(key if key is not None else rng.key(1791), 0)
+    if env_gather:
+        env_key = rng.fold_in(key if key is not None else rng.key(3791), 0)
     if mode == "parity":
         ones = torch.ones(n, dtype=torch.bool, device=dev)
         rng_state, r1, r2 = _draws_parity(rng_state, ones, ones)
@@ -182,7 +252,16 @@ def trace_sample(cam: Camera, mats: MaterialsSoA, state: TraceState, *,
             r1, r2 = u[0], u[1]
     else:
         raise ValueError(f"unknown mode {mode!r}")
-    rays = raygen.camera_rays(cam, ids, r1, r2)
+    if dof is not None:
+        # The lens draws ride the counter hash (salt 20,000: the bounce
+        # draws use 1..50 and NEE 10,000 + b), so parity mode's Lehmer
+        # streams stay the reference's.
+        dof_key = rng.fold_in(key if key is not None else rng.key(401), 0)
+        lu = rng.fast_uniforms(dof_key, s_idx, 20_000, n, 2, device=dev)
+        rays = raygen.camera_rays_dof(cam, ids, r1, r2, lu[0], lu[1],
+                                      dof[0], dof[1])
+    else:
+        rays = raygen.camera_rays(cam, ids, r1, r2)
 
     ray_p, ray_d = rays.p, rays.d
     f_l = f_b = f_s = f_r = tuple(
@@ -191,10 +270,13 @@ def trace_sample(cam: Camera, mats: MaterialsSoA, state: TraceState, *,
                   for _ in range(3))
     alive = torch.ones(n, dtype=torch.bool, device=dev)
     inside = torch.zeros(n, dtype=torch.bool, device=dev)
+    had_diffuse = torch.zeros(n, dtype=torch.bool, device=dev)
     prev_pdf = torch.zeros(n, dtype=torch.float32, device=dev)
     rays_traced = torch.zeros((), dtype=torch.float32, device=dev)
 
     for b in range(iterations):
+        # The environment pickup weighs against the previous bounce's pdf.
+        prev_pdf_prev = prev_pdf
         if with_stats:
             rays_traced = rays_traced + alive.sum()
         hit, mat = fetch_material(mats, intersect_fn, Rays(p=ray_p, d=ray_d))
@@ -212,6 +294,12 @@ def trace_sample(cam: Camera, mats: MaterialsSoA, state: TraceState, *,
         if iterations == 1:
             # Preview mode (prog.cl:323-325): flat kd + emission.
             color = vwhere(has_hit, vadd(mat.kd, mat.emission), color)
+        last = b == iterations - 1
+        # The last bounce's gathers are masked to zero (is_diff is false on
+        # every lane), so their shadow rays are traced by nobody; they
+        # still count in rays_traced.
+        gather = s["is_diff"] & (not last)
+        shadow_fn = _unoccluded if last else occluded_fn
         emit_scale = None
         if nee is not None:
             # Gather where the path survives to the next intersect, so
@@ -219,25 +307,43 @@ def trace_sample(cam: Camera, mats: MaterialsSoA, state: TraceState, *,
             # pickup takes the MIS complement through prev_pdf.
             u = rng.fast_uniforms(nee_key, s_idx, 10_000 + b, n, 3,
                                   device=dev)
-            last = b == iterations - 1
-            # The last bounce's contribution is masked to zero (is_diff
-            # is false on every lane), so its shadow rays are traced by
-            # nobody; they still count in rays_traced below.
             color = vadd(color, nee_ops.direct_light(
                 nee, intersect_fn=intersect_fn, cam_eye=cam.eye,
                 hit_p=hit.p, n_vec=s["n_vec"], mat=mat, f_l=f_l, f_b=f_b,
-                f_s=f_s, f_r=f_r, is_diff=s["is_diff"] & (not last),
-                u1=u[0], u2=u[1], u3=u[2],
-                occluded_fn=_unoccluded if last else occluded_fn))
+                f_s=f_s, f_r=f_r, is_diff=gather, u1=u[0], u2=u[1], u3=u[2],
+                occluded_fn=shadow_fn))
             if with_stats:
                 rays_traced = rays_traced + alive.sum()  # the shadow batch
             emit_scale = nee_ops.pickup_mis_weight(
                 nee, prev_pdf, s["emit_cos"], hit.t, mat.emission,
                 mati=hit.mati, hit_p=hit.p, ray_p=ray_p)
+        if nee is not None or env_gather:
             prev_pdf = torch.where(s["is_diff"], s["intens_d"] * _INV_PI,
                                    torch.zeros_like(prev_pdf))
+        if env_gather:
+            # The environment gather: the same survival gating and MIS
+            # split in solid angle (salt 30,000 + b).
+            u = rng.fast_uniforms(env_key, s_idx, 30_000 + b, n, 3,
+                                  device=dev)
+            color = vadd(color, envmap_ops.direct_light_env(
+                env, intersect_fn=intersect_fn, cam_eye=cam.eye,
+                hit_p=hit.p, n_vec=s["n_vec"], mat=mat, f_l=f_l, f_b=f_b,
+                f_s=f_s, f_r=f_r, is_diff=gather, u1=u[0], u2=u[1], u3=u[2],
+                occluded_fn=shadow_fn))
+            if with_stats:
+                rays_traced = rays_traced + alive.sum()  # the escape batch
         f_l, f_b, f_s, f_r, inside, color = apply_factors(
             s, f_l, f_b, f_s, f_r, inside, color, emit_scale)
+        # Miss -> break (prog.cl:367-376); with an environment the dying
+        # lane first collects its contribution.
+        if env_kind == "map":
+            color = envmap_ops.envmap_miss_update(
+                env, alive & ~hit.valid, b == 0, prev_pdf_prev,
+                f_l, f_b, f_s, f_r, ray_d, color)
+        elif env_kind == "light":
+            color = env_miss_update(env, alive & ~hit.valid, b == 0,
+                                    had_diffuse, f_l, f_b, f_s, f_r, color)
+            had_diffuse = had_diffuse | s["is_diff"]
         alive = has_hit
         ray_p, ray_d = s["new_p"], s["new_d"]
 
@@ -257,6 +363,7 @@ def render(cam: Camera, mats: MaterialsSoA, *, intersect_fn: IntersectFn,
            num_pixels: int, iterations: int, spp: int, mode: str = "parity",
            seed: int = 1, key: tuple[int, int] | None = None,
            state: TraceState | None = None, qmc: bool = False, nee=None,
+           env=None, dof=None, occluded_fn=None,
            device=None) -> TraceState:
     """Accumulate `spp` progressive samples (the onIdle loop,
     main.cpp:1171-1241). Runs on `device` (CUDA unless "cpu" is asked
@@ -271,7 +378,8 @@ def render(cam: Camera, mats: MaterialsSoA, *, intersect_fn: IntersectFn,
     for _ in range(spp):
         state = trace_sample(cam, mats, state, intersect_fn=intersect_fn,
                              iterations=iterations, mode=mode, key=key,
-                             qmc=qmc, nee=nee)
+                             qmc=qmc, nee=nee, env=env, dof=dof,
+                             occluded_fn=occluded_fn)
     return state
 
 

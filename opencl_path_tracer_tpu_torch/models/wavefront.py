@@ -21,10 +21,10 @@ keyed by it, and keeping it on the host costs no device read.
 
 Next-event estimation (`nee`, `occluded_fn`) is the megakernel's gather
 and MIS pickup, with the draws keyed by the step counter and the
-previous bounce's direction pdf carried per lane in `prev_pdf`. Not
-ported yet: EnvLight and environment maps (`env`) and depth of field
-(`dof`), which raise NotImplementedError (ROADMAP.md queue 1, DOF and
-environment light).
+previous bounce's direction pdf carried per lane in `prev_pdf`. `env`
+(the dormant sky `EnvLight`, with `had_diffuse` per lane, or an
+`ops.envmap.EnvMap` and its escape-ray gather, salt 5) and `dof` (thin
+lens, salt 4) are the megakernel's too, keyed by the step counter.
 
 Adaptive sampling (`variance_tol`) keeps a Welford M2 of each pixel's
 completed-sample luminance in `lum_m2` and idles a lane once
@@ -52,15 +52,13 @@ from opencl_path_tracer_tpu_torch.core.types import (
     Rays, V3, vadd, vscale, vwhere,
 )
 from opencl_path_tracer_tpu_torch.models.megakernel import (
-    _INV_PI, _draws_parity, apply_factors, fetch_material, shade,
+    _INV_PI, _draws_parity, _env_kind, apply_factors, env_miss_update,
+    fetch_material, shade,
 )
+from opencl_path_tracer_tpu_torch.ops import envmap as envmap_ops
 from opencl_path_tracer_tpu_torch.ops import nee as nee_ops
 from opencl_path_tracer_tpu_torch.ops import raygen, rng
 from opencl_path_tracer_tpu_torch.utils.device import resolve_device
-
-# Option -> the ROADMAP.md queue 1 feature that brings it.
-_UNPORTED = {"env": "DOF and environment light",
-             "dof": "DOF and environment light"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,21 +92,14 @@ class WavefrontState:
         return dataclasses.replace(self, **kw)
 
 
-def _refuse(**opts) -> None:
-    for name, val in opts.items():
-        if val is not None:
-            raise NotImplementedError(
-                f"wavefront {name} is not ported yet (ROADMAP.md queue 1, "
-                f"{_UNPORTED[name]})")
-
-
 def init_wavefront(cam: Camera, num_pixels: int, *, seed: int = 1,
                    mode: str = "parity", key=None,
                    ids: torch.Tensor | None = None, qmc: bool = False,
                    dof=None) -> WavefrontState:
     """Fresh state on the camera's device. ids: optional lane -> pixel
-    id map (e.g. `raygen.tile_major_ids`); lane j serves pixel ids[j]."""
-    _refuse(dof=dof)
+    id map (e.g. `raygen.tile_major_ids`); lane j serves pixel ids[j].
+    dof: (aperture, focus) for thin-lens rays (lens draws keyed by key,
+    or key(401), step 0, salt 4)."""
     n = num_pixels
     dev = cam.eye.device
     if ids is None:
@@ -130,7 +121,13 @@ def init_wavefront(cam: Camera, num_pixels: int, *, seed: int = 1,
             r1, r2 = u[0], u[1]
     else:
         raise ValueError(f"unknown mode {mode!r}")
-    rays = raygen.camera_rays(cam, ids, r1, r2)
+    if dof is not None:
+        lu = rng.fast_uniforms(key if key is not None else rng.key(401), 0,
+                               4, n, 2, device=dev)
+        rays = raygen.camera_rays_dof(cam, ids, r1, r2, lu[0], lu[1],
+                                      dof[0], dof[1])
+    else:
+        rays = raygen.camera_rays(cam, ids, r1, r2)
 
     def f32(v):
         return torch.full((n,), v, dtype=torch.float32, device=dev)
@@ -243,10 +240,17 @@ def wavefront_step(cam: Camera, mats: MaterialsSoA, st: WavefrontState, *,
     f_s by 1/p; its draws ride an independent counter-hash stream.
     nee: an `ops.nee.EmitterTable` (draws keyed by key, or key(1791),
     salt 2); occluded_fn: the any-hit shadow-ray test, None for the
-    intersector. variance_tol: adaptive sampling; lanes idle once
+    intersector. env: an `EnvLight` or an `ops.envmap.EnvMap` (gather
+    draws keyed by key, or key(3791), salt 5; escape rays through
+    occluded_fn at rmax 3.0e38); a lane whose path dies on a miss first
+    collects the environment, a budget-terminated lane nothing. dof:
+    (aperture, focus), the regenerated rays' lens draws keyed by key, or
+    key(401), salt 4. variance_tol: adaptive sampling; lanes idle once
     `converged_mask(..., variance_tol, min_samples)` holds, and finished
     samples update `lum_m2` (None leaves it as it is)."""
-    _refuse(env=env, dof=dof)
+    env_kind = _env_kind(env)
+    env_gather = env_kind == "map" and env.nee
+    want_pdf = nee is not None or env_gather
     n = st.lanes
     dev = st.samples.device
     if sort_every and scene_bounds is not None and st.step % sort_every == 0:
@@ -297,11 +301,33 @@ def wavefront_step(cam: Camera, mats: MaterialsSoA, st: WavefrontState, *,
         emit_scale = nee_ops.pickup_mis_weight(
             nee, st.prev_pdf, s["emit_cos"], hit.t, mat.emission,
             mati=hit.mati, hit_p=hit.p, ray_p=st.ray_p)
+    if want_pdf:
         prev_pdf = torch.where(
             active, torch.where(s["is_diff"], s["intens_d"] * _INV_PI,
                                 torch.zeros_like(st.prev_pdf)), st.prev_pdf)
+    if env_gather:
+        u = rng.fast_uniforms(key if key is not None else rng.key(3791),
+                              st.step, 5, n, 3, lane_offset=lane_offset,
+                              device=dev)
+        # The same survival gating as the emitter gather.
+        cur_color = vadd(cur_color, envmap_ops.direct_light_env(
+            env, intersect_fn=intersect_fn, cam_eye=cam.eye, hit_p=hit.p,
+            n_vec=s["n_vec"], mat=mat, f_l=st.f_l, f_b=st.f_b, f_s=st.f_s,
+            f_r=st.f_r, is_diff=s["is_diff"] & (st.bounce + 1 < iterations),
+            u1=u[0], u2=u[1], u3=u[2], occluded_fn=occluded_fn))
     f_l, f_b, f_s, f_r, inside, cur_color = apply_factors(
         s, st.f_l, st.f_b, st.f_s, st.f_r, st.inside, cur_color, emit_scale)
+    had_diffuse = st.had_diffuse
+    if env_kind == "map":
+        # st.prev_pdf (the previous bounce's) weighs the pickup.
+        cur_color = envmap_ops.envmap_miss_update(
+            env, active & ~hit.valid, st.bounce == 0, st.prev_pdf,
+            f_l, f_b, f_s, f_r, st.ray_d, cur_color)
+    elif env_kind == "light":
+        cur_color = env_miss_update(env, active & ~hit.valid,
+                                    st.bounce == 0, st.had_diffuse,
+                                    f_l, f_b, f_s, f_r, cur_color)
+        had_diffuse = st.had_diffuse | s["is_diff"]
 
     bounce = torch.where(active, st.bounce + 1, st.bounce)
     terminated = active & (~valid | (bounce >= iterations))
@@ -350,7 +376,14 @@ def wavefront_step(cam: Camera, mats: MaterialsSoA, st: WavefrontState, *,
         u = rng.fast_uniforms(key, st.step, 1, n, 2, lane_offset=lane_offset,
                               device=dev)
         g1, g2 = u[0], u[1]
-    fresh = raygen.camera_rays(cam, st.pixel, g1, g2)
+    if dof is not None:
+        lu = rng.fast_uniforms(key if key is not None else rng.key(401),
+                               st.step, 4, n, 2, lane_offset=lane_offset,
+                               device=dev)
+        fresh = raygen.camera_rays_dof(cam, st.pixel, g1, g2, lu[0], lu[1],
+                                       dof[0], dof[1])
+    else:
+        fresh = raygen.camera_rays(cam, st.pixel, g1, g2)
 
     ones = tuple(torch.ones_like(s_f) for _ in range(3))
     zeros = tuple(torch.zeros_like(s_f) for _ in range(3))
@@ -368,8 +401,9 @@ def wavefront_step(cam: Camera, mats: MaterialsSoA, st: WavefrontState, *,
         cur_color=vwhere(terminated, zeros, cur_color),
         inside=torch.where(terminated, False, inside),
         bounce=torch.where(terminated, 0, bounce),
-        had_diffuse=st.had_diffuse,
-        prev_pdf=(torch.where(terminated, 0.0, prev_pdf) if nee is not None
+        had_diffuse=(torch.where(terminated, False, had_diffuse)
+                     if env_kind == "light" else had_diffuse),
+        prev_pdf=(torch.where(terminated, 0.0, prev_pdf) if want_pdf
                   else prev_pdf),
         lum_m2=lum_m2,
         step=st.step + 1,

@@ -1,8 +1,9 @@
 """Camera ray generation (gen_ray, prog.cl:384-389 + 82-92).
 
-Port of `camera_rays`, the pixel ids, `tile_major_ids` and
-`inverse_permutation` of `opencl_path_tracer_tpu/ops/raygen.py`: one
-lane per pixel id, two jitter draws per lane, the pinhole projection as
+Port of `camera_rays`, `camera_rays_dof`, the pixel ids,
+`tile_major_ids` and `inverse_permutation` of
+`opencl_path_tracer_tpu/ops/raygen.py`: one lane per pixel id, two
+jitter draws per lane, the pinhole projection (or the thin lens) as
 elementwise tensor arithmetic over 1-D component tensors.
 """
 
@@ -14,6 +15,8 @@ import torch
 from opencl_path_tracer_tpu_torch.core import fp
 from opencl_path_tracer_tpu_torch.core.camera import Camera
 from opencl_path_tracer_tpu_torch.core.types import Rays, vnormalize
+
+_TWO_PI = float(np.float32(2.0 * np.pi))
 
 
 def camera_rays(cam: Camera, ids: torch.Tensor, rnd1: torch.Tensor,
@@ -32,6 +35,35 @@ def camera_rays(cam: Camera, ids: torch.Tensor, rnd1: torch.Tensor,
     d = vnormalize(d)
     origins = tuple(cam.eye[k].expand(d[0].shape) for k in range(3))
     return Rays(p=origins, d=d)
+
+
+def camera_rays_dof(cam: Camera, ids: torch.Tensor, rnd1, rnd2, lens1,
+                    lens2, aperture: float, focus: float) -> Rays:
+    """Thin-lens camera rays (no reference counterpart: the reference
+    camera is a pinhole, prog.cl:82-92). Each ray starts at a uniform
+    point of a lens disk of radius `aperture` (world units, spanned by
+    the camera's unit right and up) and is aimed at the pinhole ray's
+    point on the focal plane at distance `focus` along the view axis, so
+    all of a pixel's rays meet there. aperture 0 gives the pinhole ray.
+    lens1, lens2: (N,) float32 lens draws in [0, 1)."""
+    pin = camera_rays(cam, ids, rnd1, rnd2)
+    ahead = vnormalize(tuple(cam.lookat[k] - cam.eye[k] for k in range(3)))
+    right_u = vnormalize(tuple(cam.right[k] for k in range(3)))
+    up_u = vnormalize(tuple(cam.up[k] for k in range(3)))
+    # The pinhole ray's focal-plane point: t = focus / dot(d, ahead).
+    cosv = sum(pin.d[k] * ahead[k] for k in range(3))
+    t = (torch.tensor(float(np.float32(focus)), dtype=torch.float32,
+                      device=cosv.device) / torch.clamp_min(cosv, 1e-6))
+    target = tuple(pin.p[k] + pin.d[k] * t for k in range(3))
+    # A uniform point of the lens disk.
+    r = fp.sqrt(lens1) * float(np.float32(aperture))
+    th = _TWO_PI * lens2
+    lx = r * torch.cos(th)
+    ly = r * torch.sin(th)
+    origin = tuple(pin.p[k] + right_u[k] * lx + up_u[k] * ly
+                   for k in range(3))
+    d = vnormalize(tuple(target[k] - origin[k] for k in range(3)))
+    return Rays(p=origin, d=d)
 
 
 def pixel_ids(width: int, height: int, device="cpu") -> torch.Tensor:

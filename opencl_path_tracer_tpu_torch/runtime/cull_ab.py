@@ -120,6 +120,32 @@ def shadow_rays(scene, cam, rays, isect):
     return got["rays"], got["rmax"].contiguous()
 
 
+def escape_rays(scene, cam, rays, isect, em):
+    """The escape rays (rmax 3.0e38) that the environment gather of
+    `em` (an `ops.envmap.EnvMap`) traces at the first hits of `rays`, one
+    per lane, captured from `ops.envmap.direct_light_env` itself."""
+    from opencl_path_tracer_tpu_torch.core.types import vdot, vneg, vwhere
+    from opencl_path_tracer_tpu_torch.models import megakernel
+    from opencl_path_tracer_tpu_torch.ops import envmap, rng
+    n = rays.count
+    hit, mat = megakernel.fetch_material(scene.mats, isect, rays)
+    n_vec = vwhere(vdot(rays.d, hit.n) > 0.0, vneg(hit.n), hit.n)
+    u = rng.fast_uniforms(rng.key(7), 0, 30_000, n, 3, device=rays.device)
+    ones = tuple(torch.ones(n, device=rays.device) for _ in range(3))
+    got = {}
+
+    def capture(shadow, rmax):
+        got["rays"], got["rmax"] = shadow, rmax
+        return torch.zeros_like(rmax, dtype=torch.bool)
+
+    envmap.direct_light_env(
+        em, intersect_fn=None, cam_eye=cam.eye, hit_p=hit.p, n_vec=n_vec,
+        mat=mat, f_l=ones, f_b=ones, f_s=ones, f_r=ones,
+        is_diff=hit.valid & (mat.type == 0), u1=u[0], u2=u[1], u3=u[2],
+        occluded_fn=capture)
+    return got["rays"], got["rmax"].contiguous()
+
+
 def anyhit_staging(s8, rmax, pack, groups, block=256):
     """What the first K7 kernel does on these inputs: (groups staged per
     block of `block` rays (a group is staged where any ray of the block

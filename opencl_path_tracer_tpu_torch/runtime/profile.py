@@ -37,10 +37,13 @@ Needs a GPU:
     python -m opencl_path_tracer_tpu_torch.runtime.profile \\
         --intersect minarg-fused
     python -m opencl_path_tracer_tpu_torch.runtime.profile --intersect mxu
+    python -m opencl_path_tracer_tpu_torch.runtime.profile --envmap sunsky
+    python -m opencl_path_tracer_tpu_torch.runtime.profile --dof 20 600
 
 --model megakernel and wavefront render --spp samples through
-`RenderEngine` (with --nee, --nee-select, --accel, --smooth and
---models-dir as `ptx-torch render` takes them; `--scene stress`, 99,380
+`RenderEngine` (with --nee, --nee-select, --accel, --smooth,
+--models-dir, --dof, --env, --envmap, --env-scale and --no-env-nee as
+`ptx-torch render` takes them; `--scene stress`, 99,380
 triangles, runs the pair intersector through 'auto'; --intersect
 minarg-fused or mxu passes the intersector that no accel names, K14
 through `make_minarg_intersect(fuse_fetch=True)` or K15 through
@@ -81,18 +84,24 @@ def _workload(args, dev):
                            mode=args.mode, model=args.model,
                            camera=_camera_preset(args.scene, args),
                            accel=args.accel, nee=args.nee,
-                           nee_select=args.nee_select, smooth=args.smooth)
+                           nee_select=args.nee_select, smooth=args.smooth,
+                           dof_aperture=args.dof[0] if args.dof else 0.0,
+                           dof_focus=args.dof[1] if args.dof else 0.0,
+                           env_light=args.env, env_map=args.envmap,
+                           env_scale=args.env_scale,
+                           env_nee=not args.no_env_nee)
         isect = None
         if args.intersect == "minarg-fused":
             isect = make_minarg_intersect(scene.tris, fuse_fetch=True)
         elif args.intersect == "mxu":
             isect = make_mxu_intersect(scene.tris)
         eng = RenderEngine(scene, cfg, intersect_fn=isect, device=dev)
-        eng.render(1)  # warm-up: kernel build, allocator, first launches
+        # warm-up: kernel build, allocator, first launches
+        eng.render(1, progress=False)
 
         def run():
             steps0 = eng.steps_run
-            eng.render(args.spp)
+            eng.render(args.spp, progress=False)
             return args.spp, (eng.steps_run - steps0
                               if args.model == "wavefront" else None)
         return run
@@ -169,6 +178,16 @@ def main(argv=None) -> int:
                     help="smooth shading (interpolated vertex normals)")
     ap.add_argument("--models-dir", default=None,
                     help="the reference scene's OBJ models")
+    ap.add_argument("--dof", type=float, nargs=2, default=None,
+                    metavar=("APERTURE", "FOCUS"),
+                    help="thin-lens depth of field")
+    ap.add_argument("--env", action="store_true",
+                    help="the dormant sky light (EnvLight)")
+    ap.add_argument("--envmap", default=None,
+                    help="environment map: gradient, sunsky or a path")
+    ap.add_argument("--env-scale", type=float, default=1.0)
+    ap.add_argument("--no-env-nee", action="store_true",
+                    help="--envmap without its gather and escape rays")
     ap.add_argument("--intersect", default=None,
                     choices=("minarg-fused", "mxu"),
                     help="megakernel and wavefront: an intersector that no "
@@ -219,6 +238,8 @@ def main(argv=None) -> int:
         "bounces": args.iters, "mode": args.mode, "accel": args.accel,
         "nee": args.nee, "nee_select": args.nee_select,
         "smooth": args.smooth, "intersect": args.intersect,
+        "dof": args.dof, "env": args.env, "envmap": args.envmap,
+        "env_nee": not args.no_env_nee,
         "samples_per_pixel": samples, "steps": steps,
         "device": torch.cuda.get_device_name(dev),
         "wall_ms_per_sample": per(wall_plain * 1e3, samples),

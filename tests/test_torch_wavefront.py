@@ -158,17 +158,27 @@ def test_tile_major_ids_and_colors_by_pixel():
 
 
 def test_unported_options_raise():
+    """The environment and DOF are ported; a textured intersector (one
+    returning (Hits, kd)) is not, and an env of another type is refused."""
     scene = library.cornell_box(with_spheres=False)
     cam = library.cornell_camera(4, 4)
     st = wavefront.init_wavefront(cam, 16, mode="fast", key=rng.key(1))
-    for kw, feature in ((dict(env=object()), "environment light"),
-                        (dict(dof=(1.0, 2.0)), "DOF")):
-        with pytest.raises(NotImplementedError,
-                           match=f"queue 1, .*{feature}"):
-            wavefront.wavefront_step(cam, scene.mats, st,
-                                     intersect_fn=make_intersect_fn(scene),
-                                     iterations=2, mode="fast",
-                                     key=rng.key(1), **kw)
+    isect = make_intersect_fn(scene)
+
+    def textured(rays):
+        return isect(rays), (1.0, 1.0, 1.0)
+
+    with pytest.raises(NotImplementedError, match="queue 1, textures"):
+        wavefront.wavefront_step(cam, scene.mats, st, intersect_fn=textured,
+                                 iterations=2, mode="fast", key=rng.key(1))
+    with pytest.raises(TypeError, match="EnvLight"):
+        wavefront.wavefront_step(cam, scene.mats, st, intersect_fn=isect,
+                                 iterations=2, mode="fast", key=rng.key(1),
+                                 env=object())
+    out = wavefront.wavefront_step(cam, scene.mats, st, intersect_fn=isect,
+                                   iterations=2, mode="fast", key=rng.key(1),
+                                   env=megakernel.EnvLight(), dof=(1.0, 2.0))
+    assert out.step == 2
 
 
 def _nee_setup(sphere_lamp):

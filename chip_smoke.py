@@ -212,12 +212,44 @@ cornell-analytic env` (the dormant sky, EnvLight) and `megakernel cornell
 dof` (aperture 20, focus 600) render 2 spp each. The kernels line has an
 `anyhit escape` row (K7 on the bounce-1 escape rays).
 
+Image textures, the à-trous denoiser and the 3x3 median
+(`check_slice20`, at 1920x1080, 5 bounces, fast mode, TEX_SPP samples):
+`scene.library.textured_room` writes a closed room's OBJ + MTL and two
+seeded PNG maps (256 x 256 and 48 x 80, so the atlas pads; the ceiling's
+map_Kd names a missing file, which must warn) into a temporary directory
+and loads them through `SceneBuilder.add_obj`: `textured-room` (14
+triangles, the lamp quad among them, and an analytic sphere of a
+textured material) and `textured-grid` (the room and a 64 x 64 quad
+floor, 8,206 triangles: 'auto' resolves to 'pairwin' with ids). On the
+1080p camera rays and the first-bounce rays, the textured intersector of
+'minarg', 'tilecull' and 'pairwin' (the room) and of 'minarg' and
+'pairwin' (the grid) is held against the plain reference on the card
+(`minarg_plain` over all triangles, lowest index on exact-t ties, the
+spheres through `sphere_intersect`): its ids intersector's winner is the
+reference's, or on an exact-t tie a triangle whose own exact test gives
+the same t; its Hits torch.equal to the reference's at those winners
+(p and n on hit lanes); its kd torch.equal to `kd_scale` on the CPU of
+the reference's (mati, s, t, ok), a sphere winner exactly 1.0; over
+30 % of the camera rays are textured. The intersectors run on every ray;
+they are compared on every lane of the room and on every
+GRID_REF_STRIDE-th lane of the grid (the reference over 8,206 triangles
+takes 42 s a 1080p ray set on the H100). `megakernel textured-room nee`
+(K1, K2, K3, K7), `wavefront textured-room` (K1, K2, K3) and
+`megakernel textured-grid` (K1, K2 on the walls, K9, K10, K11) render
+NaN-free and unlike the untextured render; their samples/s and Mrays/s are printed.
+The megakernel render's denoise: the guides torch.equal to the CPU's,
+the filter within DENOISE_RTOL of the CPU's on the same colours, its
+time printed; the median torch.equal to the CPU's. `ptx-torch render
+--scene room.obj --textured` with `--denoise` and with `--median` writes
+its PNGs, and the missing map warns.
+
 The last two lines are a JSON object per kernel (time, plain time,
 bound, launches) and the verdict; the line before them, the smoke's total
 time. Any failed phase raises, and the
 script exits non-zero without the verdict. It writes nothing but the
-kernel build under the package's `_build/` and the resume checks'
-checkpoints in a temporary directory, which it removes.
+kernel build under the package's `_build/`, and the resume checks'
+checkpoints and `check_slice20`'s scene files and PNGs in temporary
+directories, which it removes.
 """
 
 from __future__ import annotations
@@ -363,8 +395,16 @@ PATH_KERNELS = {
         "minarg", "refine1", "spheres", "anyhit"),
     "megakernel cornell-analytic env": ("minarg", "refine1", "spheres"),
     "megakernel cornell dof": ("minarg", "refine1"),
+    "megakernel textured-room nee": ("minarg", "refine1", "spheres",
+                                     "anyhit"),
+    "wavefront textured-room": ("minarg", "refine1", "spheres"),
+    "megakernel textured-grid": ("minarg", "refine1", "pair_cand",
+                                 "pair_visit", "attr_fetch"),
 }
 FRAMES, FRAMES_MOVE, FRAMES_AFTER = 30, 3, 6   # check_slice19's frame path
+TEX_SPP = 2   # spp of check_slice20's textured renders and its CLI calls
+GRID_REF_STRIDE = 4   # check_slice20 holds every 4th grid lane to plain
+DENOISE_RTOL = 2e-5   # the denoise, card against CPU (tests' ATROUS_RTOL)
 ENV_SPP = 2   # spp of check_slice19's environment and DOF paths
 DOF = (20.0, 600.0)   # aperture, focus: the middle of the box
 ADAPTIVE_TOL, ADAPTIVE_MIN_SPP, ADAPTIVE_MAX_SPP = 0.05, 8, 32
@@ -3143,6 +3183,275 @@ def check_slice19(torch, np, scenes):
     return launches, out
 
 
+def check_slice20(torch, np):
+    """Image textures, the à-trous denoiser and the 3x3 median at
+    1920x1080, 5 bounces, fast mode (the module docstring), with the
+    counts reset before and read after each main path. Returns the
+    launches of its main paths."""
+    import contextlib
+    import io
+    from opencl_path_tracer_tpu_torch import cli
+    from opencl_path_tracer_tpu_torch.config import CameraConfig, RenderConfig
+    from opencl_path_tracer_tpu_torch.io.image import read_png
+    from opencl_path_tracer_tpu_torch.runtime import engine as engine_mod
+    from opencl_path_tracer_tpu_torch.runtime.engine import RenderEngine
+    from opencl_path_tracer_tpu_torch.scene import library
+    t_phase = time.perf_counter()
+    launches = {}
+    preset = CameraConfig(fov=60.0, yaw=0.0, pitch=0.0,
+                          shift=(0.0, 0.0, 0.0))
+
+    def cfg(**kw):
+        return RenderConfig(width=W, height=H, iterations=BOUNCES,
+                            mode="fast", camera=preset, **kw)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory(prefix="ptx-slice20-") as tmp:
+        dirs = {n: os.path.join(tmp, n) for n in ("room", "grid")}
+        for d in dirs.values():
+            os.mkdir(d)
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            room = library.textured_room(dirs["room"], sphere=True,
+                                         device="cuda")
+            grid = library.textured_room(dirs["grid"], grid=True,
+                                         device="cuda")
+        need(err.getvalue().count("'missing.png': not found") == 2,
+             f"the missing map_Kd did not warn: {err.getvalue()!r}")
+        need(room.textures.mat_texi.tolist() == [0, 1, -1, -1]
+             and (room.textures.hm, room.textures.wm) == (256, 256)
+             and grid.num_triangles == 14 + 2 * library.ROOM_GRID ** 2,
+             "the textured rooms did not load as written")
+        auto = engine_mod.resolve_accel("auto", grid.num_triangles, True,
+                                        True)
+        print(f"textured scenes: textured-room {room.num_triangles} "
+              f"triangles + 1 analytic sphere, textured-grid "
+              f"{grid.num_triangles} triangles ('auto' -> {auto}); atlas "
+              f"{room.textures.count} maps padded to "
+              f"{room.textures.hm}x{room.textures.wm}; the missing map "
+              "warned")
+        _slice20_intersectors(torch, room, grid)
+
+        # The renders: a few samples each, against the untextured render.
+        renders = {}
+        for name, scene, kw in (
+                ("megakernel textured-room nee", room, dict(nee=True)),
+                ("wavefront textured-room", room, dict(model="wavefront")),
+                ("megakernel textured-grid", grid, {})):
+            eng = RenderEngine(scene, cfg(textured=True, **kw),
+                               device="cuda")
+            _, dt, counts = run_path(
+                torch, name, lambda: eng.render(TEX_SPP, progress=False))
+            add(counts)
+            img = eng.image(apply_tonemap=False)
+            flat = RenderEngine(scene, cfg(**kw), device="cuda")
+            flat.render(TEX_SPP, progress=False)
+            need(img.shape == (H, W, 3) and np.isfinite(img).all()
+                 and img.mean() > 0.0, f"{name}: bad image")
+            diff = float(np.abs(img - flat.image(apply_tonemap=False)).max())
+            need(diff > 1e-3, f"{name}: equal to the untextured render")
+            renders[name] = eng
+            print(f"main path {name}: {W}x{H}, {BOUNCES} bounces, {TEX_SPP} "
+                  f"spp in {dt:.3f} s: {eng.rays_traced / dt / 1e6:.1f} "
+                  f"Mrays/s, {TEX_SPP / dt:.2f} samples/s; NaN-free, "
+                  f"{diff:.4f} at most from the untextured render; "
+                  f"launches {counts}")
+        _slice20_filters(torch, renders["megakernel textured-room nee"],
+                         room, cfg())
+
+        # The CLI on the room's OBJ (the reference's camera, inside it).
+        obj = os.path.join(dirs["room"], "room.obj")
+        for flag in ("--denoise", "--median"):
+            out = os.path.join(tmp, f"cli{flag[1:]}.png")
+            err = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(err):
+                rc = cli.main(["render", "--scene", obj, "--textured",
+                               "--size", f"{W}x{H}", "--spp", str(TEX_SPP),
+                               flag, "--out", out])
+            dt = time.perf_counter() - t0
+            img = read_png(out)
+            need(rc == 0 and img.shape == (H, W, 3) and img.max() > 0,
+                 f"ptx-torch render --textured {flag} failed")
+            need("'missing.png': not found" in err.getvalue(),
+                 f"ptx-torch render --textured {flag}: no map warning")
+            print(f"ptx-torch render --scene room.obj --textured {flag} "
+                  f"--size {W}x{H} --spp {TEX_SPP}: wrote a {W}x{H} PNG in "
+                  f"{dt:.2f} s; the missing map warned")
+    print(f"check_slice20: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _slice20_intersectors(torch, room, grid):
+    """The textured intersector of each accel on 1080p camera rays and the
+    first-bounce rays against the plain reference (the module docstring),
+    on every lane of the room and every GRID_REF_STRIDE-th lane of the
+    grid (the plain reference tests every ray against every triangle)."""
+    from opencl_path_tracer_tpu_torch.core.textures import kd_scale
+    from opencl_path_tracer_tpu_torch.core.types import Hits, Rays
+    from opencl_path_tracer_tpu_torch.ops import intersect
+    from opencl_path_tracer_tpu_torch.ops.kernels import (
+        intersect_kernel as k1, plucker_kernel as k2)
+    from opencl_path_tracer_tpu_torch.ops.shading import interpolate_uvs
+    from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
+    from opencl_path_tracer_tpu_torch.scene import library
+    cam = library.cornell_camera(W, H, device="cuda")
+    rays0 = camera_rays(cam)
+    for sname, scene, accels, stride in (
+            ("textured-room", room, ("minarg", "tilecull", "pairwin"), 1),
+            ("textured-grid", grid, ("minarg", "pairwin"), GRID_REF_STRIDE)):
+        tex_cpu = scene.textures.to("cpu")
+        pack = k1.build_tri_pack(scene.tris)
+        first = make_intersect_fn(scene, "minarg", textured=True)
+        rays1 = bounce_rays(torch, scene, cam, rays0, first)
+        for rname, rays in (("camera", rays0), ("first-bounce", rays1)):
+            # The plain reference on the checked lanes.
+            lanes = Rays(p=tuple(c[::stride] for c in rays.p),
+                         d=tuple(c[::stride] for c in rays.d))
+            r8 = k1.pack_rays(lanes.p, lanes.d).contiguous()
+            (tp, gp), plain_ms = timed(torch,
+                                       lambda: k1.minarg_plain(r8, pack))
+            sph = (None if scene.spheres is None
+                   else intersect.sphere_intersect(lanes, scene.spheres))
+            for accel in accels:
+                where = f"textured {accel} on {sname} {rname} rays"
+                fn = make_intersect_fn(scene, accel, textured=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                hits, kd = fn(rays)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                hits = Hits(t=hits.t[::stride],
+                            p=tuple(c[::stride] for c in hits.p),
+                            n=tuple(c[::stride] for c in hits.n),
+                            mati=hits.mati[::stride])
+                kd = tuple(c[::stride] for c in kd)
+                ids = _slice20_winners(torch, k1, scene, accel, rays, stride,
+                                       r8, pack, tp, gp, where)
+                t1, nx, ny, nz, m = k2.refine1_plain(
+                    tp, torch.where(ids >= 0, ids.float(), gp), pack)
+                tri = intersect._assemble(lanes, t1, (nx, ny, nz), m)
+                ref = tri if sph is None else intersect.merge_hits(tri, sph)
+                hit = ref.valid
+                need(torch.equal(hits.t, ref.t)
+                     and torch.equal(hits.mati, ref.mati)
+                     and all(torch.equal(a[hit], b[hit]) for a, b in
+                             zip(hits.p + hits.n, ref.p + ref.n)),
+                     f"{where}: Hits differ from the plain reference's")
+                won = tri.valid & hit & (ref.t == tri.t)
+                ids2 = torch.where(won, ids, -1)
+                s, t = interpolate_uvs(ref, ids2, scene.attribs)
+                ok = hit & (ids2 >= 0)
+                want = kd_scale(tex_cpu, ref.mati.cpu(), s.cpu(), t.cpu(),
+                                ok.cpu())
+                need(all(torch.equal(kd[k].cpu(), want[k])
+                         for k in range(3)),
+                     f"{where}: kd differs from kd_scale on the CPU")
+                bound = ok & (scene.textures.mat_texi[ref.mati.long()] >= 0)
+                share = float(bound.float().mean())
+                need(rname != "camera" or share > 0.3,
+                     f"{where}: {share:.3f} of the rays textured")
+                on_sph = int((hit & ~won).sum())
+                need(all(bool((kd[k][hit & ~won] == 1.0).all())
+                         for k in range(3)),
+                     f"{where}: a sphere winner's kd is not 1")
+                n_tie = int((ids != torch.where(tp < k1.BIG, gp.int(),
+                                                -1)).sum())
+                print(f"{where}: Hits and kd equal to the plain reference's "
+                      f"on {r8.shape[1]} lanes (torch.equal; {n_tie} "
+                      f"exact-t ties won by another triangle); {share:.3f} "
+                      f"of them textured, {on_sph} sphere winners at kd 1; "
+                      f"{ms:.2f} ms (one call; minarg_plain {plain_ms:.0f} "
+                      "ms)")
+
+
+def _slice20_winners(torch, k1, scene, accel, rays, stride, r8, pack, tp,
+                     gp, where):
+    """The winners (-1 on a miss) of the accel's ids intersector on all
+    of `rays`, taken at every stride-th lane and held there against
+    minarg_plain's (t, g) over all triangles: a hit where it hits, and
+    its winner g or, on an exact-t tie, a triangle whose own exact test
+    passes at the same t."""
+    from opencl_path_tracer_tpu_torch.runtime import engine as engine_mod
+    _, ids = engine_mod._make_ids_tri_fn(scene, accel, "the smoke")(rays)
+    ids = ids[::stride]
+    hit = tp < k1.BIG
+    need(torch.equal(ids >= 0, hit),
+         f"{where}: the ids intersector's hits differ from minarg_plain's")
+    other = hit & (ids != gp.int())
+    if bool(other.any()):
+        rows = pack[ids[other].long()][:, None, :]       # (k, 1, 24)
+        rr = r8[:, other].T[:, :, None]                  # (k, 8, 1)
+        t_own, valid = k1.exact_test(rows, rr)
+        need(bool(valid.all()) and torch.equal(t_own.flatten(), tp[other]),
+             f"{where}: {int(other.sum())} winners differ from "
+             "minarg_plain's and are not exact-t ties")
+    return ids
+
+
+def _slice20_filters(torch, eng, room, config):
+    """The denoise and the median of the megakernel textured render at
+    1080p, the card against the CPU on the same colours: the guides
+    torch.equal, the filter within DENOISE_RTOL (exp and log1p differ by
+    ulps between CUDA's and the CPU's libraries), the median torch.equal."""
+    from opencl_path_tracer_tpu_torch.models import megakernel
+    from opencl_path_tracer_tpu_torch.ops import denoise
+    from opencl_path_tracer_tpu_torch.ops.median_filter import median3x3
+    from opencl_path_tracer_tpu_torch.runtime.controller import (
+        CameraController)
+    from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.denoised_image()
+    torch.cuda.synchronize()
+    den_s = time.perf_counter() - t0
+    colors = megakernel.colors_array(eng.state).reshape(H, W, 3)
+    cam = eng.camera
+    normal, depth = denoise.primary_aovs(cam, room.mats, eng.intersect_fn,
+                                         W, H)
+    cpu_scene = room.to("cpu")
+    cpu_cam = CameraController(config, device="cpu").camera(W, H)
+    t0 = time.perf_counter()
+    n_cpu, d_cpu = denoise.primary_aovs(
+        cpu_cam, cpu_scene.mats,
+        make_intersect_fn(cpu_scene, "minarg", textured=True), W, H)
+    aov_cpu_s = time.perf_counter() - t0
+    need(torch.equal(normal.cpu(), n_cpu) and torch.equal(depth.cpu(), d_cpu),
+         "the denoiser's guides differ between the card and the CPU")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = denoise.atrous_denoise(colors, normal, depth)
+    torch.cuda.synchronize()
+    filt_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out_cpu = denoise.atrous_denoise(colors.cpu(), n_cpu, d_cpu)
+    filt_cpu_s = time.perf_counter() - t0
+    rel = ((out.cpu() - out_cpu).abs()
+           / out_cpu.abs().clamp_min(1e-30)).max().item()
+    need(torch.isfinite(out).all().item() and rel <= DENOISE_RTOL,
+         f"the denoise on the card differs from the CPU's by {rel:.3g}")
+    print(f"denoise at {W}x{H} (megakernel textured-room nee): "
+          f"denoised_image {den_s * 1e3:.1f} ms (guides, filter, tonemap, "
+          f"host copy), the filter alone {filt_s * 1e3:.1f} ms (CPU "
+          f"{filt_cpu_s:.2f} s); guides equal to the CPU's (torch.equal; "
+          f"the CPU's plain path {aov_cpu_s:.2f} s), filter within "
+          f"{rel:.3g} relative of the CPU's")
+    img = torch.as_tensor(eng.image(apply_tonemap=False).copy(),
+                          device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    med = median3x3(img)
+    torch.cuda.synchronize()
+    med_s = time.perf_counter() - t0
+    need(torch.equal(med.cpu(), median3x3(img.cpu())),
+         "the median on the card differs from the CPU's")
+    print(f"median3x3 at {W}x{H}: {med_s * 1e3:.1f} ms, equal to the "
+          "CPU's (torch.equal)")
+
+
 def timed(torch, fn):
     """(fn(), its wall time in ms), the device synchronised before and
     after: the plain versions' times, from the checks' own calls."""
@@ -3829,6 +4138,8 @@ def main() -> int:
     check_slice18(torch, scenes, launches)
     env_launches, env_inputs = check_slice19(torch, np, scenes)
     for k, v in env_launches.items():
+        launches[k] += v
+    for k, v in check_slice20(torch, np).items():
         launches[k] += v
     inputs.update(env_inputs)
     kernels = measure(torch, inputs, errs, launches)

@@ -6,7 +6,10 @@ Port of the `render` and `info` commands of
 linear HDR when `--out` ends in `.pfm` or `.npy`, with the 1 Hz meter on
 stderr; and the device table. Both run on the GPU unless `--device cpu`
 is given. Checkpoints (`--checkpoint`, `--resume`, `--autosave-every`)
-are the JAX package's files: either CLI resumes the other's.
+are the JAX package's files: either CLI resumes the other's. `--median`
+(the reference's dormant 3x3 median filter and filmic tonemap, to PNG)
+and `--denoise` (the à-trous denoiser; to PNG, or in linear light to
+`.pfm`/`.npy`) are exclusive.
 
     ptx-torch render --scene cornell --size 1920x1080 --iters 5 --spp 8
     ptx-torch render --scene cornell-analytic --model wavefront --rr 3
@@ -15,6 +18,8 @@ are the JAX package's files: either CLI resumes the other's.
     ptx-torch render --scene reference --models-dir tests/assets/models \
         --smooth
     ptx-torch render --scene model.obj --smooth
+    ptx-torch render --scene room.obj --textured --denoise   # MTL map_Kd
+    ptx-torch render --spp 4 --median
     ptx-torch render --scene stress          # 99,380 triangles: 'pairwin'
     ptx-torch render --scene stress --smooth
     ptx-torch render --scene stress-analytic
@@ -126,7 +131,7 @@ def cmd_render(args) -> int:
                            qmc=args.qmc, model=args.model, rr_start=args.rr,
                            nee=args.nee, nee_select=args.nee_select,
                            nee_anyhit=not args.no_nee_anyhit,
-                           smooth=args.smooth,
+                           smooth=args.smooth, textured=args.textured,
                            dof_aperture=args.dof[0] if args.dof else 0.0,
                            dof_focus=args.dof[1] if args.dof else 0.0,
                            env_light=args.env, env_sky=tuple(args.env_sky),
@@ -134,6 +139,9 @@ def cmd_render(args) -> int:
                            env_map=args.envmap, env_scale=args.env_scale,
                            env_nee=not args.no_env_nee,
                            camera=_camera_preset(args.scene, args))
+    if args.median and args.denoise:
+        raise SystemExit("--median and --denoise are exclusive filters; "
+                         "pick one")
     tol = None
     if args.adaptive is not None:
         if cfg.model != "wavefront":
@@ -177,8 +185,29 @@ def cmd_render(args) -> int:
         print(f"\n{cfg.spp} spp in {dt:.2f}s ({cfg.spp / dt:.2f} samples/s, "
               f"{eng.rays_traced / dt / 1e6:.1f} Mrays/s on {device})",
               file=sys.stderr)
-    if args.out.endswith((".pfm", ".npy")):
-        eng.save_hdr(args.out)   # linear radiance, untonemapped
+    if args.median:
+        import torch
+        from opencl_path_tracer_tpu_torch.io.image import write_png
+        from opencl_path_tracer_tpu_torch.ops.median_filter import median3x3
+        img = torch.as_tensor(eng.image(apply_tonemap=False).copy(),
+                              device=device)
+        write_png(args.out, median3x3(img).cpu().numpy())
+    elif args.out.endswith((".pfm", ".npy")):
+        # Linear radiance, untonemapped (denoised in linear light with
+        # --denoise).
+        if args.denoise:
+            import numpy as np
+            from opencl_path_tracer_tpu_torch.io.image import write_pfm
+            img = eng.denoised_image(apply_tonemap=False)
+            if args.out.endswith(".npy"):
+                np.save(args.out, img)
+            else:
+                write_pfm(args.out, img)
+        else:
+            eng.save_hdr(args.out)
+    elif args.denoise:
+        from opencl_path_tracer_tpu_torch.io.image import write_png
+        write_png(args.out, eng.denoised_image())
     else:
         eng.save_png(args.out)
     print(f"wrote {args.out}", file=sys.stderr)
@@ -212,6 +241,12 @@ def main(argv=None) -> int:
     p.add_argument("--smooth", action="store_true",
                    help="smooth shading: build the scene with vertex "
                         "normals and interpolate them at the hits")
+    p.add_argument("--textured", action="store_true",
+                   help="image textures: multiply kd by each material's "
+                        "map_Kd sample at the hit UV (needs a scene with "
+                        "bound textures, e.g. an OBJ whose MTL has PNG "
+                        "map_Kd entries, and the same ids-reporting "
+                        "accels as --smooth)")
     p.add_argument("--size", default="512x512")
     p.add_argument("--iters", type=int, default=5, help="bounce depth")
     p.add_argument("--spp", type=int, default=64)
@@ -278,6 +313,13 @@ def main(argv=None) -> int:
     p.add_argument("--pitch", type=float, default=None)
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu' for the plain versions")
+    p.add_argument("--median", action="store_true",
+                   help="3x3 median filter + filmic tonemap (the "
+                        "reference's dormant filt_im kernel); writes PNG")
+    p.add_argument("--denoise", action="store_true",
+                   help="edge-aware a-trous wavelet denoiser (Dammertz "
+                        "2010) guided by first-hit normals and depth; "
+                        "with a .pfm/.npy --out, in linear light")
     p.add_argument("--out", default="render.png",
                    help="the image: PNG, or linear HDR by the extension "
                         ".pfm or .npy")

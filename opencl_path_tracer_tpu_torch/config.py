@@ -5,13 +5,13 @@ defaults (reference globals main.cpp:19-43), JSON round-trippable. The
 port honours the megakernel and wavefront models, both modes, the
 camera, bounce depth, spp, seed, tonemap, QMC jitter, Russian roulette
 (wavefront), next-event estimation (nee, nee_select, nee_anyhit), smooth
-shading, the environment (env_light with env_sky and env_deep, or env_map
-with env_scale, env_nee and env_sample_res), thin-lens depth of field
-(dof_aperture, dof_focus) and the 'auto' / 'minarg' / 'pallas' /
-'tilecull' / 'pairwin' /
-'pair' / 'cluster' / 'group' / 'march' / 'flat' / 'bruteforce' accels; every
-other field raises NotImplementedError when it is set away from its
-default.
+shading, image textures (textured), the environment (env_light with
+env_sky and env_deep, or env_map with env_scale, env_nee and
+env_sample_res), thin-lens depth of field (dof_aperture, dof_focus) and
+the 'auto' / 'minarg' / 'pallas' / 'tilecull' / 'pairwin' / 'pair' /
+'cluster' / 'group' / 'march' / 'flat' / 'bruteforce' accels; every
+other field (accel_force, devices) raises NotImplementedError when it is
+set away from its default.
 """
 
 from __future__ import annotations
@@ -70,6 +70,10 @@ class RenderConfig:
     # Smooth shading: interpolated vertex normals at triangle hits (the
     # scene must carry them: Scene.attribs).
     smooth: bool = False
+    # Image textures: kd multiplied by each material's map_Kd sample at the
+    # hit's UV (the scene must carry Scene.textures and corner UVs; the
+    # same ids-reporting accels as smooth shading).
+    textured: bool = False
     # The reference's dormant miss-branch sky (prog.cl:367-376;
     # models.megakernel.EnvLight): False is the shipped kernel's plain
     # break on a miss.
@@ -90,10 +94,9 @@ class RenderConfig:
     # Fields of the JAX package's config that this port does not honour
     # yet; validate() refuses them away from these defaults.
     accel_force: bool = False
-    textured: bool = False
     devices: int = 1
 
-    UNPORTED = ("accel_force", "textured", "devices")
+    UNPORTED = ("accel_force", "devices")
 
     def validate(self) -> "RenderConfig":
         defaults = RenderConfig()

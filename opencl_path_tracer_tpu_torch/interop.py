@@ -2,9 +2,9 @@
 
 No counterpart module in `opencl_path_tracer_tpu`. These functions take
 plain numpy arrays, so a JAX `Scene`, `TraceState`, `WavefrontState`,
-`LazyState`, `ClusterScene`, `EnvMap` or the fused pipeline's packed
-`(F, I, step)` (or a checkpoint of one) converts with `np.asarray` on each field and no
-import of JAX here.
+`LazyState`, `ClusterScene`, `EnvMap`, `TexturesSoA` or the fused
+pipeline's packed `(F, I, step)` (or a checkpoint of one) converts with
+`np.asarray` on each field and no import of JAX here.
 Triangle constants are rebuilt from the vertices; they come out bit-equal
 to the JAX package's.
 """
@@ -19,6 +19,7 @@ import torch
 from opencl_path_tracer_tpu_torch.core.geometry import TrianglesSoA
 from opencl_path_tracer_tpu_torch.core.materials import MaterialsSoA
 from opencl_path_tracer_tpu_torch.core.spheres import SpheresSoA
+from opencl_path_tracer_tpu_torch.core.textures import TexturesSoA
 from opencl_path_tracer_tpu_torch.models.lazy import LazyState
 from opencl_path_tracer_tpu_torch.models.megakernel import TraceState
 from opencl_path_tracer_tpu_torch.models.wavefront import WavefrontState
@@ -96,6 +97,36 @@ def scene_from_numpy(r1, r2, r3, mati, mats: dict, *, object_ranges=None,
                  spheres=sph,
                  attribs=(None if attribs is None
                           else vertex_attribs_from_numpy(attribs, device)))
+
+
+def textures_from_numpy(atlas, height, width, mat_texi, hm: int, wm: int,
+                        device="cpu") -> TexturesSoA:
+    """TexturesSoA from a JAX TexturesSoA's fields: atlas a V3 of
+    (N * hm * wm,) arrays, height, width (N,) and mat_texi (M,) integers,
+    hm and wm the padded size. The values are copied as they are."""
+    rows = np.zeros((np.asarray(atlas[0]).shape[0], 4), np.float32)
+    for k in range(3):
+        rows[:, k] = np.asarray(atlas[k], np.float32)
+
+    def i32(v):
+        return torch.as_tensor(np.array(v, np.int32), device=device)
+
+    return TexturesSoA(atlas=torch.as_tensor(rows, device=device),
+                       height=i32(height), width=i32(width),
+                       mat_texi=i32(mat_texi), hm=int(hm), wm=int(wm))
+
+
+def textures_to_numpy(tex: TexturesSoA) -> dict:
+    """{'atlas': V3 of (N * hm * wm,) float32 arrays, 'height', 'width',
+    'mat_texi': int32 arrays, 'hm', 'wm': int}: the JAX TexturesSoA's
+    fields (its atlas a tuple of the three components)."""
+    rows = tex.atlas.cpu().numpy()
+    return {"atlas": tuple(np.ascontiguousarray(rows[:, k])
+                           for k in range(3)),
+            "height": tex.height.cpu().numpy(),
+            "width": tex.width.cpu().numpy(),
+            "mat_texi": tex.mat_texi.cpu().numpy(),
+            "hm": tex.hm, "wm": tex.wm}
 
 
 def state_from_numpy(colors, rng_state, sample: int,

@@ -19,8 +19,8 @@ intersector) and MIS-weights the next bounce's emitter pickup. `env` is
 the reference's dormant sky light (`EnvLight`) or an environment map
 (`ops.envmap.EnvMap`, whose gather traces an escape ray through the same
 any-hit test at rmax 3.0e38); `dof` = (aperture, focus) makes thin-lens
-camera rays. The textured intersector (one returning (Hits, kd)) is not
-ported yet.
+camera rays. A textured intersector returns (Hits, kd): `fetch_material`
+multiplies the fetched kd by it.
 """
 
 from __future__ import annotations
@@ -124,13 +124,17 @@ def init_state(num_pixels: int, seed: int = 1, device="cpu") -> TraceState:
 
 def fetch_material(mats: MaterialsSoA, intersect_fn: IntersectFn,
                    rays: Rays):
-    """Intersect + per-lane material fetch."""
-    hit = intersect_fn(rays)
-    if isinstance(hit, tuple):
-        raise NotImplementedError(
-            "textured intersectors ((Hits, kd) results) are not ported yet "
-            "(ROADMAP.md queue 1, textures)")
-    return hit, mats.take(hit.mati)
+    """Intersect + per-lane material fetch, shared by both models. An
+    intersect_fn returns Hits, or (Hits, kd_scale) with kd_scale a V3 of
+    per-lane diffuse multipliers (the textured intersector,
+    `runtime.engine.make_intersect_fn(textured=True)`), by which the
+    fetched kd is multiplied lane by lane."""
+    res = intersect_fn(rays)
+    if isinstance(res, tuple):
+        hit, kd_mod = res
+        mat = mats.take(hit.mati)
+        return hit, dataclasses.replace(mat, kd=vmul(mat.kd, kd_mod))
+    return res, mats.take(res.mati)
 
 
 def _draws_parity(state, need1, need2):

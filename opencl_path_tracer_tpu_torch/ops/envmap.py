@@ -44,6 +44,7 @@ from opencl_path_tracer_tpu_torch.core.types import (
     Rays, V3, vadd, vdot, vmul, vnormalize, vscale, vwhere,
 )
 from opencl_path_tracer_tpu_torch.ops import bsdf
+from opencl_path_tracer_tpu_torch.ops.intersect import hits_of
 
 _INV_PI = float(np.float32(1.0 / np.pi))
 _TWO_PI = float(np.float32(2.0 * np.pi))
@@ -318,7 +319,7 @@ def direct_light_env(em: EnvMap, *, intersect_fn, cam_eye, hit_p: V3,
                           device=u1.device)
         visible = ~occluded_fn(Rays(p=origin, d=d_l), rmax)
     else:
-        visible = ~intersect_fn(Rays(p=origin, d=d_l)).valid
+        visible = ~hits_of(intersect_fn(Rays(p=origin, d=d_l))).valid
     radiance = env_radiance(em, d_l)
     eye_dir = vnormalize(tuple(cam_eye[k] - hit_p[k] for k in range(3)))
     halfway = vnormalize(vadd(eye_dir, d_l))

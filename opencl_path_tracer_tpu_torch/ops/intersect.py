@@ -77,3 +77,9 @@ def merge_hits(a: Hits, b: Hits) -> Hits:
         n=tuple(sel(x, y) for x, y in zip(a.n, b.n)),
         mati=sel(a.mati, b.mati),
     )
+
+
+def hits_of(res) -> Hits:
+    """The Hits of an intersector's result: Hits, or a textured
+    intersector's (Hits, kd_scale) tuple."""
+    return res[0] if isinstance(res, tuple) else res

@@ -44,6 +44,7 @@ from opencl_path_tracer_tpu_torch.core.types import (
     Rays, V3, vadd, vdot, vmul, vnormalize, vscale, vsub, vwhere,
 )
 from opencl_path_tracer_tpu_torch.ops import bsdf
+from opencl_path_tracer_tpu_torch.ops.intersect import hits_of
 
 _INV_PI = float(np.float32(1.0 / np.pi))
 _TWO_PI = float(np.float32(2.0 * np.pi))
@@ -353,7 +354,7 @@ def direct_light(table: EmitterTable, *, intersect_fn, cam_eye, hit_p: V3,
     if occluded_fn is not None:
         visible = ~occluded_fn(Rays(p=origin, d=d_l), rmax)
     else:
-        sh = intersect_fn(Rays(p=origin, d=d_l))
+        sh = hits_of(intersect_fn(Rays(p=origin, d=d_l)))
         visible = (~sh.valid) | (sh.t >= rmax)
     eye_dir = vnormalize(tuple(cam_eye[k] - hit_p[k] for k in range(3)))
     halfway = vnormalize(vadd(eye_dir, d_l))

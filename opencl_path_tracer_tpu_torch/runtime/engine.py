@@ -1,11 +1,12 @@
 """Progressive render engine (offline path).
 
-Port of `make_intersect_fn` and of `RenderEngine.__init__`, `frame`,
-`render` (with `_render_wavefront`, autosave and the progress meter),
+Port of `make_intersect_fn` (with `_make_textured_fn` and
+`_make_ids_tri_fn`) and of `RenderEngine.__init__`, `frame`, `render`
+(with `_render_wavefront`, autosave and the progress meter),
 `render_adaptive`, `adaptive_prediction`, `render_adaptive_auto`,
 `reset_accumulation`, `estimated_rays`, `display_u8`,
-`display_u8_device`, `image`, `save_png`, `save_hdr`, `save` and `load`
-from `opencl_path_tracer_tpu/runtime/engine.py` (the reference's frame
+`display_u8_device`, `image`, `save_png`, `denoised_image`, `save_hdr`,
+`save` and `load` from `opencl_path_tracer_tpu/runtime/engine.py` (the reference's frame
 loop, main.cpp:683-687 and 1171-1241). The engine owns the progressive
 state on its device, in the megakernel model (TraceState) or the
 wavefront model (WavefrontState), the camera controller (the pose, the
@@ -44,7 +45,13 @@ triangles and 'pairwin' with ids (K1 + K2 seed, K1 tail) and
 `smooth_hit_normals` above, as the JAX package routes it
 (engine.py:334-356); the 4,096 cap comes from its kernel holding the
 whole one-hot table in the TPU's VMEM, and the port carries it over as
-the starting choice without a GPU measurement. With `nee`, the engine
+the starting choice without a GPU measurement. With `textured`, the
+intersector returns (Hits, kd_scale) (`_make_textured_fn`): an
+ids-reporting accel resolved as for smooth shading ('auto': 'minarg',
+K1 with ids then K2, up to 4,096 triangles, 'pairwin' with ids above;
+'tilecull' is K6 with ids; with `smooth`, `smooth_hit_normals` after the
+ids intersector, not K8), the spheres merged after it, the hit's UVs and
+the atlas sample (`core.textures.kd_scale`). With `nee`, the engine
 builds the emitter table. With an environment map (`env_map`) it builds
 `ops.envmap.EnvMap` (`env_nee`: the gather and its escape rays), with
 `env_light` the dormant sky (`megakernel.EnvLight`). Whenever NEE or the
@@ -63,12 +70,16 @@ import numpy as np
 import torch
 
 from opencl_path_tracer_tpu_torch.config import RenderConfig
+from opencl_path_tracer_tpu_torch.core.textures import kd_scale
 from opencl_path_tracer_tpu_torch.io.checkpoint import (
     load_checkpoint, save_checkpoint,
 )
 from opencl_path_tracer_tpu_torch.io.image import write_pfm, write_png
 from opencl_path_tracer_tpu_torch.models import megakernel, wavefront
 from opencl_path_tracer_tpu_torch.ops import intersect, rng
+from opencl_path_tracer_tpu_torch.ops.denoise import (
+    atrous_denoise, primary_aovs,
+)
 from opencl_path_tracer_tpu_torch.ops import tonemap as tonemap_ops
 from opencl_path_tracer_tpu_torch.ops.envmap import load_envmap
 from opencl_path_tracer_tpu_torch.ops.nee import build_emitter_table
@@ -99,7 +110,9 @@ from opencl_path_tracer_tpu_torch.ops.kernels.sphere_kernel import (
 from opencl_path_tracer_tpu_torch.ops.kernels.tilecull_kernel import (
     make_scene_occluded, make_tilecull_intersect,
 )
-from opencl_path_tracer_tpu_torch.ops.shading import smooth_hit_normals
+from opencl_path_tracer_tpu_torch.ops.shading import (
+    interpolate_uvs, smooth_hit_normals,
+)
 from opencl_path_tracer_tpu_torch.runtime.controller import CameraController
 from opencl_path_tracer_tpu_torch.runtime.meter import PerfMeter
 from opencl_path_tracer_tpu_torch.scene.builder import Scene
@@ -125,7 +138,9 @@ ADAPTIVE_MIN_BUCKET = 4096
 
 def resolve_accel(accel: str, num_triangles: int, on_cuda: bool,
                   smooth: bool = False) -> str:
-    """The triangle intersector `accel` names for this scene and device."""
+    """The triangle intersector `accel` names for this scene and device.
+    smooth: the path needs the winner's index (smooth shading or
+    textures), which lowers 'auto''s minarg cap to 4,096."""
     if accel == "auto":
         cap = SMOOTH_MINARG_MAX_TRIS if smooth else AUTO_MINARG_MAX_TRIS
         return "minarg" if num_triangles <= cap else "pairwin"
@@ -148,13 +163,34 @@ def _has_vertex_normals(scene: Scene) -> bool:
             and bool(scene.attribs.packed[:, 8:17].any()))
 
 
+def _make_ids_tri_fn(scene: Scene, accel: str, what: str):
+    """fn(rays) -> (Hits, ids), ids the winner's triangle index (-1 on a
+    miss), for a resolved accel: 'minarg' (K1 with ids, then K2),
+    'tilecull' (K6 with ids; the groups in Morton order, no camera
+    origin, as the JAX package builds them for ids), 'pairwin' (with
+    ids) or 'bruteforce' (the plain reference, CPU only). `what` names
+    the feature in the refusal of any other accel."""
+    if accel == "minarg":
+        return make_minarg_intersect(scene.tris, with_ids=True)
+    if accel == "tilecull":
+        return make_tilecull_intersect(scene.tris, with_ids=True)
+    if accel == "pairwin":
+        return make_pair_intersect(scene.tris, with_ids=True,
+                                   **PAIR_TPU_WINNER)
+    if accel == "bruteforce":
+        return functools.partial(intersect.first_intersect_ids,
+                                 tris=scene.tris)
+    raise ValueError(
+        f"{what} needs an ids-reporting intersector (one that reports the "
+        f"winner's index): 'minarg', 'tilecull', 'pairwin', 'bruteforce' "
+        f"or 'auto', not {accel!r}")
+
+
 def _make_smooth_tri_fn(scene: Scene, accel: str):
     """The smooth-shading triangle intersector for a resolved accel.
-    'minarg' is K1 then K8 (`make_smooth_minarg_intersect`); 'tilecull'
-    (K6 with ids; the groups in Morton order, as the JAX package builds
-    them for smooth shading), 'pairwin' (with ids) and 'bruteforce' (the
-    plain reference, CPU only) report the winner's index, and
-    `smooth_hit_normals` interpolates."""
+    'minarg' is K1 then K8 (`make_smooth_minarg_intersect`); the other
+    ids-reporting accels (`_make_ids_tri_fn`) report the winner's index
+    and `smooth_hit_normals` interpolates."""
     attribs = scene.attribs
     if accel == "minarg":
         if scene.num_triangles > SMOOTH_MINARG_MAX_TRIS:
@@ -163,19 +199,7 @@ def _make_smooth_tri_fn(scene: Scene, accel: str):
                 f"{SMOOTH_MINARG_MAX_TRIS} triangles (the JAX package's "
                 f"cap); the scene has {scene.num_triangles}")
         return make_smooth_minarg_intersect(scene.tris, attribs)
-    if accel == "tilecull":
-        ids_fn = make_tilecull_intersect(scene.tris, with_ids=True)
-    elif accel == "pairwin":
-        ids_fn = make_pair_intersect(scene.tris, with_ids=True,
-                                     **PAIR_TPU_WINNER)
-    elif accel == "bruteforce":
-        ids_fn = functools.partial(intersect.first_intersect_ids,
-                                   tris=scene.tris)
-    else:
-        raise ValueError(
-            f"smooth shading needs an intersector that reports the "
-            f"winner's index: 'minarg', 'tilecull', 'pairwin', "
-            f"'bruteforce' or 'auto', not {accel!r}")
+    ids_fn = _make_ids_tri_fn(scene, accel, "smooth shading")
 
     def smooth_fn(rays):
         hits, ids = ids_fn(rays)
@@ -184,20 +208,76 @@ def _make_smooth_tri_fn(scene: Scene, accel: str):
     return smooth_fn
 
 
+def _make_sphere_fn(scene: Scene, accel: str):
+    """The analytic spheres' intersector (K3, K3b above 64 spheres; the
+    plain version beside 'bruteforce'), or None."""
+    if scene.spheres is None:
+        return None
+    if accel == "bruteforce":
+        return functools.partial(intersect.sphere_intersect,
+                                 spheres=scene.spheres)
+    return make_sphere_intersect(scene.spheres)
+
+
+def _make_textured_fn(scene: Scene, accel: str, smooth: bool):
+    """(Hits, kd_scale) intersector (the JAX engine's _make_textured_fn and
+    _make_ids_tri_fn): the ids-reporting triangle stream (its normals
+    interpolated by `smooth_hit_normals` when smooth, K8 not used), the
+    sphere merge, the hit's UVs (`interpolate_uvs`) and the bilinear
+    atlas sample (`core.textures.kd_scale`). A sphere winner, a miss or
+    an unbound material gets exactly 1.0."""
+    if scene.textures is None:
+        raise ValueError(
+            "textured=True but the scene has no textures; bind one with "
+            "add_texture + set_material_texture, or load an OBJ whose MTL "
+            "has map_Kd entries (PNG)")
+    if scene.attribs is None:
+        raise ValueError(
+            "textured=True needs per-corner UVs; add_triangle(uv=...) or "
+            "an OBJ with vt data")
+    ids_fn = _make_ids_tri_fn(scene, accel, "textured rendering")
+    sphere_fn = _make_sphere_fn(scene, accel)
+    attribs, textures = scene.attribs, scene.textures
+
+    def textured_fn(rays):
+        tri_hits, ids = ids_fn(rays)
+        if smooth:
+            tri_hits = smooth_hit_normals(tri_hits, ids, attribs)
+        if sphere_fn is None:
+            hits, tri_won = tri_hits, tri_hits.valid
+        else:
+            hits = intersect.merge_hits(tri_hits, sphere_fn(rays))
+            # merge_hits keeps the triangle stream on exact-t ties.
+            tri_won = tri_hits.valid & hits.valid & (hits.t == tri_hits.t)
+        ids = torch.where(tri_won, ids, -1)
+        s, t = interpolate_uvs(hits, ids, attribs)
+        return hits, kd_scale(textures, hits.mati, s, t,
+                              hits.valid & (ids >= 0))
+
+    return textured_fn
+
+
 def make_intersect_fn(scene: Scene, accel: str = "auto", origin=None,
-                      smooth: bool = False):
+                      smooth: bool = False, textured: bool = False):
     """intersect(rays) -> Hits over the scene's triangles, min-merged with
     its analytic spheres (the triangle stream wins exact-t ties). origin
     (the camera eye) orders the 'tilecull' groups front to back.
     smooth=True interpolates the vertex normals of scene.attribs at the
-    triangle hits (analytic spheres have exact normals already)."""
+    triangle hits (analytic spheres have exact normals already).
+    textured=True returns (Hits, kd_scale) instead (`_make_textured_fn`):
+    it needs scene.textures, the corner UVs of scene.attribs and an
+    ids-reporting accel ('auto' resolves as for smooth shading), and
+    composes with smooth."""
     on_cuda = scene.tris.device.type == "cuda"
     if smooth and not _has_vertex_normals(scene):
         raise ValueError(
             "smooth=True but the scene has no vertex normals; build it "
             "with add_obj(smooth_normals=True), add_sphere(smooth=True) "
             "or add_triangle(vn=...)")
-    accel = resolve_accel(accel, scene.num_triangles, on_cuda, smooth)
+    accel = resolve_accel(accel, scene.num_triangles, on_cuda,
+                          smooth or textured)
+    if textured:
+        return _make_textured_fn(scene, accel, smooth)
     if smooth:
         tri_fn = _make_smooth_tri_fn(scene, accel)
     elif accel == "minarg":
@@ -220,12 +300,9 @@ def make_intersect_fn(scene: Scene, accel: str = "auto", origin=None,
         tri_fn = make_flat_march_intersect(scene.tris)[0]
     else:
         tri_fn = functools.partial(intersect.first_intersect, tris=scene.tris)
-    if scene.spheres is None:
+    sphere_fn = _make_sphere_fn(scene, accel)
+    if sphere_fn is None:
         return tri_fn
-    sphere_fn = (functools.partial(intersect.sphere_intersect,
-                                   spheres=scene.spheres)
-                 if accel == "bruteforce"
-                 else make_sphere_intersect(scene.spheres))
 
     def with_spheres(rays):
         return intersect.merge_hits(tri_fn(rays), sphere_fn(rays))
@@ -245,7 +322,7 @@ class RenderEngine:
         self.intersect_fn = intersect_fn or make_intersect_fn(
             self.scene, config.accel,
             origin=tuple(float(v) for v in cam.eye.cpu()),
-            smooth=config.smooth)
+            smooth=config.smooth, textured=config.textured)
         # The environment: a map (host-built once), the dormant sky, or
         # None (the shipped kernel's plain break on a miss).
         if config.env_map is not None:
@@ -629,6 +706,30 @@ class RenderEngine:
 
     def save_png(self, path: str) -> None:
         write_png(path, self.image())
+
+    def denoised_image(self, apply_tonemap: bool | str = True,
+                       **denoise_kw) -> np.ndarray:
+        """(H, W, 3) display image, top row first, through the edge-aware
+        à-trous denoiser (`ops.denoise`): filtered in linear light,
+        guided by first-hit normals and depth from this engine's own
+        intersector at the current pose (recomputed on each call), then
+        tonemapped. The megakernel's colours stay on the device; the
+        wavefront's go through `colors_by_pixel`. denoise_kw:
+        iterations, sigma_color, sigma_normal, sigma_depth,
+        clamp_percentile."""
+        h, w = self.cfg.height, self.cfg.width
+        if self.cfg.model == "wavefront":
+            colors = wavefront.colors_by_pixel(self.state, self.num_pixels)
+        else:
+            colors = megakernel.colors_array(self.state)
+        normal, depth = primary_aovs(self.camera, self.scene.mats,
+                                     self.intersect_fn, w, h)
+        out = atrous_denoise(colors.reshape(h, w, 3), normal, depth,
+                             **denoise_kw)
+        if apply_tonemap:
+            kind = self.cfg.tonemap if apply_tonemap is True else apply_tonemap
+            out = tonemap_ops.apply(out, kind)
+        return out.cpu().numpy()[::-1]
 
     def save_hdr(self, path: str) -> None:
         """Linear, untonemapped radiance: `.npy` by its extension, else

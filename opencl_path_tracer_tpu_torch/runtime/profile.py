@@ -39,6 +39,11 @@ Needs a GPU:
     python -m opencl_path_tracer_tpu_torch.runtime.profile --intersect mxu
     python -m opencl_path_tracer_tpu_torch.runtime.profile --envmap sunsky
     python -m opencl_path_tracer_tpu_torch.runtime.profile --dof 20 600
+    python -m opencl_path_tracer_tpu_torch.runtime.profile \
+        --scene textured-room --textured --nee
+    python -m opencl_path_tracer_tpu_torch.runtime.profile \
+        --scene textured-grid --textured
+    python -m opencl_path_tracer_tpu_torch.runtime.profile --denoise
 
 --model megakernel and wavefront render --spp samples through
 `RenderEngine` (with --nee, --nee-select, --accel, --smooth,
@@ -52,7 +57,12 @@ steps of `models.pipeline`'s fast pipeline (triangles only: --scene
 cornell); lazy runs --steps steps of `models.lazy`'s pipeline as
 `bench.py --model lazy` builds it (cs 512, tr 256, K 4, tail 4096, fast
 mode, key 1) after two warm-up steps, its samples the per-pixel samples
-those steps finished.
+those steps finished. `--scene textured-room` (with ROOM_SPHERE) and
+`textured-grid` are `scene.library.textured_room`'s scenes, written to a
+temporary directory and seen from the Cornell preset, as `chip_smoke.py`
+renders them; --textured samples their maps. --denoise profiles one
+`RenderEngine.denoised_image` call (the guides' primary rays and the
+filter) after the render, per call in place of per sample.
 """
 
 from __future__ import annotations
@@ -78,13 +88,23 @@ def _workload(args, dev):
     from opencl_path_tracer_tpu_torch.runtime.engine import RenderEngine
 
     w, h = (int(x) for x in args.size.split("x"))
-    scene = _build_scene(args.scene, dev, args.models_dir, args.smooth)
+    if args.scene in ("textured-room", "textured-grid"):
+        import tempfile
+        from opencl_path_tracer_tpu_torch.scene import library
+        with tempfile.TemporaryDirectory() as tmp:
+            scene = library.textured_room(
+                tmp, grid=args.scene == "textured-grid",
+                sphere=args.scene == "textured-room", device=dev)
+        camera = _camera_preset("cornell", args)
+    else:
+        scene = _build_scene(args.scene, dev, args.models_dir, args.smooth)
+        camera = _camera_preset(args.scene, args)
     if args.model in ("megakernel", "wavefront"):
         cfg = RenderConfig(width=w, height=h, iterations=args.iters,
-                           mode=args.mode, model=args.model,
-                           camera=_camera_preset(args.scene, args),
+                           mode=args.mode, model=args.model, camera=camera,
                            accel=args.accel, nee=args.nee,
                            nee_select=args.nee_select, smooth=args.smooth,
+                           textured=args.textured,
                            dof_aperture=args.dof[0] if args.dof else 0.0,
                            dof_focus=args.dof[1] if args.dof else 0.0,
                            env_light=args.env, env_map=args.envmap,
@@ -98,6 +118,13 @@ def _workload(args, dev):
         eng = RenderEngine(scene, cfg, intersect_fn=isect, device=dev)
         # warm-up: kernel build, allocator, first launches
         eng.render(1, progress=False)
+        if args.denoise:
+            eng.denoised_image()
+
+            def run():
+                eng.denoised_image()
+                return 1, None
+            return run
 
         def run():
             steps0 = eng.steps_run
@@ -188,6 +215,10 @@ def main(argv=None) -> int:
     ap.add_argument("--env-scale", type=float, default=1.0)
     ap.add_argument("--no-env-nee", action="store_true",
                     help="--envmap without its gather and escape rays")
+    ap.add_argument("--textured", action="store_true",
+                    help="image textures (the textured-* scenes' maps)")
+    ap.add_argument("--denoise", action="store_true",
+                    help="profile one denoised_image call after the render")
     ap.add_argument("--intersect", default=None,
                     choices=("minarg-fused", "mxu"),
                     help="megakernel and wavefront: an intersector that no "
@@ -239,6 +270,7 @@ def main(argv=None) -> int:
         "nee": args.nee, "nee_select": args.nee_select,
         "smooth": args.smooth, "intersect": args.intersect,
         "dof": args.dof, "env": args.env, "envmap": args.envmap,
+        "textured": args.textured, "denoise": args.denoise,
         "env_nee": not args.no_env_nee,
         "samples_per_pixel": samples, "steps": steps,
         "device": torch.cuda.get_device_name(dev),

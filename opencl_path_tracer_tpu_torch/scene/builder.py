@@ -3,9 +3,10 @@
 Port of `opencl_path_tracer_tpu/scene/builder.py` (the reference's
 `class Scene`, main.cpp:363-742): add_material (:532), add_triangle
 (:529) with optional corner normals and texture coordinates, add_obj
-(:552) with `_shape_normals`, end_obj (:536), with the upload_* calls
+(:552) with `_shape_normals` and the `map_Kd` auto-load, end_obj (:536),
+add_texture and set_material_texture, with the upload_* calls
 (:618-634) collapsed into `build()`, which also assembles the vertex
-attributes. Textures (MTL `map_Kd`) are not ported yet.
+attributes and the texture atlas (`core.textures.TexturesSoA`).
 
 OBJ import keeps the reference's semantics (main.cpp:552-617): the X
 axis is flipped on load (:598); each vertex is rotated about x by pitch,
@@ -18,6 +19,8 @@ every OBJ shape closes an object (:615).
 from __future__ import annotations
 
 import dataclasses
+import os
+import sys
 
 import numpy as np
 
@@ -26,6 +29,8 @@ from opencl_path_tracer_tpu_torch.core.materials import (
     MaterialsSoA, make_material, stack_materials,
 )
 from opencl_path_tracer_tpu_torch.core.spheres import SpheresSoA
+from opencl_path_tracer_tpu_torch.core.textures import TexturesSoA
+from opencl_path_tracer_tpu_torch.io.image import read_png
 from opencl_path_tracer_tpu_torch.io.obj import load_obj
 from opencl_path_tracer_tpu_torch.ops.shading import (
     VertexAttribs, build_vertex_attribs, compute_vertex_normals,
@@ -54,14 +59,17 @@ def _np_rot_y(v: np.ndarray, deg: float) -> np.ndarray:
 class Scene:
     """Triangles and materials as structure-of-arrays tensors, the
     per-object [from, to) triangle ranges, optional analytic spheres,
-    and optional vertex attributes (present when any triangle carried
-    corner normals or texture coordinates; smooth shading reads them)."""
+    optional vertex attributes (present when any triangle carried
+    corner normals or texture coordinates; smooth shading and textures
+    read them) and optional image textures (present when any image was
+    added; the textured intersector samples them)."""
 
     tris: TrianglesSoA
     mats: MaterialsSoA
     object_ranges: np.ndarray
     spheres: SpheresSoA | None = None
     attribs: VertexAttribs | None = None
+    textures: TexturesSoA | None = None
 
     @property
     def num_triangles(self) -> int:
@@ -73,6 +81,8 @@ class Scene:
             object_ranges=self.object_ranges,
             spheres=None if self.spheres is None else self.spheres.to(device),
             attribs=None if self.attribs is None else self.attribs.to(device),
+            textures=(None if self.textures is None
+                      else self.textures.to(device)),
         )
 
 
@@ -90,6 +100,8 @@ class SceneBuilder:
         self._sph_c: list[np.ndarray] = []
         self._sph_r: list[float] = []
         self._sph_m: list[int] = []
+        self._textures: list[np.ndarray] = []
+        self._mat_texi: dict[int, int] = {}
 
     def add_material(self, kd, ks, emission, N, K, shininess, type) -> int:
         """Returns the new material index (main.cpp:532-535)."""
@@ -115,6 +127,21 @@ class SceneBuilder:
         self._uv.append(None if uv is None
                         else np.asarray(uv, np.float32).reshape(3, 2))
 
+    def add_texture(self, img) -> int:
+        """Register a texture image (top-down (H, W, 3), uint8 or float in
+        [0, 1]); returns its index. set_material_texture binds it."""
+        self._textures.append(np.asarray(img))
+        return len(self._textures) - 1
+
+    def set_material_texture(self, mati: int, texi: int) -> None:
+        """Bind texture `texi` to material `mati`: a textured render
+        multiplies its kd by the bilinear sample at the hit's UV."""
+        if not 0 <= mati < len(self._materials):
+            raise ValueError(f"no material {mati}")
+        if not 0 <= texi < len(self._textures):
+            raise ValueError(f"no texture {texi}")
+        self._mat_texi[mati] = texi
+
     def add_analytic_sphere(self, center, radius: float, mati: int) -> None:
         self._sph_c.append(np.asarray(center, np.float32))
         self._sph_r.append(float(radius))
@@ -136,16 +163,11 @@ class SceneBuilder:
         transpose of the vertex transform), otherwise area-weighted
         normals of each shape's mesh welded by vertex index. False keeps
         the reference's face-normal shading. Texture coordinates ride
-        along whenever the file has them. An MTL `map_Kd` raises: image
-        textures are not ported yet."""
+        along whenever the file has them, and each MTL `map_Kd` is loaded
+        and bound (`_load_material_texture`)."""
         attrib, shapes, materials = load_obj(path)
         mat_offset = len(self._materials)
         for m in materials:
-            if m.diffuse_texname:
-                raise NotImplementedError(
-                    f"{path}: material {m.name!r} has map_Kd "
-                    f"{m.diffuse_texname!r}; image textures are not "
-                    "ported yet (ROADMAP.md queue 1, textures)")
             # The reference's own keys (main.cpp:568-571); a missing one
             # raises, like its unchecked map::at.
             kn = tuple(float(x)
@@ -153,9 +175,11 @@ class SceneBuilder:
             kk = tuple(float(x)
                        for x in m.unknown_parameter["Kk"].split()[:3])
             tp = int(m.unknown_parameter["Tp"].split()[0])
-            self.add_material(kd=m.diffuse, ks=m.specular,
-                              emission=m.emission, N=kn, K=kk,
-                              shininess=m.shininess, type=tp)
+            mati = self.add_material(kd=m.diffuse, ks=m.specular,
+                                     emission=m.emission, N=kn, K=kk,
+                                     shininess=m.shininess, type=tp)
+            if m.diffuse_texname:
+                self._load_material_texture(mati, m.diffuse_texname, path)
         pos = np.asarray(pos, np.float32)
         scale = np.asarray(scale, np.float32)
         for shape in shapes:
@@ -177,6 +201,22 @@ class SceneBuilder:
                                   vn=None if vn is None else vn[f],
                                   uv=None if uv is None else uv[f])
             self.end_obj()  # per shape (main.cpp:615)
+
+    def _load_material_texture(self, mati: int, texname: str,
+                               obj_path: str) -> None:
+        """Load an MTL map_Kd image, resolved against the OBJ's directory,
+        and bind it. PNG only (`io.image.read_png`); a missing or non-PNG
+        file warns on stderr and leaves the material untextured."""
+        p = texname
+        if not os.path.isabs(p):
+            p = os.path.join(os.path.dirname(os.path.abspath(obj_path)), p)
+        if not os.path.exists(p) or not p.lower().endswith(".png"):
+            print(f"# WARNING: map_Kd {texname!r}: "
+                  + ("not found" if not os.path.exists(p)
+                     else "only PNG is supported")
+                  + " — material renders untextured", file=sys.stderr)
+            return
+        self.set_material_texture(mati, self.add_texture(read_png(p)))
 
     @staticmethod
     def _shape_normals(attrib, shape, pitch, yaw, scale,
@@ -231,8 +271,14 @@ class SceneBuilder:
                 np.stack(self._r1), np.stack(self._r2), np.stack(self._r3),
                 vn[:, 0], vn[:, 1], vn[:, 2], uv1=uv[:, 0], uv2=uv[:, 1],
                 uv3=uv[:, 2], device=device)
+        textures = None
+        if self._textures:
+            mt = np.full(len(self._materials), -1, np.int32)
+            for mi, ti in self._mat_texi.items():
+                mt[mi] = ti
+            textures = TexturesSoA.build(self._textures, mt, device=device)
         return Scene(
             tris=tris, mats=stack_materials(self._materials, device=device),
             object_ranges=np.asarray(self._object_ranges, np.int64),
-            spheres=spheres, attribs=attribs,
+            spheres=spheres, attribs=attribs, textures=textures,
         )

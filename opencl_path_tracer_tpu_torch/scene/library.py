@@ -8,7 +8,9 @@ sphere that can replace the lamp quad; the many-light scene; the
 reference's default scene of onInitialization (main.cpp:745-1017: a
 ground plane, the archetypes and seven OBJ models); a sphere OBJ writer
 for models that are missing; the 100k-triangle stress scene (BASELINE
-config 4); and the two camera presets.
+config 4); and the two camera presets. `write_textured_room` and
+`textured_room` (no counterpart in the JAX package) write and load an
+OBJ + MTL scene with PNG `map_Kd` textures, the textured renders' scene.
 """
 
 from __future__ import annotations
@@ -345,3 +347,117 @@ def reference_camera(width: int, height: int, device="cpu"):
                        pitch=5.599997 + 10,
                        shift=(265.055481, 162.305969, 360.414001),
                        device=device)
+
+
+# write_textured_room's box (world coordinates): it holds both camera
+# presets' eyes, (500, 500, -1299) and the reference's (765, 662, -939).
+ROOM_LO, ROOM_HI = (-500.0, 0.0, -1500.0), (1500.0, 1200.0, 1000.0)
+ROOM_UV = (-1.5, 2.5)      # the walls' texture coordinates, both axes
+ROOM_GRID = 64             # quads per side of the grid floor
+ROOM_SPHERE = ((500.0, 250.0, 200.0), 200.0)   # textured_room(sphere=True)
+ROOM_SEED = 0              # numpy seed of the two maps
+
+
+def write_textured_room(dirpath: str, *, grid: bool = False) -> str:
+    """Write a closed textured room as room.obj + room.mtl + two PNGs
+    (seeded by ROOM_SEED) into `dirpath`; returns the OBJ's path. The
+    walls' `vt` span ROOM_UV on both axes (repeat wrap). Materials, in MTL order: 'wall_a'
+    (floor, back and front walls; a 256 x 256 map), 'wall_b' (left and
+    right walls; a 48 x 80 map, so the atlas pads; each map seeded
+    colour cells of 16 x 16 texels with noise), 'plain' (the ceiling;
+    its map_Kd names a file that does not exist, so loading it warns and
+    leaves it untextured) and 'lamp' (an emissive quad below the
+    ceiling). grid=True adds 'floor': a ROOM_GRID x ROOM_GRID quad floor
+    just above the room's (2 * 64 * 64 = 8,192 more triangles) with its
+    own copy of the 256 x 256 map. OBJ x is negated, since add_obj flips
+    it back."""
+    from opencl_path_tracer_tpu_torch.io.image import write_png
+    rs = np.random.default_rng(ROOM_SEED)
+    for name, (h, w) in (("tex_a.png", (256, 256)), ("tex_b.png", (48, 80))):
+        # Seeded colour cells of 16 x 16 texels, with texel noise.
+        cells = rs.integers(0, 224, (h // 16 + 1, w // 16 + 1, 3))
+        img = cells.repeat(16, 0).repeat(16, 1)[:h, :w]
+        img = img + rs.integers(0, 32, (h, w, 3))
+        write_png(os.path.join(dirpath, name), img.astype(np.uint8))
+    mats = [("wall_a", "0.8 0.8 0.8", "0 0 0", "0", "tex_a.png"),
+            ("wall_b", "0.7 0.7 0.7", "0 0 0", "0", "tex_b.png"),
+            ("plain", "0.6 0.6 0.6", "0 0 0", "0", "missing.png"),
+            ("lamp", "0 0 0", "20 18 15", "3", None)]
+    if grid:
+        mats.append(("floor", "0.8 0.8 0.8", "0 0 0", "0", "tex_a.png"))
+    with open(os.path.join(dirpath, "room.mtl"), "w") as fh:
+        for name, kd, ke, tp, tex in mats:
+            fh.write(f"newmtl {name}\nKd {kd}\nKs 0 0 0\nKe {ke}\nNs 1\n"
+                     f"Kn 1 1 1\nKk 0 0 0\nTp {tp}\n")
+            if tex:
+                fh.write(f"map_Kd {tex}\n")
+    verts: list = []
+    uvs: list = []
+    faces: list = []   # (material, (v, vt) x 3)
+
+    def quad(mat, corners, uv):
+        base_v, base_t = len(verts), len(uvs)
+        verts.extend(corners)
+        uvs.extend(uv)
+        for a, b, c in ((0, 1, 2), (0, 2, 3)):
+            faces.append((mat, [(base_v + k + 1, base_t + k + 1)
+                                for k in (a, b, c)]))
+
+    (x0, y0, z0), (x1, y1, z1) = ROOM_LO, ROOM_HI
+    lo, hi = ROOM_UV
+    wall_uv = [(lo, lo), (hi, lo), (hi, hi), (lo, hi)]
+    for mat, corners in (
+            ("wall_a", [(x0, y0, z0), (x1, y0, z0), (x1, y0, z1),
+                        (x0, y0, z1)]),                       # floor
+            ("wall_a", [(x0, y0, z1), (x1, y0, z1), (x1, y1, z1),
+                        (x0, y1, z1)]),                       # back
+            ("wall_a", [(x0, y0, z0), (x0, y1, z0), (x1, y1, z0),
+                        (x1, y0, z0)]),                       # front
+            ("wall_b", [(x0, y0, z0), (x0, y0, z1), (x0, y1, z1),
+                        (x0, y1, z0)]),                       # left
+            ("wall_b", [(x1, y0, z0), (x1, y1, z0), (x1, y1, z1),
+                        (x1, y0, z1)]),                       # right
+            ("plain", [(x0, y1, z0), (x0, y1, z1), (x1, y1, z1),
+                       (x1, y1, z0)])):                       # ceiling
+        quad(mat, corners, wall_uv)
+    ly = y1 - 10.0
+    quad("lamp", [(200.0, ly, -500.0), (800.0, ly, -500.0),
+                  (800.0, ly, 300.0), (200.0, ly, 300.0)], wall_uv)
+    if grid:
+        n, gy = ROOM_GRID, y0 + 1.0
+        xs = np.linspace(x0 + 20.0, x1 - 20.0, n + 1)
+        zs = np.linspace(z0 + 20.0, z1 - 20.0, n + 1)
+        us = np.linspace(lo, hi, n + 1)
+        for i in range(n):
+            for j in range(n):
+                quad("floor", [(xs[i], gy, zs[j]), (xs[i + 1], gy, zs[j]),
+                               (xs[i + 1], gy, zs[j + 1]),
+                               (xs[i], gy, zs[j + 1])],
+                     [(us[i], us[j]), (us[i + 1], us[j]),
+                      (us[i + 1], us[j + 1]), (us[i], us[j + 1])])
+    path = os.path.join(dirpath, "room.obj")
+    with open(path, "w") as fh:
+        fh.write("mtllib room.mtl\no room\n")
+        fh.writelines(f"v {-x:.6f} {y:.6f} {z:.6f}\n" for x, y, z in verts)
+        fh.writelines(f"vt {u:.6f} {v:.6f}\n" for u, v in uvs)
+        cur = None
+        for mat, corners in faces:
+            if mat != cur:
+                fh.write(f"usemtl {mat}\n")
+                cur = mat
+            fh.write("f " + " ".join(f"{v}/{t}" for v, t in corners) + "\n")
+    return path
+
+
+def textured_room(dirpath: str, *, grid: bool = False, sphere: bool = False,
+                  device="cpu") -> Scene:
+    """`write_textured_room`'s scene loaded through SceneBuilder.add_obj
+    (the map_Kd auto-load and read_png run, and the missing map warns);
+    sphere=True adds the analytic sphere ROOM_SPHERE with the textured
+    material 'wall_a', whose winners must sample as exactly 1.0."""
+    b = SceneBuilder()
+    b.add_obj(write_textured_room(dirpath, grid=grid),
+              pos=(0, 0, 0), scale=(1, 1, 1))
+    if sphere:
+        b.add_analytic_sphere(ROOM_SPHERE[0], ROOM_SPHERE[1], 0)
+    return b.build(device=device)

@@ -79,11 +79,21 @@ def test_entry_points_refuse_cpu_without_asking(monkeypatch, tmp_path):
     engine.RenderEngine(scene, _cfg(), device="cpu").render(1)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("devices", 2), ("accel_force", True), ("textured", True)])
-def test_config_refuses_unported_fields(field, value):
+@pytest.mark.parametrize("field,value,ported", [
+    ("devices", 2, False), ("accel_force", True, False),
+    ("textured", True, True)],
+    ids=["devices-2", "accel_force-True", "textured-True"])
+def test_config_refuses_unported_fields(field, value, ported):
+    """devices and accel_force are refused; textured is ported and
+    validates (and round-trips through JSON)."""
+    cfg = dataclasses.replace(_cfg(), **{field: value})
+    if ported:
+        assert field not in RenderConfig.UNPORTED
+        assert getattr(cfg.validate(), field) == value
+        assert RenderConfig.from_json(cfg.to_json()) == cfg
+        return
     with pytest.raises(NotImplementedError, match=field):
-        dataclasses.replace(_cfg(), **{field: value}).validate()
+        cfg.validate()
 
 
 def test_config_validation_and_json_roundtrip():

@@ -228,14 +228,30 @@ def test_reference_scene_stand_ins_and_sphere_obj(tmp_path):
     assert b.build().num_triangles == 2 * 6 * 8 - 2 * 8
 
 
-def test_map_kd_raises(tmp_path):
+def test_map_kd_raises(tmp_path, capsys):
+    """An MTL map_Kd no longer raises: it loads (textures are ported). A
+    missing file warns as the JAX package's builder does and leaves the
+    material untextured; a PNG binds to its material."""
+    from opencl_path_tracer_tpu_torch.io.image import write_png
     (tmp_path / "t.obj").write_text("mtllib t.mtl\nv 0 0 0\nv 1 0 0\n"
                                     "v 0 1 0\nusemtl tex\nf 1 2 3\n")
     (tmp_path / "t.mtl").write_text("newmtl tex\nKd 1 1 1\nmap_Kd wood.png\n"
                                     "Kn 1 1 1\nKk 0 0 0\nTp 0\n")
-    with pytest.raises(NotImplementedError, match="queue 1, textures"):
-        builder.SceneBuilder().add_obj(str(tmp_path / "t.obj"), (0, 0, 0),
-                                       (1, 1, 1))
+    scenes = []
+    for b in (builder.SceneBuilder(), jbuilder.SceneBuilder()):
+        b.add_obj(str(tmp_path / "t.obj"), (0, 0, 0), (1, 1, 1))
+        scenes.append(b.build())
+        assert "map_Kd 'wood.png': not found" in capsys.readouterr().err
+    assert scenes[0].textures is None and scenes[1].textures is None
+    write_png(str(tmp_path / "wood.png"), np.full((2, 3, 3), 128, np.uint8))
+    b = builder.SceneBuilder()
+    b.add_obj(str(tmp_path / "t.obj"), (0, 0, 0), (1, 1, 1))
+    tex = b.build().textures
+    assert capsys.readouterr().err == ""
+    assert tex.mat_texi.tolist() == [0] and tex.count == 1
+    assert (tex.hm, tex.wm) == (2, 3)
+    assert torch.equal(tex.atlas[:, :3],
+                       torch.full((6, 3), np.float32(128) / np.float32(255)))
 
 
 def test_smooth_cornell_and_quad_match_jax():

@@ -158,8 +158,10 @@ def test_tile_major_ids_and_colors_by_pixel():
 
 
 def test_unported_options_raise():
-    """The environment and DOF are ported; a textured intersector (one
-    returning (Hits, kd)) is not, and an env of another type is refused."""
+    """The environment, DOF and textures are ported: a textured intersector
+    (one returning (Hits, kd)) steps, its kd multiplying the material's
+    (by 1 here: the same state as the plain intersector's); an env of
+    another type is refused."""
     scene = library.cornell_box(with_spheres=False)
     cam = library.cornell_camera(4, 4)
     st = wavefront.init_wavefront(cam, 16, mode="fast", key=rng.key(1))
@@ -168,9 +170,22 @@ def test_unported_options_raise():
     def textured(rays):
         return isect(rays), (1.0, 1.0, 1.0)
 
-    with pytest.raises(NotImplementedError, match="queue 1, textures"):
-        wavefront.wavefront_step(cam, scene.mats, st, intersect_fn=textured,
+    a, b = (wavefront.wavefront_step(cam, scene.mats, st, intersect_fn=fn,
+                                     iterations=2, mode="fast",
+                                     key=rng.key(1))
+            for fn in (textured, isect))
+    for k in range(3):
+        assert torch.equal(a.colors[k], b.colors[k])
+        assert torch.equal(a.f_l[k], b.f_l[k])
+    assert torch.equal(a.samples, b.samples)
+
+    def dark(rays):
+        n = rays.count
+        return isect(rays), tuple(torch.full((n,), 0.5) for _ in range(3))
+
+    c = wavefront.wavefront_step(cam, scene.mats, st, intersect_fn=dark,
                                  iterations=2, mode="fast", key=rng.key(1))
+    assert not torch.equal(c.f_l[0], b.f_l[0])
     with pytest.raises(TypeError, match="EnvLight"):
         wavefront.wavefront_step(cam, scene.mats, st, intersect_fn=isect,
                                  iterations=2, mode="fast", key=rng.key(1),

@@ -243,6 +243,34 @@ time printed; the median torch.equal to the CPU's. `ptx-torch render
 --scene room.obj --textured` with `--denoise` and with `--median` writes
 its PNGs, and the missing map warns.
 
+The tilecull presort, the auto accel's predictor and spectral
+dispersion (`check_slice21`, at 1920x1080, 5 bounces, fast mode):
+`make_tilecull_intersect(presort='octant'|'morton')` on the cornell
+camera and first-bounce rays, with and without ids, gives Hits (and ids)
+torch.equal to presort='none'; K6 on the permuted rays equals its plain
+version and its launch on the rays in order, permuted; K6, the
+permutation, the gather, the unpermute and the whole intersector are
+timed in turns against 'none', and the kernels line has a `tilecull
+presorted bounce` row. `runtime/accel_anchors.measure` times
+'megakernel' with 'minarg' and 'tilecull' in turns on the auto accel's
+four anchors (3 turns of 4 spp) and prints each anchor's predicted
+fraction and the predictor's host seconds; an 'auto' engine's pick
+equals `auto_small_accel` at AUTO_TILECULL_THRESHOLD on each, and the
+threshold rule's result on this run is printed. `megakernel cornell
+repick` ('auto') goes 5 -> 1 -> 5 -> 1 bounces by the controller's keys,
+a frame each: one intersector per depth, the second visit reusing it,
+NaN-free frames. `wavefront cornell-analytic nee dispersion`
+(`models.spectral.render_dispersive`, SPECTRAL_SPP spp a band, NEE's
+shadow rays through K7): three bands at v_d None torch.equal to
+`render_wavefront` + `colors_by_pixel`, five within 1e-6, three at v_d
+30 NaN-free and unlike the flat render, more than half of the values
+equal to it. `ptx-torch render --dispersion 30 --nee` writes its 1080p
+PNG and `--model megakernel` is refused. Where 'auto' resolves a main
+path's triangles to 'tilecull' on the card (the predictor's pick), the
+path must launch K6 and K2 in place of K1 (and of K8): `path_kernels`;
+`megakernel cornell minarg` and `megakernel reference smooth minarg`
+keep K1, K2 and K8 on main paths by name.
+
 The last two lines are a JSON object per kernel (time, plain time,
 bound, launches) and the verdict; the line before them, the smoke's total
 time. Any failed phase raises, and the
@@ -400,12 +428,20 @@ PATH_KERNELS = {
     "wavefront textured-room": ("minarg", "refine1", "spheres"),
     "megakernel textured-grid": ("minarg", "refine1", "pair_cand",
                                  "pair_visit", "attr_fetch"),
+    # 'auto' on the card may pick 'tilecull' for these scenes
+    # (`path_kernels`): K1, K2 and K8 stay driven by explicit rows.
+    "megakernel cornell minarg": ("minarg", "refine1"),
+    "megakernel reference smooth minarg": ("minarg", "smooth_refine"),
+    "megakernel cornell repick": ("minarg", "refine1"),
+    "wavefront cornell-analytic nee dispersion": ("minarg", "refine1",
+                                                  "spheres", "anyhit"),
 }
 FRAMES, FRAMES_MOVE, FRAMES_AFTER = 30, 3, 6   # check_slice19's frame path
 TEX_SPP = 2   # spp of check_slice20's textured renders and its CLI calls
 GRID_REF_STRIDE = 4   # check_slice20 holds every 4th grid lane to plain
 DENOISE_RTOL = 2e-5   # the denoise, card against CPU (tests' ATROUS_RTOL)
 ENV_SPP = 2   # spp of check_slice19's environment and DOF paths
+SPECTRAL_SPP = 2   # spp a band of check_slice21's dispersive renders
 DOF = (20.0, 600.0)   # aperture, focus: the middle of the box
 ADAPTIVE_TOL, ADAPTIVE_MIN_SPP, ADAPTIVE_MAX_SPP = 0.05, 8, 32
 # Kernels each main path must not launch: the injected intersectors of
@@ -2552,9 +2588,25 @@ def check_no_fallback(torch, scenes):
     print(f"no fallback: with the loader broken, {', '.join(calls)} raise")
 
 
-def run_path(torch, name, fn):
+def path_kernels(name, accels=None):
+    """PATH_KERNELS[name] for a path whose triangles went through `accels`
+    (an accel or a tuple of them; None: as listed): where 'auto' resolved
+    to 'tilecull' (the predictor's pick on the card), K6 and K2 take the
+    place of K1, and K2 (after K6's ids) that of K8."""
+    if not isinstance(accels, tuple):
+        accels = (accels,)
+    swap = {"minarg": ("tilecull", "refine1"), "smooth_refine": ("refine1",)}
+    out = []
+    for accel in accels:
+        for k in PATH_KERNELS[name]:
+            out += swap.get(k, (k,)) if accel == "tilecull" else (k,)
+    return tuple(dict.fromkeys(out))
+
+
+def run_path(torch, name, fn, accel=None):
     """Drive one main path with the launch counts reset just before and
-    read just after; every kernel of the path must have launched."""
+    read just after; every kernel of the path must have launched.
+    accel: the accel the path's 'auto' resolved to (`path_kernels`)."""
     from opencl_path_tracer_tpu_torch.ops.kernels import _build
     torch.cuda.synchronize()
     _build.reset_launches()
@@ -2563,7 +2615,7 @@ def run_path(torch, name, fn):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = dict(_build.launches)
-    missing = [k for k in PATH_KERNELS[name] if counts[k] == 0]
+    missing = [k for k in path_kernels(name, accel) if counts[k] == 0]
     need(not missing, f"main path {name} did not launch {missing}")
     extra = [k for k in PATH_EXCLUDES.get(name, ()) + CHECK_ONLY
              if counts[k]]
@@ -2692,6 +2744,13 @@ def main_path(torch, np, scenes, cam):
         device="cuda")))
     engines.append(("megakernel cornell smooth", RenderEngine(
         scenes["cornell-smooth"], cfg(smooth=True), device="cuda")))
+    # K1 + K2 and K1 + K8 by name: 'auto' on the card may route the rows
+    # above through K6.
+    engines.append(("megakernel cornell minarg", RenderEngine(
+        scenes["cornell"], cfg(accel="minarg"), device="cuda")))
+    engines.append(("megakernel reference smooth minarg", RenderEngine(
+        scenes["reference"], cfg(camera=CameraConfig(), smooth=True,
+                                 accel="minarg"), device="cuda")))
     # The stress scene through 'auto' (99,380 triangles: 'pairwin'); the
     # Cornell preset, and the reference's camera for stress-analytic, as
     # `ptx-torch render` (and JAX's `ptx render`) choose them.
@@ -2734,13 +2793,16 @@ def main_path(torch, np, scenes, cam):
                                            device="cuda")))
     for name, eng in engines:
         spp = eng.cfg.spp
+        accel = getattr(eng.intersect_fn, "accel", None)
         torch.cuda.reset_peak_memory_stats()
         _, dt, counts = run_path(torch, name,
-                                 lambda: eng.render(spp, progress=False))
+                                 lambda: eng.render(spp, progress=False),
+                                 accel)
         img = eng.image()
         need(img.shape == (H, W, 3) and np.isfinite(img).all()
              and img.mean() > 0.0, f"{name}: bad image")
-        report(name, dt, eng.rays_traced, spp, counts)
+        report(f"{name} (accel {accel or 'injected'})", dt, eng.rays_traced,
+               spp, counts)
         if name == "megakernel cornell nee":
             need(counts["anyhit"] == spp * (BOUNCES - 1),
                  f"{name} launched anyhit {counts['anyhit']} times, not on "
@@ -2831,7 +2893,8 @@ def check_resume(torch, name, make, first, split, path, launches):
          f"{name}: the checkpoint did not load onto the card")
     _, dt, counts = run_path(torch, name,
                              lambda: resumed.render(sum(split) - first,
-                                                    progress=False))
+                                                    progress=False),
+                             resumed.intersect_fn.accel)
     for k, v in counts.items():
         launches[k] += v
     a, b = resumed.state, unbroken.state
@@ -3067,7 +3130,7 @@ def check_slice19(torch, np, scenes):
             after.append(eng.state.sample)
         seen["after"] = after
 
-    _, dt, counts = run_path(torch, name, frames)
+    _, dt, counts = run_path(torch, name, frames, eng.intersect_fn.accel)
     add(counts)
     need(seen["idle_camera"], f"{name}: an idle frame rebuilt the camera")
     need(seen["sample"] == FRAMES
@@ -3110,7 +3173,8 @@ def check_slice19(torch, np, scenes):
 
     eng.occluded = keep
     _, dt, counts = run_path(torch, name,
-                             lambda: eng.render(ENV_SPP, progress=False))
+                             lambda: eng.render(ENV_SPP, progress=False),
+                             eng.intersect_fn.accel)
     add(counts)
     image_ok(name, eng)
     need(counts["anyhit"] == ENV_SPP * (BOUNCES - 1),
@@ -3174,7 +3238,8 @@ def check_slice19(torch, np, scenes):
              dict(dof_aperture=DOF[0], dof_focus=DOF[1]))):
         eng = RenderEngine(scenes[sname], cfg(**kw), device="cuda")
         _, dt, counts = run_path(torch, name,
-                                 lambda: eng.render(ENV_SPP, progress=False))
+                                 lambda: eng.render(ENV_SPP, progress=False),
+                                 eng.intersect_fn.accel)
         add(counts)
         image_ok(name, eng)
         print(f"main path {name}: {W}x{H}, {BOUNCES} bounces, {ENV_SPP} spp "
@@ -3244,7 +3309,8 @@ def check_slice20(torch, np):
             eng = RenderEngine(scene, cfg(textured=True, **kw),
                                device="cuda")
             _, dt, counts = run_path(
-                torch, name, lambda: eng.render(TEX_SPP, progress=False))
+                torch, name, lambda: eng.render(TEX_SPP, progress=False),
+                eng.intersect_fn.accel)
             add(counts)
             img = eng.image(apply_tonemap=False)
             flat = RenderEngine(scene, cfg(**kw), device="cuda")
@@ -3450,6 +3516,272 @@ def _slice20_filters(torch, eng, room, config):
          "the median on the card differs from the CPU's")
     print(f"median3x3 at {W}x{H}: {med_s * 1e3:.1f} ms, equal to the "
           "CPU's (torch.equal)")
+
+
+def same_hits(torch, a, b):
+    """torch.equal on every field of two Hits."""
+    return (torch.equal(a.t, b.t) and torch.equal(a.mati, b.mati)
+            and all(torch.equal(x, y) for x, y in zip(a.p, b.p))
+            and all(torch.equal(x, y) for x, y in zip(a.n, b.n)))
+
+
+def in_turns(torch, fns, turns=3, reps=10):
+    """{name: [ms of each turn]}: each fn timed by CUDA events over reps
+    calls, all of them once a turn, in turns."""
+    per = {k: [] for k in fns}
+    for _ in range(turns):
+        for k, fn in fns.items():
+            per[k].append(time_ms(torch, fn, reps))
+    return per
+
+
+def turns_line(per):
+    import statistics
+    return ", ".join(f"{k} {statistics.median(v):.4f} ms (spread "
+                     f"{max(v) - min(v):.4f})" for k, v in per.items())
+
+
+def check_slice21(torch, np, scenes):
+    """The tilecull presort, the auto accel's anchors and re-pick, and
+    spectral dispersion at 1920x1080, 5 bounces, fast mode (the module
+    docstring), with the counts reset before and read after each main
+    path. Returns (the launches of its main paths, the kernels line's
+    inputs for K6 on presorted first-bounce rays)."""
+    import contextlib
+    import io
+    from opencl_path_tracer_tpu_torch import cli
+    from opencl_path_tracer_tpu_torch.config import CameraConfig, RenderConfig
+    from opencl_path_tracer_tpu_torch.io.image import read_png
+    from opencl_path_tracer_tpu_torch.runtime.engine import RenderEngine
+    t_phase = time.perf_counter()
+    launches = {}
+    preset = CameraConfig(fov=60.0, yaw=0.0, pitch=0.0,
+                          shift=(0.0, 0.0, 0.0))
+
+    def cfg(**kw):
+        return RenderConfig(width=W, height=H, iterations=BOUNCES,
+                            mode="fast", camera=preset, **kw)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    inputs = _slice21_presort(torch, np, scenes["cornell"])
+    _slice21_auto(torch, scenes["cornell"], cfg, add, RenderEngine)
+    _slice21_spectral(torch, scenes["cornell-analytic"], cfg, add)
+    with tempfile.TemporaryDirectory(prefix="ptx-slice21-") as tmp:
+        out = os.path.join(tmp, "dispersion.png")
+        args = ["render", "--scene", "cornell-analytic", "--model",
+                "wavefront", "--dispersion", "30", "--nee", "--size",
+                f"{W}x{H}", "--spp", str(SPECTRAL_SPP), "--out", out]
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(args)
+        dt = time.perf_counter() - t0
+        img = read_png(out)
+        need(rc == 0 and img.shape == (H, W, 3) and img.max() > 0,
+             "ptx-torch render --dispersion 30 failed")
+        said = [ln for ln in err.getvalue().splitlines() if "band" in ln]
+        print(f"ptx-torch {' '.join(args[:-2])}: wrote a {W}x{H} PNG in "
+              f"{dt:.2f} s ({said[-1] if said else 'no band line'})")
+        try:
+            cli.main(args[:3] + ["--model", "megakernel"] + args[5:])
+            refused = None
+        except SystemExit as e:
+            refused = str(e)
+        need(refused == "--dispersion needs --model wavefront",
+             f"--dispersion with --model megakernel: {refused!r}")
+        print(f"ptx-torch render --dispersion 30 --model megakernel: refused "
+              f"({refused})")
+    print(f"check_slice21: {time.perf_counter() - t_phase:.1f} s")
+    return launches, inputs
+
+
+def _slice21_presort(torch, np, corn):
+    """K6 on presorted cornell camera and first-bounce rays: the
+    intersector's Hits (and ids) torch.equal to presort='none''s, the
+    kernel's (t, g) on the permuted rays to its plain version's and to
+    'none''s permuted; K6, the permutation, the gather and the unpermute
+    timed in turns against 'none'."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import (
+        intersect_kernel as k1, tilecull_kernel as tk)
+    from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
+    from opencl_path_tracer_tpu_torch.scene import library
+    cam = library.cornell_camera(W, H, device="cuda")
+    eye = tuple(float(v) for v in cam.eye.cpu())
+    rays = camera_rays(cam)
+    brays = bounce_rays(torch, corn, cam, rays,
+                        make_intersect_fn(corn, "minarg"))
+    tris2, _, boxes, spans = tk.build_groups(corn.tris, 128, origin=eye)
+    pack, groups = tk._pack_groups(corn.tris, tris2, boxes, spans, 128)
+    sub = tk.anyhit_sub_boxes(pack, groups)
+    bx = np.asarray(boxes, np.float64)
+    blo, bhi = bx[:, 0, :].min(axis=0), bx[:, 1, :].max(axis=0)
+    box = (tuple(float(v) for v in blo),
+           tuple(float(v) for v in 1.0 / np.maximum(bhi - blo, 1e-12)))
+    isect = {p: tk.make_tilecull_intersect(corn.tris, origin=eye, presort=p)
+             for p in tk.PRESORTS}
+    out = {}
+
+    def unpermute(rows, lane):
+        inv = torch.empty_like(lane)
+        inv[lane] = torch.arange(lane.shape[0], device=lane.device)
+        return rows[:, inv]
+
+    for where, rr in (("camera", rays), ("first-bounce", brays)):
+        r8 = k1.pack_rays(rr.p, rr.d)
+        t0_, g0_ = tk.tilecull(r8, pack, groups, sub)
+        for ids in (False, True):
+            ref = tk.make_tilecull_intersect(corn.tris, origin=eye,
+                                             with_ids=ids)(rr)
+            for presort in ("octant", "morton"):
+                got = tk.make_tilecull_intersect(
+                    corn.tris, origin=eye, with_ids=ids, presort=presort)(rr)
+                ok = (same_hits(torch, got[0], ref[0])
+                      and torch.equal(got[1], ref[1]) if ids
+                      else same_hits(torch, got, ref))
+                need(ok, f"tilecull presort={presort} on the cornell {where} "
+                     f"rays{' with ids' if ids else ''} differs from 'none'")
+        for presort in ("octant", "morton"):
+            lane = tk._presort_perm(rr, presort, *box)
+            r8p = r8[:, lane].contiguous()
+            t, g = tk.tilecull(r8p, pack, groups, sub)
+            (tp, gp), plain_ms = timed(torch, lambda: tk.tilecull_plain(
+                r8p, pack, groups, ray_chunk=1 << 18))
+            need(torch.equal(t, tp) and torch.equal(g, gp),
+                 f"tilecull differs from its plain version on the {presort}-"
+                 f"presorted cornell {where} rays")
+            need(torch.equal(t, t0_[lane]) and torch.equal(g, g0_[lane]),
+                 f"tilecull on the {presort}-presorted cornell {where} rays "
+                 "differs from its launch on the rays in order")
+            rows6 = torch.stack([t, t, t, t, t, g])
+            per = in_turns(torch, {
+                "K6 none": lambda: tk.tilecull(r8, pack, groups, sub),
+                "K6 presorted": lambda: tk.tilecull(r8p, pack, groups, sub),
+                "permutation": lambda: tk._presort_perm(rr, presort, *box),
+                "gather": lambda: r8[:, lane].contiguous(),
+                "unpermute": lambda: unpermute(rows6, lane),
+                "intersector none": lambda: isect["none"](rr),
+                "intersector presorted": lambda: isect[presort](rr)})
+            print(f"tilecull presort={presort} on the cornell {where} rays "
+                  f"({r8.shape[1]}): Hits and ids torch.equal to 'none', "
+                  f"K6 to its plain version ({plain_ms:.1f} ms); in turns: "
+                  + turns_line(per))
+            if where == "first-bounce" and presort == "morton":
+                counts = tk.tilecull_counted(r8p, pack, groups, sub)[1]
+                out["tilecull presorted bounce"] = (r8p, pack, groups, sub,
+                                                    plain_ms, counts)
+    return out
+
+
+def _slice21_auto(torch, corn, cfg, add, RenderEngine):
+    """The anchors of the auto accel's threshold (`runtime/accel_anchors`,
+    in turns), the engine's pick against `auto_small_accel`'s, and
+    'megakernel cornell repick': depth 5 -> 1 -> 5 -> 1 by the
+    controller's '-' and '+', one frame at each."""
+    from opencl_path_tracer_tpu_torch.models import megakernel
+    from opencl_path_tracer_tpu_torch.ops.kernels import tilecull_kernel as tk
+    from opencl_path_tracer_tpu_torch.runtime import accel_anchors
+    from opencl_path_tracer_tpu_torch.runtime import engine as engine_mod
+    thr = engine_mod.AUTO_TILECULL_THRESHOLD
+    rows = accel_anchors.measure(MODELS_DIR, "cuda", turns=3, spp=4)
+    for r in rows:
+        need(r["engine_pick"] == r["pick"],
+             f"anchor {r['anchor']}: the engine picked {r['engine_pick']}, "
+             f"auto_small_accel at {thr} {r['pick']}")
+    rule, why = accel_anchors.threshold_rule(rows)
+    print(f"the anchors' rule on this run: threshold {rule!r} ({why}); "
+          f"AUTO_TILECULL_THRESHOLD {thr!r}; the engine's picks equal "
+          "auto_small_accel's")
+    name = "megakernel cornell repick"
+    eng = RenderEngine(corn, cfg(), device="cuda")
+    first = eng.intersect_fn
+    need(first.accel == rows[0]["pick"],
+         f"{name}: 'auto' picked {first.accel} at 5 bounces, the anchor "
+         f"{rows[0]['pick']}")
+    seen = []
+
+    def walk():
+        for depth in (BOUNCES, 1, BOUNCES, 1):
+            while eng.iterations > depth:
+                eng.controller.key_down("-")
+            while eng.iterations < depth:
+                eng.controller.key_down("+")
+            eng.frame(sync=False)
+            cols = megakernel.colors_array(eng.state)
+            seen.append((depth, eng.intersect_fn,
+                         bool(torch.isfinite(cols).all())
+                         and float(cols.mean()) > 0.0))
+
+    one = tk.auto_small_accel(corn.tris, eng.camera, iterations=1,
+                              threshold=thr)
+    _, dt, counts = run_path(torch, name, walk, (first.accel, one))
+    add(counts)
+    fns = [fn for _, fn, _ in seen]
+    need(all(ok for *_, ok in seen), f"{name}: a frame with NaN or black")
+    need(fns[0] is first and fns[2] is first and fns[1] is not first
+         and fns[3] is fns[1] and fns[1].accel == one
+         and set(eng._accel_by_iters) == {BOUNCES, 1},
+         f"{name}: the re-pick did not build one intersector per depth and "
+         "reuse it")
+    print(f"main path {name}: {W}x{H}, fast, depth {BOUNCES} -> 1 -> "
+          f"{BOUNCES} -> 1, a frame each in {dt:.3f} s: picks "
+          f"{first.accel} at {BOUNCES} bounces, {one} at 1; the second "
+          "visit of each depth reused its intersector; NaN-free frames; "
+          f"launches {counts}")
+
+
+def _slice21_spectral(torch, scene, cfg, add):
+    """'wavefront cornell-analytic nee dispersion': render_dispersive
+    through the engine's 'auto' intersector, NEE's any-hit test; three
+    bands without dispersion torch.equal to the plain wavefront render,
+    five within 1e-6; flint glass (v_d 30) NaN-free, unlike the flat
+    render, more than half of the values equal to it."""
+    from opencl_path_tracer_tpu_torch.models import spectral, wavefront
+    from opencl_path_tracer_tpu_torch.ops.kernels import tilecull_kernel as tk
+    from opencl_path_tracer_tpu_torch.ops.nee import build_emitter_table
+    from opencl_path_tracer_tpu_torch.runtime.controller import (
+        CameraController)
+    from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
+    name = "wavefront cornell-analytic nee dispersion"
+    c = cfg(model="wavefront", nee=True)
+    cam = CameraController(c, device="cuda").camera(W, H)
+    isect = make_intersect_fn(scene, "auto", cam=cam, iterations=BOUNCES)
+    kw = dict(intersect_fn=isect, num_pixels=W * H, iterations=BOUNCES,
+              min_spp=SPECTRAL_SPP, mode="fast", seed=1,
+              nee=build_emitter_table(scene.tris, scene.mats, scene.spheres),
+              occluded_fn=tk.make_scene_occluded(scene))
+
+    def render(bands, v_d):
+        return spectral.render_dispersive(cam, scene.mats, bands=bands,
+                                          v_d=v_d, **kw)
+
+    st = wavefront.render_wavefront(cam, scene.mats, exact_spp=True,
+                                    device="cuda", **kw)
+    plain = wavefront.colors_by_pixel(st, W * H)
+    flat, dt_flat = timed(torch, lambda: render(3, None))
+    need(torch.equal(flat, plain), f"{name}: three bands without dispersion "
+         "differ from the plain wavefront render")
+    five = render(5, None)
+    err5 = float(((five - plain).abs() / plain.abs().clamp_min(1e-30)).max())
+    need(err5 <= 1e-6, f"{name}: five flat bands {err5:.3g} from the plain "
+         "render")
+    disp, dt, counts = run_path(torch, name, lambda: render(3, 30.0),
+                                isect.accel)
+    add(counts)
+    share = float((disp == flat).float().mean())
+    need(bool(torch.isfinite(disp).all()) and disp.shape == (W * H, 3)
+         and disp.dtype == torch.float32 and 0.5 < share < 1.0,
+         f"{name}: bad dispersive image (finite "
+         f"{bool(torch.isfinite(disp).all())}, {share:.4f} equal to flat)")
+    print(f"main path {name}: {W}x{H}, {BOUNCES} bounces, fast, "
+          f"{SPECTRAL_SPP} spp a band, accel {isect.accel}; 3 bands at v_d "
+          f"30 in {dt:.3f} s ({SPECTRAL_SPP * 3 / dt:.2f} samples/s a "
+          f"band), at v_d None {dt_flat / 1e3:.3f} s; flat torch.equal to "
+          f"the plain render, 5 flat bands within {err5:.3g}; "
+          f"{share:.4f} of the values equal to the flat render's; "
+          f"launches {counts}")
 
 
 def timed(torch, fn):
@@ -4001,6 +4333,15 @@ def measure(torch, inputs, errs, launches):
                      plain_ms, 25 * n_made + 12 * n_div + 12 * n_edge, 0,
                      (24 + 8) * c8.shape[1] + 64 * cpack.shape[0]
                      + cgroups.numel() * 4 + csub.numel() * 4))
+    # K6 on the morton-presorted first-bounce rays (check_slice21).
+    c8, cpack, cgroups, csub, plain_ms, counts6 = inputs[
+        "tilecull presorted bounce"]
+    n_div, _, _, n_edge, n_made = counts6
+    rows.append(("tilecull presorted bounce",
+                 lambda a=(c8, cpack, cgroups, csub): tk.tilecull(*a),
+                 plain_ms, 25 * n_made + 12 * n_div + 12 * n_edge, 0,
+                 (24 + 8) * c8.shape[1] + 64 * cpack.shape[0]
+                 + cgroups.numel() * 4 + csub.numel() * 4))
     rc6 = inputs["tilecull"][0].shape[1]
     pairs6 = inputs["counts tilecull camera"][0]
     print(f"tests that reach the divide: anyhit {pairs7 / ra:.1f} per "
@@ -4141,6 +4482,10 @@ def main() -> int:
         launches[k] += v
     for k, v in check_slice20(torch, np).items():
         launches[k] += v
+    s21_launches, s21_inputs = check_slice21(torch, np, scenes)
+    for k, v in s21_launches.items():
+        launches[k] += v
+    inputs.update(s21_inputs)
     inputs.update(env_inputs)
     kernels = measure(torch, inputs, errs, launches)
     print(f"smoke: {time.perf_counter() - t_start:.1f} s in all, the kernel "

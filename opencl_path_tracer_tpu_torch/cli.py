@@ -9,7 +9,9 @@ is given. Checkpoints (`--checkpoint`, `--resume`, `--autosave-every`)
 are the JAX package's files: either CLI resumes the other's. `--median`
 (the reference's dormant 3x3 median filter and filmic tonemap, to PNG)
 and `--denoise` (the à-trous denoiser; to PNG, or in linear light to
-`.pfm`/`.npy`) are exclusive.
+`.pfm`/`.npy`) are exclusive. `--dispersion V_D [--bands B]` renders
+glass whose index follows the Abbe number V_D, one wavefront render per
+band (`models/spectral.py`; `_render_dispersive`).
 
     ptx-torch render --scene cornell --size 1920x1080 --iters 5 --spp 8
     ptx-torch render --scene cornell-analytic --model wavefront --rr 3
@@ -29,6 +31,8 @@ and `--denoise` (the à-trous denoiser; to PNG, or in linear light to
     ptx-torch render --envmap sunsky        # or gradient, or a .pfm path
     ptx-torch render --scene cornell-analytic --env
     ptx-torch render --dof 20 600           # lens radius, focal distance
+    ptx-torch render --scene cornell-analytic --model wavefront \
+        --dispersion 30 --bands 5 --nee      # flint glass, five bands
     ptx-torch render --config render.json   # a RenderConfig as JSON
     ptx-torch info                          # the CUDA devices
 """
@@ -156,6 +160,8 @@ def cmd_render(args) -> int:
                 raise SystemExit(f"--adaptive takes a tolerance or 'auto', "
                                  f"got {args.adaptive!r}") from None
     scene = _build_scene(args.scene, device, args.models_dir, cfg.smooth)
+    if args.dispersion is not None:
+        return _render_dispersive(args, cfg, scene, device)
     eng = RenderEngine(scene, cfg, device=device)
     if args.resume:
         eng.load(args.resume)
@@ -217,6 +223,89 @@ def cmd_render(args) -> int:
     return 0
 
 
+def _render_dispersive(args, cfg, scene, device) -> int:
+    """`render --dispersion V_D [--bands B]`: the spectral path
+    (`models.spectral.render_dispersive`), per-band wavefront renders of
+    Abbe-model glass combined to RGB, written as the engine's output
+    would be. It composes with --nee, --rr, --qmc, --dof, --smooth and
+    --textured and refuses what the JAX package's refuses. Unlike it, it
+    validates the config first (so --qmc with --mode parity is refused,
+    as on the normal path) and refuses V_D <= 0 (where the model gives
+    NaN)."""
+    import numpy as np
+    from opencl_path_tracer_tpu_torch.io.image import write_pfm, write_png
+    from opencl_path_tracer_tpu_torch.models import spectral
+    from opencl_path_tracer_tpu_torch.ops import tonemap as tonemap_ops
+    from opencl_path_tracer_tpu_torch.runtime.controller import (
+        CameraController,
+    )
+    from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
+
+    cfg.validate()
+    if cfg.model != "wavefront":
+        raise SystemExit("--dispersion needs --model wavefront")
+    for bad, flag in ((args.adaptive is not None, "--adaptive"),
+                      (args.median, "--median"),
+                      (args.denoise, "--denoise"),
+                      (args.env, "--env"),
+                      (args.envmap is not None, "--envmap"),
+                      (args.resume is not None, "--resume"),
+                      (args.checkpoint is not None, "--checkpoint")):
+        if bad:
+            raise SystemExit(f"--dispersion does not compose with {flag}")
+    if args.bands < 1:
+        raise SystemExit("--bands must be >= 1")
+    if args.dispersion <= 0:
+        raise SystemExit(f"--dispersion takes an Abbe number > 0, got "
+                         f"{args.dispersion:g}")
+    cam = CameraController(cfg, device=device).camera(cfg.width, cfg.height)
+    isect = make_intersect_fn(scene, cfg.accel, smooth=cfg.smooth,
+                              textured=cfg.textured, cam=cam,
+                              iterations=cfg.iterations)
+    nee_tab, occ = _spectral_nee(cfg, scene)
+    t0 = time.perf_counter()
+    img = spectral.render_dispersive(
+        cam, scene.mats, intersect_fn=isect,
+        num_pixels=cfg.width * cfg.height, iterations=cfg.iterations,
+        min_spp=cfg.spp, bands=args.bands, v_d=args.dispersion,
+        mode=cfg.mode, seed=cfg.seed, qmc=cfg.qmc, nee=nee_tab,
+        occluded_fn=occ,
+        rr=((cfg.rr_start, cfg.rr_pmin) if cfg.rr_start is not None
+            else None),
+        dof=((cfg.dof_aperture, cfg.dof_focus) if cfg.dof_aperture > 0.0
+             else None))
+    dt = time.perf_counter() - t0
+    print(f"\n{args.bands}-band dispersive render (V_d="
+          f"{args.dispersion:g}, accel {isect.accel}) at {cfg.spp} spp in "
+          f"{dt:.2f}s on {device}", file=sys.stderr)
+    img = img.reshape(cfg.height, cfg.width, 3)
+    if args.out.endswith(".npy"):
+        np.save(args.out, img.cpu().numpy()[::-1])
+    elif args.out.endswith(".pfm"):
+        write_pfm(args.out, img.cpu().numpy()[::-1])
+    else:
+        write_png(args.out, tonemap_ops.apply(img, cfg.tonemap)
+                  .cpu().numpy()[::-1])
+    print(f"wrote {args.out}", file=sys.stderr)
+    return 0
+
+
+def _spectral_nee(cfg, scene):
+    """(emitter table, any-hit test) of the dispersion path, as the engine
+    builds them, on the undispersed scene (emission does not disperse):
+    (None, None) without --nee, and no any-hit test with
+    --no-nee-anyhit."""
+    from opencl_path_tracer_tpu_torch.ops.kernels.tilecull_kernel import (
+        make_scene_occluded,
+    )
+    from opencl_path_tracer_tpu_torch.ops.nee import build_emitter_table
+    if not cfg.nee:
+        return None, None
+    nee_tab = build_emitter_table(scene.tris, scene.mats, scene.spheres,
+                                  select=cfg.nee_select)
+    return nee_tab, (make_scene_occluded(scene) if cfg.nee_anyhit else None)
+
+
 def cmd_info(args) -> int:
     """The device table (the reference's list_info, main.cpp:389-455)."""
     from opencl_path_tracer_tpu_torch.parallel.mesh import describe_devices
@@ -260,7 +349,9 @@ def main(argv=None) -> int:
                         "--model wavefront)")
     p.add_argument("--mode", default="fast", choices=("fast", "parity"))
     p.add_argument("--accel", default="auto",
-                   help="auto (minarg up to 8,192 triangles, pairwin above), "
+                   help="auto (up to 8,192 triangles minarg, or on CUDA the "
+                        "camera predictor's minarg or tilecull; pairwin "
+                        "above), "
                         "minarg, pallas, tilecull, pairwin (the pair "
                         "intersector for large scenes), pair (the same at "
                         "its own defaults), cluster, group (at most 30 "
@@ -346,6 +437,16 @@ def main(argv=None) -> int:
     p.add_argument("--min-spp", type=int, default=8,
                    help="adaptive floor: samples every pixel takes before "
                         "it may stop")
+    p.add_argument("--dispersion", type=float, default=None,
+                   metavar="V_D",
+                   help="spectral dispersion (needs --model wavefront): "
+                        "render --bands wavelength bands whose glass index "
+                        "follows the Abbe number V_D (crown about 60, flint "
+                        "about 30; lower splits more) and combine them to "
+                        "RGB")
+    p.add_argument("--bands", type=int, default=3,
+                   help="bands of --dispersion (3: the sRGB primaries; "
+                        "more: smoother spectra at proportional cost)")
     p.set_defaults(func=cmd_render)
     p = sub.add_parser("info", help="device table")
     p.add_argument("--device", default="cuda",

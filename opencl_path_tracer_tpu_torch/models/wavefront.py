@@ -417,12 +417,14 @@ def render_wavefront(cam: Camera, mats: MaterialsSoA, *, intersect_fn,
                      exact_spp: bool = False,
                      ids: torch.Tensor | None = None, env=None, nee=None,
                      rr=None, qmc: bool = False, dof=None,
-                     device=None) -> WavefrontState:
+                     occluded_fn=None, device=None) -> WavefrontState:
     """Run steps until every pixel has >= min_spp samples, with a host
     check of min(samples) every max(2 * iterations, 8) steps. Runs on
     `device` (CUDA unless "cpu" is asked for); cam and mats must live
     there. exact_spp=True caps every pixel at exactly min_spp samples
-    (for bit-parity comparisons against the megakernel)."""
+    (for bit-parity comparisons against the megakernel). occluded_fn:
+    NEE's any-hit test, as `wavefront_step` takes it (the JAX function
+    has no such argument)."""
     dev = resolve_device(device)
     if cam.eye.device.type != dev.type or mats.n.device.type != dev.type:
         raise ValueError(f"cam and mats must be on {dev}")
@@ -437,7 +439,8 @@ def render_wavefront(cam: Camera, mats: MaterialsSoA, *, intersect_fn,
             state = wavefront_step(
                 cam, mats, state, intersect_fn=intersect_fn,
                 iterations=iterations, mode=mode, key=key, max_samples=cap,
-                env=env, nee=nee, rr=rr, qmc=qmc, dof=dof)
+                env=env, nee=nee, rr=rr, qmc=qmc, dof=dof,
+                occluded_fn=occluded_fn)
         if int(state.samples.min()) >= min_spp:
             break
     return state

@@ -5,10 +5,24 @@ Port of `opencl_path_tracer_tpu/ops/pallas/tilecull_kernel.py`:
 `build_groups`, `_safe_inv`, `_slab`, `_tilecull_kernel` (launched by
 `_run_tilecull`) with `make_tilecull_intersect`, and `_anyhit_kernel`
 (launched by `_run_anyhit`) with `make_anyhit_occluded` and
-`make_scene_occluded`. The rays keep their order (JAX's default
-`presort='none'`); the presort modes and the accel predictor
-(`estimate_tile_need_fraction`, `auto_small_accel`) are still to port
-(ROADMAP.md queue 1).
+`make_scene_occluded`, the presort (`_presort_perm`, the `presort`
+modes of `make_tilecull_intersect`) and the host predictor of the auto
+accel (`_np_brute`, `estimate_tile_need_fraction`, `auto_small_accel`).
+
+presort='octant' or 'morton' permutes the rays into coherent runs before
+K6 (a stable sort on the direction octant, or on the octant above the
+origin's Morton cell in the groups' bounds) and gathers K6's and K2's
+rows back to the caller's order after. K6 picks each ray's winner on its
+own, so the Hits and ids are those of presort='none' bit for bit.
+
+The predictor samples the camera's rays on the host in float64 (32
+blocks of 32 x 32 pixels and one cosine bounce from their hits, the
+same `default_rng(seed)` draws in the same order as the JAX package)
+and returns the mean share of the groups a tile of 1,024 of those rays
+needs; `auto_small_accel` picks 'tilecull' below its threshold. The
+engine sets that threshold from an H100 measurement
+(`runtime/engine.py::AUTO_TILECULL_THRESHOLD`); the function keeps the
+JAX package's default.
 
 The triangles are put in 10-bit Morton order of their centroids and cut
 into groups of `gs` rows, each with an axis-aligned box inflated by
@@ -39,6 +53,7 @@ import torch
 
 from opencl_path_tracer_tpu_torch.core.geometry import TrianglesSoA
 from opencl_path_tracer_tpu_torch.core.types import Rays
+from opencl_path_tracer_tpu_torch.models.wavefront import morton3_components
 from opencl_path_tracer_tpu_torch.ops.kernels import _build
 from opencl_path_tracer_tpu_torch.ops.kernels.cluster_kernel import (
     SUB, sub_boxes,
@@ -377,37 +392,90 @@ def anyhit_counted(rays8: torch.Tensor, rmax: torch.Tensor,
     return occ, tuple(int(x) for x in count.tolist())
 
 
-def grouped_pack(tris: TrianglesSoA, gs: int = 128, origin=None):
-    """(pack, groups, perm): the Morton-ordered (T, 24) pack, its (G, 8)
-    group table on the triangles' device, for K6 and K7, and the
-    permutation."""
-    tris2, perm, boxes, spans = build_groups(tris, gs, origin=origin)
+def _pack_groups(tris, tris2, boxes, spans, gs):
+    """(pack, groups) of `build_groups`' output, for K6 and K7."""
     if len(boxes) > MAX_GROUPS:
         raise ValueError(
             f"{tris.count} tris -> {len(boxes)} groups exceeds MAX_GROUPS="
             f"{MAX_GROUPS} at gs={gs}; scenes this large need the pair "
             "intersector, ported as accel 'pairwin' or 'pair'")
-    return build_tri_pack(tris2), group_table(boxes, spans, tris.device), perm
+    return build_tri_pack(tris2), group_table(boxes, spans, tris.device)
+
+
+def grouped_pack(tris: TrianglesSoA, gs: int = 128, origin=None):
+    """(pack, groups, perm): the Morton-ordered (T, 24) pack, its (G, 8)
+    group table on the triangles' device, for K6 and K7, and the
+    permutation."""
+    tris2, perm, boxes, spans = build_groups(tris, gs, origin=origin)
+    return (*_pack_groups(tris, tris2, boxes, spans, gs), perm)
+
+
+PRESORTS = ("none", "octant", "morton")
+
+
+def _presort_perm(rays: Rays, mode: str, scene_lo, scene_inv
+                  ) -> torch.Tensor:
+    """(R,) int64 lane permutation that groups coherent rays: a stable
+    sort on the direction octant ('octant'), or on octant << 27 | the
+    origin's 30-bit Morton cell >> 3 in the box (scene_lo, 1 /
+    scene_inv) ('morton'). The JAX package sorts padded lanes, which
+    sort after every real one, so its first R entries are this."""
+    octant = ((rays.d[0] >= 0).long() * 4 + (rays.d[1] >= 0).long() * 2
+              + (rays.d[2] >= 0).long())
+    if mode == "octant":
+        key = octant
+    else:
+        q = tuple(torch.clamp((rays.p[k] - scene_lo[k]) * scene_inv[k],
+                              0.0, 1.0) for k in range(3))
+        key = (octant << 27) | (morton3_components(q) >> 3)
+    return torch.sort(key, stable=True).indices
 
 
 def make_tilecull_intersect(tris: TrianglesSoA, *, gs: int = 128,
-                            with_ids: bool = False, origin=None):
+                            with_ids: bool = False, presort: str = "none",
+                            origin=None):
     """The 'tilecull' accel: K6, then K2's attribute fetch on the Morton-
     ordered pack. intersect(rays) -> Hits, or (Hits, ids) with ids the
     winner's original triangle index (-1 on a miss) when with_ids=True.
     origin (the camera eye) orders the groups front to back. On exact-t
     ties the winner is the first in Morton order, where K1's is the first
-    in scene order; t is the same. The Morton-ordered pack, its groups
-    and, on the card, K6's table of the skip rule (`anyhit_sub_boxes`)
-    are built once here."""
-    pack, groups, perm = grouped_pack(tris, gs, origin)
+    in scene order; t is the same. presort ('none', 'octant' or
+    'morton', `_presort_perm`) runs K6 and K2 on the rays permuted and
+    gathers their rows back with one inverse gather; the results are
+    presort='none''s. The Morton-ordered pack, its groups and, on the
+    card, K6's table of the skip rule (`anyhit_sub_boxes`) are built once
+    here."""
+    if presort not in PRESORTS:
+        raise ValueError(f"unknown presort {presort!r}")
+    tris2, perm, boxes, spans = build_groups(tris, gs, origin=origin)
+    pack, groups = _pack_groups(tris, tris2, boxes, spans, gs)
     perm_t = torch.as_tensor(perm, device=tris.device)
     sub = (anyhit_sub_boxes(pack, groups) if pack.device.type == "cuda"
            else None)
+    scene_lo = scene_inv = None
+    if presort == "morton":
+        # The key's box: the groups' padded boxes, in float64 as the JAX
+        # package takes it, then rounded to float32 by the arithmetic.
+        bx = np.asarray(boxes, np.float64)
+        blo, bhi = bx[:, 0, :].min(axis=0), bx[:, 1, :].max(axis=0)
+        scene_lo = tuple(float(v) for v in blo)
+        scene_inv = tuple(float(v)
+                          for v in 1.0 / np.maximum(bhi - blo, 1e-12))
 
     def intersect(rays: Rays):
-        t1, g1 = tilecull(pack_rays(rays.p, rays.d), pack, groups, sub)
-        hits = assemble_hits(rays, rays.count, *refine1(t1, g1, pack))
+        if presort == "none":
+            t1, g1 = tilecull(pack_rays(rays.p, rays.d), pack, groups, sub)
+            rows = refine1(t1, g1, pack)
+        else:
+            lane = _presort_perm(rays, presort, scene_lo, scene_inv)
+            rays8 = pack_rays(rays.p, rays.d)[:, lane].contiguous()
+            t1, g1 = tilecull(rays8, pack, groups, sub)
+            out = torch.stack([*refine1(t1, g1, pack), g1])
+            inv = torch.empty_like(lane)
+            inv[lane] = torch.arange(lane.shape[0], device=lane.device)
+            out = out[:, inv]
+            rows, g1 = tuple(out[:5]), out[5]
+        hits = assemble_hits(rays, rays.count, *rows)
         if not with_ids:
             return hits
         ids = torch.where(hits.valid, perm_t[g1.long()],
@@ -455,3 +523,127 @@ def make_scene_occluded(scene, *, gs: int = 128):
         return tri_occ(rays, rmax) | (h.valid & (h.t < rmax))
 
     return occluded
+
+
+# The host predictor of the auto accel: the share of K6's group tests
+# that the camera's own rays need, sampled on the host.
+
+
+def _np_brute(tris: TrianglesSoA, P: np.ndarray, D: np.ndarray):
+    """Nearest hit (t, triangle index) of the (N, 3) float64 rays by the
+    exact test's math in numpy float64; t = inf and index -1 on a miss.
+    For the predictor's small batches."""
+    def f64(a):
+        return a.cpu().numpy().astype(np.float64)
+
+    nrm, c0 = f64(tris.n), f64(tris.c0)
+    m = [f64(getattr(tris, f"m{k}")) for k in (1, 2, 3)]
+    dk = [f64(getattr(tris, f"d{k}")) for k in (1, 2, 3)]
+    best_t = np.full(P.shape[0], np.inf)
+    best_i = np.full(P.shape[0], -1, np.int64)
+    for i0 in range(0, P.shape[0], 256):
+        p, d = P[i0:i0 + 256], D[i0:i0 + 256]
+        vn = d @ nrm.T
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t = (c0[None, :] - p @ nrm.T) / vn
+        ok = (t > 1e-9) & np.isfinite(t)
+        for mk, dkk in zip(m, dk):
+            ok &= (p @ mk.T) + t * (d @ mk.T) >= dkk[None, :]
+        tm = np.where(ok, t, np.inf)
+        best_t[i0:i0 + 256] = tm.min(axis=1)
+        best_i[i0:i0 + 256] = tm.argmin(axis=1)
+    best_i[~np.isfinite(best_t)] = -1
+    return best_t, best_i
+
+
+def estimate_tile_need_fraction(tris: TrianglesSoA, cam, *, gs: int = 128,
+                                iterations: int = 5, n_tiles: int = 32,
+                                seed: int = 0) -> float:
+    """The predicted share of K6's group tests against all of them, on a
+    sample of the camera's workload: n_tiles random 32 x 32-pixel blocks
+    of camera rays and one cosine-sampled bounce from their hits, each
+    block's need the union over its 1,024 rays of the groups whose
+    padded box its slab test passes. iterations == 1 weighs the camera
+    rays alone; deeper, camera : bounce = 0.3 : 0.7. Host numpy float64,
+    the JAX package's function draw for draw."""
+    rs = np.random.default_rng(seed)
+    _t2, _perm, boxes, _spans = build_groups(tris, gs)
+
+    def host(v):
+        return np.asarray(v.cpu().numpy(), np.float64)
+
+    eye, lookat = host(cam.eye), host(cam.lookat)
+    upv, rightv = host(cam.up), host(cam.right)
+    W, H = float(cam.xm), float(cam.ym)
+
+    def tile_need(P, D, k):
+        tiny = 1e-30
+        inv = 1.0 / np.where(np.abs(D) < tiny, tiny, D)
+        need = 0.0
+        n_t = P.shape[0] // k
+        for lo, hi in boxes:
+            t1 = (np.asarray(lo)[None, :] - P) * inv
+            t2 = (np.asarray(hi)[None, :] - P) * inv
+            tn = np.minimum(t1, t2).max(axis=1)
+            tf = np.maximum(t1, t2).min(axis=1)
+            hit = (tf >= tn) & (tf >= 0.0)
+            need += hit.reshape(n_t, k).any(axis=1).mean()
+        return need / len(boxes)
+
+    k = 1024
+    bs = 32  # a block of 32 x 32 pixels: one tile of 1,024 rays
+    xs = rs.integers(0, max(int(W) - bs, 1), size=n_tiles)
+    ys = rs.integers(0, max(int(H) - bs, 1), size=n_tiles)
+    px = (xs[:, None, None] + np.arange(bs)[None, :, None]
+          + rs.random((n_tiles, bs, bs))).reshape(-1)
+    py = (ys[:, None, None] + np.arange(bs)[None, None, :]
+          + rs.random((n_tiles, bs, bs))).reshape(-1)
+    pl_ = (lookat[None, :]
+           + rightv[None, :] * (2.0 * px / W - 1.0)[:, None]
+           + upv[None, :] * (2.0 * py / H - 1.0)[:, None])
+    D0 = pl_ - eye[None, :]
+    D0 /= np.maximum(np.linalg.norm(D0, axis=1, keepdims=True), 1e-12)
+    P0 = np.broadcast_to(eye[None, :], D0.shape).copy()
+    frac_p = tile_need(P0, D0, k)
+    if iterations <= 1:
+        return float(frac_p)
+
+    t_hit, i_hit = _np_brute(tris, P0, D0)
+    hit = i_hit >= 0
+    if not hit.any():
+        return float(frac_p)
+    Ph = P0 + np.where(hit, t_hit, 0.0)[:, None] * D0
+    Nv = tris.n.cpu().numpy().astype(np.float64)[np.maximum(i_hit, 0)]
+    # Flipped toward the incoming ray, as the renderer does
+    # (prog.cl:326-328).
+    Nv = np.where((Nv * D0).sum(1, keepdims=True) > 0, -Nv, Nv)
+    a = np.cross(Nv, np.where(np.abs(Nv[:, :1]) < 0.9,
+                              [1.0, 0.0, 0.0], [0.0, 1.0, 0.0]))
+    a /= np.maximum(np.linalg.norm(a, axis=1, keepdims=True), 1e-12)
+    b = np.cross(Nv, a)
+    n = Ph.shape[0]
+    r_ = np.sqrt(rs.random((n, 1)))
+    th = 2.0 * np.pi * rs.random((n, 1))
+    D1 = (r_ * np.cos(th) * a + r_ * np.sin(th) * b
+          + np.sqrt(np.maximum(1.0 - r_ ** 2, 0.0)) * Nv)
+    P1 = Ph + 1e-3 * D1
+    # A lane that missed starts a new camera ray in the wavefront.
+    P1 = np.where(hit[:, None], P1, P0)
+    D1 = np.where(hit[:, None], D1, D0)
+    frac_b = tile_need(P1, D1, k)
+    return float(0.3 * frac_p + 0.7 * frac_b)
+
+
+def auto_small_accel(tris: TrianglesSoA, cam, *, iterations: int = 5,
+                     gs: int = 128, threshold: float = 0.55,
+                     fallback: str = "minarg") -> str:
+    """'tilecull' when `estimate_tile_need_fraction` is below threshold,
+    else `fallback`, for a scene of gs + 1 to gs * MAX_GROUPS triangles
+    (`fallback` outside that range, without sampling). The default
+    threshold is the JAX package's, set on a TPU; the engine passes the
+    H100's (`runtime/engine.py::AUTO_TILECULL_THRESHOLD`)."""
+    if tris.count <= gs or tris.count > gs * MAX_GROUPS:
+        return fallback
+    frac = estimate_tile_need_fraction(tris, cam, gs=gs,
+                                       iterations=iterations)
+    return "tilecull" if frac < threshold else fallback

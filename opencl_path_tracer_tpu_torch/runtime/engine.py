@@ -11,14 +11,21 @@ loop, main.cpp:683-687 and 1171-1241). The engine owns the progressive
 state on its device, in the megakernel model (TraceState) or the
 wavefront model (WavefrontState), the camera controller (the pose, the
 bounce depth and the input flags: `runtime/controller.py`), the 1 Hz
-meter (`runtime/meter.py`) and the intersector. The JAX engine's
-`_maybe_repick_accel` (a re-run of its TPU accel predictor when the
-depth changes) has no counterpart: the port's 'auto' does not depend on
-the depth.
+meter (`runtime/meter.py`) and the intersector.
 
-Accel choice: 'auto' resolves to 'minarg' (K1 + K2) up to 8,192
-triangles and to 'pairwin' above, the JAX package's cut (engine.py:
-380-393), carried over as its choice, not a measurement on the GPU.
+Accel choice: 'auto' without a camera resolves to 'minarg' (K1 + K2) up
+to 8,192 triangles and to 'pairwin' above, the JAX package's cut
+(engine.py:380-393). Given a camera (`make_intersect_fn(cam=...)`, as
+the engine and the CLI build it) on CUDA, a scene of at most 8,192
+triangles takes the host predictor's pick instead
+(`tilecull_kernel.auto_small_accel` at AUTO_TILECULL_THRESHOLD, which an
+H100 measurement set; PERF.md): 'tilecull' where the camera's sampled
+rays need a small enough share of K6's groups, else 'minarg'; the CPU
+keeps 'minarg'. The pick depends on the bounce depth, so an engine
+whose accel is 'auto' re-picks when the controller's depth changes
+(`_maybe_repick_accel`, called by `_trace` and `_wf_steps`), caching
+one intersector per depth; an injected intersect_fn is never replaced.
+The returned intersector carries the resolved name as `.accel`.
 'pairwin' is the pair-expansion intersector in the TPU's production
 configuration (`PAIR_TPU_WINNER`: K4 seeds from the scene-spanning
 triangles, K9 and K10 test rays against their nearest Morton clusters,
@@ -45,7 +52,11 @@ triangles and 'pairwin' with ids (K1 + K2 seed, K1 tail) and
 `smooth_hit_normals` above, as the JAX package routes it
 (engine.py:334-356); the 4,096 cap comes from its kernel holding the
 whole one-hot table in the TPU's VMEM, and the port carries it over as
-the starting choice without a GPU measurement. With `textured`, the
+the starting choice without a GPU measurement. Where the predictor
+picks 'minarg' above 4,096 triangles for a smooth (untextured) path, the
+port takes 'pairwin', smooth 'auto''s choice there; the JAX engine
+passes 'minarg' on and its smooth minarg refuses (ROADMAP.md queue 3).
+The textured path takes the pick as given. With `textured`, the
 intersector returns (Hits, kd_scale) (`_make_textured_fn`): an
 ids-reporting accel resolved as for smooth shading ('auto': 'minarg',
 K1 with ids then K2, up to 4,096 triangles, 'pairwin' with ids above;
@@ -108,7 +119,7 @@ from opencl_path_tracer_tpu_torch.ops.kernels.sphere_kernel import (
     make_sphere_intersect,
 )
 from opencl_path_tracer_tpu_torch.ops.kernels.tilecull_kernel import (
-    make_scene_occluded, make_tilecull_intersect,
+    auto_small_accel, make_scene_occluded, make_tilecull_intersect,
 )
 from opencl_path_tracer_tpu_torch.ops.shading import (
     interpolate_uvs, smooth_hit_normals,
@@ -120,6 +131,13 @@ from opencl_path_tracer_tpu_torch.utils.device import resolve_device
 
 AUTO_MINARG_MAX_TRIS = 8192
 SMOOTH_MINARG_MAX_TRIS = 4096   # a TPU VMEM limit (see the docstring)
+# 'auto' picks 'tilecull' on CUDA where the predicted share of K6's group
+# tests is below this. Set by the rule of PERF.md's in-turn anchor table
+# (megakernel wall ms a sample of 'minarg' and 'tilecull' on the JAX
+# package's four anchors, H100 80GB HBM3 at 700 W,
+# runtime/accel_anchors.py): 'tilecull' won all four, so 1.0, and
+# 'minarg' only where every sampled tile needs every group.
+AUTO_TILECULL_THRESHOLD = 1.0
 
 # render_adaptive_auto's bars, copied from the JAX package
 # (engine.py:59-61) as the starting choice: they were calibrated on TPU
@@ -257,25 +275,60 @@ def _make_textured_fn(scene: Scene, accel: str, smooth: bool):
     return textured_fn
 
 
+def predicted_accel(scene: Scene, cam, iterations: int,
+                    smooth: bool = False) -> str:
+    """'auto''s pick for a scene of at most 8,192 triangles on CUDA:
+    `auto_small_accel` at AUTO_TILECULL_THRESHOLD for this camera and
+    depth. smooth (an untextured smooth path): a pick of 'minarg' above
+    SMOOTH_MINARG_MAX_TRIS becomes 'pairwin', smooth 'auto''s choice
+    there, where the JAX engine passes 'minarg' on to a smooth minarg
+    that refuses it (ROADMAP.md queue 3)."""
+    accel = auto_small_accel(scene.tris, cam, iterations=iterations,
+                             threshold=AUTO_TILECULL_THRESHOLD)
+    if (smooth and accel == "minarg"
+            and scene.num_triangles > SMOOTH_MINARG_MAX_TRIS):
+        return "pairwin"
+    return accel
+
+
 def make_intersect_fn(scene: Scene, accel: str = "auto", origin=None,
-                      smooth: bool = False, textured: bool = False):
+                      smooth: bool = False, textured: bool = False,
+                      cam=None, iterations: int = 5):
     """intersect(rays) -> Hits over the scene's triangles, min-merged with
     its analytic spheres (the triangle stream wins exact-t ties). origin
-    (the camera eye) orders the 'tilecull' groups front to back.
-    smooth=True interpolates the vertex normals of scene.attribs at the
-    triangle hits (analytic spheres have exact normals already).
-    textured=True returns (Hits, kd_scale) instead (`_make_textured_fn`):
-    it needs scene.textures, the corner UVs of scene.attribs and an
-    ids-reporting accel ('auto' resolves as for smooth shading), and
-    composes with smooth."""
+    (the camera eye; cam.eye when a camera is given) orders the
+    'tilecull' groups front to back. cam and iterations: with
+    accel='auto' on CUDA and at most 8,192 triangles, the accel is the
+    predictor's pick for this camera and depth (see the module's
+    docstring). smooth=True interpolates the vertex normals of
+    scene.attribs at the triangle hits (analytic spheres have exact
+    normals already). textured=True returns (Hits, kd_scale) instead
+    (`_make_textured_fn`): it needs scene.textures, the corner UVs of
+    scene.attribs and an ids-reporting accel ('auto' resolves as for
+    smooth shading), and composes with smooth. The intersector's
+    `.accel` is the resolved accel."""
     on_cuda = scene.tris.device.type == "cuda"
     if smooth and not _has_vertex_normals(scene):
         raise ValueError(
             "smooth=True but the scene has no vertex normals; build it "
             "with add_obj(smooth_normals=True), add_sphere(smooth=True) "
             "or add_triangle(vn=...)")
+    if cam is not None and origin is None:
+        origin = tuple(float(v) for v in cam.eye.cpu())
+    if (accel == "auto" and cam is not None and on_cuda
+            and scene.num_triangles <= AUTO_MINARG_MAX_TRIS):
+        accel = predicted_accel(scene, cam, iterations, smooth and not
+                                textured)
     accel = resolve_accel(accel, scene.num_triangles, on_cuda,
                           smooth or textured)
+    fn = _make_fn(scene, accel, origin, smooth, textured)
+    fn.accel = accel
+    return fn
+
+
+def _make_fn(scene: Scene, accel: str, origin, smooth: bool,
+             textured: bool):
+    """make_intersect_fn's intersector for a resolved accel."""
     if textured:
         return _make_textured_fn(scene, accel, smooth)
     if smooth:
@@ -320,9 +373,16 @@ class RenderEngine:
         self.meter = PerfMeter()
         cam = self.camera
         self.intersect_fn = intersect_fn or make_intersect_fn(
-            self.scene, config.accel,
-            origin=tuple(float(v) for v in cam.eye.cpu()),
-            smooth=config.smooth, textured=config.textured)
+            self.scene, config.accel, smooth=config.smooth,
+            textured=config.textured, cam=cam, iterations=config.iterations)
+        # 'auto' re-picks on a depth change where the predictor decides
+        # it (`_maybe_repick_accel`); an injected intersector stays.
+        self._accel_auto = (
+            intersect_fn is None and config.accel == "auto"
+            and self.device.type == "cuda"
+            and self.scene.num_triangles <= AUTO_MINARG_MAX_TRIS)
+        self._accel_iters = config.iterations
+        self._accel_by_iters = {config.iterations: self.intersect_fn}
         # The environment: a map (host-built once), the dormant sky, or
         # None (the shipped kernel's plain break on a miss).
         if config.env_map is not None:
@@ -389,7 +449,25 @@ class RenderEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _maybe_repick_accel(self, iterations: int) -> None:
+        """Re-run 'auto''s choice when the live bounce depth changes (the
+        reference's '+'/'-' keys, main.cpp:1043-1054), as the JAX engine
+        does: one intersector per depth, built at the current pose the
+        first time that depth is asked for, and reused after."""
+        if not self._accel_auto or iterations == self._accel_iters:
+            return
+        fn = self._accel_by_iters.get(iterations)
+        if fn is None:
+            fn = make_intersect_fn(
+                self.scene, "auto", smooth=self.cfg.smooth,
+                textured=self.cfg.textured, cam=self.camera,
+                iterations=iterations)
+            self._accel_by_iters[iterations] = fn
+        self.intersect_fn = fn
+        self._accel_iters = iterations
+
     def _trace(self, cam, state, with_stats: bool, iterations: int):
+        self._maybe_repick_accel(iterations)
         return megakernel.trace_sample(
             cam, self.scene.mats, state, intersect_fn=self.intersect_fn,
             iterations=iterations, mode=self.cfg.mode, key=self.key,
@@ -464,6 +542,7 @@ class RenderEngine:
     def _wf_steps(self, state, k: int, cap: int, variance=None):
         """k wavefront steps with samples capped at `cap`; variance:
         (tol, min_samples) for adaptive sampling."""
+        self._maybe_repick_accel(self.iterations)
         vkw = ({} if variance is None
                else dict(variance_tol=variance[0], min_samples=variance[1]))
         cam = self.camera

@@ -44,6 +44,9 @@ Needs a GPU:
     python -m opencl_path_tracer_tpu_torch.runtime.profile \
         --scene textured-grid --textured
     python -m opencl_path_tracer_tpu_torch.runtime.profile --denoise
+    python -m opencl_path_tracer_tpu_torch.runtime.profile --model wavefront \
+        --scene cornell-analytic --nee --dispersion 30 --bands 3
+    python -m opencl_path_tracer_tpu_torch.runtime.profile --sphere-res 26 50
 
 --model megakernel and wavefront render --spp samples through
 `RenderEngine` (with --nee, --nee-select, --accel, --smooth,
@@ -63,6 +66,13 @@ temporary directory and seen from the Cornell preset, as `chip_smoke.py`
 renders them; --textured samples their maps. --denoise profiles one
 `RenderEngine.denoised_image` call (the guides' primary rays and the
 filter) after the render, per call in place of per sample.
+--dispersion V_D (--model wavefront, with --bands) profiles
+`models.spectral.render_dispersive` as `ptx-torch render --dispersion`
+runs it, --spp samples per band. --sphere-res LAT LON tessellates the
+Cornell box's spheres finer (26 50: 5,012 triangles, the dense anchor of
+the auto accel's threshold). The JSON line's `accel_resolved` is the
+accel the render's intersector resolved to ('auto' on CUDA is the
+camera predictor's pick).
 """
 
 from __future__ import annotations
@@ -96,6 +106,14 @@ def _workload(args, dev):
                 tmp, grid=args.scene == "textured-grid",
                 sphere=args.scene == "textured-room", device=dev)
         camera = _camera_preset("cornell", args)
+    elif args.sphere_res:
+        from opencl_path_tracer_tpu_torch.scene import library
+        if args.scene != "cornell":
+            raise SystemExit("--sphere-res takes --scene cornell")
+        scene = library.cornell_box(with_spheres=True,
+                                    sphere_res=tuple(args.sphere_res),
+                                    smooth_spheres=args.smooth, device=dev)
+        camera = _camera_preset(args.scene, args)
     else:
         scene = _build_scene(args.scene, dev, args.models_dir, args.smooth)
         camera = _camera_preset(args.scene, args)
@@ -110,12 +128,15 @@ def _workload(args, dev):
                            env_light=args.env, env_map=args.envmap,
                            env_scale=args.env_scale,
                            env_nee=not args.no_env_nee)
+        if args.dispersion is not None:
+            return _dispersive_workload(args, scene, cfg, dev)
         isect = None
         if args.intersect == "minarg-fused":
             isect = make_minarg_intersect(scene.tris, fuse_fetch=True)
         elif args.intersect == "mxu":
             isect = make_mxu_intersect(scene.tris)
         eng = RenderEngine(scene, cfg, intersect_fn=isect, device=dev)
+        args.accel_resolved = getattr(eng.intersect_fn, "accel", None)
         # warm-up: kernel build, allocator, first launches
         eng.render(1, progress=False)
         if args.denoise:
@@ -152,6 +173,39 @@ def _workload(args, dev):
             F, I, ctr = step(F, I, ctr)
         box[0] = (F, I, ctr)
         return (int(I[0].sum()) - s0) / (w * h), args.steps
+    return run
+
+
+def _dispersive_workload(args, scene, cfg, dev):
+    """`render_dispersive` at --spp samples a band, built as `ptx-torch
+    render --dispersion` builds it."""
+    from opencl_path_tracer_tpu_torch.cli import _spectral_nee
+    from opencl_path_tracer_tpu_torch.models import spectral
+    from opencl_path_tracer_tpu_torch.runtime.controller import (
+        CameraController,
+    )
+    from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
+    if cfg.model != "wavefront":
+        raise SystemExit("--dispersion needs --model wavefront")
+    cam = CameraController(cfg, device=dev).camera(cfg.width, cfg.height)
+    isect = make_intersect_fn(scene, cfg.accel, smooth=cfg.smooth,
+                              textured=cfg.textured, cam=cam,
+                              iterations=cfg.iterations)
+    args.accel_resolved = isect.accel
+    nee_tab, occ = _spectral_nee(cfg, scene)
+
+    def render(spp):
+        spectral.render_dispersive(
+            cam, scene.mats, intersect_fn=isect,
+            num_pixels=cfg.width * cfg.height, iterations=cfg.iterations,
+            min_spp=spp, bands=args.bands, v_d=args.dispersion,
+            mode=cfg.mode, nee=nee_tab, occluded_fn=occ)
+
+    render(1)   # warm-up
+
+    def run():
+        render(args.spp)
+        return args.spp, None
     return run
 
 
@@ -223,7 +277,17 @@ def main(argv=None) -> int:
                     choices=("minarg-fused", "mxu"),
                     help="megakernel and wavefront: an intersector that no "
                     "accel names (K14 or K15) in place of --accel's")
+    ap.add_argument("--dispersion", type=float, default=None,
+                    metavar="V_D",
+                    help="wavefront: the spectral path at this Abbe number")
+    ap.add_argument("--bands", type=int, default=3,
+                    help="bands of --dispersion")
+    ap.add_argument("--sphere-res", type=int, nargs=2, default=None,
+                    metavar=("LAT", "LON"),
+                    help="cornell: the spheres' tessellation (default 12 "
+                         "18)")
     args = ap.parse_args(argv)
+    args.accel_resolved = None
     dev = resolve_device("cuda")
     run = _workload(args, dev)
     # The profiler slows the host; the busy share divides the profiled
@@ -271,7 +335,10 @@ def main(argv=None) -> int:
         "smooth": args.smooth, "intersect": args.intersect,
         "dof": args.dof, "env": args.env, "envmap": args.envmap,
         "textured": args.textured, "denoise": args.denoise,
-        "env_nee": not args.no_env_nee,
+        "env_nee": not args.no_env_nee, "accel_resolved": args.accel_resolved,
+        "dispersion": args.dispersion,
+        "bands": args.bands if args.dispersion is not None else None,
+        "sphere_res": args.sphere_res,
         "samples_per_pixel": samples, "steps": steps,
         "device": torch.cuda.get_device_name(dev),
         "wall_ms_per_sample": per(wall_plain * 1e3, samples),

@@ -1603,3 +1603,78 @@ def test_seventeenth_slice_sphere_table_equals_first_kernel(cuda,
                  lambda: k3.sphere_table_counted(cam8, table, groups)):
         with pytest.raises(RuntimeError, match="disabled"):
             call()
+
+
+@pytest.mark.cuda
+def test_twenty_first_slice_auto_pick_repick_and_presort(cuda):
+    """The engine's 'auto' on the card is the predictor's pick at
+    AUTO_TILECULL_THRESHOLD, re-picked and cached per depth; presorted
+    K6 gives presort='none''s Hits and ids."""
+    from opencl_path_tracer_tpu_torch.config import CameraConfig, RenderConfig
+    from opencl_path_tracer_tpu_torch.ops import raygen
+    from opencl_path_tracer_tpu_torch.ops.kernels import tilecull_kernel as tk
+    from opencl_path_tracer_tpu_torch.runtime import engine
+    scene = library.cornell_box(with_spheres=True, device=cuda)
+    eng = engine.RenderEngine(scene, RenderConfig(
+        width=64, height=48, iterations=5, spp=1, camera=CameraConfig(
+            fov=60.0, yaw=0.0, pitch=0.0, shift=(0.0, 0.0, 0.0))),
+        device=cuda)
+    cam = eng.camera
+    assert eng._accel_auto
+    assert eng.intersect_fn.accel == tk.auto_small_accel(
+        scene.tris, cam, iterations=5,
+        threshold=engine.AUTO_TILECULL_THRESHOLD)
+    first = eng.intersect_fn
+    for _ in range(4):
+        eng.controller.key_down("-")
+    eng.frame()
+    one = eng.intersect_fn
+    assert one.accel == tk.auto_small_accel(
+        scene.tris, cam, iterations=1,
+        threshold=engine.AUTO_TILECULL_THRESHOLD)
+    for _ in range(4):
+        eng.controller.key_down("+")
+    eng.frame()
+    assert eng.intersect_fn is first and eng._accel_by_iters[1] is one
+    assert np.isfinite(eng.image()).all()
+    origin = tuple(float(v) for v in cam.eye.cpu())
+    ids = raygen.pixel_ids(64, 48, cuda)
+    half = torch.full(ids.shape, 0.5, device=cuda)
+    rays = raygen.camera_rays(cam, ids, half, half)
+    ref, rid = tk.make_tilecull_intersect(scene.tris, with_ids=True,
+                                          origin=origin)(rays)
+    for presort in ("octant", "morton"):
+        h, i = tk.make_tilecull_intersect(scene.tris, with_ids=True,
+                                          origin=origin,
+                                          presort=presort)(rays)
+        assert torch.equal(h.t, ref.t) and torch.equal(i, rid)
+        assert torch.equal(h.mati, ref.mati)
+
+
+@pytest.mark.cuda
+def test_twenty_first_slice_flat_bands_are_the_wavefront_render(cuda):
+    """Three bands without dispersion on the card: the plain wavefront
+    render, bit for bit (K1, K2, K3 and K7 on every band)."""
+    from opencl_path_tracer_tpu_torch.models import spectral, wavefront
+    from opencl_path_tracer_tpu_torch.ops.kernels.tilecull_kernel import (
+        make_scene_occluded)
+    from opencl_path_tracer_tpu_torch.ops.nee import build_emitter_table
+    from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
+    scene = library.cornell_box(with_spheres=True, analytic_spheres=True,
+                                device=cuda)
+    cam = library.cornell_camera(64, 48, device=cuda)
+    kw = dict(intersect_fn=make_intersect_fn(scene, cam=cam),
+              num_pixels=64 * 48, iterations=5, min_spp=2, mode="fast",
+              nee=build_emitter_table(scene.tris, scene.mats, scene.spheres),
+              occluded_fn=make_scene_occluded(scene))
+    before = dict(_build.launches)
+    flat = spectral.render_dispersive(cam, scene.mats, bands=3, v_d=None,
+                                      **kw)
+    assert all(_build.launches[k] > before[k]
+               for k in ("minarg", "refine1", "spheres", "anyhit"))
+    st = wavefront.render_wavefront(cam, scene.mats, exact_spp=True,
+                                    device=cuda, **kw)
+    assert torch.equal(flat, wavefront.colors_by_pixel(st, 64 * 48))
+    disp = spectral.render_dispersive(cam, scene.mats, bands=3, v_d=30.0,
+                                      **kw)
+    assert disp.is_cuda and bool(torch.isfinite(disp).all())

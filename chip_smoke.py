@@ -271,6 +271,32 @@ path must launch K6 and K2 in place of K1 (and of K8): `path_kernels`;
 `megakernel cornell minarg` and `megakernel reference smooth minarg`
 keep K1, K2 and K8 on main paths by name.
 
+The bvh and median walkers, K10's full form and the pair options
+(`check_slice22`, at 1920x1080, 5 bounces, fast mode): K10's full form
+(five streams) on round 1's pairs of the 'pairmx' shape (K9's 8 nearest
+of the clusters of 512, tiles of 512) of the stress camera and
+first-bounce rays is torch.equal to its plain version on the first
+K10_PLAIN_PAIRS pairs, its t and pend to the thin form's and its
+attributes to K11's fetch of the thin form's winners on the whole
+launch, with and without infeat (the fused features), and the kernels
+line has `pair_visit_full` rows. `megakernel stress pairmx` (STRESS_SPP)
+renders through the engine (K4, K9, K10's full form; neither the thin
+form nor K11), and its intersector's t equals K4's on the camera and
+first-bounce rays, n and mati but at exact-t ties (each counted lane
+checked to be one), with the schedule printed. move='chain' with
+PAIR_TPU_WINNER's other settings is held to K4 the same way and timed in
+turns against move='sort'; approx=True (thin and full) prints its
+resolved share and its resolved lanes' Hits equal the exact path's.
+'bvh' and 'median' with force on the cornell camera rays and the first
+BVH_RAYS stress first-bounce rays: hit masks and t within rtol 1e-4 of
+K4's, each lane outside a ray grazing an edge; their iterations and ms
+a call; `megakernel cornell bvh` (1 spp) renders and launches no kernel
+of the port. `build_median_tree_native` on stress is bit-equal to the
+Python builder and `load_obj_native` equals `io/obj.py` on every model
+of tests/assets/models. `check_no_fallback` also holds K10's full form to
+its kernel (no plain version on CUDA) and 'bvh' and 'median' refused on
+CUDA without force.
+
 The last two lines are a JSON object per kernel (time, plain time,
 bound, launches) and the verdict; the line before them, the smoke's total
 time. Any failed phase raises, and the
@@ -357,6 +383,9 @@ KERNEL_META = {
                   ":419"),
     "pair_visit": ("opencl_path_tracer_tpu_torch/csrc/pair_visit.cu",
                    "opencl_path_tracer_tpu/ops/pallas/pair_mxu.py:141"),
+    # K10's full form (thin=False, the 'pairmx' payload), another entry.
+    "pair_visit_full": ("opencl_path_tracer_tpu_torch/csrc/pair_visit.cu",
+                        "opencl_path_tracer_tpu/ops/pallas/pair_mxu.py:141"),
     "attr_fetch": ("opencl_path_tracer_tpu_torch/csrc/attr_fetch.cu",
                    "opencl_path_tracer_tpu/ops/pallas/pair_mxu.py:373"),
     "pair_vpu": ("opencl_path_tracer_tpu_torch/csrc/pair_vpu.cu",
@@ -435,6 +464,9 @@ PATH_KERNELS = {
     "megakernel cornell repick": ("minarg", "refine1"),
     "wavefront cornell-analytic nee dispersion": ("minarg", "refine1",
                                                   "spheres", "anyhit"),
+    "megakernel stress pairmx": ("dense", "pair_cand", "pair_visit_full"),
+    # The walker is plain PyTorch: the path launches no kernel of the port.
+    "megakernel cornell bvh": (),
 }
 FRAMES, FRAMES_MOVE, FRAMES_AFTER = 30, 3, 6   # check_slice19's frame path
 TEX_SPP = 2   # spp of check_slice20's textured renders and its CLI calls
@@ -449,6 +481,8 @@ ADAPTIVE_TOL, ADAPTIVE_MIN_SPP, ADAPTIVE_MAX_SPP = 0.05, 8, 32
 PATH_EXCLUDES = {
     "megakernel cornell minarg-fused": ("minarg", "refine1"),
     "megakernel cornell mxu": ("minarg", "refine1", "dense"),
+    "megakernel stress pairmx": ("pair_visit", "attr_fetch"),
+    "megakernel cornell bvh": ("minarg", "refine1", "tilecull", "dense"),
 }
 # Entries kept for the checks only (a redesigned kernel's first body and
 # its counting entry): no main path may launch them.
@@ -2540,6 +2574,7 @@ def check_no_fallback(torch, scenes):
         "pair_visit": lambda: pm.pair_visits(*visit_args),
         "pair_visit_simt": lambda: pm.pair_visits_simt(*visit_args),
         "pair_visit_count": lambda: pm.pair_visits_counted(*visit_args),
+        "pair_visit_full": lambda: pm.pair_visits_full(*visit_args),
         "attr_fetch": lambda: pm.fetch_attrs(
             torch.zeros(64, device="cuda"),
             torch.zeros((256, 24), device="cuda")),
@@ -2586,6 +2621,33 @@ def check_no_fallback(torch, scenes):
     finally:
         _build.library = real
     print(f"no fallback: with the loader broken, {', '.join(calls)} raise")
+    # K10's full form on CUDA tensors launches and never runs its plain
+    # versions.
+    from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
+    real_plain = pm.pair_visits_full_plain, pm.pair_visits_plain
+
+    def plain_called(*a, **k):
+        raise SmokeError("pair_visits_full ran a plain version on CUDA")
+
+    pm.pair_visits_full_plain = pm.pair_visits_plain = plain_called
+    try:
+        before = _build.launches["pair_visit_full"]
+        pm.pair_visits_full(*visit_args)
+        torch.cuda.synchronize()
+        need(_build.launches["pair_visit_full"] == before + 1,
+             "pair_visits_full did not launch its kernel")
+    finally:
+        pm.pair_visits_full_plain, pm.pair_visits_plain = real_plain
+    refused = []
+    for accel in ("bvh", "median"):
+        try:
+            make_intersect_fn(scenes["cornell"], accel)
+        except ValueError as e:
+            refused.append(f"{accel}: {e}")
+            continue
+        raise SmokeError(f"accel {accel!r} ran on CUDA without force")
+    print("no fallback: pair_visits_full on CUDA tensors launched its kernel "
+          "once and no plain version; without force " + "; ".join(refused))
 
 
 def path_kernels(name, accels=None):
@@ -3784,6 +3846,405 @@ def _slice21_spectral(torch, scene, cfg, add):
           f"launches {counts}")
 
 
+BVH_RAYS = 262_144   # stress first-bounce rays the walkers take in check_slice22
+K10_PLAIN_PAIRS = 65_536   # K10's plain check on the first pairs, as check_pairs
+
+
+def tie_counts(torch, k1, pack, r8, lanes, t):
+    """For each lane of `lanes` (indices into the (8, R) rays r8), the
+    triangles of `pack` whose exact test (K1's, `exact_test`) accepts the
+    ray at exactly t[lane]: 2 or more is an exact-t tie."""
+    out = []
+    for s in range(0, lanes.numel(), 256):
+        sel = lanes[s:s + 256]
+        tt, ok = k1.exact_test(pack, r8[:, sel].contiguous())
+        out.append((ok & (tt == t[sel][None, :])).sum(0))
+    return torch.cat(out) if out else lanes.new_zeros(0)
+
+
+def grazing(torch, np, pack, r8, lane, t_hits):
+    """Whether ray `lane` passes within float32 rounding of an edge of a
+    triangle whose plane it meets at one of t_hits (float64 plane and
+    edge values; relative margin under 2^-18 of the terms' sizes): the
+    lanes where two roundings of the same test may disagree."""
+    c = pack[:, :16].double().cpu().numpy()
+    p = r8[0:3, lane].double().cpu().numpy()
+    d = r8[3:6, lane].double().cpu().numpy()
+    vn = c[:, 0:3] @ d
+    with np.errstate(divide="ignore", invalid="ignore"):
+        tp = (c[:, 3] - c[:, 0:3] @ p) / vn
+        best = np.inf
+        for th in t_hits:
+            if not th > 0:
+                continue
+            near = np.isfinite(tp) & (np.abs(tp - th) <= 1e-5 * abs(th))
+            for b in (4, 8, 12):
+                m = c[near, b:b + 3]
+                e = m @ p + tp[near] * (m @ d) - c[near, b + 3]
+                size = (np.abs(m) @ np.abs(p) + np.abs(tp[near])
+                        * (np.abs(m) @ np.abs(d)) + np.abs(c[near, b + 3]))
+                if e.size:
+                    best = min(best, float(np.min(np.abs(e) / size)))
+    return best < 2.0 ** -18
+
+
+def attrs_vs_k4(torch, k1, name, h, r8, pack, dense_out, where):
+    """An exact accel's Hits against K4's over the scene: t torch.equal;
+    n and mati equal but at exact-t ties between distinct triangles,
+    which are counted (each lane where they differ must be one). Returns
+    the tie lanes' count."""
+    t4, g4, nx, ny, nz, m4 = dense_out
+    torch.cuda.synchronize()
+    need(torch.equal(h.t, torch.where(t4 < k1.BIG, t4,
+                                      torch.full_like(t4, -1.0))),
+         f"{name}: t differs from K4's on {where}")
+    hit = t4 < k1.BIG
+    diff = hit & ((h.n[0] != nx) | (h.n[1] != ny) | (h.n[2] != nz)
+                  | (h.mati != m4.to(torch.int32)))
+    lanes = torch.nonzero(diff).flatten()
+    ties = tie_counts(torch, k1, pack, r8, lanes, t4)
+    need(bool((ties >= 2).all()),
+         f"{name}: n or mati differs from K4's on {where} at lanes that "
+         "are no exact-t tie")
+    return int(lanes.numel())
+
+
+def check_slice22(torch, np, scenes, cam, inputs, errs):
+    """The bvh and median walkers, K10's full form and the pair options
+    at 1920x1080 (the module docstring). Returns (the launches of its main
+    paths, the kernels line's inputs for K10's full form)."""
+    from opencl_path_tracer_tpu_torch.config import CameraConfig, RenderConfig
+    from opencl_path_tracer_tpu_torch.ops.kernels import _build
+    from opencl_path_tracer_tpu_torch.ops.kernels import (
+        intersect_kernel as k1, pair_mxu as pm, sorted_intersect as si)
+    from opencl_path_tracer_tpu_torch.runtime.engine import RenderEngine
+    t_phase = time.perf_counter()
+    launches = {}
+    preset = CameraConfig(fov=60.0, yaw=0.0, pitch=0.0,
+                          shift=(0.0, 0.0, 0.0))
+
+    def cfg(**kw):
+        return RenderConfig(width=W, height=H, iterations=BOUNCES,
+                            mode="fast", camera=preset, **kw)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    stress = scenes["stress"]
+    cam_rays = camera_rays(cam)
+    bounce = inputs["stress bounce rays"]
+    rays = {"camera": cam_rays, "bounce": bounce}
+    r8s = {k: k1.pack_rays(v.p, v.d).contiguous() for k, v in rays.items()}
+    pack = k1.build_tri_pack(stress.tris)
+    dense = {k: k1.dense(v, pack) for k, v in r8s.items()}
+    out = _slice22_k10(torch, stress, r8s, errs)
+    pairmx = _slice22_pairmx(torch, np, stress, cfg, add, rays, r8s, pack,
+                             dense, RenderEngine)
+    _slice22_chain_approx(torch, stress, rays, r8s, pack, dense, pairmx)
+    _slice22_walkers(torch, np, scenes, cfg, add, bounce, RenderEngine)
+    _slice22_native(torch, stress)
+    print(f"check_slice22: {time.perf_counter() - t_phase:.1f} s")
+    return launches, out
+
+
+def _slice22_k10(torch, stress, r8s, errs):
+    """K10's full form (and, as infeat needs a flag, both forms on the
+    fused features) on round 1's pairs of the 'pairmx' shape (clusters
+    of 512, K9's 8 nearest, tiles of 512) of the stress camera and
+    first-bounce rays: torch.equal to its plain version on the first
+    K10_PLAIN_PAIRS pairs, its t and pend equal to the thin form's and
+    its attributes to K11's fetch of the thin form's winners on the whole
+    launch. Returns the kernels line's inputs."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import (
+        intersect_kernel as k1, pair_mxu as pm, sorted_intersect as si)
+    from opencl_path_tracer_tpu_torch.ops.kernels.march_kernel import (
+        build_march_scene)
+    cs, trp, l1 = 512, 512, 8
+    _, rest = si.split_by_size(stress.tris)
+    ms, _, c = build_march_scene(rest, cs)
+    boxes_r = torch.zeros((-(-c // 128) * 128, 8), device="cuda")
+    boxes_r[:c] = torch.cat([ms.boxes_lo, ms.boxes_hi,
+                             torch.zeros((c, 2), device="cuda")], 1)
+    out = {}
+    for rname, r8 in r8s.items():
+        ids = si.run_candidates(r8, boxes_r, l1, c)[0]
+        keys_s, r8p, _ = pm.sort_pairs([r8[k] for k in range(6)], ids, c,
+                                       trp)
+        nv = int((pm.build_visits(keys_s, trp, c)[1] >= 0).sum())
+        args = (keys_s, r8p, ms.trig, ms.tric, cs, trp, c)
+        n = K10_PLAIN_PAIRS
+        pre = (keys_s[:n], r8p[:, :n].contiguous(), ms.trig, ms.tric, cs,
+               trp, c)
+        for infeat in (False, True):
+            form = "infeat " if infeat else ""
+            full = pm.pair_visits_full(*args, infeat=infeat)
+            t, gp = pm.pair_visits(*args, infeat=infeat)
+            plain, plain_ms = timed(torch, lambda: pm.pair_visits_full_plain(
+                *pre, infeat=infeat))
+            for a, b in zip(full, plain):
+                errs["pair_visit_full"] = max(
+                    errs["pair_visit_full"], float((a[:n].double()
+                                                    - b.double()).abs().max()))
+            need(all(torch.equal(a[:n], b) for a, b in zip(full, plain)),
+                 f"pair_visit_full ({form}) differs from its plain version on "
+                 f"the first {n} {rname} pairs")
+            g = torch.floor(gp / 2.0)
+            pend = gp - 2.0 * g
+            fetched = pm.fetch_attrs(torch.where(t < k1.BIG, g, -1.0),
+                                     ms.tric)
+            mp = full[4]
+            need(torch.equal(full[0], t) and torch.equal(
+                mp - 2.0 * torch.floor(mp / 2.0), pend),
+                 f"pair_visit_full's {form}t or pend differs from the thin "
+                 f"form's on the {rname} pairs")
+            need(all(torch.equal(a, b) for a, b in zip(full[1:4], fetched))
+                 and torch.equal(torch.floor(mp / 2.0), fetched[3]),
+                 f"pair_visit_full's {form}attributes differ from K11's "
+                 f"fetch of the thin form's winners on the {rname} pairs")
+            print(f"pair_visit_full {form}on {keys_s.shape[0]} stress "
+                  f"{rname} pairs (cs {cs}, trp {trp}, l {l1}; {nv} visits, "
+                  f"{int((t < k1.BIG).sum())} hits, {int(pend.sum())} "
+                  f"pending): torch.equal to its plain version on the first "
+                  f"{n} pairs ({plain_ms:.1f} ms plain); t and pend equal "
+                  "the thin form's, the attributes K11's fetch of its "
+                  "winners on every pair")
+            if not infeat:
+                out["pair_visit_full" + ("" if rname == "camera"
+                                         else " bounce")] = (
+                    args, nv, pre, plain_ms)
+        same = [torch.equal(a, b) for a, b in zip(
+            pm.pair_visits_full(*args), pm.pair_visits_full(*args,
+                                                            infeat=True))]
+        print(f"pair_visit_full on the {rname} pairs, infeat against the "
+              f"separate features: streams equal {same}")
+        per = in_turns(torch, {
+            "thin": lambda: pm.pair_visits(*args),
+            "full": lambda: pm.pair_visits_full(*args),
+            "full infeat": lambda: pm.pair_visits_full(*args, infeat=True)})
+        print(f"pair_visit on the {rname} pairs in turns: " + turns_line(per))
+    return out
+
+
+def _slice22_pairmx(torch, np, stress, cfg, add, rays, r8s, pack, dense,
+                    RenderEngine):
+    """'megakernel stress pairmx' through the engine, and its
+    intersector's hits against K4's on the camera and first-bounce
+    rays, with the schedule's counts. Returns the intersector."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import (
+        intersect_kernel as k1, sorted_intersect as si)
+    name = "megakernel stress pairmx"
+    eng = RenderEngine(stress, cfg(spp=STRESS_SPP, accel="pairmx"),
+                       device="cuda")
+    _, dt, counts = run_path(torch, name,
+                             lambda: eng.render(STRESS_SPP, progress=False),
+                             "pairmx")
+    add(counts)
+    img = eng.image()
+    need(img.shape == (H, W, 3) and bool(np.isfinite(img).all())
+         and img.mean() > 0.0, f"{name}: bad image")
+    print(f"main path {name}: {W}x{H}, {BOUNCES} bounces, {STRESS_SPP} spp "
+          f"in {dt:.3f} s: {eng.rays_traced / dt / 1e6:.1f} Mrays/s, "
+          f"{STRESS_SPP / dt:.2f} samples/s; launches {counts}")
+    si.STATS = []
+    try:
+        ties = {}
+        for rname, r in rays.items():
+            h = eng.intersect_fn(r)
+            ties[rname] = attrs_vs_k4(torch, k1, name, h, r8s[rname], pack,
+                                      dense[rname], f"{rname} rays")
+        stats = si.STATS
+    finally:
+        si.STATS = None
+    pair_stats_line(f"{name} camera, bounce rays", stats)
+    print(f"{name}: hits equal K4's (t torch.equal; n and mati but at "
+          f"exact-t ties: {ties})")
+    return eng.intersect_fn
+
+
+def _slice22_chain_approx(torch, stress, rays, r8s, pack, dense, pairmx):
+    """move='chain' with PAIR_TPU_WINNER's other settings: t equal to
+    K4's, n and mati but at exact-t ties (counted), the tiers' counts,
+    the time in turns against move='sort'; approx=True (thin: the
+    'pairwin' settings; full: 'pairmx''s): the resolved share, the
+    resolved lanes' Hits equal to the exact path's."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import (
+        intersect_kernel as k1, sorted_intersect as si)
+    kw = dict(si.PAIR_TPU_WINNER)
+    chain = si.make_pair_intersect(stress.tris, **dict(kw, move="chain"))
+    sort = si.make_pair_intersect(stress.tris, **kw)
+    si.STATS = []
+    try:
+        ties = {}
+        for rname, r in rays.items():
+            ties[rname] = attrs_vs_k4(torch, k1, "chain", chain(r),
+                                      r8s[rname], pack, dense[rname],
+                                      f"{rname} rays")
+        stats = si.STATS
+    finally:
+        si.STATS = None
+    pair_stats_line("chain camera, bounce rays", stats)
+    print("chain: the chain's tail over "
+          f"{[s['chain_tail_rays'] for s in stats]} rays in "
+          f"{[s['chain_tail_iterations'] for s in stats]} iterations; hits "
+          f"equal K4's (t torch.equal; n and mati but at exact-t ties "
+          f"{ties}, where the chain keeps the lowest march-ordered row)")
+    for rname, r in rays.items():
+        per = in_turns(torch, {"sort": lambda r=r: sort(r),
+                               "chain": lambda r=r: chain(r)}, turns=3,
+                       reps=3)
+        print(f"chain against sort on stress {rname} rays in turns: "
+              + turns_line(per))
+    for form, kwa, exact in (("thin", kw, sort),
+                             ("full", dict(mxu=True, trp=512), pairmx)):
+        approx = si.make_pair_intersect(stress.tris, **dict(kwa, approx=True))
+        for rname, r in rays.items():
+            h, res = approx(r)
+            e = exact(r)
+
+            def at(x):
+                return x[res]
+
+            ok = (torch.equal(at(h.t), at(e.t))
+                  and torch.equal(at(h.mati), at(e.mati))
+                  and all(torch.equal(at(a), at(b)) for a, b in zip(h.n, e.n))
+                  and all(torch.equal(at(a), at(b)) for a, b in zip(h.p, e.p)))
+            need(ok, f"approx ({form}): a resolved lane's hit differs from "
+                 f"the exact path's on {rname} rays")
+            print(f"approx ({form}) on stress {rname} rays: resolved share "
+                  f"{float(res.float().mean()):.4f}, the resolved lanes' "
+                  "Hits equal the exact path's")
+
+
+def _slice22_walkers(torch, np, scenes, cfg, add, bounce, RenderEngine):
+    """'bvh' and 'median' with force on the cornell camera rays and on the
+    first BVH_RAYS stress first-bounce rays: hit masks against K4's, t
+    within rtol 1e-4, the lanes outside counted and each one a grazing
+    ray; iterations and ms a call; 'megakernel cornell bvh', 1 spp."""
+    from opencl_path_tracer_tpu_torch.core.types import Rays
+    from opencl_path_tracer_tpu_torch.ops.kernels import intersect_kernel as k1
+    from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
+    from opencl_path_tracer_tpu_torch.scene import library
+    corn = scenes["cornell"]
+    cut = Rays(p=tuple(x[:BVH_RAYS].contiguous() for x in bounce.p),
+               d=tuple(x[:BVH_RAYS].contiguous() for x in bounce.d))
+    cases = (("cornell camera", corn,
+              camera_rays(library.cornell_camera(W, H, device="cuda"))),
+             ("stress first-bounce", scenes["stress"], cut))
+    for where, scene, r in cases:
+        r8 = k1.pack_rays(r.p, r.d).contiguous()
+        pack = k1.build_tri_pack(scene.tris)
+        t4, g4 = k1.dense(r8, pack)[:2]
+        hit4 = t4 < k1.BIG
+        for accel in ("bvh", "median"):
+            t0 = time.perf_counter()
+            fn = make_intersect_fn(scene, accel, force=True)
+            torch.cuda.synchronize()
+            t_build = time.perf_counter() - t0
+            h, ms_call = timed(torch, lambda: fn(r))
+            hit = h.t > 0
+            close = (h.t - t4).abs() <= 1e-4 * t4.abs()
+            bad = torch.nonzero((hit != hit4) | (hit4 & ~close)).flatten()
+            explained = sum(grazing(torch, np, pack, r8, int(i),
+                                    (float(h.t[i]), float(t4[i])))
+                            for i in bad[:64].tolist())
+            need(bad.numel() <= 64 and explained == bad.numel(),
+                 f"{accel} on {where} rays: {bad.numel()} lanes off K4's "
+                 f"(hit mask or t beyond rtol 1e-4), {explained} of them "
+                 "grazing an edge")
+            n_diff = int((hit4 & (h.t != t4)).sum())
+            print(f"{accel} (force) on {r.count} {where} rays: "
+                  f"{fn.iterations} iterations ({fn.steps} steps run), "
+                  f"{ms_call:.1f} ms a call, build {t_build:.3f} s; hit mask "
+                  f"and t within rtol 1e-4 of K4's but at {bad.numel()} "
+                  f"lanes, each grazing an edge; t bit-equal to K4's on "
+                  f"{int(hit4.sum()) - n_diff} of {int(hit4.sum())} hits")
+    name = "megakernel cornell bvh"
+    eng = RenderEngine(corn, cfg(spp=1, accel="bvh", accel_force=True),
+                       device="cuda")
+    _, dt, counts = run_path(torch, name,
+                             lambda: eng.render(1, progress=False), "bvh")
+    add(counts)
+    img = eng.image()
+    need(img.shape == (H, W, 3) and bool(np.isfinite(img).all())
+         and img.mean() > 0.0, f"{name}: bad image")
+    print(f"main path {name}: {W}x{H}, {BOUNCES} bounces, 1 spp in "
+          f"{dt:.3f} s: {eng.rays_traced / dt / 1e6:.1f} Mrays/s, "
+          f"{1 / dt:.2f} samples/s; launches {counts} (the walker is plain "
+          "PyTorch: no kernel of the port)")
+
+
+def _slice22_native(torch, stress):
+    """The native OBJ loader equal to io/obj.py on every model of
+    tests/assets/models (its first call builds the library), and the
+    native builder's tree on the stress scene bit-equal to the Python
+    builder's."""
+    import glob
+    import numpy as np
+    from opencl_path_tracer_tpu_torch import native
+    from opencl_path_tracer_tpu_torch.accel import build_median_tree
+    from opencl_path_tracer_tpu_torch.io.obj import load_obj
+    need(native.available(), "no g++: the native library cannot be built")
+    files = sorted(glob.glob(os.path.join(MODELS_DIR, "*.obj")))
+    for path in files:
+        (va, sa, ma), (vb, sb, mb) = native.load_obj_native(path), \
+            load_obj(path)
+        same = (np.array_equal(va.vertices, vb.vertices)
+                and [s.name for s in sa] == [s.name for s in sb]
+                and all(np.array_equal(x.vertex_indices, y.vertex_indices)
+                        and np.array_equal(x.material_ids, y.material_ids)
+                        for x, y in zip(sa, sb))
+                and [m.name for m in ma] == [m.name for m in mb]
+                and all(np.array_equal(np.float32(x.diffuse),
+                                       np.float32(y.diffuse))
+                        for x, y in zip(ma, mb)))
+        need(same, f"load_obj_native differs from io/obj.py on {path}")
+    t0 = time.perf_counter()
+    a = native.build_median_tree_native(stress.tris)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = build_median_tree(stress.tris)
+    t_python = time.perf_counter() - t0
+    need(all(torch.equal(getattr(a, f), getattr(b, f))
+             for f in ("nodes", "tri_pack", "tri_n", "tri_mati"))
+         and (a.depth, a.leaf_size) == (b.depth, b.leaf_size),
+         "the native median tree differs from the Python one on stress")
+    print(f"native: the library built in {native.build_info['seconds']:.2f} "
+          f"s (g++; 0 where `_build/` held it); load_obj_native equal to "
+          f"io/obj.py on {len(files)} models; the median tree of stress "
+          f"({a.num_nodes} nodes, depth {a.depth}) in {t_native:.3f} s, "
+          f"bit-equal to the Python builder's ({t_python:.3f} s)")
+
+
+def slice22_rows(torch, inputs):
+    """The timing rows of K10's full form on round 1's pairs of the
+    'pairmx' shape: K10's operations (26 float32 per (pair, triangle)
+    test of every visit and 2 x 48 per (pair, visit), 3 x 18 bf16
+    multiply-adds) and bytes (keys and rays in, 28 per pair; the packs
+    once) with five streams out (20 bytes per pair) in place of two. No
+    single PyTorch call computes it: library_ms is null. The plain
+    version runs on the first K10_PLAIN_PAIRS pairs only (a minute or
+    more on the whole launch), so plain_ms is its time on those pairs,
+    and the row adds `plain_pairs` (their count), `pairs` (the launch's)
+    and `ms_on_plain_pairs`, the kernel's time on the same pairs."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import pair_mxu as pm
+    rows = []
+    for name in ("pair_visit_full", "pair_visit_full bounce"):
+        args, nv, pre, plain_ms = inputs[name]
+        keys_s, _, trig, tric, cs, trp, _ = args
+        ppad = keys_s.shape[0]
+        tests = nv * trp * cs
+        extra = {"plain_pairs": pre[0].shape[0], "pairs": ppad,
+                 "ms_on_plain_pairs": time_ms(
+                     torch, lambda a=pre: pm.pair_visits_full(*a), 20)}
+        rows.append((name, lambda a=args: pm.pair_visits_full(*a),
+                     (plain_ms, extra),
+                     26 * tests + 96 * nv * trp, 2 * 54 * tests,
+                     28 * ppad + trig.numel() * 2 + tric.numel() * 4
+                     + 20 * ppad))
+    return rows
+
+
 def timed(torch, fn):
     """(fn(), its wall time in ms), the device synchronised before and
     after: the plain versions' times, from the checks' own calls."""
@@ -4393,6 +4854,7 @@ def measure(torch, inputs, errs, launches):
           f"{ms1:.4f} ms; tilecull's tests that reach the divide "
           f"{pairs_b / b8.shape[1]:.1f} per ray")
     rows += pair_rows(torch, inputs)
+    rows += slice22_rows(torch, inputs)
     rows += slice6_rows(torch, inputs)
     rows += slice7_rows(torch, inputs)
     rows += slice8_rows(torch, inputs)
@@ -4400,7 +4862,11 @@ def measure(torch, inputs, errs, launches):
     for name, kern, plain, ops, bf16_ops, nbytes, *lib in rows:
         ms = time_ms(torch, kern, 20)
         dev_ms = device_ms(torch, kern, 20, name)
-        # One call of each plain version (seconds each, at these shapes).
+        # One call of each plain version (seconds each, at these shapes);
+        # a row whose plain version ran on part of its input says which.
+        extra = {}
+        if isinstance(plain, tuple):
+            plain, extra = plain
         plain_ms = plain if isinstance(plain, float) else timed(torch,
                                                                  plain)[1]
         library_ms = time_ms(torch, lib[0], 20) if lib else None
@@ -4414,10 +4880,13 @@ def measure(torch, inputs, errs, launches):
             "ms": ms, "device_ms": dev_ms,
             "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms,
+            "library_ms": library_ms, **extra,
         })
         print(f"{name}: {ms:.4f} ms, device {dev_ms:.4f} ms (plain "
               f"{plain_ms:.2f} ms"
+              + (f" on {extra['plain_pairs']} of {extra['pairs']} pairs, "
+                 f"the kernel {extra['ms_on_plain_pairs']:.4f} ms on them"
+                 if extra else "")
               + (f", library {library_ms:.4f} ms" if lib else "")
               + f"), bound {max(t_ops, t_bytes):.4f} ms by "
               f"{out[-1]['bound_by']} ({ops:.4g} float32 and {bf16_ops:.4g} "
@@ -4486,6 +4955,11 @@ def main() -> int:
     for k, v in s21_launches.items():
         launches[k] += v
     inputs.update(s21_inputs)
+    s22_launches, s22_inputs = check_slice22(torch, np, scenes, cam, inputs,
+                                             errs)
+    for k, v in s22_launches.items():
+        launches[k] += v
+    inputs.update(s22_inputs)
     inputs.update(env_inputs)
     kernels = measure(torch, inputs, errs, launches)
     print(f"smoke: {time.perf_counter() - t_start:.1f} s in all, the kernel "

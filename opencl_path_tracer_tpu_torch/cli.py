@@ -25,6 +25,8 @@ band (`models/spectral.py`; `_render_dispersive`).
     ptx-torch render --scene stress          # 99,380 triangles: 'pairwin'
     ptx-torch render --scene stress --smooth
     ptx-torch render --scene stress-analytic
+    ptx-torch render --scene stress --accel pairmx   # K10's full payload
+    ptx-torch render --accel bvh --accel-force       # or median; plain walkers
     ptx-torch render --spp 4 --checkpoint run.npz --autosave-every 2
     ptx-torch render --spp 4 --resume run.npz --out hdr.pfm
     ptx-torch render --model wavefront --nee --adaptive 0.05 --min-spp 8
@@ -132,7 +134,7 @@ def cmd_render(args) -> int:
         cfg = RenderConfig(width=w, height=h, iterations=args.iters,
                            spp=args.spp, mode=args.mode, seed=args.seed,
                            tonemap=args.tonemap, accel=args.accel,
-                           qmc=args.qmc, model=args.model, rr_start=args.rr,
+                           accel_force=args.accel_force, qmc=args.qmc, model=args.model, rr_start=args.rr,
                            nee=args.nee, nee_select=args.nee_select,
                            nee_anyhit=not args.no_nee_anyhit,
                            smooth=args.smooth, textured=args.textured,
@@ -261,7 +263,8 @@ def _render_dispersive(args, cfg, scene, device) -> int:
     cam = CameraController(cfg, device=device).camera(cfg.width, cfg.height)
     isect = make_intersect_fn(scene, cfg.accel, smooth=cfg.smooth,
                               textured=cfg.textured, cam=cam,
-                              iterations=cfg.iterations)
+                              iterations=cfg.iterations,
+                              force=cfg.accel_force)
     nee_tab, occ = _spectral_nee(cfg, scene)
     t0 = time.perf_counter()
     img = spectral.render_dispersive(
@@ -318,6 +321,7 @@ def cmd_info(args) -> int:
 
 
 def main(argv=None) -> int:
+    from opencl_path_tracer_tpu_torch.config import ACCELS
     ap = argparse.ArgumentParser(prog="ptx-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("render", help="offline render to PNG")
@@ -348,15 +352,20 @@ def main(argv=None) -> int:
                    help="Russian roulette after START bounces (needs "
                         "--model wavefront)")
     p.add_argument("--mode", default="fast", choices=("fast", "parity"))
-    p.add_argument("--accel", default="auto",
+    p.add_argument("--accel", default="auto", choices=ACCELS,
                    help="auto (up to 8,192 triangles minarg, or on CUDA the "
                         "camera predictor's minarg or tilecull; pairwin "
                         "above), "
                         "minarg, pallas, tilecull, pairwin (the pair "
-                        "intersector for large scenes), pair (the same at "
-                        "its own defaults), cluster, group (at most 30 "
+                        "intersector for large scenes), pairmx (the same "
+                        "with the full payload), pair (at its own "
+                        "defaults), cluster, group (at most 30 "
                         "clusters of 128), march (block march), flat (flat "
-                        "visit list) or bruteforce (CPU)")
+                        "visit list), bvh (LBVH walker), median (the "
+                        "reference's tree) or bruteforce (CPU)")
+    p.add_argument("--accel-force", action="store_true",
+                   help="run bvh or median on CUDA (plain PyTorch walkers "
+                        "with no hand-written kernel, refused without it)")
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--tonemap", default="reinhard")
     p.add_argument("--qmc", action="store_true",

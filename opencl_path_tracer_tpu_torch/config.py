@@ -8,10 +8,11 @@ camera, bounce depth, spp, seed, tonemap, QMC jitter, Russian roulette
 shading, image textures (textured), the environment (env_light with
 env_sky and env_deep, or env_map with env_scale, env_nee and
 env_sample_res), thin-lens depth of field (dof_aperture, dof_focus) and
-the 'auto' / 'minarg' / 'pallas' / 'tilecull' / 'pairwin' / 'pair' /
-'cluster' / 'group' / 'march' / 'flat' / 'bruteforce' accels; every
-other field (accel_force, devices) raises NotImplementedError when it is
-set away from its default.
+the 'auto' / 'minarg' / 'pallas' / 'tilecull' / 'pairwin' / 'pairmx' /
+'pair' / 'cluster' / 'group' / 'march' / 'flat' / 'bvh' / 'median' /
+'bruteforce' accels and accel_force (the engine runs 'bvh' and 'median'
+on CUDA only with it); the one other field (devices) raises
+NotImplementedError when it is set away from its default.
 """
 
 from __future__ import annotations
@@ -23,8 +24,9 @@ from typing import Any
 REF_WIDTH = 192 * 8  # 1536
 REF_HEIGHT = 108 * 8  # 864
 REF_MAX_ITERATIONS = 50
-ACCELS = ("auto", "minarg", "pallas", "tilecull", "pairwin", "pair",
-          "cluster", "group", "march", "flat", "bruteforce")
+ACCELS = ("auto", "minarg", "pallas", "tilecull", "pairwin", "pairmx",
+          "pair", "cluster", "group", "march", "flat", "bvh", "median",
+          "bruteforce")
 
 
 @dataclasses.dataclass
@@ -91,12 +93,13 @@ class RenderConfig:
     # world units; aperture 0 is the reference's pinhole.
     dof_aperture: float = 0.0
     dof_focus: float = 0.0
-    # Fields of the JAX package's config that this port does not honour
-    # yet; validate() refuses them away from these defaults.
+    # Run the accels the engine refuses on CUDA ('bvh', 'median').
     accel_force: bool = False
+    # A field of the JAX package's config that this port does not honour
+    # yet; validate() refuses it away from its default.
     devices: int = 1
 
-    UNPORTED = ("accel_force", "devices")
+    UNPORTED = ("devices",)
 
     def validate(self) -> "RenderConfig":
         defaults = RenderConfig()
@@ -115,9 +118,8 @@ class RenderConfig:
         if self.tonemap not in ("reinhard", "filmic", "none"):
             raise ValueError(f"unknown tonemap {self.tonemap!r}")
         if self.accel not in ACCELS:
-            raise NotImplementedError(
-                f"accel {self.accel!r} is not ported yet (ROADMAP.md queue 1, "
-                f"the bvh and median accels); the port has {ACCELS}")
+            raise ValueError(f"unknown accel {self.accel!r}; the port has "
+                             f"{ACCELS}")
         if self.model not in ("megakernel", "wavefront"):
             raise ValueError(f"unknown model {self.model!r}")
         if self.nee_select not in ("power", "distance"):

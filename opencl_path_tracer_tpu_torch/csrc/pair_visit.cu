@@ -1,4 +1,4 @@
-// K10: the pairs round of the pair intersector (thin form).
+// K10: the pairs round of the pair intersector (thin and full forms).
 //
 // Replaces the TPU kernel opencl_path_tracer_tpu/ops/pallas/
 // pair_mxu.py::_pair_visit_core (built by _mk_pair_visit_kernel,
@@ -45,7 +45,22 @@
 // the path. The outputs are written at the lane each thread owns after
 // the quad merge (MmaBlock::ol).
 //
-// Entry points: ptx_pair_visit (the kernel the wrapper launches);
+// The full form (thin=False on the TPU, the 'pairmx' payload) runs the
+// same visits and quad merge and writes five streams instead of two: t,
+// the winner's nx, ny, nz (columns 0, 1 and 2 of its tric row + 0.0f, the
+// bits of the TPU's exact 3-split one-hot sum) and m * 2 + pend (m its
+// column 16, + 0.0f). A lane with no hit writes zeros and m = 0, as the
+// TPU's accumulator starts, so a miss writes pend alone.
+//
+// infeat: the TPU kernel can compute the features itself (_infeat_rows).
+// Interpret mode contracts its cross products there into fma(a, b,
+// -(c d)), where plucker_feat rounds each product and the difference
+// separately (probed on the CPU: every hi and lo bit of 16,384 random
+// rays matches the fused form, 1.5 % of the lo parts miss the separate
+// one), so both entries take the fused features as a template flag.
+//
+// Entry points: ptx_pair_visit (thin) and ptx_pair_visit_full (five
+// streams), each with an infeat flag (the kernels the wrappers launch);
 // ptx_pair_visit_count (the same kernel, also adding to *counter the edge
 // tests the margin sent to the chain); ptx_pair_visit_simt (the first
 // kernel, kept to hold this one against whole launches and to time the
@@ -215,17 +230,27 @@ pair_simt_kernel(const int* __restrict__ keys,
   gp_out[i] = __fadd_rn(__fmul_rn(static_cast<float>(bg), 2.0f), pend);
 }
 
+// a * b - c * d, each product and the difference rounded separately
+// (plucker_feat's), or as fma(a, b, -(c d)) (FUSED: _infeat_rows').
+template <bool FUSED>
+__device__ __forceinline__ float cross_term(float a, float b, float c,
+                                            float d) {
+  return FUSED ? __fmaf_rn(a, b, -__fmul_rn(c, d))
+               : __fsub_rn(__fmul_rn(a, b), __fmul_rn(c, d));
+}
+
 // The bf16 bits of the features [phi_hi(6), phi_lo(6), phi_hi(6)] of a
-// ray r = (P, D), phi = (P x D, D), each product and difference rounded
-// separately (plucker_feat's and the first kernel's), for mma_prologue.
+// ray r = (P, D), phi = (P x D, D), the cross product rounded as
+// cross_term<FUSED>, for mma_prologue.
+template <bool FUSED>
 struct RayFeatures {
   __device__ __forceinline__ void operator()(size_t, const float (&r)[6],
                                              uint32_t (&h)[kMarchW]) const {
     const float px = r[0], py = r[1], pz = r[2], dx = r[3], dy = r[4],
                 dz = r[5];
-    const float phi[6] = {__fsub_rn(__fmul_rn(py, dz), __fmul_rn(pz, dy)),
-                          __fsub_rn(__fmul_rn(pz, dx), __fmul_rn(px, dz)),
-                          __fsub_rn(__fmul_rn(px, dy), __fmul_rn(py, dx)),
+    const float phi[6] = {cross_term<FUSED>(py, dz, pz, dy),
+                          cross_term<FUSED>(pz, dx, px, dz),
+                          cross_term<FUSED>(px, dy, py, dx),
                           dx, dy, dz};
 #pragma unroll
     for (int q = 0; q < 6; ++q) {
@@ -239,13 +264,17 @@ struct RayFeatures {
   }
 };
 
-template <bool COUNT>
+// Per-pair outputs: out[0] t, out[1] g * 2 + pend (thin), or out[1..3]
+// the winner's normal and out[4] m * 2 + pend (FULL).
+template <bool COUNT, bool FULL, bool FUSED>
 __global__ void __launch_bounds__(kMarchLanes, 3)
 pair_mma_kernel(const int* __restrict__ keys, const float* __restrict__ rays8,
                 const uint16_t* __restrict__ trig,
-                const float* __restrict__ tric, float* __restrict__ t_out,
-                float* __restrict__ gp_out, int n_pairs, int trp, int cs,
-                int c, unsigned long long* __restrict__ counter) {
+                const float* __restrict__ tric, float* __restrict__ out0,
+                float* __restrict__ out1, float* __restrict__ out2,
+                float* __restrict__ out3, float* __restrict__ out4,
+                int n_pairs, int trp, int cs, int c,
+                unsigned long long* __restrict__ counter) {
   __shared__ MmaShared sh;
   __shared__ int clist[kMaxTrp];
   __shared__ int ncl;
@@ -253,8 +282,10 @@ pair_mma_kernel(const int* __restrict__ keys, const float* __restrict__ rays8,
   const size_t b0 = static_cast<size_t>(blockIdx.x) * kMarchLanes;
   const size_t tile0 = (b0 / trp) * trp;
   if (keys[tile0] >= c) {   // keys ascend: a tile of dummy pairs, misses
-    t_out[b0 + threadIdx.x] = kBig;
-    gp_out[b0 + threadIdx.x] = 0.f;
+    const size_t i = b0 + threadIdx.x;
+    out0[i] = kBig;
+    out1[i] = 0.f;
+    if (FULL) out2[i] = out3[i] = out4[i] = 0.f;
     return;
   }
   if (threadIdx.x == 0) ncl = 0;
@@ -269,14 +300,30 @@ pair_mma_kernel(const int* __restrict__ keys, const float* __restrict__ rays8,
   __syncthreads();
   const int nc = ncl;
   MmaBlock m;
-  mma_prologue(sh, rays8, nn, b0, m, RayFeatures{});
+  mma_prologue(sh, rays8, nn, b0, m, RayFeatures<FUSED>{});
   MarchBest b{kBig, 0.f, 0.f, false};
   unsigned long long cnt = 0;
   for (int v = 0; v < nc; ++v)
     if (mma_visit<COUNT>(sh, trig, tric, clist[v], cs, m, b, cnt))
       b.pend = 1.f;
-  t_out[b0 + m.ol] = b.t;
-  gp_out[b0 + m.ol] = __fadd_rn(__fmul_rn(b.g, 2.0f), b.pend);
+  const size_t i = b0 + m.ol;
+  out0[i] = b.t;
+  if (FULL) {
+    float a[4] = {0.f, 0.f, 0.f, 0.f};
+    if (b.got) {
+      const float* r = tric + static_cast<size_t>(b.g) * kTricCols;
+      a[0] = fetch0(r, 0);
+      a[1] = fetch0(r, 1);
+      a[2] = fetch0(r, 2);
+      a[3] = fetch0(r, 16);
+    }
+    out1[i] = a[0];
+    out2[i] = a[1];
+    out3[i] = a[2];
+    out4[i] = __fadd_rn(__fmul_rn(a[3], 2.0f), b.pend);
+  } else {
+    out1[i] = __fadd_rn(__fmul_rn(b.g, 2.0f), b.pend);
+  }
   if (COUNT && cnt) atomicAdd(counter, cnt);
 }
 
@@ -291,18 +338,32 @@ cudaError_t check_args(const void* trig, const float* tric, int n_pairs,
   return cudaSuccess;
 }
 
-template <bool COUNT>
+template <bool COUNT, bool FULL, bool FUSED>
 int launch_mma(const int* keys, const float* rays8p, const void* trig,
-               const float* tric, float* t, float* gp, int n_pairs, int trp,
-               int cs, int c, void* counter, void* stream) {
+               const float* tric, float* const (&out)[5], int n_pairs,
+               int trp, int cs, int c, void* counter, void* stream) {
   if (n_pairs <= 0) return 0;
   const cudaError_t bad = check_args(trig, tric, n_pairs, trp, cs, c);
   if (bad != cudaSuccess) return static_cast<int>(bad);
-  pair_mma_kernel<COUNT><<<n_pairs / kMarchLanes, kMarchLanes, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      keys, rays8p, static_cast<const uint16_t*>(trig), tric, t, gp, n_pairs,
-      trp, cs, c, static_cast<unsigned long long*>(counter));
+  pair_mma_kernel<COUNT, FULL, FUSED>
+      <<<n_pairs / kMarchLanes, kMarchLanes, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          keys, rays8p, static_cast<const uint16_t*>(trig), tric, out[0],
+          out[1], out[2], out[3], out[4], n_pairs, trp, cs, c,
+          static_cast<unsigned long long*>(counter));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool FULL>
+int launch_visit(const int* keys, const float* rays8p, const void* trig,
+                 const float* tric, float* const (&out)[5], int n_pairs,
+                 int trp, int cs, int c, int infeat, void* stream) {
+  return infeat ? launch_mma<false, FULL, true>(keys, rays8p, trig, tric, out,
+                                                n_pairs, trp, cs, c, nullptr,
+                                                stream)
+                : launch_mma<false, FULL, false>(keys, rays8p, trig, tric,
+                                                 out, n_pairs, trp, cs, c,
+                                                 nullptr, stream);
 }
 
 }  // namespace
@@ -310,9 +371,20 @@ int launch_mma(const int* keys, const float* rays8p, const void* trig,
 extern "C" int ptx_pair_visit(const int* keys, const float* rays8p,
                               const void* trig, const float* tric, float* t,
                               float* gp, int n_pairs, int trp, int cs, int c,
-                              void* stream) {
-  return launch_mma<false>(keys, rays8p, trig, tric, t, gp, n_pairs, trp, cs,
-                           c, nullptr, stream);
+                              int infeat, void* stream) {
+  float* const out[5] = {t, gp, nullptr, nullptr, nullptr};
+  return launch_visit<false>(keys, rays8p, trig, tric, out, n_pairs, trp, cs,
+                             c, infeat, stream);
+}
+
+extern "C" int ptx_pair_visit_full(const int* keys, const float* rays8p,
+                                   const void* trig, const float* tric,
+                                   float* t, float* nx, float* ny, float* nz,
+                                   float* mp, int n_pairs, int trp, int cs,
+                                   int c, int infeat, void* stream) {
+  float* const out[5] = {t, nx, ny, nz, mp};
+  return launch_visit<true>(keys, rays8p, trig, tric, out, n_pairs, trp, cs,
+                            c, infeat, stream);
 }
 
 extern "C" int ptx_pair_visit_count(const int* keys, const float* rays8p,
@@ -320,8 +392,9 @@ extern "C" int ptx_pair_visit_count(const int* keys, const float* rays8p,
                                     float* t, float* gp, int n_pairs, int trp,
                                     int cs, int c, void* counter,
                                     void* stream) {
-  return launch_mma<true>(keys, rays8p, trig, tric, t, gp, n_pairs, trp, cs,
-                          c, counter, stream);
+  float* const out[5] = {t, gp, nullptr, nullptr, nullptr};
+  return launch_mma<true, false, false>(keys, rays8p, trig, tric, out,
+                                        n_pairs, trp, cs, c, counter, stream);
 }
 
 extern "C" int ptx_pair_visit_simt(const int* keys, const float* rays8p,

@@ -91,7 +91,10 @@ KERNELS = {
     "pair_cand": ("pair_cand.cu", "ptx_pair_cand",
                   [P, P, P, P, I, I, I, I, I, P]),
     "pair_visit": ("pair_visit.cu", "ptx_pair_visit",
-                   [P, P, P, P, P, P, I, I, I, I, P]),
+                   [P, P, P, P, P, P, I, I, I, I, I, P]),
+    # K10's full form (five streams: t, the winner's normal, m * 2 + pend).
+    "pair_visit_full": ("pair_visit.cu", "ptx_pair_visit_full",
+                        [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P]),
     # K10's two entries for the checks only: its first (float32-core)
     # kernel, and the kernel counting the edge tests its margin recomputes.
     "pair_visit_simt": ("pair_visit.cu", "ptx_pair_visit_simt",

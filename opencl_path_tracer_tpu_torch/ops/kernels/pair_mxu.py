@@ -4,10 +4,12 @@ attribute fetch (CUDA kernels and plain versions).
 Port of `opencl_path_tracer_tpu/ops/pallas/pair_mxu.py`: `DOP_SIGNS`
 and `build_dops` (pair_mxu.py:51-85), `build_visits` (:88-121), the
 visit kernel `_pair_visit_core` (built by `_mk_pair_visit_kernel`,
-launched by `_run_pair_visits`, :141-370) in its thin form, the attribute
-fetch `_attr_fetch_kernel` (launched by `fetch_attrs`, :373-472) and
-`pairs_round_mxu` (:475-522), thin branch, whose pair expansion and sort
-are `sort_pairs`.
+launched by `_run_pair_visits`, :141-370) in its thin form (`pair_visits`,
+two streams) and its full form (`pair_visits_full`, thin=False: five
+streams, the `pairmx` payload), the in-kernel features `_infeat_rows`
+(:124-138, `infeat_rows`), the attribute fetch `_attr_fetch_kernel`
+(launched by `fetch_attrs`, :373-472) and `pairs_round_mxu` (:475-547),
+both branches, whose pair expansion and sort are `sort_pairs`.
 
 A pairs round tests (ray, cluster) pairs. The pairs are sorted by
 cluster key (stable: `torch.sort`), padded with dummy pairs (key C) to
@@ -29,7 +31,18 @@ might win and the pair is PENDING. Visits merge by (t, g) lexicographic
 minimum over found hits, g = cluster * cs + index (the cluster-ordered
 triangle id), and pend by maximum; the order of visits does not matter.
 Thin output per pair: t (BIG on a miss) and g * 2 + pend (g = 0 when
-nothing was found), float32.
+nothing was found), float32. Full output per pair: t, the winner's nx,
+ny, nz (tric columns 0-2 + 0.0) and m * 2 + pend (m its column 16), the
+attributes zero and m = 0 when nothing was found.
+
+infeat: the TPU kernel computes the features itself (`_infeat_rows`),
+where interpret mode contracts the cross products into fma(a, b, -(c
+d)); `plucker_feat` rounds each product and the difference separately.
+On 16,384 random rays every bit of the in-kernel features matched the
+fused form, and 1.5 % of the low bf16 parts differed from the separate
+one (`tests/test_torch_pair_options.py` holds the probe), so `infeat` is
+a flag of both entries and of their plain versions: it selects the fused
+features. Nothing else about a visit changes.
 
 Rounding (XLA's CPU contraction in the interpret-mode kernel): E sums
 its 18 exact bf16 products in two float32 accumulators, even and odd
@@ -50,7 +63,7 @@ from opencl_path_tracer_tpu_torch.ops.kernels.intersect_kernel import (
     BIG, TRI_COLS, _dot3, _round_up,
 )
 from opencl_path_tracer_tpu_torch.ops.kernels.plucker_kernel import (
-    plucker_feat,
+    plucker_feat, split_bf16_exact,
 )
 
 DOP_SIGNS = ((1.0, 1.0, 1.0), (1.0, -1.0, 1.0),
@@ -105,6 +118,19 @@ def build_visits(keys_s: torch.Tensor, trp: int, c: int):
     order = torch.argsort(pe * (c + 2) + ce + 1)
     return ((pe[order] // trp).to(torch.int32),
             ce[order].to(torch.int32))
+
+
+def infeat_rows(rays8: torch.Tensor) -> torch.Tensor:
+    """`_infeat_rows`: plucker_feat's (32, R) bfloat16 rows [phi_hi(6),
+    phi_lo(6), phi_hi(6), 0(14)] from (8, R) rays, with each cross product
+    term fma(a, b, -(c d)), as interpret mode rounds it in the kernel."""
+    px, py, pz, dx, dy, dz = (rays8[k] for k in range(6))
+    phi = torch.stack([fp.fma(py, dz, -(pz * dy)), fp.fma(pz, dx, -(px * dz)),
+                       fp.fma(px, dy, -(py * dx)), dx, dy, dz])
+    hi, lo = split_bf16_exact(phi)
+    zeros = torch.zeros((14, phi.shape[1]), dtype=torch.bfloat16,
+                        device=phi.device)
+    return torch.cat([hi, lo, hi, zeros])
 
 
 def _visit(rays, feat, trig, tric, cid, cs: int):
@@ -194,11 +220,12 @@ def _visit(rays, feat, trig, tric, cid, cs: int):
 
 def pair_visits_plain(keys_s: torch.Tensor, rays8p: torch.Tensor,
                       trig: torch.Tensor, tric: torch.Tensor, cs: int,
-                      trp: int, c: int):
+                      trp: int, c: int, infeat: bool = False):
     """Plain PyTorch version of K10 (thin): (t, g * 2 + pend), (Ppad,)
     float32 each, for the cluster-sorted pairs (keys_s (Ppad,) int32, rays
     (8, Ppad)). Visits run in batches of _PLAIN_VISITS; their hits merge
-    per tile by (t, g) minimum, pend by maximum."""
+    per tile by (t, g) minimum, pend by maximum. infeat: the features of
+    `infeat_rows`, else `plucker_feat`'s."""
     dev = rays8p.device
     ppad = rays8p.shape[1]
     nb = ppad // trp
@@ -206,7 +233,8 @@ def pair_visits_plain(keys_s: torch.Tensor, rays8p: torch.Tensor,
     keep = vc >= 0
     vb, vc = vb[keep].long(), vc[keep].long()
     rays_t = rays8p.reshape(8, nb, trp)
-    feat = plucker_feat(rays8p)[:18].float().reshape(18, nb, trp)
+    feats = infeat_rows if infeat else plucker_feat
+    feat = feats(rays8p)[:18].float().reshape(18, nb, trp)
     nv = vb.numel()
     t_v = torch.full((nv, trp), BIG, device=dev)
     g_v = torch.zeros((nv, trp), device=dev)
@@ -254,30 +282,64 @@ def _check_visits(keys_s, rays8p, trig, tric, cs, trp, c, what):
                          f"64; got Ppad {ppad}, trp {trp}, cs {cs}")
 
 
-def _launch_visits(entry, keys_s, rays8p, trig, tric, cs, trp, c, *extra):
+def _launch_visits(entry, keys_s, rays8p, trig, tric, cs, trp, c, *extra,
+                   n_out=2):
     ppad = keys_s.shape[0]
-    t = torch.empty(ppad, dtype=torch.float32, device=rays8p.device)
-    gp = torch.empty(ppad, dtype=torch.float32, device=rays8p.device)
+    outs = [torch.empty(ppad, dtype=torch.float32, device=rays8p.device)
+            for _ in range(n_out)]
     if ppad:
-        _build.launch(entry, keys_s, rays8p, trig, tric, t, gp, ppad, trp,
+        _build.launch(entry, keys_s, rays8p, trig, tric, *outs, ppad, trp,
                       cs, c, *extra)
-    return t, gp
+    return tuple(outs)
 
 
 def pair_visits(keys_s: torch.Tensor, rays8p: torch.Tensor,
                 trig: torch.Tensor, tric: torch.Tensor, cs: int, trp: int,
-                c: int):
+                c: int, infeat: bool = False):
     """K10 (thin) on cluster-sorted pairs: (t, g * 2 + pend), (Ppad,)
     float32 each. keys_s: (Ppad,) int32 ascending in [0, c], Ppad a
     multiple of trp; rays8p: (8, Ppad). The features are computed in the
-    kernel, whose edge values run on the tensor cores behind a certified
-    margin (`csrc/pair_visit.cu`). CPU tensors take the plain version;
-    CUDA tensors launch the kernel or raise."""
+    kernel (fused cross products with infeat), whose edge values run on
+    the tensor cores behind a certified margin (`csrc/pair_visit.cu`).
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
     _check_visits(keys_s, rays8p, trig, tric, cs, trp, c, "pair_visits")
     if rays8p.device.type == "cpu":
-        return pair_visits_plain(keys_s, rays8p, trig, tric, cs, trp, c)
+        return pair_visits_plain(keys_s, rays8p, trig, tric, cs, trp, c,
+                                 infeat)
     return _launch_visits("pair_visit", keys_s, rays8p, trig, tric, cs, trp,
-                          c)
+                          c, int(infeat))
+
+
+def pair_visits_full_plain(keys_s: torch.Tensor, rays8p: torch.Tensor,
+                           trig: torch.Tensor, tric: torch.Tensor, cs: int,
+                           trp: int, c: int, infeat: bool = False):
+    """Plain PyTorch version of K10's full form: (t, nx, ny, nz, m * 2 +
+    pend), (Ppad,) float32 each: the thin version's winner with its tric
+    row's columns 0, 1, 2 and 16 (+ 0.0), zeros where nothing was found
+    (t = BIG)."""
+    t, gp = pair_visits_plain(keys_s, rays8p, trig, tric, cs, trp, c, infeat)
+    g = torch.floor(gp / 2.0)
+    pend = gp - 2.0 * g
+    nx, ny, nz, m = fetch_attrs_plain(
+        torch.where(t < BIG, g, torch.full_like(g, -1.0)), tric)
+    return t, nx, ny, nz, m * 2.0 + pend
+
+
+def pair_visits_full(keys_s: torch.Tensor, rays8p: torch.Tensor,
+                     trig: torch.Tensor, tric: torch.Tensor, cs: int,
+                     trp: int, c: int, infeat: bool = False):
+    """K10's full form (thin=False, the `pairmx` payload) on cluster-sorted
+    pairs: (t, nx, ny, nz, m * 2 + pend), (Ppad,) float32 each, the same
+    visits as `pair_visits` with the winner's attributes read from tric in
+    the kernel. CPU tensors take the plain version; CUDA tensors launch the
+    kernel or raise."""
+    _check_visits(keys_s, rays8p, trig, tric, cs, trp, c, "pair_visits_full")
+    if rays8p.device.type == "cpu":
+        return pair_visits_full_plain(keys_s, rays8p, trig, tric, cs, trp, c,
+                                      infeat)
+    return _launch_visits("pair_visit_full", keys_s, rays8p, trig, tric, cs,
+                          trp, c, int(infeat), n_out=5)
 
 
 def pair_visits_simt(keys_s: torch.Tensor, rays8p: torch.Tensor,
@@ -364,22 +426,34 @@ def sort_pairs(comps, ids: torch.Tensor, c: int, trp: int):
 
 
 def pairs_round_mxu(comps, ids: torch.Tensor, scene, c: int, cs: int,
-                    trp: int):
-    """One pairs round, thin: comps, six (R,) ray components; ids, (L, R)
-    rank-major candidate clusters. Returns ((t, g), pend): each ray's
-    least t over its L pairs (the first rank on ties), the winning pair's
-    g as float32 (junk on a miss), and whether any of its pairs ended
-    pending."""
+                    trp: int, thin: bool = True, infeat: bool = False):
+    """One pairs round: comps, six (R,) ray components; ids, (L, R)
+    rank-major candidate clusters. Returns ((t, g), pend) when thin: each
+    ray's least t over its L pairs (the first rank on ties), the winning
+    pair's g as float32 (junk on a miss), and whether any of its pairs
+    ended pending; ((t, nx, ny, nz, m), pend) otherwise, the winning
+    pair's attributes (K10's full form). infeat: K10 computes the fused
+    features (see the module docstring)."""
     l, r = ids.shape
     keys_s, rays8p, order = sort_pairs(comps, ids, c, trp)
-    t_s, gp_s = pair_visits(keys_s, rays8p, scene.trig, scene.tric, cs, trp,
-                            c)
-    t_b = torch.empty_like(t_s).index_copy_(0, order, t_s)
-    gp_b = torch.empty_like(gp_s).index_copy_(0, order, gp_s)
-    t_lr = t_b[:r * l].reshape(l, r)
-    gp_lr = gp_b[:r * l].reshape(l, r)
+    visits = pair_visits if thin else pair_visits_full
+    outs = visits(keys_s, rays8p, scene.trig, scene.tric, cs, trp, c, infeat)
+    # Back to pair order (the TPU's slot-keyed back sort), rank-major.
+    back = [torch.empty_like(o).index_copy_(0, order, o)[:r * l].reshape(l, r)
+            for o in outs]
+    t_lr, mp_lr = back[0], back[-1]
     best = t_lr.amin(0)
     which = t_lr.argmin(0)                                 # first on ties
-    pend = (gp_lr - 2.0 * torch.floor(gp_lr / 2.0)).amax(0) > 0.0
-    g_win = torch.floor(gp_lr.gather(0, which[None])[0] / 2.0)
-    return (best, g_win), pend
+    pend = (mp_lr - 2.0 * torch.floor(mp_lr / 2.0)).amax(0) > 0.0
+
+    def pick(a):
+        """The winning rank's value as the TPU's one-hot sum over the L
+        ranks gives it: XLA's sum starts from +0.0, so a winning -0.0
+        becomes +0.0 for L >= 2 (a size-1 sum is a reshape)."""
+        v = a.gather(0, which[None])[0]
+        return v + 0.0 if l > 1 else v
+
+    if thin:
+        return (best, torch.floor(pick(mp_lr) / 2.0)), pend
+    return (best, pick(back[1]), pick(back[2]), pick(back[3]),
+            torch.floor(pick(mp_lr) / 2.0)), pend

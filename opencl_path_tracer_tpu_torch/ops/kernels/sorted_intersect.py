@@ -8,15 +8,15 @@ Port of `opencl_path_tracer_tpu/ops/pallas/sorted_intersect.py`:
 (launched by `_run_pairs`, :312-416); `_cand_kernel` (launched by
 `_run_candidates`, :419-523); `_auto_cluster_size`, `split_by_size`,
 `_pairs_round`, `_merge_best` and `PAIR_TPU_WINNER` (:526-662); and
-`make_pair_intersect` (:665-1653) with `move='gather'` or `'sort'`, in
-two payloads: the VPU pairs round (mxu=False, the function's defaults
-and the 'pair' accel: K12 on `cluster_kernel.build_clusters`' packs,
-the full (t, nx, ny, nz, mati) best) and the TPU's production
-configuration `PAIR_TPU_WINNER` (the 'pairwin' accel: the MXU pairs
-round K10 on the march packs, DOP boxes, the thin (t, triangle id)
-payload, K11 at the end; with or without ids). `move='chain'`,
-`infeat`, `approx` and mxu=True with thin=False (the `pairmx` payload)
-raise NotImplementedError (ROADMAP.md queue 1).
+`make_pair_intersect` (:665-1653) with every option: the VPU pairs round
+(mxu=False, the function's defaults and the 'pair' accel: K12 on
+`cluster_kernel.build_clusters`' packs, the full (t, nx, ny, nz, mati)
+best); the MXU pairs round K10 on the march packs with the full payload
+(mxu=True, thin=False: the 'pairmx' accel at trp 512, K10's five
+streams) or the thin (t, triangle id) payload with K11 at the end (the
+TPU's production configuration `PAIR_TPU_WINNER`, the 'pairwin' accel,
+with or without ids); DOP boxes; the in-kernel features (`infeat`); the
+round-1-only `approx`; and `move='gather'`, `'sort'` or `'chain'`.
 
 K16 (`run_group`, `make_group_intersect`, scenes of at most 30
 clusters of `build_clusters(split_large=True)`): each ray's bitmask of
@@ -55,6 +55,24 @@ The TPU moved data by sorting because its gathers are slow; the port
 gathers and scatters (`argsort`, `index_select`, indexed assignment)
 where the JAX package sorts data along, and sorts only where a sort
 decides which work is done.
+
+`move='chain'` (thin only, :868-891, :1254-1415): after round 1 one
+sort moves every ray into chain space, unresolved first, then by slot
+(the TPU folds slot, progress and pend into one key, slot * 128 + done *
+2 + pend, whose order is the slot's); the escalations update their
+prefix in place, and only the live region is sorted again between
+tiers, by (resolved, slot); a dense tail over the region [0, u2)
+(chunks of min(tail, u2) rays, the last chunk's start clamped to the end
+of the arrays as `dynamic_slice` clamps it) runs K1 over the
+march-ordered triangles (`build_tri_pack(rt, 1024)`, scene-spanning
+triangles left out: they seeded the best), so its winner is the
+cluster-ordered id that K11 decodes; one scatter by slot goes back, and
+the full-width tail certifies what overflowed the region. K1 breaks
+exact-t ties by the lowest march-ordered row, not by the original
+index, so the chain's hits follow JAX's chain, not 'pairwin'. `approx`
+returns (Hits, resolved) after round 1: from K11 and the overlay with
+the thin payload, from the full payload otherwise; only the resolved
+lanes are proven nearest.
 """
 
 from __future__ import annotations
@@ -86,8 +104,10 @@ _PLAIN_RAYS = 8192   # rays per chunk of candidates_plain
 
 # Set to a list to make every pair-intersector call append a dict of its
 # schedule's counts (rays, round 1's resolved rays, each escalation's
-# (capacity, window, unresolved rays taken), the tail's rays and
-# iterations, pending rays); None (the default) records nothing.
+# (capacity, window, unresolved rays taken), with move='chain' the chain
+# tail's rays and iterations, the full-width tail's rays and iterations,
+# pending rays; with approx only the first two); None (the default)
+# records nothing.
 STATS = None
 
 # The TPU's production configuration for large scenes, the 'pairwin'
@@ -530,8 +550,7 @@ def _pairs_round(comps, ids: torch.Tensor, rows: torch.Tensor, k: int,
 
 
 def _check_pair_config(mxu, dop, move, infeat, thin, with_ids, approx, l3):
-    """The JAX package's ValueErrors (sorted_intersect.py:750-784), then
-    NotImplementedError for the configurations not ported."""
+    """The JAX package's ValueErrors (sorted_intersect.py:750-784)."""
     if dop and not mxu:
         raise ValueError("dop=True requires mxu=True (DOP supports are built "
                          "from the march scene's cluster-ordered triangles)")
@@ -557,16 +576,6 @@ def _check_pair_config(mxu, dop, move, infeat, thin, with_ids, approx, l3):
                          "payload carries winner triangle ids)")
     if with_ids and move == "chain":
         raise ValueError("with_ids=True does not support move='chain'")
-    unported = [name for name, on in (
-        ("move='chain'", move == "chain"), ("infeat=True", infeat),
-        ("approx=True", approx),
-        ("mxu=True with thin=False (the pairmx payload)", mxu and not thin))
-        if on]
-    if unported:
-        raise NotImplementedError(
-            f"make_pair_intersect with {', '.join(unported)} is not ported "
-            "yet (ROADMAP.md queue 1); the port has move 'gather' and "
-            "'sort' with mxu=False (K12) or mxu=True and thin=True (K10)")
 
 
 def make_pair_intersect(tris: TrianglesSoA, *, cluster_size: int = 512,
@@ -579,13 +588,15 @@ def make_pair_intersect(tris: TrianglesSoA, *, cluster_size: int = 512,
                         approx: bool = False):
     """The pair-expansion intersector (see the module docstring):
     intersect(rays) -> Hits, or (Hits, ids) with with_ids=True (ids: the
-    winner's index in `tris`, -1 on a miss). The defaults are the JAX
-    package's (the 'pair' accel); `PAIR_TPU_WINNER` is 'pairwin'. l1 and
-    l2 are the ranks tested by round 1 and the first escalation, l3 the
-    deepest (at most 48, K9's selection), trb the candidate kernel's ray
-    tile and trp the pair tile (together the padding unit), u2_frac and
-    u3_frac the escalations' capacity fractions, tail the dense tail's
-    rays per iteration. See `STATS` for the schedule's counts."""
+    winner's index in `tris`, -1 on a miss), or (Hits, resolved) with
+    approx=True (round 1 only; resolved lanes are proven nearest). The
+    defaults are the JAX package's (the 'pair' accel); `PAIR_TPU_WINNER`
+    is 'pairwin', mxu=True with trp=512 'pairmx'. l1 and l2 are the ranks
+    tested by round 1 and the first escalation, l3 the deepest (at most
+    48, K9's selection), trb the candidate kernel's ray tile and trp the
+    pair tile (together the padding unit), u2_frac and u3_frac the
+    escalations' capacity fractions, tail the dense tail's rays per
+    iteration. See `STATS` for the schedule's counts."""
     _check_pair_config(mxu, dop, move, infeat, thin, with_ids, approx, l3)
     if not all(0 < x <= MAX_RANKS for x in (l1, l2, l3)):
         raise ValueError(f"l1, l2 and l3 must be in 1..{MAX_RANKS}")
@@ -617,9 +628,13 @@ def make_pair_intersect(tris: TrianglesSoA, *, cluster_size: int = 512,
         if dop:
             boxes.append(pair_mxu.build_dops(rt, cs, c))
         boxes = torch.cat(boxes, dim=1)
-
         def run_pairs_fn(comps, ids):
-            return pair_mxu.pairs_round_mxu(comps, ids, mscene, c, cs, trp)
+            return pair_mxu.pairs_round_mxu(comps, ids, mscene, c, cs, trp,
+                                            thin=thin, infeat=infeat)
+
+        # The chain's dense tail: K1 over the march-ordered triangles, so
+        # its winner row is the cluster-ordered id K11 decodes.
+        chain_pack = build_tri_pack(rt, 1024) if move == "chain" else None
     else:
         cscene, c, _ = build_clusters(rest, cs, split_large=False)
         boxes = cscene.boxes
@@ -646,6 +661,19 @@ def make_pair_intersect(tris: TrianglesSoA, *, cluster_size: int = 512,
         tail_isect = None
     else:
         tail_isect = make_pallas_intersect(tris)
+
+    def window(ids_all, d0, w, sel):
+        """The next w ranks of each ray from its progress d0 (c past
+        sel)."""
+        rows_ = d0[None, :] + torch.arange(w, device=d0.device)[:, None]
+        return torch.where(rows_ < sel,
+                           ids_all.gather(0, rows_.clamp(0, sel - 1)),
+                           torch.full_like(ids_all[:1], c))
+
+    def cert_bound(ents_all, nxt, d1, sel):
+        """The entry of the first untested rank (nxt past sel)."""
+        return torch.where(
+            d1 < sel, ents_all.gather(0, d1.clamp(0, sel - 1)[None])[0], nxt)
 
     def intersect(rays: Rays):
         r = rays.count
@@ -686,6 +714,29 @@ def make_pair_intersect(tris: TrianglesSoA, *, cluster_size: int = 512,
                 b[idx] = m
             return merged[0]
 
+        def finish(resolved_out=None):
+            """The Hits (thin: K11's attributes of the pair winners, the
+            overlay's elsewhere), with ids or resolved as asked."""
+            best_t = best[0]
+            if not thin:
+                hits = _hits_from_raw(rays, best_t, best[1:4], best[4], r)
+            else:
+                best_g = best[1]
+                fn = pair_mxu.fetch_attrs(best_g, mscene.tric)
+                use = best_g >= 0.0
+                n3 = tuple(torch.where(use, f, o)
+                           for f, o in zip(fn[:3], overlay))
+                m = torch.where(use, fn[3], overlay[3])
+                hits = _hits_from_raw(rays, best_t, n3, m, r)
+            if resolved_out is not None:
+                return hits, resolved_out[:r]
+            if not with_ids:
+                return hits
+            g_int = best[1].to(torch.int64).clamp(0, g_to_orig.shape[0] - 1)
+            ids = torch.where(best[1] >= 0.0, g_to_orig[g_int], seed_ids)
+            ids = torch.where(best_t < BIG, ids, -1)
+            return hits, ids[:r]
+
         # Round 1: every ray against its l1 nearest passing clusters.
         ids1, _, nxt1 = run_candidates(pack_rays(comps[:3], comps[3:]),
                                        boxes_r, l1, c)
@@ -698,6 +749,10 @@ def make_pair_intersect(tris: TrianglesSoA, *, cluster_size: int = 512,
         if stats is not None:
             stats["round1_resolved"] = int(resolved[:r].sum())
             stats["escalations"] = []
+        if approx:
+            if stats is not None:
+                STATS.append(stats)
+            return finish(resolved)
 
         def first_unresolved(u):
             """The first u rays in (resolved, slot) order."""
@@ -714,15 +769,9 @@ def make_pair_intersect(tris: TrianglesSoA, *, cluster_size: int = 512,
             d0 = done[idx]
             ids_all, ents_all, nxt = run_candidates(
                 pack_rays(sub[:3], sub[3:]), boxes_r, sel, c)
-            rows_ = d0[None, :] + torch.arange(w, device=d0.device)[:, None]
-            ids = torch.where(rows_ < sel,
-                              ids_all.gather(0, rows_.clamp(0, sel - 1)),
-                              torch.full_like(ids_all[:1], c))
-            new_sub, pend_sub = run_pairs_fn(sub, ids)
+            new_sub, pend_sub = run_pairs_fn(sub, window(ids_all, d0, w, sel))
             d1 = torch.clamp(d0 + w, max=sel)
-            bound = torch.where(
-                d1 < sel, ents_all.gather(0, d1.clamp(0, sel - 1)[None])[0],
-                nxt)
+            bound = cert_bound(ents_all, nxt, d1, sel)
             t_m = merge(idx, new_sub)
             p_m = pend[idx]
             if pend_sub is not None:
@@ -733,22 +782,26 @@ def make_pair_intersect(tris: TrianglesSoA, *, cluster_size: int = 512,
                 ((t_m <= bound) | (bound >= BIG)) & ~p_m)
 
         u2 = max(unit, (rpad // u2_frac // unit) * unit)
-        if l2 > l1:
-            escalation(u2, l2 - l1, min(maxrank, l2))
-        if maxrank > l2:
-            w3 = maxrank - l2
-            escalation(max(unit, (rpad // u2_frac // 4 // unit) * unit), 8,
-                       min(maxrank, l2 + 8))
-            escalation(max(unit, (rpad // u2_frac // 16 // unit) * unit), w3,
-                       maxrank)
-            u3 = max(unit, (rpad // u3_frac // unit) * unit)
-            it = 0
-            while it < 4 and bool((~resolved & (done < maxrank)).any()):
-                escalation(u3, w3, maxrank)
-                it += 1
+        u3a = max(unit, (rpad // u2_frac // 4 // unit) * unit)
+        u3b = max(unit, (rpad // u2_frac // 16 // unit) * unit)
+        if move == "chain":
+            _chain(comps, best, resolved, done, pend, u2, u3a, u3b, rpad,
+                   stats)
+        else:
+            if l2 > l1:
+                escalation(u2, l2 - l1, min(maxrank, l2))
+            if maxrank > l2:
+                w3 = maxrank - l2
+                escalation(u3a, 8, min(maxrank, l2 + 8))
+                escalation(u3b, w3, maxrank)
+                u3 = max(unit, (rpad // u3_frac // unit) * unit)
+                it = 0
+                while it < 4 and bool((~resolved & (done < maxrank)).any()):
+                    escalation(u3, w3, maxrank)
+                    it += 1
 
         # The dense tail, `tail` rays at a time, until every ray is
-        # resolved.
+        # resolved (after the chain: the rays that overflowed its region).
         u4 = min(tail, rpad)
         n_tail = 0
         if stats is not None:
@@ -787,21 +840,80 @@ def make_pair_intersect(tris: TrianglesSoA, *, cluster_size: int = 512,
         if stats is not None:
             stats["tail_iterations"] = n_tail
             STATS.append(stats)
+        return finish()
 
-        best_t = best[0]
-        if not thin:
-            return _hits_from_raw(rays, best_t, best[1:4], best[4], r)
-        best_g = best[1]
-        fn = pair_mxu.fetch_attrs(best_g, mscene.tric)
-        use = best_g >= 0.0
-        n3 = tuple(torch.where(use, f, o) for f, o in zip(fn[:3], overlay))
-        m = torch.where(use, fn[3], overlay[3])
-        hits = _hits_from_raw(rays, best_t, n3, m, r)
-        if not with_ids:
-            return hits
-        g_int = best_g.to(torch.int64).clamp(0, g_to_orig.shape[0] - 1)
-        ids = torch.where(use, g_to_orig[g_int], seed_ids)
-        ids = torch.where(best_t < BIG, ids, -1)
-        return hits, ids[:r]
+    def _chain(comps, best, resolved, done, pend, u2, u3a, u3b, rpad, stats):
+        """`move='chain'` (thin): the escalations and the dense tail in
+        chain space, in place on best, resolved, done and pend (see the
+        module docstring)."""
+        # Chain space: sorted by (resolved, slot); the key is unique.
+        span = 1 << 25
+        order = torch.argsort(resolved.long() * span
+                              + torch.arange(rpad, device=resolved.device))
+        st = {"slot": order, "res": resolved[order], "done": done[order],
+              "pend": pend[order], "t": best[0][order], "g": best[1][order],
+              "comps": [x[order] for x in comps]}
+
+        def region_sort(n):
+            key = st["res"][:n].long() * span + st["slot"][:n]
+            perm = torch.argsort(key)
+            for k in ("slot", "res", "done", "pend", "t", "g"):
+                st[k][:n] = st[k][:n][perm]
+            for x in st["comps"]:
+                x[:n] = x[:n][perm]
+
+        def escalate(u, w, sel):
+            """The escalation's per-ray semantics on the prefix [:u]."""
+            sub = [x[:u] for x in st["comps"]]
+            d0 = st["done"][:u]
+            if stats is not None:
+                stats["escalations"].append(
+                    (u, w, int((~st["res"][:u]).sum())))
+            ids_all, ents_all, nxt = run_candidates(
+                pack_rays(sub[:3], sub[3:]), boxes_r, sel, c)
+            (t_new, g_new), pend_sub = run_pairs_fn(
+                sub, window(ids_all, d0, w, sel))
+            t0 = st["t"][:u]
+            better = t_new < t0
+            t1 = torch.where(better, t_new, t0)
+            st["g"][:u] = torch.where(better, g_new, st["g"][:u])
+            st["t"][:u] = t1
+            d1 = torch.clamp(d0 + w, max=sel)
+            bound = cert_bound(ents_all, nxt, d1, sel)
+            p1 = st["pend"][:u] | pend_sub
+            st["pend"][:u] = p1
+            st["res"][:u] |= ((t1 <= bound) | (bound >= BIG)) & ~p1
+            st["done"][:u] = torch.maximum(d0, d1)
+
+        if l2 > l1:
+            escalate(u2, l2 - l1, min(maxrank, l2))
+        if maxrank > l2:
+            region_sort(u2)
+            escalate(u3a, 8, min(maxrank, l2 + 8))
+            region_sort(u3a)
+            escalate(u3b, maxrank - l2, maxrank)
+        region_sort(u2)
+        unres = int((~st["res"][:u2]).sum())
+        u4c = min(tail, u2)
+        k = 0
+        while k * u4c < unres:
+            off = min(k * u4c, rpad - u4c)
+            sl = slice(off, off + u4c)
+            sub = [x[sl] for x in st["comps"]]
+            tt, gg = minarg(pack_rays(sub[:3], sub[3:]), chain_pack)
+            better = tt < st["t"][sl]
+            st["t"][sl] = torch.where(better, tt, st["t"][sl])
+            st["g"][sl] = torch.where(better, gg, st["g"][sl])
+            st["res"][sl] = True
+            k += 1
+        if stats is not None:
+            stats["chain_tail_rays"] = unres
+            stats["chain_tail_iterations"] = k
+        slot = st["slot"]
+        best[0][slot] = st["t"]
+        best[1][slot] = st["g"]
+        resolved[slot] = st["res"]
+        done[slot] = st["done"]
+        pend[slot] = st["pend"]
 
     return intersect

@@ -43,8 +43,22 @@ after their K18m copies, K4 tail; `make_march_intersect` at cs = tr =
 512, K1 = 24, K2 = 64) and 'flat' the flat visit list (K18 round 0, K19,
 K4 tail; `make_flat_march_intersect` at cs = tr = 256, K0 = 4), the JAX
 engine's defaults (engine.py:435-450); their hits report no triangle
-ids, so smooth shading refuses them. 'auto' never picks these five, and
-the port prints none of the JAX package's TPU-only warnings about them. Analytic spheres go
+ids, so smooth shading refuses them. 'pairmx' is the pair intersector
+with K10's full payload (`make_pair_intersect(mxu=True, trp=512)`, the
+JAX engine's kwargs: Morton clusters of 512, K9, K10 writing five
+streams, K4 seed and tail). 'bvh' is the LBVH (`accel.build_lbvh`,
+leaves of 4) and 'median' the reference's own tree (`accel.
+build_median_tree(split='midpoint_mean')`, one subtree per object of
+`scene.object_ranges`), both walked by `accel.make_bvh_intersect`,
+plain PyTorch with no hand-written kernel (the JAX package has none
+either): on CUDA they are refused unless `force=True` (`accel_force`,
+`--accel-force`), for the card's own reason, their times (PERF.md
+section 5). None of the three reports ids, so smooth shading and
+textures refuse them too. 'auto' never picks these eight, and
+the port prints none of the JAX package's TPU-only warnings about them.
+The JAX package's 'auto' on a CPU host picks 'bvh' above 4,096
+triangles and 'bruteforce' below, a speed policy for a CPU host; the
+port's 'auto' resolves as above on every device. Analytic spheres go
 through K3 (K3b above 64) and are min-merged after the triangles. With
 `smooth`, the triangle winner's normal is the interpolated vertex normal
 (`_make_smooth_tri_fn`): 'auto' is 'minarg' (K1 then K8) up to 4,096
@@ -80,7 +94,10 @@ import os
 import numpy as np
 import torch
 
-from opencl_path_tracer_tpu_torch.config import RenderConfig
+from opencl_path_tracer_tpu_torch.accel import (
+    build_lbvh, build_median_tree, make_bvh_intersect,
+)
+from opencl_path_tracer_tpu_torch.config import ACCELS, RenderConfig
 from opencl_path_tracer_tpu_torch.core.textures import kd_scale
 from opencl_path_tracer_tpu_torch.io.checkpoint import (
     load_checkpoint, save_checkpoint,
@@ -154,11 +171,16 @@ ADAPTIVE_OVERHEAD_FACTOR = 1.15
 ADAPTIVE_MIN_BUCKET = 4096
 
 
+# The accels that run on CUDA only with force: the BVH walker's.
+FORCE_ONLY = ("bvh", "median")
+
+
 def resolve_accel(accel: str, num_triangles: int, on_cuda: bool,
-                  smooth: bool = False) -> str:
+                  smooth: bool = False, force: bool = False) -> str:
     """The triangle intersector `accel` names for this scene and device.
     smooth: the path needs the winner's index (smooth shading or
-    textures), which lowers 'auto''s minarg cap to 4,096."""
+    textures), which lowers 'auto''s minarg cap to 4,096. force: run
+    'bvh' or 'median' on CUDA."""
     if accel == "auto":
         cap = SMOOTH_MINARG_MAX_TRIS if smooth else AUTO_MINARG_MAX_TRIS
         return "minarg" if num_triangles <= cap else "pairwin"
@@ -166,11 +188,15 @@ def resolve_accel(accel: str, num_triangles: int, on_cuda: bool,
         raise ValueError(
             "accel 'bruteforce' is the plain PyTorch reference and does not "
             "run on CUDA; use 'minarg' (or 'auto')")
-    if accel not in ("minarg", "pallas", "tilecull", "pairwin", "pair",
-                     "cluster", "group", "march", "flat", "bruteforce"):
-        raise NotImplementedError(
-            f"accel {accel!r} is not ported yet (ROADMAP.md queue 1, the bvh "
-            "and median accels)")
+    if accel in FORCE_ONLY and on_cuda and not force:
+        raise ValueError(
+            f"accel {accel!r} is refused on CUDA without force=True (CLI: "
+            "--accel-force): the BVH walker (accel/traverse.py) is plain "
+            "PyTorch with no hand-written kernel, dozens of launches and an "
+            "(R, leaf, 16) row gather per lockstep step; its times on the "
+            "card are in PERF.md section 5")
+    if accel not in ACCELS:
+        raise ValueError(f"unknown accel {accel!r}; the port has {ACCELS}")
     return accel
 
 
@@ -293,7 +319,7 @@ def predicted_accel(scene: Scene, cam, iterations: int,
 
 def make_intersect_fn(scene: Scene, accel: str = "auto", origin=None,
                       smooth: bool = False, textured: bool = False,
-                      cam=None, iterations: int = 5):
+                      cam=None, iterations: int = 5, force: bool = False):
     """intersect(rays) -> Hits over the scene's triangles, min-merged with
     its analytic spheres (the triangle stream wins exact-t ties). origin
     (the camera eye; cam.eye when a camera is given) orders the
@@ -305,8 +331,9 @@ def make_intersect_fn(scene: Scene, accel: str = "auto", origin=None,
     normals already). textured=True returns (Hits, kd_scale) instead
     (`_make_textured_fn`): it needs scene.textures, the corner UVs of
     scene.attribs and an ids-reporting accel ('auto' resolves as for
-    smooth shading), and composes with smooth. The intersector's
-    `.accel` is the resolved accel."""
+    smooth shading), and composes with smooth. force: run 'bvh' or
+    'median' on CUDA (see resolve_accel). The intersector's `.accel` is
+    the resolved accel."""
     on_cuda = scene.tris.device.type == "cuda"
     if smooth and not _has_vertex_normals(scene):
         raise ValueError(
@@ -320,7 +347,7 @@ def make_intersect_fn(scene: Scene, accel: str = "auto", origin=None,
         accel = predicted_accel(scene, cam, iterations, smooth and not
                                 textured)
     accel = resolve_accel(accel, scene.num_triangles, on_cuda,
-                          smooth or textured)
+                          smooth or textured, force)
     fn = _make_fn(scene, accel, origin, smooth, textured)
     fn.accel = accel
     return fn
@@ -341,8 +368,16 @@ def _make_fn(scene: Scene, accel: str, origin, smooth: bool,
         tri_fn = make_tilecull_intersect(scene.tris, origin=origin)
     elif accel == "pairwin":
         tri_fn = make_pair_intersect(scene.tris, **PAIR_TPU_WINNER)
+    elif accel == "pairmx":
+        tri_fn = make_pair_intersect(scene.tris, mxu=True, trp=512)
     elif accel == "pair":
         tri_fn = make_pair_intersect(scene.tris)
+    elif accel == "bvh":
+        tri_fn = make_bvh_intersect(build_lbvh(scene.tris, leaf_size=4))
+    elif accel == "median":
+        tri_fn = make_bvh_intersect(build_median_tree(
+            scene.tris, split="midpoint_mean",
+            object_ranges=scene.object_ranges))
     elif accel == "cluster":
         tri_fn = make_cluster_intersect(scene.tris)
     elif accel == "group":
@@ -374,7 +409,8 @@ class RenderEngine:
         cam = self.camera
         self.intersect_fn = intersect_fn or make_intersect_fn(
             self.scene, config.accel, smooth=config.smooth,
-            textured=config.textured, cam=cam, iterations=config.iterations)
+            textured=config.textured, cam=cam, iterations=config.iterations,
+            force=config.accel_force)
         # 'auto' re-picks on a depth change where the predictor decides
         # it (`_maybe_repick_accel`); an injected intersector stays.
         self._accel_auto = (
@@ -461,7 +497,7 @@ class RenderEngine:
             fn = make_intersect_fn(
                 self.scene, "auto", smooth=self.cfg.smooth,
                 textured=self.cfg.textured, cam=self.camera,
-                iterations=iterations)
+                iterations=iterations, force=self.cfg.accel_force)
             self._accel_by_iters[iterations] = fn
         self.intersect_fn = fn
         self._accel_iters = iterations

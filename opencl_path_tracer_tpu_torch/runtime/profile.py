@@ -47,11 +47,17 @@ Needs a GPU:
     python -m opencl_path_tracer_tpu_torch.runtime.profile --model wavefront \
         --scene cornell-analytic --nee --dispersion 30 --bands 3
     python -m opencl_path_tracer_tpu_torch.runtime.profile --sphere-res 26 50
+    python -m opencl_path_tracer_tpu_torch.runtime.profile --scene stress \
+        --accel pairmx
+    python -m opencl_path_tracer_tpu_torch.runtime.profile --accel bvh \
+        --accel-force --spp 1
+    python -m opencl_path_tracer_tpu_torch.runtime.profile --accel median \
+        --accel-force --spp 1
 
 --model megakernel and wavefront render --spp samples through
 `RenderEngine` (with --nee, --nee-select, --accel, --smooth,
---models-dir, --dof, --env, --envmap, --env-scale and --no-env-nee as
-`ptx-torch render` takes them; `--scene stress`, 99,380
+--models-dir, --dof, --env, --envmap, --env-scale, --no-env-nee and
+--accel-force as `ptx-torch render` takes them; `--scene stress`, 99,380
 triangles, runs the pair intersector through 'auto'; --intersect
 minarg-fused or mxu passes the intersector that no accel names, K14
 through `make_minarg_intersect(fuse_fetch=True)` or K15 through
@@ -120,7 +126,8 @@ def _workload(args, dev):
     if args.model in ("megakernel", "wavefront"):
         cfg = RenderConfig(width=w, height=h, iterations=args.iters,
                            mode=args.mode, model=args.model, camera=camera,
-                           accel=args.accel, nee=args.nee,
+                           accel=args.accel, accel_force=args.accel_force,
+                           nee=args.nee,
                            nee_select=args.nee_select, smooth=args.smooth,
                            textured=args.textured,
                            dof_aperture=args.dof[0] if args.dof else 0.0,
@@ -190,7 +197,8 @@ def _dispersive_workload(args, scene, cfg, dev):
     cam = CameraController(cfg, device=dev).camera(cfg.width, cfg.height)
     isect = make_intersect_fn(scene, cfg.accel, smooth=cfg.smooth,
                               textured=cfg.textured, cam=cam,
-                              iterations=cfg.iterations)
+                              iterations=cfg.iterations,
+                              force=cfg.accel_force)
     args.accel_resolved = isect.accel
     nee_tab, occ = _spectral_nee(cfg, scene)
 
@@ -251,6 +259,9 @@ def main(argv=None) -> int:
                     help="steps per profiled run (fused, lazy)")
     ap.add_argument("--mode", default="fast")
     ap.add_argument("--accel", default="auto")
+    ap.add_argument("--accel-force", action="store_true",
+                    help="run bvh or median on the card (refused without "
+                         "it)")
     ap.add_argument("--nee", action="store_true",
                     help="next-event estimation (shadow rays through K7)")
     ap.add_argument("--nee-select", default="power",

@@ -1678,3 +1678,53 @@ def test_twenty_first_slice_flat_bands_are_the_wavefront_render(cuda):
     disp = spectral.render_dispersive(cam, scene.mats, bands=3, v_d=30.0,
                                       **kw)
     assert disp.is_cuda and bool(torch.isfinite(disp).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("infeat", [False, True])
+def test_twenty_second_slice_pair_visit_full_equals_plain(cuda, infeat):
+    """K10's full form (five streams) and, with infeat, its thin form on
+    the fused features, against their plain versions on the pairs of
+    grazing and aimed lanes of stress_scene(1200) (clusters of 128, tiles
+    of 256, one tile of dummies); the full form's t and pend equal the
+    thin form's, its attributes K11's fetch of the thin form's winner;
+    only the launched entries count."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import pair_mxu as pm
+    from opencl_path_tracer_tpu_torch.ops.kernels import sorted_intersect as si
+    from opencl_path_tracer_tpu_torch.ops.kernels.march_kernel import (
+        build_march_scene,
+    )
+    scene = library.stress_scene(1200, device=cuda)
+    cs, trp = 128, 256
+    ms, rt, c = build_march_scene(scene.tris, cs)
+    boxes = torch.cat([ms.boxes_lo, ms.boxes_hi,
+                       torch.zeros((c, 2), device=cuda)], 1)
+    boxes_r = torch.zeros((-(-c // 128) * 128, 8), device=cuda)
+    boxes_r[:c] = boxes
+    r8 = _pair_rays(scene, cuda)
+    ids = si.run_candidates(r8, boxes_r, 4, c)
+    keys_s, r8p, _ = pm.sort_pairs([r8[j] for j in range(6)], ids[0], c, trp)
+    keys_s = torch.cat([keys_s, torch.full((trp,), c, dtype=torch.int32,
+                                           device=cuda)])
+    r8p = torch.cat([r8p, torch.zeros((8, trp), device=cuda)], 1)
+    args = (keys_s, r8p, ms.trig, ms.tric, cs, trp, c)
+    before = dict(_build.launches)
+    full = pm.pair_visits_full(*args, infeat=infeat)
+    thin = pm.pair_visits(*args, infeat=infeat)
+    assert {k: _build.launches[k] - before[k]
+            for k in ("pair_visit", "pair_visit_full")} == {
+                "pair_visit": 1, "pair_visit_full": 1}
+    for a, b in zip(full, pm.pair_visits_full_plain(*args, infeat=infeat)):
+        assert torch.equal(a, b)
+    for a, b in zip(thin, pm.pair_visits_plain(*args, infeat=infeat)):
+        assert torch.equal(a, b)
+    t, gp = thin
+    g = torch.floor(gp / 2.0)
+    pend = gp - 2.0 * g
+    fetched = pm.fetch_attrs(torch.where(t < k1.BIG, g, -1.0), ms.tric)
+    assert torch.equal(full[0], t)
+    assert torch.equal(full[4] - 2.0 * torch.floor(full[4] / 2.0), pend)
+    for a, b in zip(full[1:4], fetched[:3]):
+        assert torch.equal(a, b)
+    assert torch.equal(torch.floor(full[4] / 2.0), fetched[3])
+    assert int((t < k1.BIG).sum()) > 1000 and bool((pend > 0).any())

@@ -80,12 +80,13 @@ def test_entry_points_refuse_cpu_without_asking(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("field,value,ported", [
-    ("devices", 2, False), ("accel_force", True, False),
+    ("devices", 2, False), ("accel_force", True, True),
     ("textured", True, True)],
     ids=["devices-2", "accel_force-True", "textured-True"])
 def test_config_refuses_unported_fields(field, value, ported):
-    """devices and accel_force are refused; textured is ported and
-    validates (and round-trips through JSON)."""
+    """devices is refused (UNPORTED is ("devices",)); accel_force and
+    textured are ported and validate (and round-trip through JSON)."""
+    assert RenderConfig.UNPORTED == ("devices",)
     cfg = dataclasses.replace(_cfg(), **{field: value})
     if ported:
         assert field not in RenderConfig.UNPORTED
@@ -97,8 +98,10 @@ def test_config_refuses_unported_fields(field, value, ported):
 
 
 def test_config_validation_and_json_roundtrip():
-    with pytest.raises(NotImplementedError, match="queue 1, the bvh and median accels"):
-        _cfg(accel="bvh").validate()
+    for accel in ("bvh", "median", "pairmx"):
+        assert _cfg(accel=accel).validate().accel == accel
+    with pytest.raises(ValueError, match="unknown accel"):
+        _cfg(accel="kdtree").validate()
     assert _cfg(accel="pairwin").validate().accel == "pairwin"
     assert _cfg(accel="march").validate().accel == "march"
     assert _cfg(accel="flat").validate().accel == "flat"
@@ -167,8 +170,14 @@ def test_accel_resolution():
     assert engine.resolve_accel("tilecull", 10, on_cuda=True) == "tilecull"
     assert engine.resolve_accel("march", 99_380, on_cuda=True) == "march"
     assert engine.resolve_accel("flat", 10, on_cuda=False) == "flat"
-    with pytest.raises(NotImplementedError):
-        engine.resolve_accel("bvh", 10, on_cuda=True)
+    # The walkers run on CUDA only with force; on the CPU always.
+    for accel in ("bvh", "median"):
+        with pytest.raises(ValueError, match="force=True"):
+            engine.resolve_accel(accel, 10, on_cuda=True)
+        assert engine.resolve_accel(accel, 10, on_cuda=True,
+                                    force=True) == accel
+        assert engine.resolve_accel(accel, 10, on_cuda=False) == accel
+    assert engine.resolve_accel("pairmx", 10, on_cuda=True) == "pairmx"
 
 
 def test_console_script_and_package_data_declared():

@@ -132,8 +132,8 @@ def test_forced_pend_funnels_through_the_tail(scenes, monkeypatch, with_ids):
                             infeat, thin)
         return best, jnp.ones_like(pend)
 
-    def all_pend_p(comps, ids, scene, c, cs, trp):
-        best, pend = real_p(comps, ids, scene, c, cs, trp)
+    def all_pend_p(comps, ids, scene, c, cs, trp, **kw):
+        best, pend = real_p(comps, ids, scene, c, cs, trp, **kw)
         return best, torch.ones_like(pend)
 
     monkeypatch.setattr(jpm, "pairs_round_mxu", all_pend_j)
@@ -149,16 +149,25 @@ def test_forced_pend_funnels_through_the_tail(scenes, monkeypatch, with_ids):
     assert stats["round1_resolved"] == 0 and stats["tail_iterations"] >= 4
 
 
-def test_unported_configurations_refuse():
-    """What stays unported raises NotImplementedError naming ROADMAP.md:
-    move='chain', infeat, approx and mxu=True with thin=False (the
-    `pairmx` payload); invalid combinations raise the JAX package's
-    ValueErrors first, as its own function does."""
+@pytest.mark.parametrize("kw", [
+    dict(move="chain"), dict(infeat=True), dict(approx=True),
+    dict(thin=False, dop=False), dict(thin=False), None],
+    ids=["chain", "infeat", "approx", "full-nodop", "full", "value-errors"])
+def test_unported_configurations_refuse(scenes, kw, monkeypatch):
+    """The five configurations that raised NotImplementedError until they
+    were ported (move='chain', infeat, approx and mxu=True with
+    thin=False, the `pairmx` payload, with and without DOP boxes) build
+    and match the JAX package bit for bit on random rays in the box
+    (approx: its resolved flags too); invalid combinations raise the JAX
+    package's ValueErrors, as its own function does."""
+    if kw is not None:
+        jout, pout, _, _ = _run(scenes, "box", False, monkeypatch, **kw)
+        if kw.get("approx"):
+            (jout, jres), (pout, pres) = jout, pout
+            np.testing.assert_array_equal(pres.numpy(), np.asarray(jres))
+        _assert_hits_bit_equal(jout, pout)
+        return
     tris = library.stress_scene(N_TRIS).tris
-    for kw in (dict(move="chain"), dict(infeat=True), dict(approx=True),
-               dict(thin=False, dop=False), dict(thin=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            si.make_pair_intersect(tris, **dict(KW, **kw))
     jt = jlib.stress_scene(N_TRIS).tris
     for kw in (dict(dop=True), dict(thin=True), dict(infeat=True),
                dict(with_ids=True), dict(move="scatter"),

@@ -51,5 +51,9 @@ def test_smooth_refused_as_in_jax(accel):
         assert all(a in msg for a in ("minarg", "tilecull", "pairwin",
                                       "bruteforce")) and accel in msg
     assert engine.resolve_accel(accel, 99_380, True) == accel
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        engine.resolve_accel("pairmx", 99_380, True)
+    assert engine.resolve_accel("pairmx", 99_380, True) == "pairmx"
+    # 'pairmx' reports no ids either: smooth shading refuses it as JAX's
+    # engine does.
+    with pytest.raises(ValueError) as perr:
+        engine.make_intersect_fn(ps, "pairmx", smooth=True)
+    assert "pairmx" in str(perr.value)

@@ -297,13 +297,40 @@ of tests/assets/models. `check_no_fallback` also holds K10's full form to
 its kernel (no plain version on CUDA) and 'bvh' and 'median' refused on
 CUDA without force.
 
+The interactive front end (`check_slice23`, at 1920x1080, 5 bounces,
+fast mode, every path inside `plain_guard`, under which a plain version
+handed a CUDA tensor raises): `megakernel cornell nee anim` is
+`runtime/anim.render_animation` ('auto', NEE: the predictor's pick, K2,
+K7) over three poses of a 30-degree pan about the box's middle (ORBIT)
+at ANIM_SPP, each frame np.array_equal to a fresh engine's display_u8()
+at its pose through the same intersector, the frames unlike each other,
+with its offline frames/s; `_write_gif_raw` on those frames, timed a
+frame, its file walked block by block (GIF89a, the NETSCAPE2.0 loop 0,
+one image a frame, local colour tables only); `ptx-torch anim` as a
+subprocess with PIL hidden (2 frames, two PNGs and the raw writer's GIF)
+and in process with --denoise and PIL's writers set aside; `wavefront
+cornell-analytic nee dispersion anim` is `ptx-torch anim --dispersion 30
+--bands 3 --nee` (2 frames at SPECTRAL_SPP), its images NaN-free, frame
+0 torch.equal to `spectral.render_dispersive` at its pose and its PNG to
+that image tonemapped; `megakernel cornell viewer` is
+`runtime/viewer.ViewerServer` on 127.0.0.1, port 0, over HTTP: a 1080p
+/frame.png, the published frames/s over FPS_WINDOW s and /stats'
+viewer_fps, '+' to depth 6 and the engine's re-pick, 'n''s denoised
+frames with error None, /stream.mjpg's JPEG parts where PIL is
+installed and 404 without, /frame.png's encode ms through
+`io.image.png_bytes`, and ESC stopping the server.
+`check_no_fallback` also runs a 320x180 turntable and the viewer's fetch
+inside `plain_guard`: their kernels launch, the fetch's host buffer is
+pinned and its frame equals display_u8().
+
 The last two lines are a JSON object per kernel (time, plain time,
 bound, launches) and the verdict; the line before them, the smoke's total
 time. Any failed phase raises, and the
 script exits non-zero without the verdict. It writes nothing but the
 kernel build under the package's `_build/`, and the resume checks'
-checkpoints and `check_slice20`'s scene files and PNGs in temporary
-directories, which it removes.
+checkpoints, `check_slice20`'s scene files and PNGs and `check_slice23`'s
+frames and GIFs in temporary directories, which it removes. The viewer
+binds a loopback port and shuts its server down.
 """
 
 from __future__ import annotations
@@ -465,6 +492,10 @@ PATH_KERNELS = {
     "wavefront cornell-analytic nee dispersion": ("minarg", "refine1",
                                                   "spheres", "anyhit"),
     "megakernel stress pairmx": ("dense", "pair_cand", "pair_visit_full"),
+    "megakernel cornell nee anim": ("minarg", "refine1", "anyhit"),
+    "wavefront cornell-analytic nee dispersion anim": (
+        "minarg", "refine1", "spheres", "anyhit"),
+    "megakernel cornell viewer": ("minarg", "refine1"),
     # The walker is plain PyTorch: the path launches no kernel of the port.
     "megakernel cornell bvh": (),
 }
@@ -2648,6 +2679,45 @@ def check_no_fallback(torch, scenes):
         raise SmokeError(f"accel {accel!r} ran on CUDA without force")
     print("no fallback: pair_visits_full on CUDA tensors launched its kernel "
           "once and no plain version; without force " + "; ".join(refused))
+    no_fallback_front_end(torch, scenes)
+
+
+def no_fallback_front_end(torch, scenes):
+    """The front end's paths launch their kernels on CUDA and run no plain
+    version there (`plain_guard`): a one-pose turntable ('auto', NEE) at
+    320x180 and the viewer's double-buffered fetch, whose host buffer is
+    pinned and whose frame equals display_u8()."""
+    import numpy as np
+    from opencl_path_tracer_tpu_torch.config import CameraConfig, RenderConfig
+    from opencl_path_tracer_tpu_torch.ops.kernels import _build
+    from opencl_path_tracer_tpu_torch.runtime import anim
+    from opencl_path_tracer_tpu_torch.runtime.engine import RenderEngine
+    from opencl_path_tracer_tpu_torch.runtime.viewer import ViewerServer
+    small = RenderConfig(width=320, height=180, iterations=BOUNCES,
+                         mode="fast", nee=True, camera=CameraConfig(
+                             fov=60.0, yaw=0.0, pitch=0.0,
+                             shift=(0.0, 0.0, 0.0)))
+    before = dict(_build.launches)
+    with plain_guard():
+        eng = RenderEngine(scenes["cornell"], small, device="cuda")
+        anim.render_animation(eng, anim.turntable_poses(frames=1, **ORBIT),
+                              spp=1, progress=False)
+        v = ViewerServer(eng, port=0)
+        eng.frame(sync=False)
+        fetch = v._fetch(eng.display_u8_device())
+        u8 = v._finish(fetch)
+        torch.cuda.synchronize()
+    rose = {k: _build.launches[k] - before[k] for k in _build.launches
+            if _build.launches[k] > before[k]}
+    need(set(path_kernels("megakernel cornell nee anim",
+                          eng.intersect_fn.accel)) <= set(rose),
+         f"no fallback: the front end launched only {rose}")
+    need(fetch[1].is_pinned() and fetch[2] is not None
+         and np.array_equal(u8, eng.display_u8()),
+         "no fallback: the viewer's fetch is not a pinned copy of the frame")
+    print(f"no fallback: render_animation and the viewer's fetch at 320x180 "
+          f"launched {rose} and no plain version on CUDA; the fetch went "
+          "through pinned memory behind an event")
 
 
 def path_kernels(name, accels=None):
@@ -4216,6 +4286,456 @@ def _slice22_native(torch, stress):
           f"bit-equal to the Python builder's ({t_python:.3f} s)")
 
 
+# check_slice23's turntables: poses about the box's middle at the preset
+# eye's distance, looking in through the open front.
+ORBIT = dict(center=(500.0, 500.0, 500.0), radius=1799.037842, pitch=0.0)
+ANIM_SPP = 2   # spp a frame of check_slice23's turntables
+FPS_WINDOW = 3.0   # seconds the viewer's published frames are counted
+
+
+class plain_guard:
+    """While active, every plain version in `ops/kernels/` raises a
+    SmokeError when it is handed a CUDA tensor: the paths run inside it
+    must launch their kernels on the card and never fall back. Every
+    module-level name in the package that is bound to a plain version is
+    rebound to the guard, the copies `from ... import`ed into other
+    modules too (a plain version held in a closure is not reached; the
+    per-path launch counts of `run_path` cover those)."""
+
+    PACKAGE = "opencl_path_tracer_tpu_torch"
+
+    def __init__(self):
+        import importlib
+        import pkgutil
+        from opencl_path_tracer_tpu_torch.ops import kernels
+        self.plain = {}   # id(plain version) -> (its module, name, it)
+        for info in pkgutil.iter_modules(kernels.__path__):
+            mod = importlib.import_module(f"{kernels.__name__}.{info.name}")
+            for attr, fn in vars(mod).items():
+                if (attr.endswith("_plain") and callable(fn)
+                        and getattr(fn, "__module__", "") == mod.__name__):
+                    self.plain[id(fn)] = (mod, attr, fn)
+
+    def _modules(self):
+        return [m for n, m in list(sys.modules.items())
+                if m is not None and (n == self.PACKAGE
+                                      or n.startswith(self.PACKAGE + "."))]
+
+    def _rebind(self, table):
+        """Rebinds every package module's name whose value's id is a key
+        of `table` to the table's value for it."""
+        for mod in self._modules():
+            for attr, val in list(vars(mod).items()):
+                if id(val) in table:
+                    setattr(mod, attr, table[id(val)])
+
+    def __enter__(self):
+        import torch
+
+        def guard(mod, attr, fn):
+            def call(*a, **k):
+                if any(isinstance(x, torch.Tensor) and x.is_cuda
+                       for x in (*a, *k.values())):
+                    raise SmokeError(f"{mod.__name__}.{attr} ran on CUDA "
+                                     "tensors: a path fell back")
+                return fn(*a, **k)
+            return call
+
+        self.guards = {key: guard(*entry) for key, entry in self.plain.items()}
+        self._rebind(self.guards)
+        return self
+
+    def __exit__(self, *exc):
+        # Modules first imported inside the guard hold a guard too.
+        self._rebind({id(g): self.plain[key][2]
+                      for key, g in self.guards.items()})
+        return False
+
+
+def gif_layout(data):
+    """(version, loop count, image descriptors, delays in 1/100 s, whether
+    every image has its own 256-entry colour table and the screen none:
+    the port's raw writer's layout) of a GIF file's bytes, walking its
+    blocks."""
+    import struct
+    version = data[:6]
+    flags = data[10]
+    pos = 13 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0)
+    loop, images, delays, local = None, 0, [], not flags & 0x80
+
+    def skip_sub_blocks(p):
+        while data[p]:
+            p += data[p] + 1
+        return p + 1
+
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:
+            label = data[pos + 1]
+            if label == 0xFF and data[pos + 3:pos + 14] == b"NETSCAPE2.0":
+                loop = struct.unpack("<H", data[pos + 16:pos + 18])[0]
+            elif label == 0xF9:
+                delays.append(struct.unpack("<H", data[pos + 4:pos + 6])[0])
+            pos = skip_sub_blocks(pos + 2)
+        elif data[pos] == 0x2C:
+            images += 1
+            packed = data[pos + 9]
+            local = local and packed == 0x87
+            pos += 10 + (3 << ((packed & 7) + 1) if packed & 0x80 else 0)
+            pos = skip_sub_blocks(pos + 1)
+        else:
+            raise SmokeError(f"GIF: unknown block 0x{data[pos]:02x} at {pos}")
+    return version, loop, images, delays, local
+
+
+def check_slice23(torch, np, scenes):
+    """The interactive front end at 1920x1080, 5 bounces, fast mode (the
+    module docstring), inside `plain_guard`, with the counts reset before
+    and read after each main path. Returns the launches of its paths."""
+    from opencl_path_tracer_tpu_torch.config import CameraConfig, RenderConfig
+    from opencl_path_tracer_tpu_torch.runtime import anim
+    from opencl_path_tracer_tpu_torch.runtime.engine import RenderEngine
+    t_phase = time.perf_counter()
+    launches = {}
+    preset = dict(fov=60.0, yaw=0.0, pitch=0.0, shift=(0.0, 0.0, 0.0))
+
+    def cfg(camera=None, **kw):
+        return RenderConfig(width=W, height=H, iterations=BOUNCES,
+                            mode="fast",
+                            camera=camera or CameraConfig(**preset), **kw)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    with plain_guard(), tempfile.TemporaryDirectory(
+            prefix="ptx-slice23-") as tmp:
+        frames = _slice23_anim(torch, np, scenes["cornell"], cfg, add,
+                               RenderEngine, anim, CameraConfig, preset)
+        _slice23_gif(torch, np, frames, anim, tmp)
+        _slice23_dispersive(torch, np, scenes["cornell-analytic"], cfg, add,
+                            tmp)
+        _slice23_viewer(torch, np, scenes["cornell"], cfg, add, RenderEngine,
+                        tmp)
+    print(f"check_slice23: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _slice23_anim(torch, np, corn, cfg, add, RenderEngine, anim,
+                  CameraConfig, preset):
+    """'megakernel cornell nee anim': `render_animation` over three poses
+    of a 30-degree pan about the box's middle, through its open front, at
+    ANIM_SPP; each frame np.array_equal to a fresh engine's display_u8()
+    at its pose. The fresh engines take the turntable engine's
+    intersector: 'tilecull' orders its groups from the eye it was built
+    at, which breaks exact-t ties, and a turntable keeps the one it
+    built."""
+    name = "megakernel cornell nee anim"
+    eng = RenderEngine(corn, cfg(nee=True), device="cuda")
+    poses = anim.turntable_poses(frames=3, start_yaw=-15.0, sweep=30.0,
+                                 **ORBIT)
+    frames, dt, counts = run_path(
+        torch, name, lambda: anim.render_animation(
+            eng, poses, spp=ANIM_SPP, progress=False),
+        eng.intersect_fn.accel)
+    add(counts)
+    for i, (yaw, pitch, shift) in enumerate(poses):
+        fresh = RenderEngine(corn, cfg(nee=True, camera=CameraConfig(
+            **dict(preset, yaw=yaw, pitch=pitch,
+                   shift=tuple(float(v) for v in shift)))),
+            intersect_fn=eng.intersect_fn, device="cuda")
+        fresh.render(ANIM_SPP, progress=False)
+        need(np.array_equal(frames[i], fresh.display_u8()),
+             f"{name}: frame {i} (yaw {yaw}) differs from a fresh engine's "
+             f"{ANIM_SPP} samples at its pose")
+    need(all(f.shape == (H, W, 3) and f.dtype == np.uint8 and f.mean() > 1
+             for f in frames)
+         and not np.array_equal(frames[0], frames[1])
+         and not np.array_equal(frames[1], frames[2]),
+         f"{name}: the frames are dark or equal from pose to pose")
+    print(f"main path {name}: {W}x{H}, {BOUNCES} bounces, fast, accel "
+          f"{eng.intersect_fn.accel}, yaws {[p[0] for p in poses]} about "
+          f"{ORBIT['center']}, {ANIM_SPP} spp a frame: {len(frames)} frames "
+          f"in {dt:.3f} s, {len(frames) / dt:.2f} frames/s offline "
+          "(render, image fetch, to_uint8); each equal to a fresh engine's "
+          f"display_u8() at its pose; launches {counts}")
+    return frames
+
+
+def _slice23_gif(torch, np, frames, anim, tmp):
+    """The raw GIF writer on the turntable's 1080p frames (timed), and
+    `ptx-torch anim` as a subprocess with PIL hidden (the raw PNG and GIF
+    writers), then in process with --denoise and PIL's writers set
+    aside: two PNGs and a GIF of two frames each."""
+    import contextlib
+    import io
+    from opencl_path_tracer_tpu_torch import cli
+    from opencl_path_tracer_tpu_torch.io import image
+    from opencl_path_tracer_tpu_torch.io.image import read_png
+    path = os.path.join(tmp, "frames.gif")
+    anim._write_gif_raw(path, frames[:1])
+    t0 = time.perf_counter()
+    anim._write_gif_raw(path, frames)
+    gif_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    with open(path, "rb") as fh:
+        data = fh.read()
+    layout = gif_layout(data)
+    need(layout == (b"GIF89a", 0, len(frames),
+                    [anim.gif_delay_ms(12.0) // 10] * len(frames), True),
+         f"the raw GIF of the turntable: {layout[:4]}")
+    print(f"_write_gif_raw: {len(frames)} frames of {W}x{H} (the "
+          "252-colour cube where a frame has over 256 colours) in "
+          f"{gif_ms * len(frames):.1f} ms, "
+          f"{gif_ms:.1f} ms a frame, {len(data)} bytes; GIF89a, loop 0, "
+          f"{layout[2]} images")
+    orbit = ["--scene", "cornell", "--size", f"{W}x{H}", "--iters",
+             str(BOUNCES), "--frames", "2", "--spp", str(ANIM_SPP),
+             "--center", *(str(c) for c in ORBIT["center"]), "--radius",
+             str(ORBIT["radius"]), "--pitch", "0", "--sweep", "15"]
+    for denoise in (False, True):
+        tag = "denoise" if denoise else "plain"
+        out_dir, gif = os.path.join(tmp, tag), os.path.join(tmp, f"{tag}.gif")
+        args = ["anim", *orbit, "--out-dir", out_dir, "--gif", gif]
+        t0 = time.perf_counter()
+        if not denoise:
+            code = ("import sys; sys.modules['PIL'] = None; "
+                    "from opencl_path_tracer_tpu_torch import cli; "
+                    "sys.exit(cli.main(sys.argv[1:]))")
+            r = subprocess.run([sys.executable, "-c", code, *args], cwd=HERE,
+                               capture_output=True, text=True, timeout=300)
+            need(r.returncode == 0, f"ptx-torch anim (subprocess) exited "
+                 f"{r.returncode}: {r.stderr[-2000:]}")
+            said = [ln for ln in r.stderr.splitlines() if "fps offline" in ln]
+        else:
+            saved = anim._PIL, image._PIL
+            anim._PIL = image._PIL = None
+            err = io.StringIO()
+            try:
+                with contextlib.redirect_stderr(err):
+                    rc = cli.main(args + ["--denoise"])
+            finally:
+                anim._PIL, image._PIL = saved
+            need(rc == 0, f"ptx-torch anim --denoise returned {rc}")
+            said = [ln for ln in err.getvalue().splitlines()
+                    if "fps offline" in ln]
+        dt = time.perf_counter() - t0
+        imgs = [read_png(os.path.join(out_dir, f"frame_{i:04d}.png"))
+                for i in range(2)]
+        with open(gif, "rb") as fh:
+            layout = gif_layout(fh.read())
+        need(all(im.shape == (H, W, 3) and im.mean() > 1 for im in imgs)
+             and not np.array_equal(*imgs)
+             and layout[:3] == (b"GIF89a", 0, 2) and layout[4],
+             f"ptx-torch anim ({tag}): PNGs {[im.shape for im in imgs]}, "
+             f"GIF {layout}")
+        print(f"ptx-torch anim{' --denoise' if denoise else ''} "
+              f"({'a subprocess, PIL hidden' if not denoise else 'in process, PIL set aside'})"
+              f": 2 frames of {W}x{H} at {ANIM_SPP} spp in {dt:.2f} s "
+              f"({said[-1].strip() if said else 'no rate line'}); two PNGs, a "
+              f"GIF89a with loop 0 and 2 images in the raw writer's layout")
+
+
+def _slice23_dispersive(torch, np, scene, cfg, add, tmp):
+    """'wavefront cornell-analytic nee dispersion anim': `ptx-torch anim
+    --dispersion 30 --bands 3 --nee`, 2 frames at SPECTRAL_SPP in
+    process; the renderer's images NaN-free, frame 0 torch.equal to
+    `spectral.render_dispersive` at its pose through an intersector built
+    at the CLI's camera, and its PNG to that image tonemapped."""
+    from opencl_path_tracer_tpu_torch import cli
+    from opencl_path_tracer_tpu_torch.io.image import read_png, to_uint8
+    from opencl_path_tracer_tpu_torch.models import spectral
+    from opencl_path_tracer_tpu_torch.ops import tonemap as tonemap_ops
+    from opencl_path_tracer_tpu_torch.ops.kernels import tilecull_kernel as tk
+    from opencl_path_tracer_tpu_torch.ops.nee import build_emitter_table
+    from opencl_path_tracer_tpu_torch.runtime import anim
+    from opencl_path_tracer_tpu_torch.runtime.controller import (
+        CameraController)
+    from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
+    name = "wavefront cornell-analytic nee dispersion anim"
+    out_dir = os.path.join(tmp, "dispersion")
+    args = ["anim", "--scene", "cornell-analytic", "--size", f"{W}x{H}",
+            "--iters", str(BOUNCES), "--frames", "2", "--spp",
+            str(SPECTRAL_SPP), "--dispersion", "30", "--bands", "3", "--nee",
+            "--center", *(str(c) for c in ORBIT["center"]), "--radius",
+            str(ORBIT["radius"]), "--pitch", "0", "--sweep", "15",
+            "--out-dir", out_dir, "--gif", ""]
+    real = spectral.make_dispersive_renderer
+    seen = {"images": []}
+
+    def keep(*a, **k):
+        seen["isect"] = k["intersect_fn"]
+        render = real(*a, **k)
+
+        def call(cam):
+            img = render(cam)
+            seen["images"].append(img)
+            return img
+        return call
+
+    # The CLI builds its intersector at the preset camera, as here.
+    ctrl = CameraController(cfg(nee=True), device="cuda")
+    isect = make_intersect_fn(scene, "auto", cam=ctrl.camera(W, H),
+                              iterations=BOUNCES)
+    spectral.make_dispersive_renderer = keep
+    try:
+        rc, dt, counts = run_path(torch, name, lambda: cli.main(args),
+                                  isect.accel)
+    finally:
+        spectral.make_dispersive_renderer = real
+    add(counts)
+    imgs = seen["images"]
+    need(rc == 0 and seen["isect"].accel == isect.accel and len(imgs) == 2
+         and all(bool(torch.isfinite(im).all()) and im.shape == (W * H, 3)
+                 for im in imgs) and not torch.equal(*imgs),
+         f"{name}: bad images or accel {seen['isect'].accel}")
+    yaw, pitch, shift = anim.turntable_poses(frames=2, sweep=15.0,
+                                             **ORBIT)[0]
+    st = ctrl.state
+    st.yaw, st.pitch, st.shift = yaw, pitch, np.asarray(shift, np.float64)
+    ref = spectral.render_dispersive(
+        ctrl.camera(W, H), scene.mats, intersect_fn=isect,
+        num_pixels=W * H, iterations=BOUNCES, min_spp=SPECTRAL_SPP,
+        bands=3, v_d=30.0, mode="fast", seed=1,
+        nee=build_emitter_table(scene.tris, scene.mats, scene.spheres),
+        occluded_fn=tk.make_scene_occluded(scene))
+    need(torch.equal(imgs[0], ref), f"{name}: frame 0 differs from "
+         "render_dispersive at its pose")
+    png = read_png(os.path.join(out_dir, "frame_0000.png"))
+    want = to_uint8(tonemap_ops.apply(ref.reshape(H, W, 3), "reinhard")
+                    .cpu().numpy()[::-1])
+    need(np.array_equal(png, want), f"{name}: frame 0's PNG is not "
+         "render_dispersive's image tonemapped")
+    print(f"main path {name}: ptx-torch {' '.join(args[:-4])}: 2 frames of "
+          f"{W}x{H} in {dt:.2f} s ({2 / dt:.3f} frames/s, accel "
+          f"{seen['isect'].accel}); NaN-free; frame 0 torch.equal to "
+          "render_dispersive at its pose, its PNG to that image tonemapped; "
+          f"launches {counts}")
+
+
+def _slice23_viewer(torch, np, corn, cfg, add, RenderEngine, tmp):
+    """'megakernel cornell viewer': `ViewerServer` on 127.0.0.1, port 0,
+    block=False, over HTTP: /frame.png a 1080p PNG; viewer_fps over a
+    window of FPS_WINDOW s; '+' to depth 6 (the engine re-picks); 'n'
+    denoised frames, error None; /stream.mjpg JPEG parts with PIL, 404
+    without; /frame.png's encode ms (`io.image.png_bytes`, perf_counter,
+    no device sync, the render thread running without JPEG); ESC stops
+    the server."""
+    import json
+    import urllib.error
+    import urllib.request
+    from opencl_path_tracer_tpu_torch.io import image
+    from opencl_path_tracer_tpu_torch.io.image import read_png
+    from opencl_path_tracer_tpu_torch.runtime.viewer import ViewerServer
+    name = "megakernel cornell viewer"
+    eng = RenderEngine(corn, cfg(), device="cuda")
+    need(eng._accel_auto, f"{name}: 'auto' does not re-pick on the card")
+    v = ViewerServer(eng, port=0)
+    out = {}
+
+    def get(path):
+        return urllib.request.urlopen(base + path, timeout=60).read()
+
+    def stats():
+        return json.loads(get("/stats"))
+
+    def key(k):
+        req = urllib.request.Request(
+            base + "/input", method="POST",
+            data=json.dumps({"ev": "keydown", "key": k}).encode())
+        need(urllib.request.urlopen(req, timeout=60).read() == b"ok",
+             f"{name}: /input {k!r}")
+
+    def until(cond, what, limit=60.0):
+        deadline = time.perf_counter() + limit
+        while time.perf_counter() < deadline:
+            if cond():
+                return
+            time.sleep(0.02)
+        need(False, f"{name}: timed out waiting for {what} "
+             f"(stats {stats()})")
+
+    def drive():
+        nonlocal base
+        httpd = v.serve(block=False)
+        base = f"http://127.0.0.1:{v.port}"
+        until(lambda: v._seq > 1, "the first frames")
+        png = get("/frame.png")
+        path = os.path.join(tmp, "frame.png")
+        with open(path, "wb") as fh:
+            fh.write(png)
+        need(png.startswith(b"\x89PNG") and read_png(path).shape
+             == (H, W, 3), f"{name}: /frame.png is no {W}x{H} PNG")
+        seq0, t0 = v._seq, time.perf_counter()
+        time.sleep(FPS_WINDOW)
+        out["fps"] = (v._seq - seq0) / (time.perf_counter() - t0)
+        out["stats"] = stats()
+        key("+")
+        until(lambda: stats()["iterations"] == BOUNCES + 1
+              and eng._accel_iters == BOUNCES + 1, "depth 6")
+        out["accels"] = {d: f.accel for d, f in eng._accel_by_iters.items()}
+        need(eng.intersect_fn is eng._accel_by_iters[BOUNCES + 1],
+             f"{name}: no re-pick at depth {BOUNCES + 1}")
+        key("n")
+        seq1, t1 = v._seq, time.perf_counter()
+        until(lambda: v._seq >= seq1 + 3, "three denoised frames")
+        out["denoise_fps"] = (v._seq - seq1) / (time.perf_counter() - t1)
+        s = stats()
+        need(s["denoise"] is True and s["error"] is None,
+             f"{name}: denoised display: {s}")
+        key("n")
+        if v._have_pil:
+            with urllib.request.urlopen(base + "/stream.mjpg",
+                                        timeout=60) as resp:
+                blob, deadline = b"", time.perf_counter() + 60
+                while (blob.count(b"--ptxframe\r\nContent-Type: image/jpeg")
+                       < 2 and time.perf_counter() < deadline):
+                    blob += resp.read(1 << 16)
+            out["jpeg_parts"] = blob.count(
+                b"--ptxframe\r\nContent-Type: image/jpeg")
+            need(out["jpeg_parts"] >= 2, f"{name}: /stream.mjpg sent "
+                 f"{out['jpeg_parts']} JPEG parts")
+        v._have_pil = False
+        try:
+            get("/stream.mjpg")
+            need(False, f"{name}: /stream.mjpg without PIL did not 404")
+        except urllib.error.HTTPError as e:
+            need(e.code == 404, f"{name}: /stream.mjpg without PIL: {e.code}")
+        until(lambda: v._frame_jpg == b"", "a frame without JPEG")
+        png_ms = []
+        for _ in range(3):
+            t = time.perf_counter()
+            body = v._encode_png()
+            png_ms.append((time.perf_counter() - t) * 1e3)
+        with open(path, "wb") as fh:
+            fh.write(get("/frame.png"))
+        need(body.startswith(b"\x89PNG")
+             and image._read_png_raw(path).shape == (H, W, 3),
+             f"{name}: /frame.png without PIL is no {W}x{H} PNG")
+        out["png_ms"] = min(png_ms)
+        out["png_bytes"] = len(body)
+        key("Escape")
+        until(lambda: v._stop.is_set() and not v._render_thread.is_alive()
+              and httpd.socket.fileno() == -1, "ESC to stop the server")
+        out["final"] = v.stats()
+
+    base = None
+    _, dt, counts = run_path(torch, name, drive, eng.intersect_fn.accel)
+    add(counts)
+    need(out["final"]["error"] is None and v.last_error is None,
+         f"{name}: {v.last_error}")
+    print(f"main path {name}: {W}x{H}, {BOUNCES} bounces, fast, accels "
+          f"{out['accels']}; viewer_fps {out['stats']['viewer_fps']:.2f} "
+          f"(the loop's average), {out['fps']:.2f} frames published a second "
+          f"over {FPS_WINDOW} s, samples/s {out['stats']['samples_per_sec']:.2f}"
+          f"; '+' to depth {BOUNCES + 1} re-picked; denoised "
+          f"{out['denoise_fps']:.2f} frames/s, error None; "
+          + (f"/stream.mjpg {out['jpeg_parts']} JPEG parts with PIL; "
+             if "jpeg_parts" in out else "no PIL; ")
+          + f"/frame.png encode {out['png_ms']:.1f} ms (io.image.png_bytes "
+          f"on the host, the render thread running without JPEG, "
+          f"{out['png_bytes']} bytes); 404 without PIL; ESC stopped the "
+          f"server; all {dt:.2f} s; launches {counts}")
+
+
 def slice22_rows(torch, inputs):
     """The timing rows of K10's full form on round 1's pairs of the
     'pairmx' shape: K10's operations (26 float32 per (pair, triangle)
@@ -4960,6 +5480,8 @@ def main() -> int:
     for k, v in s22_launches.items():
         launches[k] += v
     inputs.update(s22_inputs)
+    for k, v in check_slice23(torch, np, scenes).items():
+        launches[k] += v
     inputs.update(env_inputs)
     kernels = measure(torch, inputs, errs, launches)
     print(f"smoke: {time.perf_counter() - t_start:.1f} s in all, the kernel "

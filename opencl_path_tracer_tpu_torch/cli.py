@@ -1,11 +1,14 @@
 """`ptx-torch` command-line interface.
 
-Port of the `render` and `info` commands of
-`opencl_path_tracer_tpu/cli.py` (`_build_scene`, `_camera_preset`,
-`cmd_render`, `cmd_info`): an offline progressive render to PNG, or to
-linear HDR when `--out` ends in `.pfm` or `.npy`, with the 1 Hz meter on
-stderr; and the device table. Both run on the GPU unless `--device cpu`
-is given. Checkpoints (`--checkpoint`, `--resume`, `--autosave-every`)
+Port of `opencl_path_tracer_tpu/cli.py` but `bench`: `render`, an
+offline progressive render to PNG, or to linear HDR when `--out` ends in
+`.pfm` or `.npy`, with the 1 Hz meter on stderr; `view`, the interactive
+loop without a window (the last frame to PNG); `anim`, a turntable to
+PNG frames and a looping GIF (`runtime/anim.py`); `serve`, the live
+browser viewer (`runtime/viewer.py`); and `info`, the device table.
+render, view, anim and serve share their scene, camera and light flags
+(`_common`). Every command runs on the GPU unless `--device cpu` is
+given. Checkpoints (`--checkpoint`, `--resume`, `--autosave-every`)
 are the JAX package's files: either CLI resumes the other's. `--median`
 (the reference's dormant 3x3 median filter and filmic tonemap, to PNG)
 and `--denoise` (the à-trous denoiser; to PNG, or in linear light to
@@ -37,6 +40,10 @@ band (`models/spectral.py`; `_render_dispersive`).
         --dispersion 30 --bands 5 --nee      # flint glass, five bands
     ptx-torch render --config render.json   # a RenderConfig as JSON
     ptx-torch info                          # the CUDA devices
+    ptx-torch view --frames 30 --out view.png
+    ptx-torch anim --frames 36 --spp 16 --out-dir frames --gif turn.gif
+    ptx-torch anim --scene cornell-analytic --dispersion 30 --nee
+    ptx-torch serve --port 8642             # then open the URL
 """
 
 from __future__ import annotations
@@ -119,6 +126,27 @@ def _camera_preset(scene_name: str, args):
     return cam
 
 
+def _config(args, **kw):
+    """The RenderConfig of the shared flags (`_common`); kw: the
+    command's own fields. Every command passes --seed (the JAX package's
+    view and serve drop it: ROADMAP.md queue 3)."""
+    from opencl_path_tracer_tpu_torch.config import RenderConfig
+    w, h = (int(x) for x in args.size.split("x"))
+    return RenderConfig(width=w, height=h, iterations=args.iters,
+                        mode=args.mode, seed=args.seed, accel=args.accel,
+                        accel_force=args.accel_force, qmc=args.qmc,
+                        nee=args.nee, nee_select=args.nee_select,
+                        nee_anyhit=not args.no_nee_anyhit,
+                        smooth=args.smooth, textured=args.textured,
+                        dof_aperture=args.dof[0] if args.dof else 0.0,
+                        dof_focus=args.dof[1] if args.dof else 0.0,
+                        env_light=args.env, env_sky=tuple(args.env_sky),
+                        env_deep=tuple(args.env_deep),
+                        env_map=args.envmap, env_scale=args.env_scale,
+                        env_nee=not args.no_env_nee,
+                        camera=_camera_preset(args.scene, args), **kw)
+
+
 def cmd_render(args) -> int:
     from opencl_path_tracer_tpu_torch.config import RenderConfig
     from opencl_path_tracer_tpu_torch.runtime.engine import RenderEngine
@@ -130,21 +158,8 @@ def cmd_render(args) -> int:
         with open(args.config) as fh:
             cfg = RenderConfig.from_json(fh.read())
     else:
-        w, h = (int(x) for x in args.size.split("x"))
-        cfg = RenderConfig(width=w, height=h, iterations=args.iters,
-                           spp=args.spp, mode=args.mode, seed=args.seed,
-                           tonemap=args.tonemap, accel=args.accel,
-                           accel_force=args.accel_force, qmc=args.qmc, model=args.model, rr_start=args.rr,
-                           nee=args.nee, nee_select=args.nee_select,
-                           nee_anyhit=not args.no_nee_anyhit,
-                           smooth=args.smooth, textured=args.textured,
-                           dof_aperture=args.dof[0] if args.dof else 0.0,
-                           dof_focus=args.dof[1] if args.dof else 0.0,
-                           env_light=args.env, env_sky=tuple(args.env_sky),
-                           env_deep=tuple(args.env_deep),
-                           env_map=args.envmap, env_scale=args.env_scale,
-                           env_nee=not args.no_env_nee,
-                           camera=_camera_preset(args.scene, args))
+        cfg = _config(args, spp=args.spp, tonemap=args.tonemap,
+                      model=args.model, rr_start=args.rr)
     if args.median and args.denoise:
         raise SystemExit("--median and --denoise are exclusive filters; "
                          "pick one")
@@ -227,56 +242,28 @@ def cmd_render(args) -> int:
 
 def _render_dispersive(args, cfg, scene, device) -> int:
     """`render --dispersion V_D [--bands B]`: the spectral path
-    (`models.spectral.render_dispersive`), per-band wavefront renders of
-    Abbe-model glass combined to RGB, written as the engine's output
-    would be. It composes with --nee, --rr, --qmc, --dof, --smooth and
-    --textured and refuses what the JAX package's refuses. Unlike it, it
-    validates the config first (so --qmc with --mode parity is refused,
-    as on the normal path) and refuses V_D <= 0 (where the model gives
-    NaN)."""
+    (`models.spectral`), per-band wavefront renders of Abbe-model glass
+    combined to RGB, written as the engine's output would be. It
+    composes with --nee, --rr, --qmc, --dof, --smooth and --textured and
+    refuses what the JAX package's refuses. Unlike it, it validates the
+    config first (so --qmc with --mode parity is refused, as on the
+    normal path) and refuses V_D <= 0 (where the model gives NaN)."""
     import numpy as np
     from opencl_path_tracer_tpu_torch.io.image import write_pfm, write_png
-    from opencl_path_tracer_tpu_torch.models import spectral
     from opencl_path_tracer_tpu_torch.ops import tonemap as tonemap_ops
-    from opencl_path_tracer_tpu_torch.runtime.controller import (
-        CameraController,
-    )
-    from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
 
     cfg.validate()
     if cfg.model != "wavefront":
         raise SystemExit("--dispersion needs --model wavefront")
-    for bad, flag in ((args.adaptive is not None, "--adaptive"),
-                      (args.median, "--median"),
-                      (args.denoise, "--denoise"),
-                      (args.env, "--env"),
-                      (args.envmap is not None, "--envmap"),
-                      (args.resume is not None, "--resume"),
-                      (args.checkpoint is not None, "--checkpoint")):
-        if bad:
-            raise SystemExit(f"--dispersion does not compose with {flag}")
-    if args.bands < 1:
-        raise SystemExit("--bands must be >= 1")
-    if args.dispersion <= 0:
-        raise SystemExit(f"--dispersion takes an Abbe number > 0, got "
-                         f"{args.dispersion:g}")
-    cam = CameraController(cfg, device=device).camera(cfg.width, cfg.height)
-    isect = make_intersect_fn(scene, cfg.accel, smooth=cfg.smooth,
-                              textured=cfg.textured, cam=cam,
-                              iterations=cfg.iterations,
-                              force=cfg.accel_force)
-    nee_tab, occ = _spectral_nee(cfg, scene)
+    ctrl, isect, render = _dispersive_renderer(
+        args, cfg, scene, device, cfg.spp,
+        ((args.adaptive is not None, "--adaptive"), (args.median, "--median"),
+         (args.denoise, "--denoise"), (args.env, "--env"),
+         (args.envmap is not None, "--envmap"),
+         (args.resume is not None, "--resume"),
+         (args.checkpoint is not None, "--checkpoint")))
     t0 = time.perf_counter()
-    img = spectral.render_dispersive(
-        cam, scene.mats, intersect_fn=isect,
-        num_pixels=cfg.width * cfg.height, iterations=cfg.iterations,
-        min_spp=cfg.spp, bands=args.bands, v_d=args.dispersion,
-        mode=cfg.mode, seed=cfg.seed, qmc=cfg.qmc, nee=nee_tab,
-        occluded_fn=occ,
-        rr=((cfg.rr_start, cfg.rr_pmin) if cfg.rr_start is not None
-            else None),
-        dof=((cfg.dof_aperture, cfg.dof_focus) if cfg.dof_aperture > 0.0
-             else None))
+    img = render(ctrl.camera(cfg.width, cfg.height))
     dt = time.perf_counter() - t0
     print(f"\n{args.bands}-band dispersive render (V_d="
           f"{args.dispersion:g}, accel {isect.accel}) at {cfg.spp} spp in "
@@ -291,6 +278,46 @@ def _render_dispersive(args, cfg, scene, device) -> int:
                   .cpu().numpy()[::-1])
     print(f"wrote {args.out}", file=sys.stderr)
     return 0
+
+
+def _dispersive_renderer(args, cfg, scene, device, spp: int, refused):
+    """(controller, intersector, renderer) of the dispersion path of a
+    validated config, after refusing each (condition, flag) of `refused`,
+    --bands < 1 and V_D <= 0: the intersector built at the controller's
+    camera, the emitter table and any-hit test of
+    `_spectral_nee`, and `spectral.make_dispersive_renderer` at `spp`
+    samples a band, which takes each frame's camera."""
+    from opencl_path_tracer_tpu_torch.models import spectral
+    from opencl_path_tracer_tpu_torch.runtime.controller import (
+        CameraController,
+    )
+    from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
+
+    for bad, flag in refused:
+        if bad:
+            raise SystemExit(f"--dispersion does not compose with {flag}")
+    if args.bands < 1:
+        raise SystemExit("--bands must be >= 1")
+    if args.dispersion <= 0:
+        raise SystemExit(f"--dispersion takes an Abbe number > 0, got "
+                         f"{args.dispersion:g}")
+    ctrl = CameraController(cfg, device=device)
+    isect = make_intersect_fn(scene, cfg.accel, smooth=cfg.smooth,
+                              textured=cfg.textured,
+                              cam=ctrl.camera(cfg.width, cfg.height),
+                              iterations=cfg.iterations,
+                              force=cfg.accel_force)
+    nee_tab, occ = _spectral_nee(cfg, scene)
+    render = spectral.make_dispersive_renderer(
+        scene.mats, intersect_fn=isect, num_pixels=cfg.width * cfg.height,
+        iterations=cfg.iterations, min_spp=spp, bands=args.bands,
+        v_d=args.dispersion, mode=cfg.mode, seed=cfg.seed, qmc=cfg.qmc,
+        nee=nee_tab, occluded_fn=occ,
+        rr=((cfg.rr_start, cfg.rr_pmin) if cfg.rr_start is not None
+            else None),
+        dof=((cfg.dof_aperture, cfg.dof_focus) if cfg.dof_aperture > 0.0
+             else None))
+    return ctrl, isect, render
 
 
 def _spectral_nee(cfg, scene):
@@ -320,11 +347,143 @@ def cmd_info(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def cmd_view(args) -> int:
+    """The interactive loop without a window: --frames frames of
+    `RenderEngine.frame` (the 1 Hz meter on stderr), then the last frame
+    to --out."""
+    from opencl_path_tracer_tpu_torch.runtime.engine import RenderEngine
+    from opencl_path_tracer_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    cfg = _config(args)
+    scene = _build_scene(args.scene, device, args.models_dir, cfg.smooth)
+    eng = RenderEngine(scene, cfg, device=device)
+    last = time.time()
+    for _ in range(args.frames):
+        now = time.time()
+        eng.frame(dt=now - last)
+        last = now
+    print(file=sys.stderr)
+    eng.save_png(args.out)
+    print(f"wrote {args.out}", file=sys.stderr)
+    return 0
+
+
+def cmd_serve(args) -> int:
+    """The live browser viewer (`runtime/viewer.py`) on 127.0.0.1:--port
+    until ESC or an interrupt."""
+    from opencl_path_tracer_tpu_torch.runtime.engine import RenderEngine
+    from opencl_path_tracer_tpu_torch.runtime.viewer import ViewerServer
+    from opencl_path_tracer_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    cfg = _config(args)
+    scene = _build_scene(args.scene, device, args.models_dir, cfg.smooth)
+    ViewerServer(RenderEngine(scene, cfg, device=device),
+                 port=args.port).serve()
+    return 0
+
+
+def _scene_bounds(scene):
+    """(lo, hi) float32 numpy corners of the scene's triangles (the
+    analytic spheres are left out, as in the JAX package)."""
+    import numpy as np
+    t = scene.tris
+    pts = np.concatenate([c.cpu().numpy().reshape(-1, 3)
+                          for c in (t.r1, t.r2, t.r3)], 0)
+    return pts.min(0), pts.max(0)
+
+
+def cmd_anim(args) -> int:
+    """An offline turntable: the camera orbits the scene and each pose is
+    rendered from a fresh accumulator to a PNG (--out-dir) and a looping
+    GIF (--gif); with --dispersion, through the spectral path."""
+    import numpy as np
+    from opencl_path_tracer_tpu_torch.runtime import anim
+    from opencl_path_tracer_tpu_torch.runtime.engine import RenderEngine
+    from opencl_path_tracer_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    cfg = _config(args)
+    scene = _build_scene(args.scene, device, args.models_dir, cfg.smooth)
+    lo, hi = _scene_bounds(scene)
+    center = (tuple(args.center) if args.center is not None
+              else tuple((lo + hi) / 2.0))
+    radius = (args.radius if args.radius is not None
+              else 1.6 * float(np.linalg.norm(hi - lo)) / 2.0)
+    poses = anim.turntable_poses(
+        frames=args.frames, center=center, radius=radius,
+        pitch=args.pitch if args.pitch is not None else 12.0,
+        sweep=args.sweep)
+    print(f"turntable: {args.frames} poses around "
+          f"{tuple(float(c) for c in center)}, radius {radius:.0f}, "
+          f"{args.spp} spp each", file=sys.stderr)
+    t0 = time.time()
+    if args.dispersion is not None:
+        _anim_dispersive(args, cfg, scene, poses, device)
+    else:
+        anim.render_animation(
+            RenderEngine(scene, cfg, device=device), poses, spp=args.spp,
+            out_dir=args.out_dir, gif_path=args.gif or None, fps=args.fps,
+            denoise=args.denoise)
+    dt = time.time() - t0
+    print(f"{args.frames} frames in {dt:.1f}s ({args.frames / dt:.2f} fps "
+          f"offline on {device})", file=sys.stderr)
+    if args.out_dir:
+        print(f"wrote {args.out_dir}/frame_*.png", file=sys.stderr)
+    if args.gif:
+        print(f"wrote {args.gif}", file=sys.stderr)
+    return 0
+
+
+def _anim_dispersive(args, cfg, scene, poses, device) -> None:
+    """`anim --dispersion V_D`: the dispersive turntable. One renderer
+    (`_dispersive_renderer`: the band tables, the intersector, the
+    emitter table and the any-hit test built once) takes each pose's
+    camera. It refuses --denoise, --env and --envmap as the JAX
+    package's does and, like `_render_dispersive`, validates the config
+    first and refuses V_D <= 0. Each frame is tonemapped on the device
+    and its rows flipped on the host (the JAX package flips, then
+    tonemaps on the host: the tonemap is per pixel, so the pixels are
+    the same)."""
+    import os
+
+    import numpy as np
+    from opencl_path_tracer_tpu_torch.io.image import to_uint8, write_png
+    from opencl_path_tracer_tpu_torch.ops import tonemap as tonemap_ops
+    from opencl_path_tracer_tpu_torch.runtime.anim import write_gif
+
+    cfg.validate()
+    ctrl, _, render = _dispersive_renderer(
+        args, cfg, scene, device, args.spp,
+        ((args.denoise, "--denoise"), (args.env, "--env"),
+         (args.envmap is not None, "--envmap")))
+    w, h = cfg.width, cfg.height
+    frames = []
+    if args.out_dir:
+        os.makedirs(args.out_dir, exist_ok=True)
+    for i, (yaw, pitch, shift) in enumerate(poses):
+        st = ctrl.state
+        st.yaw = float(yaw)
+        st.pitch = float(pitch)
+        st.shift = np.asarray(shift, np.float64)
+        img = render(ctrl.camera(w, h)).reshape(h, w, 3)
+        img = to_uint8(tonemap_ops.apply(img, cfg.tonemap).cpu().numpy()
+                       [::-1])
+        frames.append(img)
+        if args.out_dir:
+            write_png(os.path.join(args.out_dir, f"frame_{i:04d}.png"), img)
+        print(f"\rframe {i + 1}/{len(poses)} (yaw {yaw:.1f})", end="",
+              flush=True, file=sys.stderr)
+    print(file=sys.stderr)
+    if args.gif:
+        write_gif(args.gif, frames, fps=args.fps)
+
+
+def _common(p) -> None:
+    """The flags that render, view, anim and serve share (the JAX CLI's
+    `common`, with --device)."""
     from opencl_path_tracer_tpu_torch.config import ACCELS
-    ap = argparse.ArgumentParser(prog="ptx-torch")
-    sub = ap.add_subparsers(dest="cmd", required=True)
-    p = sub.add_parser("render", help="offline render to PNG")
     p.add_argument("--scene", default="cornell",
                    help=f"one of {', '.join(SCENES)}")
     p.add_argument("--models-dir", default=None,
@@ -342,15 +501,6 @@ def main(argv=None) -> int:
                         "accels as --smooth)")
     p.add_argument("--size", default="512x512")
     p.add_argument("--iters", type=int, default=5, help="bounce depth")
-    p.add_argument("--spp", type=int, default=64)
-    p.add_argument("--model", default="megakernel",
-                   choices=("megakernel", "wavefront"),
-                   help="wavefront = path regeneration (the throughput "
-                        "model; every pixel still gets exactly --spp "
-                        "samples)")
-    p.add_argument("--rr", type=int, default=None, metavar="START",
-                   help="Russian roulette after START bounces (needs "
-                        "--model wavefront)")
     p.add_argument("--mode", default="fast", choices=("fast", "parity"))
     p.add_argument("--accel", default="auto", choices=ACCELS,
                    help="auto (up to 8,192 triangles minarg, or on CUDA the "
@@ -367,7 +517,6 @@ def main(argv=None) -> int:
                    help="run bvh or median on CUDA (plain PyTorch walkers "
                         "with no hand-written kernel, refused without it)")
     p.add_argument("--seed", type=int, default=1)
-    p.add_argument("--tonemap", default="reinhard")
     p.add_argument("--qmc", action="store_true",
                    help="R2 low-discrepancy pixel jitter (fast mode)")
     p.add_argument("--nee", action="store_true",
@@ -413,6 +562,23 @@ def main(argv=None) -> int:
     p.add_argument("--pitch", type=float, default=None)
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu' for the plain versions")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="ptx-torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("render", help="offline render to PNG")
+    _common(p)
+    p.add_argument("--spp", type=int, default=64)
+    p.add_argument("--model", default="megakernel",
+                   choices=("megakernel", "wavefront"),
+                   help="wavefront = path regeneration (the throughput "
+                        "model; every pixel still gets exactly --spp "
+                        "samples)")
+    p.add_argument("--rr", type=int, default=None, metavar="START",
+                   help="Russian roulette after START bounces (needs "
+                        "--model wavefront)")
+    p.add_argument("--tonemap", default="reinhard")
     p.add_argument("--median", action="store_true",
                    help="3x3 median filter + filmic tonemap (the "
                         "reference's dormant filt_im kernel); writes PNG")
@@ -457,6 +623,50 @@ def main(argv=None) -> int:
                    help="bands of --dispersion (3: the sRGB primaries; "
                         "more: smoother spectra at proportional cost)")
     p.set_defaults(func=cmd_render)
+
+    p = sub.add_parser("view", help="headless interactive loop")
+    _common(p)
+    p.add_argument("--frames", type=int, default=30)
+    p.add_argument("--out", default="view.png")
+    p.set_defaults(func=cmd_view)
+
+    p = sub.add_parser("anim",
+                       help="offline turntable animation (PNG frames, GIF)")
+    _common(p)
+    p.add_argument("--frames", type=int, default=36)
+    p.add_argument("--spp", type=int, default=16,
+                   help="samples per pixel per frame")
+    p.add_argument("--center", type=float, nargs=3, default=None,
+                   metavar=("X", "Y", "Z"),
+                   help="orbit center (default: the triangles' bounding "
+                        "box center)")
+    p.add_argument("--radius", type=float, default=None,
+                   help="orbit radius (default: 1.6 x the box's half "
+                        "diagonal; --pitch sets the look-down angle, "
+                        "default 12)")
+    p.add_argument("--sweep", type=float, default=360.0,
+                   help="total orbit degrees across --frames")
+    p.add_argument("--fps", type=float, default=12.0)
+    p.add_argument("--denoise", action="store_true",
+                   help="a-trous denoise every frame")
+    p.add_argument("--out-dir", default=None,
+                   help="write frame_%%04d.png here")
+    p.add_argument("--gif", default="turntable.gif",
+                   help="looping GIF path ('' to skip)")
+    p.add_argument("--dispersion", type=float, default=None,
+                   metavar="V_D",
+                   help="spectral-dispersion turntable: every frame through "
+                        "the --bands-band Abbe-model glass path (see "
+                        "render --dispersion)")
+    p.add_argument("--bands", type=int, default=3,
+                   help="bands of --dispersion")
+    p.set_defaults(func=cmd_anim)
+
+    p = sub.add_parser("serve", help="live browser viewer")
+    _common(p)
+    p.add_argument("--port", type=int, default=8642)
+    p.set_defaults(func=cmd_serve)
+
     p = sub.add_parser("info", help="device table")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default: every CUDA device) or 'cpu'")

@@ -3,7 +3,8 @@
 Port of `opencl_path_tracer_tpu/io/image.py`: `to_uint8`, `write_png`,
 `write_pfm`, `read_pfm` and `read_png` (the reference cannot save
 images, main.cpp:727-741). PNG goes through PIL when it is installed,
-else through a dependency-free zlib encoder and decoder (8-bit RGB; the
+else through a dependency-free zlib encoder (`png_bytes`, which also
+encodes in memory) and decoder (8-bit RGB; the
 decoder takes filters 0, 1 and 2, which is what the encoder and PIL's
 default writes use, and raises on any other). PFM is linear float32
 HDR, written bottom-up with scale -1.0 (little-endian), as the JAX
@@ -44,22 +45,27 @@ def write_png(path: str, img) -> None:
     if _PIL is not None:
         _PIL.fromarray(img, "RGB").save(path)
         return
-    _write_png_raw(path, img)
+    with open(path, "wb") as fh:
+        fh.write(png_bytes(img))
 
 
-def _write_png_raw(path: str, img: np.ndarray) -> None:
+def png_bytes(img: np.ndarray) -> bytes:
+    """The dependency-free encoder's PNG file of a contiguous (H, W, 3)
+    uint8 image, row 0 at the top, in memory (filter 0 on every row,
+    zlib level 6)."""
     h, w, _ = img.shape
-    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+    rows = np.empty((h, 1 + 3 * w), np.uint8)
+    rows[:, 0] = 0
+    rows[:, 1:] = img.reshape(h, 3 * w)
 
     def chunk(tag: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + tag + data
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
-    with open(path, "wb") as fh:
-        fh.write(b"\x89PNG\r\n\x1a\n")
-        fh.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
-        fh.write(chunk(b"IDAT", zlib.compress(raw, 6)))
-        fh.write(chunk(b"IEND", b""))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b""))
 
 
 def write_pfm(path: str, img) -> None:

@@ -1728,3 +1728,120 @@ def test_twenty_second_slice_pair_visit_full_equals_plain(cuda, infeat):
         assert torch.equal(a, b)
     assert torch.equal(torch.floor(full[4] / 2.0), fetched[3])
     assert int((t < k1.BIG).sum()) > 1000 and bool((pend > 0).any())
+
+
+def _front_end_engine(cuda, size=(96, 64), **kw):
+    from opencl_path_tracer_tpu_torch.config import CameraConfig, RenderConfig
+    from opencl_path_tracer_tpu_torch.runtime import engine
+    cfg = RenderConfig(width=size[0], height=size[1], iterations=5,
+                       mode="fast", camera=CameraConfig(
+                           fov=60.0, yaw=0.0, pitch=0.0,
+                           shift=(0.0, 0.0, 0.0)), **kw)
+    scene = library.cornell_box(with_spheres=True, device=cuda)
+    return engine.RenderEngine(scene, cfg, device=cuda), scene, cfg
+
+
+@pytest.mark.cuda
+def test_twenty_third_slice_render_animation_equals_fresh_engines(cuda):
+    """A turntable on the card ('auto', NEE: the predictor's pick, K2, K7)
+    resets to the same draws as a fresh engine at each pose (fast mode),
+    through the same intersector (its tilecull groups are ordered from
+    the eye it was built at)."""
+    import dataclasses
+    from opencl_path_tracer_tpu_torch.config import CameraConfig
+    from opencl_path_tracer_tpu_torch.runtime import anim, engine
+    eng, scene, cfg = _front_end_engine(cuda, nee=True)
+    poses = anim.turntable_poses(frames=2, center=(500.0, 500.0, 500.0),
+                                 radius=1799.037842, pitch=0.0,
+                                 start_yaw=-15.0, sweep=30.0)
+    before = dict(_build.launches)
+    frames = anim.render_animation(eng, poses, spp=2, progress=False)
+    grown = {k for k in _build.launches if _build.launches[k] > before[k]}
+    assert {"refine1", "anyhit"} <= grown and grown & {"minarg", "tilecull"}
+    for (yaw, pitch, shift), f in zip(poses, frames):
+        fresh = engine.RenderEngine(scene, dataclasses.replace(
+            cfg, camera=CameraConfig(fov=60.0, yaw=yaw, pitch=pitch,
+                                     shift=tuple(float(v) for v in shift))),
+            intersect_fn=eng.intersect_fn, device=cuda)
+        fresh.render(2, progress=False)
+        np.testing.assert_array_equal(f, fresh.display_u8())
+    assert not np.array_equal(frames[0], frames[1])
+
+
+@pytest.mark.cuda
+def test_twenty_third_slice_anim_cli_writes_the_raw_gif(cuda, tmp_path,
+                                                        monkeypatch):
+    """`ptx-torch anim` on the card with PIL set aside: PNG frames and a
+    GIF in the raw writer's layout, plain and dispersive."""
+    from opencl_path_tracer_tpu_torch import cli
+    from opencl_path_tracer_tpu_torch.io import image
+    from opencl_path_tracer_tpu_torch.runtime import anim
+    monkeypatch.setattr(anim, "_PIL", None)
+    monkeypatch.setattr(image, "_PIL", None)
+    orbit = ["--size", "64x48", "--frames", "2", "--spp", "2", "--center",
+             "500", "500", "500", "--radius", "1799", "--pitch", "0",
+             "--sweep", "15"]
+    for tag, extra in (("plain", ["--scene", "cornell"]),
+                       ("disp", ["--scene", "cornell-analytic",
+                                 "--dispersion", "30", "--nee"])):
+        gif = str(tmp_path / f"{tag}.gif")
+        assert cli.main(["anim", *orbit, *extra, "--out-dir",
+                         str(tmp_path / tag), "--gif", gif]) == 0
+        for i in range(2):
+            img = image.read_png(str(tmp_path / tag / f"frame_{i:04d}.png"))
+            assert img.shape == (48, 64, 3) and img.mean() > 1
+        data = open(gif, "rb").read()
+        assert data[:6] == b"GIF89a" and b"NETSCAPE2.0" in data
+        assert data[10] == 0x70 and data.count(b"\x2c\x00\x00\x00\x00") >= 2
+
+
+@pytest.mark.cuda
+def test_twenty_third_slice_viewer_on_the_card(cuda):
+    """The viewer's double-buffered fetch on the card: pinned host memory
+    behind an event, the frame equal to display_u8(); over HTTP the
+    frames come, '+' re-picks, 'n' denoises, ESC stops."""
+    import json
+    import time
+    import urllib.request
+    from opencl_path_tracer_tpu_torch.runtime.viewer import ViewerServer
+    eng, _, _ = _front_end_engine(cuda)
+    v = ViewerServer(eng, port=0)
+    eng.frame(sync=False)
+    fetch = v._fetch(eng.display_u8_device())
+    assert fetch[1].is_pinned() and fetch[2] is not None
+    np.testing.assert_array_equal(v._finish(fetch), eng.display_u8())
+    httpd = v.serve(block=False)
+    base = f"http://127.0.0.1:{v.port}"
+
+    def stats():
+        return json.loads(urllib.request.urlopen(base + "/stats",
+                                                 timeout=60).read())
+
+    def key(k):
+        urllib.request.urlopen(urllib.request.Request(
+            base + "/input", method="POST",
+            data=json.dumps({"ev": "keydown", "key": k}).encode()),
+            timeout=60).read()
+
+    def until(cond):
+        deadline = time.time() + 60
+        while time.time() < deadline and not cond():
+            time.sleep(0.02)
+        assert cond()
+
+    try:
+        until(lambda: v._seq > 2)
+        assert urllib.request.urlopen(base + "/frame.png", timeout=60).read(
+            ).startswith(b"\x89PNG")
+        key("+")
+        until(lambda: eng._accel_iters == 6)
+        assert eng.intersect_fn is eng._accel_by_iters[6]
+        key("n")
+        seq = v._seq
+        until(lambda: v._seq > seq + 2)
+        assert stats()["denoise"] is True and stats()["error"] is None
+        key("Escape")
+        until(lambda: v._stop.is_set() and not v._render_thread.is_alive())
+    finally:
+        v.shutdown()
+    assert v.last_error is None

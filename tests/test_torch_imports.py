@@ -47,7 +47,8 @@ def test_port_has_its_modules_and_kernel_sources():
               "march_visit.cuh", "minarg_fused.cu", "mxu.cu"):
         assert (PORT / "csrc" / f).exists()
     for f in ("ops/kernels/march_kernel.py", "ops/kernels/flat_march.py",
-              "ops/kernels/lazy_march.py", "models/lazy.py"):
+              "ops/kernels/lazy_march.py", "models/lazy.py",
+              "runtime/anim.py", "runtime/viewer.py"):
         assert (PORT / f) in FILES
 
 

@@ -323,6 +323,23 @@ installed and 404 without, /frame.png's encode ms through
 inside `plain_guard`: their kernels launch, the fetch's host buffer is
 pinned and its frame equals display_u8().
 
+Multi-device rendering (`check_slice24`, 1920x1080, 5 bounces,
+SLICE24_SPP spp, `parallel.launch.launch` from this process, each rank
+entering `plain_guard` and driving its paths through `run_path`, so its
+own counts show its kernels launched): a world of one NCCL rank with
+devices=0 (every visible GPU) renders `megakernel cornell nee tiled`
+(parity, NEE: K6, K2, K7) and `wavefront cornell-analytic tiled` (fast:
+K1, K2, K3); a world of two gloo ranks on cuda:0 (NCCL refuses two ranks
+on one GPU) renders `megakernel cornell tiled resume` (parity, a
+checkpoint after the first sample), the same wavefront path and
+`wavefront cornell tiled adaptive` (parity, no NEE, SLICE24_ADAPTIVE
+with the bucket floor at SLICE24_MIN_BUCKET, each rank's bucket halved).
+Each image is np.array_equal to the single-device engine's (and the
+adaptive samples by pixel); the 2-rank checkpoint resumed on one device
+finishes as the single-device render. Wall ms a sample of 2 more samples
+is printed for each world beside one device's, as information only.
+A rank's failure fails the launch and the script.
+
 The last two lines are a JSON object per kernel (time, plain time,
 bound, launches) and the verdict; the line before them, the smoke's total
 time. Any failed phase raises, and the
@@ -496,6 +513,11 @@ PATH_KERNELS = {
     "wavefront cornell-analytic nee dispersion anim": (
         "minarg", "refine1", "spheres", "anyhit"),
     "megakernel cornell viewer": ("minarg", "refine1"),
+    # check_slice24's paths over a mesh, each rank's counts on its own.
+    "megakernel cornell nee tiled": ("minarg", "refine1", "anyhit"),
+    "wavefront cornell-analytic tiled": ("minarg", "refine1", "spheres"),
+    "megakernel cornell tiled resume": ("minarg", "refine1"),
+    "wavefront cornell tiled adaptive": ("minarg", "refine1"),
     # The walker is plain PyTorch: the path launches no kernel of the port.
     "megakernel cornell bvh": (),
 }
@@ -4736,6 +4758,202 @@ def _slice23_viewer(torch, np, corn, cfg, add, RenderEngine, tmp):
           f"server; all {dt:.2f} s; launches {counts}")
 
 
+# check_slice24: multi-device rendering (`parallel/`), 1080p, 5 bounces.
+SLICE24_SPP = 2   # spp of check_slice24's sharded renders
+# The adaptive render of its 2-rank world: tests/test_adaptive.py's
+# tolerance and sample range, and a bucket floor below the engine's 4096
+# (each rank's bucket halves from 1,036,800 lanes).
+SLICE24_ADAPTIVE = dict(tol=0.25, max_spp=12, min_spp=2)
+SLICE24_MIN_BUCKET = 1024
+SLICE24_PRESET = dict(fov=60.0, yaw=0.0, pitch=0.0, shift=(0.0, 0.0, 0.0))
+# world -> its paths: (name, scene, RenderConfig fields); "resume" also
+# checkpoints after its first sample, "adaptive" renders adaptively.
+SLICE24_PATHS = {
+    "one": (("megakernel cornell nee tiled", "cornell",
+             dict(mode="parity", nee=True)),
+            ("wavefront cornell-analytic tiled", "cornell-analytic",
+             dict(model="wavefront", mode="fast"))),
+    "two": (("megakernel cornell tiled resume", "cornell",
+             dict(mode="parity")),
+            ("wavefront cornell-analytic tiled", "cornell-analytic",
+             dict(model="wavefront", mode="fast")),
+            ("wavefront cornell tiled adaptive", "cornell",
+             dict(model="wavefront", mode="parity"))),
+}
+
+
+def slice24_engine(world, scene_name, fields, devices):
+    """A 1080p engine of check_slice24 on this process's current GPU."""
+    from opencl_path_tracer_tpu_torch.config import CameraConfig, RenderConfig
+    from opencl_path_tracer_tpu_torch.runtime.engine import RenderEngine
+    from opencl_path_tracer_tpu_torch.scene import library
+    if scene_name == "cornell":
+        scene = library.cornell_box(with_spheres=True, device="cuda")
+    else:
+        scene = library.cornell_box(with_spheres=True, analytic_spheres=True,
+                                    device="cuda")
+    cfg = RenderConfig(width=W, height=H, iterations=BOUNCES,
+                       camera=CameraConfig(**SLICE24_PRESET),
+                       devices=devices, **fields)
+    return RenderEngine(scene, cfg, device="cuda")
+
+
+def slice24_run(torch, eng, name, ckpt=None):
+    """Drive one of check_slice24's paths on `eng` through run_path (the
+    counts reset before, every kernel of the path launched): SLICE24_SPP
+    samples, the adaptive render for an 'adaptive' path, a checkpoint
+    after the first sample of a 'resume' path. Then 2 more samples timed
+    on their own (wall ms a sample). Returns the image (float32, top row
+    first; a collective over a mesh), the samples by pixel of an adaptive
+    render, the launches, the buckets and the timings."""
+    import torch.distributed as dist
+    from opencl_path_tracer_tpu_torch.parallel import shard
+    from opencl_path_tracer_tpu_torch.runtime import engine as engine_mod
+
+    def drive():
+        if name.endswith("adaptive"):
+            engine_mod.ADAPTIVE_MIN_BUCKET = SLICE24_MIN_BUCKET
+            eng.render_adaptive(progress=False, **SLICE24_ADAPTIVE)
+        elif name.endswith("resume"):
+            eng.render(1, progress=False)
+            eng.save(ckpt)
+            eng.render(SLICE24_SPP - 1, progress=False)
+        else:
+            eng.render(SLICE24_SPP, progress=False)
+
+    _, dt, counts = run_path(torch, name, drive, eng.intersect_fn.accel)
+    out = dict(image=eng.image(apply_tonemap=False), launches=counts,
+               ms=dt * 1e3, accel=eng.intersect_fn.accel,
+               buckets=list(getattr(eng, "adaptive_buckets", [])))
+    if name.endswith("adaptive"):
+        pix, smp = eng.state.pixel, eng.state.samples
+        if eng.mesh is not None:
+            pix = shard.all_gather_lanes(pix, eng.mesh)
+            smp = shard.all_gather_lanes(smp, eng.mesh)
+        by_px = torch.zeros(W * H, dtype=torch.int32, device="cuda")
+        by_px[pix.long()] = smp
+        out["samples"] = by_px.cpu().numpy()
+        return out
+    if eng.mesh is not None:
+        # the ranks start the timed samples together
+        done = torch.zeros(1, device="cuda")
+        dist.all_reduce(done)
+        done.item()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.render(2, progress=False)
+    out["ms_sample"] = (time.perf_counter() - t0) * 1e3 / 2
+    return out
+
+
+def slice24_rank(world, devices, ckpt):
+    """One rank of a check_slice24 world (module level: the launcher's
+    ranks unpickle it by name): every path of SLICE24_PATHS[world] over
+    the world's mesh, inside plain_guard entered here, with the launch
+    counts of this rank. Rank 0 returns the images; every rank its
+    counts and timings."""
+    import torch
+    import torch.distributed as dist
+    import_port()
+    rank = dist.get_rank()
+    out = {}
+    with plain_guard():
+        for name, scene_name, fields in SLICE24_PATHS[world]:
+            eng = slice24_engine(world, scene_name, fields, devices)
+            res = slice24_run(torch, eng, name, ckpt)
+            if rank:
+                res.pop("image")
+                res.pop("samples", None)
+            out[name] = res
+    return dict(rank=rank, world=dist.get_world_size(),
+                backend=dist.get_backend(), paths=out)
+
+
+def check_slice24(torch, np, smi):
+    """Multi-device rendering at 1920x1080, 5 bounces, SLICE24_SPP spp
+    (the module docstring): a world of one NCCL rank (devices=0, every
+    visible GPU) and a world of two gloo ranks on cuda:0 (NCCL refuses
+    two ranks on one GPU), each path torch.equal to the single-device
+    engine's; the 2-rank checkpoint resumed on one device. Wall ms a
+    sample for each world against one device, information only: the two
+    ranks share one card. Returns the ranks' launches."""
+    from opencl_path_tracer_tpu_torch.parallel.launch import launch
+    from opencl_path_tracer_tpu_torch.runtime import engine as engine_mod
+    t_phase = time.perf_counter()
+    launches = {}
+    single = {}
+    min_bucket = engine_mod.ADAPTIVE_MIN_BUCKET
+    with plain_guard(), tempfile.TemporaryDirectory(
+            prefix="ptx-slice24-") as tmp:
+        ckpt = os.path.join(tmp, "tiled.npz")
+        for world, ranks, devices, backend in (("one", 1, 0, None),
+                                               ("two", 2, 2, "gloo")):
+            res = launch(slice24_rank, ranks, (world, devices, ckpt),
+                         device="cuda", backend=backend)
+            need([r["rank"] for r in res] == list(range(ranks))
+                 and all(r["world"] == ranks for r in res),
+                 f"check_slice24 world {world}: ranks {res}")
+            for name, scene_name, fields in SLICE24_PATHS[world]:
+                ref = single.get(name)
+                if ref is None:
+                    eng = slice24_engine(world, scene_name, fields, 1)
+                    ref = single[name] = slice24_run(
+                        torch, eng, name, os.path.join(tmp, "single.npz"))
+                got = res[0]["paths"][name]
+                need(np.array_equal(got["image"], ref["image"]),
+                     f"check_slice24 {name} over {ranks} rank(s): the image "
+                     "is not torch.equal to the single-device engine's")
+                if name.endswith("adaptive"):
+                    need(np.array_equal(got["samples"], ref["samples"]),
+                         f"check_slice24 {name}: samples by pixel differ "
+                         "from the single-device adaptive render's")
+                    for r in res:
+                        b = r["paths"][name]["buckets"]
+                        need(len(set(b)) > 1, f"check_slice24 {name}: rank "
+                             f"{r['rank']}'s bucket never halved ({b})")
+                for r in res:
+                    for k, v in r["paths"][name]["launches"].items():
+                        launches[k] = launches.get(k, 0) + v
+                ms = [r["paths"][name].get("ms_sample") for r in res]
+                print(f"check_slice24 {name}: {ranks} rank(s), "
+                      f"{res[0]['backend']}, devices={devices}, {W}x{H}, "
+                      f"{BOUNCES} bounces, accel {got['accel']}: torch.equal "
+                      f"to one device; launches by rank "
+                      f"{[r['paths'][name]['launches'] for r in res]}; "
+                      + (f"buckets by rank "
+                         f"{[r['paths'][name]['buckets'] for r in res]}, "
+                         f"mean spp {got['samples'].mean():.3f} (one device "
+                         f"buckets {ref['buckets']})"
+                         if name.endswith("adaptive") else
+                         f"wall ms a sample (2 more samples, ranks' "
+                         f"slowest) {max(ms):.3f} against one device's "
+                         f"{ref['ms_sample']:.3f}")
+                      + f"; {smi}")
+            if world == "two":
+                name = "megakernel cornell tiled resume"
+                eng = slice24_engine(world, "cornell", dict(mode="parity"), 1)
+                eng.load(ckpt)
+                need(eng.state.sample == 1, "check_slice24: the 2-rank "
+                     f"checkpoint holds sample {eng.state.sample}, not 1")
+                _, _, counts = run_path(
+                    torch, "megakernel cornell tiled resume",
+                    lambda: eng.render(SLICE24_SPP - 1, progress=False),
+                    eng.intersect_fn.accel)
+                for k, v in counts.items():
+                    launches[k] = launches.get(k, 0) + v
+                need(np.array_equal(eng.image(apply_tonemap=False),
+                                    single[name]["image"]),
+                     "check_slice24: the 2-rank checkpoint resumed on one "
+                     "device does not finish as the single-device render")
+                print("check_slice24 megakernel cornell tiled resume: the "
+                      "checkpoint of 2 ranks after 1 sample, resumed on one "
+                      f"device for {SLICE24_SPP - 1} more: torch.equal to "
+                      "one device's render")
+    engine_mod.ADAPTIVE_MIN_BUCKET = min_bucket
+    print(f"check_slice24: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def slice22_rows(torch, inputs):
     """The timing rows of K10's full form on round 1's pairs of the
     'pairmx' shape: K10's operations (26 float32 per (pair, triangle)
@@ -5422,7 +5640,7 @@ def main() -> int:
     need(torch.cuda.is_available(), "torch.cuda.is_available() is false")
     import_port()
     from opencl_path_tracer_tpu_torch.scene import library
-    device_line(torch)
+    smi = device_line(torch)
     build_line()
     scenes = {
         "cornell": library.cornell_box(with_spheres=True, device="cuda"),
@@ -5481,6 +5699,8 @@ def main() -> int:
         launches[k] += v
     inputs.update(s22_inputs)
     for k, v in check_slice23(torch, np, scenes).items():
+        launches[k] += v
+    for k, v in check_slice24(torch, np, smi).items():
         launches[k] += v
     inputs.update(env_inputs)
     kernels = measure(torch, inputs, errs, launches)

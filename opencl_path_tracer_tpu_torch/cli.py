@@ -14,7 +14,11 @@ are the JAX package's files: either CLI resumes the other's. `--median`
 and `--denoise` (the à-trous denoiser; to PNG, or in linear light to
 `.pfm`/`.npy`) are exclusive. `--dispersion V_D [--bands B]` renders
 glass whose index follows the Abbe number V_D, one wavefront render per
-band (`models/spectral.py`; `_render_dispersive`).
+band (`models/spectral.py`; `_render_dispersive`). `render --devices N`
+shards the render over N ranks (`parallel/launch.py`: one process a
+rank, NCCL on N GPUs, or gloo ranks with `--device cpu`; 0 is every
+visible GPU): every rank runs `cmd_render` on its slice, and rank 0
+prints the lines and writes the files.
 
     ptx-torch render --scene cornell --size 1920x1080 --iters 5 --spp 8
     ptx-torch render --scene cornell-analytic --model wavefront --rr 3
@@ -39,6 +43,8 @@ band (`models/spectral.py`; `_render_dispersive`).
     ptx-torch render --scene cornell-analytic --model wavefront \
         --dispersion 30 --bands 5 --nee      # flint glass, five bands
     ptx-torch render --config render.json   # a RenderConfig as JSON
+    ptx-torch render --devices 0            # tiled over every GPU
+    ptx-torch render --devices 2 --device cpu --mode parity  # gloo ranks
     ptx-torch info                          # the CUDA devices
     ptx-torch view --frames 30 --out view.png
     ptx-torch anim --frames 36 --spp 16 --out-dir frames --gif turn.gif
@@ -147,7 +153,37 @@ def _config(args, **kw):
                         camera=_camera_preset(args.scene, args), **kw)
 
 
+def _rank0() -> bool:
+    """Whether this process prints and writes: rank 0 of a world, or the
+    one process outside one."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _say(msg: str) -> None:
+    if _rank0():
+        print(msg, file=sys.stderr)
+
+
+def _render_over_ranks(args, cfg, device) -> int:
+    """`render` with devices != 1 outside a world: cmd_render on that
+    many ranks (`parallel.launch.launch`; 0: every visible GPU), which
+    render over the mesh; rank 0's exit code. A rank's failure raises."""
+    import torch
+    from opencl_path_tracer_tpu_torch.parallel.launch import launch
+    if args.dispersion is not None:
+        raise SystemExit("--dispersion does not compose with --devices")
+    ranks = cfg.devices
+    if ranks == 0:
+        if device.type != "cuda":
+            raise SystemExit("--devices 0 is every visible GPU; with "
+                             "--device cpu give the number of ranks")
+        ranks = torch.cuda.device_count()
+    return launch(cmd_render, ranks, (args,), device=device.type)[0]
+
+
 def cmd_render(args) -> int:
+    import torch.distributed as dist
     from opencl_path_tracer_tpu_torch.config import RenderConfig
     from opencl_path_tracer_tpu_torch.runtime.engine import RenderEngine
     from opencl_path_tracer_tpu_torch.utils.device import resolve_device
@@ -159,7 +195,8 @@ def cmd_render(args) -> int:
             cfg = RenderConfig.from_json(fh.read())
     else:
         cfg = _config(args, spp=args.spp, tonemap=args.tonemap,
-                      model=args.model, rr_start=args.rr)
+                      model=args.model, rr_start=args.rr,
+                      devices=args.devices)
     if args.median and args.denoise:
         raise SystemExit("--median and --denoise are exclusive filters; "
                          "pick one")
@@ -176,6 +213,9 @@ def cmd_render(args) -> int:
             except ValueError:
                 raise SystemExit(f"--adaptive takes a tolerance or 'auto', "
                                  f"got {args.adaptive!r}") from None
+    if cfg.devices != 1 and not dist.is_initialized():
+        cfg.validate()
+        return _render_over_ranks(args, cfg, device)
     scene = _build_scene(args.scene, device, args.models_dir, cfg.smooth)
     if args.dispersion is not None:
         return _render_dispersive(args, cfg, scene, device)
@@ -184,37 +224,57 @@ def cmd_render(args) -> int:
         eng.load(args.resume)
         at = (eng._sample_host if cfg.model == "wavefront"
               else eng.state.sample)
-        print(f"resumed at sample {at}", file=sys.stderr)
+        _say(f"resumed at sample {at}")
     t0 = time.perf_counter()
     if args.adaptive == "auto":
         decision, speedup, zero_var = eng.render_adaptive_auto(
             max_spp=cfg.spp, tol=tol, min_spp=args.min_spp)
-        print(f"adaptive auto -> {decision} (predicted speedup "
-              f"x{speedup:.2f}, zero-variance frac {zero_var:.2f}, "
-              f"tol {tol})", file=sys.stderr)
+        _say(f"adaptive auto -> {decision} (predicted speedup "
+             f"x{speedup:.2f}, zero-variance frac {zero_var:.2f}, "
+             f"tol {tol})")
     elif tol is not None:
         eng.render_adaptive(tol, max_spp=cfg.spp, min_spp=args.min_spp)
     else:
         eng.render(cfg.spp, autosave_every=args.autosave_every,
                    autosave_path=args.checkpoint)
     dt = time.perf_counter() - t0
+    where = device if eng.mesh is None else f"{eng.mesh.size()} x {device}"
     if tol is not None:
-        smp = eng.state.samples.cpu().numpy()
-        print(f"\nadaptive: spp min {int(smp.min())} / mean {smp.mean():.1f} "
-              f"/ max {int(smp.max())} (cap {cfg.spp}, tol {tol}) in "
-              f"{dt:.2f}s ({eng.rays_traced / dt / 1e6:.1f} Mrays/s on "
-              f"{device})", file=sys.stderr)
+        smp = eng.state.samples
+        if eng.mesh is not None:
+            from opencl_path_tracer_tpu_torch.parallel.shard import (
+                all_gather_lanes,
+            )
+            smp = all_gather_lanes(smp, eng.mesh)
+        smp = smp.cpu().numpy()
+        _say(f"\nadaptive: spp min {int(smp.min())} / mean {smp.mean():.1f} "
+             f"/ max {int(smp.max())} (cap {cfg.spp}, tol {tol}) in "
+             f"{dt:.2f}s ({eng.rays_traced / dt / 1e6:.1f} Mrays/s on "
+             f"{where})")
     else:
-        print(f"\n{cfg.spp} spp in {dt:.2f}s ({cfg.spp / dt:.2f} samples/s, "
-              f"{eng.rays_traced / dt / 1e6:.1f} Mrays/s on {device})",
-              file=sys.stderr)
+        _say(f"\n{cfg.spp} spp in {dt:.2f}s ({cfg.spp / dt:.2f} samples/s, "
+             f"{eng.rays_traced / dt / 1e6:.1f} Mrays/s on {where})")
+    _write_outputs(args, eng, device)
+    _say(f"wrote {args.out}")
+    if args.checkpoint:
+        eng.save(args.checkpoint)
+        _say(f"wrote {args.checkpoint}")
+    return 0
+
+
+def _write_outputs(args, eng, device) -> None:
+    """--out: the median-filtered PNG, linear radiance (.pfm/.npy,
+    denoised with --denoise), the denoised PNG or the PNG. The image is
+    every rank's call over a mesh; rank 0 writes it."""
     if args.median:
         import torch
         from opencl_path_tracer_tpu_torch.io.image import write_png
         from opencl_path_tracer_tpu_torch.ops.median_filter import median3x3
         img = torch.as_tensor(eng.image(apply_tonemap=False).copy(),
                               device=device)
-        write_png(args.out, median3x3(img).cpu().numpy())
+        img = median3x3(img).cpu().numpy()
+        if _rank0():
+            write_png(args.out, img)
     elif args.out.endswith((".pfm", ".npy")):
         # Linear radiance, untonemapped (denoised in linear light with
         # --denoise).
@@ -222,6 +282,8 @@ def cmd_render(args) -> int:
             import numpy as np
             from opencl_path_tracer_tpu_torch.io.image import write_pfm
             img = eng.denoised_image(apply_tonemap=False)
+            if not _rank0():
+                return
             if args.out.endswith(".npy"):
                 np.save(args.out, img)
             else:
@@ -230,14 +292,11 @@ def cmd_render(args) -> int:
             eng.save_hdr(args.out)
     elif args.denoise:
         from opencl_path_tracer_tpu_torch.io.image import write_png
-        write_png(args.out, eng.denoised_image())
+        img = eng.denoised_image()
+        if _rank0():
+            write_png(args.out, img)
     else:
         eng.save_png(args.out)
-    print(f"wrote {args.out}", file=sys.stderr)
-    if args.checkpoint:
-        eng.save(args.checkpoint)
-        print(f"wrote {args.checkpoint}", file=sys.stderr)
-    return 0
 
 
 def _render_dispersive(args, cfg, scene, device) -> int:
@@ -578,6 +637,10 @@ def main(argv=None) -> int:
     p.add_argument("--rr", type=int, default=None, metavar="START",
                    help="Russian roulette after START bounces (needs "
                         "--model wavefront)")
+    p.add_argument("--devices", type=int, default=1,
+                   help="shard the render over N devices "
+                        "(0 = all visible; tile sharding is bit-exact "
+                        "vs single device)")
     p.add_argument("--tonemap", default="reinhard")
     p.add_argument("--median", action="store_true",
                    help="3x3 median filter + filmic tonemap (the "

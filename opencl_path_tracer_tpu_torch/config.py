@@ -11,8 +11,8 @@ env_sample_res), thin-lens depth of field (dof_aperture, dof_focus) and
 the 'auto' / 'minarg' / 'pallas' / 'tilecull' / 'pairwin' / 'pairmx' /
 'pair' / 'cluster' / 'group' / 'march' / 'flat' / 'bvh' / 'median' /
 'bruteforce' accels and accel_force (the engine runs 'bvh' and 'median'
-on CUDA only with it); the one other field (devices) raises
-NotImplementedError when it is set away from its default.
+on CUDA only with it), and devices (the render sharded over that many
+ranks of a torch.distributed world, 0 for all; `parallel/`).
 """
 
 from __future__ import annotations
@@ -95,19 +95,11 @@ class RenderConfig:
     dof_focus: float = 0.0
     # Run the accels the engine refuses on CUDA ('bvh', 'median').
     accel_force: bool = False
-    # A field of the JAX package's config that this port does not honour
-    # yet; validate() refuses it away from its default.
+    # Shard the render over this many ranks (0: every rank of the world;
+    # RenderEngine, parallel/launch.py).
     devices: int = 1
 
-    UNPORTED = ("devices",)
-
     def validate(self) -> "RenderConfig":
-        defaults = RenderConfig()
-        for name in self.UNPORTED:
-            if getattr(self, name) != getattr(defaults, name):
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r} is not ported yet "
-                    "(ROADMAP.md queue 1); the port renders without it")
         if self.width <= 0 or self.height <= 0:
             raise ValueError("width/height must be positive")
         if not (1 <= self.iterations <= self.max_iterations):
@@ -125,6 +117,8 @@ class RenderConfig:
         if self.nee_select not in ("power", "distance"):
             raise ValueError(f"unknown nee_select {self.nee_select!r} "
                              "('power' or 'distance')")
+        if self.devices < 0:
+            raise ValueError("devices must be >= 0 (0 = all)")
         if len(self.env_sky) != 3 or len(self.env_deep) != 3:
             raise ValueError("env_sky/env_deep must be RGB 3-tuples")
         if self.env_map is not None:

@@ -209,22 +209,31 @@ def trace_sample(cam: Camera, mats: MaterialsSoA, state: TraceState, *,
                  intersect_fn: IntersectFn, iterations: int,
                  mode: str = "parity", key: tuple[int, int] | None = None,
                  qmc: bool = False, with_stats: bool = False, nee=None,
-                 occluded_fn=None, env=None, dof=None):
-    """Render one progressive sample for every pixel (lane j is pixel j)
-    and fold it into the running average (prog.cl:379). `iterations` is
-    the bounce depth.
+                 occluded_fn=None, env=None, dof=None, ids: int | None = None,
+                 sample_index: int | None = None):
+    """Render one progressive sample for every pixel (lane j is pixel
+    ids + j) and fold it into the running average (prog.cl:379).
+    `iterations` is the bounce depth.
 
-    Fast mode draws from the murmur3 hash keyed by fold_in(key, 0) (the
-    frame's first pixel id), or the R2 sequence with qmc=True.
+    ids: for a call that renders a contiguous tile of a larger frame
+    (`parallel.shard.make_tiled_step`), the tile's first global pixel id
+    o, a host int, so that lane j is pixel o + j (the JAX package takes
+    the ids array and keys on ids[0]); None is 0, the whole frame.
+    sample_index: overrides state.sample in the fast-mode and QMC draws
+    (sample sharding, `parallel.shard.make_sample_sharded_render`); the
+    running average still weighs by state.sample.
+    Fast mode draws from the murmur3 hash keyed by fold_in(key, ids) (the
+    tile's first pixel id), or the R2 sequence with qmc=True.
     nee: an `ops.nee.EmitterTable`; its draws come from the hash keyed by
-    fold_in(key, 0) (key(1791) when key is None, as in parity mode), salt
-    10,000 + bounce, so parity mode's Lehmer streams stay the reference's.
+    fold_in(key, ids) (key(1791) when key is None, as in parity mode),
+    salt 10,000 + bounce, so parity mode's Lehmer streams stay the
+    reference's.
     env: an `EnvLight` (the dormant sky, prog.cl:367-376) or an
     `ops.envmap.EnvMap`; with env.nee a map's gather draws from
-    fold_in(key or key(3791), 0), salt 30,000 + bounce, and its escape
-    rays go through occluded_fn at rmax 3.0e38.
+    fold_in(key or key(3791), ids), salt 30,000 + bounce, and its
+    escape rays go through occluded_fn at rmax 3.0e38.
     dof: (aperture, focus): thin-lens camera rays whose lens draws come
-    from fold_in(key or key(401), 0), salt 20,000.
+    from fold_in(key or key(401), ids), salt 20,000.
     occluded_fn: the any-hit shadow-ray test (`make_scene_occluded`);
     None sends the shadow rays through intersect_fn. Neither traces the
     last bounce's shadow rays, whose contribution is zero.
@@ -234,21 +243,24 @@ def trace_sample(cam: Camera, mats: MaterialsSoA, state: TraceState, *,
     rng_state = state.rng_state
     n = rng_state.shape[0]
     dev = rng_state.device
-    ids = raygen.pixel_ids_like(n, device=dev)
-    s_idx = state.sample
+    first_id = ids or 0
+    ids = raygen.pixel_ids_like(n, device=dev) + first_id
+    s_idx = state.sample if sample_index is None else int(sample_index)
     env_kind = _env_kind(env)
     env_gather = env_kind == "map" and env.nee
     if nee is not None:
-        nee_key = rng.fold_in(key if key is not None else rng.key(1791), 0)
+        nee_key = rng.fold_in(key if key is not None else rng.key(1791),
+                              first_id)
     if env_gather:
-        env_key = rng.fold_in(key if key is not None else rng.key(3791), 0)
+        env_key = rng.fold_in(key if key is not None else rng.key(3791),
+                              first_id)
     if mode == "parity":
         ones = torch.ones(n, dtype=torch.bool, device=dev)
         rng_state, r1, r2 = _draws_parity(rng_state, ones, ones)
     elif mode == "fast":
         if key is None:
             raise ValueError("fast mode needs a key (rng.key(seed))")
-        tile_key = rng.fold_in(key, 0)
+        tile_key = rng.fold_in(key, first_id)
         if qmc:
             r1, r2 = rng.r2_jitter(key, ids, s_idx)
         else:
@@ -260,7 +272,8 @@ def trace_sample(cam: Camera, mats: MaterialsSoA, state: TraceState, *,
         # The lens draws ride the counter hash (salt 20,000: the bounce
         # draws use 1..50 and NEE 10,000 + b), so parity mode's Lehmer
         # streams stay the reference's.
-        dof_key = rng.fold_in(key if key is not None else rng.key(401), 0)
+        dof_key = rng.fold_in(key if key is not None else rng.key(401),
+                              first_id)
         lu = rng.fast_uniforms(dof_key, s_idx, 20_000, n, 2, device=dev)
         rays = raygen.camera_rays_dof(cam, ids, r1, r2, lu[0], lu[1],
                                       dof[0], dof[1])

@@ -135,14 +135,22 @@ def fast_uniforms(k: tuple[int, int], sample: int, bounce: int, n: int,
     return (h >> 8).to(torch.float32) * np.float32(1.0 / (1 << 24))
 
 
-def r2_jitter(k: tuple[int, int], pixel_ids: torch.Tensor, sample: int):
+def r2_jitter(k: tuple[int, int], pixel_ids: torch.Tensor, sample):
     """(u, v) in [0, 1): the sample-th point of each pixel's rotated R2
-    sequence, in uint32 fixed point (wraparound is the fract())."""
+    sequence, in uint32 fixed point (wraparound is the fract()). sample:
+    an int, or a tensor of each lane's index (the wavefront's
+    regeneration)."""
     p = pixel_ids.long() & MASK32
     rot1 = fmix32((mul32(p, _GOLD) + k[0]) & MASK32)
     rot2 = fmix32(rot1 ^ k[1] ^ _M2)
-    u = (rot1 + ((int(sample) * _R2_A1) & MASK32)) & MASK32
-    v = (rot2 + ((int(sample) * _R2_A2) & MASK32)) & MASK32
+    if isinstance(sample, torch.Tensor):
+        s = sample.long() & MASK32
+        su, sv = mul32(s, _R2_A1), mul32(s, _R2_A2)
+    else:
+        su = (int(sample) * _R2_A1) & MASK32
+        sv = (int(sample) * _R2_A2) & MASK32
+    u = (rot1 + su) & MASK32
+    v = (rot2 + sv) & MASK32
     to_f = np.float32(1.0 / (1 << 24))
     return ((u >> 8).to(torch.float32) * to_f,
             (v >> 8).to(torch.float32) * to_f)

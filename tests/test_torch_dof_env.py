@@ -285,9 +285,6 @@ def test_config_env_and_dof_accepted_and_roundtrip():
     cfg = _cfg(env_map="gradient", env_scale=2.0, env_nee=False,
                env_sample_res=(32, 16), dof_aperture=5.0, dof_focus=400.0)
     assert RenderConfig.from_json(cfg.to_json()) == cfg.validate()
-    assert not {"env_light", "env_sky", "env_deep", "env_map", "env_scale",
-                "env_nee", "env_sample_res", "dof_aperture",
-                "dof_focus"} & set(RenderConfig.UNPORTED)
     e = RenderEngine(library.cornell_box(with_spheres=False),
                      dataclasses.replace(cfg, model="wavefront"),
                      device="cpu")

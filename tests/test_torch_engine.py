@@ -79,22 +79,20 @@ def test_entry_points_refuse_cpu_without_asking(monkeypatch, tmp_path):
     engine.RenderEngine(scene, _cfg(), device="cpu").render(1)
 
 
-@pytest.mark.parametrize("field,value,ported", [
-    ("devices", 2, False), ("accel_force", True, True),
-    ("textured", True, True)],
+@pytest.mark.parametrize("field,value", [
+    ("devices", 2), ("accel_force", True), ("textured", True)],
     ids=["devices-2", "accel_force-True", "textured-True"])
-def test_config_refuses_unported_fields(field, value, ported):
-    """devices is refused (UNPORTED is ("devices",)); accel_force and
-    textured are ported and validate (and round-trip through JSON)."""
-    assert RenderConfig.UNPORTED == ("devices",)
+def test_config_refuses_unported_fields(field, value):
+    """Every field of the JAX package's config is ported (the UNPORTED
+    list is gone): devices, accel_force and textured validate and
+    round-trip through JSON; devices=-1 is refused with the JAX package's
+    message."""
+    assert not hasattr(RenderConfig, "UNPORTED")
     cfg = dataclasses.replace(_cfg(), **{field: value})
-    if ported:
-        assert field not in RenderConfig.UNPORTED
-        assert getattr(cfg.validate(), field) == value
-        assert RenderConfig.from_json(cfg.to_json()) == cfg
-        return
-    with pytest.raises(NotImplementedError, match=field):
-        cfg.validate()
+    assert getattr(cfg.validate(), field) == value
+    assert RenderConfig.from_json(cfg.to_json()) == cfg
+    with pytest.raises(ValueError, match=r"devices must be >= 0 \(0 = all\)"):
+        _cfg(devices=-1).validate()
 
 
 def test_config_validation_and_json_roundtrip():

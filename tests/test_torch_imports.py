@@ -48,7 +48,8 @@ def test_port_has_its_modules_and_kernel_sources():
         assert (PORT / "csrc" / f).exists()
     for f in ("ops/kernels/march_kernel.py", "ops/kernels/flat_march.py",
               "ops/kernels/lazy_march.py", "models/lazy.py",
-              "runtime/anim.py", "runtime/viewer.py"):
+              "runtime/anim.py", "runtime/viewer.py", "parallel/mesh.py",
+              "parallel/shard.py", "parallel/launch.py"):
         assert (PORT / f) in FILES
 
 

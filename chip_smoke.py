@@ -340,6 +340,27 @@ finishes as the single-device render. Wall ms a sample of 2 more samples
 is printed for each world beside one device's, as information only.
 A rank's failure fails the launch and the script.
 
+The last leftovers (`check_slice25`, 1920x1080, 5 bounces, inside
+`plain_guard`): (a) `utils.check_deterministic` reruns each of
+SLICE25_PATHS' steps (the megakernel's `trace_sample` from a fresh
+state, the wavefront's step one step in; every accel from 'minarg' to
+'median' with force, NEE through K7 and K3b, smooth K8), the fused
+pipeline's step and the lazy step SLICE25_RUNS times from one state,
+each as a main path whose kernels must launch, and fails on any output
+bit that moves; the pixel sums with SLICE25_LANES lanes a pixel
+(`colors_by_pixel`, the engine's `image()` and `display_u8_device()`)
+in three lane layouts, rerun SLICE25_PIXEL_RUNS times and torch.equal to
+the CPU's sums of the same lanes. (b) A parity render of `cornell`
+('auto') against the port's scalar `prog.cl` oracle (`utils.oracle`) on
+ORACLE_PIXELS seeded pixels: Lehmer states equal, colors within
+tests/test_oracle.py's rtol and atol. (c) `utils.device_timer` beside
+`time_ms` on one `cornell` megakernel sample, in turns, and one sample
+under `utils.trace_profile`, whose Chrome trace must name K6's
+`__global__` function. (d) The twelve `examples_torch/` twins, each
+`main([...])` in this process (04's one NCCL rank in its own), their
+markers checked, their launches counted (04's from its rank) and added
+to the kernels line. The phase runs after the kernels' timing rows.
+
 The last two lines are a JSON object per kernel (time, plain time,
 bound, launches) and the verdict; the line before them, the smoke's total
 time. Any failed phase raises, and the
@@ -353,6 +374,7 @@ binds a loopback port and shuts its server down.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -4954,6 +4976,458 @@ def check_slice24(torch, np, smi):
     return launches
 
 
+# check_slice25: the last leftovers (`utils/`, the examples' twins), 1080p.
+# (a) Each step below runs SLICE25_RUNS times from one fixed state and is
+# compared leaf by leaf, bit for bit (`utils.check_deterministic`): name,
+# scene, model, RenderConfig fields, the kernels the step launches. The
+# Cornell preset camera, and the reference's own for the reference scene,
+# as the main paths take them.
+SLICE25_RUNS = 3
+SLICE25_PATHS = (
+    ("megakernel cornell-analytic minarg", "cornell-analytic", "megakernel",
+     dict(accel="minarg"), ("minarg", "refine1", "spheres")),
+    ("megakernel cornell tilecull", "cornell", "megakernel",
+     dict(accel="tilecull"), ("tilecull", "refine1")),
+    ("megakernel cornell pallas", "cornell", "megakernel",
+     dict(accel="pallas"), ("dense",)),
+    ("megakernel reference group", "reference", "megakernel",
+     dict(accel="group"), ("group",)),
+    ("megakernel stress cluster", "stress", "megakernel",
+     dict(accel="cluster"), ("cluster",)),
+    ("megakernel stress pairwin", "stress", "megakernel",
+     dict(accel="pairwin"), ("dense", "pair_cand", "pair_visit",
+                             "attr_fetch")),
+    ("megakernel stress pair", "stress", "megakernel",
+     dict(accel="pair"), ("dense", "pair_cand", "pair_vpu")),
+    ("megakernel stress pairmx", "stress", "megakernel",
+     dict(accel="pairmx"), ("dense", "pair_cand", "pair_visit_full")),
+    ("megakernel stress march", "stress", "megakernel",
+     dict(accel="march"), ("materialize", "march", "dense")),
+    ("megakernel stress flat", "stress", "megakernel",
+     dict(accel="flat"), ("materialize", "march", "flat_march", "dense")),
+    ("megakernel cornell nee", "cornell", "megakernel",
+     dict(accel="minarg", nee=True), ("minarg", "refine1", "anyhit")),
+    ("megakernel many-lights nee", "many-lights", "megakernel",
+     dict(accel="minarg", nee=True),
+     ("minarg", "refine1", "sphere_table", "anyhit")),
+    ("megakernel reference smooth", "reference", "megakernel",
+     dict(accel="minarg", smooth=True), ("minarg", "smooth_refine")),
+    # The walker is plain PyTorch (no kernel); 2.7 s a step at 1080p.
+    ("megakernel cornell median", "cornell", "megakernel",
+     dict(accel="median", accel_force=True), ()),
+    ("wavefront cornell-analytic nee", "cornell-analytic", "wavefront",
+     dict(accel="minarg", nee=True),
+     ("minarg", "refine1", "spheres", "anyhit")),
+    ("wavefront stress pairwin", "stress", "wavefront",
+     dict(accel="pairwin"), ("dense", "pair_cand", "pair_visit",
+                             "attr_fetch")),
+)
+# The fused fast pipeline's step, the lazy step and the pixel sums.
+SLICE25_OTHER = {
+    "fused cornell": ("plucker_cand", "plucker_refine", "dense",
+                      "fused_step"),
+    "lazy stress": ("lazy_march", "dense"),
+    "wavefront cornell-analytic lanes": ("minarg", "refine1", "spheres"),
+}
+SLICE25_LANES = 4   # lanes a pixel of the pixel sums (3+ can reorder)
+SLICE25_LANE_STEPS = 12   # wavefront steps before the pixel sums
+SLICE25_LANE_SEED = 7   # the 'permuted' layout's permutation
+SLICE25_PIXEL_RUNS = 6   # reruns of each pixel sum
+# (b) The oracle: a parity render of 1080p cornell against the scalar
+# prog.cl walk on ORACLE_PIXELS pixels chosen from ORACLE_SEED, at
+# tests/test_oracle.py's tolerance; the Lehmer states exact.
+ORACLE_PIXELS, ORACLE_SEED, ORACLE_SPP = 256, 25, 2
+ORACLE_RTOL, ORACLE_ATOL = 2e-5, 2e-6
+# (c) device_timer against time_ms on one 1080p cornell sample.
+TIMER_ITERS, TIMER_TURNS = 5, 5
+K6_GLOBAL = "tilecull_cull_kernel"   # csrc/tilecull.cu's __global__ body
+# (d) The twins of examples/: file stem, argv (besides --out or --ckpt
+# into a temporary directory), the marker the JAX script's test checks,
+# and the kernels each must launch (a tuple: any one of them; 'auto'
+# picks 'tilecull' or 'minarg' on the card by the camera).
+SLICE25_TWINS = (
+    ("01_render_cornell", ["--size", f"{W}x{H}"], "out", "wrote",
+     (("minarg", "tilecull"), "refine1")),
+    ("02_custom_scene", ["--obj", "tests/assets/models/sphere.obj"], "out",
+     "triangles", (("minarg", "tilecull"), "refine1")),
+    ("03_checkpoint_resume", [], "ckpt", "bit-exact",
+     (("minarg", "tilecull"), "refine1")),
+    ("04_multi_device", ["--devices", "1"], "out", "mesh: 1",
+     ("minarg", "refine1")),
+    ("05_low_level_ops", ["--size", f"{W}x{H}"], None, "hits",
+     ("minarg", "refine1")),
+    ("06_smooth_and_spheres", [], "out", "smooth-shaded",
+     ("minarg", "refine1", "spheres", "smooth_refine")),
+    ("07_uv_checker", [], "out", "checker balance", ("minarg", "refine1")),
+    ("08_textured_obj", [], "out", "1 texture", ("minarg", "refine1")),
+    ("09_environment_light", ["--envmap", "sunsky"], "out", "env-lit",
+     (("minarg", "tilecull"), "refine1", "anyhit")),
+    ("10_nee_and_adaptive", [], "out", "NEE+adaptive",
+     ("minarg", "refine1")),
+    ("11_many_lights", ["--lights", "64"], "out", "right: distance",
+     (("minarg", "tilecull"), "refine1", "sphere_table", "anyhit")),
+    ("12_spectral_dispersion", [], "out", "channel split",
+     (("minarg", "tilecull"), "refine1", "spheres")),
+)
+for _name, _s, _m, _f, _k in SLICE25_PATHS:
+    PATH_KERNELS[f"determinism {_name}"] = _k
+for _name, _k in SLICE25_OTHER.items():
+    PATH_KERNELS[f"determinism {_name}"] = _k
+PATH_KERNELS["megakernel cornell oracle"] = ("minarg", "refine1")
+
+
+def check_slice25(torch, np, scenes):
+    """The last leftovers at 1920x1080, 5 bounces, inside `plain_guard`:
+    (a) every accel's step, the fused and lazy steps and the pixel sums
+    rerun from one state and compared bit for bit; (b) a parity render
+    against the port's scalar oracle; (c) `device_timer` and
+    `trace_profile` on one sample; (d) the twelve examples' twins in
+    process. Returns the launches of (a), (b) and (d)."""
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    with plain_guard(), tempfile.TemporaryDirectory(
+            prefix="ptx-slice25-") as tmp:
+        t0 = time.perf_counter()
+        _slice25_determinism(torch, scenes, add)
+        print(f"check_slice25 (a): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        _slice25_oracle(torch, np, scenes["cornell"], add)
+        print(f"check_slice25 (b): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        _slice25_profiling(torch, scenes["cornell"], tmp)
+        print(f"check_slice25 (c): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        _slice25_twins(torch, add, tmp)
+        print(f"check_slice25 (d): {time.perf_counter() - t0:.1f} s")
+    print(f"check_slice25: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def slice25_cfg(scene_name, mode="fast", **kw):
+    """A 1080p RenderConfig of check_slice25: the Cornell preset camera,
+    the reference's own for the reference scene."""
+    from opencl_path_tracer_tpu_torch.config import CameraConfig, RenderConfig
+    camera = (CameraConfig() if scene_name.startswith("reference")
+              else CameraConfig(**SLICE24_PRESET))
+    return RenderConfig(width=W, height=H, iterations=BOUNCES, mode=mode,
+                        camera=camera, **kw)
+
+
+def _slice25_check(torch, name, fn, state, accel, add, bad):
+    """check_deterministic(fn, state, runs=SLICE25_RUNS) as the main path
+    `determinism <name>` (every kernel of the step launched); prints one
+    line, and records the differing leaves in `bad`."""
+    from opencl_path_tracer_tpu_torch.utils import check_deterministic
+    t0 = time.perf_counter()
+    diff, _, counts = run_path(
+        torch, f"determinism {name}",
+        lambda: check_deterministic(fn, state, runs=SLICE25_RUNS), accel)
+    add(counts)
+    if diff:
+        bad[name] = diff
+    print(f"check_slice25 determinism {name} ({W}x{H}, {BOUNCES} bounces, "
+          f"accel {accel}, {SLICE25_RUNS} runs, "
+          f"{time.perf_counter() - t0:.1f} s): "
+          + ("deterministic" if not diff else f"differs in {diff}")
+          + f"; launches {counts}")
+
+
+def _slice25_determinism(torch, scenes, add):
+    """Part (a). A step is a pure function of its state: the megakernel's
+    `trace_sample` from a fresh state, the wavefront's step from the state
+    one step in. Fails if any path differs between runs."""
+    from opencl_path_tracer_tpu_torch.models import (
+        lazy, megakernel, pipeline, wavefront)
+    from opencl_path_tracer_tpu_torch.ops import rng
+    from opencl_path_tracer_tpu_torch.runtime.engine import RenderEngine
+    from opencl_path_tracer_tpu_torch.scene import library
+    dev = scenes["cornell"].tris.device
+    key = rng.key(1)
+    bad = {}
+    for name, sname, model, fields, _ in SLICE25_PATHS:
+        eng = RenderEngine(scenes[sname], slice25_cfg(sname, model=model,
+                                                      **fields), device=dev)
+        cam, mats = eng.camera, eng.scene.mats
+        kw = dict(intersect_fn=eng.intersect_fn, iterations=BOUNCES,
+                  mode="fast", key=key, nee=eng.nee,
+                  occluded_fn=eng.occluded)
+        if model == "megakernel":
+            def fn(st, kw=kw, cam=cam, mats=mats):
+                return megakernel.trace_sample(cam, mats, st, **kw)
+            state = megakernel.init_state(W * H, 1, device=dev)
+        else:
+            def fn(st, kw=kw, cam=cam, mats=mats):
+                return wavefront.wavefront_step(cam, mats, st, **kw)
+            state = fn(wavefront.init_wavefront(cam, W * H, mode="fast",
+                                                key=key))
+        _slice25_check(torch, name, fn, state, eng.intersect_fn.accel, add,
+                       bad)
+        del eng, state
+    corn, stress = scenes["cornell"], scenes["stress"]
+    cam = library.cornell_camera(W, H, device=dev)
+    # The fused fast pipeline (K13a, K13b, K4, K5) one step in; its
+    # buffers are cloned for each run.
+    (F, I, ctr), step, _ = pipeline.make_fast_pipeline(
+        corn, cam, width=W, height=H, iterations=BOUNCES, key=key)
+    F, I, ctr = step(F, I, ctr)
+    _slice25_check(torch, "fused cornell",
+                   lambda s: step(s[0].clone(), s[1].clone(), s[2]),
+                   (F, I, ctr), None, add, bad)
+    del F, I
+    # The lazy step (K20, K4 net) one step in, as lazy_path builds it.
+    lstep, init, _ = lazy.make_lazy_pipeline(stress.tris, cs=512, tr=256,
+                                             K=4, tail=4096, device=dev)
+    st = lstep(cam, stress.mats, init(cam, W * H, mode="fast", key=key),
+               iterations=BOUNCES, mode="fast", key=key)
+    _slice25_check(torch, "lazy stress",
+                   lambda s: lstep(cam, stress.mats, s, iterations=BOUNCES,
+                                   mode="fast", key=key),
+                   st, None, add, bad)
+    del st
+    _slice25_pixel_sums(torch, scenes["cornell-analytic"], cam, add, bad)
+    need(not bad, f"check_slice25: steps that differ between runs: {bad}")
+
+
+def _slice25_pixel_sums(torch, ana, cam, add, bad):
+    """The pixel sums with SLICE25_LANES lanes a pixel (`colors_by_pixel`,
+    the engine's `image()` and `display_u8_device()`, all through
+    `wavefront.pixel_sum`) in three lane layouts: a pixel's lanes W x H
+    apart ('repeat'), adjacent ('interleave': where CUDA's atomic
+    `index_add_` reordered its float32 adds between runs on the H100) and
+    in a seeded permutation ('permuted', as a lane sort leaves them).
+    Each is rerun SLICE25_PIXEL_RUNS times, and the card's sums must
+    equal the CPU's on the same lanes bit for bit."""
+    import types
+    from opencl_path_tracer_tpu_torch.models import wavefront
+    from opencl_path_tracer_tpu_torch.ops import raygen, rng
+    from opencl_path_tracer_tpu_torch.runtime.engine import (
+        RenderEngine, make_intersect_fn)
+    dev = ana.tris.device
+    key = rng.key(1)
+    n = W * H
+    isect = make_intersect_fn(ana, "minarg")
+    eng = RenderEngine(ana, slice25_cfg("cornell-analytic",
+                                        model="wavefront", accel="minarg"),
+                       device=dev)
+    for layout in ("repeat", "interleave", "permuted"):
+        ids = raygen.pixel_ids_like(n, device=dev)
+        ids = (ids.repeat_interleave(SLICE25_LANES) if layout == "interleave"
+               else ids.repeat(SLICE25_LANES))
+
+        def steps(ids=ids):
+            s = wavefront.init_wavefront(cam, n * SLICE25_LANES, mode="fast",
+                                         key=key, ids=ids)
+            for _ in range(SLICE25_LANE_STEPS):
+                s = wavefront.wavefront_step(
+                    cam, ana.mats, s, intersect_fn=isect, iterations=BOUNCES,
+                    mode="fast", key=key)
+            return s
+
+        st, _, counts = run_path(torch, "determinism wavefront "
+                                 "cornell-analytic lanes", steps, "minarg")
+        add(counts)
+        if layout == "permuted":
+            gen = torch.Generator(device=dev).manual_seed(SLICE25_LANE_SEED)
+            perm = torch.randperm(n * SLICE25_LANES, device=dev,
+                                  generator=gen)
+            st = wavefront._lanes(st, lambda x: x[perm])
+        eng.state, eng._display = st, None
+        per_px = torch.bincount(st.pixel.long()[st.samples > 0], minlength=n)
+        for name, fn in (("colors_by_pixel",
+                          lambda s: wavefront.colors_by_pixel(s, n)),
+                         ("engine image", lambda s: eng.image(
+                             apply_tonemap=False)),
+                         ("engine display_u8_device",
+                          lambda s: eng.display_u8_device())):
+            diff = check_deterministic_counted(torch, fn, st)
+            if diff:
+                bad[f"{name} {layout}"] = diff
+            print(f"check_slice25 determinism {name} {layout} ({W}x{H}, "
+                  f"{SLICE25_LANES} lanes a pixel after {SLICE25_LANE_STEPS} "
+                  f"steps, {int((per_px >= 3).sum())} pixels with 3+ lanes "
+                  f"done, {SLICE25_PIXEL_RUNS} runs): "
+                  + ("deterministic" if not diff else f"differs in {diff}"))
+        host = types.SimpleNamespace(
+            pixel=st.pixel.cpu(), samples=st.samples.cpu(),
+            colors=tuple(c.cpu() for c in st.colors))
+        wgt = st.samples.to(torch.float32)[:, None] * torch.stack(
+            st.colors, -1)
+        same = (torch.equal(wavefront.colors_by_pixel(st, n).cpu(),
+                            wavefront.colors_by_pixel(host, n)),
+                torch.equal(wavefront.pixel_sum(st.pixel, wgt, n).cpu(),
+                            wavefront.pixel_sum(host.pixel, wgt.cpu(), n)))
+        print(f"check_slice25 pixel sums {layout}: the card's colors_by_pixel "
+              f"and float32 pixel_sum torch.equal to the CPU's: {same}")
+        need(all(same), f"check_slice25 pixel sums {layout}: the card's "
+             "sums differ from the CPU's")
+        del st, host, wgt
+    del eng
+
+def check_deterministic_counted(torch, fn, state):
+    """check_deterministic for a function that launches no kernel of the
+    port (the pixel sums): none may launch."""
+    from opencl_path_tracer_tpu_torch.ops.kernels import _build
+    from opencl_path_tracer_tpu_torch.utils import check_deterministic
+    _build.reset_launches()
+    diff = check_deterministic(fn, state, runs=SLICE25_PIXEL_RUNS)
+    need(not any(_build.launches.values()),
+         f"check_slice25: a pixel sum launched {dict(_build.launches)}")
+    return diff
+
+
+def _slice25_oracle(torch, np, corn, add):
+    """Part (b): a parity megakernel render of 1080p cornell ('auto')
+    against the port's scalar prog.cl oracle on ORACLE_PIXELS pixels."""
+    from opencl_path_tracer_tpu_torch.models import megakernel
+    from opencl_path_tracer_tpu_torch.runtime.engine import RenderEngine
+    from opencl_path_tracer_tpu_torch.utils import oracle
+    dev = corn.tris.device
+    eng = RenderEngine(corn, slice25_cfg("cornell", mode="parity"),
+                       device=dev)
+    name = "megakernel cornell oracle"
+    _, dt, counts = run_path(
+        torch, name, lambda: eng.render(ORACLE_SPP, progress=False),
+        eng.intersect_fn.accel)
+    add(counts)
+    pix = np.sort(np.random.default_rng(ORACLE_SEED).choice(
+        W * H, ORACLE_PIXELS, replace=False))
+    t0 = time.perf_counter()
+    colors, seeds = oracle.render_oracle(
+        corn, eng.camera, width=W, height=H, iterations=BOUNCES,
+        spp=ORACLE_SPP, seed=eng.cfg.seed, pixels=pix.tolist())
+    t_oracle = time.perf_counter() - t0
+    got = megakernel.colors_array(eng.state).cpu().numpy()[pix]
+    lehmer = eng.state.rng_state.cpu().numpy().astype(np.uint32)[pix]
+    same_rng = int((lehmer == seeds[pix]).sum())
+    err = np.abs(got - colors[pix])
+    ok = err <= ORACLE_ATOL + ORACLE_RTOL * np.abs(colors[pix])
+    print(f"check_slice25 oracle: {name} ({W}x{H}, {BOUNCES} bounces, "
+          f"{ORACLE_SPP} spp, parity, accel {eng.intersect_fn.accel}, "
+          f"{dt:.2f} s; launches {counts}) against the scalar prog.cl "
+          f"oracle on {ORACLE_PIXELS} pixels (seed {ORACLE_SEED}, "
+          f"{t_oracle:.1f} s): Lehmer states equal on {same_rng}, colors "
+          f"within rtol {ORACLE_RTOL}, atol {ORACLE_ATOL} on "
+          f"{int(ok.all(axis=1).sum())}; max abs err {float(err.max()):.3g}; "
+          f"{int((colors[pix].sum(axis=1) > 0).sum())} pixels lit")
+    need(same_rng == ORACLE_PIXELS, "check_slice25 oracle: Lehmer states "
+         f"differ on {ORACLE_PIXELS - same_rng} pixels")
+    need(bool(ok.all()), "check_slice25 oracle: colors outside the "
+         "oracle's tolerance")
+
+
+def _slice25_profiling(torch, corn, tmp):
+    """Part (c): `device_timer` on one 1080p cornell megakernel sample
+    beside the smoke's CUDA-event `time_ms` (in turns), then one sample
+    under `trace_profile`, whose trace must name K6's __global__
+    function ('auto' = 'tilecull' on the card)."""
+    import glob
+    import statistics
+    from opencl_path_tracer_tpu_torch.models import megakernel
+    from opencl_path_tracer_tpu_torch.ops import rng
+    from opencl_path_tracer_tpu_torch.runtime.engine import RenderEngine
+    from opencl_path_tracer_tpu_torch.utils import device_timer, trace_profile
+    dev = corn.tris.device
+    eng = RenderEngine(corn, slice25_cfg("cornell"), device=dev)
+    state = megakernel.init_state(W * H, 1, device=dev)
+
+    def sample(st):
+        return megakernel.trace_sample(
+            eng.camera, eng.scene.mats, st, intersect_fn=eng.intersect_fn,
+            iterations=BOUNCES, mode="fast", key=rng.key(1))
+
+    turns = {"time_ms": [], "device_timer": []}
+    for _ in range(TIMER_TURNS):
+        turns["time_ms"].append(time_ms(torch, lambda: sample(state),
+                                        TIMER_ITERS))
+        turns["device_timer"].append(
+            device_timer(sample, state, iters=TIMER_ITERS, warmup=1) * 1e3)
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    spread = {k: max(v) - min(v) for k, v in turns.items()}
+    print(f"check_slice25 profiling: one {W}x{H} cornell megakernel sample "
+          f"(accel {eng.intersect_fn.accel}), {TIMER_TURNS} turns of "
+          f"{TIMER_ITERS} calls: device_timer {med['device_timer']:.3f} ms "
+          f"(spread {spread['device_timer']:.3f}, turns "
+          f"{[round(v, 3) for v in turns['device_timer']]}), time_ms "
+          f"{med['time_ms']:.3f} ms (spread {spread['time_ms']:.3f}, turns "
+          f"{[round(v, 3) for v in turns['time_ms']]})")
+    need(all(math.isfinite(v) for v in med.values()),
+         f"check_slice25 profiling: a time is not finite: {med}")
+    need(med["device_timer"] >= med["time_ms"] - spread["time_ms"],
+         "check_slice25 profiling: device_timer is below time_ms less its "
+         "spread")
+    logdir = os.path.join(tmp, "profile")
+    with trace_profile(logdir):
+        sample(state)
+    files = glob.glob(os.path.join(logdir, "trace_*.json"))
+    need(len(files) == 1, f"check_slice25 profiling: trace files {files}")
+    with open(files[0]) as fh:
+        names = [e.get("name", "") for e in json.load(fh)["traceEvents"]]
+    k6 = [n for n in names if K6_GLOBAL in n]
+    print(f"check_slice25 trace_profile: {os.path.basename(files[0])}, "
+          f"{os.path.getsize(files[0])} bytes, {len(names)} events, "
+          f"{len(k6)} of K6 ({k6[0] if k6 else None})")
+    need(k6, f"check_slice25 trace_profile: no event names {K6_GLOBAL}")
+
+
+def _slice25_twins(torch, add, tmp):
+    """Part (d): each twin's `main([...])` in this process (04's ranks in
+    their own), its marker checked in what it printed, and its launches
+    counted (04's from its ranks)."""
+    import contextlib
+    import importlib
+    import io
+    from opencl_path_tracer_tpu_torch.ops.kernels import _build
+    twins = os.path.join(HERE, "examples_torch")
+    if twins not in sys.path:
+        sys.path.insert(0, twins)
+    cwd = os.getcwd()
+    os.chdir(HERE)   # 02's OBJ default is relative to the checkout
+    try:
+        for stem, argv, flag, marker, kernels in SLICE25_TWINS:
+            mod = importlib.import_module(stem)
+            shown = " ".join(argv)
+            if flag is not None:
+                ext = "npz" if flag == "ckpt" else "png"
+                argv = [*argv, f"--{flag}",
+                        os.path.join(tmp, f"{stem}.{ext}")]
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                ret = mod.main(argv)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = {k: v for k, v in _build.launches.items() if v}
+            if stem == "04_multi_device":
+                need(not counts, f"twin {stem}: this process launched "
+                     f"{counts}; its ranks should")
+                for rank in ret:
+                    for k, v in rank.items():
+                        counts[k] = counts.get(k, 0) + v
+            out = buf.getvalue().strip()
+            missing = [k for k in kernels
+                       if not any(counts.get(a) for a in
+                                  (k if isinstance(k, tuple) else (k,)))]
+            extra = [k for k in CHECK_ONLY if counts.get(k)]
+            last = out.splitlines()[-1] if out else ""
+            print(f"check_slice25 twin {stem} {shown} ({dt:.1f} s): "
+                  f"{last!r}; launches {counts}")
+            need(marker in out, f"twin {stem}: no {marker!r} in {out!r}")
+            if flag == "out":
+                need(os.path.getsize(argv[-1]) > 0,
+                     f"twin {stem}: empty image")
+            need(not missing, f"twin {stem} did not launch {missing}")
+            need(not extra, f"twin {stem} launched {extra}")
+            add(counts)
+    finally:
+        os.chdir(cwd)
+
 def slice22_rows(torch, inputs):
     """The timing rows of K10's full form on round 1's pairs of the
     'pairmx' shape: K10's operations (26 float32 per (pair, triangle)
@@ -5704,6 +6178,13 @@ def main() -> int:
         launches[k] += v
     inputs.update(env_inputs)
     kernels = measure(torch, inputs, errs, launches)
+    # check_slice25 runs after the kernels' profiles: run before them, on an
+    # H100 torch.profiler kept as few as 14 of 20 kernel spans a profile in
+    # `measure` (PERF.md section 6). Its launches join the kernels line.
+    s25 = check_slice25(torch, np, scenes)
+    for row in kernels:
+        row["launches"] += s25.get(row["name"].split(" ")[0], 0)
+    print(f"check_slice25's launches, added to the kernels line: {s25}")
     print(f"smoke: {time.perf_counter() - t_start:.1f} s in all, the kernel "
           "build included")
     print(json.dumps({"kernels": kernels}))

@@ -8,4 +8,7 @@ Pallas kernel of the JAX package becomes a CUDA C++ kernel for Hopper
 it. Entry points run on CUDA unless the caller passes device="cpu".
 """
 
-__version__ = "0.1.0"
+from opencl_path_tracer_tpu_torch import config as config
+from opencl_path_tracer_tpu_torch.version import __version__
+
+__all__ = ["__version__", "config"]

@@ -545,7 +545,31 @@ def colors_by_pixel(state: WavefrontState,
         out[pix] = cols
         return out
     w = state.samples.to(torch.float64)
-    den = torch.zeros(n, dtype=torch.float64, device=dev).index_add_(0, pix, w)
-    num = torch.zeros((n, 3), dtype=torch.float64, device=dev).index_add_(
-        0, pix, w[:, None] * cols.to(torch.float64))
+    den = pixel_sum(pix, w, n)
+    num = pixel_sum(pix, w[:, None] * cols.to(torch.float64), n)
     return (num / torch.clamp_min(den, 1.0)[:, None]).to(torch.float32)
+
+
+def pixel_sum(pix: torch.Tensor, vals: torch.Tensor,
+              num_pixels: int) -> torch.Tensor:
+    """(num_pixels, ...) sums of vals (L, ...) over the lanes of each pixel
+    (pix: (L,) ids), added in lane order from 0.0: the order of CPU
+    `index_add_` and of the JAX package's `np.add.at`, and the same bits
+    on every device and run. CUDA's `index_add_` adds with atomics in the
+    order the lanes arrive, which on an H100 moved float32 sums (and so
+    pixels of the engine's `display_u8_device`) between runs where a
+    pixel's lanes lie near one another (PERF.md section 6). One round a
+    lane rank: round r adds each pixel's r-th lane, so no two lanes of a
+    round share a pixel."""
+    pix = pix.long()
+    out = torch.zeros((num_pixels,) + tuple(vals.shape[1:]),
+                      dtype=vals.dtype, device=vals.device)
+    if pix.numel() == 0:
+        return out
+    order = torch.argsort(pix, stable=True)
+    counts = torch.bincount(pix, minlength=num_pixels)
+    first = torch.cumsum(counts, 0) - counts
+    for r in range(int(counts.max())):
+        p = torch.nonzero(counts > r).squeeze(1)
+        out[p] = out[p] + vals[order[first[p] + r]]
+    return out

@@ -1,6 +1,7 @@
 """Random number generation.
 
-Port of `opencl_path_tracer_tpu/ops/rng.py`. Two engines:
+Port of `opencl_path_tracer_tpu/ops/rng.py` (with its pure-Python
+oracle `lehmer_reference_sequence`). Two engines:
 
 1. Parity: the reference's Lehmer LCG, n' = n * 48271 mod (2^31 - 1),
    uniform = float32(n') / 2147483647.0f, one stream per pixel
@@ -154,3 +155,14 @@ def r2_jitter(k: tuple[int, int], pixel_ids: torch.Tensor, sample):
     to_f = np.float32(1.0 / (1 << 24))
     return ((u >> 8).to(torch.float32) * to_f,
             (v >> 8).to(torch.float32) * to_f)
+
+
+def lehmer_reference_sequence(state: int, n: int) -> list[int]:
+    """The next n states of the Lehmer stream that starts at `state`, in
+    pure Python (closed form of prog.cl:72-77): the tests' oracle."""
+    out = []
+    x = int(state)
+    for _ in range(n):
+        x = (x * LEHMER_A) % M31
+        out.append(x)
+    return out

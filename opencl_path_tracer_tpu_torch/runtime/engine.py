@@ -928,12 +928,10 @@ class RenderEngine:
                                   device=cols.device)
                 img[pix] = cols
             else:
+                # Lane-order sums: the same bits on every run.
                 wgt = st.samples.to(torch.float32)
-                den = torch.zeros(n_px, dtype=torch.float32,
-                                  device=cols.device).index_add_(0, pix, wgt)
-                num = torch.zeros((n_px, 3), dtype=torch.float32,
-                                  device=cols.device).index_add_(
-                    0, pix, wgt[:, None] * cols)
+                den = wavefront.pixel_sum(pix, wgt, n_px)
+                num = wavefront.pixel_sum(pix, wgt[:, None] * cols, n_px)
                 img = num / torch.clamp_min(den, 1.0)[:, None]
         else:
             img = megakernel.colors_array(st)

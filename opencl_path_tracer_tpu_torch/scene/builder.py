@@ -75,6 +75,10 @@ class Scene:
     def num_triangles(self) -> int:
         return self.tris.count
 
+    @property
+    def num_objects(self) -> int:
+        return len(self.object_ranges)
+
     def to(self, device) -> "Scene":
         return Scene(
             tris=self.tris.to(device), mats=self.mats.to(device),

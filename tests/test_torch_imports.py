@@ -1,6 +1,7 @@
-"""The port stands alone: no module of `opencl_path_tracer_tpu_torch` and
-not `chip_smoke.py` imports JAX or the JAX package, and its kernels are
-built the one way the port allows (nvcc for sm_90a, no fast math)."""
+"""The port stands alone: no module of `opencl_path_tracer_tpu_torch`, no
+twin in `examples_torch/`, no probe in `probes_torch/` and not
+`chip_smoke.py` imports JAX or the JAX package, and its kernels are built
+the one way the port allows (nvcc for sm_90a, no fast math)."""
 
 import ast
 import pathlib
@@ -9,7 +10,10 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "opencl_path_tracer_tpu_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+TWINS = sorted((ROOT / "examples_torch").glob("*.py"))
+FILES = (sorted(PORT.rglob("*.py")) + TWINS
+         + sorted((ROOT / "probes_torch").glob("*.py"))
+         + [ROOT / "chip_smoke.py"])
 
 
 def _imported(tree):
@@ -49,8 +53,12 @@ def test_port_has_its_modules_and_kernel_sources():
     for f in ("ops/kernels/march_kernel.py", "ops/kernels/flat_march.py",
               "ops/kernels/lazy_march.py", "models/lazy.py",
               "runtime/anim.py", "runtime/viewer.py", "parallel/mesh.py",
-              "parallel/shard.py", "parallel/launch.py"):
+              "parallel/shard.py", "parallel/launch.py", "version.py",
+              "utils/determinism.py", "utils/profiling.py",
+              "utils/logging.py", "utils/oracle.py"):
         assert (PORT / f) in FILES
+    jax_examples = sorted(p.name for p in (ROOT / "examples").glob("*.py"))
+    assert [p.name for p in TWINS] == jax_examples and len(TWINS) == 12
 
 
 def test_build_flags():

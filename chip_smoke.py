@@ -984,24 +984,29 @@ def check_smooth(torch, scenes, errs):
     return inputs
 
 
-def pair_stats_line(name, stats):
-    """One line of the pair intersector's schedule over a run's calls:
-    rays resolved after round 1, rays escalated per tier (the unresolved
-    rays each escalation took), the dense tail's iterations and rays, and
-    the pending rays."""
-    rays = sum(s["rays"] for s in stats)
-    r1 = sum(s["round1_resolved"] for s in stats)
-    tiers = {}
-    for s in stats:
-        for u, w, n in s["escalations"]:
-            key = f"u{u} w{w}"
-            tiers[key] = tiers.get(key, 0) + n
-    tail = sum(s["tail_rays"] for s in stats)
-    iters = sum(s["tail_iterations"] for s in stats)
-    pend = sum(s["pending"] for s in stats)
-    print(f"{name}: {len(stats)} pair-intersector calls, {rays} rays; "
-          f"round 1 resolved {r1 / rays:.4f}; escalated {tiers}; tail "
-          f"{iters} iterations over {tail} rays; pending {pend / rays:.5f}")
+def schedule_counts(run):
+    """run() with the recorder on and its device-valued counts kept (the
+    intersect schedules' counters, `utils.profiling`); the counters."""
+    from opencl_path_tracer_tpu_torch.utils import profiling
+    profiling.reset()
+    with profiling.tracing(device_counts=True):
+        run()
+    return profiling.counters()
+
+
+def pair_stats_line(name, c):
+    """One line of the pair intersector's schedule over a run's calls
+    (the recorder's counters c): rays resolved after round 1, rays
+    escalated per tier (the unresolved rays each escalation took), the
+    dense tail's iterations and rays, and the pending rays."""
+    rays = c["isect.rays"]
+    tiers = {k[len("isect.escalated."):].replace(".", " "): n
+             for k, n in c.items() if k.startswith("isect.escalated.")}
+    print(f"{name}: {c['isect.calls']} pair-intersector calls, {rays} "
+          f"rays; round 1 resolved {c['isect.round1_resolved'] / rays:.4f}; "
+          f"escalated {tiers}; tail {c['isect.tail_iterations']} iterations "
+          f"over {c['isect.tail_rays']} rays; pending "
+          f"{c['isect.pending'] / rays:.5f}")
 
 
 def check_pairs(torch, scenes, cam, errs):
@@ -1067,10 +1072,10 @@ def check_pairs(torch, scenes, cam, errs):
 
     pack = k1.build_tri_pack(scene.tris)
     pm.fetch_attrs = capture
-    si.STATS = []
-    bounce = bounce_rays(torch, scene, cam, cam_rays, isect)
-    try:
-        for rname, rays in (("camera", cam_rays), ("bounce", bounce)):
+
+    def check_both():
+        got["bounce"] = bounce_rays(torch, scene, cam, cam_rays, isect)
+        for rname, rays in (("camera", cam_rays), ("bounce", got["bounce"])):
             h = isect(rays)
             t4 = k1.dense(k1.pack_rays(rays.p, rays.d).contiguous(), pack)[0]
             torch.cuda.synchronize()
@@ -1079,11 +1084,13 @@ def check_pairs(torch, scenes, cam, errs):
                  f"the pair intersector's t differs from K4's on stress "
                  f"{rname} rays")
             if rname == "camera":
-                g, tric = got["g"], got["tric"]
-        stats = si.STATS
+                got["winners"] = got["g"], got["tric"]
+
+    try:
+        stats = schedule_counts(check_both)
     finally:
         pm.fetch_attrs = real_fetch
-        si.STATS = None
+    g, tric = got["winners"]
     compare("attr_fetch", pm.fetch_attrs(g, tric),
             pm.fetch_attrs_plain(g, tric), "the stress camera rays' winners")
     print(f"stress: pair intersector t equal to K4's on camera and bounce "
@@ -1093,7 +1100,7 @@ def check_pairs(torch, scenes, cam, errs):
     pair_stats_line("stress camera, bounce rays", stats)
     return {"pair_cand": (r8, boxes_r, c), "pair_visit": (keys_s, r8p, ms,
                                                            cs, trp, c, nv),
-            "attr_fetch": (g, tric), "stress bounce rays": bounce}
+            "attr_fetch": (g, tric), "stress bounce rays": got["bounce"]}
 
 
 def exact_vs_k4(torch, name, h, t4, where):
@@ -2799,26 +2806,23 @@ def run_path(torch, name, fn, accel=None):
     return result, dt, {k: v for k, v in counts.items() if v}
 
 
-def march_stats_line(name, stats):
+def march_stats_line(name, c):
     """One line of the march or flat intersector's schedule over a run's
-    calls: the lanes resolved after round 1 (and, for 'march', round 2),
-    the dense tail's iterations and lanes, and the pending lanes."""
-    lanes = sum(s["lanes"] for s in stats)
-    r1 = sum(s["round1_resolved"] for s in stats)
-    line = (f"{name}: {len(stats)} intersector calls, {lanes} lanes; round 1 "
-            f"resolved {r1 / lanes:.4f}")
-    if "round2_resolved" in stats[0]:
-        r2 = sum(s["round2_resolved"] for s in stats)
-        line += f", after round 2 {r2 / lanes:.4f}"
+    calls (the recorder's counters c): the lanes resolved after round 1
+    (and, for 'march', round 2), the dense tail's iterations and lanes,
+    and the pending lanes."""
+    k = "march" if c["march.calls"] else "flat"
+    lanes = c[f"{k}.lanes"]
+    line = (f"{name}: {c[f'{k}.calls']} intersector calls, {lanes} lanes; "
+            f"round 1 resolved {c[f'{k}.round1_resolved'] / lanes:.4f}")
+    if k == "march":
+        line += f", after round 2 {c['march.round2_resolved'] / lanes:.4f}"
     else:
-        line += (f" ({sum(s['visits'] for s in stats)} visits, "
-                 f"{sum(s['overflow_blocks'] for s in stats)} blocks over "
-                 "the list's capacity)")
-    tail = sum(s["tail_lanes"] for s in stats)
-    iters = sum(s["tail_iterations"] for s in stats)
-    pend = sum(s["pending"] for s in stats)
-    print(f"{line}; tail {iters} iterations over {tail} lanes; pending "
-          f"{pend / lanes:.5f}")
+        line += (f" ({c['flat.visits']} visits, {c['flat.overflow_blocks']} "
+                 "blocks over the list's capacity)")
+    print(f"{line}; tail {c[f'{k}.tail_iterations']} iterations over "
+          f"{c[f'{k}.tail_lanes']} lanes; pending "
+          f"{c[f'{k}.pending'] / lanes:.5f}")
 
 
 def lazy_path(torch, scene, cam, report):
@@ -2988,26 +2992,16 @@ def main_path(torch, np, scenes, cam):
         if counts.get("march"):
             # The march schedule, from as many samples again with the
             # counters on, outside the timed run.
-            mk.STATS = []
-            try:
-                eng.render(spp, progress=False)
-                stats = mk.STATS
-            finally:
-                mk.STATS = None
-            march_stats_line(name, stats)
+            march_stats_line(name, schedule_counts(
+                lambda: eng.render(spp, progress=False)))
         if counts.get("pair_cand"):
             # The schedule, from as many samples again with the counters
             # on, outside the timed run: they read counts back per call.
-            si.STATS = []
-            try:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                eng.render(spp, progress=False)
-                torch.cuda.synchronize()
-                dt_stats = time.perf_counter() - t0
-                stats = si.STATS
-            finally:
-                si.STATS = None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats = schedule_counts(lambda: eng.render(spp, progress=False))
+            torch.cuda.synchronize()
+            dt_stats = time.perf_counter() - t0
             pair_stats_line(name, stats)
             print(f"{name}: {spp} spp with the schedule counters on in "
                   f"{dt_stats:.3f} s ({dt:.3f} s timed, counters off)")
@@ -4160,17 +4154,15 @@ def _slice22_pairmx(torch, np, stress, cfg, add, rays, r8s, pack, dense,
     print(f"main path {name}: {W}x{H}, {BOUNCES} bounces, {STRESS_SPP} spp "
           f"in {dt:.3f} s: {eng.rays_traced / dt / 1e6:.1f} Mrays/s, "
           f"{STRESS_SPP / dt:.2f} samples/s; launches {counts}")
-    si.STATS = []
-    try:
-        ties = {}
+    ties = {}
+
+    def check_both():
         for rname, r in rays.items():
             h = eng.intersect_fn(r)
             ties[rname] = attrs_vs_k4(torch, k1, name, h, r8s[rname], pack,
                                       dense[rname], f"{rname} rays")
-        stats = si.STATS
-    finally:
-        si.STATS = None
-    pair_stats_line(f"{name} camera, bounce rays", stats)
+
+    pair_stats_line(f"{name} camera, bounce rays", schedule_counts(check_both))
     print(f"{name}: hits equal K4's (t torch.equal; n and mati but at "
           f"exact-t ties: {ties})")
     return eng.intersect_fn
@@ -4187,20 +4179,19 @@ def _slice22_chain_approx(torch, stress, rays, r8s, pack, dense, pairmx):
     kw = dict(si.PAIR_TPU_WINNER)
     chain = si.make_pair_intersect(stress.tris, **dict(kw, move="chain"))
     sort = si.make_pair_intersect(stress.tris, **kw)
-    si.STATS = []
-    try:
-        ties = {}
+    ties = {}
+
+    def check_both():
         for rname, r in rays.items():
             ties[rname] = attrs_vs_k4(torch, k1, "chain", chain(r),
                                       r8s[rname], pack, dense[rname],
                                       f"{rname} rays")
-        stats = si.STATS
-    finally:
-        si.STATS = None
+
+    stats = schedule_counts(check_both)
     pair_stats_line("chain camera, bounce rays", stats)
     print("chain: the chain's tail over "
-          f"{[s['chain_tail_rays'] for s in stats]} rays in "
-          f"{[s['chain_tail_iterations'] for s in stats]} iterations; hits "
+          f"{stats['isect.chain_tail_rays']} rays in "
+          f"{stats['isect.chain_tail_iterations']} iterations; hits "
           f"equal K4's (t torch.equal; n and mati but at exact-t ties "
           f"{ties}, where the chain keeps the lowest march-ordered row)")
     for rname, r in rays.items():

@@ -39,6 +39,7 @@ from opencl_path_tracer_tpu_torch.core.types import (
 from opencl_path_tracer_tpu_torch.ops import bsdf, raygen, rng
 from opencl_path_tracer_tpu_torch.ops import envmap as envmap_ops
 from opencl_path_tracer_tpu_torch.ops import nee as nee_ops
+from opencl_path_tracer_tpu_torch.utils import profiling
 from opencl_path_tracer_tpu_torch.utils.device import resolve_device
 
 IntersectFn = Callable[[Rays], Hits]
@@ -129,7 +130,8 @@ def fetch_material(mats: MaterialsSoA, intersect_fn: IntersectFn,
     per-lane diffuse multipliers (the textured intersector,
     `runtime.engine.make_intersect_fn(textured=True)`), by which the
     fetched kd is multiplied lane by lane."""
-    res = intersect_fn(rays)
+    with profiling.span("isect"):
+        res = intersect_fn(rays)
     if isinstance(res, tuple):
         hit, kd_mod = res
         mat = mats.take(hit.mati)
@@ -240,141 +242,167 @@ def trace_sample(cam: Camera, mats: MaterialsSoA, state: TraceState, *,
     with_stats=True also returns the number of rays traced (live lanes at
     each bounce, once more for each shadow batch, NEE's and the
     environment's, traced or not) as a 0-dim tensor."""
-    rng_state = state.rng_state
-    n = rng_state.shape[0]
-    dev = rng_state.device
-    first_id = ids or 0
-    ids = raygen.pixel_ids_like(n, device=dev) + first_id
-    s_idx = state.sample if sample_index is None else int(sample_index)
-    env_kind = _env_kind(env)
-    env_gather = env_kind == "map" and env.nee
-    if nee is not None:
-        nee_key = rng.fold_in(key if key is not None else rng.key(1791),
-                              first_id)
-    if env_gather:
-        env_key = rng.fold_in(key if key is not None else rng.key(3791),
-                              first_id)
-    if mode == "parity":
-        ones = torch.ones(n, dtype=torch.bool, device=dev)
-        rng_state, r1, r2 = _draws_parity(rng_state, ones, ones)
-    elif mode == "fast":
-        if key is None:
-            raise ValueError("fast mode needs a key (rng.key(seed))")
-        tile_key = rng.fold_in(key, first_id)
-        if qmc:
-            r1, r2 = rng.r2_jitter(key, ids, s_idx)
-        else:
-            u = rng.fast_uniforms(tile_key, s_idx, 0, n, 2, device=dev)
-            r1, r2 = u[0], u[1]
-    else:
-        raise ValueError(f"unknown mode {mode!r}")
-    if dof is not None:
-        # The lens draws ride the counter hash (salt 20,000: the bounce
-        # draws use 1..50 and NEE 10,000 + b), so parity mode's Lehmer
-        # streams stay the reference's.
-        dof_key = rng.fold_in(key if key is not None else rng.key(401),
-                              first_id)
-        lu = rng.fast_uniforms(dof_key, s_idx, 20_000, n, 2, device=dev)
-        rays = raygen.camera_rays_dof(cam, ids, r1, r2, lu[0], lu[1],
-                                      dof[0], dof[1])
-    else:
-        rays = raygen.camera_rays(cam, ids, r1, r2)
+    with profiling.span("step", sample=state.sample):
+        with profiling.span("step.raygen"):
+            rng_state = state.rng_state
+            n = rng_state.shape[0]
+            dev = rng_state.device
+            first_id = ids or 0
+            ids = raygen.pixel_ids_like(n, device=dev) + first_id
+            s_idx = state.sample if sample_index is None else int(
+                sample_index)
+            env_kind = _env_kind(env)
+            env_gather = env_kind == "map" and env.nee
+            if nee is not None:
+                nee_key = rng.fold_in(
+                    key if key is not None else rng.key(1791), first_id)
+            if env_gather:
+                env_key = rng.fold_in(
+                    key if key is not None else rng.key(3791), first_id)
+            if mode == "parity":
+                ones = torch.ones(n, dtype=torch.bool, device=dev)
+                rng_state, r1, r2 = _draws_parity(rng_state, ones, ones)
+            elif mode == "fast":
+                if key is None:
+                    raise ValueError("fast mode needs a key (rng.key(seed))")
+                tile_key = rng.fold_in(key, first_id)
+                if qmc:
+                    r1, r2 = rng.r2_jitter(key, ids, s_idx)
+                else:
+                    u = rng.fast_uniforms(tile_key, s_idx, 0, n, 2,
+                                          device=dev)
+                    r1, r2 = u[0], u[1]
+            else:
+                raise ValueError(f"unknown mode {mode!r}")
+            if dof is not None:
+                # The lens draws ride the counter hash (salt 20,000: the
+                # bounce draws use 1..50 and NEE 10,000 + b), so parity
+                # mode's Lehmer streams stay the reference's.
+                dof_key = rng.fold_in(
+                    key if key is not None else rng.key(401), first_id)
+                lu = rng.fast_uniforms(dof_key, s_idx, 20_000, n, 2,
+                                       device=dev)
+                rays = raygen.camera_rays_dof(cam, ids, r1, r2, lu[0], lu[1],
+                                              dof[0], dof[1])
+            else:
+                rays = raygen.camera_rays(cam, ids, r1, r2)
 
-    ray_p, ray_d = rays.p, rays.d
-    f_l = f_b = f_s = f_r = tuple(
-        torch.ones(n, dtype=torch.float32, device=dev) for _ in range(3))
-    color = tuple(torch.zeros(n, dtype=torch.float32, device=dev)
-                  for _ in range(3))
-    alive = torch.ones(n, dtype=torch.bool, device=dev)
-    inside = torch.zeros(n, dtype=torch.bool, device=dev)
-    had_diffuse = torch.zeros(n, dtype=torch.bool, device=dev)
-    prev_pdf = torch.zeros(n, dtype=torch.float32, device=dev)
-    rays_traced = torch.zeros((), dtype=torch.float32, device=dev)
+            ray_p, ray_d = rays.p, rays.d
+            f_l = f_b = f_s = f_r = tuple(
+                torch.ones(n, dtype=torch.float32, device=dev)
+                for _ in range(3))
+            color = tuple(torch.zeros(n, dtype=torch.float32, device=dev)
+                          for _ in range(3))
+            alive = torch.ones(n, dtype=torch.bool, device=dev)
+            inside = torch.zeros(n, dtype=torch.bool, device=dev)
+            had_diffuse = torch.zeros(n, dtype=torch.bool, device=dev)
+            prev_pdf = torch.zeros(n, dtype=torch.float32, device=dev)
+            rays_traced = torch.zeros((), dtype=torch.float32, device=dev)
 
-    for b in range(iterations):
-        # The environment pickup weighs against the previous bounce's pdf.
-        prev_pdf_prev = prev_pdf
-        if with_stats:
-            rays_traced = rays_traced + alive.sum()
-        hit, mat = fetch_material(mats, intersect_fn, Rays(p=ray_p, d=ray_d))
-        has_hit = hit.valid & alive
-        # Draws: diffuse/emitter take 2, refractive 1 (prog.cl:330,349,361).
-        mtype = mat.type
-        is_d_or_e = has_hit & ((mtype == 0) | (mtype == 3))
-        if mode == "parity":
-            need1 = is_d_or_e | (has_hit & (mtype == 2))
-            rng_state, r1, r2 = _draws_parity(rng_state, need1, is_d_or_e)
-        else:
-            u = rng.fast_uniforms(tile_key, s_idx, b + 1, n, 2, device=dev)
-            r1, r2 = u[0], u[1]
-        s = shade(cam, mat, hit, ray_p, ray_d, inside, r1, r2, has_hit)
-        if iterations == 1:
-            # Preview mode (prog.cl:323-325): flat kd + emission.
-            color = vwhere(has_hit, vadd(mat.kd, mat.emission), color)
-        last = b == iterations - 1
-        # The last bounce's gathers are masked to zero (is_diff is false on
-        # every lane), so their shadow rays are traced by nobody; they
-        # still count in rays_traced.
-        gather = s["is_diff"] & (not last)
-        shadow_fn = _unoccluded if last else occluded_fn
-        emit_scale = None
-        if nee is not None:
-            # Gather where the path survives to the next intersect, so
-            # truncation matches the base estimator; the next bounce's
-            # pickup takes the MIS complement through prev_pdf.
-            u = rng.fast_uniforms(nee_key, s_idx, 10_000 + b, n, 3,
-                                  device=dev)
-            color = vadd(color, nee_ops.direct_light(
-                nee, intersect_fn=intersect_fn, cam_eye=cam.eye,
-                hit_p=hit.p, n_vec=s["n_vec"], mat=mat, f_l=f_l, f_b=f_b,
-                f_s=f_s, f_r=f_r, is_diff=gather, u1=u[0], u2=u[1], u3=u[2],
-                occluded_fn=shadow_fn))
-            if with_stats:
-                rays_traced = rays_traced + alive.sum()  # the shadow batch
-            emit_scale = nee_ops.pickup_mis_weight(
-                nee, prev_pdf, s["emit_cos"], hit.t, mat.emission,
-                mati=hit.mati, hit_p=hit.p, ray_p=ray_p)
-        if nee is not None or env_gather:
-            prev_pdf = torch.where(s["is_diff"], s["intens_d"] * _INV_PI,
-                                   torch.zeros_like(prev_pdf))
-        if env_gather:
-            # The environment gather: the same survival gating and MIS
-            # split in solid angle (salt 30,000 + b).
-            u = rng.fast_uniforms(env_key, s_idx, 30_000 + b, n, 3,
-                                  device=dev)
-            color = vadd(color, envmap_ops.direct_light_env(
-                env, intersect_fn=intersect_fn, cam_eye=cam.eye,
-                hit_p=hit.p, n_vec=s["n_vec"], mat=mat, f_l=f_l, f_b=f_b,
-                f_s=f_s, f_r=f_r, is_diff=gather, u1=u[0], u2=u[1], u3=u[2],
-                occluded_fn=shadow_fn))
-            if with_stats:
-                rays_traced = rays_traced + alive.sum()  # the escape batch
-        f_l, f_b, f_s, f_r, inside, color = apply_factors(
-            s, f_l, f_b, f_s, f_r, inside, color, emit_scale)
-        # Miss -> break (prog.cl:367-376); with an environment the dying
-        # lane first collects its contribution.
-        if env_kind == "map":
-            color = envmap_ops.envmap_miss_update(
-                env, alive & ~hit.valid, b == 0, prev_pdf_prev,
-                f_l, f_b, f_s, f_r, ray_d, color)
-        elif env_kind == "light":
-            color = env_miss_update(env, alive & ~hit.valid, b == 0,
-                                    had_diffuse, f_l, f_b, f_s, f_r, color)
-            had_diffuse = had_diffuse | s["is_diff"]
-        alive = has_hit
-        ray_p, ray_d = s["new_p"], s["new_d"]
+        for b in range(iterations):
+            with profiling.span("step.bounce"):
+                # The environment pickup weighs against the previous
+                # bounce's pdf.
+                prev_pdf_prev = prev_pdf
+                if with_stats:
+                    rays_traced = rays_traced + alive.sum()
+                hit, mat = fetch_material(mats, intersect_fn,
+                                          Rays(p=ray_p, d=ray_d))
+                has_hit = hit.valid & alive
+                with profiling.span("step.rng"):
+                    # Draws: diffuse/emitter take 2, refractive 1
+                    # (prog.cl:330,349,361).
+                    mtype = mat.type
+                    is_d_or_e = has_hit & ((mtype == 0) | (mtype == 3))
+                    if mode == "parity":
+                        need1 = is_d_or_e | (has_hit & (mtype == 2))
+                        rng_state, r1, r2 = _draws_parity(rng_state, need1,
+                                                          is_d_or_e)
+                    else:
+                        u = rng.fast_uniforms(tile_key, s_idx, b + 1, n, 2,
+                                              device=dev)
+                        r1, r2 = u[0], u[1]
+                with profiling.span("step.shade"):
+                    s = shade(cam, mat, hit, ray_p, ray_d, inside, r1, r2,
+                              has_hit)
+                    if iterations == 1:
+                        # Preview mode (prog.cl:323-325): flat kd +
+                        # emission.
+                        color = vwhere(has_hit, vadd(mat.kd, mat.emission),
+                                       color)
+                last = b == iterations - 1
+                # The last bounce's gathers are masked to zero (is_diff is
+                # false on every lane), so their shadow rays are traced by
+                # nobody; they still count in rays_traced.
+                gather = s["is_diff"] & (not last)
+                shadow_fn = _unoccluded if last else occluded_fn
+                emit_scale = None
+                if nee is not None:
+                    # Gather where the path survives to the next
+                    # intersect, so truncation matches the base
+                    # estimator; the next bounce's pickup takes the MIS
+                    # complement through prev_pdf.
+                    with profiling.span("step.rng"):
+                        u = rng.fast_uniforms(nee_key, s_idx, 10_000 + b, n,
+                                              3, device=dev)
+                    color = vadd(color, nee_ops.direct_light(
+                        nee, intersect_fn=intersect_fn, cam_eye=cam.eye,
+                        hit_p=hit.p, n_vec=s["n_vec"], mat=mat, f_l=f_l,
+                        f_b=f_b, f_s=f_s, f_r=f_r, is_diff=gather, u1=u[0],
+                        u2=u[1], u3=u[2], occluded_fn=shadow_fn))
+                    if with_stats:
+                        # the shadow batch
+                        rays_traced = rays_traced + alive.sum()
+                    emit_scale = nee_ops.pickup_mis_weight(
+                        nee, prev_pdf, s["emit_cos"], hit.t, mat.emission,
+                        mati=hit.mati, hit_p=hit.p, ray_p=ray_p)
+                if nee is not None or env_gather:
+                    prev_pdf = torch.where(s["is_diff"],
+                                           s["intens_d"] * _INV_PI,
+                                           torch.zeros_like(prev_pdf))
+                if env_gather:
+                    # The environment gather: the same survival gating and
+                    # MIS split in solid angle (salt 30,000 + b).
+                    with profiling.span("step.rng"):
+                        u = rng.fast_uniforms(env_key, s_idx, 30_000 + b, n,
+                                              3, device=dev)
+                    color = vadd(color, envmap_ops.direct_light_env(
+                        env, intersect_fn=intersect_fn, cam_eye=cam.eye,
+                        hit_p=hit.p, n_vec=s["n_vec"], mat=mat, f_l=f_l,
+                        f_b=f_b, f_s=f_s, f_r=f_r, is_diff=gather, u1=u[0],
+                        u2=u[1], u3=u[2], occluded_fn=shadow_fn))
+                    if with_stats:
+                        # the escape batch
+                        rays_traced = rays_traced + alive.sum()
+                with profiling.span("step.shade"):
+                    f_l, f_b, f_s, f_r, inside, color = apply_factors(
+                        s, f_l, f_b, f_s, f_r, inside, color, emit_scale)
+                    # Miss -> break (prog.cl:367-376); with an environment
+                    # the dying lane first collects its contribution.
+                    if env_kind == "map":
+                        color = envmap_ops.envmap_miss_update(
+                            env, alive & ~hit.valid, b == 0, prev_pdf_prev,
+                            f_l, f_b, f_s, f_r, ray_d, color)
+                    elif env_kind == "light":
+                        color = env_miss_update(
+                            env, alive & ~hit.valid, b == 0, had_diffuse,
+                            f_l, f_b, f_s, f_r, color)
+                        had_diffuse = had_diffuse | s["is_diff"]
+                alive = has_hit
+                ray_p, ray_d = s["new_p"], s["new_d"]
 
-    # Progressive average (prog.cl:379), in float32 like the reference.
-    s_f = np.float32(state.sample)
-    inv = float(np.float32(1.0) / (s_f + np.float32(1.0)))
-    colors = tuple((state.colors[k] * float(s_f) + color[k]) * inv
-                   for k in range(3))
-    new_state = TraceState(colors=colors, rng_state=rng_state,
-                           sample=state.sample + 1)
+        with profiling.span("step.fold"):
+            # Progressive average (prog.cl:379), in float32 like the
+            # reference.
+            s_f = np.float32(state.sample)
+            inv = float(np.float32(1.0) / (s_f + np.float32(1.0)))
+            colors = tuple((state.colors[k] * float(s_f) + color[k]) * inv
+                           for k in range(3))
+            new_state = TraceState(colors=colors, rng_state=rng_state,
+                                   sample=state.sample + 1)
     if with_stats:
         return new_state, rays_traced
     return new_state
-
 
 def render(cam: Camera, mats: MaterialsSoA, *, intersect_fn: IntersectFn,
            num_pixels: int, iterations: int, spp: int, mode: str = "parity",

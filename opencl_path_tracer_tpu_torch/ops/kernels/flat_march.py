@@ -41,6 +41,7 @@ from opencl_path_tracer_tpu_torch.ops.kernels.intersect_kernel import (
 from opencl_path_tracer_tpu_torch.ops.kernels.plucker_kernel import (
     plucker_feat,
 )
+from opencl_path_tracer_tpu_torch.utils import profiling
 
 CHUNK = 32   # real visits per chunk of K19's work list (S; PERF.md)
 
@@ -225,7 +226,11 @@ def make_flat_march_intersect(tris: TrianglesSoA, *, cs: int = 256,
                               vcap_frac: float = 0.25, tail: int = 16384,
                               presorted: bool = False):
     """(intersect(rays) -> Hits, reordered triangles): the 'flat' accel
-    (see the module docstring)."""
+    (see the module docstring). While the recorder is on
+    (`utils.profiling`) each call counts flat.calls, flat.lanes and
+    flat.tail_iterations, and inside tracing(device_counts=True)
+    flat.round1_resolved, flat.visits, flat.overflow_blocks,
+    flat.tail_lanes and flat.pending."""
     scene, rt, c = mk.build_march_scene(tris, cs)
     tail_isect = make_pallas_intersect(rt)
 
@@ -266,13 +271,15 @@ def make_flat_march_intersect(tris: TrianglesSoA, *, cs: int = 256,
         res_pre_tail = res.clone()
         iters, lanes = mk.dense_tail(best, res, rays8s, tail_isect,
                                      min(tail, rpad))
-        if mk.STATS is not None:
-            mk.STATS.append({"lanes": rpad,
-                             "round1_resolved": int(res_pre_tail.sum()),
-                             "visits": int((vc >= 0).sum()),
-                             "overflow_blocks": int(ovf.sum()),
-                             "tail_lanes": lanes, "tail_iterations": iters,
-                             "pending": int(pend.sum())})
+        profiling.count("flat.calls")
+        profiling.count("flat.lanes", rpad)
+        profiling.count("flat.tail_iterations", iters)
+        if profiling.device_counts():
+            profiling.count("flat.round1_resolved", int(res_pre_tail.sum()))
+            profiling.count("flat.visits", int((vc >= 0).sum()))
+            profiling.count("flat.overflow_blocks", int(ovf.sum()))
+            profiling.count("flat.tail_lanes", lanes)
+            profiling.count("flat.pending", int(pend.sum()))
         return mk.unsort_hits(rays, best, order_l)
 
     return intersect, rt

@@ -91,17 +91,11 @@ from opencl_path_tracer_tpu_torch.ops.kernels.pair_mxu import _visit
 from opencl_path_tracer_tpu_torch.ops.kernels.plucker_kernel import (
     EPS_SCALE, _bf16_np, _bf16_tensor_np, build_plucker_packs, plucker_feat,
 )
+from opencl_path_tracer_tpu_torch.utils import profiling
 
 MARCH_LANES = 128         # lanes per CUDA block of csrc/march_visit.cuh
 _PLAIN_CELLS = 1 << 22    # (lane, triangle) tests per batch of the plain visits
 _SLAB_CELLS = 1 << 27     # (cluster, lane) entries per chunk of _slab_entries
-
-# Set to a list to make every march or flat intersector call append a
-# dict of its schedule's counts (lanes, lanes resolved after round 1 and
-# after round 2 (flat: after its round 1, with its visits and overflowed
-# blocks), the tail's lanes and iterations, pending flags of each round);
-# None (the default) records nothing.
-STATS = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -474,11 +468,14 @@ def dense_tail(best, res, rays8s, tail_isect, u: int):
     """The unconditional net: K4 over the reordered triangles for the
     first u lanes in (resolved, slot) order, assigned (not merged: K4 is
     canonical), until every lane is resolved. One host read per
-    iteration. Returns the iterations and the lanes it took."""
+    iteration (host_reads.isect.march_tail). Returns the iterations and
+    the lanes it took (counted inside tracing(device_counts=True), else
+    0)."""
     iters = lanes = 0
-    while not bool(res.all()):
+    dc = profiling.device_counts()
+    while not profiling.isect_read(res.all(), "march_tail"):
         idx = torch.argsort(res.to(torch.int32), stable=True)[:u]
-        lanes += int((~res[idx]).sum()) if STATS is not None else 0
+        lanes += int((~res[idx]).sum()) if dc else 0
         ht = tail_isect(Rays(p=tuple(rays8s[k][idx] for k in range(3)),
                              d=tuple(rays8s[k][idx] for k in range(3, 6))))
         newt = torch.where(ht.valid, ht.t, torch.full_like(ht.t, BIG))
@@ -520,7 +517,11 @@ def make_march_intersect(tris: TrianglesSoA, *, cs: int = 512,
     (see the module docstring). Hits equal K4's over the reordered
     triangles bit for bit. debug=True makes intersect return (hits,
     dict) with the JAX package's debug values (res1, pend1, idx2, unc2,
-    pend2, res_pre_tail, best_pre_tail_t, best_sorted_t, order_l)."""
+    pend2, res_pre_tail, best_pre_tail_t, best_sorted_t, order_l).
+    While the recorder is on (`utils.profiling`) each call counts
+    march.calls, march.lanes and march.tail_iterations, and inside
+    tracing(device_counts=True) march.round1_resolved,
+    march.round2_resolved, march.tail_lanes and march.pending."""
     scene, rt, c = build_march_scene(tris, cs)
     tail_isect = make_pallas_intersect(rt)
 
@@ -580,11 +581,14 @@ def make_march_intersect(tris: TrianglesSoA, *, cs: int = 512,
         best_pre_tail_t = best[0].clone()
         iters, lanes = dense_tail(best, res, rays8s, tail_isect,
                                   min(tail, rpad))
-        if STATS is not None:
-            STATS.append({"lanes": rpad, "round1_resolved": int(res1.sum()),
-                          "round2_resolved": int(res_pre_tail.sum()),
-                          "tail_lanes": lanes, "tail_iterations": iters,
-                          "pending": int(pend1.sum() + pend2.sum())})
+        profiling.count("march.calls")
+        profiling.count("march.lanes", rpad)
+        profiling.count("march.tail_iterations", iters)
+        if profiling.device_counts():
+            profiling.count("march.round1_resolved", int(res1.sum()))
+            profiling.count("march.round2_resolved", int(res_pre_tail.sum()))
+            profiling.count("march.tail_lanes", lanes)
+            profiling.count("march.pending", int(pend1.sum() + pend2.sum()))
         hits = unsort_hits(rays, best, order_l)
         if debug:
             return hits, dict(res_pre_tail=res_pre_tail, order_l=order_l,

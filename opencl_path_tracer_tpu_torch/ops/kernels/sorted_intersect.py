@@ -98,17 +98,10 @@ from opencl_path_tracer_tpu_torch.ops.kernels import pair_mxu
 from opencl_path_tracer_tpu_torch.ops.kernels.plucker_kernel import (
     make_minarg_intersect,
 )
+from opencl_path_tracer_tpu_torch.utils import profiling
 
 MAX_RANKS = 48   # the deepest K9 selection csrc/pair_cand.cu keeps (l <= 48)
 _PLAIN_RAYS = 8192   # rays per chunk of candidates_plain
-
-# Set to a list to make every pair-intersector call append a dict of its
-# schedule's counts (rays, round 1's resolved rays, each escalation's
-# (capacity, window, unresolved rays taken), with move='chain' the chain
-# tail's rays and iterations, the full-width tail's rays and iterations,
-# pending rays; with approx only the first two); None (the default)
-# records nothing.
-STATS = None
 
 # The TPU's production configuration for large scenes, the 'pairwin'
 # accel (the JAX package's round-3 on-device sweeps; its numbers are the
@@ -596,7 +589,18 @@ def make_pair_intersect(tris: TrianglesSoA, *, cluster_size: int = 512,
     48, K9's selection), trb the candidate kernel's ray tile and trp the
     pair tile (together the padding unit), u2_frac and u3_frac the
     escalations' capacity fractions, tail the dense tail's rays per
-    iteration. See `STATS` for the schedule's counts."""
+    iteration.
+
+    While the recorder is on (`utils.profiling`), each call records the
+    spans isect.round1, isect.escalate, isect.tail and isect.host_read
+    (each blocking read, also counted as host_reads.isect.escalate,
+    host_reads.isect.tail or host_reads.isect.chain) and the counters
+    isect.calls, isect.rays, isect.escalations, isect.tail_iterations
+    and, with move='chain', isect.chain_tail_rays and
+    isect.chain_tail_iterations. Inside tracing(device_counts=True) it
+    also counts isect.round1_resolved, isect.escalated.u<u>.w<w> (the
+    unresolved rays each escalation of capacity u and window w took),
+    isect.tail_rays and isect.pending (with approx, only the first)."""
     _check_pair_config(mxu, dop, move, infeat, thin, with_ids, approx, l3)
     if not all(0 < x <= MAX_RANKS for x in (l1, l2, l3)):
         raise ValueError(f"l1, l2 and l3 must be in 1..{MAX_RANKS}")
@@ -679,7 +683,9 @@ def make_pair_intersect(tris: TrianglesSoA, *, cluster_size: int = 512,
         r = rays.count
         unit = max(trp, trb)
         rpad = _round_up(r, unit)
-        stats = {"rays": r} if STATS is not None else None
+        profiling.count("isect.calls")
+        profiling.count("isect.rays", r)
+        dc = profiling.device_counts()
         comps = [torch.cat([x, x.new_zeros(rpad - r)])
                  for x in (*rays.p, *rays.d)]
         zeros = torch.zeros(rpad, device=comps[0].device)
@@ -738,20 +744,20 @@ def make_pair_intersect(tris: TrianglesSoA, *, cluster_size: int = 512,
             return hits, ids[:r]
 
         # Round 1: every ray against its l1 nearest passing clusters.
-        ids1, _, nxt1 = run_candidates(pack_rays(comps[:3], comps[3:]),
-                                       boxes_r, l1, c)
-        new1, pend = run_pairs_fn(comps, ids1)
-        best[:] = _merge_best(best, new1)
-        if pend is None:
-            pend = torch.zeros(rpad, dtype=torch.bool, device=zeros.device)
-        resolved = ((best[0] <= nxt1) | (nxt1 >= BIG)) & ~pend
-        done = torch.full((rpad,), l1, dtype=torch.int64, device=zeros.device)
-        if stats is not None:
-            stats["round1_resolved"] = int(resolved[:r].sum())
-            stats["escalations"] = []
+        with profiling.span("isect.round1"):
+            ids1, _, nxt1 = run_candidates(pack_rays(comps[:3], comps[3:]),
+                                           boxes_r, l1, c)
+            new1, pend = run_pairs_fn(comps, ids1)
+            best[:] = _merge_best(best, new1)
+            if pend is None:
+                pend = torch.zeros(rpad, dtype=torch.bool,
+                                   device=zeros.device)
+            resolved = ((best[0] <= nxt1) | (nxt1 >= BIG)) & ~pend
+            done = torch.full((rpad,), l1, dtype=torch.int64,
+                              device=zeros.device)
+        if dc:
+            profiling.count("isect.round1_resolved", int(resolved[:r].sum()))
         if approx:
-            if stats is not None:
-                STATS.append(stats)
             return finish(resolved)
 
         def first_unresolved(u):
@@ -761,32 +767,35 @@ def make_pair_intersect(tris: TrianglesSoA, *, cluster_size: int = 512,
         def escalation(u, w, sel):
             """Test the next w untested ranks of the first u unresolved
             rays (selection depth sel) and merge."""
-            idx = first_unresolved(u)
-            if stats is not None:
-                stats["escalations"].append(
-                    (u, w, int((~resolved[idx]).sum())))
-            sub = [x[idx] for x in comps]
-            d0 = done[idx]
-            ids_all, ents_all, nxt = run_candidates(
-                pack_rays(sub[:3], sub[3:]), boxes_r, sel, c)
-            new_sub, pend_sub = run_pairs_fn(sub, window(ids_all, d0, w, sel))
-            d1 = torch.clamp(d0 + w, max=sel)
-            bound = cert_bound(ents_all, nxt, d1, sel)
-            t_m = merge(idx, new_sub)
-            p_m = pend[idx]
-            if pend_sub is not None:
-                p_m = p_m | pend_sub
-                pend[idx] = p_m
-            done[idx] = torch.maximum(d0, d1)
-            resolved[idx] = resolved[idx] | (
-                ((t_m <= bound) | (bound >= BIG)) & ~p_m)
+            profiling.count("isect.escalations")
+            with profiling.span("isect.escalate"):
+                idx = first_unresolved(u)
+                if dc:
+                    profiling.count(f"isect.escalated.u{u}.w{w}",
+                                    int((~resolved[idx]).sum()))
+                sub = [x[idx] for x in comps]
+                d0 = done[idx]
+                ids_all, ents_all, nxt = run_candidates(
+                    pack_rays(sub[:3], sub[3:]), boxes_r, sel, c)
+                new_sub, pend_sub = run_pairs_fn(
+                    sub, window(ids_all, d0, w, sel))
+                d1 = torch.clamp(d0 + w, max=sel)
+                bound = cert_bound(ents_all, nxt, d1, sel)
+                t_m = merge(idx, new_sub)
+                p_m = pend[idx]
+                if pend_sub is not None:
+                    p_m = p_m | pend_sub
+                    pend[idx] = p_m
+                done[idx] = torch.maximum(d0, d1)
+                resolved[idx] = resolved[idx] | (
+                    ((t_m <= bound) | (bound >= BIG)) & ~p_m)
 
         u2 = max(unit, (rpad // u2_frac // unit) * unit)
         u3a = max(unit, (rpad // u2_frac // 4 // unit) * unit)
         u3b = max(unit, (rpad // u2_frac // 16 // unit) * unit)
         if move == "chain":
             _chain(comps, best, resolved, done, pend, u2, u3a, u3b, rpad,
-                   stats)
+                   dc)
         else:
             if l2 > l1:
                 escalation(u2, l2 - l1, min(maxrank, l2))
@@ -796,7 +805,8 @@ def make_pair_intersect(tris: TrianglesSoA, *, cluster_size: int = 512,
                 escalation(u3b, w3, maxrank)
                 u3 = max(unit, (rpad // u3_frac // unit) * unit)
                 it = 0
-                while it < 4 and bool((~resolved & (done < maxrank)).any()):
+                while it < 4 and profiling.isect_read(
+                        (~resolved & (done < maxrank)).any(), "escalate"):
                     escalation(u3, w3, maxrank)
                     it += 1
 
@@ -804,45 +814,45 @@ def make_pair_intersect(tris: TrianglesSoA, *, cluster_size: int = 512,
         # resolved (after the chain: the rays that overflowed its region).
         u4 = min(tail, rpad)
         n_tail = 0
-        if stats is not None:
-            stats["tail_rays"] = int((~resolved).sum())
-            stats["pending"] = int(pend[:r].sum())
-        while not bool(resolved.all()):
-            idx = first_unresolved(u4)
-            sub = Rays(p=tuple(x[idx] for x in comps[:3]),
-                       d=tuple(x[idx] for x in comps[3:]))
-            if with_ids:
-                t1, g1 = minarg(pack_rays(sub.p, sub.d), tail_pack)
-                hit = t1 < BIG
-                g1 = g1.to(torch.int64)
-                safe = g1.clamp(0, tris.count - 1)
-                new_t = t1
-                attrs = (n_cols[0][safe], n_cols[1][safe], n_cols[2][safe],
-                         torch.where(hit, mati_col[safe],
-                                     torch.zeros_like(t1)))
-            else:
-                ht = tail_isect(sub)
-                new_t = torch.where(ht.valid, ht.t, torch.full_like(ht.t, BIG))
-                attrs = (*ht.n, ht.mati.to(torch.float32))
-            if thin:
-                better = new_t < best[0][idx]
-                merge(idx, (new_t, torch.full_like(new_t, -1.0)))
-                for o, a in zip(overlay, attrs):
-                    o[idx] = torch.where(better, a, o[idx])
+        if dc:
+            profiling.count("isect.tail_rays", int((~resolved).sum()))
+            profiling.count("isect.pending", int(pend[:r].sum()))
+        with profiling.span("isect.tail"):
+            while not profiling.isect_read(resolved.all(), "tail"):
+                idx = first_unresolved(u4)
+                sub = Rays(p=tuple(x[idx] for x in comps[:3]),
+                           d=tuple(x[idx] for x in comps[3:]))
                 if with_ids:
-                    seed_ids[idx] = torch.where(
-                        better, torch.where(hit, g1, -1).to(torch.int32),
-                        seed_ids[idx])
-            else:
-                merge(idx, (new_t,) + tuple(attrs))
-            resolved[idx] = True
-            n_tail += 1
-        if stats is not None:
-            stats["tail_iterations"] = n_tail
-            STATS.append(stats)
+                    t1, g1 = minarg(pack_rays(sub.p, sub.d), tail_pack)
+                    hit = t1 < BIG
+                    g1 = g1.to(torch.int64)
+                    safe = g1.clamp(0, tris.count - 1)
+                    new_t = t1
+                    attrs = (n_cols[0][safe], n_cols[1][safe], n_cols[2][safe],
+                             torch.where(hit, mati_col[safe],
+                                         torch.zeros_like(t1)))
+                else:
+                    ht = tail_isect(sub)
+                    new_t = torch.where(ht.valid, ht.t,
+                                        torch.full_like(ht.t, BIG))
+                    attrs = (*ht.n, ht.mati.to(torch.float32))
+                if thin:
+                    better = new_t < best[0][idx]
+                    merge(idx, (new_t, torch.full_like(new_t, -1.0)))
+                    for o, a in zip(overlay, attrs):
+                        o[idx] = torch.where(better, a, o[idx])
+                    if with_ids:
+                        seed_ids[idx] = torch.where(
+                            better, torch.where(hit, g1, -1).to(torch.int32),
+                            seed_ids[idx])
+                else:
+                    merge(idx, (new_t,) + tuple(attrs))
+                resolved[idx] = True
+                n_tail += 1
+        profiling.count("isect.tail_iterations", n_tail)
         return finish()
 
-    def _chain(comps, best, resolved, done, pend, u2, u3a, u3b, rpad, stats):
+    def _chain(comps, best, resolved, done, pend, u2, u3a, u3b, rpad, dc):
         """`move='chain'` (thin): the escalations and the dense tail in
         chain space, in place on best, resolved, done and pend (see the
         module docstring)."""
@@ -864,26 +874,28 @@ def make_pair_intersect(tris: TrianglesSoA, *, cluster_size: int = 512,
 
         def escalate(u, w, sel):
             """The escalation's per-ray semantics on the prefix [:u]."""
-            sub = [x[:u] for x in st["comps"]]
-            d0 = st["done"][:u]
-            if stats is not None:
-                stats["escalations"].append(
-                    (u, w, int((~st["res"][:u]).sum())))
-            ids_all, ents_all, nxt = run_candidates(
-                pack_rays(sub[:3], sub[3:]), boxes_r, sel, c)
-            (t_new, g_new), pend_sub = run_pairs_fn(
-                sub, window(ids_all, d0, w, sel))
-            t0 = st["t"][:u]
-            better = t_new < t0
-            t1 = torch.where(better, t_new, t0)
-            st["g"][:u] = torch.where(better, g_new, st["g"][:u])
-            st["t"][:u] = t1
-            d1 = torch.clamp(d0 + w, max=sel)
-            bound = cert_bound(ents_all, nxt, d1, sel)
-            p1 = st["pend"][:u] | pend_sub
-            st["pend"][:u] = p1
-            st["res"][:u] |= ((t1 <= bound) | (bound >= BIG)) & ~p1
-            st["done"][:u] = torch.maximum(d0, d1)
+            profiling.count("isect.escalations")
+            with profiling.span("isect.escalate"):
+                sub = [x[:u] for x in st["comps"]]
+                d0 = st["done"][:u]
+                if dc:
+                    profiling.count(f"isect.escalated.u{u}.w{w}",
+                                    int((~st["res"][:u]).sum()))
+                ids_all, ents_all, nxt = run_candidates(
+                    pack_rays(sub[:3], sub[3:]), boxes_r, sel, c)
+                (t_new, g_new), pend_sub = run_pairs_fn(
+                    sub, window(ids_all, d0, w, sel))
+                t0 = st["t"][:u]
+                better = t_new < t0
+                t1 = torch.where(better, t_new, t0)
+                st["g"][:u] = torch.where(better, g_new, st["g"][:u])
+                st["t"][:u] = t1
+                d1 = torch.clamp(d0 + w, max=sel)
+                bound = cert_bound(ents_all, nxt, d1, sel)
+                p1 = st["pend"][:u] | pend_sub
+                st["pend"][:u] = p1
+                st["res"][:u] |= ((t1 <= bound) | (bound >= BIG)) & ~p1
+                st["done"][:u] = torch.maximum(d0, d1)
 
         if l2 > l1:
             escalate(u2, l2 - l1, min(maxrank, l2))
@@ -893,22 +905,22 @@ def make_pair_intersect(tris: TrianglesSoA, *, cluster_size: int = 512,
             region_sort(u3a)
             escalate(u3b, maxrank - l2, maxrank)
         region_sort(u2)
-        unres = int((~st["res"][:u2]).sum())
+        unres = profiling.isect_read((~st["res"][:u2]).sum(), "chain")
         u4c = min(tail, u2)
         k = 0
-        while k * u4c < unres:
-            off = min(k * u4c, rpad - u4c)
-            sl = slice(off, off + u4c)
-            sub = [x[sl] for x in st["comps"]]
-            tt, gg = minarg(pack_rays(sub[:3], sub[3:]), chain_pack)
-            better = tt < st["t"][sl]
-            st["t"][sl] = torch.where(better, tt, st["t"][sl])
-            st["g"][sl] = torch.where(better, gg, st["g"][sl])
-            st["res"][sl] = True
-            k += 1
-        if stats is not None:
-            stats["chain_tail_rays"] = unres
-            stats["chain_tail_iterations"] = k
+        with profiling.span("isect.tail"):
+            while k * u4c < unres:
+                off = min(k * u4c, rpad - u4c)
+                sl = slice(off, off + u4c)
+                sub = [x[sl] for x in st["comps"]]
+                tt, gg = minarg(pack_rays(sub[:3], sub[3:]), chain_pack)
+                better = tt < st["t"][sl]
+                st["t"][sl] = torch.where(better, tt, st["t"][sl])
+                st["g"][sl] = torch.where(better, gg, st["g"][sl])
+                st["res"][sl] = True
+                k += 1
+        profiling.count("isect.chain_tail_rays", unres)
+        profiling.count("isect.chain_tail_iterations", k)
         slot = st["slot"]
         best[0][slot] = st["t"]
         best[1][slot] = st["g"]

@@ -45,6 +45,7 @@ from opencl_path_tracer_tpu_torch.core.types import (
 )
 from opencl_path_tracer_tpu_torch.ops import bsdf
 from opencl_path_tracer_tpu_torch.ops.intersect import hits_of
+from opencl_path_tracer_tpu_torch.utils import profiling
 
 _INV_PI = float(np.float32(1.0 / np.pi))
 _TWO_PI = float(np.float32(2.0 * np.pi))
@@ -340,37 +341,40 @@ def direct_light(table: EmitterTable, *, intersect_fn, cam_eye, hit_p: V3,
     intersect_fn and visible = miss or t >= dist (1 - 1e-3). Both give
     the same bits, but where a ray grazes a zero-area triangle, which the
     any-hit kernel's group culling never reaches (ROADMAP.md queue 3)."""
-    n = u1.shape[0]
-    origin = vadd(hit_p, vscale(n_vec, bsdf.EPS))
-    y, m_y, emission, p_area = sample_emitters(table, u1, u2, u3,
-                                               origin=origin)
-    delta = vsub(y, origin)
-    dist2 = vdot(delta, delta)
-    dist = fp.sqrt(dist2)
-    d_l = vscale(delta, 1.0 / torch.clamp_min(dist, 1e-12))
-    cos_l = torch.clamp_min(vdot(d_l, n_vec), 0.0)
-    ecos = torch.abs(vdot(d_l, m_y))
-    rmax = dist * (1.0 - 1e-3)
-    if occluded_fn is not None:
-        visible = ~occluded_fn(Rays(p=origin, d=d_l), rmax)
-    else:
-        sh = hits_of(intersect_fn(Rays(p=origin, d=d_l)))
-        visible = (~sh.valid) | (sh.t >= rmax)
-    eye_dir = vnormalize(tuple(cam_eye[k] - hit_p[k] for k in range(3)))
-    halfway = vnormalize(vadd(eye_dir, d_l))
-    blinn = torch.pow(torch.clamp_min(vdot(n_vec, halfway), 0.0),
-                      mat.shininess)
-    w = vadd(vscale(vmul(f_l, mat.kd), cos_l),
-             vscale(vmul(f_b, mat.ks), blinn))
-    den2 = torch.clamp_min(dist2, 1e-12)
-    p_bsdf = _INV_PI * cos_l * ecos / den2
-    scale_mis = (_INV_PI * cos_l * ecos * ecos / den2
-                 / torch.clamp_min(p_area + p_bsdf, 1e-30))
-    contrib = vscale(vmul(vmul(vmul(w, f_s), f_r), emission), scale_mis)
-    take_it = is_diff & visible & (cos_l > 0.0)
-    zeros = tuple(torch.zeros(n, dtype=torch.float32, device=u1.device)
-                  for _ in range(3))
-    return vwhere(take_it, contrib, zeros)
+    with profiling.span("nee.gather"):
+        n = u1.shape[0]
+        origin = vadd(hit_p, vscale(n_vec, bsdf.EPS))
+        y, m_y, emission, p_area = sample_emitters(table, u1, u2, u3,
+                                                   origin=origin)
+        delta = vsub(y, origin)
+        dist2 = vdot(delta, delta)
+        dist = fp.sqrt(dist2)
+        d_l = vscale(delta, 1.0 / torch.clamp_min(dist, 1e-12))
+        cos_l = torch.clamp_min(vdot(d_l, n_vec), 0.0)
+        ecos = torch.abs(vdot(d_l, m_y))
+        rmax = dist * (1.0 - 1e-3)
+        if occluded_fn is not None:
+            with profiling.span("nee.anyhit"):
+                visible = ~occluded_fn(Rays(p=origin, d=d_l), rmax)
+        else:
+            with profiling.span("isect"):
+                sh = hits_of(intersect_fn(Rays(p=origin, d=d_l)))
+            visible = (~sh.valid) | (sh.t >= rmax)
+        eye_dir = vnormalize(tuple(cam_eye[k] - hit_p[k] for k in range(3)))
+        halfway = vnormalize(vadd(eye_dir, d_l))
+        blinn = torch.pow(torch.clamp_min(vdot(n_vec, halfway), 0.0),
+                          mat.shininess)
+        w = vadd(vscale(vmul(f_l, mat.kd), cos_l),
+                 vscale(vmul(f_b, mat.ks), blinn))
+        den2 = torch.clamp_min(dist2, 1e-12)
+        p_bsdf = _INV_PI * cos_l * ecos / den2
+        scale_mis = (_INV_PI * cos_l * ecos * ecos / den2
+                     / torch.clamp_min(p_area + p_bsdf, 1e-30))
+        contrib = vscale(vmul(vmul(vmul(w, f_s), f_r), emission), scale_mis)
+        take_it = is_diff & visible & (cos_l > 0.0)
+        zeros = tuple(torch.zeros(n, dtype=torch.float32, device=u1.device)
+                      for _ in range(3))
+        return vwhere(take_it, contrib, zeros)
 
 
 def pickup_mis_weight(table: EmitterTable, prev_pdf, emit_cos, t,

@@ -151,6 +151,7 @@ from opencl_path_tracer_tpu_torch.parallel.mesh import make_render_mesh
 from opencl_path_tracer_tpu_torch.runtime.controller import CameraController
 from opencl_path_tracer_tpu_torch.runtime.meter import PerfMeter
 from opencl_path_tracer_tpu_torch.scene.builder import Scene
+from opencl_path_tracer_tpu_torch.utils import profiling
 from opencl_path_tracer_tpu_torch.utils.device import resolve_device
 
 AUTO_MINARG_MAX_TRIS = 8192
@@ -425,6 +426,11 @@ class RenderEngine:
 
     def __init__(self, scene: Scene, config: RenderConfig,
                  intersect_fn=None, device=None) -> None:
+        with profiling.span("engine.init", force=True):
+            self._build(scene, config, intersect_fn, device)
+
+    def _build(self, scene: Scene, config: RenderConfig, intersect_fn,
+               device) -> None:
         self.device = resolve_device(device)
         self.cfg = config.validate()
         self.num_pixels = config.width * config.height
@@ -445,10 +451,11 @@ class RenderEngine:
         self.controller = CameraController(config, device=self.device)
         self.meter = PerfMeter()
         cam = self.camera
-        self.intersect_fn = intersect_fn or make_intersect_fn(
-            self.scene, config.accel, smooth=config.smooth,
-            textured=config.textured, cam=cam, iterations=config.iterations,
-            force=config.accel_force)
+        with profiling.span("engine.accel", force=True):
+            self.intersect_fn = intersect_fn or make_intersect_fn(
+                self.scene, config.accel, smooth=config.smooth,
+                textured=config.textured, cam=cam,
+                iterations=config.iterations, force=config.accel_force)
         # 'auto' re-picks on a depth change where the predictor decides
         # it (`_maybe_repick_accel`); an injected intersector stays.
         self._accel_auto = (
@@ -468,31 +475,33 @@ class RenderEngine:
             self.env = (megakernel.EnvLight(sky=tuple(config.env_sky),
                                             deep=tuple(config.env_deep))
                         if config.env_light else None)
-        self.nee = (build_emitter_table(self.scene.tris, self.scene.mats,
-                                        self.scene.spheres,
-                                        select=config.nee_select)
-                    if config.nee else None)
-        # The any-hit shadow-ray test, built when some gather traces shadow
-        # rays, unless nee_anyhit is off or the scene is above K7's range
-        # (None: the shadow rays then go through intersect_fn, as in the
-        # JAX engine).
-        wants_shadow = self.nee is not None or (
-            config.env_map is not None and config.env_nee)
-        self.occluded = (make_scene_occluded(self.scene)
-                         if wants_shadow and config.nee_anyhit else None)
+        with profiling.span("engine.emitters", force=True):
+            self.nee = (build_emitter_table(
+                self.scene.tris, self.scene.mats, self.scene.spheres,
+                select=config.nee_select) if config.nee else None)
+            # The any-hit shadow-ray test, built when some gather traces
+            # shadow rays, unless nee_anyhit is off or the scene is above
+            # K7's range (None: the shadow rays then go through
+            # intersect_fn, as in the JAX engine).
+            wants_shadow = self.nee is not None or (
+                config.env_map is not None and config.env_nee)
+            self.occluded = (make_scene_occluded(self.scene)
+                             if wants_shadow and config.nee_anyhit else None)
         self.dof = ((config.dof_aperture, config.dof_focus)
                     if config.dof_aperture > 0.0 else None)
         self.key = rng.key(config.seed)
         self.rr = ((config.rr_start, config.rr_pmin)
                    if config.rr_start is not None else None)
-        if config.model == "wavefront":
-            self.state = wavefront.init_wavefront(
-                cam, self.num_pixels, seed=config.seed,
-                mode=config.mode, key=self.key, qmc=config.qmc, dof=self.dof)
-            self._wf_pose = self.controller._cam_key
-        else:
-            self.state = megakernel.init_state(self.num_pixels, config.seed,
-                                               device=self.device)
+        with profiling.span("engine.rng_seed", force=True):
+            if config.model == "wavefront":
+                self.state = wavefront.init_wavefront(
+                    cam, self.num_pixels, seed=config.seed,
+                    mode=config.mode, key=self.key, qmc=config.qmc,
+                    dof=self.dof)
+                self._wf_pose = self.controller._cam_key
+            else:
+                self.state = megakernel.init_state(
+                    self.num_pixels, config.seed, device=self.device)
         if self.mesh is not None:
             self.state = self._shard(self.state)
         # Rays traced since construction: live lanes at each bounce, once
@@ -528,7 +537,9 @@ class RenderEngine:
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with profiling.span("engine.sync"):
+                torch.cuda.synchronize(self.device)
+            profiling.count("host_reads.engine.sync")
 
     # --- the mesh (devices != 1) ----------------------------------------
     def _shard(self, state):
@@ -597,9 +608,10 @@ class RenderEngine:
             ids=self._tile0)
 
     def _tick(self, sample: int, rays: float, real_time: bool = False):
-        if self._rank == 0:
-            self.meter.tick(sample, iterations=self.iterations,
-                            real_time=real_time, rays_traced=rays)
+        with profiling.span("engine.meter"):
+            if self._rank == 0:
+                self.meter.tick(sample, iterations=self.iterations,
+                                real_time=real_time, rays_traced=rays)
 
     # --- frame API (the onIdle loop) -------------------------------------
     def frame(self, dt: float = 0.0, sync: bool = True) -> None:
@@ -617,19 +629,21 @@ class RenderEngine:
         if self.mesh is not None:
             raise ValueError("the interactive loop is single-device; "
                              "devices>1 is for offline render()")
-        ctl = self.controller
-        ctl.update(dt)
-        if ctl.consume_reset():
-            self.reset_accumulation()
-        st = ctl.state
-        self.state, rays = self._trace(self.camera, self.state, True,
-                                       st.iterations)
-        self._rays += rays
-        self._sample_host += 1
-        sample = self._sample_host
-        if sync and (st.real_time or sample % 3 == 0):
-            self._sync()
-        self._tick(sample, self.estimated_rays(sample), st.real_time)
+        profiling.refresh()
+        with profiling.span("engine.frame", sample=self._sample_host):
+            ctl = self.controller
+            ctl.update(dt)
+            if ctl.consume_reset():
+                self.reset_accumulation()
+            st = ctl.state
+            self.state, rays = self._trace(self.camera, self.state, True,
+                                           st.iterations)
+            self._rays += rays
+            self._sample_host += 1
+            sample = self._sample_host
+            if sync and (st.real_time or sample % 3 == 0):
+                self._sync()
+            self._tick(sample, self.estimated_rays(sample), st.real_time)
 
     def render(self, spp: int, progress: bool = True,
                autosave_every: int = 0,
@@ -642,25 +656,27 @@ class RenderEngine:
         each convergence check after the first, as the JAX engine does.
         Each autosave writes `autosave_path + ".tmp.npz"` and renames it
         over autosave_path, so a checkpoint is never half-written."""
-        if self.cfg.model == "wavefront":
-            self._render_wavefront(spp, progress, autosave_every,
-                                   autosave_path)
-        else:
-            cam = self.camera
-            for i in range(spp):
-                self.state, rays = self._trace(cam, self.state, True,
-                                               self.iterations)
-                self._rays += rays
-                self._sample_host += 1
-                if (autosave_every and autosave_path
-                        and (i + 1) % autosave_every == 0):
-                    self._autosave(autosave_path)
-                if progress:
-                    self._tick(self._sample_host,
-                               self.estimated_rays(self._sample_host))
-            if self.mesh is not None:
-                self._rays_world = float(self._all_reduce(self._rays))
-        self._sync()
+        profiling.refresh()
+        with profiling.span("engine.render", sample=self._sample_host):
+            if self.cfg.model == "wavefront":
+                self._render_wavefront(spp, progress, autosave_every,
+                                       autosave_path)
+            else:
+                cam = self.camera
+                for i in range(spp):
+                    self.state, rays = self._trace(cam, self.state, True,
+                                                   self.iterations)
+                    self._rays += rays
+                    self._sample_host += 1
+                    if (autosave_every and autosave_path
+                            and (i + 1) % autosave_every == 0):
+                        self._autosave(autosave_path)
+                    if progress:
+                        self._tick(self._sample_host,
+                                   self.estimated_rays(self._sample_host))
+                if self.mesh is not None:
+                    self._rays_world = float(self._all_reduce(self._rays))
+            self._sync()
 
     def _autosave(self, path: str) -> None:
         """Write the checkpoint to path + ".tmp.npz" and rename it over
@@ -771,6 +787,7 @@ class RenderEngine:
                 "adaptive rendering needs model='wavefront' (per-pixel "
                 "sample counts; the megakernel steps every pixel in "
                 "lockstep)")
+        profiling.refresh()
         self._reset_if_moved()
         variance = (float(tol), int(min_spp))
         chunk = max(self.iterations * 6, 24)
@@ -884,13 +901,15 @@ class RenderEngine:
         if self.cfg.model == "wavefront":
             return float(self._wf_rays)
         if self._rays_per_sample is None:
-            _, rays = megakernel.trace_sample(
-                self.camera, self.scene.mats, self.state,
-                intersect_fn=self.intersect_fn, iterations=self.iterations,
-                mode=self.cfg.mode, key=self.key, with_stats=True,
-                nee=self.nee, occluded_fn=self.occluded, env=self.env,
-                ids=self._tile0)
-            self._rays_per_sample = float(self._all_reduce(rays))
+            with profiling.span("engine.calibrate", force=True):
+                _, rays = megakernel.trace_sample(
+                    self.camera, self.scene.mats, self.state,
+                    intersect_fn=self.intersect_fn,
+                    iterations=self.iterations, mode=self.cfg.mode,
+                    key=self.key, with_stats=True, nee=self.nee,
+                    occluded_fn=self.occluded, env=self.env,
+                    ids=self._tile0)
+                self._rays_per_sample = float(self._all_reduce(rays))
         return self._rays_per_sample * samples
 
     def display_u8(self) -> np.ndarray:
@@ -898,10 +917,16 @@ class RenderEngine:
         quantized on the device (`display_u8_device`), one host fetch,
         the rows flipped on the host. Over a mesh, `to_uint8` of the
         gathered `image()` (a collective)."""
-        dev = self.display_u8_device()
-        if dev is None:
-            return to_uint8(self.image())
-        return dev.cpu().numpy()[::-1]
+        profiling.refresh()
+        with profiling.span("display"):
+            with profiling.span("display.tonemap"):
+                dev = self.display_u8_device()
+            if dev is None:
+                return to_uint8(self.image())
+            with profiling.span("display.copy"):
+                host = dev.cpu()
+            profiling.count("host_reads.display.copy")
+            return host.numpy()[::-1]
 
     def display_u8_device(self) -> torch.Tensor | None:
         """The current state's tonemapped (H, W, 3) uint8 frame, bottom

@@ -6,8 +6,11 @@ render paths on one of `ptx-torch render`'s scenes, with its camera
 preset, under `torch.profiler` and prints one
 JSON line: wall time, device busy time and the busy share, device
 launches, the kernels that take the most device time, per sample and
-per step, and every hand-written kernel's time and launches per sample.
-Needs a GPU:
+per step, every hand-written kernel's time and launches per sample,
+and the program's own spans and counters of the profiled run
+(`utils.profiling`: each span name's host self ms a sample, and the
+counters), and the seconds of each set-up span (the scene build, the
+engine's construction and its parts, its calibration). Needs a GPU:
 
     python -m opencl_path_tracer_tpu_torch.runtime.profile --scene cornell
     python -m opencl_path_tracer_tpu_torch.runtime.profile --model wavefront \\
@@ -245,6 +248,7 @@ def _lazy_workload(args, scene, w, h, dev):
 
 
 def main(argv=None) -> int:
+    from opencl_path_tracer_tpu_torch.utils import profiling
     from opencl_path_tracer_tpu_torch.utils.device import resolve_device
 
     ap = argparse.ArgumentParser()
@@ -310,7 +314,14 @@ def main(argv=None) -> int:
     wall_plain = time.perf_counter() - t0
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    # The set-up spans (the scene build, the engine's construction and
+    # calibration), kept with the recorder off, before the profiled run's.
+    setup = profiling.seconds_by_name(profiling.spans())
+    profiling.reset()
+    # The recorder on for exactly the profiled run, whichever calls the
+    # workload makes.
+    with profiling.tracing(), torch.profiler.profile(
+            activities=acts) as prof:
         t0 = time.perf_counter()
         samples, steps = run()
         torch.cuda.synchronize(dev)
@@ -363,6 +374,10 @@ def main(argv=None) -> int:
         "device_launches_per_sample": per(launches, samples),
         "device_launches_per_step": per(launches, steps),
         "top_kernels": top, "port_kernels": port,
+        "span_self_ms_per_sample": profiling.self_ms_per_sample(
+            profiling.spans(), samples),
+        "counters": dict(profiling.counters()),
+        "setup_span_s": setup,
     }))
     return 0
 

@@ -35,6 +35,7 @@ from opencl_path_tracer_tpu_torch.io.obj import load_obj
 from opencl_path_tracer_tpu_torch.ops.shading import (
     VertexAttribs, build_vertex_attribs, compute_vertex_normals,
 )
+from opencl_path_tracer_tpu_torch.utils import profiling
 
 
 def _np_rot_x(v: np.ndarray, deg: float) -> np.ndarray:
@@ -251,6 +252,10 @@ class SceneBuilder:
 
     def build(self, device="cpu") -> Scene:
         """Upload everything to `device` (main.cpp:618-634)."""
+        with profiling.span("scene.build", force=True):
+            return self._upload(device)
+
+    def _upload(self, device) -> Scene:
         self.end_obj()
         if not self._r1:
             raise ValueError("scene has no triangles")

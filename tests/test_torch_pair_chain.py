@@ -9,8 +9,9 @@ march-ordered triangles, in chunks) and, past the chain's region of u2
 rays, through the full-width tail. The chain breaks exact-t ties by the
 march-ordered row, so it is held to JAX's chain; the hits also equal
 the dense K4's over the whole scene here (no exact-t tie between
-distinct triangles at these inputs). `STATS` records the chain's tiers
-as the JAX package's code sets them."""
+distinct triangles at these inputs). The recorder's counters
+(`utils.profiling`) hold the chain's tiers as the JAX package's code
+sets them."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +25,7 @@ from opencl_path_tracer_tpu_torch.core.types import Rays
 from opencl_path_tracer_tpu_torch.ops.kernels import intersect_kernel as k1
 from opencl_path_tracer_tpu_torch.ops.kernels import pair_mxu as pm
 from opencl_path_tracer_tpu_torch.ops.kernels import sorted_intersect as si
+from opencl_path_tracer_tpu_torch.utils import profiling
 from test_torch_pair_intersect import (
     KW, _assert_hits_bit_equal, _box_rays, _run, scenes,  # noqa: F401
 )
@@ -50,13 +52,17 @@ def _tiers(kw, rpad, clusters):
 
 @pytest.mark.parametrize("rays", ["camera", "box"])
 @pytest.mark.parametrize("shallow", [False, True])
-def test_chain_bit_equal_to_jax(scenes, rays, shallow, monkeypatch):
+def test_chain_bit_equal_to_jax(scenes, rays, shallow):
     kw = dict(l1=1, l2=2, l3=12) if shallow else {}
-    jh, ph, stats, pr = _run(scenes, rays, False, monkeypatch,
-                             move="chain", **kw)
+    jh, ph, stats, pr = _run(scenes, rays, False, move="chain", **kw)
     _assert_hits_bit_equal(jh, ph)
     tiers, _ = _tiers(dict(CHAIN, **kw), 512, clusters=6)
-    assert [e[:2] for e in stats["escalations"]] == tiers
+    # The escalations' counters, in the order the tiers first ran, and
+    # as many escalations as tiers: each tier ran once, in this order.
+    ran = [k.split(".")[2:] for k in stats
+           if k.startswith("isect.escalated.")]
+    assert [(int(u[1:]), int(w[1:])) for u, w in ran] == tiers
+    assert stats["isect.escalations"] == len(tiers)
     t, *_ = k1.dense(k1.pack_rays(pr.p, pr.d), k1.build_tri_pack(
         scenes[1].tris))
     np.testing.assert_array_equal(
@@ -81,18 +87,21 @@ def test_chain_forced_pend_runs_both_tails(scenes, monkeypatch):
 
     monkeypatch.setattr(jpm, "pairs_round_mxu", all_pend_j)
     monkeypatch.setattr(pm, "pairs_round_mxu", all_pend_p)
-    monkeypatch.setattr(si, "STATS", [])
     p, d = _box_rays(1100, seed=3)
     js, ps = scenes
     kw = dict(CHAIN, l1=1, l2=2, tail=128)
     jh = jsi.make_pair_intersect(js.tris, interpret=True, **kw)(
         JRays.make(jnp.asarray(p), jnp.asarray(d)))
-    ph = si.make_pair_intersect(ps.tris, **kw)(
-        Rays(p=tuple(torch.from_numpy(p[:, k].copy()) for k in range(3)),
-             d=tuple(torch.from_numpy(d[:, k].copy()) for k in range(3))))
+    fn = si.make_pair_intersect(ps.tris, **kw)
+    profiling.reset()
+    with profiling.tracing(device_counts=True):
+        ph = fn(Rays(
+            p=tuple(torch.from_numpy(p[:, k].copy()) for k in range(3)),
+            d=tuple(torch.from_numpy(d[:, k].copy()) for k in range(3))))
     _assert_hits_bit_equal(jh, ph)
-    stats = si.STATS[0]
-    assert stats["round1_resolved"] == 0
-    assert stats["chain_tail_rays"] == 512
-    assert stats["chain_tail_iterations"] == 4
-    assert stats["tail_rays"] == 1024 and stats["tail_iterations"] == 8
+    stats = profiling.counters()
+    assert stats["isect.round1_resolved"] == 0
+    assert stats["isect.chain_tail_rays"] == 512
+    assert stats["isect.chain_tail_iterations"] == 4
+    assert (stats["isect.tail_rays"] == 1024
+            and stats["isect.tail_iterations"] == 8)

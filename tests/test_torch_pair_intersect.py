@@ -25,6 +25,7 @@ from opencl_path_tracer_tpu_torch.ops.kernels import intersect_kernel as k1
 from opencl_path_tracer_tpu_torch.ops.kernels import pair_mxu as pm
 from opencl_path_tracer_tpu_torch.ops.kernels import sorted_intersect as si
 from opencl_path_tracer_tpu_torch.scene import library
+from opencl_path_tracer_tpu_torch.utils import profiling
 
 # pytest workers share the machine: one intra-op thread each.
 torch.set_num_threads(1)
@@ -75,7 +76,7 @@ def _assert_hits_bit_equal(jh, ph):
         np.testing.assert_array_equal(_bits(ph.n[k].numpy()), _bits(jh.n[k]))
 
 
-def _run(scenes, rays, with_ids, monkeypatch, **kw):
+def _run(scenes, rays, with_ids, **kw):
     """Both intersectors on the same rays: (JAX's result, the port's, the
     port's schedule counts, the port's rays)."""
     js, ps = scenes
@@ -83,15 +84,16 @@ def _run(scenes, rays, with_ids, monkeypatch, **kw):
     jf = jsi.make_pair_intersect(js.tris, interpret=True, with_ids=with_ids,
                                  **dict(KW, **kw))
     pf = si.make_pair_intersect(ps.tris, with_ids=with_ids, **dict(KW, **kw))
-    monkeypatch.setattr(si, "STATS", [])
-    pout = pf(pr)
-    return jf(jr), pout, si.STATS[0], pr
+    profiling.reset()
+    with profiling.tracing(device_counts=True):
+        pout = pf(pr)
+    return jf(jr), pout, profiling.counters(), pr
 
 
 @pytest.mark.parametrize("rays", ["camera", "box"])
 @pytest.mark.parametrize("with_ids", [False, True])
-def test_pairwin_bit_equal_to_jax(scenes, rays, with_ids, monkeypatch):
-    jout, pout, stats, pr = _run(scenes, rays, with_ids, monkeypatch)
+def test_pairwin_bit_equal_to_jax(scenes, rays, with_ids):
+    jout, pout, stats, pr = _run(scenes, rays, with_ids)
     if with_ids:
         (jh, jids), (ph, pids) = jout, pout
         np.testing.assert_array_equal(pids.numpy(), np.asarray(jids))
@@ -117,7 +119,7 @@ def test_pairwin_bit_equal_to_jax(scenes, rays, with_ids, monkeypatch):
     tt, valid = k1.exact_test(pack, k1.pack_rays(pr.p, pr.d))
     ties = (valid & (tt == t[None, :])).sum(0)
     assert int((ties[hit] > 1).sum()) == 0
-    assert hit.float().mean() > 0.9 and stats["round1_resolved"] > 200
+    assert hit.float().mean() > 0.9 and stats["isect.round1_resolved"] > 200
 
 
 @pytest.mark.parametrize("with_ids", [False, True])
@@ -138,22 +140,22 @@ def test_forced_pend_funnels_through_the_tail(scenes, monkeypatch, with_ids):
 
     monkeypatch.setattr(jpm, "pairs_round_mxu", all_pend_j)
     monkeypatch.setattr(pm, "pairs_round_mxu", all_pend_p)
-    jout, pout, stats, _ = _run(scenes, "box", with_ids, monkeypatch,
-                                tail=64)
+    jout, pout, stats, _ = _run(scenes, "box", with_ids, tail=64)
     if with_ids:
         (jh, jids), (ph, pids) = jout, pout
         np.testing.assert_array_equal(pids.numpy(), np.asarray(jids))
     else:
         jh, ph = jout, pout
     _assert_hits_bit_equal(jh, ph)
-    assert stats["round1_resolved"] == 0 and stats["tail_iterations"] >= 4
+    assert (stats["isect.round1_resolved"] == 0
+            and stats["isect.tail_iterations"] >= 4)
 
 
 @pytest.mark.parametrize("kw", [
     dict(move="chain"), dict(infeat=True), dict(approx=True),
     dict(thin=False, dop=False), dict(thin=False), None],
     ids=["chain", "infeat", "approx", "full-nodop", "full", "value-errors"])
-def test_unported_configurations_refuse(scenes, kw, monkeypatch):
+def test_unported_configurations_refuse(scenes, kw):
     """The five configurations that raised NotImplementedError until they
     were ported (move='chain', infeat, approx and mxu=True with
     thin=False, the `pairmx` payload, with and without DOP boxes) build
@@ -161,7 +163,7 @@ def test_unported_configurations_refuse(scenes, kw, monkeypatch):
     (approx: its resolved flags too); invalid combinations raise the JAX
     package's ValueErrors, as its own function does."""
     if kw is not None:
-        jout, pout, _, _ = _run(scenes, "box", False, monkeypatch, **kw)
+        jout, pout, _, _ = _run(scenes, "box", False, **kw)
         if kw.get("approx"):
             (jout, jres), (pout, pres) = jout, pout
             np.testing.assert_array_equal(pres.numpy(), np.asarray(jres))

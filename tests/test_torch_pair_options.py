@@ -125,28 +125,26 @@ PAIRMX = dict(mxu=True, dop=False, thin=False, move="gather",
     ("pairmx-sort-infeat", dict(PAIRMX, move="sort", infeat=True), "box"),
     ("winner-infeat", dict(KW, infeat=True), "box"),
 ], ids=lambda x: x if isinstance(x, str) else "")
-def test_make_pair_intersect_options_bit_equal(scenes, name, kw, rays,
-                                               monkeypatch):
+def test_make_pair_intersect_options_bit_equal(scenes, name, kw, rays):
     """Hits bit-equal to the JAX package's with the same options."""
-    jh, ph, stats, _ = _run(scenes, rays, False, monkeypatch,
+    jh, ph, stats, _ = _run(scenes, rays, False,
                             **{k: v for k, v in kw.items() if k not in KW
                                or KW[k] != v})
     _assert_hits_bit_equal(jh, ph)
-    assert (ph.t.numpy() > 0).mean() > 0.5 and stats["round1_resolved"] > 0
+    assert (ph.t.numpy() > 0).mean() > 0.5 and stats["isect.round1_resolved"] > 0
 
 
 @pytest.mark.parametrize("thin", [False, True])
-def test_approx_bit_equal(scenes, thin, monkeypatch):
+def test_approx_bit_equal(scenes, thin):
     """approx=True: (Hits, resolved) after round 1, bit-equal to JAX's;
     the resolved lanes' hits equal the exact path's."""
     kw = dict(KW, approx=True) if thin else dict(PAIRMX, approx=True)
     over = {k: v for k, v in kw.items() if k not in KW or KW[k] != v}
-    (jh, jres), (ph, pres), stats, pr = _run(scenes, "box", False,
-                                             monkeypatch, **over)
+    (jh, jres), (ph, pres), stats, pr = _run(scenes, "box", False, **over)
     _assert_hits_bit_equal(jh, ph)
     np.testing.assert_array_equal(pres.numpy(), np.asarray(jres))
     res = pres.numpy()
-    assert 0.3 < res.mean() < 1.0 and stats["round1_resolved"] == res.sum()
+    assert 0.3 < res.mean() < 1.0 and stats["isect.round1_resolved"] == res.sum()
     exact = si.make_pair_intersect(scenes[1].tris,
                                    **dict(kw, approx=False))(pr)
     np.testing.assert_array_equal(_bits(ph.t.numpy()[res]),

@@ -12,6 +12,7 @@ import torch
 
 from opencl_path_tracer_tpu.ops.pallas import sorted_intersect as jsi
 from opencl_path_tracer_tpu_torch.ops.kernels import sorted_intersect as si
+from opencl_path_tracer_tpu_torch.utils import profiling
 from test_torch_cluster_kernel import _both_rays, _rand_tris
 from test_torch_pair_intersect import _assert_hits_bit_equal
 
@@ -37,16 +38,19 @@ def scene():
 
 @pytest.mark.parametrize("move", ["gather", "sort"])
 @pytest.mark.parametrize("config", sorted(CONFIGS))
-def test_schedule_bit_equal_to_jax(scene, config, move, monkeypatch):
+def test_schedule_bit_equal_to_jax(scene, config, move):
     jt, pt, (jr, pr) = scene
     kw = dict(CONFIGS[config], move=move)
     jh = jsi.make_pair_intersect(jt, interpret=True, **kw)(jr)
-    monkeypatch.setattr(si, "STATS", [])
-    ph = si.make_pair_intersect(pt, **kw)(pr)
+    fn = si.make_pair_intersect(pt, **kw)
+    profiling.reset()
+    with profiling.tracing(device_counts=True):
+        ph = fn(pr)
     _assert_hits_bit_equal(jh, ph)
-    stats = si.STATS[0]
+    stats = profiling.counters()
     assert int((ph.t > 0).sum()) > 10
-    assert stats["round1_resolved"] < stats["rays"]
+    assert stats["isect.round1_resolved"] < stats["isect.rays"]
     if config == "deep":
-        assert len(stats["escalations"]) == 3
-        assert stats["tail_iterations"] >= 1 and stats["tail_rays"] > 0
+        assert stats["isect.escalations"] == 3
+        assert (stats["isect.tail_iterations"] >= 1
+                and stats["isect.tail_rays"] > 0)

@@ -23,6 +23,7 @@ from opencl_path_tracer_tpu_torch.ops.kernels import intersect_kernel as k1
 from opencl_path_tracer_tpu_torch.ops.kernels import pair_mxu as pm
 from opencl_path_tracer_tpu_torch.ops.kernels import sorted_intersect as si
 from opencl_path_tracer_tpu_torch.scene import library
+from opencl_path_tracer_tpu_torch.utils import profiling
 from test_torch_cluster_kernel import _aimed_rays, _bits
 from test_torch_pair_intersect import RAYS, _assert_hits_bit_equal, _both
 
@@ -92,13 +93,15 @@ def test_pairs_round_bit_equal(packs):
 
 
 @pytest.mark.parametrize("rays", ["camera", "box"])
-def test_pair_accel_bit_equal_to_jax(rays, monkeypatch):
+def test_pair_accel_bit_equal_to_jax(rays):
     js, ps = jlib.stress_scene(N_TRIS), library.stress_scene(N_TRIS)
     jr, pr = _both(*RAYS[rays]())
     jh = jsi.make_pair_intersect(js.tris, cluster_size=CS, trp=TRP,
                                  interpret=True)(jr)
-    monkeypatch.setattr(si, "STATS", [])
-    ph = si.make_pair_intersect(ps.tris, cluster_size=CS, trp=TRP)(pr)
+    fn = si.make_pair_intersect(ps.tris, cluster_size=CS, trp=TRP)
+    profiling.reset()
+    with profiling.tracing(device_counts=True):
+        ph = fn(pr)
     _assert_hits_bit_equal(jh, ph)
     pack = k1.build_tri_pack(ps.tris)
     t, _, nx, ny, nz, m = k1.dense(k1.pack_rays(pr.p, pr.d), pack)
@@ -108,7 +111,8 @@ def test_pair_accel_bit_equal_to_jax(rays, monkeypatch):
     for a, b in zip(ph.n, (nx, ny, nz)):
         np.testing.assert_array_equal(_bits(a.numpy()[hit.numpy()]),
                                       _bits(b.numpy()[hit.numpy()]))
-    assert si.STATS[0]["pending"] == 0 and si.STATS[0]["rays"] == 256
+    stats = profiling.counters()
+    assert stats["isect.pending"] == 0 and stats["isect.rays"] == 256
 
 
 def test_defaults_are_the_jax_package_s():

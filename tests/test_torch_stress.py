@@ -69,12 +69,11 @@ def test_cli_renders_stress_analytic(tmp_path, capsys):
     assert "on cpu" in capsys.readouterr().err
 
 
-def test_deeper_schedule_bit_equal(scenes, monkeypatch):
+def test_deeper_schedule_bit_equal(scenes):
     """cluster_size 64 (12 clusters): round 2, tier A (window 8), tier B
     and the capacity loop all run; ids too."""
-    jout, pout, stats, _ = _run(scenes, "box", True, monkeypatch,
-                                cluster_size=64)
+    jout, pout, stats, _ = _run(scenes, "box", True, cluster_size=64)
     (jh, jids), (ph, pids) = jout, pout
     np.testing.assert_array_equal(pids.numpy(), np.asarray(jids))
     _assert_hits_bit_equal(jh, ph)
-    assert len(stats["escalations"]) >= 3
+    assert stats["isect.escalations"] >= 3

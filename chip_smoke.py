@@ -5,13 +5,18 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the port's twenty-three CUDA kernels from
+It builds the port's twenty-four CUDA kernels from
 `opencl_path_tracer_tpu_torch/csrc/`, holds each against its plain
 PyTorch version at 1080p ray and lane counts, renders the three goldens
 of `tests/golden/` through the kernels, and drives the main paths at
 1920x1080 and 5 bounces, each with the launch counts reset just before
 and read just after:
 
+  * the megakernel's fast-mode bounce kernel K21 (`check_bounce`):
+    4 spp on the Cornell box, the stress scene and the textured grid
+    through the kernel path against the plain path, the rays traced
+    equal and the image within BOUNCE_REL_MAE, with the lanes whose path
+    branched differently printed;
   * the megakernel model (`RenderEngine.render`) on the Cornell box and
     the analytic Cornell box, 8 spp;
   * the wavefront model (`RenderEngine` with model='wavefront') on the
@@ -290,8 +295,8 @@ resolved share and its resolved lanes' Hits equal the exact path's.
 'bvh' and 'median' with force on the cornell camera rays and the first
 BVH_RAYS stress first-bounce rays: hit masks and t within rtol 1e-4 of
 K4's, each lane outside a ray grazing an edge; their iterations and ms
-a call; `megakernel cornell bvh` (1 spp) renders and launches no kernel
-of the port. `build_median_tree_native` on stress is bit-equal to the
+a call; `megakernel cornell bvh` (1 spp) renders and launches no
+intersect kernel of the port. `build_median_tree_native` on stress is bit-equal to the
 Python builder and `load_obj_native` equals `io/obj.py` on every model
 of tests/assets/models. `check_no_fallback` also holds K10's full form to
 its kernel (no plain version on CUDA) and 'bvh' and 'median' refused on
@@ -384,6 +389,10 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 W, H, BOUNCES, SPP, FUSED_STEPS = 1920, 1080, 5, 8, 64
+# check_bounce: samples a path, the fast-mode key's seed, and the limit of
+# the image's relative mean absolute error between the kernel and the
+# plain path.
+BOUNCE_SPP, BOUNCE_SEED, BOUNCE_REL_MAE = 4, 3_100_000_031, 1e-5
 STRESS_SPP = 2   # spp of the stress paths (cut from 8 for the smoke's time)
 CLUSTER_SPP = 1  # spp of 'megakernel stress cluster' (cut from 8 likewise)
 # K12's plain check runs on every round-1 pair of the stress camera rays
@@ -473,6 +482,9 @@ KERNEL_META = {
                      ":601"),
     "mxu": ("opencl_path_tracer_tpu_torch/csrc/mxu.cu",
             "opencl_path_tracer_tpu/ops/pallas/intersect_kernel.py:291"),
+    # K21 replaces no Pallas kernel: the JAX megakernel's shading is XLA.
+    "bounce": ("opencl_path_tracer_tpu_torch/csrc/bounce.cu", None),
+    "bounce_raygen": ("opencl_path_tracer_tpu_torch/csrc/bounce.cu", None),
 }
 # Every kernel of each main path must launch in that path's run.
 PATH_KERNELS = {
@@ -540,9 +552,25 @@ PATH_KERNELS = {
     "wavefront cornell-analytic tiled": ("minarg", "refine1", "spheres"),
     "megakernel cornell tiled resume": ("minarg", "refine1"),
     "wavefront cornell tiled adaptive": ("minarg", "refine1"),
-    # The walker is plain PyTorch: the path launches no kernel of the port.
+    # The walker is plain PyTorch: the path launches no intersect kernel
+    # of the port.
     "megakernel cornell bvh": (),
 }
+# K21 on every megakernel main path in fast mode without NEE,
+# environment, DOF or QMC (`bounce.use_kernel`).
+for _name in ("megakernel cornell", "megakernel cornell-analytic",
+              "megakernel cornell tilecull", "megakernel reference smooth",
+              "megakernel cornell smooth", "megakernel cornell minarg",
+              "megakernel reference smooth minarg", "megakernel stress",
+              "megakernel stress smooth", "megakernel stress-analytic",
+              "megakernel stress pair", "megakernel stress cluster",
+              "megakernel reference group", "megakernel cornell group",
+              "megakernel stress march", "megakernel stress flat",
+              "megakernel cornell minarg-fused", "megakernel cornell mxu",
+              "megakernel cornell frame", "megakernel textured-grid",
+              "megakernel cornell repick", "megakernel stress pairmx",
+              "megakernel cornell bvh"):
+    PATH_KERNELS[_name] += ("bounce", "bounce_raygen")
 FRAMES, FRAMES_MOVE, FRAMES_AFTER = 30, 3, 6   # check_slice19's frame path
 TEX_SPP = 2   # spp of check_slice20's textured renders and its CLI calls
 GRID_REF_STRIDE = 4   # check_slice20 holds every 4th grid lane to plain
@@ -2556,6 +2584,124 @@ def check_slice17(torch, scenes, cam, cam_rays, inputs):
     return out
 
 
+def check_bounce(torch, np, scenes, cam, errs):
+    """K21 (`csrc/bounce.cu`): megakernel samples through the bounce
+    kernel (`megakernel.trace_sample`, which takes it for a CUDA state in
+    fast mode) against the plain path (`trace_sample_plain`) on the card,
+    at 1920x1080, 4 spp and 5 bounces, on the Cornell box, the stress
+    scene and the textured grid (its (Hits, kd_scale) intersector) through
+    'auto': the rays traced equal, the image's relative mean absolute
+    error at most BOUNCE_REL_MAE; printed with the lanes whose path
+    branched differently (some bounce's hit, (t > 0, material), differs
+    between the two). Then one bounce on the Cornell camera hits, state
+    rows and flags equal to the plain version's. Returns the inputs at
+    which K21's two entries are timed: a Cornell sample's start and its
+    first hits. Its launches stay out of the kernels line, which counts
+    the main paths'."""
+    import contextlib
+    import io
+    from opencl_path_tracer_tpu_torch.core.types import Rays
+    from opencl_path_tracer_tpu_torch.models import bounce, megakernel
+    from opencl_path_tracer_tpu_torch.ops import rng
+    from opencl_path_tracer_tpu_torch.ops.kernels import _build
+    from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
+    from opencl_path_tracer_tpu_torch.scene import library
+    t_phase = time.perf_counter()
+    key = rng.key(BOUNCE_SEED)
+    with tempfile.TemporaryDirectory(prefix="ptx-bounce-") as tmp:
+        # The grid's missing map_Kd warns (check_slice20 checks that).
+        with contextlib.redirect_stderr(io.StringIO()):
+            grid = library.textured_room(tmp, grid=True, device="cuda")
+    for name, scene, textured in (("cornell", scenes["cornell"], False),
+                                  ("stress", scenes["stress"], False),
+                                  ("textured-grid", grid, True)):
+        isect = make_intersect_fn(scene, "auto", cam=cam,
+                                  iterations=BOUNCES, textured=textured)
+        hits = {}
+
+        def recording(tag):
+            rec = hits.setdefault(tag, [])
+
+            def fn(rays):
+                res = isect(rays)
+                h = res[0] if textured else res
+                rec.append(torch.where(h.t > 0, h.mati, -1))
+                return res
+            return fn
+
+        def render(trace, tag):
+            st = megakernel.init_state(W * H, 1, device="cuda")
+            rays = 0.0
+            for _ in range(BOUNCE_SPP):
+                st, r = trace(cam, scene.mats, st,
+                              intersect_fn=recording(tag),
+                              iterations=BOUNCES, mode="fast", key=key,
+                              with_stats=True)
+                rays += float(r)
+            return torch.stack(st.colors, dim=1), rays
+
+        torch.cuda.synchronize()
+        before = dict(_build.launches)
+        t0 = time.perf_counter()
+        img_k, rays_k = render(megakernel.trace_sample, "kernel")
+        torch.cuda.synchronize()
+        dt_k = time.perf_counter() - t0
+        counts = {k: v - before[k] for k, v in _build.launches.items()
+                  if v > before[k]}
+        need(counts.get("bounce") == BOUNCE_SPP * BOUNCES
+             and counts.get("bounce_raygen") == BOUNCE_SPP,
+             f"{name}: the kernel path launched {counts}")
+        t0 = time.perf_counter()
+        img_p, rays_p = render(megakernel.trace_sample_plain, "plain")
+        torch.cuda.synchronize()
+        dt_p = time.perf_counter() - t0
+        need(rays_k == rays_p, f"{name}: rays traced {rays_k} by the "
+             f"kernel path, {rays_p} by the plain path")
+        fin = torch.isfinite(img_k).all(1) & torch.isfinite(img_p).all(1)
+        need(bool(fin.all()), f"{name}: non-finite pixels")
+        mae = float((img_k - img_p).abs().sum() / img_p.abs().sum())
+        need(mae <= BOUNCE_REL_MAE, f"{name}: image rel. MAE {mae:.3g} "
+             f"between the kernel and the plain path (limit "
+             f"{BOUNCE_REL_MAE})")
+        branched = torch.zeros(W * H, dtype=torch.bool, device="cuda")
+        for a, b in zip(hits["kernel"], hits["plain"]):
+            branched |= a != b
+        bits = float((img_k.view(torch.int32) == img_p.view(torch.int32))
+                     .float().mean())
+        errs["bounce"] = max(errs.get("bounce", 0.0),
+                             float((img_k - img_p).abs().max()))
+        print(f"bounce {name} (accel {isect.accel}): {W}x{H}, {BOUNCE_SPP} "
+              f"spp, {BOUNCES} bounces: "
+              f"rays {rays_k:.0f} equal; image rel. MAE {mae:.3e} (limit "
+              f"{BOUNCE_REL_MAE}), {bits:.7f} of the channels bit-equal; "
+              f"{int(branched.sum())} of {W * H} lanes branched differently;"
+              f" kernel path {dt_k:.3f} s, plain path {dt_p:.3f} s "
+              f"(the first includes the intersector's first calls)")
+    # The inputs of K21's rows: a Cornell sample's start, its first hits.
+    scene = scenes["cornell"]
+    isect = make_intersect_fn(scene, "auto", cam=cam, iterations=BOUNCES)
+    tkey = rng.fold_in(key, 0)
+    table = bounce.scene_table(cam, scene.mats)
+    S, flags = bounce.raygen(cam, table, W * H, 0, 0, tkey)
+    Sp, flags_p = bounce.raygen_plain(cam, W * H, 0, 0, tkey)
+    need(torch.equal(flags, flags_p) and torch.equal(S, Sp),
+         "bounce_raygen differs from its plain version")
+    hit = bounce._hit_rows(isect(Rays(p=(S[0], S[1], S[2]),
+                                      d=(S[3], S[4], S[5]))))[0]
+    Sk, fk = bounce.bounce(S, flags, hit, None, cam, scene.mats, table, 0,
+                           1, tkey)
+    Sq, fq = bounce.bounce_plain(S, flags, hit, None, cam, scene.mats, 0, 1,
+                                 tkey)
+    need(torch.equal(fk, fq), "bounce's flags differ from its plain version")
+    need(torch.equal(Sk, Sq), "bounce's state rows differ from its plain "
+         f"version (max abs err {float((Sk - Sq).abs().max()):.3g})")
+    print(f"bounce on {W * H} Cornell camera hits: flags and state rows "
+          f"equal to its plain version (torch.equal); raygen equal to its "
+          f"plain version; {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.synchronize()
+    return {"bounce": (S, flags, hit, table, tkey, scene.mats, cam)}
+
+
 def check_goldens(torch, np):
     from opencl_path_tracer_tpu_torch.models import megakernel
     from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
@@ -4276,7 +4422,7 @@ def _slice22_walkers(torch, np, scenes, cfg, add, bounce, RenderEngine):
     print(f"main path {name}: {W}x{H}, {BOUNCES} bounces, 1 spp in "
           f"{dt:.3f} s: {eng.rays_traced / dt / 1e6:.1f} Mrays/s, "
           f"{1 / dt:.2f} samples/s; launches {counts} (the walker is plain "
-          "PyTorch: no kernel of the port)")
+          "PyTorch: no intersect kernel of the port)")
 
 
 def _slice22_native(torch, stress):
@@ -5897,6 +6043,7 @@ def dense_split_sweep(torch, where, rays8, pack, others):
 
 
 def measure(torch, inputs, errs, launches):
+    from opencl_path_tracer_tpu_torch.models import bounce
     from opencl_path_tracer_tpu_torch.models import fused_step as fs
     from opencl_path_tracer_tpu_torch.ops.kernels import (
         intersect_kernel as k1, plucker_kernel as k2, shading_kernel as k8,
@@ -5959,6 +6106,22 @@ def measure(torch, inputs, errs, launches):
                  300 * nl, 0,
                  (F.shape[0] * 4 + I.shape[0] * 4) * 2 * nl
                  + hrows.shape[0] * 4 * nl))
+    # K21: a bounce reads the hit rows (t, p, n, mati: 32 bytes), the
+    # state and the flags (88) and writes them again; about 300 float32
+    # operations per lane (far below the byte time). Its raygen writes
+    # the state and the flags.
+    S, flags, bhit, btab, tkey, bmats, bcam = inputs["bounce"]
+    nb = S.shape[1]
+    rows.append(("bounce",
+                 lambda: bounce.bounce(S, flags, bhit, None, bcam, bmats,
+                                       btab, 0, 1, tkey),
+                 lambda: bounce.bounce_plain(S, flags, bhit, None, bcam,
+                                             bmats, 0, 1, tkey),
+                 300 * nb, 0, (32 + 2 * (bounce.S_ROWS + 1) * 4) * nb))
+    rows.append(("bounce_raygen",
+                 lambda: bounce.raygen(bcam, btab, nb, 0, 0, tkey),
+                 lambda: bounce.raygen_plain(bcam, nb, 0, 0, tkey),
+                 60 * nb, 0, (bounce.S_ROWS + 1) * 4 * nb))
     # K7 on the NEE shadow rays of bounces 0, 1 and 2: 25 operations per
     # group slab test and sub-block box test it makes, K1's 12 per
     # (ray, triangle) test and per edge test reached in the sub-blocks
@@ -6145,6 +6308,7 @@ def main() -> int:
     inputs.update(check_slice15(torch, scenes, inputs))
     inputs.update(check_slice16(torch, scenes, inputs))
     inputs.update(check_slice17(torch, scenes, cam, cam_rays, inputs))
+    inputs.update(check_bounce(torch, np, scenes, cam, errs))
     check_goldens(torch, np)
     check_no_fallback(torch, scenes)
     launches = main_path(torch, np, scenes, cam)

@@ -21,6 +21,11 @@ the reference's dormant sky light (`EnvLight`) or an environment map
 any-hit test at rmax 3.0e38); `dof` = (aperture, focus) makes thin-lens
 camera rays. A textured intersector returns (Hits, kd): `fetch_material`
 multiplies the fetched kd by it.
+
+`trace_sample` runs a fast-mode sample on a CUDA state without QMC, NEE,
+environment or DOF as one raygen and one bounce kernel a bounce (K21,
+`models/bounce.py`); `trace_sample_plain` is the plain path every other
+call takes, and the reference the kernel path is held to.
 """
 
 from __future__ import annotations
@@ -207,15 +212,73 @@ def apply_factors(s: dict, f_l: V3, f_b: V3, f_s: V3, f_r: V3, inside,
     return f_l, f_b, f_s, f_r, inside, color
 
 
+def sample_ids(state: TraceState, ids: int | None,
+               sample_index: int | None) -> tuple[int, int]:
+    """(first_id, s_idx) of a sample: the tile's first pixel id (ids;
+    None is 0) and the sample index its draws take (sample_index; None
+    is state.sample)."""
+    return ids or 0, (state.sample if sample_index is None
+                      else int(sample_index))
+
+
+def fast_key(key, first_id: int):
+    """The fast-mode hash key of a tile: fold_in(key, its first pixel
+    id)."""
+    if key is None:
+        raise ValueError("fast mode needs a key (rng.key(seed))")
+    return rng.fold_in(key, first_id)
+
+
+def fold_weights(sample: int) -> tuple[float, float]:
+    """(s, 1 / (s + 1)) in float32 for the running average over `sample`
+    samples so far (prog.cl:379)."""
+    s_f = np.float32(sample)
+    return float(s_f), float(np.float32(1.0) / (s_f + np.float32(1.0)))
+
+
+def fold(colors: V3, color: V3, s_f: float, inv: float) -> V3:
+    """The running average with one more sample's colour, from
+    `fold_weights`, in float32 like the reference."""
+    return tuple((colors[k] * s_f + color[k]) * inv for k in range(3))
+
+
 def trace_sample(cam: Camera, mats: MaterialsSoA, state: TraceState, *,
                  intersect_fn: IntersectFn, iterations: int,
                  mode: str = "parity", key: tuple[int, int] | None = None,
                  qmc: bool = False, with_stats: bool = False, nee=None,
                  occluded_fn=None, env=None, dof=None, ids: int | None = None,
                  sample_index: int | None = None):
+    """Render one progressive sample for every pixel and fold it into the
+    running average: `trace_sample_plain`'s arguments and results. A call
+    that `bounce.use_kernel` admits (the state on CUDA, fast mode without
+    QMC, no NEE, environment or DOF, more than one bounce) runs the
+    packed path, one raygen and one bounce kernel a bounce
+    (`bounce.trace_sample`); every other call the plain path."""
+    # Imported here: `bounce` builds on this module's shading.
+    from opencl_path_tracer_tpu_torch.models import bounce
+    if bounce.use_kernel(state.rng_state.device, mode, qmc, nee, env, dof,
+                         iterations):
+        return bounce.trace_sample(
+            cam, mats, state, intersect_fn=intersect_fn,
+            iterations=iterations, key=key, with_stats=with_stats, ids=ids,
+            sample_index=sample_index)
+    return trace_sample_plain(
+        cam, mats, state, intersect_fn=intersect_fn, iterations=iterations,
+        mode=mode, key=key, qmc=qmc, with_stats=with_stats, nee=nee,
+        occluded_fn=occluded_fn, env=env, dof=dof, ids=ids,
+        sample_index=sample_index)
+
+
+def trace_sample_plain(cam: Camera, mats: MaterialsSoA, state: TraceState,
+                       *, intersect_fn: IntersectFn, iterations: int,
+                       mode: str = "parity",
+                       key: tuple[int, int] | None = None, qmc: bool = False,
+                       with_stats: bool = False, nee=None, occluded_fn=None,
+                       env=None, dof=None, ids: int | None = None,
+                       sample_index: int | None = None):
     """Render one progressive sample for every pixel (lane j is pixel
-    ids + j) and fold it into the running average (prog.cl:379).
-    `iterations` is the bounce depth.
+    ids + j) and fold it into the running average (prog.cl:379), in
+    plain PyTorch. `iterations` is the bounce depth.
 
     ids: for a call that renders a contiguous tile of a larger frame
     (`parallel.shard.make_tiled_step`), the tile's first global pixel id
@@ -247,10 +310,8 @@ def trace_sample(cam: Camera, mats: MaterialsSoA, state: TraceState, *,
             rng_state = state.rng_state
             n = rng_state.shape[0]
             dev = rng_state.device
-            first_id = ids or 0
+            first_id, s_idx = sample_ids(state, ids, sample_index)
             ids = raygen.pixel_ids_like(n, device=dev) + first_id
-            s_idx = state.sample if sample_index is None else int(
-                sample_index)
             env_kind = _env_kind(env)
             env_gather = env_kind == "map" and env.nee
             if nee is not None:
@@ -263,9 +324,7 @@ def trace_sample(cam: Camera, mats: MaterialsSoA, state: TraceState, *,
                 ones = torch.ones(n, dtype=torch.bool, device=dev)
                 rng_state, r1, r2 = _draws_parity(rng_state, ones, ones)
             elif mode == "fast":
-                if key is None:
-                    raise ValueError("fast mode needs a key (rng.key(seed))")
-                tile_key = rng.fold_in(key, first_id)
+                tile_key = fast_key(key, first_id)
                 if qmc:
                     r1, r2 = rng.r2_jitter(key, ids, s_idx)
                 else:
@@ -390,14 +449,12 @@ def trace_sample(cam: Camera, mats: MaterialsSoA, state: TraceState, *,
                         had_diffuse = had_diffuse | s["is_diff"]
                 alive = has_hit
                 ray_p, ray_d = s["new_p"], s["new_d"]
+                profiling.count("step.bounces.plain")
 
         with profiling.span("step.fold"):
             # Progressive average (prog.cl:379), in float32 like the
             # reference.
-            s_f = np.float32(state.sample)
-            inv = float(np.float32(1.0) / (s_f + np.float32(1.0)))
-            colors = tuple((state.colors[k] * float(s_f) + color[k]) * inv
-                           for k in range(3))
+            colors = fold(state.colors, color, *fold_weights(state.sample))
             new_state = TraceState(colors=colors, rng_state=rng_state,
                                    sample=state.sample + 1)
     if with_stats:

@@ -34,7 +34,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # Kernel name -> (source file, C symbol, argtypes).
 KERNELS = {
     "minarg": ("minarg.cu", "ptx_minarg", [P, P, P, P, I, I, P]),
@@ -60,6 +60,11 @@ KERNELS = {
                        [P, I, P, P, P, I, I, P]),
     "fused_step": ("fused_step.cu", "ptx_fused_step",
                    [P, P, P, P, I, P, P, I, U, U, U, I, P]),
+    # K21: the megakernel's fast-mode bounce, and its raygen.
+    "bounce": ("bounce.cu", "ptx_bounce",
+               [P] * 14 + [I] + [P] * 7 + [I, U, U, U, U, F, F, P]),
+    "bounce_raygen": ("bounce.cu", "ptx_bounce_raygen",
+                      [P, P, P, I, I, I, F, F, U, U, U, P]),
     "anyhit": ("anyhit.cu", "ptx_anyhit",
                [P, I, P, P, P, P, P, I, I, I, I, P]),
     # K7's two entries for the checks only: its first kernel (a group's
@@ -288,11 +293,13 @@ def check_rows(x: torch.Tensor, what: str, rows: int) -> None:
 
 def launch(name: str, *args) -> None:
     """Launch kernel `name` on the current stream. Tensor arguments pass
-    as device pointers, ints as ints. Raises on a non-zero cudaError_t."""
+    as device pointers, None as a null pointer, floats as floats and ints
+    as ints. Raises on a non-zero cudaError_t."""
     fn = library(name)
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor)
+              else a if a is None or isinstance(a, float) else int(a)
               for a in args]
     err = fn(*c_args, stream)
     if err != 0:

@@ -1845,3 +1845,53 @@ def test_twenty_third_slice_viewer_on_the_card(cuda):
     finally:
         v.shutdown()
     assert v.last_error is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene_name", ["cornell", "stress",
+                                        "textured-grid"])
+def test_bounce_kernel_path_equals_plain_path(cuda, scene_name, tmp_path):
+    """K21 (`csrc/bounce.cu`): 4 samples at 1920x1080 and 5 bounces
+    through the bounce kernel (`megakernel.trace_sample` on a CUDA state
+    in fast mode) against the plain path (`trace_sample_plain`), the
+    scene through 'auto' (the textured grid through its (Hits, kd_scale)
+    intersector): the rays traced equal, the image within 1e-5 relative
+    mean absolute error (a path that branches differently on a rounding
+    moves its sample by a whole path's radiance), one raygen a sample and
+    one bounce launch a bounce."""
+    from opencl_path_tracer_tpu_torch.models import megakernel
+    from opencl_path_tracer_tpu_torch.ops import rng
+    from opencl_path_tracer_tpu_torch.runtime.engine import make_intersect_fn
+    w, h, spp, iters = 1920, 1080, 4, 5
+    textured = scene_name == "textured-grid"
+    if scene_name == "cornell":
+        scene = library.cornell_box(with_spheres=True, device=cuda)
+    elif scene_name == "stress":
+        scene = library.stress_scene(device=cuda)
+    else:
+        scene = library.textured_room(str(tmp_path), grid=True, device=cuda)
+    cam = library.cornell_camera(w, h, device=cuda)
+    isect = make_intersect_fn(scene, "auto", cam=cam, iterations=iters,
+                              textured=textured)
+    key = rng.key(3_100_000_041)
+
+    def render(trace):
+        st = megakernel.init_state(w * h, 1, device=cuda)
+        rays = 0.0
+        for _ in range(spp):
+            st, r = trace(cam, scene.mats, st, intersect_fn=isect,
+                          iterations=iters, mode="fast", key=key,
+                          with_stats=True)
+            rays += float(r)
+        return torch.stack(st.colors, dim=1), rays
+
+    before = dict(_build.launches)
+    img_k, rays_k = render(megakernel.trace_sample)
+    assert _build.launches["bounce"] - before["bounce"] == spp * iters
+    assert (_build.launches["bounce_raygen"] - before["bounce_raygen"]
+            == spp)
+    img_p, rays_p = render(megakernel.trace_sample_plain)
+    assert rays_k == rays_p
+    assert bool(torch.isfinite(img_k).all())
+    mae = float((img_k - img_p).abs().sum() / img_p.abs().sum())
+    assert mae <= 1e-5, mae

@@ -158,8 +158,11 @@ def test_engine_spans_set_up_always_and_its_calls_when_on(rec, cornell):
     assert len(cal) == 1
     disp = [s.name for s in calls if s.parent == top[2].id]
     assert disp == ["display.tonemap", "display.copy"]
-    # The CPU engine waits for no device; the display's copy is counted.
-    assert rec.counters() == {"host_reads.display.copy": 1}
+    # The CPU engine waits for no device; the display's copy is counted,
+    # and the bounces of the four samples (two rendered, the meter's
+    # calibration, the frame), each on the plain path.
+    assert rec.counters() == {"host_reads.display.copy": 1,
+                              "step.bounces.plain": 8}
     assert not rec.refresh()
 
 

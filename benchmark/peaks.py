@@ -12,6 +12,13 @@ at least one ray-triangle test is made (12 float32 operations: the
 plane's t and one edge side). The floor is the larger of the bytes over
 the bandwidth and the operations over the float32 rate. It is bound by
 bytes, so its share of the measured time reads a few percent or less.
+
+Across cards: 450 GB/s of NVLink in each direction per H100 SXM (18
+fourth-generation links of 25 GB/s each way; the data sheet's 900 GB/s
+counts both directions). An all_gather of B bytes over n ranks moves
+(n - 1) / n x B through each rank's links, NCCL's "bus bandwidth"
+convention, so that count over the collective's time can reach the
+links' peak and no further.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ from __future__ import annotations
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+
+NVLINK_BYTES_PER_S = 450e9
 
 RAY_BYTES = 6 * 4          # origin, direction
 HIT_BYTES = 8 * 4          # t, point (3), normal (3), material id
@@ -33,3 +42,14 @@ def isect_floor_s(rays: int) -> float:
 
 def isect_flops(rays: int) -> float:
     return float(rays * RAY_FLOPS)
+
+
+def frame_bytes(pixels: int) -> int:
+    """Bytes of a frame of accumulated colours: 3 float32 a pixel."""
+    return int(pixels) * 3 * 4
+
+
+def all_gather_bus_bytes(total_bytes: int, ranks: int) -> float:
+    """Bytes through each rank's links when `ranks` ranks gather a buffer
+    of total_bytes: (n - 1) / n of it (each rank already holds its part)."""
+    return total_bytes * (ranks - 1) / ranks

@@ -6,7 +6,10 @@ The only module of the benchmark that imports the program
 triangles, materials and camera through the port's own scene builder and
 `RenderConfig`, builds `RenderEngine` as `ptx-torch render` does, and
 reads back what the timed path produced: the accumulated colours of
-chosen pixels, the sample count and the ray counter.
+chosen pixels, the sample count and the ray counter. A configuration
+with `devices` above 1 renders over the port's mesh: `launch` starts its
+ranks through the port's own launcher, and each rank builds the engine
+on its tile.
 """
 
 from __future__ import annotations
@@ -15,12 +18,13 @@ import numpy as np
 import torch
 
 from opencl_path_tracer_tpu_torch.config import CameraConfig, RenderConfig
+from opencl_path_tracer_tpu_torch.parallel import launch as port_launch
 from opencl_path_tracer_tpu_torch.runtime.engine import RenderEngine
 from opencl_path_tracer_tpu_torch.scene.builder import SceneBuilder
 
 # RenderConfig fields a configuration or a traffic mix may set.
 RENDER_KEYS = ("width", "height", "iterations", "mode", "model", "accel",
-               "tonemap", "nee", "nee_select", "nee_anyhit")
+               "tonemap", "nee", "nee_select", "nee_anyhit", "devices")
 
 
 def build_scene(arrays, device):
@@ -62,8 +66,23 @@ def accel_name(eng: RenderEngine) -> str | None:
     return getattr(eng.intersect_fn, "accel", None)
 
 
+def launch(fn, world: int, args: tuple, device: str) -> list:
+    """fn(*args) on each of `world` ranks of one world, through the port's
+    launcher (`parallel.launch.launch`: NCCL one rank a GPU on CUDA, with
+    the kernels built once before the ranks start; gloo on the CPU); the
+    ranks' return values, rank 0 first. A rank that raises fails it."""
+    return port_launch.launch(fn, world, args, device=device)
+
+
 def pixel_colors(eng: RenderEngine, pixels: np.ndarray) -> np.ndarray:
-    """(P, 3) float32 accumulated colours of the listed pixel ids."""
+    """(P, 3) float32 accumulated colours of the listed pixel ids. Over a
+    mesh, from the whole frame as the engine gathers it for `image()` (a
+    collective: every rank calls it, and each gets the frame)."""
+    if eng.mesh is not None:
+        frame = eng._colors()
+        idx = torch.as_tensor(np.asarray(pixels, np.int64),
+                              device=frame.device)
+        return frame[idx].cpu().numpy()
     idx = torch.as_tensor(np.asarray(pixels, np.int64),
                           device=eng.state.colors[0].device)
     return torch.stack([c[idx] for c in eng.state.colors], 1).cpu().numpy()

@@ -12,7 +12,10 @@ over the seeds. For the first `--control` seeds, the same numbers for
 the control: the reference itself computed in bfloat16, the precision
 below the configuration's float32, put in the program's place: the
 upper reading is the smallest. One JSON line per seed and side. Needs
-a CUDA device.
+a CUDA device. A configuration with `devices` above 1 runs its seeds on
+the multi-rank path (`ranks.py`: one set-up of the ranks for every
+seed), and the reference and the control run here once the ranks have
+ended.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import time
 
 import torch
 
-from benchmark import compare, loops, reference, scenes
+from benchmark import compare, loops, ranks, reference, scenes
 from benchmark.manifest import Manifest
 from benchmark.run import (
     outputs, reference_readings, release, render_seed,
@@ -38,7 +41,8 @@ def control_readings(arrays, cam, dev, rseed, pixels, samples, render,
     nee = bool(render.get("nee", False))
     sc = reference.Scene(arrays, cam, dev, dtype=torch.bfloat16)
     low = reference.render_pixels(sc, rseed, pixels, samples,
-                                  int(render["iterations"]), nee)
+                                  int(render["iterations"]), nee,
+                                  int(render.get("devices", 1)))
     if display:
         return compare.readings(low, ref, reference.display_u8(low),
                                 reference.display_u8(ref))
@@ -66,22 +70,36 @@ def main(argv=None) -> int:
     arrays = scenes.build_scene(cfg)
     cam = scenes.camera(render)
     count = man.checks(args.workload)["pixels"]
-    scene = program.build_scene(arrays, dev)
+    every = [compare.check_pixels(seed, render["width"] * render["height"],
+                                  count) for seed in args.seeds]
+    mesh = None
+    if int(render.get("devices", 1)) != 1:
+        job = dict(workload=args.workload, manifest=man, config=cfg,
+                   traffic=traffic, render=render, seeds=args.seeds,
+                   pixels=every, seconds=args.seconds, trace=False,
+                   device="cuda", t0_wall=time.time())
+        mesh, _ = ranks.run(job, int(render["devices"]), "cuda")
+    else:
+        scene = program.build_scene(arrays, dev)
     fn = None
     out = open(args.out, "a") if args.out else None
     for i, seed in enumerate(args.seeds):
         rseed = render_seed(seed)
-        pixels = compare.check_pixels(
-            seed, render["width"] * render["height"], count)
-        eng = program.make_engine(arrays, render, rseed, dev,
-                                  intersect_fn=fn, scene=scene)
-        fn = eng.intersect_fn
-        loops.warm_up(eng, traffic)
-        win = loops.window(eng, traffic, args.seconds)
-        asked = 1 + win["samples"]
-        samples, prog, prog_u8 = outputs(eng, win, pixels, render)
-        del eng, win
-        release(dev)
+        pixels = every[i]
+        if mesh is not None:
+            asked, samples = mesh[i]["asked"], mesh[i]["samples"]
+            prog, prog_u8, accel = mesh[i]["colors"], None, mesh[i]["accel"]
+        else:
+            eng = program.make_engine(arrays, render, rseed, dev,
+                                      intersect_fn=fn, scene=scene)
+            fn = eng.intersect_fn
+            accel = getattr(fn, "accel", None)
+            loops.warm_up(eng, traffic)
+            win = loops.window(eng, traffic, args.seconds)
+            asked = 1 + win["samples"]
+            samples, prog, prog_u8 = outputs(eng, win, pixels, render)
+            del eng, win
+            release(dev)
         t0 = time.perf_counter()
         ref, values = reference_readings(arrays, cam, dev, rseed, pixels,
                                          asked, render, prog, prog_u8,
@@ -96,8 +114,7 @@ def main(argv=None) -> int:
             rows[-1]["control_s"] = time.perf_counter() - t0
         for r in rows:
             r.update(workload=args.workload, seed=seed, samples=samples,
-                     pixels=len(pixels), reference_s=ref_s,
-                     accel=getattr(fn, "accel", None))
+                     pixels=len(pixels), reference_s=ref_s, accel=accel)
             line = json.dumps(r)
             print(line, flush=True)
             if out:

@@ -24,10 +24,13 @@ window:
   reference's sRGB constants, prog.cl:247-269) and its uint8 quantisation.
 
 Random numbers: the fast sampler's counter hash, a double murmur3
-finalizer over (pixel, sample, bounce, draw) keyed by a threefry2x32 key
-of the render seed (the sampler's definition, restated here). A lane's
-draws depend on nothing but those four numbers, so any lane can be
-rendered alone.
+finalizer over (lane, sample, bounce, draw) keyed by a threefry2x32 key
+of the render seed (the sampler's definition, restated here). A frame
+rendered as contiguous bands of pixel ids, one a rank, keys each band on
+its first pixel id and counts its lanes from there (pixel id minus that
+first id); on one device the band is the whole frame, its first id 0
+and a lane its pixel id. A lane's draws depend on nothing but those
+numbers, so any lane can be rendered alone.
 
 `dtype` sets the precision of everything but the integer hash and the
 final per-pixel sum (float64): float32 is the reference; bfloat16 is the
@@ -73,10 +76,12 @@ def threefry2x32(key, x):
     return x0, x1
 
 
-def sample_key(seed: int):
-    """The key the whole frame's draws use: the seed's key (0, seed mod
-    2^32) folded with the frame's first pixel id, 0."""
-    return threefry2x32((0, int(seed) & MASK32), (0, 0))
+def sample_key(seed: int, first_id: int = 0):
+    """The key the draws of a band of pixel ids use: the seed's key (0,
+    seed mod 2^32) folded with the band's first pixel id (the whole frame
+    on one device: 0)."""
+    return threefry2x32((0, int(seed) & MASK32),
+                        (0, int(first_id) & MASK32))
 
 
 def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
@@ -94,8 +99,8 @@ def _fmix32(h: torch.Tensor) -> torch.Tensor:
 
 def uniforms(key, pix: torch.Tensor, smp: torch.Tensor, bounce: int,
              num: int, dtype) -> list:
-    """`num` draws in [0, 1) for each lane (pixel pix, sample smp) at one
-    bounce (or salt)."""
+    """`num` draws in [0, 1) for each lane (lane pix of its band, sample
+    smp) at one bounce (or salt)."""
     h = (_mul32(pix, _GOLD) + key[0]) & MASK32
     h = h ^ ((smp * _M1) & MASK32)
     h = (h + ((bounce * _M2) & MASK32)) & MASK32
@@ -278,12 +283,14 @@ def _direct_light(sc, key, pix, smp, b, hit_p, n_vec, kd, ks, shin,
     return where3(want & visible, contrib, torch.zeros_like(contrib))
 
 
-def trace(sc: Scene, key, pix, smp, iterations: int, nee: bool):
-    """Radiance of one sample for each lane (pixel pix, sample smp):
-    (L, 3) in sc.dtype."""
+def trace(sc: Scene, key, pix, smp, iterations: int, nee: bool,
+          first_id: int = 0):
+    """Radiance of one sample for each lane (pixel pix, sample smp) of the
+    band that starts at first_id: (L, 3) in sc.dtype."""
     dt, dev = sc.dtype, sc.device
     L = pix.shape[0]
-    r1, r2 = uniforms(key, pix, smp, 0, 2, dt)
+    lane = pix - first_id
+    r1, r2 = uniforms(key, lane, smp, 0, 2, dt)
     x = (pix % sc.width).to(dt) + r1
     y = torch.div(pix, sc.width, rounding_mode="floor").to(dt) + r2
     sx = 2.0 * x / sc.width - 1.0
@@ -308,7 +315,7 @@ def trace(sc: Scene, key, pix, smp, iterations: int, nee: bool):
         mi = torch.where(valid, sc.mati[tri], torch.zeros_like(tri))
         kd, ks, em, f0 = sc.kd[mi], sc.ks[mi], sc.em[mi], sc.f0[mi]
         ior, shin, mtype = sc.ior[mi], sc.shin[mi], sc.type[mi]
-        r1, r2 = uniforms(key, pix, smp, b + 1, 2, dt)
+        r1, r2 = uniforms(key, lane, smp, b + 1, 2, dt)
         n_vec = where3(dot(d, hit_n) > 0, -hit_n, hit_n)
         is_diff = has_hit & (mtype == 0)
         is_spec = has_hit & (mtype == 1)
@@ -360,9 +367,9 @@ def trace(sc: Scene, key, pix, smp, iterations: int, nee: bool):
         emit_w = None
         if nee:
             gather = is_diff & (b < iterations - 1)
-            color = color + _direct_light(sc, key, pix, smp, b, hit_p, n_vec,
-                                          kd, ks, shin, f_l, f_b, f_s, f_r,
-                                          gather)
+            color = color + _direct_light(sc, key, lane, smp, b, hit_p,
+                                          n_vec, kd, ks, shin, f_l, f_b, f_s,
+                                          f_r, gather)
             p_bsdf = prev_pdf * emit_cos / torch.clamp_min(t0 * t0, 1e-12)
             p_area = (em * torch.as_tensor(LUM, dtype=dt, device=dev)
                       ).sum(1) / sc.power
@@ -402,10 +409,25 @@ def _full_float32():
 
 
 def render_pixels(sc: Scene, seed: int, pixels: np.ndarray, samples: int,
-                  iterations: int, nee: bool) -> np.ndarray:
+                  iterations: int, nee: bool, tiles: int = 1) -> np.ndarray:
     """The average over samples 0..samples-1 of each listed pixel's
-    radiance: (P, 3) float64 on the host."""
-    key = sample_key(seed)
+    radiance: (P, 3) float64 on the host. tiles: the frame rendered as
+    that many equal contiguous bands of pixel ids, each keyed on its
+    first id."""
+    pixels = np.asarray(pixels, np.int64)
+    band = sc.width * sc.height // tiles
+    out = np.zeros((pixels.shape[0], 3))
+    for k in np.unique(pixels // band):
+        sel = pixels // band == k
+        out[sel] = _render_band(sc, seed, int(k) * band, pixels[sel],
+                                samples, iterations, nee)
+    return out
+
+
+def _render_band(sc: Scene, seed: int, first_id: int, pixels: np.ndarray,
+                 samples: int, iterations: int, nee: bool) -> np.ndarray:
+    """render_pixels for pixels of the band that starts at first_id."""
+    key = sample_key(seed, first_id)
     dev = sc.device
     pix_all = torch.as_tensor(np.asarray(pixels, np.int64), device=dev)
     P = pix_all.shape[0]
@@ -416,7 +438,8 @@ def render_pixels(sc: Scene, seed: int, pixels: np.ndarray, samples: int,
             ns = min(per, samples - s0)
             smp = torch.arange(s0, s0 + ns, device=dev).repeat_interleave(P)
             slot = torch.arange(P, device=dev).repeat(ns)
-            col = trace(sc, key, pix_all[slot], smp, iterations, nee)
+            col = trace(sc, key, pix_all[slot], smp, iterations, nee,
+                        first_id)
             acc.index_add_(0, slot, col.to(torch.float64))
     return (acc / samples).cpu().numpy()
 

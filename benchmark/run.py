@@ -18,6 +18,12 @@ check (`compare.py`): the program's accumulated colours at pixels drawn
 from the seed against the plain reference (`reference.py`) over the same
 samples. The last lines on standard error are the numbers compared with
 their limits; the last line on standard output is the JSON result.
+
+A configuration with `devices` above 1 runs one rank a card
+(`ranks.py`): the same set-up, window or traced phases and output gather
+on every rank, the window on rank 0's clock, the check in this process
+after the ranks have ended; the result sums or takes the largest of the
+ranks' numbers as `ranks.run` says.
 """
 
 from __future__ import annotations
@@ -84,7 +90,8 @@ def reference_readings(arrays, cam, dev, rseed: int, pixels, asked: int,
     from benchmark import compare, reference
     ref = reference.render_pixels(
         reference.Scene(arrays, cam, dev), rseed, pixels, asked,
-        int(render["iterations"]), bool(render.get("nee", False)))
+        int(render["iterations"]), bool(render.get("nee", False)),
+        int(render.get("devices", 1)))
     ref_u8 = reference.display_u8(ref) if prog_u8 is not None else None
     return ref, compare.readings(prog, ref, prog_u8, ref_u8, samples, asked)
 
@@ -119,15 +126,19 @@ def _trace_phases(eng, traffic, dev, loops, trace_mod):
         isect_calls=isect_calls, anyhit_ms=anyhit_ms,
         anyhit_calls=anyhit_calls, rays=rays1 - rays0,
         rays_samples=plain["samples"] + prof["samples"],
-        display_ms=plain.get("display_ms", []), device=dev.type), prof
+        display_ms=plain.get("display_ms", []), device=dev.type,
+        image_ms=plain.get("image_ms", []),
+        images=len(prof.get("image_ms", [])),
+        frame_pixels=eng.num_pixels), prof
 
 
 def run_cell(workload: str, seed: int, seconds: float, trace: bool,
              device="cuda", overrides: dict | None = None,
-             manifest=None) -> dict:
+             manifest=None, rank_fn=None) -> dict:
     """Set up, run and check one cell; the result's fields. overrides
     (the CPU tests' small sizes): width, height, pixels, spp_per_call,
-    trace_spp, trace_frames."""
+    trace_spp, trace_frames; over a mesh also devices (the ranks).
+    rank_fn: what each rank runs over a mesh (`ranks.rank_cell`)."""
     import torch
 
     from benchmark import compare, loops, scenes
@@ -146,9 +157,12 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     if traffic["loop"] not in loops.LOOPS:
         raise ValueError(f"unknown loop {traffic['loop']!r}")
     render = {**cfg, **traffic.get("render", {})}
-    for k in ("width", "height"):
+    for k in ("width", "height", "devices"):
         if k in ov:
             render[k] = ov[k]
+    if int(render.get("devices", 1)) != 1:
+        return _run_ranks(workload, seed, seconds, trace, device, ov, man,
+                          cfg, traffic, checks, render, rank_fn)
     dev = torch.device(device)
     rseed = render_seed(seed)
     arrays = scenes.build_scene(cfg)
@@ -207,14 +221,62 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     return out
 
 
-def _device_info(n: int, res: dict, trace: bool) -> dict:
+def _run_ranks(workload, seed, seconds, trace, device, ov, man, cfg,
+               traffic, checks, render, rank_fn) -> dict:
+    """run_cell over a mesh of render["devices"] ranks (`ranks.py`)."""
     import torch
-    info = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": n, "memory_peak_bytes": res["memory_peak_bytes"]}
+
+    from benchmark import compare, ranks, scenes
+
+    world = int(render["devices"])
+    pixels = compare.check_pixels(
+        seed, render["width"] * render["height"],
+        int(ov.get("pixels", checks["pixels"])))
+    kind = torch.device(device).type
+    job = dict(workload=workload, manifest=man, config=cfg, traffic=traffic,
+               render=render, seeds=[seed], pixels=[pixels],
+               seconds=seconds, trace=trace, device=kind,
+               t0_wall=time.time() - (time.perf_counter() - T_START))
+    (res,), bad = ranks.run(job, world, kind, rank_fn)
+    out = {"accel": res["accel"], "forbidden": bad, "ranks": world,
+           "memory_peak_bytes": res["memory_peak_bytes"]}
     if trace:
-        info["busy_s"] = res["busy_s"]
-        info["window_s"] = res["window_s"]
-    return info
+        out.update(metrics=res["metrics"], busy_s=res["busy_s"],
+                   window_s=res["window_s"], breakdown=res["breakdown"])
+    else:
+        e2e = dict(res["end_to_end"], setup_s=res["setup_s"])
+        out["metrics"] = {m["name"]: {"value": float(e2e[m["name"]]),
+                                      "unit": m["unit"]}
+                          for m in man.end_to_end(workload)}
+    t_ref = time.perf_counter()
+    _, values = reference_readings(
+        scenes.build_scene(cfg), scenes.camera(render),
+        torch.device(device), render_seed(seed), pixels, res["asked"],
+        render, res["colors"], None, res["samples"])
+    correct, checked = compare.judge(values, checks["limits"])
+    out.update(correct=bool(correct), attempted=int(res["units"]), failed=0,
+               samples=res["samples"], pixels=len(pixels),
+               reference_s=time.perf_counter() - t_ref, checks=checked)
+    return out
+
+
+def result_line(res: dict, count: int, trace: bool, kind: str) -> dict:
+    """The JSON result of a run: count cards of the given kind; the
+    numbers compared come last."""
+    device = {"platform": "gpu", "kind": kind, "count": count,
+              "memory_peak_bytes": res["memory_peak_bytes"]}
+    if trace:
+        device["busy_s"] = res["busy_s"]
+        device["window_s"] = res["window_s"]
+    line = {"correct": res["correct"], "attempted": res["attempted"],
+            "failed": res["failed"], "metrics": res["metrics"],
+            "device": device}
+    if trace:
+        line["breakdown"] = res["breakdown"]
+    line.update(accel=res["accel"], samples=res["samples"],
+                pixels_checked=res["pixels"],
+                reference_s=res["reference_s"], checks=res["checks"])
+    return line
 
 
 def main(argv=None) -> int:
@@ -239,20 +301,13 @@ def main(argv=None) -> int:
         return 2
     res = run_cell(args.workload, args.seed, args.seconds, bool(args.trace),
                    manifest=man)
-    bad = forbidden_modules()
+    bad = sorted(set(forbidden_modules()) | set(res.get("forbidden", ())))
     if bad:
         print(f"error: the run loaded {bad}, which the benchmark must not "
               "import", file=sys.stderr)
         return 3
-    line = {"correct": res["correct"], "attempted": res["attempted"],
-            "failed": res["failed"], "metrics": res["metrics"],
-            "device": _device_info(int(cell["chips"]), res,
-                                   bool(args.trace))}
-    if args.trace:
-        line["breakdown"] = res["breakdown"]
-    line.update(accel=res["accel"], samples=res["samples"],
-                pixels_checked=res["pixels"],
-                reference_s=res["reference_s"], checks=res["checks"])
+    line = result_line(res, int(res.get("ranks", cell["chips"])),
+                       bool(args.trace), torch.cuda.get_device_name(0))
     print(file=sys.stderr)
     for name, c in res["checks"].items():
         print(f"check {name} = {c['value']!r} (limit {c['limit']!r})",

@@ -8,8 +8,8 @@ must fail each cell's limits. The faults are planted under a whole run
 with the chip check skipped (`run.run_cell` on the CPU): a step that
 returns its state unchanged; half of the batch (the pixels) left out, the
 average taken over the rest; an answer (each sample's radiance) altered
-where it is produced. The exchange between chips does not exist in these
-one-chip cells.
+where it is produced. The exchange between chips, and the faults of the
+tiled cell, are planted in its ranks by `test_bench_ranks.py`.
 """
 
 import dataclasses
@@ -24,7 +24,7 @@ from opencl_path_tracer_tpu_torch.models import megakernel
 SMALL = dict(width=16, height=16, pixels=256, spp_per_call=2, trace_spp=2,
              trace_frames=2)
 CELLS = ["cornell-offline", "stress-offline", "cornell-interactive",
-         "cornell-nee-offline"]
+         "cornell-nee-offline", "cornell-tiled-4chip"]
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -41,7 +41,8 @@ def test_control_fails(cell):
     seed = run.render_seed(11)
     ref = reference.render_pixels(reference.Scene(arrays, cam, dev), seed,
                                   pixels, 4, render["iterations"],
-                                  bool(render.get("nee", False)))
+                                  bool(render.get("nee", False)),
+                                  int(render.get("devices", 1)))
     values = readings.control_readings(arrays, cam, dev, seed, pixels, 4,
                                        render, ref,
                                        traffic["loop"] == "interactive")

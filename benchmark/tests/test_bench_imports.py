@@ -16,7 +16,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "opencl_path_tracer_tpu"}
 PORT = "opencl_path_tracer_tpu_torch"
 # The modules that must not touch the program: everything but program.py.
 PLAIN = ["reference.py", "scenes.py", "compare.py", "peaks.py", "loops.py",
-         "trace.py", "manifest.py", "readings.py"]
+         "trace.py", "manifest.py", "readings.py", "ranks.py"]
 
 
 def top_imports(path):

@@ -113,3 +113,31 @@ def test_cell_added_as_files_runs(tmp_path):
                        overrides=SMALL, manifest=man)
     assert res["correct"], res["checks"]
     assert set(res["metrics"]) == {"samples_per_s", "setup_s"}
+
+
+def test_tiled_cell_entries():
+    """The four-card cell: its configuration renders over as many ranks
+    as the cell asks for chips, its traffic asks for the frame after each
+    call, and it reports the mesh readers but not the idle attribution
+    (whose clock fit is per process) nor rank 0's device idle (whose busy
+    time holds NCCL's waiting kernels)."""
+    man = Manifest.load()
+    w = man.workload("cornell-tiled-4chip")
+    cfg = man.config(w["config"])
+    assert w["chips"] == 4 == cfg["devices"]
+    assert (cfg["width"], cfg["height"]) == (3840, 2160)
+    assert cfg["reduced"] == [] and cfg["mode"] == "fast"
+    traffic = man.traffic(w["traffic"])
+    assert traffic["image_every_call"] is True
+    assert traffic["spp_per_call"] == 64 and traffic["trace_spp"] == 32
+    assert man.checks(w["name"])["pixels"] == 4096
+    layer = {m["name"] for m in man.per_layer(w["name"])}
+    assert {"gather_ms_per_call", "rank_imbalance",
+            "allgather_busbw_share", "launches_per_sample",
+            "rays_per_sample"} <= layer
+    assert not {n for n in layer if "_idle_ms_" in n}
+    assert "device_idle_pct.offline" not in layer
+    assert {m["name"] for m in man.end_to_end(w["name"])} == {
+        "samples_per_s", "setup_s"}
+    four = [c for c in man.data["workloads"] if c["chips"] == 4]
+    assert len(four) <= max(1, len(man.data["workloads"]) // 4)

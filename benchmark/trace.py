@@ -14,6 +14,8 @@
   idle. This is `runtime/profile.py`'s arithmetic (the busy share over
   the wall time of an unprofiled run of equal work), copied here.
 * `Trace` carries everything the per-layer readers (`metrics/*.py`) read.
+  Over a mesh each rank traces its own card and rank 0's readers read
+  its own Trace, with every rank's `rank_summary` beside it (`ranks`).
 """
 
 from __future__ import annotations
@@ -24,7 +26,10 @@ import time
 
 import torch
 
-RANGES = ("render", "frame", "display", "intersect", "occluded")
+RANGES = ("render", "frame", "display", "intersect", "occluded", "image")
+# torch.distributed's own ranges around each collective ("nccl:all_reduce"),
+# projected onto the device's timeline as the benchmark's are: no op.
+COLLECTIVE_RANGES = ("nccl:",)
 
 
 class CallLog:
@@ -100,16 +105,22 @@ def profile(run, device: torch.device):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
+    return value, split(_kineto_events(prof)), wall
+
+
+def split(events) -> Spans:
+    """The device operations and the benchmark's host ranges among
+    (name, is_device, start_us, end_us) events."""
     dev, host = [], []
-    for name, is_dev, s, e in _kineto_events(prof):
+    for name, is_dev, s, e in events:
         if name in RANGES:
             # The ranges come twice: on the host, and projected onto the
             # device's timeline (gpu_user_annotation), which is no op.
             if not is_dev:
                 host.append((name, s, e))
-        elif is_dev:
+        elif is_dev and not name.startswith(COLLECTIVE_RANGES):
             dev.append((name, s, e))
-    return value, Spans(device=dev, host=host), wall
+    return Spans(device=dev, host=host)
 
 
 def _merged(spans: list) -> list:
@@ -153,6 +164,30 @@ def idle_gaps(spans: Spans, n: int = 10) -> list:
     return out
 
 
+def is_collective(name: str) -> bool:
+    """Whether a device operation is one of NCCL's kernels (a rank that
+    reaches a collective first spins inside its kernel until the others
+    come)."""
+    return name.startswith("nccl")
+
+
+def is_all_gather(name: str) -> bool:
+    return is_collective(name) and "allgather" in name.lower()
+
+
+def rank_summary(t: "Trace") -> dict:
+    """What the mesh readers take of one rank's profiled phase: its
+    samples, its device-busy seconds outside NCCL's kernels, and the
+    device seconds and count of its all_gather kernels beside the
+    image() calls that ran them."""
+    own = Spans(device=[s for s in t.spans.device
+                        if not is_collective(s[0])], host=[])
+    gathers = [e - s for n, s, e in t.spans.device if is_all_gather(n)]
+    return dict(samples=t.samples, compute_busy_s=busy_s(own),
+                all_gather_s=sum(gathers) / 1e6,
+                all_gather_kernels=len(gathers), images=t.images)
+
+
 @dataclasses.dataclass
 class Trace:
     """What one traced run measured, for the per-layer readers.
@@ -165,7 +200,10 @@ class Trace:
     the any-hit test in the unprofiled phase; rays: the engine's ray
     counter over both phases, rays_samples the samples it covers;
     display_ms: host ms of each display_u8 call of the unprofiled phase;
-    device: 'cuda' or 'cpu'."""
+    device: 'cuda' or 'cpu'; image_ms: host ms of each image() call of
+    the unprofiled phase; images: image() calls in the profiled phase;
+    frame_pixels: the whole frame's pixels; ranks: over a mesh, every
+    rank's `rank_summary`, rank 0 first (empty on one device)."""
 
     loop: str
     samples: int
@@ -183,3 +221,7 @@ class Trace:
     rays_samples: int
     display_ms: list
     device: str
+    image_ms: list = dataclasses.field(default_factory=list)
+    images: int = 0
+    frame_pixels: int = 0
+    ranks: list = dataclasses.field(default_factory=list)
